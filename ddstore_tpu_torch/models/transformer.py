@@ -1,5 +1,5 @@
-"""Decoder-only transformer LM (the port of
-``ddstore_tpu/models/transformer.py:38-293``, dense and sequential).
+"""Decoder-only transformer LM and its train step (the port of
+``ddstore_tpu/models/transformer.py:38-422``, dense and sequential).
 
 Numerics follow the flax reference:
 
@@ -10,27 +10,30 @@ Numerics follow the flax reference:
 * GELU is the tanh approximation;
 * the sinusoidal position encoding is built in f32 and cast.
 
-Attention in :class:`Block` launches the flash kernel on the card at
-every length (one that is not a multiple of 8 is padded for it and cut
-back) and runs the plain version on the CPU. Ring
+Attention in :class:`Block` is :func:`~ddstore_tpu_torch.ops.attention.
+flash_attention` at every length (one that is not a multiple of 8 is
+padded for it and cut back): the forward and backward kernels on the
+card, their plain versions on the CPU. :func:`make_train_step` is the
+reference's Adam step with optional gradient accumulation. Ring
 attention, MoE and rematerialization are later slices and raise here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
-from ..ops.attention import flash_attention, mha_reference
+from ..ops.attention import flash_attention
 from ..ops.xent import fused_linear_xent
 
 __all__ = ["Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
-           "lm_loss"]
+           "lm_loss", "TrainState", "create_train_state", "make_train_step"]
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -93,16 +96,16 @@ class Block(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, KV]:
         """Returns the block output and this layer's (k, v) heads.
 
-        On the card attention is the flash kernel, on the CPU the plain
-        version (which autograd can differentiate). A length that is not
-        a multiple of 8 is right-padded to one on both, and cut back
-        after: under the causal mask the padded keys come after every
-        real query, so the real rows are exact."""
+        Attention is ``flash_attention``: the kernels on the card, the
+        plain versions on the CPU, differentiable on both. A length that
+        is not a multiple of 8 is right-padded to one, and cut back after:
+        under the causal mask the padded keys come after every real query,
+        so the real rows are exact, and the gradient of the cut flows back
+        through the pad as zeros."""
         s = x.shape[1]
         pad = -s % 8
         q, k, v = self.qkv_heads(F.pad(x, (0, 0, 0, pad)) if pad else x)
-        attend = flash_attention if x.is_cuda else mha_reference
-        out, _ = attend(q, k, v, causal=True)
+        out, _ = flash_attention(q, k, v, causal=True)
         if pad:
             out, k, v = out[:, :, :s], k[:, :, :s], v[:, :, :s]
         return self.finish(x, out), (k, v)
@@ -224,16 +227,17 @@ def loss_fn(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
 
-@torch.no_grad()
 def lm_loss(model: TransformerLM, tokens: torch.Tensor,
             targets: torch.Tensor, positions: torch.Tensor, *,
             fused_xent: Optional[bool] = None,
             xent_block: int = 8192) -> torch.Tensor:
-    """The LM loss in its eval (no-grad) form. ``fused_xent`` streams the
-    head through :func:`~ddstore_tpu_torch.ops.xent.fused_linear_xent`
-    (matmul in ``compute_dtype``, f32 accumulation) so the logits never
-    materialize; ``None`` enables it at ``vocab >= 2 * xent_block``, as
-    the reference does."""
+    """The LM loss, differentiable (the shared path of
+    :func:`make_train_step` and evaluation; eval callers wrap it in
+    ``torch.no_grad()``). ``fused_xent`` streams the head through
+    :func:`~ddstore_tpu_torch.ops.xent.fused_linear_xent` (matmul in
+    ``compute_dtype``, f32 accumulation) so the logits never materialize
+    in the forward or the backward; ``None`` enables it at
+    ``vocab >= 2 * xent_block``, as the reference does."""
     if fused_xent is None:
         fused_xent = model.vocab >= 2 * xent_block
     out = model(tokens, positions, return_features=fused_xent)
@@ -244,3 +248,80 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
         model.lmhead.head.weight.t(), targets.reshape(-1), xent_block,
         model.compute_dtype)
     return nll.mean()
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The reference's ``TrainState`` (params, opt_state, step): here the
+    model holds the parameters and the optimizer its state, both updated
+    in place by the step; ``step`` counts the updates made through it."""
+
+    model: TransformerLM
+    opt: torch.optim.Optimizer
+    step: int = 0
+
+
+def create_train_state(model: TransformerLM, lr: float = 3e-4
+                       ) -> Tuple[TrainState, torch.optim.Optimizer]:
+    """Adam over the model's parameters with optax's defaults (b1 0.9, b2
+    0.999, eps 1e-8 added outside the square root, no weight decay), as
+    ``optax.adam(lr)`` at ``transformer.py:315``; returns (state, opt)
+    like the reference's (state, tx)."""
+    opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                           eps=1e-8, weight_decay=0.0)
+    return TrainState(model, opt), opt
+
+
+def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
+                    fused_xent: Optional[bool] = None,
+                    accum_steps: int = 1,
+                    state: Optional[TrainState] = None
+                    ) -> Callable[[torch.Tensor, torch.Tensor,
+                                   torch.Tensor], torch.Tensor]:
+    """The train step over ``(tokens, targets, positions)``, all (B, S):
+    the loss of :func:`lm_loss`, its gradients, one ``opt`` update.
+    Returns the step, which returns the loss (f32, detached).
+
+    The parameters and the optimizer state are updated in place: that is
+    the counterpart of the reference's donated state (``donate=True``),
+    whose buffers the step reuses. Pass ``state`` to have its ``step``
+    advanced.
+
+    ``accum_steps > 1`` is gradient accumulation (``transformer.py:
+    374-399``): the batch splits into that many equal chunks, each runs
+    forward and backward, the f32 gradients are summed and divided by
+    ``accum_steps``, and one update applies them; the loss is the mean of
+    the chunk losses. A batch that does not divide raises ``ValueError``.
+    """
+
+    def lossf(tok, tgt, pos):
+        return lm_loss(model, tok, tgt, pos, fused_xent=fused_xent)
+
+    def step(tokens: torch.Tensor, targets: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        if accum_steps == 1:
+            loss = lossf(tokens, targets, positions)
+            loss.backward()
+        else:
+            if tokens.shape[0] % accum_steps:
+                raise ValueError(f"batch {tokens.shape[0]} not divisible "
+                                 f"by accum_steps {accum_steps}")
+            # The f32 parameters' .grad sums the chunks' gradients.
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tokens.device)
+            for chunk in zip(*(t.chunk(accum_steps) for t in
+                               (tokens, targets, positions))):
+                part = lossf(*chunk)
+                part.backward()
+                loss = loss + part.detach()
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(accum_steps)
+            loss = loss / accum_steps
+        opt.step()
+        if state is not None:
+            state.step += 1
+        return loss.detach()
+
+    return step

@@ -27,6 +27,7 @@ _HERE = Path(__file__).resolve().parent
 #: kernel name -> CUDA source
 SOURCES: Dict[str, Path] = {
     "flash_fwd": _HERE / "csrc" / "flash_fwd.cu",
+    "flash_bwd": _HERE / "csrc" / "flash_bwd.cu",
 }
 BUILD_DIR = _HERE.parent / "_kbuild"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

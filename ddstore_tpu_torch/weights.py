@@ -1,22 +1,25 @@
-"""Carry a flax ``TransformerLM`` parameter tree into the port's model.
+"""Carry a flax ``TransformerLM`` parameter tree into the port's model,
+and back.
 
 The tree is the reference's (``ddstore_tpu/models/transformer.py``), as
 numpy arrays: ``embed/tok/embedding``, ``block{i}/{ln1,ln2}/{scale,bias}``,
 ``block{i}/{qkv,proj}/kernel``, ``block{i}/{up,down}/{kernel,bias}`` and
 ``lmhead/{lnf/{scale,bias},head/kernel}``. Dense kernels are ``(in, out)``
 and torch ``Linear`` weights ``(out, in)``, so kernels are transposed.
+:func:`to_flax` is the inverse of :func:`from_flax`; the tests use it to
+compare gradients and optimizer updates leaf by leaf, by flax path.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
 
 from .models.transformer import TransformerLM
 
-__all__ = ["from_flax"]
+__all__ = ["from_flax", "to_flax"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -73,3 +76,27 @@ def from_flax(params: Mapping[str, Any], model: TransformerLM
                        f"{sorted(flat)}")
     model.load_state_dict(state)
     return model
+
+
+def to_flax(src: Union[TransformerLM, Mapping[str, torch.Tensor]]
+            ) -> Dict[str, Any]:
+    """The flax tree ``{"params": {...}}`` of numpy f32 leaves, kernels
+    transposed back to ``(in, out)``. ``src`` is the model (its
+    parameters) or a mapping of the model's parameter names to tensors of
+    the same shapes, such as ``{n: p.grad for n, p in
+    model.named_parameters()}``. ``to_flax(from_flax(p, m))`` gives ``p``
+    back exactly."""
+    items = src.state_dict().items() if isinstance(src, TransformerLM) \
+        else src.items()
+    tree: Dict[str, Any] = {}
+    for name, t in items:
+        key = _flax_name(name)
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        if key.endswith("/kernel"):
+            arr = arr.T
+        *path, leaf = key.split("/")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, order="C")
+    return {"params": tree}

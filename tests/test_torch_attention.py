@@ -2,15 +2,19 @@
 with the JAX reference's Pallas flash attention, which runs in interpret
 mode on the CPU as ``tests/test_attention.py`` runs it.
 
-On a CPU tensor ``flash_attention`` is the plain version; these tests pin
-its arithmetic, its API (offsets, fully-masked rows, the length check
-and its error text) and its refusals. The CUDA kernel is held against
-the same plain version on the card by ``chip_smoke.py`` and
-``tests/test_torch_cuda.py``. Tolerance: f32 atol 1e-5 (summation order
-only)."""
+On a CPU tensor ``flash_attention`` is the plain version, forward and
+backward; these tests pin its arithmetic, its gradients (the plain dq and
+dk/dv that the CUDA kernels are held against), its API (offsets,
+fully-masked rows, the length and ``bwd_blocks`` checks and their error
+text) and its refusals. The CUDA kernels are held against the same plain
+versions on the card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+Tolerances: f32 atol 1e-5 (summation order only); bf16 gradients 2e-2 of
+each row's L2 norm (both sides round p and ds to bf16 at 2**-8, but sum
+in other orders, so a rounding may fall the other way)."""
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,14 +112,134 @@ def test_fit_block_matches_reference(block, s, want):
     assert tatt._fit_block(block, s) == jatt._fit_block(block, s) == want
 
 
-def test_grad_raises_until_backward_is_ported():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(4, s=16))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="flash backward"):
-        tatt.flash_attention(q, k, v, causal=True)
-    with torch.no_grad():
-        out, _ = tatt.flash_attention(q, k, v, causal=True)
-    assert out.shape == q.shape
+BF16_ROW_REL = 2e-2
+
+
+def _vjp_both(q, k, v, do, dlse, dtype, **kw):
+    """Gradients of (out, lse) with cotangents (do, dlse) through the JAX
+    flash attention (interpret mode) and the port's, on the same inputs
+    rounded to ``dtype``; returns ((jdq, jdk, jdv), (tdq, tdk, tdv), lse)
+    as f32 numpy arrays."""
+    jbwd = kw.pop("bwd_blocks", None)
+    jkw = dict(kw, block_q=kw.pop("block_q", 64),
+               block_k=kw.pop("block_k", 64), bwd_blocks=jbwd)
+    (_, jl), vjp = jax.vjp(
+        lambda q, k, v: jatt.flash_attention(q, k, v, **jkw),
+        *(jnp.asarray(a, dtype) for a in (q, k, v)))
+    dlse = np.where(np.isfinite(np.asarray(jl)), dlse, 0).astype(np.float32)
+    want = vjp((jnp.asarray(do, dtype), jnp.asarray(dlse)))
+    tdt = torch.float32 if dtype == np.float32 else torch.bfloat16
+    ts = [torch.from_numpy(a).to(tdt).requires_grad_() for a in (q, k, v)]
+    before = tatt.flash_bwd_dq_launches + tatt.flash_bwd_dkv_launches
+    out, lse = tatt.flash_attention(*ts, bwd_blocks=jbwd, **kw)
+    got = torch.autograd.grad((out, lse), ts, (
+        torch.from_numpy(do).to(tdt), torch.from_numpy(dlse)))
+    # the CPU runs the plain backward: no kernel launch is counted
+    assert tatt.flash_bwd_dq_launches + tatt.flash_bwd_dkv_launches == before
+    for g, t in zip(got, ts):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    return ([np.asarray(a, np.float32) for a in want],
+            [g.float().numpy() for g in got], lse.detach().numpy())
+
+
+def _assert_grads_close(want, got, dtype):
+    for name, w, g in zip(("dq", "dk", "dv"), want, got):
+        assert not np.isnan(g).any(), name
+        if dtype == np.float32:
+            np.testing.assert_allclose(g, w, atol=ATOL, rtol=0,
+                                       err_msg=name)
+            continue
+        norm = np.linalg.norm(w, axis=-1)
+        err = np.linalg.norm(g - w, axis=-1)
+        assert (err <= BF16_ROW_REL * np.maximum(norm, 1e-3)).all(), \
+            (name, float((err / np.maximum(norm, 1e-3)).max()))
+
+
+def _cotangents(seed, q, with_lse=True):
+    rng = np.random.default_rng(seed)
+    do = rng.normal(size=q.shape).astype(np.float32)
+    dlse = rng.normal(size=q.shape[:3]).astype(np.float32) if with_lse \
+        else np.zeros(q.shape[:3], np.float32)
+    return do, dlse
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_gradients_match_reference(causal, dtype):
+    # tests/test_attention.py:85: lse in the loss, so dlse != 0
+    q, k, v = _qkv(5, b=1, h=2, s=128, d=64)
+    want, got, _ = _vjp_both(q, k, v, *_cotangents(9, q), dtype,
+                             causal=causal)
+    _assert_grads_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bwd_blocks_gradients_match_reference(causal, dtype):
+    # tests/test_attention.py:110: rectangular dq/dkv blocks unlike the
+    # forward's, out only (dlse = 0)
+    q, k, v = _qkv(6, b=1, h=2, s=256, d=64)
+    want, got, _ = _vjp_both(q, k, v, *_cotangents(10, q, with_lse=False),
+                             dtype, causal=causal, block_q=128, block_k=64,
+                             bwd_blocks=(64, 128, 32, 256))
+    _assert_grads_close(want, got, dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("q_off,kv_off", [(128, 0), (0, 128), (64, 64),
+                                          (0, 40)])
+def test_offset_gradients_and_fully_masked_rows(q_off, kv_off, dtype):
+    # tests/test_attention.py:35: offsets shift the causal frontier; rows
+    # with no live key get dq 0, keys no query sees get dk = dv = 0
+    q, k, v = _qkv(7, b=1, s=128)
+    want, got, lse = _vjp_both(q, k, v, *_cotangents(11, q), dtype,
+                               causal=True, q_offset=q_off,
+                               kv_offset=kv_off)
+    _assert_grads_close(want, got, dtype)
+    dq, dk, dv = got
+    dead_q = ~np.isfinite(lse)
+    assert (dq[dead_q] == 0).all()
+    if kv_off > q_off:
+        assert dead_q.any()
+        # key j is seen by no query iff kv_off + j > q_off + 127
+        dead_k = kv_off + np.arange(128) > q_off + 127
+        assert dead_k.any() == (kv_off - q_off > 0)
+        assert (dk[:, :, dead_k] == 0).all() and \
+            (dv[:, :, dead_k] == 0).all()
+
+
+def test_cross_length_gradients_match_reference():
+    q, k, v = _qkv(8, s=64, sk=192, d=32)
+    want, got, _ = _vjp_both(q, k, v, *_cotangents(12, q), np.float32,
+                             causal=True, kv_offset=-128, scale=0.3)
+    _assert_grads_close(want, got, np.float32)
+
+
+@pytest.mark.parametrize("bwd_blocks", [(4, 64, 64, 64), (64, 64, 64, 0),
+                                        (64, -8, 32, 32)])
+def test_bwd_blocks_refused_like_reference(bwd_blocks):
+    q = np.zeros((1, 1, 64, 64), np.float32)
+    with pytest.raises(ValueError) as jerr:
+        jatt.flash_attention(*(jnp.asarray(q),) * 3, bwd_blocks=bwd_blocks)
+    with pytest.raises(ValueError) as terr:
+        tatt.flash_attention(*(torch.from_numpy(q),) * 3,
+                             bwd_blocks=bwd_blocks)
+    assert str(terr.value) == str(jerr.value)
+
+
+def test_plain_backward_matches_autograd_of_plain_forward():
+    # An oracle independent of the JAX package: autograd through the
+    # plain forward gives the same dq, dk, dv as the plain backward.
+    q, k, v = (torch.from_numpy(a).requires_grad_()
+               for a in _qkv(4, s=64, sk=96))
+    do, dlse = (torch.from_numpy(a) for a in _cotangents(13, q.detach()))
+    kw = dict(causal=True, q_offset=32, kv_offset=0)
+    got = torch.autograd.grad(tatt.flash_attention(q, k, v, **kw),
+                              (q, k, v), (do, dlse))
+    want = torch.autograd.grad(tatt.mha_reference(q, k, v, **kw),
+                               (q, k, v), (do, dlse))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=ATOL, rtol=0)
 
 
 def test_non_cpu_tensor_never_takes_the_plain_path():

@@ -1,6 +1,7 @@
-"""Tests of the port that need a CUDA card: the flash-attention kernel
-against its plain version, the transformer block's use of it, and the
-loader's staging onto the card. Elsewhere they skip.
+"""Tests of the port that need a CUDA card: the flash-attention kernels
+(forward, dq, dk/dv) against their plain versions, the transformer
+block's use of them, and the loader's staging onto the card. Elsewhere
+they skip.
 
 On the card (the repository's conftest imports jax, which that machine
 need not have, hence ``--noconftest``)::
@@ -9,7 +10,8 @@ need not have, hence ``--noconftest``)::
         tests/test_torch_cuda.py
 
 Tolerances as in ``chip_smoke.py``: bf16 out 2e-2 and lse 1e-2, f32
-1e-4."""
+1e-4; gradients 2e-2 of each row's L2 norm in bf16 (p and ds round to
+bf16 at 2**-8), 1e-4 in f32."""
 
 import numpy as np
 import pytest
@@ -60,6 +62,61 @@ def test_kernel_matches_plain(cuda, dtype, tol, s, d, causal, q_off,
     assert (out[~live] == 0).all()
 
 
+def _rows_close(got, want, dead, rel):
+    """Largest error of a row (L2 over the head dim) relative to the plain
+    version's row, or to a thousandth of its largest row where the row is
+    smaller (such a row is the difference of two rounded sums); rows no
+    live pair reaches (``dead``) must be exactly 0."""
+    got, want = got.float(), want.float()
+    assert (got[dead] == 0).all()
+    norm = want.norm(dim=-1)
+    err = (got - want).norm(dim=-1)[~dead] / \
+        norm[~dead].clamp_min(1e-3 * float(norm.max()))
+    assert err.numel() == 0 or float(err.max()) <= rel, float(err.max())
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("sq,sk,d,causal,q_off,kv_off",
+                         [(256, 256, 64, True, 0, 0),
+                          (200, 200, 64, False, 0, 0),
+                          (136, 136, 128, True, 0, 0),
+                          (128, 128, 64, True, 0, 64),
+                          (136, 520, 64, True, 384, 0)])
+def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
+                                      q_off, kv_off):
+    g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q = torch.randn((2, 3, sq, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 3, sk, d), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    do = torch.randn((2, 3, sq, d), generator=g, device=cuda).to(dtype)
+    dlse = torch.randn((2, 3, sq), generator=g, device=cuda)
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=kv_off,
+              scale=d ** -0.5)
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=causal,
+                                             q_offset=q_off,
+                                             kv_offset=kv_off)
+    c = attention.flash_bwd_prep(do, out, dlse)
+    n_dq = attention.flash_bwd_dq_launches
+    n_dkv = attention.flash_bwd_dkv_launches
+    dq, dk, dv = attention._flash_bwd_cuda(q, k, v, do, lse, c, **kw)
+    torch.cuda.synchronize()
+    assert attention.flash_bwd_dq_launches == n_dq + 1
+    assert attention.flash_bwd_dkv_launches == n_dkv + 1
+    want_dq = attention.flash_bwd_dq_reference(q, k, v, do, lse, c, **kw)
+    want_dk, want_dv = attention.flash_bwd_dkv_reference(q, k, v, do, lse,
+                                                         c, **kw)
+    kpos = kv_off + torch.arange(sk, device=cuda)
+    dead_k = (kpos > q_off + sq - 1 if causal
+              else torch.zeros_like(kpos, dtype=torch.bool)).expand(2, 3, sk)
+    for got, want, dead in ((dq, want_dq, ~torch.isfinite(lse)),
+                            (dk, want_dk, dead_k), (dv, want_dv, dead_k)):
+        assert got.shape == want.shape and got.dtype == dtype
+        assert not torch.isnan(got).any()
+        _rows_close(got, want, dead, rel)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 1, 16, 32), device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -67,6 +124,46 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     q = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
         attention.flash_attention(q, q, q)
+
+
+def test_backward_refuses_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 1, 16, 64), device=cuda)
+    lse = torch.zeros((1, 1, 16), device=cuda)
+    kw = dict(causal=True, q_offset=0, kv_offset=0, scale=0.125)
+    with pytest.raises(ValueError, match="do .* does not match"):
+        attention._flash_bwd_cuda(q, q, q, q.bfloat16(), lse, lse, **kw)
+    h = q.half()
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        attention._flash_bwd_cuda(h, h, h, h, lse, lse, **kw)
+    q32 = torch.zeros((1, 1, 16, 32), device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        attention._flash_bwd_cuda(q32, q32, q32, q32, lse, lse, **kw)
+
+
+def test_block_backward_launches_both_kernels(cuda):
+    # One training backward through a 2-layer model: each layer's
+    # attention launches dq and dk/dv once; gradients agree with the same
+    # model's on the CPU (plain backward), f32 atol 1e-4 of the largest.
+    model = ttr.TransformerLM(vocab=128, dim=128, heads=2, layers=2,
+                              compute_dtype=torch.float32, device=cuda)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(1))
+    cpu = ttr.TransformerLM(vocab=128, dim=128, heads=2, layers=2,
+                            compute_dtype=torch.float32, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    tok = torch.randint(0, 128, (2, 100), dtype=torch.int32)
+    tgt = torch.randint(0, 128, (2, 100), dtype=torch.int32)
+    pos = torch.arange(100, dtype=torch.int32).expand(2, 100)
+    n = (attention.flash_fwd_launches, attention.flash_bwd_dq_launches,
+         attention.flash_bwd_dkv_launches)
+    ttr.lm_loss(model, tok.to(cuda), tgt.to(cuda), pos.to(cuda)).backward()
+    torch.cuda.synchronize()
+    assert (attention.flash_fwd_launches, attention.flash_bwd_dq_launches,
+            attention.flash_bwd_dkv_launches) == tuple(x + 2 for x in n)
+    ttr.lm_loss(cpu, tok, tgt, pos).backward()
+    for (name, p), pc in zip(model.named_parameters(), cpu.parameters()):
+        scale = float(pc.grad.abs().max())
+        assert float((p.grad.cpu() - pc.grad).abs().max()) <= \
+            1e-4 * max(scale, 1e-3), name
 
 
 @pytest.mark.parametrize("s", [64, 100])

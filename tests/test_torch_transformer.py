@@ -59,9 +59,10 @@ def test_lm_loss_matches_reference(fused, dtype, atol):
     tgt = tokens(2, 64, jm.vocab, seed=5)
     want = float(jtr.lm_loss(jm, params, tok, tgt, pos, fused_xent=fused,
                              xent_block=64))
-    got = ttr.lm_loss(tm, torch.from_numpy(tok), torch.from_numpy(tgt),
-                      torch.from_numpy(pos), fused_xent=fused,
-                      xent_block=64)
+    with torch.no_grad():
+        got = ttr.lm_loss(tm, torch.from_numpy(tok), torch.from_numpy(tgt),
+                          torch.from_numpy(pos), fused_xent=fused,
+                          xent_block=64)
     assert abs(float(got) - want) <= atol
 
 
@@ -72,8 +73,10 @@ def test_lm_loss_auto_fuses_like_reference():
     tok, pos = tokens(2, 32, jm.vocab, seed=6), positions(2, 32)
     tgt = tokens(2, 32, jm.vocab, seed=7)
     args = [torch.from_numpy(a) for a in (tok, tgt, pos)]
-    auto = float(ttr.lm_loss(tm, *args, xent_block=64))
-    fused = float(ttr.lm_loss(tm, *args, fused_xent=True, xent_block=64))
+    with torch.no_grad():
+        auto = float(ttr.lm_loss(tm, *args, xent_block=64))
+        fused = float(ttr.lm_loss(tm, *args, fused_xent=True,
+                                  xent_block=64))
     assert auto == fused
     want = float(jtr.lm_loss(jm, params, tok, tgt, pos, xent_block=64))
     assert abs(auto - want) <= 1e-2

@@ -47,6 +47,13 @@ def _leaves(tree, path=()):
             yield path + (k,), v
 
 
+def flat_leaves(tree):
+    """{"a/b/c": f32 numpy leaf} of a nested dict of arrays (a flax tree,
+    or ``weights.to_flax``'s)."""
+    return {"/".join(path): np.asarray(leaf, np.float32)
+            for path, leaf in _leaves(tree)}
+
+
 def tokens(b, s, vocab, seed=1):
     return np.random.default_rng(seed).integers(0, vocab, (b, s),
                                                 dtype=np.int32)
