@@ -12,11 +12,14 @@ Phases; any failure raises and ends the run with a non-zero exit:
 1. device: the card's name and power limit, TF32 off for matmuls and
    convolutions (the plain versions are then exact f32 references);
 2. build: every CUDA kernel of the port, from the sources in the
-   checkout (one ``nvcc`` per source, all started together);
+   checkout (one ``nvcc`` per source, all started together); the ptxas
+   report must show no register spills;
 3. kernels: each kernel (flash forward, dq, dk/dv) against its plain
    PyTorch version on the card, at the main path's shapes and at edge
-   cases, with timings of the kernel, the plain version and one library
-   call (yardstick only);
+   cases (ragged tiles, fewer queries than a tile, offsets, fully-masked
+   rows, keys no query sees, lse cotangents), dk/dv also bit-identical
+   over two launches, with timings of the kernel, the plain version and
+   one library call (yardstick only);
 4. small reference check: a small model on the card (kernels) against
    the same model on the CPU (plain versions): logits, loss, greedy
    tokens, every parameter's gradient, and the parameters after one
@@ -38,7 +41,9 @@ Phases; any failure raises and ends the run with a non-zero exit:
    run, the fused cross-entropy head is timed alone and one more step
    runs under torch.profiler.
 
-Then it prints the kernel table as one JSON line, the card's name and
+Then it prints the kernel table as one JSON line (each row names its
+design: ``wgmma+tma`` for the bf16 forward and dk/dv, ``mma.sync`` for
+the bf16 dq), the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
@@ -107,10 +112,14 @@ CASES = [
     # keys 136..519 lie beyond the last query: no query sees them
     ("cross_len_dead_tail", (1, 4, 136, 520, 64), torch.bfloat16, True, 0,
      0),
+    # fewer queries than one consumer warpgroup's 64 rows
+    ("short_causal", (1, 4, 40, 40, 64), torch.bfloat16, True, 0, 0),
+    # head dim 128 with a ragged last tile of 128 queries and of 128 keys
+    ("d128_ragged", (1, 4, 200, 200, 128), torch.bfloat16, True, 0, 0),
 ]
 # Backward cases that carry an lse cotangent (dlse != 0).
 DLSE_CASES = {"f32_causal", "s640", "kv_ahead_masked_rows", "q_offset",
-              "cross_len", "cross_len_dead_tail"}
+              "cross_len", "cross_len_dead_tail", "d128_ragged"}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -329,6 +338,7 @@ def phase_bwd_kernels(dev):
                                                       **kw)}
             got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
                 q, k, v, do, lse, c, **kw)
+            again = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw)
             torch.cuda.synchronize()
             want = {"dq": attention.flash_bwd_dq_reference(q, k, v, do, lse,
                                                            c, **kw)}
@@ -356,13 +366,18 @@ def phase_bwd_kernels(dev):
                   f"version ({e_rel:.3e} > {tol})")
             errs[kern][name] = max(errs[kern].get(name, 0.0), e_abs)
             rel_errs[kern][name] = max(rel_errs[kern].get(name, 0.0), e_rel)
+        # no atomics: a second launch on the same inputs gives the same bits
+        same = torch.equal(again[0], got["dk"]) and \
+            torch.equal(again[1], got["dv"])
+        check(same, f"{name}: dk/dv differ between two launches")
+        line.append(f"dk/dv bit-identical over two launches {same}")
         dead_q, dead_k = int(dead["dq"].sum()), int(dead["dk"].sum())
         print(f"kernel flash_bwd {name}: b,h,sq,sk,d={b},{h},{sq},{sk},{d} "
               f"{dname} causal={causal} q_offset={qo} kv_offset={ko} "
               f"dlse={'yes' if dlse is not None else 'no'} masked_rows="
               f"{dead_q} dead_keys={dead_k} {'; '.join(line)} (tol per "
               f"row {tol})", flush=True)
-        del q, k, v, do, out, lse, c, got, want
+        del q, k, v, do, out, lse, c, got, want, again
 
     # Timings at the LM shape, on the main path's layout.
     b, h, s, d = BATCH, HEADS, SEQ, DIM // HEADS
@@ -784,6 +799,7 @@ def kernel_table(kern, bwd, sl, tr):
     rows = [{
         "name": "flash_fwd",
         "route": "cuda",
+        "design": "wgmma+tma",
         "source": "ddstore_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ddstore_tpu/ops/attention.py:92",
         "replaces_function": "_flash_kernel",
@@ -797,11 +813,13 @@ def kernel_table(kern, bwd, sl, tr):
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": ms["library"],
     }]
-    for name, line, fn in (("flash_bwd_dq", 213, "_bwd_dq_kernel"),
-                           ("flash_bwd_dkv", 263, "_bwd_dkv_kernel")):
+    for name, line, fn, design in (
+            ("flash_bwd_dq", 213, "_bwd_dq_kernel", "mma.sync"),
+            ("flash_bwd_dkv", 263, "_bwd_dkv_kernel", "wgmma+tma")):
         rows.append({
             "name": name,
             "route": "cuda",
+            "design": design,
             "source": "ddstore_tpu_torch/ops/csrc/flash_bwd.cu",
             "replaces": f"ddstore_tpu/ops/attention.py:{line}",
             "replaces_function": fn,
@@ -847,6 +865,9 @@ def main() -> int:
         regs = [ln.strip() for ln in _build.build_logs.get(name, "")
                 .splitlines() if "registers" in ln or "spill" in ln]
         print(f"build {name}: {regs}", flush=True)
+        spills = [ln for ln in regs if "spill" in ln and
+                  "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        check(not spills, f"build {name}: register spills {spills}")
     print(f"build: {len(_build.SOURCES)} kernel(s) in {build_s:.2f} s",
           flush=True)
 

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first
 use with ``nvcc`` into ``ddstore_tpu_torch/_kbuild/lib<name>.so``, then
 loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
-A library is rebuilt when its source is newer. A failed build raises:
-there is no fallback to a plain version.
+A library is rebuilt when its source, or any header (``*.cuh``) beside
+it, is newer. A failed build raises: there is no fallback to a plain
+version.
 
 ``nvcc`` is taken from ``$CUDA_HOME/bin`` (default ``/usr/local/cuda``),
 else from ``PATH``.
@@ -58,9 +59,15 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    header in the source's directory (every source may include them)."""
     lib = _lib_path(name)
-    return not lib.exists() or \
-        SOURCES[name].stat().st_mtime > lib.stat().st_mtime
+    if not lib.exists():
+        return True
+    built = lib.stat().st_mtime
+    src = SOURCES[name]
+    return any(p.stat().st_mtime > built
+               for p in (src, *src.parent.glob("*.cuh")))
 
 
 def build_all(names: Optional[List[str]] = None) -> float:

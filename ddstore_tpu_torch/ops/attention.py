@@ -13,7 +13,9 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   dtype where the kernels do.
 * :func:`flash_attention` is differentiable. On a CUDA tensor its forward
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
-  of ``csrc/flash_bwd.cu``; on a CPU tensor both run the plain versions,
+  of ``csrc/flash_bwd.cu`` (in bf16 the forward and dk/dv kernels stream
+  their tiles by TMA and multiply with wgmma, ``csrc/sm90.cuh``); on a
+  CPU tensor both run the plain versions,
   so the CPU tests exercise the backward arithmetic the card runs. On the
   card it launches the kernels or raises; it never falls back to the plain
   version there.
@@ -192,10 +194,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_q``/``block_k`` and ``bwd_blocks`` = (block_q_dq, block_k_dq,
     block_q_dkv, block_k_dkv) are the reference's tile upper bounds and
     are checked the same way, with the same messages. The CUDA kernels
-    tile by their own sizes whatever they say (forward 64 query rows by
-    64 keys in bf16, 16 by 32 in f32; backward 64 by 64 in bf16, 16 by
-    32 or 16 in f32) and mask the ragged last tiles themselves. On the
-    card they take bf16 or f32 with head dim 64 or 128.
+    tile by their own sizes whatever they say (in bf16: forward 192
+    query rows at head dim 64 and 128 at 128, by 128 keys; dq 64 by 64;
+    dk/dv 128 keys by 64 queries at head dim 64 and 32 at 128; in f32:
+    forward 16 by 32, backward 16 by 32 or 16) and mask the ragged last
+    tiles themselves. On the card they take bf16 or f32 with head dim 64
+    or 128.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -221,11 +225,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernel can read it in place (unit feature
-    stride, 16-byte aligned rows), else a contiguous copy."""
+    """``t`` itself when the kernels can read it in place, else a fresh
+    contiguous copy. In place takes what a TMA tensor map takes: a unit
+    feature stride, a 16-byte aligned base and every other stride a
+    positive multiple of 16 bytes. The (B, H, S, D) views of one fused
+    (B, S, 3 * H * D) projection pass. ``contiguous()`` would not do for
+    the copy: it returns a contiguous view with a misaligned base as it
+    is."""
     ok = (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in t.stride()[:-1]))
-    return t if ok else t.contiguous()
+          and all(s > 0 and s * t.element_size() % 16 == 0
+                  for s in t.stride()[:-1]))
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _check_cuda_inputs(what: str, q, k, v) -> None:
@@ -336,10 +346,20 @@ def _bwd_launch(name, q, k, v, do, lse, c, outs, causal, q_offset,
 
 
 def _bwd_operands(q, k, v, do, lse, c):
-    """The operands as the kernels read them: rows 16-byte aligned with a
-    unit feature stride, lse and c contiguous f32."""
+    """The operands as the kernels read them: q, k, v, do as
+    :func:`_aligned` leaves them, lse and c contiguous f32 with 16-byte
+    aligned bases."""
     return (_aligned(q), _aligned(k), _aligned(v), _aligned(do),
-            lse.float().contiguous(), c.float().contiguous())
+            _aligned_rows(lse), _aligned_rows(c))
+
+
+def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
+    """An f32 (B, H, S) tensor contiguous with a 16-byte aligned base, as
+    the dk/dv kernel's TMA reads lse and c (a copy where needed)."""
+    t = t.float()
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def _flash_bwd_dq_cuda(q, k, v, do, lse, c, *, causal, q_offset, kv_offset,

@@ -22,25 +22,41 @@
 // Bound on the H100 SXM: the work is 4*B*H*Sq*Sk*D FLOPs (QK^T and PV,
 // about half of that for causal) against 989 TFLOP/s in bf16, and the
 // bytes are q, k, v read once and out, lse written once against 3.35 TB/s.
-// At the LM's shapes (S = 2048, D = 64) the FLOPs bound it.
+// At the LM's shape, (B, H, S, D) = (8, 16, 2048, 64) causal, that is
+// 6.9e10 FLOP = 0.0695 ms against 1.35e8 B = 0.040 ms: operations bound it.
 //
-// Design, and what it leaves on the table:
-// * bf16: one block of 4 warps takes 64 query rows (16 per warp) and loops
-//   over 64-key tiles staged in shared memory (V stored transposed so that
-//   its mma B fragments are contiguous words). QK^T and PV run on the
-//   tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate); P stays
-//   in registers, its S fragments re-packed as the A fragments of PV.
-//   Left out: wgmma and TMA (Hopper's full tensor-core rate), a ring of
-//   tiles with asynchronous copies overlapping the math, warp
-//   specialisation, larger tiles, and exp2 via FMA tricks.
+// Design:
+// * bf16: one block per (kWG x 64 query rows, head, batch), with kWG = 3
+//   consumer warpgroups at D = 64 and 2 at D = 128, plus one producer
+//   warpgroup. The producer gives most of its registers to the consumers
+//   (setmaxnreg), and one of its threads loads the Q tile once and then
+//   streams 128-key K and V tiles by TMA into a ring of kStages = 3 shared
+//   stages, each completed on its "full" mbarrier and handed back on its
+//   "empty" one. Each consumer warpgroup owns 64 query rows: S = Q K^T is
+//   wgmma SS (both K-major), the online softmax runs on the S accumulators
+//   in registers (exp2 on the SFU, the scale folded into one FMA), and
+//   O += P V is wgmma RS with P packed to bf16 from the S accumulators and
+//   V read MN-major straight from its TMA tile (no transpose in shared
+//   memory). A software pipeline inside each warpgroup issues S of tile i
+//   together with P V of tile i - 1, so the tensor cores run that product
+//   while the softmax of tile i runs. Query tiles launch heaviest first
+//   (the grid's slowest axis runs backwards), and each warpgroup skips the
+//   products of key tiles its 64 rows cannot see. Tiles are 128-byte
+//   swizzled boxes of 64 columns; D = 128 is two boxes (sm90.cuh).
+//   Left out: warp-specialised ping-pong between the consumer warpgroups
+//   (softmax of one overlapping the products of the other on purpose, not
+//   by chance), overlap of the next S product with this tile's softmax,
+//   persistent blocks, and a TMA store of out.
 // * f32: the same algorithm on the CUDA cores (16 query rows x 32-key
-//   tiles per block, one dot product per score), exact in f32; mma has no
-//   f32 input type, and the LM runs in bf16.
+//   tiles per block, one dot product per score), exact in f32; wgmma has
+//   no f32 input type, and the LM runs in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -75,217 +91,347 @@ __device__ __forceinline__ void causal_liveness(long long q_lo,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores through mma.sync
+// bf16: TMA tile ring + wgmma
 
-constexpr int kBQ = 64;  // query rows per block (4 warps x 16)
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 128;
-constexpr int kPad = 8;  // bf16 of row padding: conflict-free fragment reads
+constexpr int kBN = 128;  // keys per tile
+constexpr int kStages = 3;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// One block: kWG consumer warpgroups of 64 query rows each and one
+// producer warpgroup. Three consumers at D = 64 (more warps to hide the
+// softmax's latencies), two at D = 128 (its O accumulator takes the
+// registers of the third). setmaxnreg moves the producer's registers to
+// the consumers: 32 + 3 x 160 or 40 + 2 x 232 per 128 threads.
+template <int D>
+struct FwdCfg {
+  static constexpr int kWG = D == 64 ? 3 : 2;
+  static constexpr int kBM = 64 * kWG;  // query rows per block
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kProducerRegs = kWG == 3 ? 32 : 40;
+  static constexpr int kConsumerRegs = kWG == 3 ? 160 : 232;
+  // Shared memory, from a 1024-byte aligned base: the Q tile, then per
+  // stage a K tile and a V tile, then the barriers. A tile is D / 64
+  // boxes of its rows x 128 bytes.
+  static constexpr int kKBox = kBN * 128;
+  static constexpr int kQBox = kBM * 128;
+  static constexpr int kKT = (D / 64) * kKBox;
+  static constexpr int kQT = (D / 64) * kQBox;
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kQT;  // stage s: K at kKV + 2 s kKT, V after
+  static constexpr int kBar = kKV + kStages * 2 * kKT;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in bits 0-15
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+struct FwdParams {
+  CUtensorMap q;     // boxes of 64 features x kBM rows
+  CUtensorMap k, v;  // boxes of 64 features x kBN rows
+  __nv_bfloat16* o;
+  float* lse;
+  long long sob, soh, sos;
+  int h, sq, sk;
+  int causal;
+  long long q_offset, kv_offset;
+  float scale;  // nonzero (the C entry maps 0 to a tiny positive scale)
+};
 
-// d += a * b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Key tiles [0, n) that rows [q_lo, q_lo + rows) of the (global) query
+// sequence run over: all of them, or (causal) up to the last live one.
+__device__ __forceinline__ int fwd_key_tiles(const FwdParams& p,
+                                             long long q_lo, int rows) {
+  const int nk = (p.sk + kBN - 1) / kBN;
+  if (!p.causal) return nk;
+  const long long x = q_lo + rows - 1 - p.kv_offset;
+  if (x < 0) return 0;
+  return static_cast<int>(x / kBN + 1 < nk ? x / kBN + 1 : nk);
 }
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_bf16_kernel(Args a) {
-  constexpr int KS = D + kPad;    // row stride of k_s (and of the Q stage)
-  constexpr int VS = kBK + kPad;  // row stride of vt_s (V transposed)
-  constexpr int CPR = D / 8;      // 16-byte chunks per row
-  __shared__ __align__(16) __nv_bfloat16 k_s[kBK * KS];
-  __shared__ __align__(16) __nv_bfloat16 vt_s[D * VS];
+__global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ FwdParams p) {
+  using C = FwdCfg<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-  const int q0 = blockIdx.x * kBQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // mma group and thread-in-group
-  const int wr = warp * 16;              // this warp's first row in the tile
-  const __nv_bfloat16* qp =
-      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const __nv_bfloat16* kp =
-      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
-  const __nv_bfloat16* vp =
-      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + bb * a.sob +
-                      hh * a.soh;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::kBM;  // heaviest first
+  const int n = fwd_key_tiles(p, p.q_offset + q0, C::kBM);
+  const int tid = threadIdx.x;
 
-  // Stage the Q tile through k_s (rows past Sq are zero) and keep this
-  // warp's 16 rows as mma A fragments for the whole key loop.
-  for (int c = tid; c < kBQ * CPR; c += kThreads) {
-    const int r = c / CPR, cc = c % CPR;
-    uint4 val = zero;
-    if (q0 + r < a.sq)
-      val = *reinterpret_cast<const uint4*>(qp + (q0 + r) * a.sqs + cc * 8);
-    *reinterpret_cast<uint4*>(&k_s[r * KS + cc * 8]) = val;
-  }
-  __syncthreads();
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    qf[kk][0] = ld32(&k_s[(wr + g) * KS + kk * 16 + 2 * t]);
-    qf[kk][1] = ld32(&k_s[(wr + g + 8) * KS + kk * 16 + 2 * t]);
-    qf[kk][2] = ld32(&k_s[(wr + g) * KS + kk * 16 + 8 + 2 * t]);
-    qf[kk][3] = ld32(&k_s[(wr + g + 8) * KS + kk * 16 + 8 + 2 * t]);
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], C::kConsumers);
+    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  // Rows g and g+8 of this warp's 16: running max (log2 units) and this
-  // thread's share of the running denominator (summed over the 4 threads
-  // of a row at the end).
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-  float acc[D / 8][4];
+  if (tid >= C::kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<C::kProducerRegs>();
+    if (tid == C::kConsumers) {
+      sm90::mbar_arrive_expect_tx(q_full, C::kQT);
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
+      for (int c = 0; c < D / 64; ++c)
+        sm90::tma_load_4d(smem + C::kQ + c * C::kQBox, &p.q, q_full, c * 64,
+                          q0, hh, bb);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        sm90::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * C::kKT);
+        uint8_t* ks = smem + C::kKV + s * 2 * C::kKT;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const float sl2 = a.scale * kLog2e;
-  const long long q_lo = a.q_offset + q0;
-  const int nk = (a.sk + kBK - 1) / kBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kBK;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<kBQ, kBK>(q_lo, a.kv_offset + k0, live, diag);
-      if (!live) break;  // every later tile lies further in the future
-    }
-    const bool masked = diag || (k0 + kBK > a.sk);
-
-    // K rows as they are; V transposed (keys contiguous per feature).
-    // Keys past Sk are zero: their p is 0, and 0 * garbage could be NaN.
-    for (int c = tid; c < kBK * CPR; c += kThreads) {
-      const int r = c / CPR, cc = c % CPR;
-      uint4 val = zero;
-      if (k0 + r < a.sk)
-        val = *reinterpret_cast<const uint4*>(kp + (k0 + r) * a.sks + cc * 8);
-      *reinterpret_cast<uint4*>(&k_s[r * KS + cc * 8]) = val;
-    }
-    for (int c = tid; c < kBK * CPR; c += kThreads) {
-      const int r = c % kBK, cc = c / kBK;
-      uint4 val = zero;
-      if (k0 + r < a.sk)
-        val = *reinterpret_cast<const uint4*>(vp + (k0 + r) * a.svs + cc * 8);
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) vt_s[(cc * 8 + i) * VS + r] = ve[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt)
-        mma16816(s[nt], qf[kk], ld32(&k_s[(nt * 8 + g) * KS + kk * 16 + 2 * t]),
-                 ld32(&k_s[(nt * 8 + g) * KS + kk * 16 + 8 + 2 * t]));
-
-    // Scale into log2 units; mask only diagonal and ragged tiles.
-#pragma unroll
-    for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] *= sl2;
-        if (masked) {
-          const int row = q0 + wr + g + (e >> 1) * 8;
-          const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          if (col >= a.sk ||
-              (a.causal && a.kv_offset + col > a.q_offset + row))
-            s[nt][e] = -INFINITY;
+        for (int c = 0; c < D / 64; ++c) {
+          sm90::tma_load_4d(ks + c * C::kKBox, &p.k, &full[s], c * 64,
+                            i * kBN, hh, bb);
+          sm90::tma_load_4d(ks + C::kKT + c * C::kKBox, &p.v, &full[s],
+                            c * 64, i * kBN, hh, bb);
         }
       }
+    }
+  } else {
+    // Consumer warpgroup w: query rows [64 w, 64 w + 64) of the block.
+    sm90::reg_alloc<C::kConsumerRegs>();
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = 64 * w + 16 * warp + g;  // rows r0 and r0 + 8
+    const uint8_t* qs = smem + C::kQ + w * 64 * 128;
+    const float sl2 = p.scale * kLog2e;
+    // Masked scores are set to fill, so that fill * sl2 = -inf.
+    const float fill = sl2 > 0.f ? -INFINITY : INFINITY;
+    const long long q_lo = p.q_offset + q0 + 64 * w;
+    // Tiles [0, nw) are live for these 64 rows; a causal tail of the
+    // block's tiles may lie wholly in their future.
+    const int nw = fwd_key_tiles(p, q_lo, 64) < n ? fwd_key_tiles(p, q_lo, 64)
+                                                  : n;
 
-    // Online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3).
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};  // running max of S sl2
+    float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float sc[kBN / 2];           // S of one tile, then its P in f32
+    uint32_t pa[kBN / 16][4];    // P in bf16: the A fragments of P V
+    float corr[2];
+
+    auto stage = [&](int i) {
+      return smem + C::kKV + (i % kStages) * 2 * C::kKT;
+    };
+    // S = Q K^T of tile i, 64 rows x 128 keys (issued, not waited).
+    auto issue_s = [&](int i) {
+      const uint8_t* ks = stage(i);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        sm90::Wgmma<kBN>::ss(
+            sc, sm90::desc_k(qs + (kk / 4) * C::kQBox + (kk % 4) * 32),
+            sm90::desc_k(ks + (kk / 4) * C::kKBox + (kk % 4) * 32), kk > 0);
+      sm90::wgmma_commit();
+    };
+    // O += P V of tile i: V's keys run down its rows (MN-major).
+    auto issue_pv = [&](int i) {
+      const uint8_t* vs = stage(i) + C::kKT;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        sm90::Wgmma<D>::rs_mn(o, pa[kk],
+                              sm90::desc_mn(vs + kk * 16 * 128, C::kKBox),
+                              1);
+      sm90::wgmma_commit();
+    };
+    // The online softmax of tile i on the raw scores in sc (rows r0: e = 0,
+    // 1; r0 + 8: e = 2, 3). Only diagonal and ragged tiles are masked, in
+    // a pass of their own. The row max of S sl2 is the max of the raw
+    // scores times sl2 (their min if sl2 < 0), and P = exp2(S sl2 - m)
+    // takes one FMA; the masked fill gives P = 0. Leaves P in sc, and in
+    // corr the factor O must be rescaled by.
+    auto softmax = [&](int i) {
+      const int k0 = i * kBN;
+      bool live = true, diag = false;
+      if (p.causal)
+        causal_liveness<64, kBN>(q_lo, p.kv_offset + k0, live, diag);
+      if (diag || k0 + kBN > p.sk) {
+#pragma unroll
+        for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + r0 + 8 * (e >> 1);
+            const int col = k0 + 8 * j + 2 * t + (e & 1);
+            if (col >= p.sk ||
+                (p.causal && p.kv_offset + col > p.q_offset + row))
+              sc[4 * j + e] = fill;
+          }
+      }
+      float mt[2][2];  // two chains per row
+      if (sl2 > 0.f) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mt[hr][0] = fmaxf(sc[2 * hr], sc[2 * hr + 1]);
+          mt[hr][1] = fmaxf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
+#pragma unroll
+          for (int j = 2; j < kBN / 8; ++j)
+            mt[hr][j & 1] = fmaxf(mt[hr][j & 1], fmaxf(sc[4 * j + 2 * hr],
+                                                       sc[4 * j + 2 * hr + 1]));
+        }
+      } else {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          mt[hr][0] = fminf(sc[2 * hr], sc[2 * hr + 1]);
+          mt[hr][1] = fminf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
+#pragma unroll
+          for (int j = 2; j < kBN / 8; ++j)
+            mt[hr][j & 1] = fminf(mt[hr][j & 1], fminf(sc[4 * j + 2 * hr],
+                                                       sc[4 * j + 2 * hr + 1]));
+        }
+      }
+      float safe[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        float mx = sl2 > 0.f ? fmaxf(mt[hr][0], mt[hr][1])
+                             : fminf(mt[hr][0], mt[hr][1]);
+        mx *= sl2;
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[hr], mx);
+        // Rows masked so far keep m = -inf; subtracting 0 instead keeps
+        // exp2(-inf - 0) = 0 exact, with no inf - inf.
+        safe[hr] = m_new == -INFINITY ? 0.f : m_new;
+        corr[hr] = m_r[hr] == -INFINITY ? 0.f
+                                        : sm90::exp2_approx(m_r[hr] - safe[hr]);
+        m_r[hr] = m_new;
+      }
+      float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pr =
+              sm90::exp2_approx(fmaf(sc[4 * j + e], sl2, -safe[e >> 1]));
+          sc[4 * j + e] = pr;
+          sum[e >> 1][e & 1] += pr;
+        }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        l_r[hr] = l_r[hr] * corr[hr] + (sum[hr][0] + sum[hr][1]);
+    };
+    // The S accumulators of key columns [16 kk, 16 kk + 16) are the A
+    // fragment of k-step kk of P V.
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = sm90::pack_bf16(sc[8 * kk + 2 * r],
+                                      sc[8 * kk + 2 * r + 1]);
+    };
+    auto wait_full = [&](int i) {
+      sm90::mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    };
+
+    // Software pipeline over the live tiles: while the softmax of tile i
+    // runs on the CUDA cores, the tensor cores run O += P V of tile i - 1
+    // (and the other warpgroups' products).
+    sm90::mbar_wait(q_full, 0);
+    if (nw > 0) {
+      wait_full(0);
+      issue_s(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      softmax(0);
+      pack_p();
+      for (int i = 1; i < nw; ++i) {
+        wait_full(i);
+        issue_s(i);
+        issue_pv(i - 1);
+        sm90::wgmma_wait<1>();  // S of tile i; P V of tile i - 1 in flight
+        sm90::fence_regs(sc);
+        softmax(i);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+        sm90::mbar_arrive(&empty[(i - 1) % kStages]);  // may be refilled
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o[4 * j] *= corr[0];
+          o[4 * j + 1] *= corr[0];
+          o[4 * j + 2] *= corr[1];
+          o[4 * j + 3] *= corr[1];
+        }
+        pack_p();
+      }
+      issue_pv(nw - 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::mbar_arrive(&empty[(nw - 1) % kStages]);
+    }
+    for (int i = nw; i < n; ++i) {  // tiles only other warpgroups see
+      wait_full(i);
+      sm90::mbar_arrive(&empty[i % kStages]);
+    }
+
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
+      float l = l_r[hr];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float lc = fmaxf(l, 1e-30f);
+      const float inv = 1.f / lc;
+      const int row = q0 + r0 + 8 * hr;
+      if (row < p.sq) {
+        __nv_bfloat16* op = p.o + static_cast<long long>(bb) * p.sob +
+                            static_cast<long long>(hh) * p.soh +
+                            static_cast<long long>(row) * p.sos;
 #pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[hr], mx);
-      // Rows masked so far keep m = -inf; subtracting 0 instead keeps
-      // exp2(-inf - 0) = 0 exact, with no inf - inf.
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m_r[hr] == -INFINITY ? 0.f : exp2f(m_r[hr] - safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          const float p = exp2f(s[nt][e] - safe);
-          s[nt][e] = p;
-          sum += p;
-        }
-      l_r[hr] = l_r[hr] * corr + sum;
-      m_r[hr] = m_new;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * hr] *= corr;
-        acc[dt][2 * hr + 1] *= corr;
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + 2 * t) =
+              __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv,
+                                    o[4 * j + 2 * hr + 1] * inv);
+        if (t == 0)
+          p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] =
+              m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
       }
     }
-
-    // acc += P V: the S accumulators of n-tiles 2kk, 2kk+1 are exactly the
-    // A fragment of keys [16kk, 16kk + 16).
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
-        mma16816(acc[dt], pa,
-                 ld32(&vt_s[(dt * 8 + g) * VS + kk * 16 + 2 * t]),
-                 ld32(&vt_s[(dt * 8 + g) * VS + kk * 16 + 8 + 2 * t]));
-    }
-    __syncthreads();  // the next tile overwrites k_s and vt_s
   }
+}
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float l = l_r[hr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float lc = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lc;
-    const int row = q0 + wr + g + 8 * hr;
-    if (row < a.sq) {
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
-        *reinterpret_cast<__nv_bfloat162*>(op + row * a.sos + dt * 8 +
-                                           2 * t) =
-            __floats2bfloat162_rn(acc[dt][2 * hr] * inv,
-                                  acc[dt][2 * hr + 1] * inv);
-      if (t == 0)
-        a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
-            m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
-    }
-  }
+template <int D>
+int launch_bf16(const Args& a, int b, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  FwdParams p;
+  int err = sm90::encode_rows_bf16(&p.q, a.q, D, a.sq, a.h, b, a.sqs, a.sqh,
+                                   a.sqb, C::kBM);
+  if (!err)
+    err = sm90::encode_rows_bf16(&p.k, a.k, D, a.sk, a.h, b, a.sks, a.skh,
+                                 a.skb, kBN);
+  if (!err)
+    err = sm90::encode_rows_bf16(&p.v, a.v, D, a.sk, a.h, b, a.svs, a.svh,
+                                 a.svb, kBN);
+  if (err) return err;
+  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.lse = a.lse;
+  p.sob = a.sob;
+  p.soh = a.soh;
+  p.sos = a.sos;
+  p.h = a.h;
+  p.sq = a.sq;
+  p.sk = a.sk;
+  p.causal = a.causal;
+  p.q_offset = a.q_offset;
+  p.kv_offset = a.kv_offset;
+  // A zero scale makes every score 0; 1e-30 gives exp2(S 1e-30 log2e - m)
+  // = 1 exactly as well, and keeps masked scores at -inf (fill * scale).
+  p.scale = a.scale == 0.f ? 1e-30f : a.scale;
+  constexpr int bytes = C::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.h, b, (a.sq + C::kBM - 1) / C::kBM);
+  flash_fwd_bf16_kernel<D><<<grid, C::kThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -293,11 +439,13 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kSBQ = 16;  // query rows per block
 constexpr int kSBK = 32;  // keys per tile
+constexpr int kF32Threads = 128;
 // 128 threads: thread = (row r = tid / 8, lane-in-row c8 = tid % 8); a row's
 // 8 threads are adjacent lanes of one warp.
 
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
+__global__ void __launch_bounds__(kF32Threads)
+    flash_fwd_f32_kernel(Args a) {
   __shared__ float q_s[kSBQ][D + 1];
   __shared__ float k_s[kSBK][D + 1];
   __shared__ float v_s[kSBK][D];
@@ -311,7 +459,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
   const float* vp = static_cast<const float*>(a.v) + bb * a.svb + hh * a.svh;
   float* op = static_cast<float*>(a.o) + bb * a.sob + hh * a.soh;
 
-  for (int e = tid; e < kSBQ * D; e += kThreads) {
+  for (int e = tid; e < kSBQ * D; e += kF32Threads) {
     const int rr = e / D, d = e % D;
     q_s[rr][d] = q0 + rr < a.sq ? qp[(q0 + rr) * a.sqs + d] : 0.f;
   }
@@ -333,7 +481,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
     }
     const bool masked = diag || (k0 + kSBK > a.sk);
     __syncthreads();  // the previous tile's k_s/v_s reads are done
-    for (int e = tid; e < kSBK * D; e += kThreads) {
+    for (int e = tid; e < kSBK * D; e += kF32Threads) {
       const int rr = e / D, d = e % D;
       const bool in = k0 + rr < a.sk;
       k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
@@ -398,15 +546,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32_kernel(Args a) {
 }
 
 template <int D>
-cudaError_t launch(const Args& a, int b, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, b);
-    flash_fwd_bf16_kernel<D><<<grid, kThreads, 0, stream>>>(a);
-  } else {
-    dim3 grid((a.sq + kSBQ - 1) / kSBQ, a.h, b);
-    flash_fwd_f32_kernel<D><<<grid, kThreads, 0, stream>>>(a);
-  }
-  return cudaGetLastError();
+int launch(const Args& a, int b, int dtype, cudaStream_t stream) {
+  if (dtype == 1) return launch_bf16<D>(a, b, stream);
+  dim3 grid((a.sq + kSBQ - 1) / kSBQ, a.h, b);
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -414,7 +558,9 @@ cudaError_t launch(const Args& a, int b, int dtype, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16; d in {64, 128}. Strides are in
-// elements. Returns the CUDA error of the launch (0 = success).
+// elements; in bf16 the base pointers are 16-byte aligned and the strides
+// multiples of 8 elements (TMA's rule). Returns the CUDA error of the
+// launch (0 = success), or a tensor-map error (flash_fwd_error_string).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, long long sqb, long long sqh, long long sqs,
               long long skb, long long skh, long long sks, long long svb,
@@ -431,13 +577,11 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
          soh, sos, h,   sq,  sk,
          causal, q_offset, kv_offset, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = d == 64 ? launch<64>(a, b, dtype, st)
-                            : launch<128>(a, b, dtype, st);
-  return static_cast<int>(err);
+  return d == 64 ? launch<64>(a, b, dtype, st) : launch<128>(a, b, dtype, st);
 }
 
 const char* flash_fwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return sm90::error_string(code);
 }
 
 }  // extern "C"

@@ -275,3 +275,53 @@ def test_build_staleness(tmp_path, monkeypatch):
     assert not _build._stale("k")
     os.utime(src, (src_t + 20, src_t + 20))
     assert _build._stale("k")
+    # A header beside the source (every source may include it) counts too.
+    os.utime(lib, (src_t + 30, src_t + 30))
+    assert not _build._stale("k")
+    hdr = tmp_path / "sm90.cuh"
+    hdr.write_text("// shared header\n")
+    os.utime(hdr, (src_t + 25, src_t + 25))
+    assert not _build._stale("k")
+    os.utime(hdr, (src_t + 40, src_t + 40))
+    assert _build._stale("k")
+
+
+def _fused_views(b=2, h=3, s=16, d=64):
+    """q, k, v as the transformer hands them over: (B, H, S, D) views of
+    one (B, S, 3 * H * D) bf16 projection (row stride 3 * H * D)."""
+    qkv = torch.randn((b, s, 3 * h * d)).to(torch.bfloat16)
+    return [t.reshape(b, s, h, d).transpose(1, 2)
+            for t in qkv.split(h * d, dim=-1)]
+
+
+def _odd_row_stride():
+    return torch.randn((2, 3, 16, 65)).to(torch.bfloat16)[..., :64]
+
+
+def _base_off_by_one():
+    flat = torch.randn(1 + 2 * 3 * 16 * 64).to(torch.bfloat16)
+    return flat[1:].view(2, 3, 16, 64)
+
+
+def _feature_stride():
+    return torch.randn((2, 3, 64, 16)).to(torch.bfloat16).transpose(-1, -2)
+
+
+@pytest.mark.parametrize("make,in_place", [
+    (lambda: _fused_views()[0], True), (lambda: _fused_views()[1], True),
+    (lambda: _fused_views()[2], True), (_odd_row_stride, False),
+    (_base_off_by_one, False), (_feature_stride, False)],
+    ids=["fused_q", "fused_k", "fused_v", "odd_row_stride",
+         "base_off_by_one", "feature_stride"])
+def test_aligned_meets_the_tensor_map_contract(make, in_place):
+    # What a TMA tensor map takes: a 16-byte aligned base, a unit feature
+    # stride and every other stride a multiple of 16 bytes. The fused
+    # projection's views already meet it and pass uncopied; anything else
+    # becomes a copy that meets it, with the same values.
+    t = make()
+    got = tatt._aligned(t)
+    assert (got is t) == in_place
+    assert got.data_ptr() % 16 == 0 and got.stride(-1) == 1
+    assert all(s > 0 and s * got.element_size() % 16 == 0
+               for s in got.stride()[:-1])
+    assert torch.equal(got, t)

@@ -38,7 +38,8 @@ def cuda():
                                        (torch.float32, (1e-4, 1e-4))])
 @pytest.mark.parametrize("s,d,causal,q_off,kv_off",
                          [(256, 64, True, 0, 0), (200, 64, False, 0, 0),
-                          (136, 128, True, 0, 0), (128, 64, True, 0, 64)])
+                          (136, 128, True, 0, 0), (128, 64, True, 0, 64),
+                          (40, 64, True, 0, 0), (200, 128, True, 0, 0)])
 def test_kernel_matches_plain(cuda, dtype, tol, s, d, causal, q_off,
                               kv_off):
     g = torch.Generator(device=cuda).manual_seed(s + d)
@@ -82,7 +83,9 @@ def _rows_close(got, want, dead, rel):
                           (200, 200, 64, False, 0, 0),
                           (136, 136, 128, True, 0, 0),
                           (128, 128, 64, True, 0, 64),
-                          (136, 520, 64, True, 384, 0)])
+                          (136, 520, 64, True, 384, 0),
+                          (40, 40, 64, True, 0, 0),
+                          (200, 200, 128, True, 0, 0)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -115,6 +118,24 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
         assert got.shape == want.shape and got.dtype == dtype
         assert not torch.isnan(got).any()
         _rows_close(got, want, dead, rel)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_dkv_kernel_is_deterministic(cuda, d):
+    # Each key row is written by one block, with no atomics: two launches
+    # on the same inputs give the same bits.
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (torch.randn((2, 3, 328, d), generator=g, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    kw = dict(causal=True, q_offset=0, kv_offset=0, scale=d ** -0.5)
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=True)
+    c = attention.flash_bwd_prep(do, out)
+    first = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw)
+    second = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
