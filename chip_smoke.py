@@ -17,9 +17,9 @@ Phases; any failure raises and ends the run with a non-zero exit:
 3. kernels: each kernel (flash forward, dq, dk/dv) against its plain
    PyTorch version on the card, at the main path's shapes and at edge
    cases (ragged tiles, fewer queries than a tile, offsets, fully-masked
-   rows, keys no query sees, lse cotangents), dk/dv also bit-identical
-   over two launches, with timings of the kernel, the plain version and
-   one library call (yardstick only);
+   rows, keys no query sees, lse cotangents), dq and dk/dv also
+   bit-identical over two launches, with timings of the kernel, the plain
+   version and one library call (yardstick only);
 4. small reference check: a small model on the card (kernels) against
    the same model on the CPU (plain versions): logits, loss, greedy
    tokens, every parameter's gradient, and the parameters after one
@@ -42,9 +42,9 @@ Phases; any failure raises and ends the run with a non-zero exit:
    runs under torch.profiler.
 
 Then it prints the kernel table as one JSON line (each row names its
-design: ``wgmma+tma`` for the bf16 forward and dk/dv, ``mma.sync`` for
-the bf16 dq), the card's name and
-power limit, and as the last line ``{"ok": true, "device": {...}}``.
+design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
+name and power limit, and as the last line ``{"ok": true, "device":
+{...}}``.
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
 """
@@ -338,7 +338,10 @@ def phase_bwd_kernels(dev):
                                                       **kw)}
             got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
                 q, k, v, do, lse, c, **kw)
-            again = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw)
+            again = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                        **kw)}
+            again["dk"], again["dv"] = attention._flash_bwd_dkv_cuda(
+                q, k, v, do, lse, c, **kw)
             torch.cuda.synchronize()
             want = {"dq": attention.flash_bwd_dq_reference(q, k, v, do, lse,
                                                            c, **kw)}
@@ -367,10 +370,10 @@ def phase_bwd_kernels(dev):
             errs[kern][name] = max(errs[kern].get(name, 0.0), e_abs)
             rel_errs[kern][name] = max(rel_errs[kern].get(name, 0.0), e_rel)
         # no atomics: a second launch on the same inputs gives the same bits
-        same = torch.equal(again[0], got["dk"]) and \
-            torch.equal(again[1], got["dv"])
-        check(same, f"{name}: dk/dv differ between two launches")
-        line.append(f"dk/dv bit-identical over two launches {same}")
+        for kern, which in (("dq", ("dq",)), ("dk/dv", ("dk", "dv"))):
+            same = all(torch.equal(again[x], got[x]) for x in which)
+            check(same, f"{name}: {kern} differs between two launches")
+            line.append(f"{kern} bit-identical over two launches {same}")
         dead_q, dead_k = int(dead["dq"].sum()), int(dead["dk"].sum())
         print(f"kernel flash_bwd {name}: b,h,sq,sk,d={b},{h},{sq},{sk},{d} "
               f"{dname} causal={causal} q_offset={qo} kv_offset={ko} "
@@ -814,7 +817,7 @@ def kernel_table(kern, bwd, sl, tr):
         "library_ms": ms["library"],
     }]
     for name, line, fn, design in (
-            ("flash_bwd_dq", 213, "_bwd_dq_kernel", "mma.sync"),
+            ("flash_bwd_dq", 213, "_bwd_dq_kernel", "wgmma+tma"),
             ("flash_bwd_dkv", 263, "_bwd_dkv_kernel", "wgmma+tma")):
         rows.append({
             "name": name,
@@ -862,8 +865,11 @@ def main() -> int:
     build_s = _build.build_all()
     for name in _build.SOURCES:
         _build.load(name)
+        # per kernel: its entry, registers, spills, and any wgmma that
+        # ptxas had to serialize
         regs = [ln.strip() for ln in _build.build_logs.get(name, "")
-                .splitlines() if "registers" in ln or "spill" in ln]
+                .splitlines() if any(w in ln for w in (
+                    "entry function", "registers", "spill", "wgmma"))]
         print(f"build {name}: {regs}", flush=True)
         spills = [ln for ln in regs if "spill" in ln and
                   "0 bytes spill stores, 0 bytes spill loads" not in ln]

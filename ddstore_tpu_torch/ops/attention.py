@@ -13,9 +13,9 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   dtype where the kernels do.
 * :func:`flash_attention` is differentiable. On a CUDA tensor its forward
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
-  of ``csrc/flash_bwd.cu`` (in bf16 the forward and dk/dv kernels stream
-  their tiles by TMA and multiply with wgmma, ``csrc/sm90.cuh``); on a
-  CPU tensor both run the plain versions,
+  of ``csrc/flash_bwd.cu`` (in bf16 all three kernels stream their tiles
+  by TMA and multiply with wgmma, ``csrc/sm90.cuh``); on a CPU tensor
+  both run the plain versions,
   so the CPU tests exercise the backward arithmetic the card runs. On the
   card it launches the kernels or raises; it never falls back to the plain
   version there.
@@ -195,9 +195,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block_q_dkv, block_k_dkv) are the reference's tile upper bounds and
     are checked the same way, with the same messages. The CUDA kernels
     tile by their own sizes whatever they say (in bf16: forward 192
-    query rows at head dim 64 and 128 at 128, by 128 keys; dq 64 by 64;
-    dk/dv 128 keys by 64 queries at head dim 64 and 32 at 128; in f32:
-    forward 16 by 32, backward 16 by 32 or 16) and mask the ragged last
+    query rows at head dim 64 and 128 at 128, by 128 keys; dq 128 query
+    rows by 64 keys; dk/dv 128 keys by 64 queries at head dim 64 and 32
+    at 128; in f32: forward 16 by 32, backward 16 by 32 or 16) and mask
+    the ragged last
     tiles themselves. On the card they take bf16 or f32 with head dim 64
     or 128.
     """

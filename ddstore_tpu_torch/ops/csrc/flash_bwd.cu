@@ -18,9 +18,9 @@
 //
 // What changes against the TPU: each TPU kernel's sequential grid axis
 // becomes a loop inside the CUDA block, since nothing carries over between
-// blocks. The dq kernel takes one block per (b*h, 64-query tile) and loops
-// over the key tiles up to the last live one; the dk/dv kernel takes one
-// block per (128-key tile, head, batch) and loops over the query tiles
+// blocks. The dq kernel takes one block per (query tile, head, batch) and
+// loops over the key tiles up to the last live one; the dk/dv kernel takes
+// one block per (128-key tile, head, batch) and loops over the query tiles
 // from the first one that can see it. The two kernels write disjoint
 // outputs, so there are no atomics and the gradients are deterministic
 // (bit-identical from launch to launch). Every output row is written, as
@@ -35,15 +35,34 @@
 // at 3.35 TB/s; dk/dv does 4 (s, dp, dv, dk), 1.375e11 FLOP = 0.139 ms,
 // against about 203 MB = 0.061 ms. Both are bound by operations.
 //
-// Design, and what it leaves on the table:
-// * bf16 dk/dv: TMA tile ring + wgmma (sm90.cuh). One block of three
-//   warpgroups per 128 keys; warpgroup 2 gives up its registers
-//   (setmaxnreg, 24 left against 240 for each consumer) and one of its
-//   threads loads K and V once by TMA, then streams the query tiles (Q, dO
-//   and their lse and c slices) through a ring of three shared stages
+// Design, and what it leaves on the table. Both bf16 kernels are a TMA tile
+// ring + wgmma (sm90.cuh) in blocks of three warpgroups: warpgroup 2 gives
+// up its registers (setmaxnreg, 24 left against 240 for each consumer) and
+// one of its threads issues every TMA load; warpgroups 0 and 1 each own 64
+// rows of the block's resident operand.
+// * bf16 dq: one block per 128 queries. The producer loads Q and dO once,
+//   then streams the K and V tiles through a ring of three shared stages
 //   completed on mbarriers ("full" when TMA has landed, "empty" when both
-//   consumers are done). Warpgroups 0 and 1 own 64 key rows each and work
-//   with keys as rows: S^T = K Q^T and dP^T = V dO^T are wgmma SS
+//   consumers are done). Each consumer reads its rows' lse and c once into
+//   registers. S = Q K^T and dP = dO V^T are wgmma SS (both K-major, as the
+//   forward forms S); P = exp2(S scale log2e - lse log2e) and dS = P (dP -
+//   c) are formed on the accumulators; dQ += dS K is wgmma RS with dS
+//   packed to bf16 in registers and K read MN-major from the same ring
+//   stage the S product read K-major (the forward's P V with K in V's
+//   place: no transposed copy of K). The same software pipeline as dk/dv:
+//   S and dP of tile i are issued with dQ of tile i - 1, and dS of tile i
+//   is formed while the latter runs. Key tiles are 64 keys at either head
+//   dim: 128 at D = 64 fits in registers but ran slower on the H100 at
+//   the LM's shape, and at D = 128 would not fit in shared memory beside
+//   the resident Q and dO. High query tiles, which see the most keys
+//   under the causal mask, launch first.
+//   Left out: ping-pong between the consumer warpgroups, persistent
+//   blocks, a TMA store of dq, and a dq fused into the dk/dv kernel (its
+//   atomic adds would make the gradients differ from run to run).
+// * bf16 dk/dv: one block per 128 keys. The producer loads K and V once,
+//   then streams the query tiles (Q, dO and their lse and c slices)
+//   through the same kind of ring. The consumers own 64 key rows each and
+//   work with keys as rows: S^T = K Q^T and dP^T = V dO^T are wgmma SS
 //   (K-major); P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T
 //   - c) are formed on the accumulators; dV += P^T dO and dK += dS^T Q are
 //   wgmma RS with P^T and dS^T packed to bf16 in registers and dO and Q
@@ -57,13 +76,7 @@
 //   Left out: warp-specialised ping-pong between the consumer warpgroups,
 //   K and V held in registers as A fragments (the SS products re-read
 //   them from shared memory for every query tile), persistent blocks, and
-//   a fused dq (atomic dq would make the gradients run-dependent).
-// * bf16 dq: 4 warps of mma.sync m16n8k16 (bf16 in, f32 accumulate);
-//   each warp owns 16 query rows. S and dP are recomputed; dS re-packs
-//   from the accumulators as the A fragments of dQ += dS K, and K is read
-//   transposed with ldmatrix.trans. Left out: everything the dk/dv kernel
-//   has (TMA, a ring of asynchronous tile loads, wgmma, warp
-//   specialisation); the tile loads here are synchronous.
+//   a fused dq.
 // * f32: the same algorithm on the CUDA cores, one dot product per score
 //   (the tensor cores take no f32 inputs); exact in f32, for checking the
 //   math without bf16 rounding. The LM runs in bf16.
@@ -120,238 +133,305 @@ __device__ __forceinline__ bool pair_masked(const Args& a, int row, int col) {
 }
 
 // lse of a row, with fully-masked rows (lse = -inf) and rows past Sq
-// taken as 1e30, so that their p = exp(s - lse) is exactly 0.
-__device__ __forceinline__ float safe_lse(const Args& a, long long bh,
-                                          int row) {
+// taken as 1e30, so that their p = exp(s - lse) is exactly 0. P is Args
+// or DqParams (both carry lse, c and sq).
+template <class P>
+__device__ __forceinline__ float safe_lse(const P& a, long long bh, int row) {
   if (row >= a.sq) return kSafeLse;
   const float l = a.lse[bh * a.sq + row];
   return l == -INFINITY ? kSafeLse : l;
 }
 
-// The same in log2 units, for exp2.
-__device__ __forceinline__ float safe_lse2(const Args& a, long long bh,
-                                           int row) {
-  return safe_lse(a, bh, row) * kLog2e;
-}
-
-__device__ __forceinline__ float row_c(const Args& a, long long bh, int row) {
+template <class P>
+__device__ __forceinline__ float row_c(const P& a, long long bh, int row) {
   return row < a.sq ? a.c[bh * a.sq + row] : 0.f;
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dq: tensor cores through mma.sync
+// bf16: TMA tile ring + wgmma, in blocks of three warpgroups (dq and dk/dv)
 
-constexpr int kThreads = 128;
-constexpr int kPad = 8;  // bf16 of row padding: conflict-free fragment reads
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a * b for one 16x8x16 tile: a row-major 16x16, b column-major 16x8.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory, transposed: lane i gives the
-// address of row i % 8 of matrix i / 8, and receives in register m the
-// elements (2 * (i % 4), i / 4) and (2 * (i % 4) + 1, i / 4) of matrix m,
-// i.e. the mma B fragment of a matrix stored with k along its rows.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
-                                          const __nv_bfloat16* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// The A fragment of rows [r0, r0 + 16), k columns [kk * 16, kk * 16 + 16)
-// of a row-major bf16 tile in shared memory with row stride ST.
-template <int ST>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4],
-                                       const __nv_bfloat16* s, int r0, int kk,
-                                       int g, int t) {
-  f[0] = ld32(&s[(r0 + g) * ST + kk * 16 + 2 * t]);
-  f[1] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 2 * t]);
-  f[2] = ld32(&s[(r0 + g) * ST + kk * 16 + 8 + 2 * t]);
-  f[3] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 8 + 2 * t]);
-}
-
-// Copy rows [r0, r0 + R) of a (seq, D) bf16 operand into a shared tile of
-// row stride ST; rows past n are zero.
-template <int R, int D, int ST>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
-                                           long long row_stride, int r0,
-                                           int n, int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int ch = tid; ch < R * CPR; ch += kThreads) {
-    const int r = ch / CPR, cc = ch % CPR;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride +
-                                            cc * 8);
-    *reinterpret_cast<uint4*>(&dst[r * ST + cc * 8]) = val;
-  }
-}
-
-// dq: one block per (64-query tile, head, batch); 4 warps x 16 rows.
-constexpr int kDqBQ = 64;
-constexpr int kDqBK = 64;
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16_kernel(Args a) {
-  constexpr int ST = D + kPad;
-  __shared__ __align__(16) __nv_bfloat16 k_s[kDqBK * ST];
-  __shared__ __align__(16) __nv_bfloat16 v_s[kDqBK * ST];
-
-  const int q0 = blockIdx.x * kDqBQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const long long bh = static_cast<long long>(bb) * a.h + hh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;
-  const auto* qp =
-      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const auto* kp =
-      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
-  const auto* vp =
-      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
-  const auto* dp_ =
-      static_cast<const __nv_bfloat16*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  auto* dqp = static_cast<__nv_bfloat16*>(a.o1) + bb * a.s1b + hh * a.s1h;
-
-  // Q and dO tiles through shared memory into A fragments kept for the
-  // whole key loop.
-  stage_rows<kDqBQ, D, ST>(k_s, qp, a.sqs, q0, a.sq, tid);
-  stage_rows<kDqBQ, D, ST>(v_s, dp_, a.sds, q0, a.sq, tid);
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<ST>(qf[kk], k_s, wr, kk, g, t);
-    load_a<ST>(dof[kk], v_s, wr, kk, g, t);
-  }
-  __syncthreads();
-
-  // Rows g and g + 8 of this warp's 16.
-  float lse2[2], cr[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    lse2[hr] = safe_lse2(a, bh, q0 + wr + g + 8 * hr);
-    cr[hr] = row_c(a, bh, q0 + wr + g + 8 * hr);
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const float sl2 = a.scale * kLog2e;
-  const long long q_lo = a.q_offset + q0;
-  const int nk = (a.sk + kDqBK - 1) / kDqBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kDqBK;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<kDqBQ, kDqBK>(q_lo, a.kv_offset + k0, live, diag);
-      if (!live) break;  // every later tile lies further in the future
-    }
-    const bool masked = diag || k0 + kDqBK > a.sk || q0 + kDqBQ > a.sq;
-    stage_rows<kDqBK, D, ST>(k_s, kp, a.sks, k0, a.sk, tid);
-    stage_rows<kDqBK, D, ST>(v_s, vp, a.svs, k0, a.sk, tid);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 64 keys per warp.
-    float s[kDqBK / 8][4], dp[kDqBK / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kDqBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int nt = 0; nt < kDqBK / 8; ++nt) {
-        const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
-        mma16816(s[nt], qf[kk], ld32(&k_s[off]), ld32(&k_s[off + 8]));
-        mma16816(dp[nt], dof[kk], ld32(&v_s[off]), ld32(&v_s[off + 8]));
-      }
-
-    // dS = P * (dP - c), P = exp2(S * scale * log2e - lse * log2e).
-#pragma unroll
-    for (int nt = 0; nt < kDqBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        float x = s[nt][e] * sl2;
-        if (masked &&
-            pair_masked(a, q0 + wr + g + 8 * hr, k0 + nt * 8 + 2 * t + (e & 1)))
-          x = -INFINITY;
-        const float p = exp2f(x - lse2[hr]);
-        s[nt][e] = p * (dp[nt][e] - cr[hr]);
-      }
-
-    // dQ += dS K: dS re-packed as A fragments over the keys; K read
-    // transposed (keys along k) with ldmatrix.trans.
-#pragma unroll
-    for (int kk = 0; kk < kDqBK / 16; ++kk) {
-      const uint32_t da[4] = {
-          sm90::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          sm90::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const int mat = lane / 8, r = lane % 8;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; dt += 2) {
-        uint32_t b[4];
-        ldsm_x4_t(b, &k_s[(kk * 16 + (mat & 1) * 8 + r) * ST +
-                          (dt + (mat >> 1)) * 8]);
-        mma16816(acc[dt], da, b[0], b[1]);
-        mma16816(acc[dt + 1], da, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next tile overwrites k_s and v_s
-  }
-
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + wr + g + 8 * hr;
-    if (row < a.sq) {
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt)
-        *reinterpret_cast<__nv_bfloat162*>(dqp + row * a.s1s + dt * 8 +
-                                           2 * t) =
-            __floats2bfloat162_rn(acc[dt][2 * hr] * a.scale,
-                                  acc[dt][2 * hr + 1] * a.scale);
-    }
-  }
-}
-
-// dk/dv: TMA tile ring + wgmma. One block of three warpgroups per
-// (128 keys, head, batch); warpgroups 0 and 1 own 64 key rows each, and
-// warpgroup 2 produces. K and V stay resident in shared memory; query
-// tiles of Q, dO and their lse and c slices stream through a ring of
-// kDkvStages stages: three, since while tile i is formed tile i - 1's
-// stage is still read by dV and dK, and tile i + 1 loads. BQ = 64 queries
-// at D = 64, 32 at D = 128 (to bound the registers of the two D-wide
-// accumulators).
-constexpr int kDkvBN = 128;
-constexpr int kDkvStages = 3;
-constexpr int kDkvThreads = 384;
-constexpr int kDkvConsumers = 256;
+constexpr int kStages = 3;  // ring stages of the streamed tiles
+constexpr int kBlockThreads = 384;
+constexpr int kConsumers = 256;  // warpgroups 0 and 1; warpgroup 2 produces
 // setmaxnreg moves registers from the producer to the consumers within
 // what the launch gave the block (168 a thread for 384 threads): 24 + 2 x
 // 240 = 3 x 168. Asking for more than that pool would wait forever; with
-// 232 the D = 128 consumers spill.
-constexpr int kDkvProducerRegs = 24;
-constexpr int kDkvConsumerRegs = 240;
+// 232 the D = 128 dk/dv consumers spill.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// dq: one block per (128 queries, head, batch); warpgroups 0 and 1 own 64
+// query rows each. Q and dO stay resident in shared memory; K and V tiles
+// of 64 keys stream through the ring: three stages, since while tile i is
+// formed tile i - 1's K is still read by dQ, and tile i + 1 loads.
+constexpr int kDqBM = 128;
+constexpr int kDqBN = 64;
+
+struct DqParams {
+  CUtensorMap q, dout;  // boxes of 64 features x 128 rows
+  CUtensorMap k, v;     // boxes of 64 features x 64 rows
+  const float* lse;     // (B*H, Sq), contiguous
+  const float* c;       // (B*H, Sq), contiguous
+  __nv_bfloat16* dq;
+  long long s1b, s1h, s1s;
+  int h, sq, sk;
+  int causal;
+  long long q_offset, kv_offset;
+  float scale;
+};
+
+// Shared memory, from a 1024-byte aligned base: Q, dO, then per stage a K
+// and a V tile, then the barriers. A Q or dO tile is D / 64 boxes of 128
+// rows x 128 bytes; a K or V tile D / 64 boxes of 64 rows x 128 bytes.
+template <int D>
+struct DqSmem {
+  static constexpr int kQBox = kDqBM * 128;
+  static constexpr int kQT = (D / 64) * kQBox;
+  static constexpr int kKBox = kDqBN * 128;
+  static constexpr int kKT = (D / 64) * kKBox;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kQT;
+  static constexpr int kRing = 2 * kQT;  // stage s: K at kRing + 2 s kKT
+  static constexpr int kBar = kRing + kStages * 2 * kKT;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+};
+
+// Key tiles [0, n) of 64 keys that `rows` query rows from global position
+// q_lo run over: all of them, or (causal) up to the last live one; none
+// when rows <= 0 (rows past Sq only).
+__device__ __forceinline__ int dq_key_tiles(const DqParams& p,
+                                            long long q_lo, int rows) {
+  if (rows <= 0) return 0;
+  const int nk = (p.sk + kDqBN - 1) / kDqBN;
+  if (!p.causal) return nk;
+  const long long x = q_lo + rows - 1 - p.kv_offset;
+  if (x < 0) return 0;
+  return static_cast<int>(x / kDqBN + 1 < nk ? x / kDqBN + 1 : nk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dq_bf16_kernel(const __grid_constant__ DqParams p) {
+  using L = DqSmem<D>;
+  constexpr int BN = kDqBN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kDqBM;  // heaviest first
+  const int n = dq_key_tiles(p, p.q_offset + q0,
+                                 p.sq - q0 < kDqBM ? p.sq - q0 : kDqBM);
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers) {
+      sm90::mbar_arrive_expect_tx(q_full, 2 * L::kQT);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        sm90::tma_load_4d(smem + L::kQ + c * L::kQBox, &p.q, q_full, c * 64,
+                          q0, hh, bb);
+        sm90::tma_load_4d(smem + L::kDo + c * L::kQBox, &p.dout, q_full,
+                          c * 64, q0, hh, bb);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kStages;
+        sm90::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kKT);
+        uint8_t* ks = smem + L::kRing + s * 2 * L::kKT;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          sm90::tma_load_4d(ks + c * L::kKBox, &p.k, &full[s], c * 64,
+                            i * BN, hh, bb);
+          sm90::tma_load_4d(ks + L::kKT + c * L::kKBox, &p.v, &full[s],
+                            c * 64, i * BN, hh, bb);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup w: query rows [64 w, 64 w + 64) of the block.
+    sm90::reg_alloc<kConsumerRegs>();
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int r0 = q0 + 64 * w + 16 * warp + g;  // query rows r0 and r0 + 8
+    const uint8_t* qs = smem + L::kQ + w * 64 * 128;
+    const uint8_t* dos = smem + L::kDo + w * 64 * 128;
+    const long long bh = static_cast<long long>(bb) * p.h + hh;
+    const long long q_lo = p.q_offset + q0 + 64 * w;
+    // Tiles [0, nw) are live for these 64 rows: a causal tail of the
+    // block's tiles may lie wholly in their future, and rows past Sq need
+    // none.
+    const int left = p.sq - q0 - 64 * w;
+    const int nw = dq_key_tiles(p, q_lo, left < 64 ? left : 64);
+
+    float lse2[2], cr[2];  // per row: lse in log2 units, c
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      lse2[hr] = safe_lse(p, bh, r0 + 8 * hr) * kLog2e;
+      cr[hr] = row_c(p, bh, r0 + 8 * hr);
+    }
+    float dq[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    const float sl2 = p.scale * kLog2e;
+
+    float s[BN / 2], dp[BN / 2];  // S and dP of one tile; then dS in dp
+    uint32_t da[BN / 16][4];      // dS in bf16: the A fragments of dS K
+
+    auto stage = [&](int i) {
+      return smem + L::kRing + (i % kStages) * 2 * L::kKT;
+    };
+    auto wait_full = [&](int i) {
+      sm90::mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    };
+    // S = Q K^T and dP = dO V^T of tile i, 64 rows x BN keys (issued, not
+    // waited).
+    auto issue_sdp = [&](int i) {
+      const uint8_t* ks = stage(i);
+      const uint8_t* vs = ks + L::kKT;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int ka = (kk / 4) * L::kQBox + (kk % 4) * 32;
+        const int kb = (kk / 4) * L::kKBox + (kk % 4) * 32;
+        sm90::Wgmma<BN>::ss(s, sm90::desc_k(qs + ka), sm90::desc_k(ks + kb),
+                            kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int ka = (kk / 4) * L::kQBox + (kk % 4) * 32;
+        const int kb = (kk / 4) * L::kKBox + (kk % 4) * 32;
+        sm90::Wgmma<BN>::ss(dp, sm90::desc_k(dos + ka),
+                            sm90::desc_k(vs + kb), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // dQ += dS K of tile i: K's keys run down its rows (MN-major), read
+    // from the tile the S product read K-major.
+    auto issue_dq = [&](int i) {
+      const uint8_t* ks = stage(i);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::Wgmma<D>::rs_mn(dq, da[kk],
+                              sm90::desc_mn(ks + kk * 16 * 128, L::kKBox), 1);
+      sm90::wgmma_commit();
+    };
+    // P = exp2(S scale log2e - lse log2e) and dS = P (dP - c) of tile i,
+    // into dp (rows r0: e = 0, 1; r0 + 8: e = 2, 3). Only diagonal and
+    // ragged tiles are masked: TMA's zero fill past Sk scores 0, not -inf,
+    // so keys >= Sk are masked here. Rows past Sq take lse = 1e30 (p = 0)
+    // and are never written.
+    auto grads = [&](int i) {
+      const int k0 = i * BN;
+      bool live = true, diag = false;
+      if (p.causal)
+        causal_liveness<64, BN>(q_lo, p.kv_offset + k0, live, diag);
+      const bool masked = diag || k0 + BN > p.sk;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = fmaf(s[4 * j + e], sl2, -lse2[e >> 1]);
+          if (masked) {
+            const int key = k0 + 8 * j + 2 * t + (e & 1);
+            const int row = r0 + 8 * (e >> 1);
+            if (key >= p.sk ||
+                (p.causal && p.kv_offset + key > p.q_offset + row))
+              x = -INFINITY;
+          }
+          dp[4 * j + e] =
+              sm90::exp2_approx(x) * (dp[4 * j + e] - cr[e >> 1]);
+        }
+    };
+    // The accumulators of key columns [16 kk, 16 kk + 16) are the A
+    // fragment of k-step kk of dS K.
+    auto pack = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] =
+              sm90::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+    };
+    // dQ of tile i waited for; then its stage may be refilled.
+    auto finish_dq = [&](int i) {
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::mbar_arrive(&empty[i % kStages]);
+    };
+
+    // Software pipeline over the live tiles: while dS of tile i is formed
+    // on the CUDA cores, the tensor cores run dQ of tile i - 1 (and the
+    // other warpgroup's products).
+    sm90::mbar_wait(q_full, 0);
+    if (nw > 0) {
+      wait_full(0);
+      issue_sdp(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      grads(0);
+      pack();
+      for (int i = 1; i < nw; ++i) {
+        wait_full(i);
+        issue_sdp(i);
+        issue_dq(i - 1);
+        // S, dP of tile i done; dQ of tile i - 1 still in flight
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        grads(i);
+        finish_dq(i - 1);
+        pack();
+      }
+      issue_dq(nw - 1);
+      finish_dq(nw - 1);
+    }
+    for (int i = nw; i < n; ++i) {  // tiles only the other warpgroup sees
+      wait_full(i);
+      sm90::mbar_arrive(&empty[i % kStages]);
+    }
+
+    // Every row below Sq is written: 0 where no live key reaches it.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = r0 + 8 * hr;
+      if (row < p.sq) {
+        __nv_bfloat16* dqp = p.dq + static_cast<long long>(bb) * p.s1b +
+                             static_cast<long long>(hh) * p.s1h +
+                             static_cast<long long>(row) * p.s1s;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(dqp + 8 * j + 2 * t) =
+              __floats2bfloat162_rn(dq[4 * j + 2 * hr] * p.scale,
+                                    dq[4 * j + 2 * hr + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// dk/dv: one block per (128 keys, head, batch); warpgroups 0 and 1 own 64
+// key rows each. K and V stay resident in shared memory; query tiles of Q,
+// dO and their lse and c slices stream through the ring: three stages,
+// since while tile i is formed tile i - 1's stage is still read by dV and
+// dK, and tile i + 1 loads. BQ = 64 queries at D = 64, 32 at D = 128 (to
+// bound the registers of the two D-wide accumulators).
+constexpr int kDkvBN = 128;
 
 template <int D>
 __host__ __device__ constexpr int dkv_bq() {
@@ -386,13 +466,13 @@ struct DkvSmem {
   static constexpr int kK = 0;
   static constexpr int kV = kKV;
   static constexpr int kRing = 2 * kKV;
-  static constexpr int kBar = kRing + kDkvStages * kStage;
-  static constexpr int kBytes = kBar + (1 + 2 * kDkvStages) * 8 + 1024;
+  static constexpr int kBar = kRing + kStages * kStage;
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
   static constexpr int kStageTx = 2 * kQT + 2 * kBQ * 4;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kDkvThreads, 1)
+__global__ void __launch_bounds__(kBlockThreads, 1)
     flash_bwd_dkv_bf16_kernel(const __grid_constant__ DkvParams p) {
   using L = DkvSmem<D>;
   constexpr int BQ = L::kBQ;
@@ -400,7 +480,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   uint8_t* smem = sm90::align1024(smem_raw);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* full = kv_full + 1;
-  uint64_t* empty = full + kDkvStages;
+  uint64_t* empty = full + kStages;
 
   const int hh = blockIdx.x, bb = blockIdx.y;
   const int k0 = blockIdx.z * kDkvBN;  // low key tiles, the heaviest, first
@@ -418,18 +498,18 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 
   if (tid == 0) {
     sm90::mbar_init(kv_full, 1);
-    for (int s = 0; s < kDkvStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], kDkvConsumers);
+      sm90::mbar_init(&empty[s], kConsumers);
     }
     sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  if (tid >= kDkvConsumers) {
+  if (tid >= kConsumers) {
     // Producer warpgroup: one thread issues every load.
-    sm90::reg_dealloc<kDkvProducerRegs>();
-    if (tid == kDkvConsumers) {
+    sm90::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers) {
       const int bh = bb * p.h + hh;
       sm90::mbar_arrive_expect_tx(kv_full, 2 * L::kKV);
 #pragma unroll
@@ -455,7 +535,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
         }
         sm90::tma_load_2d(st + 2 * L::kQT, &p.lse, &full[s], q0, bh);
         sm90::tma_load_2d(st + 2 * L::kQT + BQ * 4, &p.c, &full[s], q0, bh);
-        if (++s == kDkvStages) {
+        if (++s == kStages) {
           s = 0;
           phase ^= 1;
         }
@@ -463,7 +543,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     }
   } else {
     // Consumer warpgroup w: key rows [64 w, 64 w + 64) of the block.
-    sm90::reg_alloc<kDkvConsumerRegs>();
+    sm90::reg_alloc<kConsumerRegs>();
     const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int r0 = k0 + 64 * w + 16 * warp + g;  // key rows r0 and r0 + 8
@@ -486,10 +566,10 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // P^T, dS^T: A fragments
 
     auto stage = [&](int i) {
-      return smem + L::kRing + (i % kDkvStages) * L::kStage;
+      return smem + L::kRing + (i % kStages) * L::kStage;
     };
     auto wait_full = [&](int i) {
-      sm90::mbar_wait(&full[i % kDkvStages], (i / kDkvStages) & 1);
+      sm90::mbar_wait(&full[i % kStages], (i / kStages) & 1);
     };
     // S^T = K Q^T and dP^T = V dO^T of tile i, 64 keys x BQ queries
     // (issued, not waited).
@@ -583,7 +663,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     sm90::mbar_wait(kv_full, 0);
     for (int i = 0; i < i0; ++i) {  // tiles only the other warpgroup sees
       wait_full(i);
-      sm90::mbar_arrive(&empty[i % kDkvStages]);
+      sm90::mbar_arrive(&empty[i % kStages]);
     }
     // Software pipeline over the live tiles: while P^T and dS^T of tile i
     // are formed on the CUDA cores, the tensor cores run dV and dK of tile
@@ -593,7 +673,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dv);
       sm90::fence_regs(dk);
-      sm90::mbar_arrive(&empty[i % kDkvStages]);
+      sm90::mbar_arrive(&empty[i % kStages]);
     };
     if (i0 < n) {
       wait_full(i0);
@@ -648,6 +728,7 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 // adjacent lanes of one warp, and lane c8 of a row takes the columns
 // c8 + 8 i of the streamed tile and the features c8 + 8 j.
 
+constexpr int kThreads = 128;
 constexpr int kSRows = 16;   // rows per block (queries for dq, keys for dk/dv)
 constexpr int kSDkvBQ = 16;  // queries per tile of the dk/dv kernel
 
@@ -832,15 +913,50 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
 }
 
 template <int D>
-cudaError_t launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    dim3 grid((a.sq + kDqBQ - 1) / kDqBQ, a.h, b);
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, 0, st>>>(a);
-  } else {
-    dim3 grid((a.sq + kSRows - 1) / kSRows, a.h, b);
-    flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, st>>>(a);
-  }
-  return cudaGetLastError();
+int launch_dq_bf16(const Args& a, int b, cudaStream_t st) {
+  using L = DqSmem<D>;
+  DqParams p;
+  int err = sm90::encode_rows_bf16(&p.q, a.q, D, a.sq, a.h, b, a.sqs, a.sqh,
+                                   a.sqb, kDqBM);
+  if (!err)
+    err = sm90::encode_rows_bf16(&p.dout, a.dout, D, a.sq, a.h, b, a.sds,
+                                 a.sdh, a.sdb, kDqBM);
+  if (!err)
+    err = sm90::encode_rows_bf16(&p.k, a.k, D, a.sk, a.h, b, a.sks, a.skh,
+                                 a.skb, kDqBN);
+  if (!err)
+    err = sm90::encode_rows_bf16(&p.v, a.v, D, a.sk, a.h, b, a.svs, a.svh,
+                                 a.svb, kDqBN);
+  if (err) return err;
+  p.lse = a.lse;
+  p.c = a.c;
+  p.dq = static_cast<__nv_bfloat16*>(a.o1);
+  p.s1b = a.s1b;
+  p.s1h = a.s1h;
+  p.s1s = a.s1s;
+  p.h = a.h;
+  p.sq = a.sq;
+  p.sk = a.sk;
+  p.causal = a.causal;
+  p.q_offset = a.q_offset;
+  p.kv_offset = a.kv_offset;
+  p.scale = a.scale;
+  constexpr int bytes = L::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_bf16_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.h, b, (a.sq + kDqBM - 1) / kDqBM);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kBlockThreads, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {
+  if (dtype == 1) return launch_dq_bf16<D>(a, b, st);
+  dim3 grid((a.sq + kSRows - 1) / kSRows, a.h, b);
+  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int D>
@@ -883,7 +999,7 @@ int launch_dkv_bf16(const Args& a, int b, cudaStream_t st) {
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.h, b, (a.sk + kDkvBN - 1) / kDkvBN);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kDkvThreads, bytes, st>>>(p);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -933,9 +1049,8 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                             scale);
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      d == 64 ? launch_dq<64>(a, b, dtype, st) : launch_dq<128>(a, b, dtype, st);
-  return static_cast<int>(err);
+  return d == 64 ? launch_dq<64>(a, b, dtype, st)
+                 : launch_dq<128>(a, b, dtype, st);
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v,

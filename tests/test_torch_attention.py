@@ -164,10 +164,17 @@ def _cotangents(seed, q, with_lse=True):
 
 
 @pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
-@pytest.mark.parametrize("causal", [False, True])
-def test_flash_gradients_match_reference(causal, dtype):
+@pytest.mark.parametrize("causal,s,d", [
+    pytest.param(False, 128, 64, id="False"),
+    pytest.param(True, 128, 64, id="True"),
+    # the edges of the CUDA dq kernel's tiles: head dim 128 with a ragged
+    # last 128-query block and 64-key tile; a 128-query block whose second
+    # 64-row half holds 8 rows below Sq
+    pytest.param(True, 200, 128, id="True-d128-s200"),
+    pytest.param(True, 72, 64, id="True-s72")])
+def test_flash_gradients_match_reference(causal, s, d, dtype):
     # tests/test_attention.py:85: lse in the loss, so dlse != 0
-    q, k, v = _qkv(5, b=1, h=2, s=128, d=64)
+    q, k, v = _qkv(5, b=1, h=2, s=s, d=d)
     want, got, _ = _vjp_both(q, k, v, *_cotangents(9, q), dtype,
                              causal=causal)
     _assert_grads_close(want, got, dtype)

@@ -85,7 +85,11 @@ def _rows_close(got, want, dead, rel):
                           (128, 128, 64, True, 0, 64),
                           (136, 520, 64, True, 384, 0),
                           (40, 40, 64, True, 0, 0),
-                          (200, 200, 128, True, 0, 0)])
+                          (200, 200, 128, True, 0, 0),
+                          # one 128-row dq block whose second warpgroup
+                          # holds 8 rows below Sq and 56 past it
+                          (72, 72, 64, True, 0, 0),
+                          (72, 136, 128, False, 0, 0)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -120,10 +124,12 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
         _rows_close(got, want, dead, rel)
 
 
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
 @pytest.mark.parametrize("d", [64, 128])
-def test_dkv_kernel_is_deterministic(cuda, d):
-    # Each key row is written by one block, with no atomics: two launches
-    # on the same inputs give the same bits.
+def test_dkv_kernel_is_deterministic(cuda, d, kernel):
+    # Each dq row (dq kernel) and each dk/dv row (dk/dv kernel) is written
+    # by one block, with no atomics: two launches on the same inputs give
+    # the same bits.
     g = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do = (torch.randn((2, 3, 328, d), generator=g, device=cuda)
                    .to(torch.bfloat16) for _ in range(4))
@@ -131,8 +137,11 @@ def test_dkv_kernel_is_deterministic(cuda, d):
     with torch.no_grad():
         out, lse = attention.flash_attention(q, k, v, causal=True)
     c = attention.flash_bwd_prep(do, out)
-    first = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw)
-    second = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw)
+    launch = {"dq": lambda: (attention._flash_bwd_dq_cuda(
+        q, k, v, do, lse, c, **kw),),
+        "dkv": lambda: attention._flash_bwd_dkv_cuda(
+            q, k, v, do, lse, c, **kw)}[kernel]
+    first, second = launch(), launch()
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
