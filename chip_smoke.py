@@ -13,7 +13,8 @@ Phases; any failure raises and ends the run with a non-zero exit:
    convolutions (the plain versions are then exact f32 references);
 2. build: every CUDA kernel of the port, from the sources in the
    checkout (one ``nvcc`` per source, all started together); the ptxas
-   report must show no register spills;
+   report must show no register spills. Beside them, the store's native
+   core (one ``g++`` per translation unit, all started together);
 3. kernels: each kernel (flash forward, dq, dk/dv) against its plain
    PyTorch version on the card, at the main path's shapes and at edge
    cases (ragged tiles, fewer queries than a tile, offsets, fully-masked
@@ -39,7 +40,22 @@ Phases; any failure raises and ends the run with a non-zero exit:
    before and read just after: each of the three kernels must have run
    8 x 8 + 2 x 8 = 80 times; losses finite and falling. After the counted
    run, the fused cross-entropy head is timed alone and one more step
-   runs under torch.profiler.
+   runs under torch.profiler;
+7. VAE DDP slice (``examples/vae_mnist.py`` at its defaults): a VAE step
+   on the card against the same step on the CPU; then 2 rank processes
+   (``spawn``), both on the one card, form a ``TorchGroup`` over gloo and
+   a ``DDStore(backend="tcp")`` over it, register the two halves of
+   ``synthetic_mnist(60000)`` (uint8, 47 MB), and train the VAE under
+   ``DistributedDataParallel`` for one epoch at a global batch of 128 (468
+   steps of 64 a rank) with an eval pass after it; the gradient
+   all-reduce goes over gloo (NCCL refuses two ranks on one device).
+   Checked: finite losses whose last 20 average below the first 20, both
+   ranks' parameters bit-identical (a checksum gathered through the
+   group), about half the rows read from the other rank, one staged
+   batch equal to ``data[idx] / 255``, no attention kernel launched.
+   After the counted epoch, 20 more steps run under torch.profiler on
+   rank 0. Last, a one-process NCCL group runs 5 DDP steps, which must
+   equal the same steps without DDP.
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
@@ -52,22 +68,34 @@ result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import multiprocessing as mp
+import os
+import queue
+import socket
 import subprocess
 import sys
 import time
+import traceback
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
+from ddstore_tpu_torch import _build as native_build
 from ddstore_tpu_torch.data.dataset import DistributedSampler, ShardedDataset
+from ddstore_tpu_torch.data.formats import synthetic_mnist
 from ddstore_tpu_torch.data.loader import DeviceLoader
 from ddstore_tpu_torch.models import decode as tdec
 from ddstore_tpu_torch.models import transformer as ttr
+from ddstore_tpu_torch.models import vae as tvae
 from ddstore_tpu_torch.ops import _build, attention
 from ddstore_tpu_torch.ops.xent import fused_linear_xent
+from ddstore_tpu_torch.rendezvous import TorchGroup
 from ddstore_tpu_torch.store import DDStore
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of
@@ -80,6 +108,13 @@ VOCAB, DIM, HEADS, LAYERS = 32768, 1024, 16, 8
 WINDOWS, SEQ, BATCH = 4096, 2048, 8
 LOSS_BATCHES, NEW_TOKENS = 4, 32
 TRAIN_STEPS, TRAIN_LR, WARMUP_STEPS = 8, 1e-3, 2  # lm_longcontext.py:56
+# The VAE slice: the MNIST train set's size, the global batch of
+# examples/vae_mnist.py:38, two rank processes on the one card; a step on
+# the card is held to the CPU step at tests/test_torch_vae.py's bf16
+# tolerances (loss rtol, each gradient leaf relative to its largest).
+VAE_SAMPLES, VAE_RANKS, VAE_BATCH = 60000, 2, 128
+VAE_PROFILE_STEPS, VAE_NCCL_STEPS, VAE_TREND = 20, 5, 20
+VAE_LOSS_RTOL, VAE_GRAD_TOL = 5e-3, 2e-2
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -658,8 +693,12 @@ def time_prefill(model, prompts, positions, one_shot_s, repeats=5):
 
 def device_profile(name, fn):
     """Run ``fn`` once under torch.profiler (after one warm call) and
-    print the busy share of the window (self device time of all kernels
-    over the window's host wall time) and its largest kernels."""
+    print the busy share of the window and its largest kernels. Busy is
+    the union of the device's kernel and copy intervals over the
+    window's host wall time; the profiler's user annotations on the
+    device track (``DistributedDataParallel.forward``, ``Optimizer.step``,
+    ``gloo:all_reduce``: ranges that span kernels and the gaps between
+    them) are left out, as is any device event named like a host one."""
     fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -668,17 +707,34 @@ def device_profile(name, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows only: an operator's row repeats its kernels' time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    busy = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    top = "; ".join(f"{k[:60]} {ms:.3f} ms x{n}" for k, ms, n in rows[:10])
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    host = {e.name for e in events if e.device_type != cuda}
+    work = [e for e in events if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in host]
+    by_name = {}
+    for e in work:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy, end = 0.0, None  # the union of the intervals
+    for a, b in sorted((e.time_range.start, e.time_range.end)
+                       for e in work):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    busy /= 1e3
+    rows = sorted(by_name.items(), key=lambda r: -r[1][0])
+    top = "; ".join(f"{k[:60]} {ms:.3f} ms x{n}"
+                    for k, (ms, n) in rows[:10])
     print(f"profile {name}: host wall {wall_ms:.3f} ms, device busy "
-          f"{busy:.3f} ms ({busy / wall_ms:.1%}); top kernels: "
+          f"{busy:.3f} ms ({busy / wall_ms:.1%}; kernels and copies sum "
+          f"{sum(ms for ms, _ in by_name.values()):.3f} ms); top: "
           f"{top or 'no device time captured'}", flush=True)
+    return wall_ms, busy
 
 
 def profile_breakdown(model, prompts, positions):
@@ -793,10 +849,330 @@ def time_head(dev, model, targets, step_s):
           f"{flops / ms / 1e9:.1f} TFLOP/s", flush=True)
 
 
-def kernel_table(kern, bwd, sl, tr):
-    """The kernels' JSON line: launches are the training path's (this
-    slice's), with each path's counts beside them."""
-    by_path = {k: {"serving": sl["launches"][k], "training": v}
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def param_digest(model) -> str:
+    return hashlib.sha256(b"".join(
+        p.detach().cpu().numpy().tobytes()
+        for p in model.parameters())).hexdigest()
+
+
+def vae_card_vs_cpu(dev, seed):
+    """One VAE step (loss and gradients, bf16 hidden layers) on the card
+    against the same step on the CPU: same weights, batch and eps."""
+    cpu = tvae.VAE(device="cpu").init_weights(
+        torch.Generator().manual_seed(seed))
+    card = tvae.VAE(device=dev)
+    card.load_state_dict(cpu.state_dict())
+    per_rank = VAE_BATCH // VAE_RANKS
+    raw = torch.from_numpy(synthetic_mnist(per_rank, seed)[0])
+    eps = torch.randn((per_rank, tvae.LATENT),
+                      generator=torch.Generator().manual_seed(seed + 1))
+    res = []
+    for model, d in ((cpu, torch.device("cpu")), (card, dev)):
+        x = tvae._dequantize(raw.to(d))
+        logits, mu, logvar = model(x, eps=eps.to(d))
+        loss = tvae.loss_fn(logits, x, mu, logvar)
+        loss.backward()
+        res.append((loss.item(), {n: p.grad.cpu() for n, p in
+                                  model.named_parameters()}))
+    (lc, gc), (lg, gg) = res
+    worst = max(float((gg[n] - gc[n]).abs().max() / gc[n].abs().max())
+                for n in gc)
+    msg = (f"vae card vs cpu: loss {lg} vs {lc} (relative "
+           f"{abs(lg - lc) / abs(lc):.3e}, tol {VAE_LOSS_RTOL}); worst "
+           f"gradient leaf error {worst:.3e} of its largest (tol "
+           f"{VAE_GRAD_TOL})")
+    print(msg, flush=True)
+    check(abs(lg - lc) <= VAE_LOSS_RTOL * abs(lc) and worst <= VAE_GRAD_TOL,
+          msg)
+
+
+def vae_rank(rank, port, seed, q):
+    """One rank of the VAE DDP phase, in a spawned process; its result
+    (or its traceback) goes to ``q``."""
+    try:
+        q.put((rank, True, _vae_rank(rank, port, seed)))
+    except Exception:  # noqa: BLE001 — the parent fails the run
+        q.put((rank, False, traceback.format_exc()))
+
+
+def _vae_rank(rank, port, seed):
+    torch.cuda.set_device(0)  # both ranks share the card; before any use
+    os.environ["DDSTORE_HOST"] = "127.0.0.1"
+    os.environ["DDSTORE_CMA"] = "0"  # the other rank's rows come over TCP
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=VAE_RANKS)
+    group = TorchGroup()
+    store = DDStore(group, backend="tcp")
+    try:
+        out = _vae_train(rank, group, store, torch.device("cuda", 0), seed)
+        out["transport"] = store.transport_facts()
+        out["cma_ops"] = store.cma_ops
+        return out
+    finally:
+        store.close()
+        dist.destroy_process_group()
+
+
+def _vae_train(rank, group, store, dev, seed):
+    t0 = time.perf_counter()
+    data = synthetic_mnist(VAE_SAMPLES, seed)[0]
+    ds = ShardedDataset(store, data)
+    setup_s = time.perf_counter() - t0
+    per_rank = VAE_BATCH // VAE_RANKS
+    model = tvae.VAE(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    _, opt = tvae.create_train_state(model)
+    step = tvae.make_train_step(model, opt, group=dist.group.WORLD)
+    sampler = DistributedSampler(len(ds), VAE_RANKS, rank, seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1 + rank)
+    loader = DeviceLoader(ds, sampler, per_rank, device=dev)
+    first = sampler.epoch_indices()[:per_rank]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()  # count the main path alone
+    losses, step_s = [], []
+    t_start = time.perf_counter()
+    for i, xb in enumerate(loader):
+        if i == 0:
+            want = torch.from_numpy(data[first]).to(dev).float() / 255.0
+            check(bool(torch.equal(tvae._dequantize(xb), want)),
+                  "staged batch != data[idx] / 255")
+        t1 = time.perf_counter()
+        losses.append(float(step(xb, generator=gen)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts()
+    summary = loader.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    ev = tvae.make_eval_step(model, group=dist.group.WORLD)
+    t1 = time.perf_counter()
+    ev_loss = sum(float(ev(xb, generator=gen)) for xb in DeviceLoader(
+        ds, DistributedSampler(len(ds), VAE_RANKS, rank, shuffle=False),
+        per_rank, device=dev))
+    eval_s = time.perf_counter() - t1
+
+    # more steps, under the profiler on rank 0 (every rank runs the same
+    # number: each one is a collective)
+    sampler.set_epoch(1)
+    batches = iter(DeviceLoader(ds, sampler, per_rank, device=dev))
+
+    def steps():
+        for _ in range(VAE_PROFILE_STEPS):
+            float(step(next(batches), generator=gen))
+
+    if rank == 0:
+        prof = device_profile(f"vae ddp {VAE_PROFILE_STEPS} steps, rank 0",
+                              steps)
+    else:
+        steps()
+        steps()
+        prof = None
+    xb = next(batches)
+    batches.close()
+    return {"breakdown": vae_step_breakdown(model, xb, gen),
+            "losses": losses, "step_s": step_s, "wall_s": wall,
+            "setup_s": setup_s, "eval_loss": ev_loss, "eval_s": eval_s,
+            "launches": launches, "summary": summary, "peak_bytes": peak,
+            "rows": len(step_s) * per_rank,
+            "row_bytes": store.row_nbytes(ds.data_var), "profile": prof,
+            "checksums": group.allgather(param_digest(model))}
+
+
+def median_ms(fn, n=VAE_PROFILE_STEPS):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+def vae_step_breakdown(model, xb, gen):
+    """Parts of a DDP step timed alone (median ms of VAE_PROFILE_STEPS,
+    after the counted epoch; every rank runs the same collectives): the
+    gloo all-reduce of the gradients' size on the card and on the host,
+    the summed loss's all-reduce, and the step of a copy of the model
+    without DDP."""
+    dev = xb.device
+    grads = torch.zeros(sum(p.numel() for p in model.parameters()),
+                        device=dev)
+    host = grads.cpu()
+    scalar = torch.zeros((), device=dev)
+    local = tvae.VAE(device=dev)
+    local.load_state_dict(model.state_dict())
+    local_step = tvae.make_train_step(local,
+                                      tvae.create_train_state(local)[1])
+    return {"allreduce_grads_card_ms": median_ms(
+                lambda: dist.all_reduce(grads)),
+            "allreduce_grads_host_ms": median_ms(
+                lambda: dist.all_reduce(host)),
+            "allreduce_loss_ms": median_ms(lambda: dist.all_reduce(scalar)),
+            "step_without_ddp_ms": median_ms(
+                lambda: float(local_step(xb, generator=gen))),
+            "grad_elements": grads.numel()}
+
+
+def run_vae_ranks(seed):
+    """Spawn the rank processes and collect their results; any rank that
+    fails, or dies without a result, fails the run."""
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=vae_rank, args=(r, port, seed, q))
+             for r in range(VAE_RANKS)]
+    for p in procs:
+        p.start()
+    results, errors = {}, {}
+    deadline = time.monotonic() + 900
+    try:
+        while len(results) + len(errors) < VAE_RANKS:
+            try:
+                rank, ok, value = q.get(timeout=5)
+                (results if ok else errors)[rank] = value
+                continue
+            except queue.Empty:
+                pass
+            dead = [r for r, p in enumerate(procs) if p.exitcode not in
+                    (None, 0) and r not in results and r not in errors]
+            check(not dead, f"vae rank(s) {dead} died with exit codes "
+                            f"{[procs[r].exitcode for r in dead]}")
+            check(time.monotonic() < deadline, "vae ranks timed out")
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(not errors, f"vae rank failures: {errors}")
+    return [results[r] for r in range(VAE_RANKS)]
+
+
+@torch.no_grad()
+def _largest_difference(a, b) -> float:
+    return max(float((x - y).abs().max())
+               for x, y in zip(a.parameters(), b.parameters()))
+
+
+def vae_nccl(dev, seed, card):
+    """A one-process NCCL group: VAE_NCCL_STEPS DDP steps on the card,
+    held to the same steps without DDP (a sum over one rank)."""
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl", "not an NCCL group")
+        per_rank = VAE_BATCH // VAE_RANKS
+        models = [tvae.VAE(device=dev).init_weights(
+            torch.Generator(device=dev).manual_seed(seed)) for _ in "ab"]
+        steps = [tvae.make_train_step(m, tvae.create_train_state(m)[1],
+                                      group=g)
+                 for m, g in zip(models, (dist.group.WORLD, None))]
+        raw = torch.from_numpy(synthetic_mnist(
+            VAE_NCCL_STEPS * per_rank, seed + 2)[0]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        got = []
+        for i in range(VAE_NCCL_STEPS):
+            xb = raw[i * per_rank:(i + 1) * per_rank]
+            eps = torch.randn((per_rank, tvae.LATENT), generator=gen,
+                              device=dev)
+            got.append([float(s(xb, eps=eps)) for s in steps])
+        diff = _largest_difference(*models)
+        print(f"vae nccl (one process, NCCL group of 1) | {card}: "
+              f"{VAE_NCCL_STEPS} DDP steps, losses (ddp, plain) {got}; "
+              f"largest parameter difference {diff:.3e}", flush=True)
+        check(all(math.isfinite(a) and abs(a - b) <= 1e-6 * abs(b)
+                  for a, b in got), f"nccl ddp steps {got}")
+        check(diff <= 1e-6, f"nccl ddp parameters differ by {diff}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_vae(dev, seed, card):
+    """The VAE DDP slice (phase 7)."""
+    vae_card_vs_cpu(dev, seed)
+    print(f"vae ddp: {VAE_RANKS} rank processes on cuda:0, gradients "
+          f"all-reduced over gloo (NCCL refuses two ranks on one "
+          f"device); the store's remote rows over TCP (DDSTORE_CMA=0)",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = run_vae_ranks(seed)
+    wall = time.perf_counter() - t0
+    per_rank = VAE_BATCH // VAE_RANKS
+    steps_want = (VAE_SAMPLES // VAE_RANKS) // per_rank
+    for r, res in enumerate(ranks):
+        losses, m = res["losses"], res["summary"]
+        med = float(np.median(res["step_s"]))
+        moved = m.get("bytes_moved", {}).get("bytes_over_dcn", 0)
+        remote = moved / (res["rows"] * res["row_bytes"])
+        print(f"vae ddp rank {r} | {card}: {len(losses)} steps of "
+              f"{per_rank}; median step {med * 1e3:.3f} ms = "
+              f"{per_rank / med:.1f} samples/s; epoch wall "
+              f"{res['wall_s']:.3f} s = {res['rows'] / res['wall_s']:.1f} "
+              f"samples/s; input_pipeline_efficiency "
+              f"{m['input_pipeline_efficiency']:.4f}; fetch (get_batch of "
+              f"{per_rank} rows, about half remote) p50 "
+              f"{m['host_fetch']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{m['host_fetch']['p99_s'] * 1e3:.3f} ms; bytes over the "
+              f"wire per epoch {moved} ({remote:.4f} of the rows); peak "
+              f"device memory {res['peak_bytes'] / 2**20:.1f} MiB; store "
+              f"set-up {res['setup_s']:.3f} s; eval loss per sample "
+              f"{res['eval_loss'] / VAE_SAMPLES:.3f} in "
+              f"{res['eval_s']:.3f} s; transport {res['transport']}, CMA "
+              f"ops {res['cma_ops']}; launches {res['launches']}",
+              flush=True)
+        check(len(losses) == steps_want, f"rank {r}: {len(losses)} steps")
+        check(all(math.isfinite(x) for x in losses), "vae loss not finite")
+        first = float(np.mean(losses[:VAE_TREND]))
+        last = float(np.mean(losses[-VAE_TREND:]))
+        check(last < first, f"vae loss did not fall: first {VAE_TREND} "
+                            f"{first}, last {last}")
+        check(moved > 0 and 0.45 <= remote <= 0.55,
+              f"rank {r}: {remote} of the rows were remote")
+        check(not any(res["launches"].values()),
+              f"attention kernels launched on the VAE path: "
+              f"{res['launches']}")
+        check(len(set(res["checksums"])) == 1,
+              f"ranks' parameters differ: {res['checksums']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          "the ranks' all-reduced losses differ")
+    meds = [float(np.median(res["step_s"])) for res in ranks]
+    total = sum(per_rank / x for x in meds)
+    wall_ms, busy_ms = ranks[0]["profile"]
+    print(f"vae ddp total | {card}: {total:.1f} samples/s at the ranks' "
+          f"median steps ({VAE_BATCH / max(meds):.1f} samples/s by the "
+          f"slower rank); losses {ranks[0]['losses'][0]:.1f} -> "
+          f"{ranks[0]['losses'][-1]:.1f} (sum over the global batch); "
+          f"device busy over {VAE_PROFILE_STEPS} profiled steps "
+          f"{busy_ms:.3f} of {wall_ms:.3f} ms ({busy_ms / wall_ms:.1%}); "
+          f"phase wall {wall:.1f} s (spawn included)", flush=True)
+    br = ranks[0]["breakdown"]
+    print(f"vae ddp step breakdown, rank 0 | {card}: median step "
+          f"{meds[0] * 1e3:.3f} ms; alone: the same step without DDP "
+          f"{br['step_without_ddp_ms']:.3f} ms, gloo all-reduce of the "
+          f"{br['grad_elements']} f32 gradients on the card "
+          f"{br['allreduce_grads_card_ms']:.3f} ms (on the host "
+          f"{br['allreduce_grads_host_ms']:.3f} ms), of the loss "
+          f"{br['allreduce_loss_ms']:.3f} ms", flush=True)
+    vae_nccl(dev, seed, card)
+    return {"launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]}}
+
+
+def kernel_table(kern, bwd, sl, tr, va):
+    """The kernels' JSON line: launches are the training path's (the
+    path that runs all three), with each path's counts beside them."""
+    by_path = {k: {"serving": sl["launches"][k], "training": v,
+                   "vae_ddp": va["launches"][k]}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -861,8 +1237,18 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build
-    build_s = _build.build_all()
+    # 2. build: the kernels, and the store's native core beside them
+    def timed_native_build():
+        t0 = time.perf_counter()
+        return native_build.build(), time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as ex:
+        native = ex.submit(timed_native_build)
+        build_s = _build.build_all()
+        native_path, native_s = native.result()
+    print(f"build native store core: {native_s:.2f} s "
+          f"({len(native_build.SOURCES)} translation units) -> "
+          f"{native_path}", flush=True)
     for name in _build.SOURCES:
         _build.load(name)
         # per kernel: its entry, registers, spills, and any wgmma that
@@ -881,14 +1267,15 @@ def main() -> int:
     kern = phase_kernels(dev)
     bwd = phase_bwd_kernels(dev)
 
-    # 4.-6. the small reference check, then the slices on the store
+    # 4.-7. the small reference check, then the slices on the store
     small_reference_check(dev, args.seed)
     store, ds = make_store(args.seed)
     sl = phase_slice(dev, args.seed, ds)
     tr = phase_train(dev, args.seed, ds)
     store.close()
+    va = phase_vae(dev, args.seed, card)
 
-    print(json.dumps(kernel_table(kern, bwd, sl, tr)), flush=True)
+    print(json.dumps(kernel_table(kern, bwd, sl, tr, va)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,22 @@ dedicated CUDA stream, and fenced with an event that the worker thread
 waits on, so the consumer gets tensors whose copy has completed. Staging
 time (gather to pinned excluded, copy to the card included) goes into
 ``metrics.stage`` and the consumer's wait into ``metrics.wait``.
+
+Over a multi-process store the rows of other ranks arrive over the
+native transport straight into the pinned buffer (``get_batch(out=)``);
+their bytes go into ``metrics.bytes_moved()["bytes_over_dcn"]``. A lost
+owner (``ERR_PEER_LOST``) surfaces from the iterator; a serving gateway's
+admission refusal (``ERR_ADMISSION``) is flow control, not failure: the
+batch backs off for the gateway's retry-after hint, with jitter seeded
+from ``DDSTORE_FAULT_SEED``, and is read again, at most
+``DDSTORE_GW_RETRY_MAX`` (default 8) times.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
+import random
 import threading
 import time
 from collections import deque
@@ -27,7 +38,9 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..binding import ERR_ADMISSION, DDStoreError
 from ..utils.metrics import PipelineMetrics
+from .device_fetch import host_bytes_over_dcn
 
 __all__ = ["DeviceLoader"]
 
@@ -100,6 +113,11 @@ class DeviceLoader:
         self.metrics = PipelineMetrics()
         self._copy_stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
+        self._admission_rng = random.Random(
+            int(os.environ.get("DDSTORE_FAULT_SEED", "0") or 0))
+        self._admission_mu = threading.Lock()
+        self._admission_retries = int(
+            os.environ.get("DDSTORE_GW_RETRY_MAX", "8") or 8)
 
     # -- internals ---------------------------------------------------------
 
@@ -127,17 +145,49 @@ class DeviceLoader:
             for shape, dtype in self.dataset.specs())
         return bufs[0] if len(bufs) == 1 else bufs
 
+    def _admission_backoff(self, e: DDStoreError) -> None:
+        """One sleep for the gateway's retry-after hint (1 ms to 1 s),
+        times a seeded jitter in [0.5, 1.5)."""
+        hint_ms = int(getattr(e, "retry_after_ms", 0) or 0)
+        sleep_s = min(max(hint_ms, 1), 1000) / 1000.0
+        with self._admission_mu:
+            sleep_s *= 0.5 + self._admission_rng.random()
+        time.sleep(sleep_s)
+
+    def _record_host_dcn(self, idx: np.ndarray) -> None:
+        """Rows owned by other ranks crossed the network (labels too)."""
+        store = getattr(self.dataset, "store", None)
+        if store is None or not hasattr(self.dataset, "data_var"):
+            return
+        names = [self.dataset.data_var, self.dataset.label_var]
+        self.metrics.add_bytes(bytes_over_dcn=sum(
+            host_bytes_over_dcn(store, v, idx) for v in names if v))
+
+    def _read(self, idx: np.ndarray, pinned):
+        if callable(self.dataset):
+            return self.dataset(idx)
+        for attempt in itertools.count():
+            try:
+                if pinned is None:
+                    batch = self.dataset.fetch(idx)
+                else:
+                    self.dataset.fetch(
+                        idx, out=_tree_map(lambda t: t.numpy(), pinned))
+                    batch = pinned
+                break
+            except DDStoreError as e:
+                if e.code != ERR_ADMISSION or \
+                        attempt >= self._admission_retries:
+                    raise  # ERR_PEER_LOST and the rest surface as they are
+                self.metrics.add_fault_event(admission_deferred_batches=1)
+                self._admission_backoff(e)
+        self._record_host_dcn(idx)
+        return batch
+
     def _fetch(self, idx: np.ndarray):
         pinned = self._pinned_out(len(idx))
         with self.metrics.fetch.timed():
-            if callable(self.dataset):
-                batch = self.dataset(idx)
-            elif pinned is not None:
-                self.dataset.fetch(
-                    idx, out=_tree_map(lambda t: t.numpy(), pinned))
-                batch = pinned
-            else:
-                batch = self.dataset.fetch(idx)
+            batch = self._read(idx, pinned)
         if self.transform is not None:
             with self._transform_lock:
                 batch = self.transform(batch)

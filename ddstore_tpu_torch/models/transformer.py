@@ -256,12 +256,12 @@ class TrainState:
     model holds the parameters and the optimizer its state, both updated
     in place by the step; ``step`` counts the updates made through it."""
 
-    model: TransformerLM
+    model: nn.Module
     opt: torch.optim.Optimizer
     step: int = 0
 
 
-def create_train_state(model: TransformerLM, lr: float = 3e-4
+def create_train_state(model: nn.Module, lr: float = 3e-4
                        ) -> Tuple[TrainState, torch.optim.Optimizer]:
     """Adam over the model's parameters with optax's defaults (b1 0.9, b2
     0.999, eps 1e-8 added outside the square root, no weight decay), as

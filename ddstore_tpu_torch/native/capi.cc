@@ -1,0 +1,976 @@
+// C ABI over the store core, consumed by the Python ctypes binding
+// (ddstore_tpu/binding.py). Fills the role of the reference's Cython layer
+// (reference src/pyddstore.pyx:33-131) but is dtype-agnostic: rows are
+// byte spans here; dtype dispatch lives in Python where numpy already knows
+// it (the reference instantiates six C++ templates instead,
+// pyddstore.pyx:69-82).
+
+#include <cstdint>
+#include <cstring>
+#include <memory>
+#include <string>
+#include <vector>
+
+#include "fault.h"
+#include "local_transport.h"
+#include "store.h"
+#include "tcp_transport.h"
+#include "trace.h"
+#include "uring_transport.h"
+
+using dds::Store;
+
+extern "C" {
+
+struct dds_handle {
+  std::unique_ptr<Store> store;
+  dds::TcpTransport* tcp = nullptr;      // borrowed, owned by store
+  dds::UringTransport* uring = nullptr;  // borrowed; also set as tcp (subclass)
+  dds::LocalTransport* local = nullptr;  // borrowed, owned by store
+  std::string local_gid;
+};
+
+dds_handle* dds_create_local(const char* group_id, int rank, int world) {
+  auto group = dds::LocalGroup::GetOrCreate(group_id, world);
+  if (!group) return nullptr;
+  auto transport = std::make_unique<dds::LocalTransport>(std::move(group), rank);
+  dds::LocalTransport* raw = transport.get();
+  auto* h = new dds_handle();
+  h->store = std::make_unique<Store>(std::move(transport));
+  h->local = raw;
+  h->local_gid = group_id;
+  raw->Attach(h->store.get());
+  return h;
+}
+
+dds_handle* dds_create_tcp(int rank, int world, int port) {
+  auto transport = std::make_unique<dds::TcpTransport>(rank, world, port);
+  if (transport->server_port() < 0) return nullptr;
+  dds::TcpTransport* raw = transport.get();
+  auto* h = new dds_handle();
+  h->store = std::make_unique<Store>(std::move(transport));
+  h->tcp = raw;
+  raw->Attach(h->store.get());
+  return h;
+}
+
+// DDSTORE_TRANSPORT=uring. A UringTransport IS a TcpTransport (the
+// wire loop is the only override), so every tcp entry point here —
+// dds_set_peers, dds_server_port, faults, failover, gateway — serves
+// uring handles through h->tcp unchanged. When the capability probe
+// refuses (gVisor-class kernels), the handle still constructs and
+// serves through the inherited TCP path; dds_uring_state/_reason
+// export that verdict as a first-class fact.
+dds_handle* dds_create_uring(int rank, int world, int port) {
+  auto transport = std::make_unique<dds::UringTransport>(rank, world, port);
+  if (transport->server_port() < 0) return nullptr;
+  dds::UringTransport* raw = transport.get();
+  auto* h = new dds_handle();
+  h->store = std::make_unique<Store>(std::move(transport));
+  h->tcp = raw;
+  h->uring = raw;
+  raw->Attach(h->store.get());
+  return h;
+}
+
+int dds_server_port(dds_handle* h) {
+  return h && h->tcp ? h->tcp->server_port() : -1;
+}
+
+int dds_set_peers(dds_handle* h, const char** hosts, const int* ports, int n) {
+  if (!h || !h->tcp) return dds::kErrInvalidArg;
+  std::vector<std::string> hs(hosts, hosts + n);
+  std::vector<int> ps(ports, ports + n);
+  return h->tcp->SetPeers(hs, ps);
+}
+
+int dds_update_peer(dds_handle* h, int target, const char* host_csv,
+                    int port) {
+  if (!h || !h->tcp || !host_csv) return dds::kErrInvalidArg;
+  int rc = h->tcp->UpdatePeer(target, host_csv, port);
+  // The replacement process gets a clean liveness slate: suspicion
+  // belonged to the dead process at the old endpoint.
+  if (rc == dds::kOk) h->store->ClearPeerSuspected(target);
+  return rc;
+}
+
+// -- replication / failover / heartbeat --------------------------------------
+
+// The replication factor in force (DDSTORE_REPLICATION clamped to
+// [1, world]; 1 = replication off, exactly the pre-replication tree).
+int dds_replication(dds_handle* h) {
+  return h ? h->store->replication() : dds::kErrInvalidArg;
+}
+
+// Pull/refresh this rank's mirrors of `name` (the shards of the next
+// R-1 ranks). The Python add() calls it after the registration barrier
+// (every owner's shard must exist before any holder pulls).
+int dds_replicate(dds_handle* h, const char* name) {
+  if (!h || !name) return dds::kErrInvalidArg;
+  return h->store->Replicate(name);
+}
+
+// Re-pull EVERY mirror this rank hosts, creating missing ones — the
+// elastic-recovery rebuild (survivors re-mirror the replacement's
+// restored shard; the replacement builds its chain from scratch).
+// Suspected/unreachable owners are skipped, never fatal.
+int dds_refresh_mirrors(dds_handle* h) {
+  if (!h) return dds::kErrInvalidArg;
+  h->store->RefreshMirrors();
+  return dds::kOk;
+}
+
+// Replica set of `owner`'s shard, primary first (chain placement).
+// Returns the count written into `out` (bounded by cap).
+int dds_replica_set(dds_handle* h, int owner, int* out, int cap) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  return h->store->ReplicaSet(owner, out, cap);
+}
+
+// Per-peer liveness view (union of heartbeat verdicts and data-path
+// ladder give-ups): writes min(world, cap) 0/1 suspicion flags,
+// returns the count written.
+int dds_health_state(dds_handle* h, int64_t* out, int cap) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  return h->store->HealthState(out, cap);
+}
+
+// Runtime heartbeat control: interval_ms > 0 (re)starts the detector
+// with that ping period (suspect_n <= 0 keeps the env/default
+// threshold); interval_ms <= 0 stops it. The suspect registry itself
+// survives a stop.
+int dds_heartbeat_configure(dds_handle* h, long interval_ms,
+                            int suspect_n) {
+  if (!h) return dds::kErrInvalidArg;
+  h->store->ConfigureHeartbeat(interval_ms, suspect_n);
+  return dds::kOk;
+}
+
+// Test/ops hook: force one peer into (or out of) the suspect set —
+// deterministic failover routing without killing anything.
+int dds_mark_suspect(dds_handle* h, int target, int suspected) {
+  if (!h) return dds::kErrInvalidArg;
+  if (suspected)
+    h->store->MarkPeerSuspected(target);
+  else
+    h->store->ClearPeerSuspected(target);
+  return dds::kOk;
+}
+
+// Failover/heartbeat observability snapshot. Layout (keep in sync with
+// binding.py FAILOVER_STAT_KEYS): [replication, failover_reads,
+// failover_runs, failover_bytes, suspect_skips, replica_giveups,
+// mirror_fills, mirror_refresh_skipped, mirror_bytes, hb_pings,
+// hb_failures, hb_suspects_raised, hb_active, suspected_now, 0, 0].
+int dds_failover_stats(dds_handle* h, int64_t out[16]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->FailoverCounters(out);
+  return dds::kOk;
+}
+
+// -- end-to-end data integrity ------------------------------------------------
+
+// Runtime integrity toggles: verify -1 keeps / 0 off / 1 on (reader-
+// side verification; also enables sum computation); scrub_ms -1 keeps /
+// 0 stops the background scrubber / >0 (re)starts it at that
+// per-mirror tick. Load-time equivalents: DDSTORE_VERIFY /
+// DDSTORE_SCRUB_MS.
+int dds_integrity_configure(dds_handle* h, int verify, long scrub_ms) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->ConfigureIntegrity(verify, scrub_ms);
+}
+
+// Integrity observability snapshot. Layout (keep in sync with
+// binding.py INTEGRITY_STAT_KEYS): [verify_mode, sums_tables,
+// sums_computed, sums_rows, sums_served, verified_reads,
+// verified_bytes, verify_mismatches, verify_seq_retries,
+// verify_primary_retries, verify_failovers, corrupt_errors,
+// scrub_rows, scrub_divergent, scrub_repaired, last_corrupt_peer].
+int dds_integrity_stats(dds_handle* h, int64_t out[16]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->IntegrityStats(out);
+  return dds::kOk;
+}
+
+// Owner-side sum read (test/debug hook): `count` per-row checksums of
+// the LOCAL shard of `name` starting at local row `row0`, plus the
+// content version they were computed at. Builds the table lazily;
+// kErrNotFound while integrity is disabled.
+int dds_integrity_sums(dds_handle* h, const char* name, int64_t row0,
+                       int64_t count, uint64_t* out, int64_t* seq) {
+  if (!h || !name || !out) return dds::kErrInvalidArg;
+  return h->store->RowSums(name, row0, count, out, seq);
+}
+
+// One synchronous scrub pass over every resident mirror (the
+// deterministic test/bench hook; the DDSTORE_SCRUB_MS thread does the
+// same one mirror per tick). Returns the number of divergent mirrors
+// found, or a negative ErrorCode.
+int dds_integrity_scrub(dds_handle* h) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->ScrubOnce();
+}
+
+// -- tiered storage: hot-row cache + cold placement ---------------------------
+
+// Runtime hot-row cache budget (bytes; 0 disables and evicts
+// everything, < 0 keeps). Load-time equivalent:
+// DDSTORE_TIER_CACHE_BYTES.
+int dds_tier_configure(dds_handle* h, int64_t cache_bytes) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->ConfigureTierCache(cache_bytes);
+}
+
+// Record a registered variable's storage tier (0 = hot RAM/shm, 1 =
+// cold file-backed) — drives the cold_vars/cold_bytes gauges; the
+// serving legs are tier-agnostic.
+int dds_set_var_tier(dds_handle* h, const char* name, int tier) {
+  if (!h || !name) return dds::kErrInvalidArg;
+  return h->store->SetVarTier(name, tier);
+}
+
+// The recorded tier of `name`, or a negative ErrorCode.
+int dds_var_tier(dds_handle* h, const char* name) {
+  if (!h || !name) return dds::kErrInvalidArg;
+  return h->store->VarTier(name);
+}
+
+// Per-tenant placement policy for mirror fills and snapshot kept
+// copies: cold != 0 lands them file-backed under DDSTORE_TIER_COLD_DIR.
+int dds_set_tier_placement(dds_handle* h, const char* tenant, int cold) {
+  if (!h || !tenant) return dds::kErrInvalidArg;
+  return h->store->SetTierPlacement(tenant, cold);
+}
+
+// Warm the hot-row cache with `n` sorted-unique global rows of `name`
+// as window `window` (the eviction key); the fill runs detached on the
+// async pool. Advisory: disabled-cache / duplicate / over-budget calls
+// are counted no-ops. `as_tenant` (nullable) names the READING tenant
+// for the quota charge and QoS admission.
+int64_t dds_cache_prefetch(dds_handle* h, const char* name,
+                           const int64_t* rows, int64_t n,
+                           int64_t window, const char* as_tenant) {
+  if (!h || !name) return dds::kErrInvalidArg;
+  return h->store->CachePrefetch(name, rows, n, window,
+                                 as_tenant ? as_tenant : "");
+}
+
+// Evict window `window`'s cache entries (< 0: every entry), releasing
+// their tenant-quota charges. Returns the count evicted.
+int dds_cache_evict(dds_handle* h, int64_t window) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->CacheEvict(window);
+}
+
+// Tiering observability snapshot. Layout (keep in sync with binding.py
+// TIERING_STAT_KEYS): [cache_max_bytes, cache_bytes, cache_entries,
+// cold_vars, cold_bytes, cache_hits, cache_hit_bytes, cache_misses,
+// cache_miss_bytes, cache_fills, cache_fill_bytes, cache_fill_failures,
+// cache_evictions, cache_evicted_bytes, cache_over_budget,
+// cache_prefetches].
+int dds_tiering_stats(dds_handle* h, int64_t out[16]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->TieringStats(out);
+  return dds::kOk;
+}
+
+// -- io_uring data plane ------------------------------------------------------
+
+// Process-wide capability probe, independent of any store (the diag
+// module reports it before deciding a transport). Layout: [supported,
+// features, op_send, op_recv, op_sendmsg, op_recvmsg, op_read,
+// op_read_fixed, ext_arg, reserved].
+int dds_uring_probe(int64_t out[10]) {
+  if (!out) return dds::kErrInvalidArg;
+  const dds::UringCaps& c = dds::ProbeUring();
+  out[0] = c.supported ? 1 : 0;
+  out[1] = static_cast<int64_t>(c.features);
+  out[2] = c.op_send ? 1 : 0;
+  out[3] = c.op_recv ? 1 : 0;
+  out[4] = c.op_sendmsg ? 1 : 0;
+  out[5] = c.op_recvmsg ? 1 : 0;
+  out[6] = c.op_read ? 1 : 0;
+  out[7] = c.op_read_fixed ? 1 : 0;
+  out[8] = c.ext_arg ? 1 : 0;
+  out[9] = 0;
+  return dds::kOk;
+}
+
+// The probe's human-readable verdict ("ok" or why not). Returns the
+// full reason length; the copy is NUL-terminated and truncated to cap.
+int dds_uring_probe_reason(char* buf, int cap) {
+  const std::string& r = dds::ProbeUring().reason;
+  if (buf && cap > 0) {
+    const int n = static_cast<int>(r.size()) < cap - 1
+                      ? static_cast<int>(r.size())
+                      : cap - 1;
+    std::memcpy(buf, r.data(), n);
+    buf[n] = '\0';
+  }
+  return static_cast<int>(r.size());
+}
+
+// 1 = uring handle with the ring engaged, 0 = uring handle serving
+// through the TCP fallback (probe refused), -1 = not a uring handle.
+int dds_uring_state(dds_handle* h) {
+  if (!h || !h->uring) return -1;
+  return h->uring->engaged() ? 1 : 0;
+}
+
+// This handle's engagement/fallback reason ("ok" when engaged).
+// Same copy contract as dds_uring_probe_reason; -1 for non-uring.
+int dds_uring_reason(dds_handle* h, char* buf, int cap) {
+  if (!h || !h->uring) return -1;
+  const std::string& r = h->uring->reason();
+  if (buf && cap > 0) {
+    const int n = static_cast<int>(r.size()) < cap - 1
+                      ? static_cast<int>(r.size())
+                      : cap - 1;
+    std::memcpy(buf, r.data(), n);
+    buf[n] = '\0';
+  }
+  return static_cast<int>(r.size());
+}
+
+// Wire-loop counters: [engaged, bursts, enters, sqes, frames,
+// fallbacks, ring_errors]. A healthy engaged run shows enters far
+// below frames (the point); fallbacks counts reads served by the
+// inherited TCP loop after a per-lane ring refusal.
+int dds_uring_stats(dds_handle* h, int64_t out[7]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  if (!h->uring) return dds::kErrInvalidArg;
+  h->uring->UringCounters(out);
+  return dds::kOk;
+}
+
+// Cold-tier O_DIRECT reader counters, any handle: [files, reads,
+// bytes, fallbacks, regbuf, ring_ok].
+int dds_cold_direct_stats(dds_handle* h, int64_t out[6]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->ColdDirectStats(out);
+  return dds::kOk;
+}
+
+// Register a READONLY cold var's backing file for O_DIRECT serving
+// (Store::SetVarFile contract: tier-1 vars only; kErrTransport when
+// io_uring/O_DIRECT is unavailable — the var stays on the mmap path).
+int dds_set_var_file(dds_handle* h, const char* name, const char* path) {
+  if (!h || !name || !path) return dds::kErrInvalidArg;
+  return h->store->SetVarFile(name, path);
+}
+
+// Requester-side send gather counters for the TCP pipeline:
+// [req_frames, req_sends]. frames/sends is the writev gather factor
+// the half-window refill buys (1.0 = the old one-sendmsg-per-frame
+// steady state). Works on tcp AND uring handles (the uring wire loop
+// does not count here — its burst gather is visible in
+// dds_uring_stats instead).
+int dds_req_send_stats(dds_handle* h, int64_t out[2]) {
+  if (!h || !out || !h->tcp) return dds::kErrInvalidArg;
+  h->tcp->ReqSendCounters(out);
+  return dds::kOk;
+}
+
+// -- ddmetrics: live latency histograms + SLO monitor -------------------------
+
+// Runtime switch for THIS store's histograms (-1 keeps; load-time knob
+// DDSTORE_METRICS, default on). Per-store, unlike the process-global
+// trace rings: a ThreadGroup's in-process ranks keep separate surfaces.
+int dds_metrics_configure(dds_handle* h, int enabled) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->ConfigureMetrics(enabled);
+}
+
+int dds_metrics_enabled(dds_handle* h) {
+  return h && h->store->MetricsEnabled() ? 1 : 0;
+}
+
+// Zero every cell's counters (claimed keys/tenants stay interned).
+int dds_metrics_reset(dds_handle* h) {
+  if (!h) return dds::kErrInvalidArg;
+  h->store->MetricsReset();
+  return dds::kOk;
+}
+
+// Serialize this store's cells as packed metrics::CellRecords
+// (binding.py METRICS_CELL_DTYPE). out == NULL returns the worst-case
+// byte size; else the bytes written.
+int64_t dds_metrics_snapshot(dds_handle* h, void* out, int64_t cap) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->MetricsSnapshot(out, cap);
+}
+
+// Pull `target`'s snapshot over the control plane (kOpMetrics on the
+// dedicated PingConn; LocalTransport reads the peer registry
+// directly). Returns bytes written, or a negative ErrorCode —
+// kErrPeerLost for a detector-suspected/dead peer (zero budget burned,
+// never a giveup).
+int64_t dds_metrics_pull(dds_handle* h, int target, void* out,
+                         int64_t cap) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  return h->store->MetricsPull(target, out, cap);
+}
+
+// Counter snapshot: [enabled, cells, cells_cap, dropped_cells,
+// tenants, tenant_overflow, ops_recorded, 0] — keep in sync with
+// binding.py METRICS_STAT_KEYS.
+int dds_metrics_stats(dds_handle* h, int64_t out[8]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->MetricsStats(out);
+  return dds::kOk;
+}
+
+// CSV of interned reading-tenant labels in slot order (the default
+// tenant is the leading empty field). Returns the length written.
+int dds_metrics_tenants(dds_handle* h, char* out, int cap) {
+  if (!h || !out || cap <= 0) return dds::kErrInvalidArg;
+  return h->store->metrics_registry().TenantNamesCsv(out, cap);
+}
+
+// Test / Python-side injection hook: fold one synthetic op sample into
+// the histograms (bucket-math units, exporter fixtures, Python-layer
+// ops that never cross the native read path). kErrInvalidArg on an
+// out-of-range class/route/peer, like every sibling entry.
+int dds_metrics_record(dds_handle* h, int cls, int route, int peer,
+                       const char* tenant, int64_t lat_ns,
+                       int64_t bytes) {
+  if (!h || lat_ns < 0 || bytes < 0) return dds::kErrInvalidArg;
+  return h->store->MetricsRecord(cls, route, peer,
+                                 tenant ? tenant : "",
+                                 static_cast<uint64_t>(lat_ns),
+                                 static_cast<uint64_t>(bytes));
+}
+
+// Replace the tenant latency objectives ("t=p99:5ms,..."; empty
+// clears; load-time knob DDSTORE_TENANT_SLOS). Baselines reset to the
+// current histograms.
+int dds_slo_configure(dds_handle* h, const char* spec) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->SetTenantSlos(spec ? spec : "");
+}
+
+// Evaluate every objective over the delta window since the last
+// evaluation (rate-limited by DDSTORE_SLO_WINDOW_MS). Breach rows of 6
+// int64s [tenant_slot, pct, threshold_ns, measured_low_ns,
+// window_count, 0] land in `out` (<= cap_rows); returns the breach
+// count. Each breach emits a kSloBreach trace event and one flight
+// dump (kReasonSloBreach).
+int64_t dds_slo_evaluate(dds_handle* h, int64_t* out, int cap_rows) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  return h->store->EvaluateSlos(out, cap_rows);
+}
+
+// [rules, evaluations, breaches, window_ms, last_breach_tenant_slot,
+// 0, 0, 0] — keep in sync with binding.py SLO_STAT_KEYS.
+int dds_slo_stats(dds_handle* h, int64_t out[8]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->SloStats(out);
+  return dds::kOk;
+}
+
+// -- tenant namespaces / quotas / snapshot epochs -----------------------------
+
+// Byte/var budget for one tenant (< 0 = unlimited). Checked-and-
+// reserved atomically at add/init registration; kErrQuota (-11) on
+// exhaustion — classified distinctly from kErrPeerLost.
+int dds_tenant_set_quota(dds_handle* h, const char* tenant,
+                         int64_t max_bytes, int64_t max_vars) {
+  if (!h || !tenant) return dds::kErrInvalidArg;
+  return h->store->SetTenantQuota(tenant, max_bytes, max_vars);
+}
+
+// Async-admission weight (>= 1): with any share configured, tenant t
+// runs at most max(1, width * share_t / total) concurrent async reads.
+int dds_tenant_set_share(dds_handle* h, const char* tenant, int share) {
+  if (!h || !tenant) return dds::kErrInvalidArg;
+  return h->store->SetTenantShare(tenant, share);
+}
+
+// QoS lane budget for one tenant's striped reads (<= 0 clears). No-op
+// kOk on non-TCP backends (no lanes to budget).
+int dds_tenant_set_lane_budget(dds_handle* h, const char* tenant,
+                               int lanes) {
+  if (!h || !tenant) return dds::kErrInvalidArg;
+  if (!h->tcp) return dds::kOk;
+  return h->tcp->SetTenantLaneBudget(tenant, lanes);
+}
+
+// CSV of every tenant the store has seen; returns the length written.
+int dds_tenant_names(dds_handle* h, char* out, int cap) {
+  if (!h || !out || cap <= 0) return dds::kErrInvalidArg;
+  return h->store->TenantNames(out, cap);
+}
+
+// Per-tenant ledger snapshot. Layout (keep in sync with binding.py
+// TENANT_STAT_KEYS): [quota_bytes, quota_vars, bytes, vars,
+// quota_rejections, read_bytes, reads, served_bytes, served_reads,
+// async_admitted, async_deferred, snapshot_pins, share, 0, 0, 0].
+int dds_tenant_stats(dds_handle* h, const char* tenant,
+                     int64_t out[16]) {
+  if (!h || !tenant || !out) return dds::kErrInvalidArg;
+  return h->store->TenantCounters(tenant, out);
+}
+
+// Pin the store-wide current shard versions for a read-only snapshot
+// reader (local pin + a control op to every peer; all-or-nothing).
+// Returns a positive snapshot id, or a negative ErrorCode.
+int64_t dds_snapshot_acquire(dds_handle* h, const char* tenant) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->SnapshotAcquire(tenant ? tenant : "");
+}
+
+// Release a snapshot everywhere; kept versions whose last pin this was
+// are freed (dead peers best-effort).
+int dds_snapshot_release(dds_handle* h, int64_t snap_id) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->SnapshotRelease(snap_id);
+}
+
+// [active_snapshots, kept_versions, kept_bytes, reclaimed_pins] on
+// THIS rank.
+int dds_snapshot_stats(dds_handle* h, int64_t out[4]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->SnapshotCounters(out);
+  return dds::kOk;
+}
+
+// -- serving gateway ---------------------------------------------------------
+
+// Runtime gateway (re)configuration; -1 keeps each numeric field.
+// enabled >= 1 also clears a previous drain and (re)arms the lease
+// reaper; pin_ttl_ms arms stranded-pin reclaim even with the gateway
+// off.
+int dds_gateway_configure(dds_handle* h, int enabled, long lease_ms,
+                          long defer_ms, int queue_cap,
+                          int admit_margin_pct, int lane_share,
+                          long pin_ttl_ms) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->ConfigureGateway(enabled, lease_ms, defer_ms,
+                                    queue_cap, admit_margin_pct,
+                                    lane_share, pin_ttl_ms);
+}
+
+// Attach an ephemeral reader session on `target`'s gateway (target ==
+// this rank or < 0 attaches locally). Returns a positive session
+// token, or a negative ErrorCode.
+int64_t dds_gateway_attach(dds_handle* h, int target, const char* tenant,
+                           int with_snapshot, int64_t quota_bytes) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GatewayAttachTo(target, tenant ? tenant : "",
+                                   with_snapshot, quota_bytes);
+}
+
+// Lease heartbeat: kOk, or kErrNotFound after expiry (re-attach).
+int dds_gateway_renew(dds_handle* h, int target, int64_t token) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GatewayRenewTo(target, token);
+}
+
+// Graceful goodbye: releases the lease's pins/quota/lane share.
+int dds_gateway_detach(dds_handle* h, int target, int64_t token) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GatewayDetachTo(target, token);
+}
+
+// Stop admitting, wait up to deadline_ms for in-flight reads, shed
+// the rest with kErrAdmission. kOk when the gateway went quiet.
+int dds_gateway_drain(dds_handle* h, long deadline_ms) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GatewayDrain(deadline_ms);
+}
+
+// One synchronous lease/pin reap pass (the deterministic test hook for
+// the background reaper). Returns the number of stale pins reclaimed.
+int dds_gateway_reap(dds_handle* h) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GatewayReap();
+}
+
+// Layout (keep in sync with binding.py GATEWAY_STAT_KEYS):
+// [enabled, sessions, attaches, detaches, expired, renewals, admitted,
+//  deferred, rejected, drain_sheds, draining, inflight, deferred_now,
+//  last_retry_after_ms, 0, 0].
+int dds_gateway_stats(dds_handle* h, int64_t out[16]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  h->store->GatewayStats(out);
+  return dds::kOk;
+}
+
+int dds_routing_state(dds_handle* h, int cls, double* cma_bw,
+                      double* tcp_bw, int64_t* decisions,
+                      int64_t* crossovers, int* via_tcp, int* calibrated) {
+  if (!h || !h->tcp) return dds::kErrInvalidArg;
+  h->tcp->RoutingState(cls, cma_bw, tcp_bw, decisions, crossovers,
+                       via_tcp, calibrated);
+  return dds::kOk;
+}
+
+// Lane (striped-connection) observability. `out` receives
+// [max_lanes, active_lanes, parked, autotune, samples,
+//  best_bw_bytes_per_s, scatter_active_lanes, scatter_parked] —
+// slots 1-5 are the bulk-stripe tuner, 6-7 the scatter-class tuner
+// (keep in sync with TcpTransport::LaneState and binding.py
+// LANE_STATE_KEYS).
+int dds_lane_state(dds_handle* h, int64_t out[8]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  for (int i = 0; i < 8; ++i) out[i] = 0;
+  if (!h->tcp) return dds::kErrInvalidArg;  // lanes are a TCP concept
+  h->tcp->LaneState(out);
+  return dds::kOk;
+}
+
+// Per-lane response bytes (target >= 0: that peer's lanes; -1: summed
+// across peers, lane-aligned). Returns the lane count written into
+// `out` (bounded by cap), or a negative error.
+int dds_lane_bytes(dds_handle* h, int target, int64_t* out, int cap) {
+  if (!h || !out || cap <= 0) return dds::kErrInvalidArg;
+  if (!h->tcp) return dds::kErrInvalidArg;
+  return h->tcp->LaneBytes(target, out, cap);
+}
+
+// Warm-window substrate snapshot for the cost-model scheduler: writes
+// up to `cap` rows of 5 doubles [source (0=route, 1=lanes), cls
+// (0=bulk, 1=scatter), knob (route: 0=cma/1=tcp; lanes: lane count),
+// ewma_bytes_per_s, clean_samples] and returns the row count (keep in
+// sync with binding.py SCHED_CELL_COLS). 0 rows for non-TCP backends
+// (they have no router/lane tuners to snapshot).
+int dds_sched_cells(dds_handle* h, double* out, int cap) {
+  if (!h || !out || cap < 0) return dds::kErrInvalidArg;
+  if (!h->tcp) return 0;
+  return h->tcp->SchedCells(out, cap);
+}
+
+// Planner route pin for one traffic class (0 = bulk, 1 = scatter):
+// mode 0 = CMA, 1 = TCP, -1 = release to the adaptive router. Ranks
+// BELOW the user's env pin (DDSTORE_CMA_BULK/SCATTER) and is released
+// by UpdatePeer (the plan was against the old peer set).
+int dds_sched_pin_route(dds_handle* h, int cls, int mode) {
+  if (!h || !h->tcp) return dds::kErrInvalidArg;
+  return h->tcp->PinRoute(cls, mode);
+}
+
+// Planner lane-width pin for one traffic class: lanes >= 1 pins the
+// stripe width (clamped to the pool size), -1 releases to the lane
+// autotuner. Same env-pin/UpdatePeer ranking as the route pin.
+int dds_sched_pin_lanes(dds_handle* h, int cls, int lanes) {
+  if (!h || !h->tcp) return dds::kErrInvalidArg;
+  return h->tcp->PinLanes(cls, lanes);
+}
+
+// Async admission width (how many async batched reads run at once):
+// n >= 1 overrides, n <= 0 restores the DDSTORE_ASYNC_THREADS /
+// core-ladder default. Valid for every backend (the async engine is
+// store-level).
+int dds_set_async_width(dds_handle* h, int n) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->SetAsyncWidth(n);
+}
+
+int dds_async_width(dds_handle* h) {
+  return h ? h->store->AsyncWidth() : dds::kErrInvalidArg;
+}
+
+// Per-store retry-deadline override (seconds; <= 0 clears). The
+// degraded readahead path shares one OP_DEADLINE budget across a
+// window give-up and its per-batch refetch through this; other stores
+// in the process keep their full budgets.
+int dds_set_retry_deadline(dds_handle* h, double seconds) {
+  if (!h) return dds::kErrInvalidArg;
+  h->store->SetRetryDeadline(seconds);
+  return dds::kOk;
+}
+
+int64_t dds_barrier_seq(dds_handle* h) {
+  return h && h->tcp ? h->tcp->barrier_seq() : -1;
+}
+
+int dds_set_barrier_seq(dds_handle* h, int64_t seq) {
+  if (!h || !h->tcp) return dds::kErrInvalidArg;
+  h->tcp->SetBarrierSeq(seq);
+  return dds::kOk;
+}
+
+int dds_add(dds_handle* h, const char* name, const void* buf, int64_t nrows,
+            int64_t disp, int64_t itemsize, const int64_t* all_nrows,
+            int copy) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->Add(name, buf, nrows, disp, itemsize, all_nrows,
+                       copy != 0);
+}
+
+int dds_init(dds_handle* h, const char* name, int64_t nrows, int64_t disp,
+             int64_t itemsize, const int64_t* all_nrows) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->Init(name, nrows, disp, itemsize, all_nrows);
+}
+
+int dds_update(dds_handle* h, const char* name, const void* buf, int64_t nrows,
+               int64_t row_offset) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->Update(name, buf, nrows, row_offset);
+}
+
+// `as_tenant` (nullable) names the READING handle for the per-tenant
+// read ledger; NULL/"" derives the tenant from the variable name.
+int dds_get(dds_handle* h, const char* name, void* dst, int64_t start,
+            int64_t count, const char* as_tenant) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->Get(name, dst, start, count,
+                       as_tenant ? as_tenant : "");
+}
+
+// `as_tenant` (nullable) names the READING handle for the per-tenant
+// read ledger and QoS lane budget; NULL/"" derives the tenant from the
+// variable name (the pre-tenancy behavior).
+int dds_get_batch(dds_handle* h, const char* name, void* dst,
+                  const int64_t* starts, int64_t n,
+                  const char* as_tenant) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GetBatch(name, dst, starts, n,
+                            as_tenant ? as_tenant : "");
+}
+
+// Async batched reads (the epoch-readahead engine's native leg): issue a
+// GetBatch on the store's background pool, poll/wait, release. See
+// Store::GetBatchAsync for the contract (dst stays alive until the
+// ticket completes; Release blocks until the read finishes).
+// `as_tenant` (nullable) names the READING handle for QoS admission
+// and the per-tenant admitted/deferred ledger; NULL/"" derives the
+// tenant from the variable name (the pre-tenancy behavior).
+int64_t dds_get_batch_async(dds_handle* h, const char* name, void* dst,
+                            const int64_t* starts, int64_t n,
+                            const char* as_tenant) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->GetBatchAsync(name, dst, starts, n,
+                                 as_tenant ? as_tenant : "");
+}
+
+// Async vectored run read (the readahead window fast path): executes
+// the caller's pre-coalesced per-peer runs without re-deriving the
+// plan — O(runs), not O(rows). See Store::ReadRunsAsync.
+int64_t dds_read_runs_async(dds_handle* h, const char* name, void* dst,
+                            const int64_t* targets,
+                            const int64_t* src_off,
+                            const int64_t* dst_off, const int64_t* nbytes,
+                            int64_t nruns, const char* as_tenant) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->ReadRunsAsync(name, dst, targets, src_off, dst_off,
+                                 nbytes, nruns,
+                                 as_tenant ? as_tenant : "");
+}
+
+// 1 = done ok; 0 = still in flight after timeout_ms (0 polls, negative
+// waits forever); <0 = error. `done_mono_s` (nullable) receives the
+// CLOCK_MONOTONIC completion time, comparable to time.monotonic().
+int dds_async_wait(dds_handle* h, int64_t ticket, int64_t timeout_ms,
+                   double* done_mono_s) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->AsyncWait(ticket, timeout_ms, done_mono_s);
+}
+
+int dds_async_release(dds_handle* h, int64_t ticket) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->AsyncRelease(ticket);
+}
+
+int64_t dds_async_pending(dds_handle* h) {
+  return h ? h->store->AsyncPending() : 0;
+}
+
+int dds_query(dds_handle* h, const char* name, int64_t* total_rows,
+              int64_t* disp, int64_t* itemsize, int64_t* local_rows) {
+  if (!h) return dds::kErrInvalidArg;
+  return h->store->Query(name, total_rows, disp, itemsize, local_rows);
+}
+
+int dds_epoch_begin(dds_handle* h) {
+  return h ? h->store->EpochBegin() : dds::kErrInvalidArg;
+}
+
+int dds_epoch_end(dds_handle* h) {
+  return h ? h->store->EpochEnd() : dds::kErrInvalidArg;
+}
+
+int dds_set_epoch_collective(dds_handle* h, int collective) {
+  if (!h) return dds::kErrInvalidArg;
+  h->store->set_epoch_collective(collective != 0);
+  return dds::kOk;
+}
+
+// Elastic-recovery fence realignment: force the fence state machine
+// closed (local, idempotent) — a non-unanimous fence abort can leave
+// fence_active_ divergent across survivors; recover() heals it here.
+int dds_fence_reset(dds_handle* h) {
+  if (!h) return dds::kErrInvalidArg;
+  h->store->FenceReset();
+  return dds::kOk;
+}
+
+int dds_set_ifaces(dds_handle* h, const char* csv) {
+  if (!h || !h->tcp || !csv) return dds::kErrInvalidArg;
+  h->tcp->SetLocalIfaces(dds::SplitCsv(csv));
+  return dds::kOk;
+}
+
+int dds_rebind(dds_handle* h, const char* name, void* base) {
+  return h ? h->store->Rebind(name, base) : dds::kErrInvalidArg;
+}
+
+int dds_free_var(dds_handle* h, const char* name) {
+  return h ? h->store->FreeVar(name) : dds::kErrInvalidArg;
+}
+
+int dds_barrier(dds_handle* h, int64_t tag) {
+  return h ? h->store->Barrier(tag) : dds::kErrInvalidArg;
+}
+
+int64_t dds_cma_ops(dds_handle* h) {
+  return h && h->tcp ? h->tcp->cma_ops() : 0;
+}
+
+int64_t dds_uds_conns(dds_handle* h) {
+  return h && h->tcp ? h->tcp->uds_conns() : 0;
+}
+
+// Scatter-read planner statistics (cumulative; see dds::PlanStats). `out`
+// receives [batches, rows, runs, local_runs, peer_lists, dedup_hits,
+// scratch_runs, scratch_bytes] — a flat array so the ctypes binding stays
+// struct-layout-agnostic.
+int dds_plan_stats(dds_handle* h, int64_t out[8]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  dds::PlanStats s = h->store->plan_stats();
+  out[0] = s.batches;
+  out[1] = s.rows;
+  out[2] = s.runs;
+  out[3] = s.local_runs;
+  out[4] = s.peer_lists;
+  out[5] = s.dedup_hits;
+  out[6] = s.scratch_runs;
+  out[7] = s.scratch_bytes;
+  return dds::kOk;
+}
+
+// Reconfigure the process-global deterministic fault injector (tests
+// script per-run schedules without env plumbing; resets every injector
+// counter including the draw counter, so the same seed replays the same
+// schedule). Empty/NULL spec disables injection.
+int dds_fault_configure(const char* spec, uint64_t seed,
+                        const char* ranks_csv) {
+  return dds::FaultInjector::Get().Configure(spec ? spec : "", seed,
+                                             ranks_csv ? ranks_csv : "");
+}
+
+// Fault/retry observability snapshot. `out` receives:
+//   [0..5]  process-global injector counters: checks, reset, trunc,
+//           delay, stall, injected_delay_ms
+//   [6..11] retry counters for THIS handle (store-level layer + TCP
+//           leaf layer summed): transient, retries, reconnects,
+//           backoff_ms, giveups, fatal
+//   [12]    last_error_peer (most recent failed target; -1 = none —
+//           the TCP layer's wins when both are set)
+//   [13]    injected_corrupt (payloads served with flipped bytes)
+//   [14]    ctrl_checks (control-plane injector draws — own counter
+//           domain; see fault.h)
+//   [15]    ctrl_injected (control-plane faults fired)
+int dds_fault_stats(dds_handle* h, int64_t out[16]) {
+  if (!h || !out) return dds::kErrInvalidArg;
+  for (int i = 0; i < 16; ++i) out[i] = 0;
+  dds::FaultInjector::Stats fi = dds::FaultInjector::Get().stats();
+  out[0] = fi.checks;
+  out[1] = fi.reset;
+  out[2] = fi.trunc;
+  out[3] = fi.delay;
+  out[4] = fi.stall;
+  out[5] = fi.delay_ms;
+  out[13] = fi.corrupt;
+  out[14] = fi.ctrl_checks;
+  out[15] = fi.ctrl_injected;
+  int64_t st[7], tc[7] = {0, 0, 0, 0, 0, 0, -1};
+  h->store->RetryCounters(st);
+  if (h->tcp) h->tcp->RetryCounters(tc);
+  for (int i = 0; i < 6; ++i) out[6 + i] = st[i] + tc[i];
+  out[12] = tc[6] >= 0 ? tc[6] : st[6];
+  return dds::kOk;
+}
+
+// -- ddtrace: event-ring tracing + flight recorder ----------------------------
+//
+// Process-global (like the fault injector): the rings belong to
+// threads, not stores, and a ThreadGroup test's N in-process "ranks"
+// share one trace — every event carries its emitting rank.
+
+// Runtime switch: enabled >= 0 sets (0/1; -1 keeps), ring_events >= 1
+// sets the per-thread ring capacity for rings allocated from now on.
+int dds_trace_configure(int enabled, long ring_events) {
+  return dds::trace::Configure(enabled, ring_events);
+}
+
+int dds_trace_enabled(void) { return dds::trace::Enabled() ? 1 : 0; }
+
+// Drop recorded events (rings trimmed, flight buffer cleared). The
+// monotone totals in dds_trace_stats keep counting.
+int dds_trace_reset(void) {
+  dds::trace::Reset();
+  return 0;
+}
+
+// Python-side event injection (readahead window issue/ready/stall,
+// scheduler replan/applied ride this). span 0 = outside any span.
+int dds_trace_emit(uint32_t type, uint64_t span, int rank, int64_t a,
+                   int64_t b, int64_t c) {
+  dds::trace::Emit(static_cast<uint16_t>(type), span, rank, a, b, c);
+  return 0;
+}
+
+// Mint a span id for a Python-side logical op (a readahead window).
+uint64_t dds_trace_new_span(int rank) {
+  return dds::trace::NewSpan(rank);
+}
+
+// Manual flight-recorder trigger (the Python readahead layer's window
+// give-up; reason codes in trace.h FlightReason / binding.py
+// TRACE_FLIGHT_REASONS).
+int dds_trace_flight(int reason, int rank) {
+  dds::trace::Flight(reason, rank);
+  return 0;
+}
+
+// Serialize ring events (packed 48-byte records, binding.py
+// TRACE_EVENT_DTYPE). out == NULL returns the worst-case byte size;
+// else returns the bytes written.
+int64_t dds_trace_dump(void* out, int64_t cap_bytes) {
+  return dds::trace::DumpEvents(out, cap_bytes);
+}
+
+// Serialize the LAST flight-recorder snapshot (same record format).
+int64_t dds_trace_flight_dump(void* out, int64_t cap_bytes) {
+  return dds::trace::DumpFlight(out, cap_bytes);
+}
+
+// Counter snapshot: [enabled, ring_events, threads, capacity, live,
+// captured, dropped, flight_events, flight_dumps, spans, 0, 0] — keep
+// in sync with binding.py TRACE_STAT_KEYS.
+int dds_trace_stats(int64_t out[12]) {
+  if (!out) return dds::kErrInvalidArg;
+  dds::trace::Stats(out);
+  return 0;
+}
+
+int dds_rank(dds_handle* h) { return h ? h->store->rank() : -1; }
+int dds_world(dds_handle* h) { return h ? h->store->world() : -1; }
+
+void dds_destroy(dds_handle* h) { delete h; }
+
+void dds_release_local_group(const char* gid) {
+  dds::LocalGroup::Release(gid);
+}
+
+const char* dds_error_string(int code) { return dds::ErrorString(code); }
+
+// Exposed for unit tests of the owner-lookup function.
+int dds_owner_of(const int64_t* cum, int n, int64_t row) {
+  std::vector<int64_t> v(cum, cum + n);
+  return Store::OwnerOf(v, row);
+}
+
+}  // extern "C"

@@ -1,0 +1,269 @@
+// Deterministic fault injection + transient-retry policy for the native
+// transports.
+//
+// The reference's only failure handling is exit(1)/throw (SURVEY §5), and
+// its libfabric path retries -EAGAIN unboundedly (common.cxx:332-343); our
+// tree bounded every wait, but until this layer there was no way to even
+// PROVOKE the failure paths in tests. The injector lets a test (or a chaos
+// bench phase) script connection resets, truncated responses, delays, and
+// serve-loop stalls at op granularity, deterministically:
+//
+//   DDSTORE_FAULT_SPEC="reset:0.01,trunc:0.005,delay:0.02:50,stall:0.002"
+//   DDSTORE_FAULT_SEED=42
+//   DDSTORE_FAULT_RANKS=1,3        (optional: inject only when these ranks
+//                                   serve — per-peer schedules in shared-
+//                                   process ThreadGroup tests)
+//
+// Each spec entry is kind:probability[:param_ms]. Decisions are a pure
+// function of (seed, draw counter): hash draw n with splitmix64 and walk
+// the cumulative probability table, so two runs issuing the same request
+// sequence produce byte-identical fault schedules AND counters — the
+// property the retry-metrics regression test pins. Compiled in always;
+// zero-cost when no spec is set (one relaxed atomic load per op).
+//
+// CONTROL-PLANE arm: "ctrl-reset:p,ctrl-delay:p:ms,
+// ctrl-stall:p:ms" entries target the request/response CONTROL ops
+// (kOpVarSeq / kOpRowSums / kOpSnapPin / kOpSnapUnpin and their local-
+// transport analogues) — the fences, snapshot-pin placement, and mirror
+// refresh probes that the data-only arms could never touch. Heartbeat
+// Ping frames and one-way barrier notifies stay clean: the detector's
+// verdict schedule must not depend on chaos config, and a dropped
+// one-way notify has no retry story (the barrier's failure mode is the
+// detector abort, not a lost frame). Ctrl decisions draw from their OWN
+// seeded counter domain (separate counter, salted hash), so every
+// existing data-plane draw schedule is bit-identical with the ctrl arm
+// present or absent — the data-plane determinism pins hold by construction.
+
+#ifndef DDSTORE_TPU_FAULT_H_
+#define DDSTORE_TPU_FAULT_H_
+
+#include <atomic>
+#include <cstdint>
+#include <functional>
+#include <mutex>
+#include <string>
+#include <vector>
+
+#include "thread_annotations.h"
+
+namespace dds {
+
+enum class FaultKind : int {
+  kNone = 0,
+  kReset,   // shut the connection down before responding (ECONNRESET/EOF)
+  kTrunc,   // send a truncated response frame, then shut down
+  kDelay,   // sleep param_ms before serving (latency, no error)
+  kStall,   // sleep param_ms (default 2000) — long enough to trip the
+            // client's DDSTORE_READ_TIMEOUT_S in chaos tests
+  kCorrupt, // serve the response with param (default 8) payload bytes
+            // bit-flipped at positions derived from the draw hash —
+            // the frame is well-formed and no transport error fires,
+            // so ONLY checksum verification (DDSTORE_VERIFY=1) can
+            // catch it. Spec arm: "corrupt:p[:nbytes]".
+  kConnDrop,// hard-close the gateway/control connection mid-session
+            // (shutdown both ways BEFORE serving, like kReset, but a
+            // separately armable arm so chaos runs can target session
+            // control without touching the data-plane reset budget).
+            // CTRL-ONLY: the spec parser rejects a bare
+            // "conndrop:p" the way the ctrl domain rejects
+            // trunc/corrupt. Spec arm: "ctrl-conndrop:p".
+};
+
+struct FaultDecision {
+  FaultKind kind = FaultKind::kNone;
+  int param_ms = 0;   // delay/stall: sleep ms; corrupt: bytes to flip
+  uint64_t h = 0;     // the draw's hash — corrupt positions/masks are a
+                      // pure function of it, so seeded schedules
+                      // reproduce byte-identical corruption
+};
+
+// Flip `nbytes` bytes of `p[0..n)` deterministically from `h` (each
+// XORed with a nonzero mask, so every targeted byte really changes).
+// Shared by the TCP serve loop (payload staged through scratch — shard
+// memory itself is never touched) and the local transport (landed dst
+// bytes).
+inline void CorruptBytes(void* p, int64_t n, uint64_t h, int nbytes) {
+  if (n <= 0 || nbytes <= 0) return;
+  unsigned char* b = static_cast<unsigned char*>(p);
+  const int64_t pos = static_cast<int64_t>(h % static_cast<uint64_t>(n));
+  for (int i = 0; i < nbytes; ++i) {
+    unsigned char mask =
+        static_cast<unsigned char>((h >> ((i % 8) * 8)) & 0xFF);
+    if (!mask) mask = 0xA5;
+    b[(pos + i) % n] ^= mask;
+  }
+}
+
+class FaultInjector {
+ public:
+  // Process-global instance. First call parses DDSTORE_FAULT_SPEC /
+  // DDSTORE_FAULT_SEED / DDSTORE_FAULT_RANKS; Configure() overrides at
+  // runtime (tests script per-run schedules without subprocess env
+  // plumbing).
+  static FaultInjector& Get();
+
+  // Hot-path gate: false (one relaxed load) when no spec is configured.
+  bool enabled() const { return enabled_.load(std::memory_order_relaxed); }
+
+  // Replace the schedule and reset every counter (including the draw
+  // counter, so the same seed replays the same schedule). Empty spec
+  // disables injection. ranks_csv: empty = inject on every rank.
+  // Returns 0, or kErrInvalidArg on a malformed spec.
+  int Configure(const std::string& spec, uint64_t seed,
+                const std::string& ranks_csv = "");
+
+  // One decision for an op served by `rank`. Ranks outside the filter
+  // short-circuit WITHOUT consuming a draw (the filtered schedule stays
+  // deterministic regardless of what other ranks serve).
+  FaultDecision Draw(int rank);
+
+  // One decision for a CONTROL op served by `rank` (ctrl-* spec arms).
+  // Separate counter domain: ctrl draws never advance the data-plane
+  // counter and vice versa, so arming the ctrl arm leaves every data
+  // draw schedule bit-identical. Zero-cost ({} without consuming a
+  // draw) when no ctrl-* arm is configured.
+  FaultDecision DrawCtrl(int rank);
+
+  struct Stats {
+    int64_t checks = 0;    // draws consumed
+    int64_t reset = 0;
+    int64_t trunc = 0;
+    int64_t delay = 0;
+    int64_t stall = 0;
+    int64_t delay_ms = 0;  // total injected sleep (delay + stall)
+    int64_t corrupt = 0;   // payloads served with flipped bytes
+    int64_t ctrl_checks = 0;    // ctrl-domain draws consumed
+    int64_t ctrl_injected = 0;  // ctrl faults fired (reset+delay+stall)
+  };
+  Stats stats() const;
+
+ private:
+  FaultInjector();
+
+  struct Rule {
+    FaultKind kind;
+    uint64_t cum;  // cumulative probability threshold in 2^64 space
+    int param_ms;
+  };
+
+  mutable std::mutex mu_;  // guards rules_/ranks_/seed_ (reconfiguration)
+  std::vector<Rule> rules_ DDS_GUARDED_BY(mu_);
+  // Control-plane rules: their OWN cumulative-probability space and
+  // their OWN counter (ctrl_n_) so the two domains' schedules are
+  // independent pure functions of the seed.
+  std::vector<Rule> ctrl_rules_ DDS_GUARDED_BY(mu_);
+  std::vector<int> ranks_ DDS_GUARDED_BY(mu_);  // empty = all ranks
+  uint64_t seed_ DDS_GUARDED_BY(mu_) = 0;
+  std::atomic<bool> enabled_{false};
+  std::atomic<uint64_t> n_{0};       // data-plane draw counter
+  std::atomic<uint64_t> ctrl_n_{0};  // control-plane draw counter
+  std::atomic<int64_t> c_checks_{0}, c_reset_{0}, c_trunc_{0}, c_delay_{0},
+      c_stall_{0}, c_delay_ms_{0}, c_corrupt_{0};
+  std::atomic<int64_t> c_ctrl_checks_{0}, c_ctrl_injected_{0};
+};
+
+// -- transient-retry policy --------------------------------------------------
+//
+// Error classification: a transport-level failure (connection reset,
+// truncated frame, EAGAIN read timeout, failed dial) is TRANSIENT — a
+// reconnect-and-retry can save the op. Server-reported data errors
+// (kErrNotFound/kErrOutOfRange/kErrInvalidArg) are FATAL: the bytes do not
+// exist and retrying cannot make them. Exhausting the retry budget
+// reclassifies the op as kErrPeerLost (see store.h) — the bounded "owner
+// is gone" signal elastic.recover keys on.
+
+struct RetryPolicy {
+  int max_retries;    // DDSTORE_RETRY_MAX   (default 3; 0 = no retry)
+  long base_ms;       // DDSTORE_RETRY_BASE_MS (default 50)
+  double deadline_s;  // DDSTORE_OP_DEADLINE_S (default 300): no NEW
+                      // attempt starts after this much wall time; the
+                      // worst case is deadline + one attempt's own
+                      // connect/read timeouts.
+  static RetryPolicy FromEnv();
+};
+
+// Deadline override plumbing: the readahead degraded path shares ONE
+// OP_DEADLINE budget across a window give-up and its per-batch refetch
+// — the refetch runs with whatever budget the window's own give-up
+// left over, so a permanently dead owner surfaces kErrPeerLost within
+// ~1x the deadline instead of ~2x. The override is PER STORE (each
+// retry layer holds an atomic consulted by its RetryTransientLoop
+// calls, threaded through the `deadline_override` parameter below): a
+// process-global override would shrink the budget of every other
+// store in the process — in a ThreadGroup sim that spuriously
+// reclassifies a live peer as lost on a rank that was never degraded.
+
+// Backoff for retry `attempt` (0-based): base_ms << attempt, capped at
+// 2 s, plus deterministic jitter derived from (seed, attempt) so
+// concurrent leaves don't thundering-herd a recovering peer. Jitter
+// affects timing only — never the fault/retry counters.
+long BackoffMs(const RetryPolicy& pol, int attempt, uint64_t salt);
+
+// Per-component retry/reconnect accounting (one instance in TcpTransport
+// for leaf-level retries, one in Store for the store-level layer that
+// covers transports without internal retry). Monotone since creation.
+struct RetryStats {
+  std::atomic<int64_t> transient{0};   // transient-classified failures
+  std::atomic<int64_t> retries{0};     // retry attempts issued
+  std::atomic<int64_t> reconnects{0};  // lanes redialed by retries
+  std::atomic<int64_t> backoff_ms{0};  // total backoff slept
+  std::atomic<int64_t> giveups{0};     // budgets exhausted -> kErrPeerLost
+  std::atomic<int64_t> fatal{0};       // fatal-classified failures
+  std::atomic<int64_t> last_peer{-1};  // target of the most recent failure
+
+  void Snapshot(int64_t out[7]) const {
+    out[0] = transient.load();
+    out[1] = retries.load();
+    out[2] = reconnects.load();
+    out[3] = backoff_ms.load();
+    out[4] = giveups.load();
+    out[5] = fatal.load();
+    out[6] = last_peer.load();
+  }
+};
+
+// Control-plane round-trip knobs (shared by the TCP and in-process
+// transports): per-attempt deadline and bounded retry budget for the
+// request/response control ops (var-seq probes, row-sum fetches,
+// snapshot pin placement). These replace the old hardcoded one-shot
+// 1000 ms (kOpVarSeq) / 5000 ms (kOpRowSums) timeouts.
+long ControlTimeoutMsFromEnv();  // DDSTORE_CONTROL_TIMEOUT_MS (default 1000)
+int ControlRetryMaxFromEnv();    // DDSTORE_CONTROL_RETRY_MAX (default 2)
+
+// Backoff before control retry `attempt` (0-based): 25 << attempt ms,
+// capped at 200 — control ops are tiny and their budgets are per-op
+// deadlines, not the data path's exponential OP_DEADLINE ladder.
+long ControlBackoffMs(int attempt);
+
+// Interruptible sleep for injected delays/stalls and retry backoff:
+// sleeps in <=50 ms slices so teardown (`stop`) never waits out a long
+// stall. `stop` may be null.
+void FaultSleepMs(long ms, const std::atomic<bool>* stop);
+
+// THE transient-retry loop, shared by the TCP leaf layer and the
+// Store-level layer so classification/backoff/counter policy cannot
+// drift between them. Runs `attempt` until success, a fatal
+// (non-kErrTransport) error, or budget exhaustion (RetryPolicy::FromEnv,
+// reclassified kErrPeerLost). `on_retry`, when set, runs just before
+// each re-attempt (the TCP layer counts lane redials there). `target`
+// (-1 = unknown) feeds stats.last_peer. `deadline_override` (> 0)
+// replaces the policy's deadline_s — the per-store budget-sharing hook
+// above. Teardown (`stop` set) aborts with plain kErrTransport — a
+// self-inflicted shutdown must not bump giveups or read as a dead
+// peer. `suspect`, when set, is the heartbeat detector's verdict for
+// this target: once it returns true the ladder aborts IMMEDIATELY with
+// kErrPeerLost — WITHOUT counting a giveup (the budget was not burned;
+// the detector beat it) — so the replicated-read failover layer can
+// reroute in O(heartbeat) instead of O(deadline). Checked before the
+// first attempt and before every retry; never between, so an unset (or
+// never-true) callback leaves timing and counters bit-identical.
+int RetryTransientLoop(RetryStats& stats, int target,
+                       const std::atomic<bool>* stop, uint64_t salt,
+                       const std::function<int()>& attempt,
+                       const std::function<void()>& on_retry = {},
+                       double deadline_override = 0.0,
+                       const std::function<bool()>& suspect = {});
+
+}  // namespace dds
+
+#endif  // DDSTORE_TPU_FAULT_H_

@@ -1,0 +1,266 @@
+// ddtrace: native event-ring tracing, cross-rank spans, and a failure
+// flight recorder.
+//
+// One-sided reads are the store's whole premise — the owning rank's CPU
+// never sees a request — which means a slow or dying read leaves NO
+// story on either side: counters (PipelineMetrics, fault_stats,
+// failover_stats) say HOW MANY retries happened, never WHICH op against
+// WHICH peer on WHICH lane at WHAT time. This subsystem records that
+// causality:
+//
+// * Per-thread LOCK-FREE event rings of fixed-size typed events (op
+//   begin/end, retry/backoff, lane dial/close, serve legs, CMA reads,
+//   readahead window issue/ready/stall, scheduler replans, suspect
+//   verdicts, quota rejections, tenant lane-budget rotations). A ring
+//   is single-writer (its owner thread); overflow OVERWRITES the
+//   oldest event and is counted as a drop — recording never blocks and
+//   never allocates on the hot path.
+// * 64-bit SPANS minted per top-level Get/GetBatch/ReadRuns and carried
+//   (a) through the worker pools via a thread-local (TraceTask wraps
+//   pool tasks), and (b) inside the TCP request frame's `tag` field —
+//   reserved/zero on data reads today — so the SERVING rank's
+//   iovec-streaming leg records under the requester's span. Tracing
+//   off ⇒ tag stays 0 ⇒ frames are byte-identical to the untraced
+//   tree (pinned by test).
+// * A FLIGHT RECORDER: whenever kErrPeerLost surfaces, a tenant quota
+//   rejection fires, a suspect verdict lands, or the Python readahead
+//   layer gives up on a window, the last events of EVERY thread ring
+//   are snapshotted into one bounded buffer — the postmortem that used
+//   to be reconstructed by hand from counters.
+//
+// Always compiled, default OFF. The entire off-state cost is ONE
+// relaxed atomic load per instrumentation site (Enabled()); no
+// allocation, no TLS registration, no clock read happens until the
+// first traced event. DDSTORE_TRACE=1 enables at load;
+// dds_trace_configure() flips it at runtime (tests / A-B benches).
+// DDSTORE_TRACE_RING sizes each thread ring (events, default 4096);
+// DDSTORE_TRACE_FLIGHT bounds the flight snapshot (events, default
+// 16384).
+
+#ifndef DDSTORE_TPU_TRACE_H_
+#define DDSTORE_TPU_TRACE_H_
+
+#include <atomic>
+#include <cstdint>
+#include <functional>
+#include <utility>
+
+namespace dds {
+namespace trace {
+
+// Event types. Keep in sync with binding.py TRACE_TYPES (the Python
+// decoder) — values are part of the dump format.
+enum EventType : uint16_t {
+  kOpBegin = 1,      // a=op class, b=peer (-1 multi), c=bytes requested
+  kOpEnd = 2,        // a=op class, b=rc, c=bytes
+  kRetry = 3,        // a=target, b=attempt#, c=rc of failed attempt
+  kBackoff = 4,      // a=target, b=sleep ms, c=attempt#
+  kLaneDial = 5,     // a=lane idx, b=1 if UDS fast lane, c=0
+  kLaneClose = 6,    // a=lane idx, b=rc/status, c=0
+  kServeBegin = 7,   // serving rank, requester's span: a=src rank,
+                     // b=op count, c=bytes
+  kServeEnd = 8,     // a=src rank, b=status, c=bytes
+  kCmaRead = 9,      // a=target, b=op count, c=bytes
+  kWindowIssue = 10,   // a=window#, b=rows, c=bytes
+  kWindowReady = 11,   // a=window#, b=bytes, c=fetch us
+  kWindowStall = 12,   // a=window#, b=0, c=stall us
+  kPlanReplan = 13,    // a=replan#, b=0, c=0
+  kPlanApplied = 14,   // a=replan#, b=engaged, c=depth
+  kSuspect = 15,       // a=target, b=source (0 heartbeat, 1 ladder)
+  kSuspectClear = 16,  // a=target
+  kQuotaReject = 17,   // a=bytes refused, b=0, c=0
+  kLaneBudgetRotate = 18,  // a=budget lanes, b=rotation, c=0
+  kFlight = 19,        // flight-recorder marker: a=FlightReason
+  kFailover = 20,      // a=dead owner, b=serving holder, c=ops rerouted
+  kVerifyFail = 21,    // checksum mismatch: a=owner, b=first bad local
+                       // row, c=serving holder (-1 = the primary)
+  kScrub = 22,         // one mirror scrubbed: a=rows, b=divergent rows,
+                       // c=1 if re-pulled (repaired)
+  kBarrier = 23,       // collective entered: a=barrier seq, b=caller
+                       // tag, c=dissemination rounds
+  kBarrierDone = 24,   // collective completed: a=seq, b=tag, c=rounds
+  kBarrierAbort = 25,  // collective aborted: a=seq, b=round,
+                       // c=suspected-dead peer (-1 = plain timeout)
+  kCacheFill = 26,     // hot-row cache fill completed: a=window id,
+                       // b=bytes filled (0 on failure), c=rc
+  kCacheHit = 27,      // run served from the hot cache: a=first
+                       // global row, b=bytes, c=owner rank
+  kCacheEvict = 28,    // entry evicted: a=window id, b=bytes, c=0
+  kSloBreach = 29,     // tenant latency SLO breached: a=interned tenant
+                       // slot (ddmetrics), b=percentile (e.g. 99),
+                       // c=measured quantile lower bound (ns)
+  kGwSession = 30,     // gateway lease lifecycle: a=verb (0 attach,
+                       // 1 renew, 2 detach, 3 lease expired, 4 stale-
+                       // pin reclaim pass), b=token (or reclaimed pin
+                       // count for verb 4), c=snap id
+  kGwShed = 31,        // admission refused: a=1, b=retry-after hint
+                       // (ms), c=1 when shed by a drain
+};
+
+// Op classes for kOpBegin/kOpEnd `a`. Keep in sync with binding.py
+// TRACE_OP_CLASSES.
+enum OpClass : int {
+  kClsGet = 0,
+  kClsGetBatch = 1,
+  kClsReadRuns = 2,
+  kClsAsyncBatch = 3,
+};
+
+// Flight-recorder trigger codes (kFlight event `a`). Keep in sync with
+// binding.py TRACE_FLIGHT_REASONS.
+enum FlightReason : int {
+  kReasonPeerLost = 1,
+  kReasonQuota = 2,
+  kReasonWindowGiveup = 3,
+  kReasonSuspect = 4,
+  kReasonManual = 5,
+  kReasonCorrupt = 6,
+  kReasonBarrierAbort = 7,
+  kReasonSloBreach = 8,
+  kReasonShedStorm = 9,
+};
+
+// The fixed-size dump record (48 bytes, packed, little-endian on every
+// supported target). Keep in sync with binding.py TRACE_EVENT_DTYPE.
+#pragma pack(push, 1)
+struct Event {
+  uint64_t t_ns;  // CLOCK_MONOTONIC
+  uint64_t span;  // 0 = outside any span
+  uint16_t type;  // EventType
+  uint16_t tid;   // small per-process thread id (ring registry order)
+  int32_t rank;   // emitting rank (-1 = unknown, e.g. shared helpers)
+  int64_t a;
+  int64_t b;
+  int64_t c;
+};
+#pragma pack(pop)
+static_assert(sizeof(Event) == 48, "dump format is 48-byte records");
+
+// THE hot-path gate: one relaxed load. Everything else in this header
+// is reached only when it returns true.
+extern std::atomic<uint32_t> g_enabled;
+inline bool Enabled() {
+  return g_enabled.load(std::memory_order_relaxed) != 0;
+}
+
+// Runtime (re)configuration: enabled >= 0 sets the flag (-1 keeps);
+// ring_events >= 1 sets the per-thread ring capacity for rings
+// allocated FROM NOW ON (existing threads keep their rings — a live
+// single-writer ring cannot be resized safely). Returns 0.
+int Configure(int enabled, long ring_events);
+// Drop every recorded event (rings are trimmed to their current head,
+// the flight buffer cleared, counters of LIVE events reset). Monotone
+// totals (captured/dropped/spans/flight_dumps) are NOT reset.
+void Reset();
+
+// -- spans -------------------------------------------------------------------
+
+// Mint a fresh nonzero span id: (rank+1) in the top bits over a
+// process-wide counter — ids are unique per process and carry their
+// minting rank for cross-rank merge sanity checks.
+uint64_t NewSpan(int rank);
+uint64_t CurrentSpan();           // this thread's active span (0 = none)
+void SetCurrentSpan(uint64_t s);
+
+// RAII: set this thread's span, restore the previous one on exit (pool
+// tasks, async bodies, nested ops).
+class ScopedSpan {
+ public:
+  explicit ScopedSpan(uint64_t span) : saved_(CurrentSpan()) {
+    SetCurrentSpan(span);
+  }
+  ~ScopedSpan() { SetCurrentSpan(saved_); }
+  ScopedSpan(const ScopedSpan&) = delete;
+  ScopedSpan& operator=(const ScopedSpan&) = delete;
+
+ private:
+  uint64_t saved_;
+};
+
+// -- recording ---------------------------------------------------------------
+
+// Append one event to the calling thread's ring (allocating/registering
+// the ring on this thread's first event). Never blocks, never fails;
+// no-op when tracing is off.
+void Emit(uint16_t type, uint64_t span, int rank, int64_t a, int64_t b,
+          int64_t c);
+
+// Emit under the calling thread's current span.
+inline void Ev(uint16_t type, int rank, int64_t a, int64_t b, int64_t c) {
+  if (!Enabled()) return;
+  Emit(type, CurrentSpan(), rank, a, b, c);
+}
+
+// RAII around one top-level store op: joins the thread's current span
+// when one is active (async bodies run under their issue-time span),
+// else mints a fresh one; emits kOpBegin at construction and kOpEnd at
+// destruction. Surfacing kErrPeerLost / kErrQuota from a traced op
+// triggers the flight recorder — the "read died and nobody holds the
+// story" moment this subsystem exists for.
+class ScopedOp {
+ public:
+  ScopedOp(int rank, int cls, int64_t peer, int64_t bytes)
+      : active_(Enabled()), rank_(rank), cls_(cls), bytes_(bytes) {
+    if (!active_) return;
+    prev_ = CurrentSpan();
+    SetCurrentSpan(prev_ ? prev_ : NewSpan(rank));
+    Emit(kOpBegin, CurrentSpan(), rank, cls, peer, bytes);
+  }
+  ~ScopedOp();
+  ScopedOp(const ScopedOp&) = delete;
+  ScopedOp& operator=(const ScopedOp&) = delete;
+  // Pass-through rc setter so `return op.ret(rc);` traces every exit.
+  int ret(int rc) {
+    rc_ = rc;
+    return rc;
+  }
+
+ private:
+  bool active_;
+  int rank_;
+  int cls_;
+  int64_t bytes_;
+  int rc_ = 0;
+  uint64_t prev_ = 0;
+};
+
+// Wrap a worker-pool task so it runs under the submitting thread's
+// span (the peers × lanes leaf fan-out, the local-copy overlap task,
+// the CMA part lists). Identity when tracing is off or no span is
+// active — the off state adds one relaxed load per SUBMIT, never per
+// op.
+inline std::function<void()> TraceTask(std::function<void()> fn) {
+  if (!Enabled()) return fn;
+  const uint64_t span = CurrentSpan();
+  if (!span) return fn;
+  return [span, fn = std::move(fn)]() {
+    ScopedSpan s(span);
+    fn();
+  };
+}
+
+// -- flight recorder / export ------------------------------------------------
+
+// Snapshot the most recent events of every thread ring into the
+// bounded flight buffer (replacing the previous snapshot) and append a
+// kFlight marker carrying `reason`. No-op when tracing is off.
+void Flight(int reason, int rank);
+
+// Serialize events into `out` as packed Event records. out == nullptr
+// returns the byte capacity an all-full dump could need (callers size
+// a buffer once from it); otherwise returns the bytes actually
+// written (always a multiple of sizeof(Event)).
+int64_t DumpEvents(void* out, int64_t cap_bytes);   // live rings
+int64_t DumpFlight(void* out, int64_t cap_bytes);   // last flight snapshot
+
+// Counters snapshot. Layout (keep in sync with binding.py
+// TRACE_STAT_KEYS): [enabled, ring_events, threads, capacity, live,
+// captured, dropped, flight_events, flight_dumps, spans, 0, 0].
+// captured/dropped/spans/flight_dumps are monotone since process
+// start; the rest are gauges.
+void Stats(int64_t out[12]);
+
+}  // namespace trace
+}  // namespace dds
+
+#endif  // DDSTORE_TPU_TRACE_H_

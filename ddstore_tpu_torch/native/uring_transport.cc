@@ -1,0 +1,1064 @@
+// io_uring data plane (see uring_transport.h for the design brief).
+//
+// Raw syscalls throughout: liburing is NOT a dependency (the container
+// ships only kernel headers), so ring setup/mmap layout, SQE filling
+// and the enter/reap protocol are done by hand against
+// <linux/io_uring.h>. Memory-ordering contract with the kernel: the
+// SQ tail and CQ head are published with release stores, the SQ head
+// and CQ tail read with acquire loads — single-owner rings need
+// nothing stronger.
+
+#include "uring_transport.h"
+
+#include <errno.h>
+#include <fcntl.h>
+#include <linux/io_uring.h>
+#include <linux/time_types.h>
+#include <string.h>
+#include <sys/mman.h>
+#include <sys/socket.h>
+#include <sys/syscall.h>
+#include <sys/uio.h>
+#include <time.h>
+#include <unistd.h>
+
+#include <algorithm>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+
+#include "metrics_hist.h"
+#include "trace.h"
+#include "wire.h"
+
+namespace dds {
+namespace {
+
+using namespace wire;  // NOLINT — shared framing contract (see wire.h)
+
+int uring_setup(unsigned entries, struct io_uring_params* p) {
+  return static_cast<int>(::syscall(__NR_io_uring_setup, entries, p));
+}
+int uring_enter(int fd, unsigned to_submit, unsigned min_complete,
+                unsigned flags, const void* arg, size_t argsz) {
+  return static_cast<int>(::syscall(__NR_io_uring_enter, fd, to_submit,
+                                    min_complete, flags, arg, argsz));
+}
+int uring_register(int fd, unsigned opcode, const void* arg,
+                   unsigned nr_args) {
+  return static_cast<int>(
+      ::syscall(__NR_io_uring_register, fd, opcode, arg, nr_args));
+}
+
+std::string ErrnoStr(int err) {
+  char buf[128];
+  std::snprintf(buf, sizeof(buf), "%s (errno %d)", ::strerror(err), err);
+  return buf;
+}
+
+long EnvLongU(const char* name, long dflt) {
+  const char* v = ::getenv(name);
+  if (!v || !*v) return dflt;
+  char* end = nullptr;
+  long out = std::strtol(v, &end, 10);
+  return (end && *end == '\0') ? out : dflt;
+}
+
+int64_t NowMs() {
+  timespec ts;
+  clock_gettime(CLOCK_MONOTONIC, &ts);
+  return static_cast<int64_t>(ts.tv_sec) * 1000 + ts.tv_nsec / 1000000;
+}
+
+// user_data encoding for transport bursts: kind in the top byte, index
+// below. Cold-tier reads use the slice index directly.
+constexpr uint64_t kUdSend = 1ULL << 56;
+constexpr uint64_t kUdHdr = 2ULL << 56;
+constexpr uint64_t kUdPay = 3ULL << 56;
+constexpr uint64_t kUdCancel = 4ULL << 56;
+constexpr uint64_t kUdKindMask = 0xffULL << 56;
+constexpr uint64_t kUdIdxMask = ~kUdKindMask;
+
+// O_DIRECT alignment: 4096 covers every logical block size in the
+// field (512 and 4k) AND keeps bounce-slice addresses page-aligned.
+constexpr int64_t kDirectAlign = 4096;
+constexpr int64_t kBounceBytes = int64_t{4} << 20;
+
+}  // namespace
+
+// ---------------------------------------------------------------------
+// Probe
+
+static UringCaps RunProbe() {
+  UringCaps caps;
+  io_uring_params p;
+  std::memset(&p, 0, sizeof(p));
+  int fd = uring_setup(8, &p);
+  if (fd < 0) {
+    caps.reason = "io_uring_setup: " + ErrnoStr(errno);
+    return caps;
+  }
+  caps.features = p.features;
+  caps.ext_arg = (p.features & IORING_FEAT_EXT_ARG) != 0;
+  // Opcode support table. 256 slots is far past the last opcode any
+  // kernel defines; the kernel fills what it knows and sets last_op.
+  constexpr unsigned kProbeOps = 256;
+  const size_t psz =
+      sizeof(io_uring_probe) + kProbeOps * sizeof(io_uring_probe_op);
+  std::vector<char> buf(psz, 0);
+  auto* probe = reinterpret_cast<io_uring_probe*>(buf.data());
+  if (uring_register(fd, IORING_REGISTER_PROBE, probe, kProbeOps) < 0) {
+    caps.reason = "IORING_REGISTER_PROBE: " + ErrnoStr(errno);
+    ::close(fd);
+    return caps;
+  }
+  ::close(fd);
+  auto has = [&](unsigned op) {
+    return op <= probe->last_op &&
+           (probe->ops[op].flags & IO_URING_OP_SUPPORTED) != 0;
+  };
+  caps.op_send = has(IORING_OP_SEND);
+  caps.op_recv = has(IORING_OP_RECV);
+  caps.op_sendmsg = has(IORING_OP_SENDMSG);
+  caps.op_recvmsg = has(IORING_OP_RECVMSG);
+  caps.op_read = has(IORING_OP_READ);
+  caps.op_read_fixed = has(IORING_OP_READ_FIXED);
+  std::string missing;
+  if (!caps.op_sendmsg) missing += " SENDMSG";
+  if (!caps.op_recvmsg) missing += " RECVMSG";
+  if (!caps.op_recv) missing += " RECV";
+  if (!caps.ext_arg) missing += " FEAT_EXT_ARG";
+  if (!missing.empty()) {
+    caps.reason = "missing:" + missing;
+    return caps;
+  }
+  caps.supported = true;
+  caps.reason = "ok";
+  return caps;
+}
+
+const UringCaps& ProbeUring() {
+  static const UringCaps caps = RunProbe();
+  return caps;
+}
+
+// ---------------------------------------------------------------------
+// SubmissionRing
+
+SubmissionRing::~SubmissionRing() { Destroy(); }
+
+bool SubmissionRing::Init(unsigned depth) {
+  io_uring_params p;
+  std::memset(&p, 0, sizeof(p));
+  int fd = uring_setup(depth, &p);
+  if (fd < 0) {
+    reason_ = "io_uring_setup: " + ErrnoStr(errno);
+    return false;
+  }
+  sq_entries_ = p.sq_entries;
+  cq_entries_ = p.cq_entries;
+  ext_arg_ = (p.features & IORING_FEAT_EXT_ARG) != 0;
+  sq_ring_sz_ = p.sq_off.array + p.sq_entries * sizeof(unsigned);
+  cq_ring_sz_ = p.cq_off.cqes + p.cq_entries * sizeof(io_uring_cqe);
+  const bool single = (p.features & IORING_FEAT_SINGLE_MMAP) != 0;
+  if (single) sq_ring_sz_ = cq_ring_sz_ = std::max(sq_ring_sz_, cq_ring_sz_);
+  sq_ring_ = ::mmap(nullptr, sq_ring_sz_, PROT_READ | PROT_WRITE,
+                    MAP_SHARED | MAP_POPULATE, fd, IORING_OFF_SQ_RING);
+  if (sq_ring_ == MAP_FAILED) {
+    reason_ = "mmap sq ring: " + ErrnoStr(errno);
+    sq_ring_ = nullptr;
+    ::close(fd);
+    return false;
+  }
+  if (single) {
+    cq_ring_ = sq_ring_;
+  } else {
+    cq_ring_ = ::mmap(nullptr, cq_ring_sz_, PROT_READ | PROT_WRITE,
+                      MAP_SHARED | MAP_POPULATE, fd, IORING_OFF_CQ_RING);
+    if (cq_ring_ == MAP_FAILED) {
+      reason_ = "mmap cq ring: " + ErrnoStr(errno);
+      ::munmap(sq_ring_, sq_ring_sz_);
+      sq_ring_ = cq_ring_ = nullptr;
+      ::close(fd);
+      return false;
+    }
+  }
+  sqes_sz_ = p.sq_entries * sizeof(io_uring_sqe);
+  sqes_ = ::mmap(nullptr, sqes_sz_, PROT_READ | PROT_WRITE,
+                 MAP_SHARED | MAP_POPULATE, fd, IORING_OFF_SQES);
+  if (sqes_ == MAP_FAILED) {
+    reason_ = "mmap sqes: " + ErrnoStr(errno);
+    ::munmap(sq_ring_, sq_ring_sz_);
+    if (!single) ::munmap(cq_ring_, cq_ring_sz_);
+    sq_ring_ = cq_ring_ = sqes_ = nullptr;
+    ::close(fd);
+    return false;
+  }
+  char* sqr = static_cast<char*>(sq_ring_);
+  sq_head_ = reinterpret_cast<unsigned*>(sqr + p.sq_off.head);
+  sq_tail_ = reinterpret_cast<unsigned*>(sqr + p.sq_off.tail);
+  sq_mask_ = reinterpret_cast<unsigned*>(sqr + p.sq_off.ring_mask);
+  sq_array_ = reinterpret_cast<unsigned*>(sqr + p.sq_off.array);
+  char* cqr = static_cast<char*>(cq_ring_);
+  cq_head_ = reinterpret_cast<unsigned*>(cqr + p.cq_off.head);
+  cq_tail_ = reinterpret_cast<unsigned*>(cqr + p.cq_off.tail);
+  cq_mask_ = reinterpret_cast<unsigned*>(cqr + p.cq_off.ring_mask);
+  cqes_ = cqr + p.cq_off.cqes;
+  ring_fd_ = fd;
+  reason_ = "ok";
+  return true;
+}
+
+void SubmissionRing::Destroy() {
+  if (ring_fd_ < 0) return;
+  // Closing the ring fd releases the instance; any still-inflight op is
+  // torn down by the kernel's ring teardown (owners drain before
+  // destroying precisely so no op can still reference their arenas).
+  ::close(ring_fd_);
+  ring_fd_ = -1;
+  if (sqes_) ::munmap(sqes_, sqes_sz_);
+  const bool single = cq_ring_ == sq_ring_;
+  if (sq_ring_) ::munmap(sq_ring_, sq_ring_sz_);
+  if (!single && cq_ring_) ::munmap(cq_ring_, cq_ring_sz_);
+  sq_ring_ = cq_ring_ = sqes_ = nullptr;
+  sq_head_ = sq_tail_ = sq_mask_ = sq_array_ = nullptr;
+  cq_head_ = cq_tail_ = cq_mask_ = nullptr;
+  cqes_ = nullptr;
+  prepared_ = 0;
+  inflight_ = 0;
+}
+
+void* SubmissionRing::sqe_at(unsigned idx) {
+  return static_cast<io_uring_sqe*>(sqes_) + idx;
+}
+
+bool SubmissionRing::PrepCommon(uint8_t opcode, int fd, const void* addr,
+                                uint32_t len, uint64_t off,
+                                uint64_t user_data, bool link,
+                                uint32_t op_flags, unsigned buf_index) {
+  if (ring_fd_ < 0) return false;
+  const unsigned tail = *sq_tail_;  // single-owner: plain read is ours
+  const unsigned head = __atomic_load_n(sq_head_, __ATOMIC_ACQUIRE);
+  if (tail - head >= sq_entries_) return false;  // SQ full
+  const unsigned idx = tail & *sq_mask_;
+  auto* sqe = static_cast<io_uring_sqe*>(sqe_at(idx));
+  std::memset(sqe, 0, sizeof(*sqe));
+  sqe->opcode = opcode;
+  sqe->fd = fd;
+  sqe->addr = reinterpret_cast<uint64_t>(addr);
+  sqe->len = len;
+  sqe->off = off;
+  sqe->user_data = user_data;
+  sqe->flags = link ? IOSQE_IO_LINK : 0;
+  sqe->msg_flags = op_flags;
+  sqe->buf_index = static_cast<uint16_t>(buf_index);
+  sq_array_[idx] = idx;
+  __atomic_store_n(sq_tail_, tail + 1, __ATOMIC_RELEASE);
+  ++prepared_;
+  return true;
+}
+
+bool SubmissionRing::PrepSendMsg(int fd, const void* msg,
+                                 uint64_t user_data, bool link) {
+  return PrepCommon(IORING_OP_SENDMSG, fd, msg, 1, 0, user_data, link,
+                    MSG_NOSIGNAL, 0);
+}
+
+bool SubmissionRing::PrepRecv(int fd, void* buf, size_t len, int flags,
+                              uint64_t user_data, bool link) {
+  return PrepCommon(IORING_OP_RECV, fd, buf, static_cast<uint32_t>(len),
+                    0, user_data, link, static_cast<uint32_t>(flags), 0);
+}
+
+bool SubmissionRing::PrepRecvMsg(int fd, void* msg, unsigned msg_flags,
+                                 uint64_t user_data, bool link) {
+  return PrepCommon(IORING_OP_RECVMSG, fd, msg, 1, 0, user_data, link,
+                    msg_flags, 0);
+}
+
+bool SubmissionRing::PrepRead(int fd, void* buf, size_t len, uint64_t off,
+                              uint64_t user_data, bool link) {
+  return PrepCommon(IORING_OP_READ, fd, buf, static_cast<uint32_t>(len),
+                    off, user_data, link, 0, 0);
+}
+
+bool SubmissionRing::PrepReadFixed(int fd, void* buf, size_t len,
+                                   uint64_t off, unsigned buf_index,
+                                   uint64_t user_data, bool link) {
+  return PrepCommon(IORING_OP_READ_FIXED, fd, buf,
+                    static_cast<uint32_t>(len), off, user_data, link, 0,
+                    buf_index);
+}
+
+bool SubmissionRing::PrepCancel(uint64_t target_user_data,
+                                uint64_t user_data) {
+  return PrepCommon(IORING_OP_ASYNC_CANCEL, -1,
+                    reinterpret_cast<const void*>(target_user_data), 0, 0,
+                    user_data, false, 0, 0);
+}
+
+void SubmissionRing::AbandonPrepared() {
+  if (ring_fd_ < 0 || prepared_ == 0) return;
+  __atomic_store_n(sq_tail_, *sq_tail_ - prepared_, __ATOMIC_RELEASE);
+  prepared_ = 0;
+}
+
+bool SubmissionRing::RegisterBuffers(const void* const* bases,
+                                     const size_t* lens, unsigned n) {
+  if (ring_fd_ < 0) return false;
+  std::vector<iovec> iovs(n);
+  for (unsigned i = 0; i < n; ++i)
+    iovs[i] = iovec{const_cast<void*>(bases[i]), lens[i]};
+  return uring_register(ring_fd_, IORING_REGISTER_BUFFERS, iovs.data(),
+                        n) == 0;
+}
+
+int SubmissionRing::SubmitAndWait(unsigned wait_nr, int timeout_ms) {
+  if (ring_fd_ < 0) return -EBADF;
+  const unsigned to_submit = prepared_;
+  unsigned flags = 0;
+  const void* argp = nullptr;
+  size_t argsz = 0;
+  struct __kernel_timespec ts;
+  io_uring_getevents_arg arg;
+  if (wait_nr > 0) {
+    flags |= IORING_ENTER_GETEVENTS;
+    if (timeout_ms >= 0 && ext_arg_) {
+      ts.tv_sec = timeout_ms / 1000;
+      ts.tv_nsec = static_cast<long long>(timeout_ms % 1000) * 1000000;
+      std::memset(&arg, 0, sizeof(arg));
+      arg.ts = reinterpret_cast<uint64_t>(&ts);
+      flags |= IORING_ENTER_EXT_ARG;
+      argp = &arg;
+      argsz = sizeof(arg);
+    }
+  }
+  int rc = uring_enter(ring_fd_, to_submit, wait_nr, flags, argp, argsz);
+  if (rc < 0) return -errno;  // -ETIME = wait timed out, nothing new
+  prepared_ -= static_cast<unsigned>(rc);
+  inflight_ += rc;
+  return rc;
+}
+
+int SubmissionRing::ReapCompletions(std::vector<Completion>* out) {
+  if (ring_fd_ < 0) return 0;
+  unsigned head = *cq_head_;
+  const unsigned tail = __atomic_load_n(cq_tail_, __ATOMIC_ACQUIRE);
+  int nr = 0;
+  while (head != tail) {
+    const auto* cqe =
+        static_cast<const io_uring_cqe*>(cqes_) + (head & *cq_mask_);
+    out->push_back(Completion{cqe->user_data, cqe->res});
+    ++head;
+    ++nr;
+  }
+  __atomic_store_n(cq_head_, head, __ATOMIC_RELEASE);
+  inflight_ -= nr;
+  return nr;
+}
+
+// ---------------------------------------------------------------------
+// ColdDirectReader
+
+ColdDirectReader::ColdDirectReader() = default;
+
+ColdDirectReader::~ColdDirectReader() {
+  std::lock_guard<std::mutex> lock(mu_);
+  for (auto& kv : fds_) ::close(kv.second);
+  fds_.clear();
+  ring_.reset();
+  if (bounce_) ::free(bounce_);
+  bounce_ = nullptr;
+}
+
+bool ColdDirectReader::AddFile(const std::string& name,
+                               const std::string& path) {
+  int fd = ::open(path.c_str(), O_RDONLY | O_DIRECT | O_CLOEXEC);
+  if (fd < 0) return false;  // fs refuses O_DIRECT: var stays on mmap
+  std::lock_guard<std::mutex> lock(mu_);
+  auto it = fds_.find(name);
+  if (it != fds_.end()) ::close(it->second);
+  fds_[name] = fd;
+  return true;
+}
+
+void ColdDirectReader::DropFile(const std::string& name) {
+  std::lock_guard<std::mutex> lock(mu_);
+  auto it = fds_.find(name);
+  if (it == fds_.end()) return;
+  ::close(it->second);
+  fds_.erase(it);
+}
+
+bool ColdDirectReader::HasFile(const std::string& name) const {
+  std::lock_guard<std::mutex> lock(mu_);
+  return fds_.count(name) != 0;
+}
+
+bool ColdDirectReader::EnsureRing() {
+  if (ring_ && ring_->ok()) return true;
+  if (ring_failed_) return false;
+  if (!ProbeUring().supported || !ProbeUring().op_read) {
+    ring_failed_ = true;
+    return false;
+  }
+  void* mem = nullptr;
+  if (::posix_memalign(&mem, kDirectAlign, kBounceBytes) != 0) {
+    ring_failed_ = true;
+    return false;
+  }
+  bounce_ = static_cast<char*>(mem);
+  ring_.reset(new SubmissionRing());
+  if (!ring_->Init(64)) {
+    ring_.reset();
+    ::free(bounce_);
+    bounce_ = nullptr;
+    ring_failed_ = true;
+    return false;
+  }
+  // Registered bounce buffer -> READ_FIXED skips the per-op pin/unpin
+  // (DDSTORE_URING_REGBUF=0 opts out; refusal — e.g. RLIMIT_MEMLOCK —
+  // silently keeps plain READ).
+  if (EnvLongU("DDSTORE_URING_REGBUF", 1) != 0 &&
+      ProbeUring().op_read_fixed) {
+    const void* base = bounce_;
+    const size_t len = static_cast<size_t>(kBounceBytes);
+    regbuf_ = ring_->RegisterBuffers(&base, &len, 1);
+  }
+  return true;
+}
+
+bool ColdDirectReader::Read(const std::string& name, int64_t offset,
+                            int64_t nbytes, void* dst) {
+  CdOp op{offset, nbytes, dst};
+  return ReadBatch(name, &op, 1);
+}
+
+bool ColdDirectReader::ReadBatch(const std::string& name, const CdOp* ops,
+                                 int n) {
+  if (n <= 0) return true;
+  std::lock_guard<std::mutex> lock(mu_);
+  auto it = fds_.find(name);
+  if (it == fds_.end()) return false;
+  if (!EnsureRing()) {
+    fallbacks_.fetch_add(1, std::memory_order_relaxed);
+    return false;
+  }
+  const int fd = it->second;
+  const int timeout_ms =
+      static_cast<int>(EnvLongU("DDSTORE_READ_TIMEOUT_S", 300)) * 1000;
+  struct Slice {
+    int64_t a_off;   // aligned file offset
+    int64_t span;    // aligned read length
+    int64_t need;    // bytes from a_off that must land (EOF-aware)
+    char* buf;
+    const CdOp* op;
+  };
+  std::vector<Slice> slices;
+  std::vector<SubmissionRing::Completion> cqes;
+  int64_t total = 0;
+  int i = 0;
+  while (i < n) {
+    // Pack as many ops as fit the bounce buffer (and the ring) into ONE
+    // submission of independent (unlinked) READs.
+    slices.clear();
+    int64_t used = 0;
+    int j = i;
+    while (j < n &&
+           slices.size() + 1 < static_cast<size_t>(ring_->depth())) {
+      const CdOp& op = ops[j];
+      if (op.nbytes < 0 || op.offset < 0) {
+        fallbacks_.fetch_add(1, std::memory_order_relaxed);
+        return false;
+      }
+      if (op.nbytes == 0) {  // nothing to read; no slice
+        ++j;
+        continue;
+      }
+      const int64_t a_off = op.offset & ~(kDirectAlign - 1);
+      const int64_t a_end =
+          (op.offset + op.nbytes + kDirectAlign - 1) & ~(kDirectAlign - 1);
+      const int64_t span = a_end - a_off;
+      if (span > kBounceBytes) {
+        // One op bigger than the bounce window: serve the whole batch
+        // from the mmap (no partial application).
+        fallbacks_.fetch_add(1, std::memory_order_relaxed);
+        return false;
+      }
+      if (used + span > kBounceBytes) break;
+      slices.push_back(Slice{a_off, span,
+                             op.offset + op.nbytes - a_off,
+                             bounce_ + used, &ops[j]});
+      used += span;
+      ++j;
+    }
+    if (slices.empty()) {
+      i = j;  // trailing zero-byte ops
+      continue;
+    }
+    for (size_t s = 0; s < slices.size(); ++s) {
+      const Slice& sl = slices[s];
+      const bool ok =
+          regbuf_
+              ? ring_->PrepReadFixed(fd, sl.buf,
+                                     static_cast<size_t>(sl.span),
+                                     static_cast<uint64_t>(sl.a_off), 0,
+                                     s, false)
+              : ring_->PrepRead(fd, sl.buf, static_cast<size_t>(sl.span),
+                                static_cast<uint64_t>(sl.a_off), s,
+                                false);
+      if (!ok) {
+        fallbacks_.fetch_add(1, std::memory_order_relaxed);
+        return false;
+      }
+    }
+    // One io_uring_enter serves the whole slice group.
+    unsigned pending = static_cast<unsigned>(slices.size());
+    const int64_t deadline = NowMs() + timeout_ms;
+    while (pending > 0) {
+      int rc = ring_->SubmitAndWait(pending, timeout_ms);
+      if (rc < 0 && rc != -EINTR) break;
+      cqes.clear();
+      ring_->ReapCompletions(&cqes);
+      for (const auto& cqe : cqes) {
+        --pending;
+        const Slice& sl = slices[static_cast<size_t>(cqe.user_data)];
+        // Short read past EOF is fine as long as the needed span
+        // landed; anything else poisons the group.
+        if (cqe.res < 0 || cqe.res < sl.need) {
+          fallbacks_.fetch_add(1, std::memory_order_relaxed);
+          // Drain stragglers before the arenas can go away.
+          while (pending > 0) {
+            if (ring_->SubmitAndWait(pending, 2000) < 0) break;
+            cqes.clear();
+            pending -= static_cast<unsigned>(
+                std::min<int64_t>(pending,
+                                  ring_->ReapCompletions(&cqes)));
+            if (NowMs() > deadline) break;
+          }
+          if (pending > 0) {
+            // Undrainable inflight read: never let it scribble a freed
+            // bounce buffer — retire the ring (teardown cancels it).
+            ring_.reset();
+            ring_failed_ = true;
+          }
+          return false;
+        }
+      }
+      if (pending > 0 && NowMs() > deadline) {
+        ring_.reset();
+        ring_failed_ = true;
+        fallbacks_.fetch_add(1, std::memory_order_relaxed);
+        return false;
+      }
+    }
+    for (const Slice& sl : slices) {
+      std::memcpy(sl.op->dst, sl.buf + (sl.op->offset - sl.a_off),
+                  static_cast<size_t>(sl.op->nbytes));
+      total += sl.op->nbytes;
+    }
+    i = j;
+  }
+  reads_.fetch_add(n, std::memory_order_relaxed);
+  bytes_.fetch_add(total, std::memory_order_relaxed);
+  return true;
+}
+
+void ColdDirectReader::Stats(int64_t out[6]) const {
+  std::lock_guard<std::mutex> lock(mu_);
+  out[0] = static_cast<int64_t>(fds_.size());
+  out[1] = reads_.load(std::memory_order_relaxed);
+  out[2] = bytes_.load(std::memory_order_relaxed);
+  out[3] = fallbacks_.load(std::memory_order_relaxed);
+  out[4] = regbuf_ ? 1 : 0;
+  out[5] = (ring_ && ring_->ok()) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------
+// UringTransport
+
+UringTransport::UringTransport(int rank, int world, int port)
+    : TcpTransport(rank, world, port) {
+  const UringCaps& caps = ProbeUring();
+  engaged_ = caps.supported;
+  reason_ = caps.reason;
+  // Floor 64: the worst single frame costs 1 send + 1 hdr +
+  // ceil(kVecMaxOps/kIovMax)=8 payload SQEs, and the burst budget
+  // below reserves slack on top.
+  depth_ = static_cast<unsigned>(std::min<long>(
+      std::max<long>(EnvLongU("DDSTORE_URING_DEPTH", 256), 64), 4096));
+  enter_timeout_ms_ =
+      static_cast<int>(EnvLongU("DDSTORE_READ_TIMEOUT_S", 300)) * 1000;
+  if (!engaged_) {
+    // The LOUD fallback the probe contract demands: the transport keeps
+    // working (inherited TCP path), but nobody should discover that
+    // from a bench number — the verdict is printed once and exported
+    // through dds_uring_state/dds_uring_reason.
+    std::fprintf(stderr,
+                 "[ddstore] DDSTORE_TRANSPORT=uring requested but "
+                 "io_uring is unavailable on this kernel (%s); rank %d "
+                 "serving every read via the TCP wire path\n",
+                 reason_.c_str(), rank);
+  }
+}
+
+UringTransport::~UringTransport() {
+  // Base ~TcpTransport joins the serving threads and closes every lane
+  // BEFORE members of this subclass are destroyed — but lane rings hold
+  // no reference to arenas by now (every ReadVOn drains its burst
+  // before returning), so destruction order is safe either way.
+}
+
+void UringTransport::UringCounters(int64_t out[7]) const {
+  out[0] = engaged_ ? 1 : 0;
+  out[1] = bursts_.load(std::memory_order_relaxed);
+  out[2] = enters_.load(std::memory_order_relaxed);
+  out[3] = sqes_.load(std::memory_order_relaxed);
+  out[4] = frames_.load(std::memory_order_relaxed);
+  out[5] = fallbacks_.load(std::memory_order_relaxed);
+  out[6] = ring_errors_.load(std::memory_order_relaxed);
+}
+
+int UringTransport::WireRouteLabel() const {
+  return engaged_ ? metrics::kRouteUring : metrics::kRouteTcp;
+}
+
+SubmissionRing* UringTransport::LaneRing(Conn* c) {
+  std::lock_guard<std::mutex> lock(rings_mu_);
+  auto it = rings_.find(c);
+  if (it != rings_.end()) return it->second->ok() ? it->second.get()
+                                                  : nullptr;
+  auto ring = std::unique_ptr<SubmissionRing>(new SubmissionRing());
+  if (!ring->Init(depth_)) {
+    ring_errors_.fetch_add(1, std::memory_order_relaxed);
+    rings_.emplace(c, std::move(ring));  // cache the refusal
+    return nullptr;
+  }
+  SubmissionRing* out = ring.get();
+  rings_.emplace(c, std::move(ring));
+  return out;
+}
+
+void UringTransport::DropLaneRing(Conn* c) {
+  std::lock_guard<std::mutex> lock(rings_mu_);
+  rings_.erase(c);
+}
+
+int UringTransport::ReadVOn(Peer& p, Conn& c, const std::string& name,
+                            const ReadOp* ops, int64_t n) {
+  if (!engaged_) return TcpTransport::ReadVOn(p, c, name, ops, n);
+  SubmissionRing* ring = LaneRing(&c);
+  if (ring == nullptr) {
+    fallbacks_.fetch_add(1, std::memory_order_relaxed);
+    return TcpTransport::ReadVOn(p, c, name, ops, n);
+  }
+  std::lock_guard<std::mutex> lock(c.mu);
+  int rc = EnsureConnected(p, c);
+  if (rc != kOk) return rc;
+  return UringReadVLocked(p, c, *ring, name, ops, n);
+}
+
+int UringTransport::UringReadVLocked(Peer& p, Conn& c,
+                                     SubmissionRing& ring,
+                                     const std::string& name,
+                                     const ReadOp* ops, int64_t n) {
+  (void)p;
+  // -- Framing: the EXACT plan TcpTransport::ReadVOn computes (wire.h
+  // contract). Identical frames mean an identical byte stream on the
+  // wire — which is what keeps the server-side seeded fault-draw
+  // schedule, the trace tag plumbing and mixed-fleet interop unchanged.
+  const int64_t tspan = static_cast<int64_t>(trace::CurrentSpan());
+  struct Frame {
+    int64_t begin, end, bytes, req_bytes;
+  };
+  std::vector<Frame> frames;
+  for (int64_t i = 0; i < n;) {
+    int64_t j = i, bytes = 0;
+    while (j < n && j - i < kVecMaxOps &&
+           bytes + ops[j].nbytes <= (ops[j].nbytes < kPackBytes
+                                         ? kScatterFrameBytes
+                                         : kVecMaxBytes)) {
+      bytes += ops[j].nbytes;
+      ++j;
+    }
+    if (j == i) {  // single op over the byte cap
+      bytes = ops[i].nbytes;
+      j = i + 1;
+    }
+    const int64_t req_bytes = static_cast<int64_t>(sizeof(WireReq)) +
+                              static_cast<int64_t>(name.size()) +
+                              (j - i > 1 ? (j - i) * 16 : 0);
+    frames.push_back(Frame{i, j, bytes, req_bytes});
+    i = j;
+  }
+  const int64_t nframes = static_cast<int64_t>(frames.size());
+  std::vector<WireReq> hdrs(static_cast<size_t>(nframes));
+  std::vector<int64_t> all_ops(static_cast<size_t>(n) * 2);
+  for (int64_t k = 0; k < n; ++k) {
+    all_ops[2 * k] = ops[k].offset;
+    all_ops[2 * k + 1] = ops[k].nbytes;
+  }
+  for (int64_t f = 0; f < nframes; ++f) {
+    const Frame& fr = frames[f];
+    const int64_t fn = fr.end - fr.begin;
+    if (fn == 1)
+      hdrs[static_cast<size_t>(f)] =
+          WireReq{kMagic, kOpRead,
+                  rank_,  static_cast<uint32_t>(name.size()),
+                  ops[fr.begin].offset, ops[fr.begin].nbytes,
+                  tspan};
+    else
+      hdrs[static_cast<size_t>(f)] =
+          WireReq{kMagic, kOpReadVec,
+                  rank_,  static_cast<uint32_t>(name.size()),
+                  fn,     fr.bytes,
+                  tspan};
+  }
+  std::vector<WireResp> resps(static_cast<size_t>(nframes));
+
+  // Per-burst arenas. Sized exactly before any SQE is prepped and
+  // never grown afterwards: the kernel snapshots msghdr/iovec arrays
+  // at submission, but the pack staging and response headers are live
+  // until the CQE lands — a reallocation mid-flight would be a
+  // use-after-free. Declared outside the burst loop purely for reuse.
+  std::vector<iovec> req_iovs;
+  msghdr req_msg;
+  std::vector<char> pack;
+  std::vector<iovec> pay_iovs;
+  std::vector<msghdr> pay_msgs;
+  struct Chunk {  // one RECVMSG SQE worth of payload
+    int64_t bytes;
+  };
+  std::vector<Chunk> chunks;
+  struct Fixup {
+    char* src;
+    void* dst;
+    int64_t nbytes;
+  };
+  std::vector<Fixup> fixups;
+  std::vector<size_t> frame_fix_begin, frame_fix_end;
+  std::vector<SubmissionRing::Completion> cqes;
+
+  int64_t done = 0;
+  while (done < nframes) {
+    // ---- Plan the burst [done, burst_end): every frame costs one
+    // header-recv SQE plus ceil(scatter iovecs / kIovMax) payload
+    // recvs; the whole burst's requests ride ONE sendmsg SQE. Budget
+    // against the ring (slack for short-send continuations + cancels).
+    const unsigned budget = ring.depth() - 8;
+    // Request-side cap: the burst's gather list rides one sendmsg (≤ 3
+    // iovecs per frame), which the kernel bounds at UIO_MAXIOV entries.
+    const int64_t max_burst_frames =
+        static_cast<int64_t>(kIovMax / 3) - 1;
+    int64_t burst_end = done;
+    size_t est_sqes = 1;       // the request sendmsg
+    size_t est_iovs = 0, est_pack = 0, est_chunks = 0, est_req_iovs = 0;
+    while (burst_end < nframes && burst_end - done < max_burst_frames) {
+      const Frame& fr = frames[burst_end];
+      // Count scatter iovecs after pack-merging (consecutive small ops
+      // share one staging iovec) — the same walk the fill pass does.
+      size_t iovn = 0, packb = 0;
+      bool prev_packed = false;
+      for (int64_t k = fr.begin; k < fr.end; ++k) {
+        if (ops[k].nbytes <= 0) continue;
+        if (ops[k].nbytes < kPackBytes) {
+          if (!prev_packed) ++iovn;
+          packb += static_cast<size_t>(ops[k].nbytes);
+          prev_packed = true;
+        } else {
+          ++iovn;
+          prev_packed = false;
+        }
+      }
+      const size_t nchunks =
+          fr.bytes > 0 ? (iovn + kIovMax - 1) / kIovMax : 0;
+      const size_t cost = 1 + nchunks;
+      if (burst_end > done && est_sqes + cost > budget) break;
+      est_sqes += cost;
+      est_iovs += iovn;
+      est_pack += packb;
+      est_chunks += nchunks;
+      est_req_iovs += 3;
+      ++burst_end;
+      if (est_sqes >= budget) break;
+    }
+    const int64_t bn = burst_end - done;
+
+    // ---- Fill arenas (exact reservations; no growth past this point).
+    req_iovs.clear();
+    req_iovs.reserve(est_req_iovs);
+    if (pack.size() < est_pack) pack.resize(est_pack);
+    pay_iovs.clear();
+    pay_iovs.reserve(est_iovs);
+    pay_msgs.clear();
+    pay_msgs.reserve(est_chunks);
+    chunks.clear();
+    chunks.reserve(est_chunks);
+    fixups.clear();
+    frame_fix_begin.assign(static_cast<size_t>(bn), 0);
+    frame_fix_end.assign(static_cast<size_t>(bn), 0);
+    struct FrameChunks {
+      size_t first_chunk = 0, nchunks = 0;
+      bool hdr_done = false;
+    };
+    std::vector<FrameChunks> fcs(static_cast<size_t>(bn));
+    int64_t req_total = 0;
+    char* sp = pack.data();
+    for (int64_t bf = 0; bf < bn; ++bf) {
+      const int64_t f = done + bf;
+      const Frame& fr = frames[f];
+      req_iovs.push_back(iovec{&hdrs[static_cast<size_t>(f)],
+                               sizeof(WireReq)});
+      req_iovs.push_back(
+          iovec{const_cast<char*>(name.data()), name.size()});
+      if (fr.end - fr.begin > 1)
+        req_iovs.push_back(
+            iovec{&all_ops[static_cast<size_t>(2 * fr.begin)],
+                  static_cast<size_t>(fr.end - fr.begin) * 16});
+      req_total += fr.req_bytes;
+      // Scatter plan (pack/fixup scheme identical to the TCP path).
+      fcs[static_cast<size_t>(bf)].first_chunk = chunks.size();
+      frame_fix_begin[static_cast<size_t>(bf)] = fixups.size();
+      const size_t iov_start = pay_iovs.size();
+      bool prev_packed = false;
+      for (int64_t k = fr.begin; k < fr.end; ++k) {
+        const ReadOp& op = ops[k];
+        if (op.nbytes <= 0) continue;
+        if (op.nbytes < kPackBytes) {
+          fixups.push_back(Fixup{sp, op.dst, op.nbytes});
+          if (prev_packed)
+            pay_iovs.back().iov_len += static_cast<size_t>(op.nbytes);
+          else
+            pay_iovs.push_back(iovec{sp, static_cast<size_t>(op.nbytes)});
+          sp += op.nbytes;
+          prev_packed = true;
+        } else {
+          pay_iovs.push_back(
+              iovec{op.dst, static_cast<size_t>(op.nbytes)});
+          prev_packed = false;
+        }
+      }
+      frame_fix_end[static_cast<size_t>(bf)] = fixups.size();
+      // Chunk the frame's iovecs at kIovMax per RECVMSG.
+      size_t off = iov_start;
+      while (off < pay_iovs.size()) {
+        const size_t cnt = std::min(kIovMax, pay_iovs.size() - off);
+        msghdr mh;
+        std::memset(&mh, 0, sizeof(mh));
+        mh.msg_iov = pay_iovs.data() + off;
+        mh.msg_iovlen = cnt;
+        pay_msgs.push_back(mh);
+        int64_t cb = 0;
+        for (size_t q = off; q < off + cnt; ++q)
+          cb += static_cast<int64_t>(pay_iovs[q].iov_len);
+        chunks.push_back(Chunk{cb});
+        ++fcs[static_cast<size_t>(bf)].nchunks;
+        off += cnt;
+      }
+    }
+    std::memset(&req_msg, 0, sizeof(req_msg));
+    req_msg.msg_iov = req_iovs.data();
+    req_msg.msg_iovlen = req_iovs.size();
+
+    // ---- Prep: one unlinked sendmsg (its own chain), then the recv
+    // chain hdr0 -> pay0... -> hdrN -> payN. Two independent chains —
+    // linking recvs behind the send would serialize the whole exchange
+    // and deadlock once both sides block in send; linking ALL recvs
+    // serializes them on the fd so async workers cannot interleave the
+    // stream.
+    bool prep_ok = ring.PrepSendMsg(c.fd, &req_msg, kUdSend, false);
+    for (int64_t bf = 0; prep_ok && bf < bn; ++bf) {
+      const int64_t f = done + bf;
+      const FrameChunks& fc = fcs[static_cast<size_t>(bf)];
+      const bool last_sqe = (bf == bn - 1) && fc.nchunks == 0;
+      prep_ok = ring.PrepRecv(c.fd, &resps[static_cast<size_t>(f)],
+                              sizeof(WireResp), MSG_WAITALL,
+                              kUdHdr | static_cast<uint64_t>(bf),
+                              !last_sqe);
+      for (size_t q = 0; prep_ok && q < fc.nchunks; ++q) {
+        const size_t ci = fc.first_chunk + q;
+        const bool last =
+            (bf == bn - 1) && (q == fc.nchunks - 1);
+        prep_ok = ring.PrepRecvMsg(c.fd, &pay_msgs[ci], MSG_WAITALL,
+                                   kUdPay | static_cast<uint64_t>(ci),
+                                   !last);
+      }
+    }
+    // ---- Submit + reap. Happy path: ONE io_uring_enter submits the
+    // whole burst and waits for every completion (the short re-poll
+    // below only triggers on bursts that outlive the poll quantum).
+    sqes_.fetch_add(static_cast<int64_t>(est_sqes),
+                    std::memory_order_relaxed);
+    unsigned pending = prep_ok ? 1 : 0;  // the request sendmsg
+    if (prep_ok)
+      for (int64_t bf = 0; bf < bn; ++bf)
+        pending += 1 + static_cast<unsigned>(
+                           fcs[static_cast<size_t>(bf)].nchunks);
+    int64_t send_done_bytes = 0;
+    size_t send_iov_off = 0;  // first request iovec not fully sent
+    bool err = !prep_ok;      // SQ unexpectedly full = budget bug
+    if (err) ring_errors_.fetch_add(1, std::memory_order_relaxed);
+    const int64_t deadline = NowMs() + enter_timeout_ms_;
+    // Poll quantum: waiting for ALL completions in one enter is the
+    // fast path, but a server-reported error frame starves the recv
+    // chain (the server sends no payload for it, so the chain waits on
+    // bytes that never come) — re-examine completed headers every
+    // quantum so a fatal status surfaces in ~50 ms, not at the read
+    // deadline, mirroring the TCP loop's immediate error return.
+    constexpr int kPollMs = 50;
+    while (!err && pending > 0) {
+      const int64_t left = deadline - NowMs();
+      if (left <= 0) {
+        err = true;
+        break;
+      }
+      const int rc = ring.SubmitAndWait(
+          pending,
+          static_cast<int>(std::min<int64_t>(left, kPollMs)));
+      enters_.fetch_add(1, std::memory_order_relaxed);
+      if (rc < 0 && rc != -EINTR && rc != -ETIME) {
+        err = true;
+        break;
+      }
+      cqes.clear();
+      ring.ReapCompletions(&cqes);
+      for (const auto& cqe : cqes) {
+        --pending;
+        const uint64_t kind = cqe.user_data & kUdKindMask;
+        const uint64_t idx = cqe.user_data & kUdIdxMask;
+        if (kind == kUdSend) {
+          if (cqe.res <= 0) {
+            err = true;
+            continue;
+          }
+          send_done_bytes += cqe.res;
+          if (send_done_bytes < req_total) {
+            // Short send (socket buffer full at the nonblocking
+            // attempt): advance the gather list past the sent bytes
+            // and submit a continuation. Only ever ONE send is
+            // outstanding, so request bytes stay in order.
+            int64_t adv = cqe.res;
+            while (adv > 0 && send_iov_off < req_iovs.size()) {
+              iovec& v = req_iovs[send_iov_off];
+              if (static_cast<int64_t>(v.iov_len) <= adv) {
+                adv -= static_cast<int64_t>(v.iov_len);
+                ++send_iov_off;
+              } else {
+                v.iov_base = static_cast<char*>(v.iov_base) + adv;
+                v.iov_len -= static_cast<size_t>(adv);
+                adv = 0;
+              }
+            }
+            req_msg.msg_iov = req_iovs.data() + send_iov_off;
+            req_msg.msg_iovlen = req_iovs.size() - send_iov_off;
+            if (!ring.PrepSendMsg(c.fd, &req_msg, kUdSend, false)) {
+              err = true;
+              continue;
+            }
+            ++pending;
+          }
+        } else if (kind == kUdHdr) {
+          if (cqe.res != static_cast<int32_t>(sizeof(WireResp)))
+            err = true;
+          else
+            fcs[idx].hdr_done = true;
+        } else if (kind == kUdPay) {
+          if (cqe.res < 0 ||
+              static_cast<int64_t>(cqe.res) != chunks[idx].bytes)
+            err = true;
+        }
+      }
+      // A completed header carrying a server error means the rest of
+      // the chain may never be fed — bail out NOW with that status.
+      for (int64_t bf = 0; !err && bf < bn; ++bf)
+        if (fcs[static_cast<size_t>(bf)].hdr_done &&
+            resps[static_cast<size_t>(done + bf)].status != kOk)
+          err = true;
+    }
+
+    if (err || pending > 0) {
+      // Failure path, ticket hygiene first: discard anything staged
+      // but never submitted (a mid-prep failure's SQEs reference
+      // arenas about to die), wake every blocked socket op (shutdown
+      // completes them fast), cancel + drain until no submitted SQE
+      // can still reference this stack's arenas, then reset the
+      // connection exactly like the TCP fail() contract.
+      if (!prep_ok) ring.AbandonPrepared();
+      ::shutdown(c.fd, SHUT_RDWR);
+      const int64_t drain_deadline = NowMs() + 10000;
+      bool cancels_sent = false;
+      while (pending > 0 && NowMs() < drain_deadline) {
+        if (!cancels_sent) {
+          // Best-effort cancels (a poll-armed op does not wake on
+          // shutdown alone on every kernel). Cancel CQEs are extra
+          // completions on top of `pending`, accounted below by kind.
+          for (int64_t bf = 0; bf < bn; ++bf)
+            if (ring.PrepCancel(kUdHdr | static_cast<uint64_t>(bf),
+                                kUdCancel))
+              cancels_sent = true;
+        }
+        const int rc = ring.SubmitAndWait(1, 500);
+        if (rc < 0 && rc != -EINTR && rc != -ETIME) break;
+        cqes.clear();
+        ring.ReapCompletions(&cqes);
+        for (const auto& cqe : cqes) {
+          const uint64_t kind = cqe.user_data & kUdKindMask;
+          if (kind == kUdCancel) continue;
+          if (pending > 0) --pending;
+          if (kind == kUdHdr &&
+              cqe.res == static_cast<int32_t>(sizeof(WireResp)))
+            fcs[cqe.user_data & kUdIdxMask].hdr_done = true;
+        }
+      }
+      if (pending > 0) {
+        // Could not prove quiescence: retire the whole ring — teardown
+        // cancels stragglers in the kernel — so no completion can
+        // touch the arenas after this frame returns.
+        DropLaneRing(&c);
+      }
+      // First server-reported bad status (in frame order) outranks the
+      // transport verdict — mirrors the TCP loop, which returns the
+      // status of the first error frame it reads.
+      int status = kErrTransport;
+      for (int64_t bf = 0; bf < bn; ++bf) {
+        const auto& fc = fcs[static_cast<size_t>(bf)];
+        const WireResp& r = resps[static_cast<size_t>(done + bf)];
+        if (fc.hdr_done && r.status != kOk) {
+          status = r.status;
+          break;
+        }
+      }
+      trace::Ev(trace::kLaneClose, rank_, c.idx, kErrTransport, 0);
+      ::close(c.fd);
+      c.fd = -1;
+      return status;
+    }
+
+    // ---- Validate + land the burst, strictly in frame order (the
+    // first bad status wins, like the TCP loop).
+    for (int64_t bf = 0; bf < bn; ++bf) {
+      const int64_t f = done + bf;
+      const Frame& fr = frames[f];
+      const WireResp& r = resps[static_cast<size_t>(f)];
+      if (r.status != kOk || r.nbytes != fr.bytes) {
+        const int status = r.status != kOk ? r.status : kErrTransport;
+        trace::Ev(trace::kLaneClose, rank_, c.idx, kErrTransport, 0);
+        ::close(c.fd);
+        c.fd = -1;
+        return status;
+      }
+      for (size_t x = frame_fix_begin[static_cast<size_t>(bf)];
+           x < frame_fix_end[static_cast<size_t>(bf)]; ++x)
+        std::memcpy(fixups[x].dst, fixups[x].src,
+                    static_cast<size_t>(fixups[x].nbytes));
+      if (fr.bytes > 0)
+        c.bytes.fetch_add(fr.bytes, std::memory_order_relaxed);
+    }
+    frames_.fetch_add(bn, std::memory_order_relaxed);
+    bursts_.fetch_add(1, std::memory_order_relaxed);
+    done = burst_end;
+  }
+  return kOk;
+}
+
+}  // namespace dds

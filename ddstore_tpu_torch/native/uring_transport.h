@@ -1,0 +1,297 @@
+// io_uring data plane: zero-syscall-per-frame wire transport + O_DIRECT
+// cold-tier reads behind one submission-ring abstraction.
+//
+// The measured ceiling on the TCP wire path is per-frame syscall/sentry
+// cost, not bytes (BENCH_r06: route_tcp_scatter 1.75 GB/s vs 12.7 GB/s
+// CMA on identical workloads; PERF_NOTES Round 9's 0.33x forced-stripe
+// scatter is the same tax multiplied by lane dealing). This backend is
+// the honest stand-in for DDStore's one-sided libfabric fi_read method
+// (ROADMAP item 3): the requester submits a whole pipelined frame burst
+// — request writev + every response header+payload recv — as one batch
+// of SQEs and makes ONE io_uring_enter per burst, instead of one
+// sendmsg/recvmsg pair per frame.
+//
+// Three deliberate structural choices:
+//   * UringTransport SUBCLASSES TcpTransport and overrides only the
+//     per-lane wire loop (ReadVOn) + the histogram route label. Every
+//     contract the transport must honor — the retry ladder and
+//     seeded fault-draw schedules (draws are SERVER-side, so identical
+//     frames mean identical schedules), lane striping/autotuning,
+//     suspect-oracle short-circuits and failover, trace tag
+//     propagation, verified reads, gateway admission —
+//     rides the inherited machinery untouched. The wire BYTE STREAM is
+//     pinned identical to TCP (wire.h is shared), so the serve side
+//     needs no changes and mixed uring/tcp fleets interoperate.
+//   * The capability probe is a first-class exported fact, not a crash:
+//     gVisor-class kernels refuse io_uring_setup, so construction
+//     probes (ring setup + IORING_REGISTER_PROBE opcode check), exports
+//     {engaged, reason} through capi, logs the fallback LOUDLY once,
+//     and serves everything through the inherited TCP path.
+//   * The same SubmissionRing abstraction serves the tiered store's
+//     cold shards via O_DIRECT + (optionally registered) file reads
+//     (ColdDirectReader): a cold-row window fetch is one ring
+//     submission instead of N serialized page faults.
+#ifndef DDSTORE_TPU_URING_TRANSPORT_H_
+#define DDSTORE_TPU_URING_TRANSPORT_H_
+
+#include <atomic>
+#include <cstdint>
+#include <map>
+#include <memory>
+#include <mutex>
+#include <string>
+#include <vector>
+
+#include "tcp_transport.h"
+#include "thread_annotations.h"
+
+namespace dds {
+
+// ---------------------------------------------------------------------
+// Capability probe (raw syscalls; liburing is deliberately NOT a
+// dependency — the container toolchain has only kernel headers).
+
+struct UringCaps {
+  bool supported = false;     // ring setup + all required opcodes OK
+  std::string reason;         // human-readable verdict (also when OK)
+  uint32_t features = 0;      // IORING_FEAT_* bitmask from setup
+  bool op_send = false;       // IORING_OP_SEND
+  bool op_recv = false;       // IORING_OP_RECV
+  bool op_sendmsg = false;    // IORING_OP_SENDMSG (request gather)
+  bool op_recvmsg = false;    // IORING_OP_RECVMSG (payload scatter)
+  bool op_read = false;       // IORING_OP_READ (cold-tier O_DIRECT)
+  bool op_read_fixed = false;  // IORING_OP_READ_FIXED (registered bufs)
+  bool ext_arg = false;       // IORING_FEAT_EXT_ARG (enter timeouts)
+};
+
+// Probe once per process (cached): sets up a tiny throwaway ring,
+// queries the opcode table, tears it down. Never throws, never kills
+// the process — an EPERM/ENOSYS kernel yields {supported=false,
+// reason="io_uring_setup: ..."}.
+const UringCaps& ProbeUring();
+
+// ---------------------------------------------------------------------
+// SubmissionRing: one mmap'd io_uring instance. SINGLE-OWNER by
+// design: a ring is owned by exactly one lane (transport) or one
+// reader (cold tier) and every call must be externally serialized by
+// the owner's mutex (Conn::mu for lanes, ColdDirectReader::mu for the
+// cold path) — the ring itself carries no lock. The owner's mutex is a
+// DATA mutex (legitimately held across the blocking io_uring_enter),
+// so like Conn::mu it is deliberately NOT DDS_NO_BLOCKING; the
+// analyzer's blocking-under-lock detector instead polices
+// io_uring_enter/io_uring_wait_cqe under any DDS_NO_BLOCKING mutex.
+class SubmissionRing {
+ public:
+  SubmissionRing() = default;
+  ~SubmissionRing();
+  SubmissionRing(const SubmissionRing&) = delete;
+  SubmissionRing& operator=(const SubmissionRing&) = delete;
+
+  // Create the ring. depth = SQ entries (rounded up to a power of 2 by
+  // the kernel). Returns false (with reason()) on refusal.
+  bool Init(unsigned depth);
+  bool ok() const { return ring_fd_ >= 0; }
+  const std::string& reason() const { return reason_; }
+  unsigned depth() const { return sq_entries_; }
+
+  // SQE preparation. Each returns false when the SQ is full (caller
+  // submits and retries). `link` sets IOSQE_IO_LINK so the NEXT SQE in
+  // submission order runs only after this one succeeds — the backbone
+  // of the per-burst recv chain (hdr0 -> pay0 -> hdr1 -> ...), which
+  // also serializes all recvs on one fd so concurrent async workers
+  // cannot interleave the stream.
+  bool PrepSendMsg(int fd, const void* msg, uint64_t user_data,
+                   bool link);
+  bool PrepRecv(int fd, void* buf, size_t len, int flags,
+                uint64_t user_data, bool link);
+  bool PrepRecvMsg(int fd, void* msg, unsigned msg_flags,
+                   uint64_t user_data, bool link);
+  bool PrepRead(int fd, void* buf, size_t len, uint64_t off,
+                uint64_t user_data, bool link);
+  // READ_FIXED against registered buffer index `buf_index`.
+  bool PrepReadFixed(int fd, void* buf, size_t len, uint64_t off,
+                     unsigned buf_index, uint64_t user_data, bool link);
+  // Best-effort cancel of an outstanding SQE by user_data (ticket
+  // hygiene on the failure path).
+  bool PrepCancel(uint64_t target_user_data, uint64_t user_data);
+  // Discard every staged-but-unsubmitted SQE (rewinds the SQ tail; the
+  // kernel only reads the SQ during io_uring_enter, so unsubmitted
+  // entries are still exclusively ours). Used when a burst's prep
+  // fails midway: its staged SQEs reference arenas about to die and
+  // must never reach the kernel.
+  void AbandonPrepared();
+
+  // Register `n` fixed buffers (IORING_REGISTER_BUFFERS). Must be
+  // called with no SQEs in flight. Returns false on refusal (the
+  // caller falls back to plain reads).
+  bool RegisterBuffers(const void* const* bases, const size_t* lens,
+                       unsigned n);
+
+  // Submit all prepared SQEs and wait for at least `wait_nr`
+  // completions (0 = just submit). timeout_ms < 0 waits forever.
+  // Returns the number of SQEs consumed by the kernel, or -errno.
+  // ONE io_uring_enter per call — the whole point.
+  int SubmitAndWait(unsigned wait_nr, int timeout_ms);
+
+  struct Completion {
+    uint64_t user_data;
+    int32_t res;
+  };
+  // Drain available CQEs (no syscall; reads the mmap'd CQ ring).
+  int ReapCompletions(std::vector<Completion>* out);
+
+  // Outstanding = submitted - reaped (the owner's ticket ledger).
+  int64_t inflight() const { return inflight_; }
+
+  void Destroy();
+
+ private:
+  void* sqe_at(unsigned idx);
+  bool PrepCommon(uint8_t opcode, int fd, const void* addr, uint32_t len,
+                  uint64_t off, uint64_t user_data, bool link,
+                  uint32_t op_flags, unsigned buf_index);
+
+  int ring_fd_ = -1;
+  std::string reason_;
+  unsigned sq_entries_ = 0;
+  unsigned cq_entries_ = 0;
+  // SQ ring mmap
+  void* sq_ring_ = nullptr;
+  size_t sq_ring_sz_ = 0;
+  void* sqes_ = nullptr;
+  size_t sqes_sz_ = 0;
+  unsigned* sq_head_ = nullptr;
+  unsigned* sq_tail_ = nullptr;
+  unsigned* sq_mask_ = nullptr;
+  unsigned* sq_array_ = nullptr;
+  // CQ ring mmap (may alias sq_ring_ under IORING_FEAT_SINGLE_MMAP)
+  void* cq_ring_ = nullptr;
+  size_t cq_ring_sz_ = 0;
+  unsigned* cq_head_ = nullptr;
+  unsigned* cq_tail_ = nullptr;
+  unsigned* cq_mask_ = nullptr;
+  void* cqes_ = nullptr;
+  unsigned prepared_ = 0;   // SQEs staged since last submit
+  int64_t inflight_ = 0;    // submitted, not yet reaped
+  bool ext_arg_ = false;
+};
+
+// ---------------------------------------------------------------------
+// ColdDirectReader: serves tier-1 (cold, file-backed, readonly) shard
+// reads via O_DIRECT through one SubmissionRing — a batched cold-row
+// window fetch is ONE ring submission into an aligned bounce buffer
+// (optionally registered via IORING_REGISTER_BUFFERS / READ_FIXED),
+// not N serialized page faults through the mmap. Store::ReadLocalV
+// consults it for cold vars registered with SetVarFile; any refusal
+// (alignment, ring full, kernel verdict) falls back to the mmap
+// memcpy path and is counted, never surfaced as an error.
+class ColdDirectReader {
+ public:
+  ColdDirectReader();
+  ~ColdDirectReader();
+
+  // Not copyable: owns fds, a ring and a registered bounce buffer.
+  ColdDirectReader(const ColdDirectReader&) = delete;
+  ColdDirectReader& operator=(const ColdDirectReader&) = delete;
+
+  // Register the O_DIRECT fd for a cold var's backing file. Returns
+  // false (reason exported via stats) when the filesystem refuses
+  // O_DIRECT — the var then stays on the mmap path.
+  bool AddFile(const std::string& name, const std::string& path);
+  void DropFile(const std::string& name);
+  bool HasFile(const std::string& name) const;
+
+  // Read [offset, offset+nbytes) of `name`'s file into dst via the
+  // ring. Returns true on success; false = caller uses the mmap path.
+  bool Read(const std::string& name, int64_t offset, int64_t nbytes,
+            void* dst);
+
+  // Batched cold read: every op that fits the bounce buffer rides ONE
+  // ring submission (unlinked SQEs — independent file extents), the
+  // point of the exercise. One op = {file byte offset, length, dst}.
+  struct CdOp {
+    int64_t offset;
+    int64_t nbytes;
+    void* dst;
+  };
+  // Returns true when EVERY op was served via the ring; false = caller
+  // serves the whole batch from the mmap (no partial application, so
+  // the fallback stays trivially correct).
+  bool ReadBatch(const std::string& name, const CdOp* ops, int n);
+
+  // [files, reads, bytes, fallbacks, regbuf, ring_ok]
+  void Stats(int64_t out[6]) const;
+
+ private:
+  bool EnsureRing() DDS_REQUIRES(mu_);
+
+  // Single-owner ring discipline: mu_ serializes every ring touch and
+  // the bounce buffer. A DATA mutex (held across the blocking
+  // io_uring_enter), so deliberately NOT DDS_NO_BLOCKING — mirrors
+  // Conn::mu's annotation rationale.
+  mutable std::mutex mu_;
+  std::map<std::string, int> fds_ DDS_GUARDED_BY(mu_);
+  std::unique_ptr<SubmissionRing> ring_ DDS_GUARDED_BY(mu_);
+  bool ring_failed_ DDS_GUARDED_BY(mu_) = false;
+  char* bounce_ DDS_GUARDED_BY(mu_) = nullptr;  // aligned, kBounceBytes
+  bool regbuf_ DDS_GUARDED_BY(mu_) = false;     // bounce registered
+  std::atomic<int64_t> reads_{0};
+  std::atomic<int64_t> bytes_{0};
+  std::atomic<int64_t> fallbacks_{0};
+};
+
+// ---------------------------------------------------------------------
+// The transport backend (DDSTORE_TRANSPORT=uring).
+
+class UringTransport : public TcpTransport {
+ public:
+  UringTransport(int rank, int world, int port);
+  ~UringTransport() override;
+
+  // First-class probe verdict: engaged() false means every read is
+  // serving through the inherited TCP path and reason() says why
+  // ("io_uring_setup: EPERM", "missing opcode RECVMSG", ...).
+  bool engaged() const { return engaged_; }
+  const std::string& reason() const { return reason_; }
+
+  // [engaged, bursts, enters, sqes, frames, fallbacks, ring_errors]
+  void UringCounters(int64_t out[7]) const;
+
+ protected:
+  // The batched-SQE wire loop; falls back to TcpTransport::ReadVOn
+  // when the probe refused or a ring cannot be built for this lane.
+  int ReadVOn(Peer& p, Conn& c, const std::string& name,
+              const ReadOp* ops, int64_t n) override;
+  int WireRouteLabel() const override;
+
+ private:
+  // Per-lane rings, created lazily on first uring read over a lane and
+  // keyed by the Conn that owns them. rings_mu_ guards only the map
+  // (lookup/insert — never held across ring I/O, hence NO_BLOCKING);
+  // the ring itself is serialized by its lane's Conn::mu, which
+  // ReadVOn already holds for the whole wire exchange.
+  SubmissionRing* LaneRing(Conn* c);
+  void DropLaneRing(Conn* c);
+
+  int UringReadVLocked(Peer& p, Conn& c, SubmissionRing& ring,
+                       const std::string& name, const ReadOp* ops,
+                       int64_t n) DDS_REQUIRES(Conn::mu);
+
+  bool engaged_ = false;
+  std::string reason_;
+  unsigned depth_ = 0;
+  int enter_timeout_ms_ = 0;
+  std::mutex rings_mu_ DDS_NO_BLOCKING;
+  std::map<Conn*, std::unique_ptr<SubmissionRing>> rings_
+      DDS_GUARDED_BY(rings_mu_);
+  std::atomic<int64_t> bursts_{0};
+  std::atomic<int64_t> enters_{0};
+  std::atomic<int64_t> sqes_{0};
+  std::atomic<int64_t> frames_{0};
+  std::atomic<int64_t> fallbacks_{0};
+  std::atomic<int64_t> ring_errors_{0};
+};
+
+}  // namespace dds
+
+#endif  // DDSTORE_TPU_URING_TRANSPORT_H_

@@ -1,19 +1,38 @@
 """Process groups for the control plane (the port's copy of
-``ddstore_tpu/rendezvous.py:33-66``).
+``ddstore_tpu/rendezvous.py``).
 
 A :class:`ProcessGroup` gives ``rank``/``size``/``allgather``/``barrier``/
 ``split``/``broadcast``. Only setup-time metadata moves through it; the
-data plane reads shards directly. This slice carries the one-process
-:class:`SingleGroup`; groups over ``torch.distributed`` come with the
-multi-process store.
+data plane and the per-batch epoch barrier run over the native transport.
+The implementations:
+
+* :class:`SingleGroup` — one process.
+* :class:`ThreadGroup` — N "ranks" as threads of one process; pairs with
+  the in-process transport for tests.
+* :class:`FileGroup` — N local processes rendezvous through a shared
+  directory; pairs with the TCP transport.
+* :class:`TorchGroup` — an initialized ``torch.distributed`` job (the
+  reference's ``JaxGroup``). Its collectives ride a gloo group made for
+  the control plane, even when the job's default group is NCCL.
+
+:func:`pod_bootstrap` brings up ``torch.distributed`` from a scheduler's
+environment (:func:`detect_pod_env`); :func:`auto_group` picks a group
+from the environment.
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+import os
+import pickle
+import tempfile
+import threading
+import time
+from datetime import timedelta
+from typing import Any, Dict, List, Optional
 
-__all__ = ["ProcessGroup", "SingleGroup"]
-
+__all__ = ["ProcessGroup", "SingleGroup", "ThreadGroup", "FileGroup",
+           "TorchGroup", "PodConfig", "parse_nodelist", "detect_pod_env",
+           "pod_bootstrap", "auto_group"]
 
 class ProcessGroup:
     """Abstract control-plane group."""
@@ -28,8 +47,9 @@ class ProcessGroup:
         self.allgather(None)
 
     def split(self, color: int) -> "ProcessGroup":
-        """Partition into subgroups of ranks sharing ``color``; rank order
-        within a subgroup follows parent rank order."""
+        """Partition into subgroups of ranks sharing `color` (the
+        ``comm.Split(rank // width, rank)`` replica-group mechanism). Rank
+        order within a subgroup follows parent rank order."""
         raise NotImplementedError
 
     def broadcast(self, obj: Any, root: int = 0) -> Any:
@@ -46,3 +66,623 @@ class SingleGroup(ProcessGroup):
 
     def split(self, color: int) -> "ProcessGroup":
         return SingleGroup()
+
+
+class _ThreadGroupState:
+    def __init__(self, size: int):
+        self.size = size
+        self.lock = threading.Lock()
+        self.cv = threading.Condition(self.lock)
+        self.seq = 0
+        self.slots: Dict[int, List[Any]] = {}
+        self.arrived: Dict[int, int] = {}
+        self.left: Dict[int, int] = {}
+
+
+_thread_groups: Dict[str, _ThreadGroupState] = {}
+_thread_groups_lock = threading.Lock()
+
+
+class ThreadGroup(ProcessGroup):
+    """All ranks are threads in one process, sharing state by name."""
+
+    def __init__(self, name: str, rank: int, size: int):
+        self.name = name
+        self.rank = rank
+        self.size = size
+        with _thread_groups_lock:
+            st = _thread_groups.get(name)
+            if st is None:
+                st = _ThreadGroupState(size)
+                _thread_groups[name] = st
+        assert st.size == size
+        self._st = st
+        self._seq = 0
+
+    def allgather(self, obj: Any) -> List[Any]:
+        st = self._st
+        seq = self._seq
+        self._seq += 1
+        with st.cv:
+            slot = st.slots.setdefault(seq, [None] * st.size)
+            slot[self.rank] = obj
+            st.arrived[seq] = st.arrived.get(seq, 0) + 1
+            st.cv.notify_all()
+            if not st.cv.wait_for(lambda: st.arrived.get(seq, 0) >= st.size,
+                                  timeout=120):
+                raise TimeoutError("ThreadGroup allgather timed out")
+            result = list(st.slots[seq])
+            st.left[seq] = st.left.get(seq, 0) + 1
+            if st.left[seq] == st.size:
+                del st.slots[seq], st.arrived[seq], st.left[seq]
+        return result
+
+    def split(self, color: int) -> "ProcessGroup":
+        colors = self.allgather(color)
+        members = [r for r, c in enumerate(colors) if c == color]
+        return ThreadGroup(f"{self.name}/s{self._seq}c{color}",
+                           members.index(self.rank), len(members))
+
+
+class FileGroup(ProcessGroup):
+    """Rendezvous through a shared directory (local multi-process tests, or
+    any shared filesystem). Each collective writes ``{run}.{seq}.{rank}.pkl``
+    and polls for the full set.
+
+    Staleness protocol: rank 0 cleans the directory and atomically publishes
+    a MARKER file holding a fresh run nonce; every other rank waits for the
+    marker and namespaces its files by that nonce. A previous (crashed or
+    finished) run's files can therefore never be consumed as live data —
+    the worst case for a botched launch is a timeout, never wrong peers.
+    One directory per concurrent job; files are pickles, so the directory
+    must not be writable by untrusted users (created 0700).
+
+    Directory REUSE across launches (the auto_group default dir, or any
+    fixed DDSTORE_RDV_DIR) adds one more race: a non-zero rank of launch
+    N+1 can read launch N's still-present marker and find launch N's
+    files — a complete-looking hello set, roster, and allgather payloads
+    for a dead generation — before rank 0 of launch N+1 wipes the
+    directory. File existence is therefore never proof of membership:
+    each rank's hello carries a fresh per-process instance nonce, and a
+    rank only joins once a roster written by rank 0 names that nonce. A
+    dead generation's roster cannot name a fresh process, so ranks that
+    raced ahead simply wait, converging to rank 0's fresh marker when it
+    lands. After the join, a marker change observed mid-collective means
+    a NEW world launched in this directory — the collective raises
+    immediately (this process is the stale one) instead of burning the
+    full timeout.
+
+    One identity gap remains without operator help: a straggler rank
+    from a previous launch that never joined (still in its hello loop)
+    is a live process writing fresh nonces, indistinguishable from a
+    slow rank of the current launch — it can win a rank slot. Setting a
+    per-launch ``DDSTORE_RDV_ID`` (or ``launch_id``) closes it: rank 0
+    rosters only hellos carrying its own id.
+    """
+
+    def __init__(self, root: str, rank: int, size: int,
+                 timeout: float = 120.0,
+                 launch_id: Optional[str] = None):
+        self.root = root
+        self.rank = rank
+        self.size = size
+        self.timeout = timeout
+        os.makedirs(root, exist_ok=True)
+        try:
+            os.chmod(root, 0o700)
+        except OSError:
+            pass
+        import uuid as _uuid
+
+        self._seq = 0
+        self._me = _uuid.uuid4().hex[:12]  # instance nonce: THIS process
+        # Optional operator-provided launch identity (DDSTORE_RDV_ID or
+        # the launch_id argument): rank 0 rosters only hellos carrying
+        # the same id, so a straggler rank from a PREVIOUS launch that
+        # converges to this launch's marker can never win a rank slot.
+        # Deliberately NOT auto-sourced from scheduler job ids: an
+        # elastic replacement rank may run under a different batch job
+        # than the survivors (it must still join), and relaunches inside
+        # one allocation share the job id (no protection anyway) — only
+        # the operator knows what constitutes "one launch". Without an
+        # id (default), a straggler is indistinguishable from a
+        # legitimately slow rank of this launch.
+        if launch_id is None:
+            launch_id = os.environ.get("DDSTORE_RDV_ID")
+        self._launch = launch_id
+        # ONE join budget for the whole constructor: the marker wait and
+        # the hello phase share this deadline, so a non-zero rank's join
+        # is bounded by `timeout` — not ~2x it (marker read consuming a
+        # full budget, then the hello loop starting a fresh one).
+        deadline = time.time() + timeout
+        marker = os.path.join(root, "MARKER")
+        if rank == 0:
+            for f in os.listdir(root):
+                if f.endswith((".pkl", ".tmp")) or f == "MARKER":
+                    try:
+                        os.unlink(os.path.join(root, f))
+                    except OSError:
+                        pass
+            self._run = _uuid.uuid4().hex[:12]
+            tmp = marker + ".tmp"
+            with open(tmp, "w") as fh:
+                fh.write(self._run)
+            os.replace(tmp, marker)
+        else:
+            self._run = self._read_marker(marker, deadline)
+        # Hello phase with a liveness proof. Every rank publishes
+        # {run}.hello.{rank} holding its instance nonce; rank 0 collects
+        # the full set and answers with {run}.roster listing the nonces
+        # it saw; a non-zero rank completes only when a roster NAMES ITS
+        # OWN NONCE. File existence alone is not enough: a reused
+        # directory can hold a previous launch's complete hello set (and
+        # roster, and payloads), and completing against those would read
+        # a dead generation's data as live. A stale roster cannot name a
+        # fresh process's nonce, so late rank-0 arrival just makes the
+        # others wait, re-reading the marker (and re-publishing their
+        # hellos) until the fresh generation acknowledges them.
+        written_for = last_run = None
+        conflict = False
+        spins = 0
+        rostered: Dict[int, str] = {}   # rank 0: admitted so far
+        mismatched: set = set()         # rank 0: hellos with a foreign id
+        while True:
+            if written_for != self._run:
+                hello = os.path.join(root,
+                                     f"{self._run}.hello.{self.rank}.pkl")
+                # Per-process tmp name: two processes competing for one
+                # rank slot (zombie straggler) write the same final path
+                # but must never collide on the staging file; and a new
+                # launch's wipe can unlink the staging file mid-publish —
+                # that's a retry, not a crash.
+                tmp_h = f"{hello}.{self._me}.tmp"
+                try:
+                    with open(tmp_h, "wb") as fh:
+                        pickle.dump((self._launch, self._me), fh)
+                    os.replace(tmp_h, hello)
+                except OSError:
+                    if self._current_run() == self._run:
+                        raise  # real I/O failure (ENOSPC, EACCES, ...)
+                    # wiped by a newer launch mid-publish (marker gone or
+                    # replaced); converge via the marker re-read below
+                else:
+                    written_for = self._run
+                if last_run != self._run:
+                    conflict = False  # that conflict was a prior run's
+                    last_run = self._run
+            if rank == 0:
+                # Admission is first-match-wins per rank, so already-
+                # rostered entries never need re-reading (a later
+                # overwrite by a squatter changes nothing).
+                for r in range(size):
+                    if r in rostered:
+                        continue
+                    p = os.path.join(root, f"{self._run}.hello.{r}.pkl")
+                    try:
+                        with open(p, "rb") as fh:
+                            lid, nonce = pickle.load(fh)
+                    except (OSError, EOFError, pickle.UnpicklingError,
+                            TypeError, ValueError):
+                        continue
+                    if lid == self._launch:
+                        rostered[r] = nonce
+                        mismatched.discard(r)
+                    else:
+                        mismatched.add(r)
+                if len(rostered) == size:
+                    rpath = os.path.join(root, f"{self._run}.roster.pkl")
+                    with open(rpath + ".tmp", "wb") as fh:
+                        pickle.dump(rostered, fh)
+                    os.replace(rpath + ".tmp", rpath)
+                    break
+            else:
+                try:
+                    with open(os.path.join(
+                            root, f"{self._run}.roster.pkl"), "rb") as fh:
+                        roster = pickle.load(fh)
+                    ours = roster.get(self.rank)
+                    if ours == self._me:
+                        break
+                    # A roster naming someone else for our rank is either
+                    # a dead generation's leftover (resolved when rank 0's
+                    # fresh marker lands) or a live conflict (duplicate
+                    # rank / zombie). Indistinguishable from files alone —
+                    # keep waiting, and diagnose on timeout.
+                    conflict = conflict or ours is not None
+                except (OSError, EOFError, pickle.UnpicklingError):
+                    pass
+            if time.time() > deadline:
+                missing = [r for r in range(size) if not os.path.exists(
+                    os.path.join(root, f"{self._run}.hello.{r}.pkl"))]
+                detail = (f"missing hello from ranks {missing}" if missing
+                          else "all hello files present but not admitted"
+                          if rank == 0 else
+                          "roster present but names another process for "
+                          "this rank — duplicate rank, or a zombie from a "
+                          "previous launch sharing the directory"
+                          if conflict else
+                          "all hellos present, no roster from rank 0")
+                if mismatched:
+                    detail += (f"; hellos from ranks {sorted(mismatched)} "
+                               f"carried a different launch id — "
+                               f"DDSTORE_RDV_ID inconsistent across ranks, "
+                               f"or stragglers from a previous launch")
+                raise TimeoutError(f"FileGroup hello: {detail} in {root}")
+            time.sleep(0.005)
+            spins += 1
+            if rank == 0:
+                if spins % 50 == 0:
+                    self._raise_if_stale("hello")
+            else:
+                try:
+                    self._run = self._read_marker(marker, deadline)
+                except TimeoutError:
+                    pass
+                if spins % 50 == 0:
+                    # Re-publish: a straggler from another launch writing
+                    # to the same rank slot can overwrite our hello; with
+                    # a launch id set, rank 0 ignores the straggler's, so
+                    # periodic rewrites guarantee ours is eventually seen.
+                    written_for = None
+
+    @staticmethod
+    def _read_marker(marker: str, deadline: float) -> str:
+        while True:
+            try:
+                with open(marker) as fh:
+                    run = fh.read().strip()
+                if run:
+                    return run
+            except OSError:
+                pass
+            if time.time() > deadline:
+                # Name the missing peer artifact, matching the TCP
+                # barrier's "waiting for rank k" diagnostics: only rank 0
+                # publishes the marker, so its absence means rank 0 never
+                # started (or a new launch wiped mid-join).
+                raise TimeoutError(
+                    f"FileGroup: waiting on rank 0's MARKER at {marker} "
+                    f"— rank 0 never published the run nonce (not "
+                    f"started, crashed pre-publish, or a different "
+                    f"launch wiped the directory)")
+            time.sleep(0.005)
+
+    def _publish(self, seq: int, obj: Any) -> None:
+        path = os.path.join(self.root, f"{self._run}.{seq}.{self.rank}.pkl")
+        tmp = f"{path}.{self._me}.tmp"
+        for attempt in (0, 1):
+            try:
+                with open(tmp, "wb") as f:
+                    pickle.dump(obj, f)
+                os.replace(tmp, path)  # atomic publish
+                return
+            except OSError:
+                # A newer launch's wipe can unlink the staging file
+                # between write and replace; diagnose that instead of
+                # surfacing a bare FileNotFoundError.
+                self._raise_if_stale(f"publish {seq}")
+                if self._current_run() == self._run:
+                    raise  # real I/O failure (ENOSPC, EACCES, ...)
+                # Marker MISSING (mid-wipe window: rank 0 of a new launch
+                # deleted it, its replacement imminent): retry once —
+                # a transient unrelated unlink resolves — then diagnose
+                # the takeover rather than leak a bare FileNotFoundError.
+                if attempt:
+                    raise TimeoutError(
+                        f"FileGroup publish {seq}: rendezvous generation "
+                        f"changed under a live run — this rank is stale "
+                        f"(a new world is launching in {self.root})")
+                time.sleep(0.005)
+
+    def _current_run(self) -> Optional[str]:
+        try:
+            with open(os.path.join(self.root, "MARKER")) as fh:
+                return fh.read().strip() or None
+        except OSError:
+            return None  # mid-wipe: rank 0 deleted it, new one imminent
+
+    def _raise_if_stale(self, context: str) -> None:
+        """Fail fast when a NEW launch took the directory: the marker no
+        longer holds this group's nonce. A missing/mid-wipe marker (None)
+        is not treated as takeover — the next read resolves it."""
+        run = self._current_run()
+        if run is not None and run != self._run:
+            raise TimeoutError(
+                f"FileGroup {context}: rendezvous generation changed "
+                f"under a live run — this rank is stale (a new world "
+                f"launched in {self.root})")
+
+    def allgather(self, obj: Any) -> List[Any]:
+        seq = self._seq
+        self._seq += 1
+        self._publish(seq, obj)
+        deadline = time.time() + self.timeout
+        result: List[Any] = [None] * self.size
+        pending = set(range(self.size))
+        spins = 0
+        while pending:
+            for r in list(pending):
+                p = os.path.join(self.root, f"{self._run}.{seq}.{r}.pkl")
+                if os.path.exists(p):
+                    try:
+                        with open(p, "rb") as f:
+                            result[r] = pickle.load(f)
+                    except (FileNotFoundError, EOFError,
+                            pickle.UnpicklingError):
+                        # writer mid-replace, or a new launch's wipe
+                        # unlinked the file between exists() and open();
+                        # the generation check below diagnoses the latter.
+                        # Other OSErrors (EIO, EACCES) propagate — they
+                        # are real failures, not races.
+                        continue
+                    pending.discard(r)
+            if pending:
+                if time.time() > deadline:
+                    # Name the exact peer marker files never published —
+                    # the TCP barrier's "waiting for rank k" diagnostic,
+                    # filesystem edition (barrier() rides allgather, so
+                    # barrier timeouts carry this too).
+                    waiting = ", ".join(
+                        f"rank {r} ({self._run}.{seq}.{r}.pkl)"
+                        for r in sorted(pending))
+                    raise TimeoutError(
+                        f"FileGroup allgather {seq}: timed out after "
+                        f"{self.timeout:.0f}s waiting on {waiting} "
+                        f"in {self.root}")
+                time.sleep(0.005)
+                spins += 1
+                if spins % 50 == 0:
+                    # Every rank, including 0 (which wrote this run's
+                    # marker itself): membership is roster-gated at
+                    # construction, so a nonce change mid-collective
+                    # means a NEW world launched in this directory and
+                    # this process belongs to the dead one.
+                    self._raise_if_stale(f"allgather {seq}")
+        return result
+
+    def split(self, color: int) -> "ProcessGroup":
+        colors = self.allgather(color)
+        members = [r for r, c in enumerate(colors) if c == color]
+        sub = FileGroup(os.path.join(self.root, f"s{self._seq}c{color}"),
+                        members.index(self.rank), len(members),
+                        self.timeout, launch_id=self._launch)
+        return sub
+
+
+class TorchGroup(ProcessGroup):
+    """Control plane over an initialized ``torch.distributed`` job: rank
+    and size are the job's, and ``allgather``/``barrier`` run
+    ``all_gather_object``/``barrier`` on a gloo group, so they move
+    pickled host objects whatever the job's default backend is (NCCL
+    would need the objects on the card). That group is the world's when
+    the job runs on gloo, else one made for the purpose, which is a
+    collective call: every rank then constructs its TorchGroup in the
+    same order. Splits are :class:`_SubGroup` views."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError("TorchGroup needs an initialized "
+                               "torch.distributed (init_process_group)")
+        group = dist.group.WORLD if dist.get_backend() == "gloo" \
+            else dist.new_group(backend="gloo")
+        self._dist = dist
+        self._pg = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+
+    def allgather(self, obj: Any) -> List[Any]:
+        out: List[Any] = [None] * self.size
+        self._dist.all_gather_object(out, obj, group=self._pg)
+        return out
+
+    def barrier(self) -> None:
+        self._dist.barrier(group=self._pg)
+
+    def split(self, color: int) -> "ProcessGroup":
+        colors = self.allgather(color)
+        members = [r for r, c in enumerate(colors) if c == color]
+        return _SubGroup(self, members.index(self.rank), members)
+
+
+class _SubGroup(ProcessGroup):
+    """Subgroup view over a parent group: collectives run on the parent and
+    are filtered to members (every parent rank participates, like
+    ``comm.Split`` where all ranks call the collective)."""
+
+    def __init__(self, parent: ProcessGroup, rank: int, members: List[int]):
+        self.parent = parent
+        self.rank = rank
+        self.size = len(members)
+        self.members = members
+
+    def allgather(self, obj: Any) -> List[Any]:
+        everything = self.parent.allgather(obj)
+        return [everything[m] for m in self.members]
+
+    def split(self, color: int) -> "ProcessGroup":
+        colors = self.allgather(color)
+        members = [r for r, c in enumerate(colors) if c == color]
+        return _SubGroup(self, members.index(self.rank),
+                         members)
+
+
+# ---------------------------------------------------------------------------
+# Pod / scheduler bootstrap
+# ---------------------------------------------------------------------------
+#
+# Bring up torch.distributed from a scheduler's environment: explicit
+# DDSTORE_* variables, TPU-pod metadata, SLURM or LSF node lists. The
+# coordinator is picked deterministically and handed to init_process_group
+# as its tcp:// rendezvous.
+
+
+class PodConfig:
+    """Where this process sits in the pod/job and who coordinates."""
+
+    __slots__ = ("coordinator", "num_processes", "process_id", "source")
+
+    def __init__(self, coordinator: str, num_processes: int,
+                 process_id: int, source: str):
+        self.coordinator = coordinator
+        self.num_processes = num_processes
+        self.process_id = process_id
+        self.source = source
+
+    def __repr__(self):  # pragma: no cover
+        return (f"PodConfig({self.coordinator!r}, n={self.num_processes}, "
+                f"id={self.process_id}, via {self.source})")
+
+
+def _expand_item(item: str) -> List[str]:
+    """Expand ONE nodelist item, cross-producting every bracket group and
+    preserving any literal text between/after them: ``"r[0-1]n[01-02]"``
+    -> ``["r0n01", "r0n02", "r1n01", "r1n02"]``; ``"cn[1-2]-ib"`` ->
+    ``["cn1-ib", "cn2-ib"]``."""
+    lb = item.find("[")
+    if lb < 0:
+        return [item] if item else []
+    rb = item.index("]", lb)
+    expansions: List[str] = []
+    for part in item[lb + 1: rb].split(","):
+        if "-" in part:
+            lo, hi = part.split("-")
+            width = len(lo)
+            expansions.extend(f"{v:0{width}d}"
+                              for v in range(int(lo), int(hi) + 1))
+        else:
+            expansions.append(part)
+    tails = _expand_item(item[rb + 1:]) or [""]
+    return [item[:lb] + e + t for e in expansions for t in tails]
+
+
+def parse_nodelist(nodelist: str) -> List[str]:
+    """Expand a SLURM-style compressed node list into hostnames:
+    ``"tpu[001-003,07],login1"`` -> ``["tpu001", "tpu002", "tpu003",
+    "tpu07", "login1"]`` (zero-padding preserved; bracket groups may have
+    suffixes or repeat, e.g. ``"cn[1-2]-ib"``)."""
+    # Split on top-level commas only (commas inside [...] are ranges).
+    items: List[str] = []
+    depth, start = 0, 0
+    for i, ch in enumerate(nodelist):
+        if ch == "[":
+            depth += 1
+        elif ch == "]":
+            depth -= 1
+        elif ch == "," and depth == 0:
+            items.append(nodelist[start:i])
+            start = i + 1
+    items.append(nodelist[start:])
+    hosts: List[str] = []
+    for item in items:
+        hosts.extend(_expand_item(item))
+    return hosts
+
+
+def detect_pod_env(env: Optional[Dict[str, str]] = None,
+                   port: int = 8476) -> Optional[PodConfig]:
+    """Inspect the environment for a multi-process launch context.
+
+    Priority: explicit ``DDSTORE_COORDINATOR``/``DDSTORE_NUM_PROCESSES``/
+    ``DDSTORE_PROCESS_ID`` -> GKE/GCE TPU pod metadata (``TPU_WORKER_ID``,
+    ``TPU_WORKER_HOSTNAMES``) -> SLURM (``SLURM_PROCID``/``SLURM_NPROCS``/
+    ``SLURM_NODELIST``) -> LSF (``LSB_MCPU_HOSTS`` +
+    ``OMPI_COMM_WORLD_*``). Returns None when nothing matches (single
+    process)."""
+    e = os.environ if env is None else env
+
+    if "DDSTORE_COORDINATOR" in e:
+        coord = e["DDSTORE_COORDINATOR"]
+        if ":" not in coord:
+            coord = f"{coord}:{port}"
+        return PodConfig(coord, int(e["DDSTORE_NUM_PROCESSES"]),
+                         int(e["DDSTORE_PROCESS_ID"]), "explicit")
+
+    if "TPU_WORKER_HOSTNAMES" in e and "TPU_WORKER_ID" in e:
+        hosts = [h.strip() for h in e["TPU_WORKER_HOSTNAMES"].split(",")
+                 if h.strip()]
+        return PodConfig(f"{hosts[0]}:{port}", len(hosts),
+                         int(e["TPU_WORKER_ID"]), "tpu-pod")
+
+    if "SLURM_PROCID" in e:
+        nproc = int(e.get("SLURM_NPROCS", e.get("SLURM_NTASKS", "1")))
+        hosts = parse_nodelist(e.get("SLURM_NODELIST", ""))
+        if not hosts:
+            return None
+        return PodConfig(f"{hosts[0]}:{port}", nproc,
+                         int(e["SLURM_PROCID"]), "slurm")
+
+    if ("LSB_MCPU_HOSTS" in e and "OMPI_COMM_WORLD_RANK" in e
+            and "OMPI_COMM_WORLD_SIZE" in e):
+        # "host1 ncpu1 host2 ncpu2 ..." — first entry may be a launch node
+        # (so the coordinator is entry 1 when there are several).
+        # A partial LSF env (empty host var, missing size) falls through
+        # to the remaining detectors instead of raising.
+        hosts = e["LSB_MCPU_HOSTS"].split()[0::2]
+        if hosts:
+            coord = hosts[1] if len(hosts) > 1 else hosts[0]
+            return PodConfig(f"{coord}:{port}",
+                             int(e["OMPI_COMM_WORLD_SIZE"]),
+                             int(e["OMPI_COMM_WORLD_RANK"]), "lsf")
+
+    return None
+
+
+def pod_bootstrap(env: Optional[Dict[str, str]] = None, port: int = 8476,
+                  timeout: float = 120.0) -> ProcessGroup:
+    """Bring up ``torch.distributed`` when a scheduler context is
+    detected and return the matching group::
+
+        group = ddstore_tpu_torch.pod_bootstrap()
+        store = ddstore_tpu_torch.DDStore(group, backend="tcp")
+
+    :func:`detect_pod_env` gives the coordinator, world size and rank,
+    and ``init_process_group`` rendezvouses at
+    ``tcp://{coordinator}``, with NCCL when CUDA is available, else gloo.
+    With ``DDSTORE_POD_AUTODETECT=1`` and no
+    detected context, ``init_method="env://"`` reads the launcher's
+    ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/``WORLD_SIZE``. An already
+    initialized job is left as it is. A failed initialization raises: a
+    multi-host job must fail loudly, not fall back to stores of one
+    process."""
+    import torch
+    import torch.distributed as dist
+
+    e = os.environ if env is None else env
+    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if not dist.is_initialized():
+        wait = timedelta(seconds=timeout)
+        cfg = detect_pod_env(env, port)
+        if cfg is not None:
+            dist.init_process_group(
+                backend, init_method=f"tcp://{cfg.coordinator}",
+                world_size=cfg.num_processes, rank=cfg.process_id,
+                timeout=wait)
+        elif e.get("DDSTORE_POD_AUTODETECT") == "1":
+            dist.init_process_group(backend, init_method="env://",
+                                    timeout=wait)
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        return TorchGroup()
+    return SingleGroup()
+
+
+def auto_group(timeout: float = 120.0) -> ProcessGroup:
+    """Pick a group from the environment: explicit ``DDSTORE_RANK``/
+    ``DDSTORE_WORLD``/``DDSTORE_RDV_DIR`` (a :class:`FileGroup`; the
+    directory defaults to one under the system's temporary directory),
+    then an initialized ``torch.distributed`` of more than one process
+    (a :class:`TorchGroup`), then a single process."""
+    if "DDSTORE_RANK" in os.environ:
+        rank = int(os.environ["DDSTORE_RANK"])
+        world = int(os.environ["DDSTORE_WORLD"])
+        root = os.environ.get(
+            "DDSTORE_RDV_DIR",
+            os.path.join(tempfile.gettempdir(), f"ddstore_rdv_{os.getuid()}"))
+        return FileGroup(root, rank, world, timeout)
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return TorchGroup()
+    return SingleGroup()

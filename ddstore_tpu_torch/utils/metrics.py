@@ -1,7 +1,8 @@
 """Input-pipeline metrics (the part of ``ddstore_tpu/utils/metrics.py``
-the loader needs): latency histograms and the input-pipeline efficiency,
-the fraction of an epoch's wall clock the consumer did not spend waiting
-for a batch."""
+the loader and the binding need): latency histograms, the input-pipeline
+efficiency (the fraction of an epoch's wall clock the consumer did not
+spend waiting for a batch), the bytes-moved ledger, the loader's
+degraded-mode events and the scatter-planner deltas."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["LatencyHistogram", "PipelineMetrics"]
+__all__ = ["LatencyHistogram", "PipelineMetrics", "plan_stats_delta"]
 
 
 class LatencyHistogram:
@@ -74,11 +75,39 @@ class _Timer:
         self.hist.record(time.perf_counter() - self.t0)
 
 
+def plan_stats_delta(begin: Dict, end: Dict) -> Dict:
+    """Per-window scatter-planner statistics from two cumulative
+    ``plan_stats()`` snapshots, with the derived ratios recomputed from
+    the deltas: ``plan_coalesce_ratio`` (unique rows per transport run)
+    and ``plan_runs_per_peer_list`` (remote runs per per-peer request)."""
+    out = {}
+    for k in ("plan_batches", "plan_rows", "plan_runs", "plan_local_runs",
+              "plan_peer_lists", "plan_dedup_hits", "plan_scratch_runs",
+              "plan_scratch_bytes"):
+        out[k] = int(end.get(k, 0)) - int(begin.get(k, 0))
+    uniq = out["plan_rows"] - out["plan_dedup_hits"]
+    out["plan_coalesce_ratio"] = \
+        uniq / out["plan_runs"] if out["plan_runs"] else 0.0
+    out["plan_runs_per_peer_list"] = \
+        (out["plan_runs"] - out["plan_local_runs"]) / out["plan_peer_lists"] \
+        if out["plan_peer_lists"] else 0.0
+    return out
+
+
 class PipelineMetrics:
     """Input-pipeline efficiency: the loader records how long each
     ``__next__`` blocked (``wait``), the host gather (``fetch``) and the
     copy to the device (``stage``); efficiency = 1 - wait / epoch wall
-    time."""
+    time. Per epoch it also keeps the bytes-moved ledger
+    (:meth:`add_bytes`) and the loader's degraded-mode events
+    (:meth:`add_fault_event`)."""
+
+    #: counters accepted by :meth:`add_bytes` (the device-collective
+    #: fetch's ICI counters come with that slice)
+    BYTE_KEYS = ("bytes_over_dcn",)
+    #: events accepted by :meth:`add_fault_event` (the readahead and
+    #: collective degradation events come with those slices)
+    FAULT_EVENT_KEYS = ("admission_deferred_batches",)
 
     def __init__(self):
         self.wait = LatencyHistogram("device_wait")
@@ -86,10 +115,45 @@ class PipelineMetrics:
         self.stage = LatencyHistogram("device_put")
         self._t_start: Optional[float] = None
         self._t_end: Optional[float] = None
+        self._mu = threading.Lock()  # the worker pool records concurrently
+        self._bytes: Dict[str, int] = dict.fromkeys(self.BYTE_KEYS, 0)
+        self._fault_events: Dict[str, int] = \
+            dict.fromkeys(self.FAULT_EVENT_KEYS, 0)
+
+    @staticmethod
+    def _fold(into: Dict[str, int], what: str, counters) -> None:
+        for k, v in counters.items():
+            if k not in into:
+                raise KeyError(f"unknown {what} {k!r}; expected one of "
+                               f"{tuple(into)}")
+            into[k] += int(v)
+
+    def add_bytes(self, **counters: int) -> None:
+        """Fold one fetch's bytes into the epoch's ledger
+        (:data:`BYTE_KEYS`; an unknown key raises)."""
+        with self._mu:
+            self._fold(self._bytes, "byte counter", counters)
+
+    def bytes_moved(self) -> Dict[str, int]:
+        with self._mu:
+            return dict(self._bytes)
+
+    def add_fault_event(self, **counters: int) -> None:
+        """Fold degraded-mode events into the epoch's totals
+        (:data:`FAULT_EVENT_KEYS`; an unknown key raises)."""
+        with self._mu:
+            self._fold(self._fault_events, "fault event", counters)
+
+    def fault_summary(self) -> Dict[str, int]:
+        with self._mu:
+            return dict(self._fault_events)
 
     def epoch_start(self) -> None:
         self._t_start = time.perf_counter()
         self._t_end = None
+        with self._mu:
+            self._bytes = dict.fromkeys(self.BYTE_KEYS, 0)
+            self._fault_events = dict.fromkeys(self.FAULT_EVENT_KEYS, 0)
 
     def epoch_end(self) -> None:
         self._t_end = time.perf_counter()
@@ -109,10 +173,16 @@ class PipelineMetrics:
         return max(0.0, 1.0 - self.wait.total / total)
 
     def summary(self) -> Dict:
-        return {
+        out = {
             "input_pipeline_efficiency": self.efficiency,
             "total_s": self.total_s,
             "device_wait": self.wait.summary(),
             "host_fetch": self.fetch.summary(),
             "device_put": self.stage.summary(),
         }
+        # As the reference: each ledger appears once something moved.
+        for key, ledger in (("bytes_moved", self.bytes_moved()),
+                            ("faults", self.fault_summary())):
+            if any(ledger.values()):
+                out[key] = ledger
+        return out

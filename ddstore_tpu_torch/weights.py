@@ -1,11 +1,15 @@
-"""Carry a flax ``TransformerLM`` parameter tree into the port's model,
-and back.
+"""Carry a flax ``TransformerLM`` or ``VAE`` parameter tree into the
+port's model, and back.
 
-The tree is the reference's (``ddstore_tpu/models/transformer.py``), as
-numpy arrays: ``embed/tok/embedding``, ``block{i}/{ln1,ln2}/{scale,bias}``,
-``block{i}/{qkv,proj}/kernel``, ``block{i}/{up,down}/{kernel,bias}`` and
-``lmhead/{lnf/{scale,bias},head/kernel}``. Dense kernels are ``(in, out)``
-and torch ``Linear`` weights ``(out, in)``, so kernels are transposed.
+The trees are the reference's, as numpy arrays. ``TransformerLM``
+(``ddstore_tpu/models/transformer.py``): ``embed/tok/embedding``,
+``block{i}/{ln1,ln2}/{scale,bias}``, ``block{i}/{qkv,proj}/kernel``,
+``block{i}/{up,down}/{kernel,bias}`` and
+``lmhead/{lnf/{scale,bias},head/kernel}``. ``VAE``
+(``ddstore_tpu/models/vae.py``): ``encoder/Dense_{0,1,2}`` (hidden, mu,
+logvar) and ``decoder/Dense_{0,1}`` (hidden, logits), each with
+``kernel`` and ``bias``. Dense kernels are ``(in, out)`` and torch
+``Linear`` weights ``(out, in)``, so kernels are transposed.
 :func:`to_flax` is the inverse of :func:`from_flax`; the tests use it to
 compare gradients and optimizer updates leaf by leaf, by flax path.
 """
@@ -16,8 +20,7 @@ from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
-
-from .models.transformer import TransformerLM
+from torch import nn
 
 __all__ = ["from_flax", "to_flax"]
 
@@ -32,8 +35,20 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+# the VAE's Linear layers and the flax Dense modules they stand for
+_VAE_DENSE = {"encoder.fc": "encoder/Dense_0",
+              "encoder.fc_mu": "encoder/Dense_1",
+              "encoder.fc_logvar": "encoder/Dense_2",
+              "decoder.fc": "decoder/Dense_0",
+              "decoder.fc_out": "decoder/Dense_1"}
+
+
 def _flax_name(torch_name: str) -> str:
-    """``blocks.0.qkv.weight`` -> ``block0/qkv/kernel`` and so on."""
+    """``blocks.0.qkv.weight`` -> ``block0/qkv/kernel``,
+    ``encoder.fc_mu.bias`` -> ``encoder/Dense_1/bias`` and so on."""
+    layer, _, leaf = torch_name.rpartition(".")
+    if layer in _VAE_DENSE:
+        return f"{_VAE_DENSE[layer]}/{'kernel' if leaf == 'weight' else leaf}"
     parts = torch_name.split(".")
     if parts[0] == "blocks":
         parts = [f"block{parts[1]}"] + parts[2:]
@@ -49,8 +64,7 @@ def _flax_name(torch_name: str) -> str:
 
 
 @torch.no_grad()
-def from_flax(params: Mapping[str, Any], model: TransformerLM
-              ) -> TransformerLM:
+def from_flax(params: Mapping[str, Any], model: nn.Module) -> nn.Module:
     """Load ``params`` (the flax tree, with or without its top-level
     ``"params"`` key) into ``model`` in place and return it. Every
     parameter must be present with the expected shape, and nothing
@@ -78,7 +92,7 @@ def from_flax(params: Mapping[str, Any], model: TransformerLM
     return model
 
 
-def to_flax(src: Union[TransformerLM, Mapping[str, torch.Tensor]]
+def to_flax(src: Union[nn.Module, Mapping[str, torch.Tensor]]
             ) -> Dict[str, Any]:
     """The flax tree ``{"params": {...}}`` of numpy f32 leaves, kernels
     transposed back to ``(in, out)``. ``src`` is the model (its
@@ -86,7 +100,7 @@ def to_flax(src: Union[TransformerLM, Mapping[str, torch.Tensor]]
     the same shapes, such as ``{n: p.grad for n, p in
     model.named_parameters()}``. ``to_flax(from_flax(p, m))`` gives ``p``
     back exactly."""
-    items = src.state_dict().items() if isinstance(src, TransformerLM) \
+    items = src.state_dict().items() if isinstance(src, nn.Module) \
         else src.items()
     tree: Dict[str, Any] = {}
     for name, t in items:

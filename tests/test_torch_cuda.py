@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the flash-attention kernels
 (forward, dq, dk/dv) against their plain versions, the transformer
-block's use of them, and the loader's staging onto the card. Elsewhere
-they skip.
+block's use of them, the loader's staging onto the card, a VAE step on
+the card against the CPU step, and a two-process store-fed DDP VAE on
+one card. Elsewhere they skip.
 
 On the card (the repository's conftest imports jax, which that machine
 need not have, hence ``--noconftest``)::
@@ -20,6 +21,7 @@ import torch
 from ddstore_tpu_torch.data.dataset import DistributedSampler, ShardedDataset
 from ddstore_tpu_torch.data.loader import DeviceLoader
 from ddstore_tpu_torch.models import transformer as ttr
+from ddstore_tpu_torch.models import vae
 from ddstore_tpu_torch.ops import attention
 from ddstore_tpu_torch.store import DDStore
 
@@ -235,3 +237,41 @@ def test_loader_stages_on_the_card(cuda):
     np.testing.assert_array_equal(
         order, DistributedSampler(40, 1, 0, seed=1).epoch_indices())
     assert loader.metrics.stage.count == 8
+
+
+def _vae_grads(model):
+    return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+
+
+def test_vae_step_on_the_card_matches_cpu(cuda):
+    # the bf16 tolerances of tests/test_torch_vae.py: loss rtol 5e-3,
+    # each gradient leaf 2e-2 of its largest magnitude
+    cpu = vae.VAE(device="cpu").init_weights(torch.Generator().manual_seed(0))
+    card = vae.VAE(device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    raw = torch.randint(0, 256, (64, 784), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(1))
+    eps = torch.randn((64, vae.LATENT),
+                      generator=torch.Generator().manual_seed(2))
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda)):
+        x = vae._dequantize(raw.to(dev))
+        logits, mu, logvar = model(x, eps=eps.to(dev))
+        loss = vae.loss_fn(logits, x, mu, logvar)
+        loss.backward()
+        losses.append(loss.item())
+    assert abs(losses[1] - losses[0]) <= 5e-3 * abs(losses[0])
+    want, got = _vae_grads(cpu), _vae_grads(card)
+    for n in want:
+        scale = want[n].abs().max()
+        assert (got[n] - want[n]).abs().max() <= 2e-2 * scale, n
+
+
+def test_two_process_store_fed_step_on_the_card(cuda, tmp_path):
+    from torch_workers import spawn, vae_store_fed
+
+    ranks = spawn(2, vae_store_fed, str(tmp_path), 1024, 64, 2, "cuda")
+    for r in ranks:
+        assert all(np.isfinite(r["losses"])) and r["bytes_over_dcn"] > 0
+    assert ranks[0]["losses"] == ranks[1]["losses"]
+    assert len(set(ranks[0]["checksums"])) == 1

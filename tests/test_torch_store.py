@@ -103,11 +103,22 @@ def test_store_owns_a_copy_of_each_shard():
 
 
 def test_multi_process_group_is_refused():
+    # backend="local" across processes is refused, as the reference
+    # refuses it (ddstore_tpu/store.py:234-243): the in-process registry
+    # could never see a peer in another process.
     class Two(tstore.ProcessGroup):
         rank, size = 0, 2
 
-    with pytest.raises(NotImplementedError):
-        tstore.DDStore(Two())
+    with pytest.raises(ValueError, match="requires all ranks in one "
+                                         "process") as terr:
+        tstore.DDStore(Two(), backend="local")
+
+    class Two(ref.ProcessGroup):  # noqa: F811 — same name, same message
+        rank, size = 0, 2
+
+    with pytest.raises(ValueError) as rerr:
+        ref.DDStore(Two(), backend="local")
+    assert str(terr.value) == str(rerr.value)
 
 
 @pytest.mark.parametrize("n,seed", [(1, 0), (7, 3), (1000, (5, 2)),
