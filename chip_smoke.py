@@ -53,9 +53,34 @@ Phases; any failure raises and ends the run with a non-zero exit:
    ranks' parameters bit-identical (a checksum gathered through the
    group), about half the rows read from the other rank, one staged
    batch equal to ``data[idx] / 255``, no attention kernel launched.
-   After the counted epoch, 20 more steps run under torch.profiler on
-   rank 0. Last, a one-process NCCL group runs 5 DDP steps, which must
-   equal the same steps without DDP.
+   After the counted epoch, both ranks read the same epoch through the
+   host path again, untimed, for a digest of its batches, then train it
+   through epoch-window readahead (2 windows of 8 batches): every staged
+   batch's bytes must equal the host path's (the digest, taken after the
+   epoch's clock stops), nothing may fall back, and no async read may
+   stay in flight, nor after a readahead epoch cancelled after 10
+   batches. Then 20 more steps run
+   under torch.profiler on rank 0. Last, a one-process NCCL group runs 5
+   DDP steps, which must equal the same steps without DDP;
+8. GNN DDP slice (``examples/gnn_molecules.py``: the MPNN at hidden 64,
+   3 layers, bf16 dense layers, 8 graphs a slot, Adam lr 3e-3): an MPNN
+   step on the card against the same step on the CPU in f32; in bf16,
+   steps on the card (its atomic scatter, as the main path) and on the
+   CPU, each against the CPU's f32 step, the card's error held within
+   a factor of the CPU's;
+   then 2 rank processes on the one card, as in phase 7, each register
+   half of 133,885 QM9-shaped synthetic graphs (QM9's molecule count) as
+   ragged variables and train the MPNN under DistributedDataParallel for
+   1,024 steps of one slot a rank, then an eval pass of 64 batches.
+   Checked: finite losses whose last 100 average below the first 100,
+   both ranks' parameters bit-identical, about half the graphs read from
+   the other rank (``owner_of_rows``), the first staged ``GraphBatch``
+   equal field by field to ``pack_graph_batch`` of the same graphs read
+   one at a time, no attention kernel launched. Then 20 profiled steps on
+   rank 0, the step's parts timed alone, and 5 DDP steps in a
+   one-process NCCL group held to the same steps without DDP (with
+   PyTorch's deterministic algorithms: the scatter's atomics otherwise
+   sum in a varying order).
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
@@ -69,6 +94,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import itertools
 import json
 import math
 import multiprocessing as mp
@@ -87,10 +113,16 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from ddstore_tpu_torch import _build as native_build
-from ddstore_tpu_torch.data.dataset import DistributedSampler, ShardedDataset
+from ddstore_tpu_torch.data.dataset import (DistributedSampler,
+                                            ShardedDataset, nsplit)
 from ddstore_tpu_torch.data.formats import synthetic_mnist
+from ddstore_tpu_torch.data.graphs import (GraphBatch, GraphSample,
+                                           GraphShardedDataset,
+                                           pack_graph_batch,
+                                           synthetic_graphs)
 from ddstore_tpu_torch.data.loader import DeviceLoader
 from ddstore_tpu_torch.models import decode as tdec
+from ddstore_tpu_torch.models import gnn as tgnn
 from ddstore_tpu_torch.models import transformer as ttr
 from ddstore_tpu_torch.models import vae as tvae
 from ddstore_tpu_torch.ops import _build, attention
@@ -115,6 +147,32 @@ TRAIN_STEPS, TRAIN_LR, WARMUP_STEPS = 8, 1e-3, 2  # lm_longcontext.py:56
 VAE_SAMPLES, VAE_RANKS, VAE_BATCH = 60000, 2, 128
 VAE_PROFILE_STEPS, VAE_NCCL_STEPS, VAE_TREND = 20, 5, 20
 VAE_LOSS_RTOL, VAE_GRAD_TOL = 5e-3, 2e-2
+# After the counted epoch, the same epoch through readahead.
+VAE_RA_WINDOWS, VAE_RA_WINDOW_BATCHES = 2, 8
+# The GNN slice: the repo's one GNN configuration (MPNN hidden 64, 3
+# layers, bf16 dense layers; examples/gnn_molecules.py: 8 graphs a slot,
+# Adam lr 3e-3) over QM9's 133,885 molecules as QM9-shaped synthetic
+# graphs, split between two rank processes on the one card, one slot a
+# rank. One step (Adam at lr 1e-3, as the tests) on the card is held to
+# the CPU's f32 step from the same weights: the loss (relative), each
+# gradient leaf (L2 error over the leaf's L2 norm) and the parameters
+# after the step. In f32 directly, at the tests' loss and gradient
+# tolerances and the step at lr / 10, because Adam's first update
+# -lr g / (|g| + 1e-8) turns a gradient difference d into a weight
+# difference of up to lr d / 1e-8 where |g| is near 1e-8 (3.1e-6 to
+# 1.5e-5 over four runs on an H100 at 700 W). In bf16 the card and the
+# CPU round differently, so both are held to the f32 step and the
+# card's error, over GNN_BF16_RUNS steps with the main path's atomic
+# scatter, to at most GNN_BF16_FACTOR times the CPU's: in the loss (or
+# one bf16 rounding, 2**-8, if that is larger), the worst gradient
+# leaf, and the share of weights that the step moves the other way
+# from the f32 step's (Adam's first update is about +-lr wherever the
+# gradient is not near 0, so the sign is what a step can get wrong).
+GNN_GRAPHS, GNN_RANKS, GNN_G, GNN_LR = 133885, 2, 8, 3e-3
+GNN_STEPS, GNN_EVAL_BATCHES, GNN_TREND = 1024, 64, 100
+GNN_PROFILE_STEPS, GNN_NCCL_STEPS = 20, 5
+GNN_F32_TOL = (1e-5, 1e-4, 1e-4)
+GNN_BF16_RUNS, GNN_BF16_FACTOR = 8, 3.0
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -892,26 +950,27 @@ def vae_card_vs_cpu(dev, seed):
           msg)
 
 
-def vae_rank(rank, port, seed, q):
-    """One rank of the VAE DDP phase, in a spawned process; its result
-    (or its traceback) goes to ``q``."""
+def store_rank(phase, rank, world, port, seed, q):
+    """One rank of a multi-process phase (``phase``: "vae" or "gnn"), in a
+    spawned process; its result (or its traceback) goes to ``q``."""
     try:
-        q.put((rank, True, _vae_rank(rank, port, seed)))
+        q.put((rank, True, _store_rank(phase, rank, world, port, seed)))
     except Exception:  # noqa: BLE001 — the parent fails the run
         q.put((rank, False, traceback.format_exc()))
 
 
-def _vae_rank(rank, port, seed):
-    torch.cuda.set_device(0)  # both ranks share the card; before any use
+def _store_rank(phase, rank, world, port, seed):
+    torch.cuda.set_device(0)  # the ranks share the card; before any use
     os.environ["DDSTORE_HOST"] = "127.0.0.1"
     os.environ["DDSTORE_CMA"] = "0"  # the other rank's rows come over TCP
     torch.backends.cuda.matmul.allow_tf32 = False
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
-                            rank=rank, world_size=VAE_RANKS)
+                            rank=rank, world_size=world)
     group = TorchGroup()
     store = DDStore(group, backend="tcp")
     try:
-        out = _vae_train(rank, group, store, torch.device("cuda", 0), seed)
+        train = {"vae": _vae_train, "gnn": _gnn_train}[phase]
+        out = train(rank, group, store, torch.device("cuda", 0), seed)
         out["transport"] = store.transport_facts()
         out["cma_ops"] = store.cma_ops
         return out
@@ -961,6 +1020,12 @@ def _vae_train(rank, group, store, dev, seed):
         per_rank, device=dev))
     eval_s = time.perf_counter() - t1
 
+    # the counted epoch's batches again, untimed: what readahead must stage
+    host_digest = batches_digest(DeviceLoader(ds, sampler, per_rank,
+                                              device=dev))
+    readahead = vae_readahead_epochs(store, ds, sampler, step, gen, dev,
+                                     host_digest)
+
     # more steps, under the profiler on rank 0 (every rank runs the same
     # number: each one is a collective)
     sampler.set_epoch(1)
@@ -979,13 +1044,59 @@ def _vae_train(rank, group, store, dev, seed):
         prof = None
     xb = next(batches)
     batches.close()
-    return {"breakdown": vae_step_breakdown(model, xb, gen),
+    local = tvae.VAE(device=dev)
+    local.load_state_dict(model.state_dict())
+    local_step = tvae.make_train_step(local,
+                                      tvae.create_train_state(local)[1])
+    return {"breakdown": step_breakdown(
+                model, lambda: local_step(xb, generator=gen), dev),
             "losses": losses, "step_s": step_s, "wall_s": wall,
             "setup_s": setup_s, "eval_loss": ev_loss, "eval_s": eval_s,
             "launches": launches, "summary": summary, "peak_bytes": peak,
-            "rows": len(step_s) * per_rank,
+            "readahead": readahead, "rows": len(step_s) * per_rank,
             "row_bytes": store.row_nbytes(ds.data_var), "profile": prof,
             "checksums": group.allgather(param_digest(model))}
+
+
+def batches_digest(batches) -> str:
+    digest = hashlib.sha256()
+    for xb in batches:
+        digest.update(xb.cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def vae_readahead_epochs(store, ds, sampler, step, gen, dev, want_digest):
+    """The counted epoch again (same sampler epoch), read through
+    epoch-window readahead, with a train step per batch as in the counted
+    run: every staged batch's bytes must equal the host path's (their
+    digest, taken after the epoch's clock stops), nothing may fall back,
+    and no async read may stay in flight; then an epoch cancelled after
+    10 batches, which must leave none in flight either."""
+    loader = DeviceLoader(ds, sampler, VAE_BATCH // VAE_RANKS, device=dev,
+                          readahead_windows=VAE_RA_WINDOWS,
+                          readahead_window_batches=VAE_RA_WINDOW_BATCHES)
+    staged, step_s = [], []
+    t0 = time.perf_counter()
+    for xb in loader:
+        t1 = time.perf_counter()
+        float(step(xb, generator=gen))
+        step_s.append(time.perf_counter() - t1)
+        staged.append(xb)
+    wall = time.perf_counter() - t0
+    summary = loader.metrics.summary()
+    check(batches_digest(staged) == want_digest,
+          "readahead epoch's batches differ from the host path's")
+    check(loader.readahead_fallback_reason is None,
+          f"readahead fell back: {loader.readahead_fallback_reason}")
+    pending = [store.async_pending()]
+    batches = iter(loader)
+    for _ in range(10):
+        next(batches)
+    batches.close()
+    pending.append(store.async_pending())
+    check(pending == [0, 0], f"async reads left in flight: {pending}")
+    return {"summary": summary, "step_s": step_s, "wall_s": wall,
+            "pending": pending}
 
 
 def median_ms(fn, n=VAE_PROFILE_STEPS):
@@ -998,45 +1109,41 @@ def median_ms(fn, n=VAE_PROFILE_STEPS):
     return float(np.median(times)) * 1e3
 
 
-def vae_step_breakdown(model, xb, gen):
+def step_breakdown(model, local_step, dev):
     """Parts of a DDP step timed alone (median ms of VAE_PROFILE_STEPS,
-    after the counted epoch; every rank runs the same collectives): the
+    after the counted run; every rank runs the same collectives): the
     gloo all-reduce of the gradients' size on the card and on the host,
-    the summed loss's all-reduce, and the step of a copy of the model
-    without DDP."""
-    dev = xb.device
+    the loss's all-reduce, and ``local_step``, the step of a copy of the
+    model without DDP."""
     grads = torch.zeros(sum(p.numel() for p in model.parameters()),
                         device=dev)
     host = grads.cpu()
     scalar = torch.zeros((), device=dev)
-    local = tvae.VAE(device=dev)
-    local.load_state_dict(model.state_dict())
-    local_step = tvae.make_train_step(local,
-                                      tvae.create_train_state(local)[1])
     return {"allreduce_grads_card_ms": median_ms(
                 lambda: dist.all_reduce(grads)),
             "allreduce_grads_host_ms": median_ms(
                 lambda: dist.all_reduce(host)),
             "allreduce_loss_ms": median_ms(lambda: dist.all_reduce(scalar)),
             "step_without_ddp_ms": median_ms(
-                lambda: float(local_step(xb, generator=gen))),
+                lambda: float(local_step())),
             "grad_elements": grads.numel()}
 
 
-def run_vae_ranks(seed):
-    """Spawn the rank processes and collect their results; any rank that
-    fails, or dies without a result, fails the run."""
+def run_ranks(phase, world, seed):
+    """Spawn the rank processes of ``phase`` and collect their results;
+    any rank that fails, or dies without a result, fails the run."""
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=vae_rank, args=(r, port, seed, q))
-             for r in range(VAE_RANKS)]
+    procs = [ctx.Process(target=store_rank,
+                         args=(phase, r, world, port, seed, q))
+             for r in range(world)]
     for p in procs:
         p.start()
     results, errors = {}, {}
     deadline = time.monotonic() + 900
     try:
-        while len(results) + len(errors) < VAE_RANKS:
+        while len(results) + len(errors) < world:
             try:
                 rank, ok, value = q.get(timeout=5)
                 (results if ok else errors)[rank] = value
@@ -1045,17 +1152,17 @@ def run_vae_ranks(seed):
                 pass
             dead = [r for r, p in enumerate(procs) if p.exitcode not in
                     (None, 0) and r not in results and r not in errors]
-            check(not dead, f"vae rank(s) {dead} died with exit codes "
+            check(not dead, f"{phase} rank(s) {dead} died with exit codes "
                             f"{[procs[r].exitcode for r in dead]}")
-            check(time.monotonic() < deadline, "vae ranks timed out")
+            check(time.monotonic() < deadline, f"{phase} ranks timed out")
     finally:
         for p in procs:
             p.join(timeout=60)
             if p.is_alive():
                 p.kill()
                 p.join()
-    check(not errors, f"vae rank failures: {errors}")
-    return [results[r] for r in range(VAE_RANKS)]
+    check(not errors, f"{phase} rank failures: {errors}")
+    return [results[r] for r in range(world)]
 
 
 @torch.no_grad()
@@ -1064,37 +1171,42 @@ def _largest_difference(a, b) -> float:
                for x, y in zip(a.parameters(), b.parameters()))
 
 
-def vae_nccl(dev, seed, card):
-    """A one-process NCCL group: VAE_NCCL_STEPS DDP steps on the card,
-    held to the same steps without DDP (a sum over one rank)."""
+def nccl_vs_plain(name, models, make_step, inputs, card):
+    """A one-process NCCL group: DDP steps of ``models[0]`` on each of
+    ``inputs`` (``(args, kwargs)`` of a step), held to the same steps of
+    ``models[1]`` without DDP (a sum over one rank)."""
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
                             f"{free_port()}", rank=0, world_size=1)
     try:
         check(dist.get_backend() == "nccl", "not an NCCL group")
-        per_rank = VAE_BATCH // VAE_RANKS
-        models = [tvae.VAE(device=dev).init_weights(
-            torch.Generator(device=dev).manual_seed(seed)) for _ in "ab"]
-        steps = [tvae.make_train_step(m, tvae.create_train_state(m)[1],
-                                      group=g)
+        steps = [make_step(m, g)
                  for m, g in zip(models, (dist.group.WORLD, None))]
-        raw = torch.from_numpy(synthetic_mnist(
-            VAE_NCCL_STEPS * per_rank, seed + 2)[0]).to(dev)
-        gen = torch.Generator(device=dev).manual_seed(seed + 3)
-        got = []
-        for i in range(VAE_NCCL_STEPS):
-            xb = raw[i * per_rank:(i + 1) * per_rank]
-            eps = torch.randn((per_rank, tvae.LATENT), generator=gen,
-                              device=dev)
-            got.append([float(s(xb, eps=eps)) for s in steps])
+        got = [[float(s(*a, **k)) for s in steps] for a, k in inputs]
         diff = _largest_difference(*models)
-        print(f"vae nccl (one process, NCCL group of 1) | {card}: "
-              f"{VAE_NCCL_STEPS} DDP steps, losses (ddp, plain) {got}; "
+        print(f"{name} nccl (one process, NCCL group of 1) | {card}: "
+              f"{len(inputs)} DDP steps, losses (ddp, plain) {got}; "
               f"largest parameter difference {diff:.3e}", flush=True)
         check(all(math.isfinite(a) and abs(a - b) <= 1e-6 * abs(b)
-                  for a, b in got), f"nccl ddp steps {got}")
-        check(diff <= 1e-6, f"nccl ddp parameters differ by {diff}")
+                  for a, b in got), f"{name} nccl ddp steps {got}")
+        check(diff <= 1e-6, f"{name} nccl ddp parameters differ by {diff}")
     finally:
         dist.destroy_process_group()
+
+
+def vae_nccl(dev, seed, card):
+    """VAE_NCCL_STEPS DDP steps of the VAE in a one-process NCCL group."""
+    per_rank = VAE_BATCH // VAE_RANKS
+    models = [tvae.VAE(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed)) for _ in "ab"]
+    raw = torch.from_numpy(synthetic_mnist(
+        VAE_NCCL_STEPS * per_rank, seed + 2)[0]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    inputs = [((raw[i * per_rank:(i + 1) * per_rank],),
+               {"eps": torch.randn((per_rank, tvae.LATENT), generator=gen,
+                                   device=dev)})
+              for i in range(VAE_NCCL_STEPS)]
+    nccl_vs_plain("vae", models, lambda m, g: tvae.make_train_step(
+        m, tvae.create_train_state(m)[1], group=g), inputs, card)
 
 
 def phase_vae(dev, seed, card):
@@ -1105,7 +1217,7 @@ def phase_vae(dev, seed, card):
           f"device); the store's remote rows over TCP (DDSTORE_CMA=0)",
           flush=True)
     t0 = time.perf_counter()
-    ranks = run_vae_ranks(seed)
+    ranks = run_ranks("vae", VAE_RANKS, seed)
     wall = time.perf_counter() - t0
     per_rank = VAE_BATCH // VAE_RANKS
     steps_want = (VAE_SAMPLES // VAE_RANKS) // per_rank
@@ -1143,6 +1255,24 @@ def phase_vae(dev, seed, card):
               f"{res['launches']}")
         check(len(set(res["checksums"])) == 1,
               f"ranks' parameters differ: {res['checksums']}")
+        ra = res["readahead"]
+        rm = ra["summary"]
+        print(f"vae ddp rank {r} readahead epoch | {card}: "
+              f"readahead_windows={VAE_RA_WINDOWS}, "
+              f"window_batches={VAE_RA_WINDOW_BATCHES}, the counted "
+              f"epoch's batches byte for byte; median step "
+              f"{float(np.median(ra['step_s'])) * 1e3:.3f} ms; epoch wall "
+              f"{ra['wall_s']:.3f} s; input_pipeline_efficiency "
+              f"{rm['input_pipeline_efficiency']:.4f} (host path "
+              f"{m['input_pipeline_efficiency']:.4f}); fetch p50 "
+              f"{rm['host_fetch']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{rm['host_fetch']['p99_s'] * 1e3:.3f} ms (host path "
+              f"{m['host_fetch']['p50_s'] * 1e3:.3f} / "
+              f"{m['host_fetch']['p99_s'] * 1e3:.3f} ms); bytes over the "
+              f"wire {rm.get('bytes_moved', {}).get('bytes_over_dcn', 0)}; "
+              f"async reads pending after the epoch and after a "
+              f"cancelled one {ra['pending']}; readahead_summary "
+              f"{json.dumps(rm['readahead'])}", flush=True)
     check(ranks[0]["losses"] == ranks[1]["losses"],
           "the ranks' all-reduced losses differ")
     meds = [float(np.median(res["step_s"])) for res in ranks]
@@ -1168,11 +1298,277 @@ def phase_vae(dev, seed, card):
                          for k in ranks[0]["launches"]}}
 
 
-def kernel_table(kern, bwd, sl, tr, va):
+def gnn_batch_on(batch, dev):
+    return GraphBatch(*(torch.from_numpy(np.asarray(f)).to(dev)
+                        for f in batch))
+
+
+def _mpnn_step(weights, dtype, dev, host):
+    """One MPNN train step (Adam at lr 1e-3) from ``weights`` on ``dev``:
+    the loss, and each parameter's gradient and value after the step, on
+    the CPU."""
+    model = tgnn.MPNN(n_graphs=GNN_G, compute_dtype=dtype, device=dev)
+    model.load_state_dict(weights)
+    loss = float(tgnn.make_train_step(
+        model, tgnn.create_train_state(model)[1])(gnn_batch_on(host, dev)))
+    return (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _step_errors(run, ref, weights):
+    """A step against the reference step from the same ``weights``: the
+    loss's relative error, the worst gradient leaf's L2 error over its
+    L2 norm, the parameters' largest difference after the step, and the
+    share of weights the step moved another way than the reference."""
+    (loss, grads, after), (rloss, rgrads, rafter) = run, ref
+    flips = sum(int((torch.sign(after[n] - w)
+                     != torch.sign(rafter[n] - w)).sum())
+                for n, w in weights.items())
+    return (abs(loss - rloss) / abs(rloss),
+            max(float((grads[n] - g).norm() / g.norm())
+                for n, g in rgrads.items()),
+            max(float((after[n] - a).abs().max()) for n, a in rafter.items()),
+            flips / sum(w.numel() for w in weights.values()))
+
+
+def gnn_card_vs_cpu(dev, seed, card):
+    """One MPNN train step (the repo's GNN at full width, one slot of
+    GNN_G graphs) on the card against the CPU's f32 step from the same
+    weights. f32 directly, at GNN_F32_TOL. In bf16 the card (cuBLAS
+    products, the scatter's bf16 atomics in a varying order) and the CPU
+    round differently, so both bf16 steps are held to the f32 step, and
+    the card's error in each of GNN_BF16_RUNS steps to at most
+    GNN_BF16_FACTOR times the CPU's."""
+    graphs = synthetic_graphs(np.random.default_rng(seed), GNN_G)
+    host = pack_graph_batch(graphs, 1, GNN_G, GNN_G * 12, GNN_G * 36)
+    weights = tgnn.MPNN(n_graphs=GNN_G, device="cpu").init_weights(
+        torch.Generator().manual_seed(seed)).state_dict()
+    ref = _mpnn_step(weights, torch.float32, "cpu", host)
+
+    loss_err, grad_err, step_err, _ = _step_errors(
+        _mpnn_step(weights, torch.float32, dev, host), ref, weights)
+    loss_rtol, grad_tol, step_atol = GNN_F32_TOL
+    msg = (f"gnn card vs cpu (float32) | {card}: loss relative error "
+           f"{loss_err:.3e} (tol {loss_rtol}); worst gradient leaf error "
+           f"{grad_err:.3e} of its L2 norm (tol {grad_tol}); parameters "
+           f"after one Adam step differ by at most {step_err:.3e} (tol "
+           f"{step_atol})")
+    print(msg, flush=True)
+    check(loss_err <= loss_rtol and grad_err <= grad_tol
+          and step_err <= step_atol, msg)
+
+    cpu = _step_errors(_mpnn_step(weights, torch.bfloat16, "cpu", host),
+                       ref, weights)
+    runs = [_mpnn_step(weights, torch.bfloat16, dev, host)
+            for _ in range(GNN_BF16_RUNS)]
+    errs = [_step_errors(r, ref, weights) for r in runs]
+    # the card's steps among themselves: the atomics' varying order
+    spread = max(_step_errors(r, runs[0], weights)[1] for r in runs[1:])
+    limits = (max(GNN_BF16_FACTOR * cpu[0], 2.0 ** -8),
+              GNN_BF16_FACTOR * cpu[1], GNN_BF16_FACTOR * cpu[3])
+    worst = tuple(max(e[i] for e in errs) for i in (0, 1, 3))
+    msg = (f"gnn card vs cpu (bfloat16), each against the CPU's f32 step "
+           f"| {card}: CPU loss error {cpu[0]:.3e}, worst gradient leaf "
+           f"{cpu[1]:.3e} of its L2 norm, steps moved another way "
+           f"{cpu[3]:.4%}, parameters {cpu[2]:.3e}; card over "
+           f"{GNN_BF16_RUNS} steps: loss {min(e[0] for e in errs):.3e}"
+           f"-{worst[0]:.3e} (limit {limits[0]:.3e}), gradient "
+           f"{min(e[1] for e in errs):.3e}-{worst[1]:.3e} (limit "
+           f"{limits[1]:.3e}), steps moved another way "
+           f"{min(e[3] for e in errs):.4%}-{worst[2]:.4%} (limit "
+           f"{limits[2]:.4%}), parameters up to "
+           f"{max(e[2] for e in errs):.3e}; the card's steps among "
+           f"themselves: worst gradient leaf {spread:.3e} of its L2 norm")
+    print(msg, flush=True)
+    check(all(w <= lim for w, lim in zip(worst, limits)), msg)
+
+
+def _gnn_train(rank, group, store, dev, seed):
+    t0 = time.perf_counter()
+    graphs = synthetic_graphs(np.random.default_rng(seed + rank),
+                              nsplit(GNN_GRAPHS, GNN_RANKS)[rank])
+    gen_s = time.perf_counter() - t0
+    ds = GraphShardedDataset(store, graphs, graphs_per_slot=GNN_G)
+    setup_s = time.perf_counter() - t0
+    graph_bytes = sum(store.row_nbytes(v) * store.total_rows(v)
+                      for v in store.variables())
+    model = tgnn.MPNN(n_graphs=GNN_G, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    _, opt = tgnn.create_train_state(model, lr=GNN_LR)
+    step = tgnn.make_train_step(model, opt, group=dist.group.WORLD)
+    sampler = DistributedSampler(len(ds), GNN_RANKS, rank, seed=seed)
+    idx = sampler.epoch_indices()[:GNN_STEPS * GNN_G]
+    loader = DeviceLoader(ds, sampler, GNN_G, device=dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()  # count the main path alone
+    losses, step_s = [], []
+    batches = iter(loader)
+    t_start = time.perf_counter()
+    for i in range(GNN_STEPS):
+        gb = next(batches)
+        if i == 0:
+            staged = [f.cpu().numpy() for f in gb]
+        t1 = time.perf_counter()
+        losses.append(float(step(gb)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+    batches.close()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts()
+    summary = loader.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    # the first staged batch against the same graphs read one at a time
+    one = [GraphSample(*(store.get_ragged(f"graphs/{v}", int(i))
+                         for v in ("nodes", "edge_index", "edge_attr")),
+                       store.get("graphs/y", int(i))[0])
+           for i in idx[:GNN_G]]
+    want = pack_graph_batch(one, 1, GNN_G, ds.node_budget, ds.edge_budget)
+    for name, a, b in zip(GraphBatch._fields, staged, want):
+        check(a.dtype == b.dtype and np.array_equal(a, b),
+              f"staged GraphBatch.{name} != pack_graph_batch of get_ragged")
+    remote = float(np.mean(store.owner_of_rows("graphs/nodes/index", idx)
+                           != rank))
+
+    ev = tgnn.make_eval_step(model, group=dist.group.WORLD)
+    eval_loader = DeviceLoader(
+        ds, DistributedSampler(len(ds), GNN_RANKS, rank, shuffle=False),
+        GNN_G, device=dev)
+    t1 = time.perf_counter()
+    eval_losses = [float(ev(gb)) for gb in
+                   itertools.islice(eval_loader, GNN_EVAL_BATCHES)]
+    eval_s = time.perf_counter() - t1
+
+    # more steps, under the profiler on rank 0 (every rank runs the same
+    # number: each one is a collective)
+    sampler.set_epoch(1)
+    batches = iter(DeviceLoader(ds, sampler, GNN_G, device=dev))
+
+    def steps():
+        for _ in range(GNN_PROFILE_STEPS):
+            float(step(next(batches)))
+
+    if rank == 0:
+        prof = device_profile(f"gnn ddp {GNN_PROFILE_STEPS} steps, rank 0",
+                              steps)
+    else:
+        steps()
+        steps()
+        prof = None
+    gb = next(batches)
+    batches.close()
+    local = tgnn.MPNN(n_graphs=GNN_G, device=dev)
+    local.load_state_dict(model.state_dict())
+    local_step = tgnn.make_train_step(
+        local, tgnn.create_train_state(local, lr=GNN_LR)[1])
+    return {"breakdown": step_breakdown(model, lambda: local_step(gb), dev),
+            "losses": losses, "step_s": step_s, "wall_s": wall,
+            "gen_s": gen_s, "setup_s": setup_s, "graph_bytes": graph_bytes,
+            "eval_losses": eval_losses, "eval_s": eval_s,
+            "launches": launches, "summary": summary, "peak_bytes": peak,
+            "remote": remote, "profile": prof,
+            "budgets": (ds.node_budget, ds.edge_budget),
+            "checksums": group.allgather(param_digest(model))}
+
+
+def phase_gnn(dev, seed, card):
+    """The GNN DDP slice (phase 8)."""
+    gnn_card_vs_cpu(dev, seed, card)
+    print(f"gnn ddp: {GNN_RANKS} rank processes on cuda:0, gradients "
+          f"all-reduced over gloo; the store's remote graphs over TCP "
+          f"(DDSTORE_CMA=0)", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks("gnn", GNN_RANKS, seed)
+    wall = time.perf_counter() - t0
+    for r, res in enumerate(ranks):
+        losses, m = res["losses"], res["summary"]
+        med = float(np.median(res["step_s"]))
+        print(f"gnn ddp rank {r} | {card}: {len(losses)} steps of "
+              f"{GNN_G} graphs (budgets {res['budgets']}); median step "
+              f"{med * 1e3:.3f} ms = {GNN_G / med:.1f} graphs/s; run wall "
+              f"{res['wall_s']:.3f} s = "
+              f"{len(losses) * GNN_G / res['wall_s']:.1f} graphs/s; "
+              f"input_pipeline_efficiency "
+              f"{m['input_pipeline_efficiency']:.4f}; fetch (three ragged "
+              f"reads and one fixed of {GNN_G} graphs, packed) p50 "
+              f"{m['host_fetch']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{m['host_fetch']['p99_s'] * 1e3:.3f} ms; {res['remote']:.4f}"
+              f" of the graphs read from the other rank; peak device "
+              f"memory {res['peak_bytes'] / 2**20:.1f} MiB; graphs made in "
+              f"{res['gen_s']:.3f} s, store set-up {res['setup_s']:.3f} s, "
+              f"{res['graph_bytes'] / 1e6:.1f} MB in the store; eval "
+              f"{len(res['eval_losses'])} batches in {res['eval_s']:.3f} s,"
+              f" mean loss {np.mean(res['eval_losses']):.5f}; transport "
+              f"{res['transport']}, CMA ops {res['cma_ops']}; launches "
+              f"{res['launches']}", flush=True)
+        check(len(losses) == GNN_STEPS, f"rank {r}: {len(losses)} steps")
+        check(all(math.isfinite(x) for x in losses + res["eval_losses"]),
+              "gnn loss not finite")
+        first = float(np.mean(losses[:GNN_TREND]))
+        last = float(np.mean(losses[-GNN_TREND:]))
+        check(last < first, f"gnn loss did not fall: first {GNN_TREND} "
+                            f"{first}, last {last}")
+        check(0.45 <= res["remote"] <= 0.55,
+              f"rank {r}: {res['remote']} of the graphs were remote")
+        check(not any(res["launches"].values()),
+              f"attention kernels launched on the GNN path: "
+              f"{res['launches']}")
+        check(len(set(res["checksums"])) == 1,
+              f"ranks' parameters differ: {res['checksums']}")
+    check(ranks[0]["losses"] == ranks[1]["losses"],
+          "the ranks' all-reduced losses differ")
+    meds = [float(np.median(res["step_s"])) for res in ranks]
+    wall_ms, busy_ms = ranks[0]["profile"]
+    print(f"gnn ddp total | {card}: {sum(GNN_G / x for x in meds):.1f} "
+          f"graphs/s at the ranks' median steps, "
+          f"{sum(len(r['losses']) * GNN_G / r['wall_s'] for r in ranks):.1f}"
+          f" over the runs' walls; losses (mean of the first and last "
+          f"{GNN_TREND}) {np.mean(ranks[0]['losses'][:GNN_TREND]):.5f} -> "
+          f"{np.mean(ranks[0]['losses'][-GNN_TREND:]):.5f}; device busy "
+          f"over {GNN_PROFILE_STEPS} profiled steps {busy_ms:.3f} of "
+          f"{wall_ms:.3f} ms ({busy_ms / wall_ms:.1%}); phase wall "
+          f"{wall:.1f} s (spawn included)", flush=True)
+    br = ranks[0]["breakdown"]
+    print(f"gnn ddp step breakdown, rank 0 | {card}: median step "
+          f"{meds[0] * 1e3:.3f} ms; alone: the same step without DDP "
+          f"{br['step_without_ddp_ms']:.3f} ms, gloo all-reduce of the "
+          f"{br['grad_elements']} f32 gradients on the card "
+          f"{br['allreduce_grads_card_ms']:.3f} ms (on the host "
+          f"{br['allreduce_grads_host_ms']:.3f} ms), of the loss "
+          f"{br['allreduce_loss_ms']:.3f} ms", flush=True)
+    gnn_nccl(dev, seed, card)
+    return {"launches": {k: sum(r["launches"][k] for r in ranks)
+                         for k in ranks[0]["launches"]}}
+
+
+def gnn_nccl(dev, seed, card):
+    """GNN_NCCL_STEPS DDP steps of the MPNN in a one-process NCCL group,
+    with PyTorch's deterministic algorithms: the scatter's atomics would
+    otherwise sum in a different order in the two models."""
+    models = [tgnn.MPNN(n_graphs=GNN_G, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed)) for _ in "ab"]
+    graphs = synthetic_graphs(np.random.default_rng(seed + 2),
+                              GNN_NCCL_STEPS * GNN_G)
+    inputs = [((gnn_batch_on(pack_graph_batch(
+        graphs[i * GNN_G:(i + 1) * GNN_G], 1, GNN_G, GNN_G * 12,
+        GNN_G * 36), dev),), {}) for i in range(GNN_NCCL_STEPS)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        nccl_vs_plain("gnn", models, lambda m, g: tgnn.make_train_step(
+            m, tgnn.create_train_state(m, lr=GNN_LR)[1], group=g), inputs,
+            card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def kernel_table(kern, bwd, sl, tr, va, gn):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them."""
     by_path = {k: {"serving": sl["launches"][k], "training": v,
-                   "vae_ddp": va["launches"][k]}
+                   "vae_ddp": va["launches"][k],
+                   "gnn_ddp": gn["launches"][k]}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -1267,15 +1663,16 @@ def main() -> int:
     kern = phase_kernels(dev)
     bwd = phase_bwd_kernels(dev)
 
-    # 4.-7. the small reference check, then the slices on the store
+    # 4.-8. the small reference check, then the slices on the store
     small_reference_check(dev, args.seed)
     store, ds = make_store(args.seed)
     sl = phase_slice(dev, args.seed, ds)
     tr = phase_train(dev, args.seed, ds)
     store.close()
     va = phase_vae(dev, args.seed, card)
+    gn = phase_gnn(dev, args.seed, card)
 
-    print(json.dumps(kernel_table(kern, bwd, sl, tr, va)), flush=True)
+    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,17 @@
-"""MNIST idx files and the synthetic MNIST-shaped data (the port's copy
-of the MNIST part of ``ddstore_tpu/data/formats.py``).
+"""Real dataset file formats: MNIST idx and QM9-style xyz (the port's
+copy of ``ddstore_tpu/data/formats.py``).
 
-The idx layout: big-endian magic 0x0801 (labels, 1-D) / 0x0803 (images,
-3-D), optionally gzipped. Each reader has a writer, so tests and offline
-runs can produce faithful fixtures. The graph readers come with the GNN
-slice.
+Each reader has a writer, so tests and offline runs can produce
+faithful fixtures.
+
+* MNIST idx: big-endian magic 0x0801 (labels, 1-D) / 0x0803 (images,
+  3-D), optionally gzipped.
+* QM9 xyz (quantum-chemistry molecules, the atomistic workload the store
+  was built for): per-molecule text blocks
+  ``natoms\\n<comment with float properties>\\n<symbol x y z ...>*``.
+  Molecules become :class:`GraphSample`s with one-hot element node
+  features, radius-graph edges, and a chosen comment-line property as the
+  regression target.
 """
 
 from __future__ import annotations
@@ -12,12 +19,18 @@ from __future__ import annotations
 import gzip
 import os
 import struct
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .graphs import GraphSample
+
 __all__ = ["read_idx", "write_idx", "find_mnist", "load_mnist",
-           "synthetic_mnist"]
+           "synthetic_mnist", "QM9_ELEMENTS", "read_xyz", "write_xyz",
+           "molecule_to_graph", "load_qm9_dir"]
+
+# QM9's element set; unknown symbols raise (a corrupt file must not train).
+QM9_ELEMENTS = ("H", "C", "N", "O", "F")
 
 def _open(path: str, mode: str):
     if path.endswith(".gz"):
@@ -107,3 +120,138 @@ def synthetic_mnist(n: int, seed: int = 0
     x = centers[labels] * 0.8 + 0.2 * g.random((n, 784), dtype=np.float32)
     return np.round(x * 255.0).astype(np.uint8), labels
 
+
+# ---------------------------------------------------------------------------
+# QM9 xyz
+# ---------------------------------------------------------------------------
+
+
+def _parse_float(tok: str) -> float:
+    # QM9 files occasionally use Mathematica-style "1.23*^-5" exponents.
+    return float(tok.replace("*^", "e"))
+
+
+def _block_start(line: str) -> Optional[int]:
+    """natoms header = a single bare-integer token; anything else (QM9's
+    frequency/SMILES/InChI trailer lines, blank padding) is not one."""
+    toks = line.split()
+    if len(toks) != 1:
+        return None
+    try:
+        return int(toks[0])
+    except ValueError:
+        return None
+
+
+def read_xyz(path: str) -> List[Tuple[List[str], np.ndarray, np.ndarray]]:
+    """Parse one xyz file that may hold many molecule blocks. Returns
+    [(symbols, coords (n,3) float32, props (P,) float32), ...]; props are
+    the float tokens of the comment line (empty if none parse).
+
+    Handles the real QM9 layout (dsgdb9nsd_*.xyz): per-atom Mulliken
+    charge columns are ignored, and the three trailer lines after the atom
+    block (harmonic frequencies, SMILES, InChI) are skipped — a new block
+    only starts at a bare-integer natoms line."""
+    mols = []
+    with _open(path, "rt") as f:
+        lines = [ln.rstrip("\n") for ln in f]
+    i = 0
+    while i < len(lines):
+        n = _block_start(lines[i])
+        if n is None:
+            if mols:  # trailer junk between/after blocks
+                i += 1
+                continue
+            if not lines[i].strip():
+                i += 1
+                continue
+            raise ValueError(
+                f"{path}: expected natoms header at line {i + 1}, got "
+                f"{lines[i]!r}")
+        comment = lines[i + 1] if i + 1 < len(lines) else ""
+        props = []
+        for tok in comment.replace("\t", " ").split():
+            try:
+                props.append(_parse_float(tok))
+            except ValueError:
+                continue
+        symbols, coords = [], []
+        for ln in lines[i + 2: i + 2 + n]:
+            parts = ln.replace("\t", " ").split()
+            symbols.append(parts[0])
+            coords.append([_parse_float(p) for p in parts[1:4]])
+        if len(symbols) != n:
+            raise ValueError(f"{path}: truncated molecule block at line {i}")
+        mols.append((symbols, np.asarray(coords, np.float32),
+                     np.asarray(props, np.float32)))
+        i += 2 + n
+    return mols
+
+
+def write_xyz(path: str, mols: Sequence[Tuple[Sequence[str], np.ndarray,
+                                              Sequence[float]]]) -> None:
+    """Inverse of read_xyz (fixtures / offline preprocessing)."""
+    with _open(path, "wt") as f:
+        for symbols, coords, props in mols:
+            f.write(f"{len(symbols)}\n")
+            f.write("\t".join(f"{p:.8f}" for p in props) + "\n")
+            for s, xyz in zip(symbols, np.asarray(coords)):
+                f.write(f"{s}\t" + "\t".join(f"{c:.8f}" for c in xyz) + "\n")
+
+
+def molecule_to_graph(symbols: Sequence[str], coords: np.ndarray,
+                      props: np.ndarray, *, target_index: int = 0,
+                      cutoff: float = 1.7) -> GraphSample:
+    """Molecule → GraphSample: one-hot element (+ normalized coords) node
+    features, bidirectional radius-graph edges with [distance] attributes,
+    target = props[target_index]. ``cutoff`` (Å) ~ covalent bonds at 1.7."""
+    n = len(symbols)
+    fn = len(QM9_ELEMENTS) + 3
+    nodes = np.zeros((n, fn), np.float32)
+    for i, s in enumerate(symbols):
+        try:
+            nodes[i, QM9_ELEMENTS.index(s)] = 1.0
+        except ValueError:
+            raise ValueError(f"unknown element {s!r} (expected one of "
+                             f"{QM9_ELEMENTS})") from None
+    center = coords - coords.mean(axis=0, keepdims=True)
+    nodes[:, len(QM9_ELEMENTS):] = center
+
+    src, dst, dists = [], [], []
+    for i in range(n):
+        d = np.linalg.norm(coords - coords[i], axis=1)
+        for j in np.nonzero((d > 0) & (d <= cutoff))[0]:
+            src.append(i)
+            dst.append(int(j))
+            dists.append(d[j])
+    edge_index = np.stack([np.asarray(src, np.int64),
+                           np.asarray(dst, np.int64)], axis=1) \
+        if src else np.zeros((0, 2), np.int64)
+    edge_attr = np.asarray(dists, np.float32)[:, None] \
+        if dists else np.zeros((0, 1), np.float32)
+    if target_index >= len(props):
+        raise ValueError(f"target_index {target_index} out of range for "
+                         f"{len(props)} properties")
+    y = np.asarray([props[target_index]], np.float32)
+    return GraphSample(nodes, edge_index, edge_attr, y)
+
+
+def load_qm9_dir(data_dir: str, *, target_index: int = 0,
+                 cutoff: float = 1.7, limit: Optional[int] = None
+                 ) -> List[GraphSample]:
+    """Read every .xyz/.xyz.gz under ``data_dir`` (sorted for rank
+    determinism) into GraphSamples."""
+    paths = sorted(
+        os.path.join(data_dir, f) for f in os.listdir(data_dir)
+        if f.endswith((".xyz", ".xyz.gz")))
+    if not paths:
+        raise FileNotFoundError(f"no .xyz files under {data_dir}")
+    out: List[GraphSample] = []
+    for p in paths:
+        for symbols, coords, props in read_xyz(p):
+            out.append(molecule_to_graph(symbols, coords, props,
+                                         target_index=target_index,
+                                         cutoff=cutoff))
+            if limit is not None and len(out) >= limit:
+                return out
+    return out

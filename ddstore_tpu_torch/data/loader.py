@@ -21,6 +21,14 @@ admission refusal (``ERR_ADMISSION``) is flow control, not failure: the
 batch backs off for the gateway's retry-after hint, with jitter seeded
 from ``DDSTORE_FAULT_SEED``, and is read again, at most
 ``DDSTORE_GW_RETRY_MAX`` (default 8) times.
+
+With ``readahead_windows=K`` the epoch's reads are planned a window of
+batches at a time and fetched in bulk through the native async engine
+(:mod:`~ddstore_tpu_torch.data.readahead`); each batch is then a gather
+from the staged window, straight into the pinned buffer. A window that
+fails even its per-batch retry degrades the rest of the epoch to the
+per-batch path (``readahead_fallback_reason``); ``ERR_PEER_LOST`` still
+surfaces.
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..binding import ERR_ADMISSION, DDStoreError
+from ..binding import ERR_ADMISSION, ERR_PEER_LOST, DDStoreError
 from ..utils.metrics import PipelineMetrics
 from .device_fetch import host_bytes_over_dcn
 
@@ -46,8 +54,12 @@ __all__ = ["DeviceLoader"]
 
 
 def _tree_map(fn, x):
+    """``fn`` over the leaves of nested tuples, lists and dicts, keeping
+    each container's type (a named tuple such as ``GraphBatch`` stays
+    one)."""
     if isinstance(x, tuple):
-        return tuple(_tree_map(fn, v) for v in x)
+        vals = [_tree_map(fn, v) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
     if isinstance(x, list):
         return [_tree_map(fn, v) for v in x]
     if isinstance(x, dict):
@@ -78,9 +90,25 @@ class DeviceLoader:
     drop_last: drop the trailing partial batch.
     transform: optional host-side function applied to each fetched numpy
         batch (serialized under a lock when there are several workers).
+    readahead_windows: > 0 enables epoch-window readahead
+        (:mod:`~ddstore_tpu_torch.data.readahead`): the sampler's epoch
+        is sliced into windows of ``readahead_window_batches`` batches,
+        each window's rows fetched as one sorted, deduplicated bulk read
+        per variable through the native async engine into a staging
+        ring of this many buffers, so window N+1 is in flight while
+        window N is consumed. The depth is the value given (the
+        reference's scheduler may plan it shallower; that comes with
+        the scheduler, ROADMAP item 17). Needs a store-backed dataset
+        (``store`` + fixed-width ``data_var``) and a sized, replayable
+        sampler (every ``DistributedSampler``); otherwise the loader
+        reads per batch with the reason in
+        ``readahead_fallback_reason``.
+    readahead_window_batches: window size W in batches (default 8);
+        the ring holds ``readahead_windows × W × batch_size`` rows per
+        variable.
 
-    ``readahead_windows`` and ``device_collective`` belong to later
-    slices of the port and raise ``NotImplementedError`` when set.
+    ``device_collective`` belongs to a later slice of the port and
+    raises ``NotImplementedError`` when set.
     """
 
     def __init__(self, dataset, sampler: Iterable[int], batch_size: int,
@@ -88,11 +116,8 @@ class DeviceLoader:
                  workers: Optional[int] = None, drop_last: bool = True,
                  transform: Optional[Callable] = None,
                  readahead_windows: int = 0,
+                 readahead_window_batches: int = 8,
                  device_collective: bool = False):
-        if readahead_windows:
-            raise NotImplementedError(
-                "readahead_windows: epoch-window readahead is not ported "
-                "yet")
         if device_collective:
             raise NotImplementedError(
                 "device_collective: the NCCL collective fetch is not "
@@ -118,6 +143,43 @@ class DeviceLoader:
         self._admission_mu = threading.Lock()
         self._admission_retries = int(
             os.environ.get("DDSTORE_GW_RETRY_MAX", "8") or 8)
+        self.readahead_windows = max(0, int(readahead_windows))
+        self.readahead_window_batches = max(1,
+                                            int(readahead_window_batches))
+        self.readahead_fallback_reason: Optional[str] = None
+        # Staging ring handed from epoch to epoch (reallocating and
+        # refaulting the window buffers every epoch costs real time).
+        self._ra_ring = None
+        self._readahead_ready = (self.readahead_windows > 0
+                                 and self._readahead_usable())
+        # Mid-epoch degradation latch: once a window fails even its
+        # per-batch retry (a transient failure; a lost owner raises),
+        # every worker of this epoch reads per batch. Reset per epoch.
+        # The lock makes latch-and-count one step for racing workers.
+        self._ra_degraded = threading.Event()
+        self._ra_degrade_mu = threading.Lock()
+
+    def _readahead_usable(self) -> bool:
+        store = getattr(self.dataset, "store", None)
+        data_var = getattr(self.dataset, "data_var", None)
+        reason = None
+        if store is None or data_var is None:
+            reason = "dataset exposes no store/data_var"
+        elif store.is_ragged(data_var):
+            # The engine itself handles ragged windows, but a ragged
+            # dataset's fetch() does sample packing the loader cannot
+            # reproduce from raw rows — per-batch path keeps it exact.
+            reason = "ragged data_var (dataset.fetch packs samples)"
+        elif not hasattr(self.sampler, "__len__"):
+            reason = "sampler is not sized"
+        elif iter(self.sampler) is self.sampler:
+            reason = ("sampler is a one-shot iterator (readahead "
+                      "replays the epoch; two iterations must yield "
+                      "identical indices)")
+        if reason is not None:
+            self.readahead_fallback_reason = reason
+            return False
+        return True
 
     # -- internals ---------------------------------------------------------
 
@@ -163,6 +225,38 @@ class DeviceLoader:
         self.metrics.add_bytes(bytes_over_dcn=sum(
             host_bytes_over_dcn(store, v, idx) for v in names if v))
 
+    def _degrade_readahead(self, e: BaseException) -> None:
+        """Latch the epoch's readahead degradation (first failure wins
+        among racing workers) and record the reason."""
+        with self._ra_degrade_mu:
+            if self._ra_degraded.is_set():
+                return
+            self._ra_degraded.set()
+            self.readahead_fallback_reason = f"degraded mid-epoch: {e}"
+            self.metrics.add_fault_event(readahead_degraded=1)
+
+    def _read_window(self, idx: np.ndarray, seq: int, ra, pinned):
+        """Batch ``seq`` gathered from its staged window (into
+        ``pinned`` when given), or None when this batch must be read
+        per batch. The engine recorded the window's bytes over the wire
+        once, dedup included."""
+        out = None if pinned is None else \
+            _tree_map(lambda t: t.numpy(), pinned)
+        try:
+            batch = ra.get_batch(seq, idx=idx, out=out)
+        except DDStoreError as e:
+            if e.code == ERR_PEER_LOST:
+                raise
+            if e.code == ERR_ADMISSION:
+                # Flow control: back off, read this one batch per batch,
+                # and leave the engine armed for the rest of the epoch.
+                self.metrics.add_fault_event(admission_deferred_batches=1)
+                self._admission_backoff(e)
+            else:
+                self._degrade_readahead(e)
+            return None
+        return pinned if pinned is not None else batch
+
     def _read(self, idx: np.ndarray, pinned):
         if callable(self.dataset):
             return self.dataset(idx)
@@ -184,10 +278,16 @@ class DeviceLoader:
         self._record_host_dcn(idx)
         return batch
 
-    def _fetch(self, idx: np.ndarray):
+    def _fetch(self, idx: np.ndarray, seq: int = 0, ra=None):
+        if ra is not None and self._ra_degraded.is_set():
+            ra = None
         pinned = self._pinned_out(len(idx))
         with self.metrics.fetch.timed():
-            batch = self._read(idx, pinned)
+            batch = None
+            if ra is not None:
+                batch = self._read_window(idx, seq, ra, pinned)
+            if batch is None:
+                batch = self._read(idx, pinned)
         if self.transform is not None:
             with self._transform_lock:
                 batch = self.transform(batch)
@@ -221,30 +321,59 @@ class DeviceLoader:
                 t.record_stream(stream)
         return batch
 
+    def _make_readahead(self):
+        """The epoch's readahead engine over a second, independent replay
+        of the sampler (the engine checks both replays agree batch by
+        batch); None when readahead is off or fell back."""
+        if not self._readahead_ready:
+            return None
+        from .readahead import EpochReadahead
+
+        # Check the ring out for this iterator (restored at teardown):
+        # two overlapping iterators of one loader must never share
+        # staging buffers; the second allocates its own.
+        ring, self._ra_ring = self._ra_ring, None
+        return EpochReadahead(
+            self.dataset.store, self.dataset.data_var,
+            self._index_batches(),
+            label_var=getattr(self.dataset, "label_var", None),
+            window_batches=self.readahead_window_batches,
+            depth=self.readahead_windows, metrics=self.metrics, ring=ring)
+
     def __iter__(self):
         # Ordered worker pool: index batches are submitted in order and
         # futures consumed in submission order, so parallel fetch+stage
         # never reorders the epoch's batch stream. Early exit (break)
-        # waits out in-flight fetches in the finally.
+        # waits out in-flight fetches in the finally, after the
+        # readahead engine's close() has released every in-flight read.
         self.metrics.epoch_start()
+        self._ra_degraded.clear()  # fresh epoch, fresh engine
         ex = ThreadPoolExecutor(max_workers=self.workers,
                                 thread_name_prefix="ddstore-torch-loader")
         futs = deque()
+        ra = self._make_readahead()
         try:
-            it = self._index_batches()
-            for idx in itertools.islice(it, self.prefetch):
-                futs.append(ex.submit(self._fetch, idx))
+            it = enumerate(self._index_batches())
+            for seq, idx in itertools.islice(it, self.prefetch):
+                futs.append(ex.submit(self._fetch, idx, seq, ra))
             while futs:
                 t0 = time.perf_counter()
                 item = self._hand_over(futs.popleft().result())
                 self.metrics.wait.record(time.perf_counter() - t0)
                 nxt = next(it, None)
                 if nxt is not None:
-                    futs.append(ex.submit(self._fetch, nxt))
+                    futs.append(ex.submit(self._fetch, nxt[1], nxt[0],
+                                          ra))
                 yield item
         finally:
             for f in futs:
                 f.cancel()
+            if ra is not None:
+                # Wake any worker blocked on a window BEFORE joining the
+                # pool: shutdown(wait=True) on a worker waiting for a
+                # ring slot that will never free would deadlock.
+                ra.close()
+                self._ra_ring = ra.ring  # reused next epoch
             ex.shutdown(wait=True)
             self.metrics.epoch_end()
 

@@ -30,7 +30,6 @@ synthetic MNIST-shaped data.
 from __future__ import annotations
 
 import argparse
-import os
 import time
 
 
@@ -54,43 +53,25 @@ def main(argv=None) -> None:
                    help="directory with MNIST idx files (plain or .gz); "
                         "omit for synthetic data")
     p.add_argument("--device", default="cuda", help="cuda or cpu")
+    p.add_argument("--readahead-windows", type=int, default=0,
+                   help="epoch-window readahead depth (0: per-batch "
+                        "reads)")
+    p.add_argument("--readahead-window-batches", type=int, default=8,
+                   help="batches per readahead window")
     args = p.parse_args(argv)
 
     import torch
-    import torch.distributed as dist
 
     from ddstore_tpu_torch.data.dataset import (DistributedSampler,
                                                 ShardedDataset)
     from ddstore_tpu_torch.data.formats import load_mnist, synthetic_mnist
     from ddstore_tpu_torch.data.loader import DeviceLoader
+    from ddstore_tpu_torch.examples._launch import finish, launch
     from ddstore_tpu_torch.models import vae
-    from ddstore_tpu_torch.rendezvous import (FileGroup, auto_group,
-                                              detect_pod_env, pod_bootstrap)
     from ddstore_tpu_torch.store import DDStore
 
-    cuda = args.device == "cuda"
-    if cuda:
-        # before any CUDA call: one card per process where there are enough
-        rank_hint = int(os.environ.get(
-            "LOCAL_RANK", os.environ.get("DDSTORE_RANK", "0")))
-        torch.cuda.set_device(rank_hint % torch.cuda.device_count())
-    scheduled = detect_pod_env() is not None or \
-        os.environ.get("DDSTORE_POD_AUTODETECT") == "1"
-    group = pod_bootstrap() if scheduled else auto_group()
+    group, ddp_group, dev = launch(args.device)
     world, rank = group.size, group.rank
-    # NCCL takes one card per rank; ranks that share a card use gloo
-    backend = "nccl" if cuda and world <= torch.cuda.device_count() \
-        else "gloo"
-    if world > 1 and not dist.is_initialized():
-        if not isinstance(group, FileGroup):
-            raise RuntimeError(f"no torch.distributed job for the "
-                               f"{type(group).__name__} of {world}")
-        # the store's file rendezvous directory carries the job's as well
-        dist.init_process_group(
-            backend, init_method=f"file://{group.root}/torch_pg",
-            rank=rank, world_size=world)
-    ddp_group = dist.group.WORLD if world > 1 else None
-
     store = DDStore(group, width=args.width)
     if args.data_dir is not None:
         data, _ = load_mnist(args.data_dir, split="train", normalize=False)
@@ -100,8 +81,6 @@ def main(argv=None) -> None:
         data, _ = synthetic_mnist(args.samples or 4096, args.seed)
     ds = ShardedDataset(store, data)
 
-    dev = torch.device("cuda", torch.cuda.current_device()) if cuda \
-        else torch.device("cpu")
     model = vae.VAE(device=dev).init_weights(
         torch.Generator(device=dev).manual_seed(args.seed))
     _, opt = vae.create_train_state(model, lr=args.lr)
@@ -114,7 +93,10 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1 + rank)
     for epoch in range(args.epochs):
         sampler.set_epoch(epoch)
-        loader = DeviceLoader(ds, sampler, per_rank, device=dev)
+        loader = DeviceLoader(
+            ds, sampler, per_rank, device=dev,
+            readahead_windows=args.readahead_windows,
+            readahead_window_batches=args.readahead_window_batches)
         t0 = time.perf_counter()
         total, nb = 0.0, 0
         for i, xb in enumerate(loader):
@@ -131,10 +113,10 @@ def main(argv=None) -> None:
                   f"pipeline_eff={m['input_pipeline_efficiency']:.3f} "
                   f"fetch_p50={m['host_fetch']['p50_s'] * 1e3:.2f}ms"
                   + (" bytes_moved=" + str(m["bytes_moved"])
-                     if "bytes_moved" in m else ""), flush=True)
-    store.close()
-    if dist.is_initialized():
-        dist.destroy_process_group()
+                     if "bytes_moved" in m else "")
+                  + (" readahead=" + str(m["readahead"])
+                     if "readahead" in m else ""), flush=True)
+    finish(store)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,8 @@ JAX package's, so one launch environment configures both.
 
 Methods that need modules of later slices of the port (tenant handles,
 the serving gateway's sessions, the trace/metrics summaries of ``obs``,
-``utils.checkpoint``, ragged variables) raise ``NotImplementedError``
-naming the slice.
+``utils.checkpoint``) raise ``NotImplementedError`` naming the
+slice.
 """
 
 from __future__ import annotations
@@ -697,22 +697,112 @@ class DDStore:
         needs ``utils.checkpoint``."""
         raise _later("spill_to_disk (utils.checkpoint)", "item 11")
 
-    # -- ragged variables (the GNN slice) ---------------------------------
+    # -- ragged variables --------------------------------------------------
+    #
+    # Variable-length samples (graphs, token sequences), which the
+    # original DDStore cannot hold (its rows are fixed-width, a uniform
+    # `disp` enforced via MPI_Allreduce MAX). A ragged variable is stored
+    # as two fixed-width variables:
+    #   {name}/values — the flattened elements (one global row == one
+    #       element of shape item_shape), and
+    #   {name}/index  — per-sample (global_values_start, length) int64.
+    # Every sample's elements lie wholly inside its owner's values shard,
+    # so a sample read is a single-peer contiguous read, and batched reads
+    # coalesce per owner exactly like fixed-width get_batch.
 
     def add_ragged(self, name: str, samples: Sequence[np.ndarray]) -> None:
-        raise _later("ragged variables", "item 10")
+        """Register this rank's ragged shard: ``samples[i]`` has shape
+        ``(len_i, *item_shape)`` with ``len_i`` varying per sample."""
+        if f"{name}/values" in self._meta:
+            raise DDStoreError(-8, f"add_ragged({name}): already exists")
+        samples = [np.ascontiguousarray(s) for s in samples]
+        if samples:
+            item_shape = tuple(samples[0].shape[1:])
+            dtype = samples[0].dtype
+            for s in samples:
+                if tuple(s.shape[1:]) != item_shape or s.dtype != dtype:
+                    raise ValueError(
+                        f"add_ragged({name}): inconsistent item shape/dtype")
+            flat = np.concatenate(samples, axis=0)
+        else:  # a rank may hold zero samples
+            item_shape, dtype = (), np.dtype(np.float32)
+            flat = np.empty((0,), dtype)
+        # Ranks with no samples can't infer item shape/dtype locally; adopt
+        # the group consensus (add() below still enforces agreement).
+        metas = self.group.allgather((len(samples), dtype.str, item_shape))
+        nonempty = [(d, s) for n, d, s in metas if n > 0]
+        if not samples and nonempty:
+            dtype = np.dtype(nonempty[0][0])
+            item_shape = nonempty[0][1]
+            flat = np.empty((0,) + item_shape, dtype)
+        lengths = np.array([s.shape[0] for s in samples], np.int64)
+        self.add(f"{name}/values", flat)
+        begin, _ = self.my_row_range(f"{name}/values")
+        starts = begin + np.concatenate(([0], np.cumsum(lengths)[:-1]))\
+            if len(lengths) else np.empty((0,), np.int64)
+        index = np.stack([starts, lengths], axis=1) if len(lengths) \
+            else np.empty((0, 2), np.int64)
+        try:
+            self.add(f"{name}/index", index.astype(np.int64))
+        except DDStoreError as e:
+            # Ragged-level crash consistency: each add() already
+            # unwinds ITSELF on a death mid-fence, but a death during
+            # the SECOND add would otherwise leave the values half of
+            # the pair registered — a partial ragged variable
+            # is_ragged() rejects yet whose shard RAM lingers.
+            if e.code == ERR_PEER_LOST:
+                try:
+                    self._native.free_var(self._wname(f"{name}/values"))
+                except DDStoreError:
+                    pass  # best-effort; the raise below is the news
+                self._meta.pop(f"{name}/values", None)
+            raise
 
     def is_ragged(self, name: str) -> bool:
-        raise _later("ragged variables", "item 10")
+        return f"{name}/index" in self._meta and f"{name}/values" in self._meta
 
     def ragged_total(self, name: str) -> int:
-        raise _later("ragged variables", "item 10")
+        """Number of ragged samples across all ranks."""
+        return self.total_rows(f"{name}/index")
 
     def get_ragged(self, name: str, idx: int) -> np.ndarray:
-        raise _later("ragged variables", "item 10")
+        """Read one variable-length sample (shape ``(len, *item_shape)``)."""
+        start, length = self.get(f"{name}/index", idx)[0]
+        m = self._require(f"{name}/values")
+        out = np.empty((int(length),) + m.sample_shape, m.dtype)
+        if length:
+            self._native.get(self._rname(f"{name}/values"), out,
+                             int(start), int(length),
+                             tenant=self._read_tenant())
+        return out
 
     def get_ragged_batch(self, name: str, indices):
-        raise _later("ragged variables", "item 10")
+        """Read many variable-length samples in two batched rounds (index
+        rows, then all element spans coalesced per owner). Returns
+        ``(values, lengths)`` where ``values`` is the concatenation of the
+        requested samples in request order — the natural input to
+        pack-and-pad batching for XLA's static shapes."""
+        idx = np.ascontiguousarray(indices, dtype=np.int64).reshape(-1)
+        index = self.get_batch(f"{name}/index", idx)
+        starts, lengths = index[:, 0], index[:, 1]
+        m = self._require(f"{name}/values")
+        if len(idx) == 0:
+            return (np.empty((0,) + m.sample_shape, m.dtype),
+                    np.empty((0,), np.int64))
+        # Element row ids: concatenated aranges, built vectorized (this is
+        # the hot fetch path — a Python loop over thousands of small
+        # samples would dominate latency). Adjacent elements of one sample
+        # coalesce into one contiguous run in the native core.
+        total = int(lengths.sum())
+        prefix = np.concatenate(([0], np.cumsum(lengths)[:-1]))
+        rows = (np.repeat(starts - prefix, lengths)
+                + np.arange(total, dtype=np.int64))
+        values = np.empty((total,) + m.sample_shape, m.dtype)
+        if total:
+            self._native.get_batch(self._rname(f"{name}/values"),
+                                   values, rows,
+                                   tenant=self._read_tenant())
+        return values, lengths.astype(np.int64)
 
     # -- metadata ----------------------------------------------------------
 

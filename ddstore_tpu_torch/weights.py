@@ -1,5 +1,5 @@
-"""Carry a flax ``TransformerLM`` or ``VAE`` parameter tree into the
-port's model, and back.
+"""Carry a flax ``TransformerLM``, ``VAE`` or ``MPNN`` parameter tree
+into the port's model, and back.
 
 The trees are the reference's, as numpy arrays. ``TransformerLM``
 (``ddstore_tpu/models/transformer.py``): ``embed/tok/embedding``,
@@ -8,8 +8,12 @@ The trees are the reference's, as numpy arrays. ``TransformerLM``
 ``lmhead/{lnf/{scale,bias},head/kernel}``. ``VAE``
 (``ddstore_tpu/models/vae.py``): ``encoder/Dense_{0,1,2}`` (hidden, mu,
 logvar) and ``decoder/Dense_{0,1}`` (hidden, logits), each with
-``kernel`` and ``bias``. Dense kernels are ``(in, out)`` and torch
-``Linear`` weights ``(out, in)``, so kernels are transposed.
+``kernel`` and ``bias``. ``MPNN`` (``ddstore_tpu/models/gnn.py``):
+``embed``, ``msg{l}_{0,1}``, ``upd{l}_{0,1}`` and ``readout_{0,1}``,
+each with ``kernel`` and ``bias``, and ``ln{l}/{scale,bias}``; the
+port's submodules carry the same names. Dense kernels are ``(in, out)``
+and torch ``Linear`` weights ``(out, in)``, so kernels are transposed;
+a LayerNorm's ``scale`` is its ``weight``.
 :func:`to_flax` is the inverse of :func:`from_flax`; the tests use it to
 compare gradients and optimizer updates leaf by leaf, by flax path.
 """

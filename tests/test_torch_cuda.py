@@ -1,8 +1,9 @@
 """Tests of the port that need a CUDA card: the flash-attention kernels
 (forward, dq, dk/dv) against their plain versions, the transformer
-block's use of them, the loader's staging onto the card, a VAE step on
-the card against the CPU step, and a two-process store-fed DDP VAE on
-one card. Elsewhere they skip.
+block's use of them, the loader's staging onto the card (with and
+without readahead, and of a ``GraphBatch``), a VAE step and an MPNN step
+on the card against the CPU step, and a two-process store-fed DDP VAE
+on one card. Elsewhere they skip.
 
 On the card (the repository's conftest imports jax, which that machine
 need not have, hence ``--noconftest``)::
@@ -12,14 +13,21 @@ need not have, hence ``--noconftest``)::
 
 Tolerances as in ``chip_smoke.py``: bf16 out 2e-2 and lse 1e-2, f32
 1e-4; gradients 2e-2 of each row's L2 norm in bf16 (p and ds round to
-bf16 at 2**-8), 1e-4 in f32."""
+bf16 at 2**-8), 1e-4 in f32. The MPNN step as ``chip_smoke.py``'s
+(``GNN_F32_TOL`` and ``GNN_BF16_FACTOR``, which give the reasons): in
+f32 each gradient leaf's L2 error over its L2 norm 1e-4, the parameters
+after one Adam step at lr 1e-3 1e-4; in bf16 the card's and the CPU's
+steps against the CPU's f32 step, the card's error at most 3x the
+CPU's."""
 
 import numpy as np
 import pytest
 import torch
 
+from ddstore_tpu_torch.data import graphs
 from ddstore_tpu_torch.data.dataset import DistributedSampler, ShardedDataset
 from ddstore_tpu_torch.data.loader import DeviceLoader
+from ddstore_tpu_torch.models import gnn
 from ddstore_tpu_torch.models import transformer as ttr
 from ddstore_tpu_torch.models import vae
 from ddstore_tpu_torch.ops import attention
@@ -239,6 +247,28 @@ def test_loader_stages_on_the_card(cuda):
     assert loader.metrics.stage.count == 8
 
 
+@pytest.mark.parametrize("windows", [1, 2, 3])
+def test_readahead_epoch_on_the_card(cuda, windows):
+    data = np.random.default_rng(0).integers(0, 256, (512, 784),
+                                             dtype=np.uint8)
+    with DDStore() as store:
+        ds = ShardedDataset(store, data, np.arange(512, dtype=np.int32))
+        samp = DistributedSampler(512, 1, 0, seed=3)
+        got = {}
+        for k in (0, windows):
+            loader = DeviceLoader(ds, samp, 32, device=cuda,
+                                  readahead_windows=k,
+                                  readahead_window_batches=4)
+            got[k] = [(x.cpu(), y.cpu()) for x, y in loader]
+            assert loader.readahead_fallback_reason is None
+        assert store.async_pending() == 0
+        assert loader.metrics.summary()["readahead"]["windows"] == 4
+    for (x0, y0), (x1, y1) in zip(got[0], got[windows]):
+        assert torch.equal(x0, x1) and torch.equal(y0, y1)
+        np.testing.assert_array_equal(x1.numpy(), data[y1.numpy()])
+    assert len(got[windows]) == 16
+
+
 def _vae_grads(model):
     return {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
 
@@ -275,3 +305,56 @@ def test_two_process_store_fed_step_on_the_card(cuda, tmp_path):
         assert all(np.isfinite(r["losses"])) and r["bytes_over_dcn"] > 0
     assert ranks[0]["losses"] == ranks[1]["losses"]
     assert len(set(ranks[0]["checksums"])) == 1
+
+
+def _mpnn_step(weights, dtype, batch):
+    """One MPNN step (Adam at lr 1e-3, as the tests) from ``weights`` on
+    ``batch``'s device: the loss, the gradients and the parameters after
+    the step, on the CPU."""
+    model = gnn.MPNN(compute_dtype=dtype, device=batch.nodes.device)
+    model.load_state_dict(weights)
+    loss = float(gnn.make_train_step(
+        model, gnn.create_train_state(model)[1])(batch))
+    return (loss, {n: p.grad.cpu() for n, p in model.named_parameters()},
+            {n: p.detach().cpu() for n, p in model.named_parameters()})
+
+
+def _step_errors(run, ref, weights):
+    """As ``chip_smoke.py``'s: the loss's relative error, the worst
+    gradient leaf's L2 error over its L2 norm, the parameters' largest
+    difference, and the share of weights stepped another way."""
+    (loss, grads, after), (rloss, rgrads, rafter) = run, ref
+    flips = sum(int((torch.sign(after[n] - w)
+                     != torch.sign(rafter[n] - w)).sum())
+                for n, w in weights.items())
+    return (abs(loss - rloss) / abs(rloss),
+            max(float((grads[n] - g).norm() / g.norm())
+                for n, g in rgrads.items()),
+            max(float((after[n] - a).abs().max()) for n, a in rafter.items()),
+            flips / sum(w.numel() for w in weights.values()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mpnn_step_on_the_card_matches_cpu(cuda, dtype):
+    gs = graphs.synthetic_graphs(np.random.default_rng(0), 16)
+    with DDStore() as store:
+        ds = graphs.GraphShardedDataset(store, gs, graphs_per_slot=8)
+        gb = next(iter(DeviceLoader(ds, DistributedSampler(16, 1, 0), 16,
+                                    device=cuda)))
+    assert isinstance(gb, graphs.GraphBatch) and gb.nodes.is_cuda
+    host = graphs.GraphBatch(*(t.cpu() for t in gb))
+    weights = gnn.MPNN(device="cpu").init_weights(
+        torch.Generator().manual_seed(0)).state_dict()
+    ref = _mpnn_step(weights, torch.float32, host)
+    if dtype == torch.float32:
+        loss, grad, step, _ = _step_errors(
+            _mpnn_step(weights, dtype, gb), ref, weights)
+        assert loss <= 1e-5 and grad <= 1e-4 and step <= 1e-4
+        return
+    # bf16 on the main path's atomic scatter: the card's error against
+    # the f32 step within 3x the CPU's bf16 step's
+    cpu = _step_errors(_mpnn_step(weights, dtype, host), ref, weights)
+    for _ in range(4):
+        card = _step_errors(_mpnn_step(weights, dtype, gb), ref, weights)
+        assert card[0] <= max(3 * cpu[0], 2.0 ** -8), (card, cpu)
+        assert card[1] <= 3 * cpu[1] and card[3] <= 3 * cpu[3], (card, cpu)

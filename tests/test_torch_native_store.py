@@ -10,7 +10,6 @@ Exact equality throughout."""
 import os
 import shutil
 import subprocess
-import threading
 
 import numpy as np
 import pytest
@@ -19,32 +18,12 @@ import ddstore_tpu as ref
 from ddstore_tpu_torch import _build
 from ddstore_tpu_torch import rendezvous as rdv
 from ddstore_tpu_torch import store as tstore
-from torch_workers import (read_all, shard, spawn,
+from torch_workers import (read_all, run_threads, shard, spawn,
                            store_and_collectives_interleave, tcp_parity)
 
 pytestmark = pytest.mark.tier1_required
 
 NUM = 32
-
-
-def _threads(world, fn):
-    """Run ``fn(rank)`` on ``world`` threads; their results by rank.
-    A failing rank fails the test."""
-    out, errs = [None] * world, []
-
-    def member(r):
-        try:
-            out[r] = fn(r)
-        except BaseException as e:  # noqa: BLE001 — reported below
-            errs.append((r, e))
-
-    ts = [threading.Thread(target=member, args=(r,)) for r in range(world)]
-    for t in ts:
-        t.start()
-    for t in ts:
-        t.join(timeout=120)
-    assert not errs, errs
-    return out
 
 
 def _both(world, backend, width, tag, body):
@@ -58,7 +37,7 @@ def _both(world, backend, width, tag, body):
             g = mod.ThreadGroup(f"{tag}-{key}", r, world)
             with make(g, backend=backend, width=width) as s:
                 return body(s, r)
-        res[key] = _threads(world, fn)
+        res[key] = run_threads(world, fn)
     return res
 
 
@@ -214,8 +193,6 @@ def test_build_is_stale_aware(tmp_path, monkeypatch):
 
 REFUSED = {
     "spill_to_disk": lambda s: s.spill_to_disk("x", "."),
-    "add_ragged": lambda s: s.add_ragged("r", [np.zeros((2, 3))]),
-    "get_ragged_batch": lambda s: s.get_ragged_batch("r", [0]),
     "trace_summary": lambda s: s.trace_summary(),
     "metrics_summary": lambda s: s.metrics_summary(),
     "cluster_metrics": lambda s: s.cluster_metrics(),

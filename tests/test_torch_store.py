@@ -225,8 +225,7 @@ def test_loader_transform_and_callable_dataset():
                                   np.arange(10) * 2)
 
 
-@pytest.mark.parametrize("kw", [dict(readahead_windows=2),
-                                dict(device_collective=True)])
+@pytest.mark.parametrize("kw", [dict(device_collective=True)])
 def test_loader_unported_options_raise(kw):
     with pytest.raises(NotImplementedError):
         tld.DeviceLoader(lambda i: i, range(4), 2, device="cpu", **kw)

@@ -8,6 +8,7 @@ through a rendezvous file under ``tmp``."""
 
 import multiprocessing as mp
 import os
+import threading
 import traceback
 
 import numpy as np
@@ -35,6 +36,27 @@ def spawn(world, target, tmp, *args, timeout=240):
                 p.terminate()
     assert not errors, f"rank failures: {errors}"
     return [results[r] for r in range(world)]
+
+
+def run_threads(world, fn):
+    """Run ``fn(rank)`` on ``world`` threads (the ranks of a
+    ``ThreadGroup``); their results by rank. A failing rank fails the
+    test."""
+    out, errs = [None] * world, []
+
+    def member(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errs.append((r, e))
+
+    ts = [threading.Thread(target=member, args=(r,)) for r in range(world)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not errs, errs
+    return out
 
 
 def _run(q, target, rank, world, tmp, *args):
@@ -251,4 +273,32 @@ def vae_store_fed(rank, world, tmp, samples, batch, epochs, device="cpu"):
                 "rows": rows, "row_bytes": store.row_nbytes(ds.data_var)}
     finally:
         store.close()
+        dist.destroy_process_group()
+
+
+def gnn_ddp_step(rank, world, tmp, params, batch):
+    """One data-parallel train step of the port's f32 MPNN on slot
+    ``rank`` of ``batch`` (a tuple of numpy ``GraphBatch`` fields with
+    one slot per rank): (loss, gradients, parameters after the step), the
+    trees as ``weights.to_flax`` gives them."""
+    import torch
+
+    from ddstore_tpu_torch import weights
+    from ddstore_tpu_torch.data.graphs import GraphBatch
+    from ddstore_tpu_torch.models import gnn
+
+    dist = torch_world(rank, world, tmp)
+    try:
+        gb = GraphBatch(*(torch.from_numpy(np.ascontiguousarray(
+            f[rank:rank + 1])) for f in batch))
+        model = gnn.MPNN(hidden=32, layers=2, n_graphs=gb.y.shape[1],
+                         compute_dtype=torch.float32, device="cpu")
+        weights.from_flax(params, model)
+        _, opt = gnn.create_train_state(model)
+        step = gnn.make_train_step(model, opt, group=dist.group.WORLD)
+        loss = step(gb)
+        grads = weights.to_flax({k: p.grad
+                                 for k, p in model.named_parameters()})
+        return float(loss), grads, weights.to_flax(model)
+    finally:
         dist.destroy_process_group()
