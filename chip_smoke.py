@@ -60,8 +60,18 @@ Phases; any failure raises and ends the run with a non-zero exit:
    epoch's clock stops), nothing may fall back, and no async read may
    stay in flight, nor after a readahead epoch cancelled after 10
    batches. Then 20 more steps run
-   under torch.profiler on rank 0. Last, a one-process NCCL group runs 5
-   DDP steps, which must equal the same steps without DDP;
+   under torch.profiler on rank 0. Then a third epoch, of a fresh VAE,
+   through the device-collective fetch: both ranks draw the same global
+   batches of 128 (``DistributedSampler(n, 1, 0)``), each reads only the
+   rows it owns and one ``all_to_all_single`` over the gloo group (on
+   CUDA tensors) delivers each rank its 64. Checked: no fallback, one
+   exchange per batch, no byte over TCP, the ranks' local reads summing
+   to the epoch's bytes, about half of each rank's rows sent to the
+   other, losses falling, parameters bit-identical, no attention launch,
+   and (untimed, after the epoch's clock stops) the digest of the
+   batches equal to ``get_batch`` of the same slices. Last, a one-process
+   NCCL group runs 5 DDP steps, which must equal the same steps without
+   DDP;
 8. GNN DDP slice (``examples/gnn_molecules.py``: the MPNN at hidden 64,
    3 layers, bf16 dense layers, 8 graphs a slot, Adam lr 3e-3): an MPNN
    step on the card against the same step on the CPU in f32; in bf16,
@@ -80,7 +90,21 @@ Phases; any failure raises and ends the run with a non-zero exit:
    rank 0, the step's parts timed alone, and 5 DDP steps in a
    one-process NCCL group held to the same steps without DDP (with
    PyTorch's deterministic algorithms: the scatter's atomics otherwise
-   sum in a varying order).
+   sum in a varying order);
+9. device-collective fetch and shuffles: in a one-process NCCL group
+   over a world-1 store, 20 loader batches through the collective path
+   (exchange on the card) byte-equal to ``get_batch``, and
+   ``global_shuffle_epoch``/``permute_rows`` on the card; the A/B of
+   ``device_fetch_batch`` against ``get_batch`` + the copy to the card
+   at the reference bench's geometry (32,768 x 64 f32, batches of 2,048,
+   16 batches; every batch equal before it is timed) in that group and
+   over phase 7's two gloo ranks; ``device_fetch_ragged_batch`` of the
+   GNN's nodes in phase 8's ranks against ``get_ragged_batch`` +
+   ``pad_ragged``; and last, in phase 7's ranks, ``host_global_shuffle``
+   of the VAE variable, whose shards must be the plain seeded
+   permutation of the rows, their multiset unchanged. The two-rank
+   checks run in phases 7 and 8's rank processes after their counted
+   epochs, so no other process is spawned.
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
@@ -115,18 +139,27 @@ from torch.profiler import ProfilerActivity, profile
 from ddstore_tpu_torch import _build as native_build
 from ddstore_tpu_torch.data.dataset import (DistributedSampler,
                                             ShardedDataset, nsplit)
+from ddstore_tpu_torch.data.device_fetch import (device_fetch_batch,
+                                                 device_fetch_ragged_batch,
+                                                 exchange_device,
+                                                 host_bytes_over_dcn,
+                                                 plan_device_fetch)
 from ddstore_tpu_torch.data.formats import synthetic_mnist
 from ddstore_tpu_torch.data.graphs import (GraphBatch, GraphSample,
                                            GraphShardedDataset,
                                            pack_graph_batch,
                                            synthetic_graphs)
 from ddstore_tpu_torch.data.loader import DeviceLoader
+from ddstore_tpu_torch.data.permute import seeded_perm_slice
+from ddstore_tpu_torch.data.ragged import pad_ragged
 from ddstore_tpu_torch.models import decode as tdec
 from ddstore_tpu_torch.models import gnn as tgnn
 from ddstore_tpu_torch.models import transformer as ttr
 from ddstore_tpu_torch.models import vae as tvae
 from ddstore_tpu_torch.ops import _build, attention
 from ddstore_tpu_torch.ops.xent import fused_linear_xent
+from ddstore_tpu_torch.parallel import (global_shuffle_epoch,
+                                        host_global_shuffle, permute_rows)
 from ddstore_tpu_torch.rendezvous import TorchGroup
 from ddstore_tpu_torch.store import DDStore
 
@@ -149,6 +182,15 @@ VAE_PROFILE_STEPS, VAE_NCCL_STEPS, VAE_TREND = 20, 5, 20
 VAE_LOSS_RTOL, VAE_GRAD_TOL = 5e-3, 2e-2
 # After the counted epoch, the same epoch through readahead.
 VAE_RA_WINDOWS, VAE_RA_WINDOW_BATCHES = 2, 8
+# The device-collective fetch: phase 7's third epoch (the global batch
+# staged by its owners, one all_to_all_single delivering each rank its
+# 64 rows), phase 9's 20 batches in a one-process NCCL group, and the A/B
+# of device_fetch_batch against get_batch + the copy to the card at the
+# reference bench's geometry (bench.py:616: 32,768 rows of 64 f32,
+# batches of 2,048, 16 batches); the GNN's ragged nodes padded to 32.
+COLL_NCCL_BATCHES = 20
+AB_ROWS, AB_DIM, AB_BATCH, AB_BATCHES = 32768, 64, 2048, 16
+RAGGED_MAX_LEN = 32
 # The GNN slice: the repo's one GNN configuration (MPNN hidden 64, 3
 # layers, bf16 dense layers; examples/gnn_molecules.py: 8 graphs a slot,
 # Adam lr 3e-3) over QM9's 133,885 molecules as QM9-shaped synthetic
@@ -1048,14 +1090,157 @@ def _vae_train(rank, group, store, dev, seed):
     local.load_state_dict(model.state_dict())
     local_step = tvae.make_train_step(local,
                                       tvae.create_train_state(local)[1])
-    return {"breakdown": step_breakdown(
-                model, lambda: local_step(xb, generator=gen), dev),
-            "losses": losses, "step_s": step_s, "wall_s": wall,
-            "setup_s": setup_s, "eval_loss": ev_loss, "eval_s": eval_s,
-            "launches": launches, "summary": summary, "peak_bytes": peak,
-            "readahead": readahead, "rows": len(step_s) * per_rank,
-            "row_bytes": store.row_nbytes(ds.data_var), "profile": prof,
+    out = {"breakdown": step_breakdown(
+               model, lambda: local_step(xb, generator=gen), dev),
+           "losses": losses, "step_s": step_s, "wall_s": wall,
+           "setup_s": setup_s, "eval_loss": ev_loss, "eval_s": eval_s,
+           "launches": launches, "summary": summary, "peak_bytes": peak,
+           "readahead": readahead, "rows": len(step_s) * per_rank,
+           "row_bytes": store.row_nbytes(ds.data_var), "profile": prof,
+           "checksums": group.allgather(param_digest(model))}
+    # after the counted epochs: the collective epoch, then phase 9's
+    # checks that need two ranks (the shuffle last: it rewrites shards)
+    out["collective"] = vae_collective_epoch(rank, group, ds, dev, seed)
+    out["ab"] = fetch_ab(store, dev, seed)
+    out["shuffle"] = shuffle_check(store, ds, data, group, seed)
+    return out
+
+
+def vae_collective_epoch(rank, group, ds, dev, seed):
+    """Phase 7's third epoch: a fresh VAE trained under DDP for one epoch
+    whose batches come through the device-collective fetch (every rank
+    draws the same global batches of 128, reads the rows it owns, and one
+    all_to_all_single over the gloo group delivers its 64). Launch counts
+    zeroed just before, read just after; then, untimed, this rank's
+    slices of the same global batches read with get_batch, for the
+    digest of what the exchange must have delivered."""
+    model = tvae.VAE(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed))
+    _, opt = tvae.create_train_state(model)
+    step = tvae.make_train_step(model, opt, group=dist.group.WORLD)
+    sampler = DistributedSampler(len(ds), 1, 0, seed=seed)  # global
+    gen = torch.Generator(device=dev).manual_seed(seed + 1 + rank)
+    loader = DeviceLoader(ds, sampler, VAE_BATCH, device=dev,
+                          device_collective=True)
+    check(loader._collective_ready,
+          f"collective fetch unusable: {loader.collective_fallback_reason}")
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    staged, losses, step_s = [], [], []
+    t0 = time.perf_counter()
+    for xb in loader:
+        t1 = time.perf_counter()
+        losses.append(float(step(xb, generator=gen)))
+        step_s.append(time.perf_counter() - t1)
+        staged.append(xb)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    summary = loader.metrics.summary()
+    idx, per = sampler.epoch_indices(), VAE_BATCH // VAE_RANKS
+    want = hashlib.sha256()
+    for b in range(len(staged)):
+        lo = b * VAE_BATCH + rank * per
+        want.update(ds.fetch(idx[lo:lo + per]).tobytes())
+    return {"losses": losses, "step_s": step_s, "wall_s": wall,
+            "summary": summary, "launches": launches,
+            "batches": len(staged),
+            "digest_equal": batches_digest(staged) == want.hexdigest(),
+            "fallback": loader.collective_fallback_reason,
             "checksums": group.allgather(param_digest(model))}
+
+
+def fetch_ab(store, dev, seed):
+    """device_fetch_batch against get_batch + the copy to the card (a
+    pinned buffer, as the loader stages) at the reference bench's
+    geometry, over the store's ranks (a collective: every rank runs the
+    same batches in the same order). Every batch is checked equal first,
+    then each path is timed per batch, host clock around work that ends
+    in a synchronize."""
+    rank, world = store.rank, store.world
+    counts = nsplit(AB_ROWS, world)
+    lo = sum(counts[:rank])
+    full = np.random.default_rng(seed + 7).standard_normal(
+        (AB_ROWS, AB_DIM), dtype=np.float32)
+    store.add("ab", full[lo:lo + counts[rank]])
+    rng = np.random.default_rng(seed + 8)
+    batches = [rng.integers(0, AB_ROWS, AB_BATCH)
+               for _ in range(AB_BATCHES)]
+    per = AB_BATCH // world
+    buf = torch.empty((per, AB_DIM), pin_memory=True)
+
+    def host(idx):
+        store.get_batch("ab", idx[rank * per:(rank + 1) * per],
+                        out=buf.numpy())
+        return buf.to(dev, non_blocking=True)
+
+    def collective(idx):
+        return device_fetch_batch(store, "ab", idx, device=dev)
+
+    for idx in batches:
+        check(torch.equal(host(idx), collective(idx)),
+              "device_fetch_batch != get_batch of this rank's slice")
+    times = {"host": [], "collective": []}
+    for idx in batches:
+        for name, fn in (("host", host), ("collective", collective),
+                         ("collective", collective), ("host", host)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(idx)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    plans = [plan_device_fetch(store.row_starts("ab"), idx, world)
+             for idx in batches]
+    row_bytes = store.row_nbytes("ab")
+    out = {"host_ms": float(np.median(times["host"])) * 1e3,
+           "collective_ms": float(np.median(times["collective"])) * 1e3,
+           "host_dcn_bytes": sum(host_bytes_over_dcn(
+               store, "ab", idx[rank * per:(rank + 1) * per])
+               for idx in batches) // AB_BATCHES,
+           "ledger": {k: v // AB_BATCHES for k, v in _sum_ledgers(
+               p.rank_ledger(row_bytes, rank) for p in plans).items()},
+           "exchange_device": str(exchange_device(None, dev)),
+           "world": world}
+    store.free("ab")
+    return out
+
+
+def _sum_ledgers(ledgers):
+    total = {}
+    for led in ledgers:
+        for k, v in led.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _multiset(rows: np.ndarray) -> int:
+    """An order-free digest of a set of uint8 rows: the wrapping sum of
+    per-row polynomial hashes."""
+    words = rows.reshape(len(rows), -1).view(np.uint64)
+    mult = np.random.default_rng(12345).integers(
+        1, 1 << 62, words.shape[1], dtype=np.uint64) | np.uint64(1)
+    with np.errstate(over="ignore"):
+        return int(((words * mult).sum(axis=1, dtype=np.uint64) ** 3).sum(
+            dtype=np.uint64))
+
+
+def shuffle_check(store, ds, data, group, seed):
+    """host_global_shuffle of the VAE variable over the ranks: this
+    rank's shard afterwards must be the plain permutation of the rows
+    before it (``data`` by ``seeded_perm_slice``), and the multiset of
+    all rows must not change."""
+    var = ds.data_var
+    total = store.total_rows(var)
+    begin, end = store.my_row_range(var)
+    t0 = time.perf_counter()
+    host_global_shuffle(store, var, seed + 9)
+    shuffle_s = time.perf_counter() - t0
+    shard = store.get_batch(var, np.arange(begin, end))
+    want = data[seeded_perm_slice(total, begin, end, seed + 9)]
+    sums = group.allgather(_multiset(shard))
+    return {"equal": bool(np.array_equal(shard, want)),
+            "multiset_equal": sum(sums) % (1 << 64) == _multiset(data),
+            "shuffle_s": shuffle_s, "rows": end - begin}
 
 
 def batches_digest(batches) -> str:
@@ -1240,8 +1425,8 @@ def phase_vae(dev, seed, card):
               f"set-up {res['setup_s']:.3f} s; eval loss per sample "
               f"{res['eval_loss'] / VAE_SAMPLES:.3f} in "
               f"{res['eval_s']:.3f} s; transport {res['transport']}, CMA "
-              f"ops {res['cma_ops']}; launches {res['launches']}",
-              flush=True)
+              f"ops {res['cma_ops']}; launches {res['launches']}; "
+              f"scheduler {json.dumps(m.get('sched'))}", flush=True)
         check(len(losses) == steps_want, f"rank {r}: {len(losses)} steps")
         check(all(math.isfinite(x) for x in losses), "vae loss not finite")
         first = float(np.mean(losses[:VAE_TREND]))
@@ -1275,6 +1460,7 @@ def phase_vae(dev, seed, card):
               f"{json.dumps(rm['readahead'])}", flush=True)
     check(ranks[0]["losses"] == ranks[1]["losses"],
           "the ranks' all-reduced losses differ")
+    vae_collective_report(ranks, card, steps_want)
     meds = [float(np.median(res["step_s"])) for res in ranks]
     total = sum(per_rank / x for x in meds)
     wall_ms, busy_ms = ranks[0]["profile"]
@@ -1295,7 +1481,74 @@ def phase_vae(dev, seed, card):
           f"{br['allreduce_loss_ms']:.3f} ms", flush=True)
     vae_nccl(dev, seed, card)
     return {"launches": {k: sum(r["launches"][k] for r in ranks)
-                         for k in ranks[0]["launches"]}}
+                         for k in ranks[0]["launches"]},
+            "collective_launches": {
+                k: sum(r["collective"]["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]},
+            "wall_s": time.perf_counter() - t0,
+            "ab": [r["ab"] for r in ranks],
+            "shuffle": [r["shuffle"] for r in ranks]}
+
+
+def vae_collective_report(ranks, card, steps_want):
+    """Phase 7's third epoch: the device-collective fetch's checks and
+    numbers, rank by rank."""
+    per_rank = VAE_BATCH // VAE_RANKS
+    local = 0
+    for r, res in enumerate(ranks):
+        c = res["collective"]
+        m = c["summary"]
+        moved, coll = m["bytes_moved"], m["collective"]
+        med = float(np.median(c["step_s"]))
+        padded_rows = moved["bytes_over_ici"] / res["row_bytes"]
+        print(f"vae ddp rank {r} collective epoch | {card}: {c['batches']} "
+              f"global batches of {VAE_BATCH}, {per_rank} rows a rank, "
+              f"each rank reading only its own rows and one "
+              f"all_to_all_single over gloo delivering them (exchange on "
+              f"{coll['exchange_device']}); median step {med * 1e3:.3f} ms "
+              f"= {per_rank / med:.1f} samples/s; epoch wall "
+              f"{c['wall_s']:.3f} s; input_pipeline_efficiency "
+              f"{m['input_pipeline_efficiency']:.4f}; staging (plan, local "
+              f"get_batch, send buffer, copy to the card) p50 "
+              f"{m['host_fetch']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{m['host_fetch']['p99_s'] * 1e3:.3f} ms; exchange "
+              f"(all_to_all_single + index_select) p50 "
+              f"{m['device_put']['p50_s'] * 1e3:.3f} ms p99 "
+              f"{m['device_put']['p99_s'] * 1e3:.3f} ms; exchanges "
+              f"{coll['exchanges']}; ledger {json.dumps(moved)}; padding "
+              f"share of the rows sent "
+              f"{1 - moved['rows_over_ici'] / padded_rows:.4f}; losses "
+              f"{c['losses'][0]:.1f} -> {c['losses'][-1]:.1f}; launches "
+              f"{c['launches']}; fallbacks "
+              f"{m['faults']['collective_batch_fallbacks']}", flush=True)
+        check(c["fallback"] is None, f"collective fell back: {c['fallback']}")
+        check(m["faults"]["collective_batch_fallbacks"] == 0,
+              "collective batches fell back to the host path")
+        check(c["batches"] == steps_want and
+              coll["exchanges"] == c["batches"],
+              f"rank {r}: {coll['exchanges']} exchanges for "
+              f"{c['batches']} batches")
+        check(moved["bytes_over_dcn"] == 0, "collective rows crossed TCP")
+        share = moved["rows_over_ici"] / (c["batches"] * per_rank)
+        check(0.45 <= share <= 0.55,
+              f"rank {r}: {share} of its rows sent to the other rank")
+        check(c["digest_equal"], "collective epoch's batches differ from "
+                                 "get_batch of the same slices")
+        check(all(math.isfinite(x) for x in c["losses"]),
+              "collective epoch loss not finite")
+        check(np.mean(c["losses"][-VAE_TREND:]) <
+              np.mean(c["losses"][:VAE_TREND]),
+              "collective epoch's loss did not fall")
+        check(not any(c["launches"].values()),
+              f"attention kernels launched: {c['launches']}")
+        check(len(set(c["checksums"])) == 1,
+              f"collective epoch's parameters differ: {c['checksums']}")
+        local += moved["bytes_local_get"]
+    want = steps_want * VAE_BATCH * ranks[0]["row_bytes"]
+    check(local == want, f"ranks' local reads {local} != epoch bytes {want}")
+    check(ranks[0]["collective"]["losses"] ==
+          ranks[1]["collective"]["losses"],
+          "the ranks' collective-epoch losses differ")
 
 
 def gnn_batch_on(batch, dev):
@@ -1463,7 +1716,9 @@ def _gnn_train(rank, group, store, dev, seed):
     local.load_state_dict(model.state_dict())
     local_step = tgnn.make_train_step(
         local, tgnn.create_train_state(local, lr=GNN_LR)[1])
+    ragged = ragged_fetch_check(store, rank, dev, seed)
     return {"breakdown": step_breakdown(model, lambda: local_step(gb), dev),
+            "ragged": ragged,
             "losses": losses, "step_s": step_s, "wall_s": wall,
             "gen_s": gen_s, "setup_s": setup_s, "graph_bytes": graph_bytes,
             "eval_losses": eval_losses, "eval_s": eval_s,
@@ -1471,6 +1726,29 @@ def _gnn_train(rank, group, store, dev, seed):
             "remote": remote, "profile": prof,
             "budgets": (ds.node_budget, ds.edge_budget),
             "checksums": group.allgather(param_digest(model))}
+
+
+def ragged_fetch_check(store, rank, dev, seed):
+    """Phase 9's ragged check, in phase 8's ranks after their counted
+    run: device_fetch_ragged_batch of one global batch of the GNN's
+    ``nodes`` against get_ragged_batch + pad_ragged of this rank's
+    slice."""
+    name = "graphs/nodes"
+    idx = np.random.default_rng(seed + 5).integers(
+        0, store.ragged_total(name), 4 * GNN_G * GNN_RANKS)
+    per = len(idx) // GNN_RANKS
+    t0 = time.perf_counter()
+    padded, lens = device_fetch_ragged_batch(store, name, idx,
+                                             RAGGED_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    fetch_s = time.perf_counter() - t0
+    values, want_lens = store.get_ragged_batch(
+        name, idx[rank * per:(rank + 1) * per])
+    want, _ = pad_ragged(values, want_lens, RAGGED_MAX_LEN)
+    return {"equal": bool(padded.is_cuda and np.array_equal(lens, want_lens)
+                          and padded.cpu().numpy().tobytes()
+                          == want.tobytes()),
+            "shape": list(padded.shape), "fetch_s": fetch_s}
 
 
 def phase_gnn(dev, seed, card):
@@ -1502,7 +1780,8 @@ def phase_gnn(dev, seed, card):
               f"{len(res['eval_losses'])} batches in {res['eval_s']:.3f} s,"
               f" mean loss {np.mean(res['eval_losses']):.5f}; transport "
               f"{res['transport']}, CMA ops {res['cma_ops']}; launches "
-              f"{res['launches']}", flush=True)
+              f"{res['launches']}; scheduler {json.dumps(m.get('sched'))}",
+              flush=True)
         check(len(losses) == GNN_STEPS, f"rank {r}: {len(losses)} steps")
         check(all(math.isfinite(x) for x in losses + res["eval_losses"]),
               "gnn loss not finite")
@@ -1540,7 +1819,8 @@ def phase_gnn(dev, seed, card):
           f"{br['allreduce_loss_ms']:.3f} ms", flush=True)
     gnn_nccl(dev, seed, card)
     return {"launches": {k: sum(r["launches"][k] for r in ranks)
-                         for k in ranks[0]["launches"]}}
+                         for k in ranks[0]["launches"]},
+            "ragged": [r["ragged"] for r in ranks]}
 
 
 def gnn_nccl(dev, seed, card):
@@ -1563,12 +1843,114 @@ def gnn_nccl(dev, seed, card):
         torch.use_deterministic_algorithms(False)
 
 
-def kernel_table(kern, bwd, sl, tr, va, gn):
+def phase_collective(dev, seed, card, va, gn):
+    """Phase 9: the device-collective fetch and the shuffles beyond phase
+    7's epoch. Here, in a one-process NCCL group over a world-1 store:
+    20 batches of the loader's collective path against the host path,
+    the A/B at the bench geometry, global_shuffle_epoch and
+    permute_rows on the card. Then the checks phases 7 and 8 ran in
+    their rank processes: the A/B over gloo, the ragged fetch of the
+    GNN's nodes, and host_global_shuffle of the VAE variable."""
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    store = DDStore()
+    try:
+        check(dist.get_backend() == "nccl", "not an NCCL group")
+        data = synthetic_mnist(VAE_SAMPLES, seed)[0]
+        ds = ShardedDataset(store, data)
+        sampler = DistributedSampler(len(ds), 1, 0, seed=seed)
+        loader = DeviceLoader(ds, sampler, VAE_BATCH, device=dev,
+                              device_collective=True)
+        check(loader._collective_ready,
+              f"collective unusable: {loader.collective_fallback_reason}")
+        zero_launch_counts()
+        batches = iter(loader)
+        staged = [next(batches) for _ in range(COLL_NCCL_BATCHES)]
+        batches.close()
+        launches = launch_counts()
+        m = loader.metrics.summary()
+        idx = sampler.epoch_indices()
+        want = hashlib.sha256()
+        for b in range(COLL_NCCL_BATCHES):
+            want.update(ds.fetch(
+                idx[b * VAE_BATCH:(b + 1) * VAE_BATCH]).tobytes())
+        coll = m["collective"]
+        print(f"collective nccl (one process, NCCL group of 1) | {card}: "
+              f"{COLL_NCCL_BATCHES} batches of {VAE_BATCH}, exchange on "
+              f"{coll['exchange_device']}, exchanges {coll['exchanges']}; "
+              f"staging p50 {m['host_fetch']['p50_s'] * 1e3:.3f} ms, "
+              f"exchange p50 {m['device_put']['p50_s'] * 1e3:.3f} ms; "
+              f"launches {launches}", flush=True)
+        check(all(x.is_cuda for x in staged), "batches not on the card")
+        check(batches_digest(staged) == want.hexdigest(),
+              "NCCL collective batches differ from get_batch")
+        check(coll["exchange_device"].startswith("cuda"),
+              f"NCCL exchange on {coll['exchange_device']}")
+        check(coll["exchanges"] == COLL_NCCL_BATCHES,
+              f"{coll['exchanges']} exchanges for {COLL_NCCL_BATCHES}")
+        check(loader.collective_fallback_reason is None and
+              m["faults"]["collective_batch_fallbacks"] == 0,
+              "the NCCL collective fell back")
+        check(not any(launches.values()), f"attention launched {launches}")
+        ab = [fetch_ab(store, dev, seed)] + va["ab"]
+        x = torch.from_numpy(data[:8192]).to(dev)
+        t1 = time.perf_counter()
+        y = global_shuffle_epoch(x, seed)
+        torch.cuda.synchronize()
+        shuffle_ms = (time.perf_counter() - t1) * 1e3
+        perm = np.random.default_rng(seed + 3).permutation(len(x))
+        t1 = time.perf_counter()
+        z = permute_rows(x, perm)
+        torch.cuda.synchronize()
+        permute_ms = (time.perf_counter() - t1) * 1e3
+        check(y.is_cuda and torch.equal(y, global_shuffle_epoch(x, seed))
+              and _multiset(y.cpu().numpy()) == _multiset(data[:8192])
+              and not torch.equal(y, x),
+              "global_shuffle_epoch is not a seeded permutation")
+        check(torch.equal(z, x[torch.from_numpy(perm).to(dev)]),
+              "permute_rows != x[perm]")
+        print(f"shuffles nccl | {card}: global_shuffle_epoch of "
+              f"{tuple(x.shape)} uint8 {shuffle_ms:.3f} ms, permute_rows "
+              f"{permute_ms:.3f} ms (first calls, one rank)", flush=True)
+    finally:
+        store.close()
+        dist.destroy_process_group()
+    for a in ab:
+        print(f"device_fetch A/B ({a['world']} rank(s), "
+              f"{'NCCL' if a['world'] == 1 else 'gloo'}, exchange on "
+              f"{a['exchange_device']}) | {card}: {AB_BATCHES} batches of "
+              f"{AB_BATCH} from {AB_ROWS} x {AB_DIM} f32, every batch equal "
+              f"first; median per batch: get_batch + copy to the card "
+              f"{a['host_ms']:.3f} ms, device_fetch_batch "
+              f"{a['collective_ms']:.3f} ms; per batch and rank the host "
+              f"path pulls {a['host_dcn_bytes']} bytes over TCP, the "
+              f"collective {json.dumps(a['ledger'])}", flush=True)
+    for r, (g, sh) in enumerate(zip(gn["ragged"], va["shuffle"])):
+        print(f"rank {r} | {card}: device_fetch_ragged_batch of "
+              f"graphs/nodes {g['shape']} equal {g['equal']} "
+              f"({g['fetch_s'] * 1e3:.3f} ms, first call); "
+              f"host_global_shuffle of the VAE variable ({sh['rows']} rows "
+              f"a rank) {sh['shuffle_s']:.3f} s, shard = plain "
+              f"permutation {sh['equal']}, multiset kept "
+              f"{sh['multiset_equal']}", flush=True)
+        check(g["equal"], "device_fetch_ragged_batch != get_ragged_batch")
+        check(sh["equal"] and sh["multiset_equal"],
+              "host_global_shuffle is not the seeded permutation")
+    wall = time.perf_counter() - t0
+    print(f"phase 9 wall {wall:.1f} s (phase 7 {va['wall_s']:.1f} s, its "
+          f"rank processes holding the two-rank checks)", flush=True)
+    return {"launches": launches}
+
+
+def kernel_table(kern, bwd, sl, tr, va, gn, co):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them."""
     by_path = {k: {"serving": sl["launches"][k], "training": v,
                    "vae_ddp": va["launches"][k],
-                   "gnn_ddp": gn["launches"][k]}
+                   "gnn_ddp": gn["launches"][k],
+                   "vae_collective": va["collective_launches"][k],
+                   "collective_nccl": co["launches"][k]}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -1663,7 +2045,7 @@ def main() -> int:
     kern = phase_kernels(dev)
     bwd = phase_bwd_kernels(dev)
 
-    # 4.-8. the small reference check, then the slices on the store
+    # 4.-9. the small reference check, then the slices on the store
     small_reference_check(dev, args.seed)
     store, ds = make_store(args.seed)
     sl = phase_slice(dev, args.seed, ds)
@@ -1671,8 +2053,10 @@ def main() -> int:
     store.close()
     va = phase_vae(dev, args.seed, card)
     gn = phase_gnn(dev, args.seed, card)
+    co = phase_collective(dev, args.seed, card, va, gn)
 
-    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn)), flush=True)
+    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co)),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

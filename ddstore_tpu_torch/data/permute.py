@@ -3,8 +3,9 @@
 
 A Feistel network over the index bits is a deterministic seeded
 bijection on ``[0, n)``: ``perm(i)`` for any ``i`` in O(1) memory,
-vectorized over blocks, so the sampler streams an epoch instead of
-allocating it.
+vectorized over blocks, so the sampler and the global shuffles stream an
+epoch instead of allocating it (``seeded_perm_slice`` holds the
+dense-vs-Feistel policy).
 
 Construction: split the index into two halves of ``k`` bits (domain
 ``4^k`` is the smallest power of 4 >= n), run a 4-round Feistel with a
@@ -16,14 +17,32 @@ identical to the reference's for the same ``(n, seed)``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-__all__ = ["FeistelPermutation", "DENSE_MAX"]
+__all__ = ["FeistelPermutation", "seeded_perm_slice", "DENSE_MAX"]
 
 # Below this row count a materialized np.permutation is cheap (128 MB of
 # int64 at the threshold); above it the Feistel bijection evaluates
-# slices on demand.
+# slices on demand. The one policy constant for DistributedSampler and
+# the global shuffles.
 DENSE_MAX = 1 << 24
+
+
+def seeded_perm_slice(total: int, begin: int, end: int, seed,
+                      rng: Optional[np.random.Generator] = None
+                      ) -> np.ndarray:
+    """``perm[begin:end]`` of a seeded global permutation of ``total``
+    rows, in O(end - begin) memory when total is large. Identical
+    (total, seed) => identical permutation on every rank. An explicit
+    ``rng`` forces the dense path (callers who pass one expect
+    np.permutation semantics)."""
+    if rng is not None or total <= DENSE_MAX:
+        g = rng or np.random.default_rng(seed)
+        return g.permutation(total)[begin:end]
+    return FeistelPermutation(total, seed)(
+        np.arange(begin, end, dtype=np.int64))
 
 _M1 = np.uint64(0x9E3779B97F4A7C15)
 _M2 = np.uint64(0xBF58476D1CE4E5B9)

@@ -25,8 +25,12 @@ at once:
   fetch per window and are re-split per batch). The gather can land
   straight in a caller's (pinned) buffer (``get_batch(out=)``).
 
-``DeviceLoader(readahead_windows=K)`` wires this under the host path;
-the engine is also usable standalone over a raw store.
+``DeviceLoader(readahead_windows=K)`` wires this under both the host
+path and the device-collective path (each rank's window reads stay
+local, and :meth:`EpochReadahead.batch_rows` fills its send buffer
+before the exchange); the engine is also usable standalone over a raw
+store. With a cost-model scheduler (``sched=``) every window's fetch leg
+feeds its measurement substrate.
 """
 
 from __future__ import annotations
@@ -156,20 +160,23 @@ def plan_epoch_windows(row_starts, batches: Iterable,
 _ENGINE_IDS = itertools.count(1)
 
 #: Windows planned (and their rows handed to the hot cache) ahead of
-#: issue when the store's tiered cache is armed.
+#: issue when the store's tiered cache is armed: the default the
+#: cost-model scheduler refines, unless DDSTORE_TIER_PREFETCH_DEPTH pins
+#: it.
 _PREFETCH_WINDOWS = 2
 
 
 class _Window:
     __slots__ = ("plan", "slot", "handles", "bufs", "ragged", "futures",
                  "delivered", "ready", "ready_mu", "t_issue", "span",
-                 "wnum")
+                 "wnum", "warmed")
 
     def __init__(self, plan: WindowPlan, slot: int):
         self.plan = plan
         self.slot = slot
         self.span = 0   # ddtrace span id of this window (0 = untraced)
         self.wnum = 0   # global window number
+        self.warmed = False  # hot-cache prefetch issued at plan time
         self.handles: Dict[str, object] = {}   # var -> AsyncBatchRead
         self.bufs: Dict[str, np.ndarray] = {}  # var -> staged view
         self.futures: Dict[str, object] = {}   # var -> Future (ragged)
@@ -207,7 +214,9 @@ class EpochReadahead:
     def __init__(self, store, data_var: str, batches: Iterable,
                  label_var: Optional[str] = None, window_batches: int = 8,
                  depth: int = 2, metrics=None,
-                 ring: Optional[Dict[str, List[np.ndarray]]] = None):
+                 max_window_rows: Optional[int] = None,
+                 ring: Optional[Dict[str, List[np.ndarray]]] = None,
+                 sched=None):
         if window_batches <= 0:
             raise ValueError("window_batches must be positive")
         if depth <= 0:
@@ -216,6 +225,13 @@ class EpochReadahead:
         self.window_batches = int(window_batches)
         self.depth = int(depth)
         self.metrics = metrics
+        # Cost-model scheduler (sched/planner.Scheduler): each window's
+        # fetch leg feeds its host-side measurement substrate. The
+        # epoch's first window is marked `cold` — it pays ring
+        # first-touch and lane dials, the host-side analogue of the
+        # native tuners' dial-tainted windows.
+        self.sched = sched
+        self._windows_fed = 0
         self._batch_iter: Iterator = iter(batches)
         self._vars = [data_var] + ([label_var] if label_var else [])
         self._ragged = {v: store.is_ragged(v) for v in self._vars}
@@ -237,10 +253,10 @@ class EpochReadahead:
 
         # Preallocated staging ring: depth buffers per fixed-width var,
         # each sized for the worst case (no duplicates in the window).
-        # Memory cost = depth × Σ_var window rows × row_bytes — the
+        # Memory cost = depth × Σ_var max_window_rows × row_bytes — the
         # knob the loader documents. Ragged windows allocate per fetch (the
         # element total is data-dependent).
-        self._max_rows: Optional[int] = None
+        self._max_rows = int(max_window_rows) if max_window_rows else None
         self._ring: Dict[str, List[np.ndarray]] = {}
         # `ring`: staging buffers handed over from a previous engine
         # (the loader reuses them epoch to epoch). Worth real time on
@@ -255,7 +271,7 @@ class EpochReadahead:
 
         # Tiered-storage warming: when the store's hot-row cache is
         # armed (DDSTORE_TIER_CACHE_BYTES > 0), the issuer plans up to
-        # _PREFETCH_WINDOWS windows AHEAD of issue and hands each plan's row
+        # `_prefetch` windows AHEAD of issue and hands each plan's row
         # list to store.cache_prefetch — a free lookahead (the plan
         # exists before the window is issued), so by the time window w
         # is issued its cold rows are already staged in RAM and the
@@ -265,6 +281,7 @@ class EpochReadahead:
         self._warm = False
         self._wid_base = next(_ENGINE_IDS) << 32
         self._warmed: set = set()
+        self._prefetch = 0
         if hasattr(store, "tiering_stats") and \
                 hasattr(store, "cache_prefetch"):
             try:
@@ -272,6 +289,9 @@ class EpochReadahead:
                     "cache_max_bytes", 0)) > 0
             except Exception:  # noqa: BLE001 — advisory capability probe
                 self._warm = False
+        if self._warm:
+            self._prefetch = self._default_prefetch()
+            self._warm = self._prefetch > 0
 
         self._planned: "deque" = deque()  # (wnum, plan) awaiting issue
         self._plan_next = 0               # next window number to plan
@@ -318,7 +338,7 @@ class EpochReadahead:
         # Sized on first issue: the worst-case window is W × the first
         # window's batch size (all batches full, zero duplicates).
         per_batch = max(int(b.size) for b in first_plan.batches)
-        cap = per_batch * self.window_batches
+        cap = self._max_rows or per_batch * self.window_batches
         prov = self._provided_ring or {}
         for v in self._vars:
             if self._ragged[v]:
@@ -340,6 +360,37 @@ class EpochReadahead:
                 # timed fetch writes.
                 b.fill(0)
         self._max_rows = cap
+
+    def _default_prefetch(self) -> int:
+        """Requested warm-ahead depth: the DDSTORE_TIER_PREFETCH_DEPTH
+        pin, else ``_PREFETCH_WINDOWS`` (the scheduler refines it against
+        the cache budget and its per-tier cells once the first plan's
+        geometry is known)."""
+        from ..sched.knobs import pinned_knobs
+
+        pin = pinned_knobs().get("prefetch")
+        return max(0, int(pin)) if isinstance(pin, int) \
+            else _PREFETCH_WINDOWS
+
+    def _refine_prefetch(self, plan: WindowPlan) -> None:
+        """First plan: let the cost-model scheduler size the warm-ahead
+        depth from the real window geometry vs the cache budget (and
+        its measured hot-hit / cold-miss cells). A user pin wins inside
+        planned_prefetch; sched-less engines keep the default."""
+        if self.sched is None or \
+                not hasattr(self.sched, "planned_prefetch"):
+            return
+        wbytes = sum(int(plan.rows.size) * rb
+                     for rb in self._row_bytes.values())
+        try:
+            cache = int(self.store.tiering_stats().get(
+                "cache_max_bytes", 0))
+            self._prefetch = max(0, int(self.sched.planned_prefetch(
+                self._prefetch, wbytes, cache, self.depth)))
+        except Exception:  # noqa: BLE001 — advisory sizing only
+            pass
+        if self._prefetch == 0:
+            self._warm = False
 
     def _warm_window(self, w: int, plan: WindowPlan) -> bool:
         """Hand window ``w``'s row list to the store's hot cache
@@ -370,7 +421,7 @@ class EpochReadahead:
                 while True:
                     if self._closed or self._error is not None:
                         return
-                    cap = 1 + (_PREFETCH_WINDOWS if self._warm else 0)
+                    cap = 1 + (self._prefetch if self._warm else 0)
                     can_plan = (not self._iter_done
                                 and len(self._planned) < cap)
                     can_issue = (bool(self._planned) and self._next_issue
@@ -412,7 +463,10 @@ class EpochReadahead:
         w = self._plan_next
         self._plan_next = w + 1
         if self._warm:
-            self._warm_window(w, plan)
+            if w == 0:
+                self._refine_prefetch(plan)
+            if self._warm:
+                self._warm_window(w, plan)
         with self._mu:
             self._planned.append((w, plan))
             self._cond.notify_all()
@@ -434,6 +488,7 @@ class EpochReadahead:
                     f"but the ring was sized for {self._max_rows} "
                     f"(batches grew mid-epoch?)")
             win.wnum = w
+            win.warmed = w in self._warmed
             if trace_enabled():
                 # ddtrace: one span per window — issue/ready/stall
                 # events group under it in the merged trace, next
@@ -680,6 +735,18 @@ class EpochReadahead:
             if stall_s > 1e-4:
                 trace_emit("window_stall", win.span, rank, win.wnum, 0,
                            int(stall_s * 1e6))
+        if self.sched is not None and fetch_s > 0.0:
+            self.sched.observe_window(wbytes, fetch_s,
+                                      cold=self._windows_fed == 0)
+            if self._warm and hasattr(self.sched, "observe_tier"):
+                # Per-tier read cells: a warmed window's fetch leg is
+                # the hot-hit regime (in-RAM gather), an unwarmed one
+                # the cold-miss regime — the cost model plans the
+                # prefetch depth from exactly these two cells.
+                self.sched.observe_tier(wbytes, fetch_s,
+                                        warmed=win.warmed,
+                                        cold=self._windows_fed == 0)
+            self._windows_fed += 1
         m = self.metrics
         if m is None or not hasattr(m, "add_window"):
             return
@@ -787,6 +854,16 @@ class EpochReadahead:
                     for v, o in zip(self._vars, outs))
         self._mark_delivered(seq)
         return res[0] if len(res) == 1 else res
+
+    def batch_rows(self, seq: int, idx=None) -> List[np.ndarray]:
+        """Deliver batch ``seq`` as raw row arrays, one per variable, in
+        batch order — the device-collective path's staging source (rows
+        land in the padded send buffer instead of a host batch)."""
+        win, b = self._window_for(seq)
+        self._verify(win, b, idx)
+        out = [self._gather(win, v, b) for v in self._vars]
+        self._mark_delivered(seq)
+        return out
 
     def _gather(self, win: _Window, var: str, b: int, out=None):
         sel = win.plan.batch_slice(b)

@@ -50,6 +50,24 @@ def launch(device: str):
     return group, ddp_group, dev
 
 
+def one_process_group(dev) -> None:
+    """A ``torch.distributed`` group of this process alone (NCCL on the
+    card, gloo on the CPU), for a one-rank run of a path that exchanges
+    through a group. Left by :func:`finish`."""
+    import socket
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+
+
 def finish(store) -> None:
     """Close the store and leave the ``torch.distributed`` job."""
     import torch.distributed as dist

@@ -25,6 +25,15 @@ torchrun's environment) ``pod_bootstrap`` brings up torch.distributed.
 
 Trains on the MNIST idx files under ``--data-dir`` (plain or .gz), else on
 synthetic MNIST-shaped data.
+
+``--device-collective`` stages batches with the device-collective fetch:
+every rank draws the same global batch, reads only the rows it owns
+(locally), and one ``all_to_all_single`` over the torch.distributed
+group delivers each rank its share. One process joins a one-process
+group of its own (NCCL on the card, gloo on the CPU); ranks sharing a
+card run gloo, since NCCL takes one card per rank::
+
+    python -m ddstore_tpu_torch.examples.vae_mnist --device-collective
 """
 
 from __future__ import annotations
@@ -58,6 +67,11 @@ def main(argv=None) -> None:
                         "reads)")
     p.add_argument("--readahead-window-batches", type=int, default=8,
                    help="batches per readahead window")
+    p.add_argument("--device-collective", action="store_true",
+                   help="stage batches with the device-collective fetch "
+                        "(each rank reads the rows it owns locally, one "
+                        "all_to_all_single delivers them); falls back to "
+                        "the host path, saying why, where it cannot run")
     args = p.parse_args(argv)
 
     import torch
@@ -66,12 +80,15 @@ def main(argv=None) -> None:
                                                 ShardedDataset)
     from ddstore_tpu_torch.data.formats import load_mnist, synthetic_mnist
     from ddstore_tpu_torch.data.loader import DeviceLoader
-    from ddstore_tpu_torch.examples._launch import finish, launch
+    from ddstore_tpu_torch.examples._launch import (finish, launch,
+                                                    one_process_group)
     from ddstore_tpu_torch.models import vae
     from ddstore_tpu_torch.store import DDStore
 
     group, ddp_group, dev = launch(args.device)
     world, rank = group.size, group.rank
+    if args.device_collective and world == 1:
+        one_process_group(dev)
     store = DDStore(group, width=args.width)
     if args.data_dir is not None:
         data, _ = load_mnist(args.data_dir, split="train", normalize=False)
@@ -90,13 +107,27 @@ def main(argv=None) -> None:
     # every replica group holds a full copy, and groups draw disjoint rows
     sampler = DistributedSampler(len(ds), store.world_group.size,
                                  store.world_group.rank, seed=args.seed)
+    if args.device_collective:
+        # the global index stream on every rank: the loader slices each
+        # global batch, and the exchange delivers every rank its share
+        sampler = DistributedSampler(len(ds), 1, 0, seed=args.seed)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1 + rank)
     for epoch in range(args.epochs):
         sampler.set_epoch(epoch)
         loader = DeviceLoader(
-            ds, sampler, per_rank, device=dev,
-            readahead_windows=args.readahead_windows,
-            readahead_window_batches=args.readahead_window_batches)
+            ds, sampler,
+            args.batch_size if args.device_collective else per_rank,
+            device=dev, readahead_windows=args.readahead_windows,
+            readahead_window_batches=args.readahead_window_batches,
+            device_collective=args.device_collective)
+        if args.device_collective and rank == 0 and epoch == 0 \
+                and loader.collective_fallback_reason is not None:
+            print(f"device-collective fallback: "
+                  f"{loader.collective_fallback_reason}", flush=True)
+        if args.readahead_windows and rank == 0 and epoch == 0 \
+                and loader.readahead_fallback_reason is not None:
+            print(f"readahead fallback: "
+                  f"{loader.readahead_fallback_reason}", flush=True)
         t0 = time.perf_counter()
         total, nb = 0.0, 0
         for i, xb in enumerate(loader):

@@ -1,0 +1,337 @@
+"""Tunable-knob registry (the port's copy of
+``ddstore_tpu/sched/knobs.py``): every ``DDSTORE_*`` environment
+variable the repo documents, classified by how the cost-model scheduler
+treats it. ``tests/test_torch_sched.py`` pins this copy to the
+reference's registry.
+
+The scheduler plans four knobs jointly (route x lanes x readahead depth
+x async width); an env var that USED to be the only way to set one of
+them is now a **pin** — explicitly setting it freezes that knob at the
+user's value and the planner plans the rest. Everything else is plain
+configuration the planner must not touch.
+
+The reference's drift guard (every ``DDSTORE_*`` name in README.md or
+MIGRATION.md must be registered) covers this copy through the parity
+pin: a new knob cannot silently bypass the scheduler (it either pins a
+planned knob or is consciously classified as config).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+#: The jointly planned knobs (see :mod:`ddstore_tpu_torch.sched.planner`).
+PLANNED_KNOBS = ("route_bulk", "route_scatter", "lanes_bulk",
+                 "lanes_scatter", "depth", "width", "prefetch")
+
+
+@dataclass(frozen=True)
+class Knob:
+    env: str
+    #: ``"pin"`` — setting this env freezes one of the planned knobs;
+    #: ``"config"`` — plain configuration, never planned.
+    kind: str
+    #: Which :data:`PLANNED_KNOBS` entries an explicit value freezes
+    #: (pins only).
+    pins: tuple = ()
+    description: str = ""
+
+
+def _k(env: str, kind: str, pins: tuple = (), desc: str = "") -> Knob:
+    return Knob(env, kind, pins, desc)
+
+
+#: env name -> Knob. Keep sorted within each block.
+REGISTRY: Dict[str, Knob] = {k.env: k for k in [
+    # -- pins of planned knobs -------------------------------------------
+    _k("DDSTORE_ASYNC_THREADS", "pin", ("width",),
+       "async admission width; unset = 4/2/1 core ladder, planned"),
+    _k("DDSTORE_CMA_BULK", "pin", ("route_bulk",),
+       "1 = force CMA, 0 = force TCP for bulk reads"),
+    _k("DDSTORE_CMA_SCATTER", "pin", ("route_scatter",),
+       "1 = force CMA, 0 = force TCP for scatter reads"),
+    _k("DDSTORE_CONNS_PER_PEER", "pin", ("lanes_bulk", "lanes_scatter"),
+       "legacy alias of DDSTORE_TCP_LANES"),
+    _k("DDSTORE_READAHEAD_DEPTH", "pin", ("depth",),
+       "readahead windows in flight; unset = planned (bounded by the "
+       "loader's readahead_windows argument)"),
+    _k("DDSTORE_TCP_LANES", "pin", ("lanes_bulk", "lanes_scatter"),
+       "per-peer connection pool size; explicit value pins stripe "
+       "width"),
+    _k("DDSTORE_TCP_LANES_AUTOTUNE", "pin",
+       ("lanes_bulk", "lanes_scatter"),
+       "0 pins striping at the full pool size"),
+    _k("DDSTORE_TIER_PREFETCH_DEPTH", "pin", ("prefetch",),
+       "hot-cache warm-ahead depth (windows planned + prefetched "
+       "beyond the one being issued); unset = planned from the cache "
+       "budget and the measured hot-hit/cold-miss cells; 0 disables "
+       "warming"),
+    # -- configuration (never planned) -----------------------------------
+    _k("DDSTORE_BACKEND", "config", desc="local/tcp backend select"),
+    _k("DDSTORE_BARRIER_TIMEOUT_S", "config"),
+    _k("DDSTORE_BENCH_DEADLINE_S", "config"),
+    _k("DDSTORE_BENCH_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_BENCH_PROBE_TIMEOUT_S", "config"),
+    _k("DDSTORE_BENCH_SKIP_PROBE", "config"),
+    _k("DDSTORE_CHAOS_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_CMA", "config", desc="0 disables the CMA fast path "
+       "entirely (a capability switch, not a per-class preference)"),
+    _k("DDSTORE_CONNECT_TIMEOUT_S", "config"),
+    _k("DDSTORE_CONTROL_RETRY_MAX", "config",
+       desc="bounded retry budget for control-plane round trips "
+            "(var-seq probes, row-sum fetches, snapshot pin "
+            "placement); default 2; the suspect oracle short-circuits "
+            "a detector-declared-dead peer before any attempt"),
+    _k("DDSTORE_CONTROL_TIMEOUT_MS", "config",
+       desc="per-attempt deadline (ms) for control-plane round trips; "
+            "default 1000 — replaces the old hardcoded one-shot "
+            "1000/5000 ms kOpVarSeq/kOpRowSums timeouts (bulk row-sum "
+            "fetches run at 5x this value per attempt, preserving the "
+            "old window at the default)"),
+    _k("DDSTORE_COORDINATOR", "config"),
+    _k("DDSTORE_CXX", "config",
+       desc="C++ compiler for the on-demand native build (default g++)"),
+    _k("DDSTORE_DEBUG", "config"),
+    _k("DDSTORE_DRYRUN_TIMEOUT_S", "config"),
+    _k("DDSTORE_FAILOVER_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_FAULT_RANKS", "config"),
+    _k("DDSTORE_FAULT_SEED", "config"),
+    _k("DDSTORE_FAULT_SPEC", "config"),
+    _k("DDSTORE_GATEWAY", "config",
+       desc="1 arms the serving gateway: kOpAttach/kOpLease sessions, "
+            "histogram-driven admission in front of Get/GetBatch/"
+            "ReadRuns (over-share tenants deferred then refused with "
+            "ERR_ADMISSION + retry-after), lease reaping, drain; "
+            "default 0, pinned byte-, error-code- and seeded-fault-"
+            "counter-identical to the ungated tree"),
+    _k("DDSTORE_GATEWAY_PHASE_TIMEOUT_S", "config",
+       desc="bench gateway-phase subprocess cap, default 300"),
+    _k("DDSTORE_GW_ADMIT_MARGIN", "config",
+       desc="admission margin in percent of each protected tenant's "
+            "SLO threshold (default 80): over-share reads defer once "
+            "predicted p99 = live-histogram p99 x (1 + async queue "
+            "depth) crosses threshold x margin/100"),
+    _k("DDSTORE_GW_DEFER_MS", "config",
+       desc="bounded deferral window before an over-share read is "
+            "refused with ERR_ADMISSION (default 100); the refusal's "
+            "retry-after hint scales with queue pressure"),
+    _k("DDSTORE_GW_LANE_SHARE", "config",
+       desc="QoS lane-budget share armed for a gateway tenant's first "
+            "session and cleared at its last detach (default 0 = "
+            "leave lane budgets to DDSTORE_TENANT_SHARES/scheduler)"),
+    _k("DDSTORE_GW_LEASE_MS", "config",
+       desc="gateway session lease (default 5000): client renews at "
+            "~lease/3; expiry atomically releases the session's "
+            "snapshot pins, quota reservation and lane share — the "
+            "SIGKILL-safety bound"),
+    _k("DDSTORE_GW_QUEUE", "config",
+       desc="bounded admission deferral queue per rank (default 64); "
+            "a full queue refuses immediately"),
+    _k("DDSTORE_GW_RETRY_MAX", "config",
+       desc="client-side ERR_ADMISSION retry budget per read in "
+            "GatewaySession (default 8), each retry sleeping the "
+            "server's retry-after hint with seeded jitter"),
+    _k("DDSTORE_HEARTBEAT_MS", "config",
+       desc="heartbeat ping interval (ms); unset = 250 when "
+            "DDSTORE_REPLICATION > 1, else off; 0 disables"),
+    _k("DDSTORE_HEARTBEAT_SUSPECT_N", "config",
+       desc="consecutive missed pings before a peer is suspected "
+            "(default 3)"),
+    _k("DDSTORE_HOST", "config"),
+    _k("DDSTORE_IFACES", "config"),
+    _k("DDSTORE_INTEGRITY_PHASE_TIMEOUT_S", "config",
+       desc="bench integrity-phase subprocess cap, default 300"),
+    _k("DDSTORE_LANES_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_METHOD", "config"),
+    _k("DDSTORE_METRICS", "config",
+       desc="0 disables the always-on ddmetrics latency/bytes "
+            "histograms (default 1: per-store log2-bucketed cells per "
+            "(op class, route, peer, reading tenant), updated at op "
+            "end with relaxed atomic increments — live p50/p90/p99 in "
+            "summary()['latency'] without tracing)"),
+    _k("DDSTORE_NUM_PROCESSES", "config",
+       desc="explicit pod size for pod_bootstrap (with "
+            "DDSTORE_COORDINATOR/DDSTORE_PROCESS_ID)"),
+    _k("DDSTORE_OP_DEADLINE_S", "config"),
+    _k("DDSTORE_PEAK_FLOPS", "config"),
+    _k("DDSTORE_POD_AUTODETECT", "config"),
+    _k("DDSTORE_POOL_THREADS", "config"),
+    _k("DDSTORE_PPSCHED_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_PROCESS_ID", "config",
+       desc="explicit pod process index for pod_bootstrap"),
+    _k("DDSTORE_RANK", "config"),
+    _k("DDSTORE_RDV_DIR", "config"),
+    _k("DDSTORE_RDV_ID", "config"),
+    _k("DDSTORE_REPLICATION", "config",
+       desc="R-way shard replication: each rank mirrors the next R-1 "
+            "ranks' shards, reads fail over transparently; default 1 "
+            "(off, byte-identical to the unreplicated tree); RAM cost "
+            "is R x the dataset"),
+    _k("DDSTORE_READ_TIMEOUT_S", "config"),
+    _k("DDSTORE_RETRY_BASE_MS", "config"),
+    _k("DDSTORE_RETRY_MAX", "config"),
+    _k("DDSTORE_SANITIZE", "config"),
+    _k("DDSTORE_SCRUB_MS", "config",
+       desc="background integrity scrubber: one resident mirror "
+            "checked against its owner's published checksums per tick "
+            "(ms), divergent mirrors re-pulled; default 0 (off)"),
+    _k("DDSTORE_SCHED", "config",
+       desc="0 disables the cost-model scheduler (independent tuners "
+            "only); default on"),
+    _k("DDSTORE_SCHED_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_SLO_PHASE_TIMEOUT_S", "config",
+       desc="bench slo-phase subprocess cap, default 300"),
+    _k("DDSTORE_SLO_WINDOW_MS", "config",
+       desc="minimum spacing between SLO evaluations (ms): an "
+            "evaluate_slos() call inside the window is a no-op that "
+            "keeps the running delta window intact; default 0 = every "
+            "call evaluates"),
+    _k("DDSTORE_SNAP_PIN_TTL_MS", "config",
+       desc="TTL for stranded snapshot pins (default 0 = off): the "
+            "reaper releases a pin whose owner is suspected dead or "
+            "whose age passed the TTL, counting snapshot_stats()"
+            "['reclaimed_pins'] — works with the gateway off"),
+    _k("DDSTORE_SOAK_BUDGET_S", "config"),
+    _k("DDSTORE_SOAK_PHASE_TIMEOUT_S", "config"),
+    _k("DDSTORE_TENANTS_PHASE_TIMEOUT_S", "config",
+       desc="bench tenants-phase subprocess cap, default 300"),
+    _k("DDSTORE_TENANT_QUOTAS", "config",
+       desc="per-tenant registration budgets 't=bytes[:vars],...' "
+            "(< 0 = unlimited); an over-budget add/init is refused "
+            "with ERR_QUOTA (-11), a distinct non-fatal class"),
+    _k("DDSTORE_TIER_CACHE_BYTES", "config",
+       desc="hot-row cache byte budget (default 0 = off, the whole "
+            "tiering tree inert and byte-identical); size it to hold "
+            "(ring depth + prefetch depth + 1) readahead windows of "
+            "the active variables"),
+    _k("DDSTORE_TIER_COLD_DIR", "config",
+       desc="directory for cold-tier file-backed allocations (mirror "
+            "fills / snapshot kept copies placed 'cold'); files are "
+            "created unlinked, so crashes cannot leak disk"),
+    _k("DDSTORE_TIER_PLACEMENT", "config",
+       desc="per-tenant mirror/kept-copy placement "
+            "'tenant=cold|hot,...' (a bare 'cold' names the default "
+            "tenant); default hot — cold requires "
+            "DDSTORE_TIER_COLD_DIR"),
+    _k("DDSTORE_TIERED_PHASE_TIMEOUT_S", "config",
+       desc="bench tiered-phase subprocess cap, default 300"),
+    _k("DDSTORE_TENANT_SLOS", "config",
+       desc="per-tenant latency objectives 't=p99:5ms,...' (a bare "
+            "'p99:5ms' names the default tenant; units ns/us/ms/s) "
+            "evaluated per epoch window over the live ddmetrics "
+            "histograms — a breach emits an slo_breach trace event, "
+            "dumps the flight recorder and replans the tenant's "
+            "routes/lanes/shares; default unset = monitor inert"),
+    _k("DDSTORE_TENANT_SHARES", "config",
+       desc="per-tenant QoS weights 't=weight,...': async admission "
+            "is share-split (each tenant runs at most max(1, width * "
+            "share / total) concurrent async reads) and the scheduler "
+            "plans matching per-tenant lane budgets"),
+    _k("DDSTORE_TRACE", "config",
+       desc="1 enables the ddtrace event rings at load (default off: "
+            "one relaxed load per instrumentation site, frames "
+            "byte-identical to the untraced tree)"),
+    _k("DDSTORE_TRACE_FLIGHT", "config",
+       desc="flight-recorder snapshot bound in events (default 16384)"),
+    _k("DDSTORE_TRACE_PHASE_TIMEOUT_S", "config",
+       desc="bench trace-phase subprocess cap, default 300"),
+    _k("DDSTORE_TRACE_RING", "config",
+       desc="per-thread trace ring capacity in events (default 4096); "
+            "overflow overwrites oldest and counts a drop"),
+    _k("DDSTORE_TRANSPORT", "config",
+       desc="wire backend inside backend='tcp': 'tcp' (default) or "
+            "'uring' — the io_uring batch loop (one io_uring_enter "
+            "per frame burst; probe-gated with loud TCP fallback, "
+            "byte-identical wire stream either way)"),
+    _k("DDSTORE_UDS", "config"),
+    _k("DDSTORE_URING_COLD", "config",
+       desc="O_DIRECT serving of readonly cold (tier-1) shards "
+            "through the submission ring: 1/0 force on/off; 'auto' "
+            "(default) follows the uring wire backend's engagement"),
+    _k("DDSTORE_URING_DEPTH", "config",
+       desc="SQ entries per lane ring (default 256, clamped to "
+            "[64, 4096]); bounds the frames one io_uring_enter can "
+            "carry"),
+    _k("DDSTORE_URING_PHASE_TIMEOUT_S", "config",
+       desc="bench uring-phase subprocess cap, default 300"),
+    _k("DDSTORE_URING_REGBUF", "config",
+       desc="0 disables IORING_REGISTER_BUFFERS/READ_FIXED for the "
+            "cold-tier bounce buffer (default 1; refusal falls back "
+            "to plain IORING_OP_READ silently)"),
+    _k("DDSTORE_VERIFY", "config",
+       desc="1 = checksum-verify every remote read leg against the "
+            "owner's published per-row sums (mismatch -> transient "
+            "seq retry -> one primary retry -> replica chain -> "
+            "ERR_CORRUPT); default 0, pinned byte-, error-code- and "
+            "seeded-fault-counter-identical to the unverified tree"),
+    _k("DDSTORE_VERIFY_SEED", "config",
+       desc="seed of the per-row checksum function (must agree across "
+            "ranks; default 0)"),
+    _k("DDSTORE_WORLD", "config"),
+]}
+
+
+def _int_env(name: str) -> Optional[int]:
+    v = os.environ.get(name, "").strip()
+    if not v:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        return None
+
+
+def pinned_knobs(env: Optional[dict] = None) -> Dict[str, object]:
+    """The planned knobs the USER froze via env vars, with their pinned
+    values — the planner plans everything NOT in this dict.
+
+    Returns a subset of :data:`PLANNED_KNOBS` keys: routes map to
+    ``"cma"``/``"tcp"``, lanes to an int width (``"pool"`` when only
+    autotune was turned off — pinned at the pool size), depth/width to
+    ints."""
+    e = os.environ if env is None else env
+    pins: Dict[str, object] = {}
+    for cls, var in (("route_bulk", "DDSTORE_CMA_BULK"),
+                     ("route_scatter", "DDSTORE_CMA_SCATTER")):
+        v = e.get(var, "").strip()
+        if v.startswith("1"):
+            pins[cls] = "cma"
+        elif v.startswith("0"):
+            pins[cls] = "tcp"
+    lanes = None
+    for var in ("DDSTORE_TCP_LANES", "DDSTORE_CONNS_PER_PEER"):
+        v = e.get(var, "").strip()
+        if v:
+            try:
+                lanes = int(v)
+            except ValueError:
+                lanes = None
+            break
+    if lanes is not None:
+        pins["lanes_bulk"] = pins["lanes_scatter"] = lanes
+    elif e.get("DDSTORE_TCP_LANES_AUTOTUNE", "").strip() == "0":
+        # Autotune off with no explicit width: striping is pinned at
+        # the (core-ladder) pool size — still a user decision the
+        # planner must not override.
+        pins["lanes_bulk"] = pins["lanes_scatter"] = "pool"
+    v = e.get("DDSTORE_ASYNC_THREADS", "").strip()
+    if v:
+        try:
+            pins["width"] = int(v)
+        except ValueError:
+            pass
+    v = e.get("DDSTORE_READAHEAD_DEPTH", "").strip()
+    if v:
+        try:
+            pins["depth"] = int(v)
+        except ValueError:
+            pass
+    v = e.get("DDSTORE_TIER_PREFETCH_DEPTH", "").strip()
+    if v:
+        try:
+            pins["prefetch"] = int(v)
+        except ValueError:
+            pass
+    return pins

@@ -1,0 +1,611 @@
+"""Cost-model scheduler: joint route x lanes x depth x width planning
+(the port's copy of ``ddstore_tpu/sched/planner.py``).
+
+Without it the store runs three INDEPENDENT warm-window tuners — the
+CMA/TCP router, the per-class lane autotuner, and hand-set readahead
+depth / async admission width — each optimizing its knob blind to the
+others. The knobs are not independent: lane fan-out, async admission
+and window depth all compete for the same cores (on a 2-core box 1-lane
+fan-out alone oversubscribes the CPU, and scatter forced to 4 lanes ran
+at 0.33x of 1 lane in the reference's measurements). This planner models
+delivered batch throughput as one function of all four knobs per
+traffic class and plans them together.
+
+The model
+---------
+
+Per traffic class ``c`` (bulk / scatter), candidate route ``r`` and
+lane width ``l``::
+
+    T(c, r, l)      = B(c, r, l) * g(l)          predicted fetch bytes/s
+    B(c, r, l)      = the substrate's measured EWMA for that cell when
+                      it holds >= WARM_MIN_SAMPLES clean samples;
+                      otherwise extrapolated from the nearest measured
+                      width l0 of the same (c, r)
+    g(l | l0)       = max(1, min(l / l0, cores / (l0 * peers)))
+                      the CORE-BUDGET term: widening a stripe l0 -> l
+                      scales linearly in the lane ratio only while idle
+                      cores cover the extra streams; with cores <=
+                      l0 * peers there is no headroom and the predicted
+                      gain is exactly 1 — the no-headroom regime falls
+                      out of the model, it is not special-cased.
+
+Measured beats extrapolated: a width the substrate has really measured
+uses its EWMA directly, which is how a measured scatter collapse (4
+lanes at 0.33x of 1 lane) keeps scatter on 1 lane without any
+special case. Ties break toward FEWER lanes (cheaper dispatch).
+
+Depth and width close the loop on the same core budget::
+
+    width = min(nvars * max(1, depth_req - 1),     reads the ring can
+                max(1, cores // peers),            actually keep in
+                ASYNC_WIDTH_CAP)                   flight vs. afford
+    depth = min(depth_req, width + 1)
+
+one window being consumed plus ``width`` concurrently fetching is the
+most the admission gate lets the ring exploit; deeper rings only add
+staging memory.
+
+Pin semantics
+-------------
+
+Every pre-existing env knob is a PIN (:mod:`ddstore_tpu_torch.sched.knobs`):
+an explicitly-set ``DDSTORE_TCP_LANES`` / ``DDSTORE_CMA_*`` /
+``DDSTORE_ASYNC_THREADS`` / ``DDSTORE_READAHEAD_DEPTH`` freezes that
+knob at the user's value and the planner plans the rest. That is what
+keeps every pinned contract byte-identical under the scheduler: the
+lanes=1 identity tests, the chaos determinism runs and the forced-path
+benches all pin the knobs they rely on.
+
+Replanning
+----------
+
+The scheduler replans (and re-applies the unpinned knobs through the
+native pin setters) on epoch boundaries, on degradation events
+(``kErrPeerLost`` classification, a readahead/collective ladder
+engagement) and on peer topology changes (``update_peer`` — which also
+RESETS the native tuners and releases the planner pins, so the rebuilt
+plan starts from fresh samples). Each replan's chosen knobs, predicted
+throughput and trigger reason export through
+``PipelineMetrics.summary()["sched"]``.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import warnings
+import weakref
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+from ..binding import trace_emit, trace_enabled
+from .knobs import pinned_knobs
+from .measure import WARM_MIN_SAMPLES, SampleSet
+
+#: Hard cap on the planned async admission width (mirrors the native
+#: pool cap, kAsyncPoolCap).
+ASYNC_WIDTH_CAP = 16
+
+_ROUTE_SRC, _LANES_SRC = 0, 1
+_CLS = {"bulk": 0, "scatter": 1}
+#: Per-class route flip bands, mirroring the native router's
+#: RouteClass.hysteresis: the planner's FIRST route verdict is a raw
+#: argmax (the router's one-shot calibration), but overturning an
+#: already-applied pin requires beating it by this factor — a raw
+#: argmax re-applied every epoch would flap between near-equal paths,
+#: exactly what the router's band exists to stop.
+_ROUTE_HYSTERESIS = {"bulk": 1.25, "scatter": 1.10}
+
+
+def scheduler_enabled(env: Optional[dict] = None) -> bool:
+    """DDSTORE_SCHED gate: default on; \"0\" disables (independent
+    tuners only)."""
+    e = os.environ if env is None else env
+    return e.get("DDSTORE_SCHED", "").strip() != "0"
+
+
+@dataclass
+class Plan:
+    """One joint knob assignment. ``None`` = knob left to its adaptive
+    tuner (insufficient samples) or frozen by a user pin (see
+    ``pins``)."""
+
+    route: Dict[str, Optional[str]] = field(
+        default_factory=lambda: {"bulk": None, "scatter": None})
+    lanes: Dict[str, Optional[int]] = field(
+        default_factory=lambda: {"bulk": None, "scatter": None})
+    depth: Optional[int] = None
+    width: Optional[int] = None
+    predicted_gbps: Dict[str, float] = field(default_factory=dict)
+    pins: Dict[str, object] = field(default_factory=dict)
+    #: Per-tenant QoS budgets ({tenant: {"width": w, "lanes": l}}),
+    #: share-weighted splits of the planned width/lane cells — the
+    #: tenancy layer rides the SAME plan, not a fourth tuner. Empty
+    #: without configured shares.
+    tenants: Dict[str, Dict[str, int]] = field(default_factory=dict)
+    reason: str = ""
+    #: True once apply() actually set at least one knob.
+    engaged: bool = False
+
+
+class CostModel:
+    """The throughput model over the substrate's cells (module
+    docstring). Pure and stateless beyond its geometry so the planner
+    units can drive it with canned samples."""
+
+    def __init__(self, cores: int, peers: int):
+        self.cores = max(1, int(cores))
+        self.peers = max(1, int(peers))
+
+    def core_budget_gain(self, l0: int, l: int) -> float:
+        """Extrapolated speedup of widening a stripe l0 -> l: linear in
+        the lane ratio, capped by idle-core availability (and never a
+        predicted LOSS — an unmeasured narrower width is not predicted
+        to beat a measured one)."""
+        if l <= l0:
+            return 1.0
+        want = l / l0
+        have = self.cores / (l0 * self.peers)
+        return max(1.0, min(want, have))
+
+    def lane_throughput(self, cells: Dict[int, dict],
+                        l: int) -> Optional[float]:
+        """Predicted bytes/s at width ``l`` from the class's lane cells
+        ({lane_count: row}). Measured widths (n >= WARM_MIN_SAMPLES)
+        use their EWMA; unmeasured ones extrapolate from the nearest
+        measured width below (or the nearest above, gain 1)."""
+        measured = {k: c["ewma_bps"] for k, c in cells.items()
+                    if c["n"] >= WARM_MIN_SAMPLES and c["ewma_bps"] > 0}
+        if not measured:
+            return None
+        if l in measured:
+            return measured[l]
+        below = [k for k in measured if k < l]
+        l0 = max(below) if below else min(measured)
+        return measured[l0] * self.core_budget_gain(l0, l)
+
+    def best_lanes(self, cells: Dict[int, dict]) -> Optional[int]:
+        """argmax over the tuner's widths of the predicted throughput,
+        ties toward fewer lanes. None without any measured cell."""
+        if not cells:
+            return None
+        best, best_t = None, -1.0
+        for l in sorted(cells):
+            t = self.lane_throughput(cells, l)
+            if t is None:
+                return None
+            if t > best_t * 1.0001:  # strict: ties keep fewer lanes
+                best, best_t = l, t
+        return best
+
+    def plan_width(self, nvars: int, depth_req: int) -> int:
+        useful = max(1, int(nvars)) * max(1, int(depth_req) - 1)
+        affordable = max(1, self.cores // self.peers)
+        return max(1, min(useful, affordable, ASYNC_WIDTH_CAP))
+
+    def plan_depth(self, depth_req: int, width: int) -> int:
+        return max(1, min(int(depth_req), int(width) + 1))
+
+
+class Scheduler:
+    """Owns the plan for one store + loader pairing. Thread-safe: the
+    loader's workers report degradations concurrently with the consumer
+    thread's epoch replans (replans serialize on an internal lock so
+    the applied knobs always belong to ONE jointly computed plan).
+
+    One ACTIVE scheduler per store is the supported shape — two
+    enabled schedulers pinning the same store would overwrite each
+    other's plans (last replan wins). The peer-change listener holds
+    only a weak reference, so a scheduler (and its abandoned loader)
+    is collectable and a dead one never replans.
+
+    ``requested_depth`` is the readahead ring depth the owner budgets
+    for; 0 means the owner runs NO readahead pipeline, and the
+    scheduler then leaves the depth AND async-width knobs alone (a
+    loader without readahead must not throttle the store's other
+    async users)."""
+
+    def __init__(self, store, nvars: int = 1,
+                 requested_depth: int = 2,
+                 enabled: Optional[bool] = None):
+        self.store = store
+        self.nvars = max(1, int(nvars))
+        self.requested_depth = max(0, int(requested_depth))
+        self.enabled = scheduler_enabled() if enabled is None \
+            else bool(enabled)
+        cores = os.cpu_count() or 1
+        peers = max(1, store.world - 1) if store is not None else 1
+        self.model = CostModel(cores, peers)
+        # Host-side substrate cells: delivered window-fetch throughput
+        # keyed by the depth it ran at (source "window"), plus the
+        # per-tier cells (source "tier": hot-hit vs cold-miss fetch
+        # legs) the prefetch planner reads.
+        self.samples = SampleSet()
+        self._tier_prefetch: Optional[int] = None
+        self._mu = threading.Lock()
+        self._replan_mu = threading.Lock()
+        self._plan = Plan(pins=pinned_knobs())
+        self.replans = 0
+        self.reasons: List[str] = []
+        # Same regime rule the lanes bench exports: client stripe legs
+        # + serving threads of a 1-lane fan-out, + consumer + issuer.
+        self.no_core_headroom = cores < 2 * peers + 2
+        if store is not None and hasattr(store, "add_peer_listener"):
+            wr = weakref.ref(self)
+
+            def _on_peer_change():
+                s = wr()
+                if s is not None:
+                    s.on_peer_change()
+
+            # `alive` lets DDStore.update_peer prune the entry once the
+            # scheduler is collected (listener lists on long-lived
+            # stores must not grow one dead closure per discarded
+            # loader).
+            _on_peer_change.alive = lambda: wr() is not None
+            store.add_peer_listener(_on_peer_change)
+
+    # -- sample intake -----------------------------------------------------
+
+    def observe_window(self, nbytes: int, secs: float,
+                       cold: bool = False) -> None:
+        """Fold one readahead window fetch (issue -> completion) into
+        the host-side substrate, keyed by the depth it ran at. The
+        engine's FIRST window of an epoch is `cold` (ring first-touch,
+        lane dials) — the substrate's dial-taint rule discards it while
+        the cell is unseeded, exactly like the native tuners."""
+        depth = self._plan.depth or self.requested_depth or 1
+        with self._mu:
+            self.samples.fold("window", 0, depth, nbytes, secs, cold)
+
+    def observe_tier(self, nbytes: int, secs: float, warmed: bool,
+                     cold: bool = False) -> None:
+        """Fold one window fetch into the PER-TIER read cells: knob 1 =
+        hot-hit (the window was cache-warmed before issue, its fetch is
+        an in-RAM gather), knob 0 = cold-miss (unwarmed — NVMe page
+        faults / wire reads). Same warm-window hygiene as every other
+        cell; ``planned_prefetch`` reads these to decide whether
+        warming ahead is paying."""
+        with self._mu:
+            self.samples.fold("tier", 0, 1 if warmed else 0, nbytes,
+                              secs, cold)
+
+    def planned_prefetch(self, requested: int, window_bytes: int,
+                         cache_bytes: int, depth: int) -> int:
+        """The hot-cache warm-ahead depth (windows planned+prefetched
+        beyond the one being issued) the readahead engine should run:
+        the DDSTORE_TIER_PREFETCH_DEPTH pin wins outright; otherwise
+        ``requested`` clamped to what the cache budget can actually
+        hold (consumed-window entries evict as the pipeline advances,
+        so ~``depth + prefetch`` windows are live at once), dropped to
+        1 when the measured hot-hit cell shows no gain over cold-miss
+        (warming that doesn't pay should not burn RAM and fill
+        traffic)."""
+        pins = pinned_knobs()
+        if isinstance(pins.get("prefetch"), int):
+            return max(0, int(pins["prefetch"]))
+        if cache_bytes <= 0 or window_bytes <= 0:
+            return 0
+        fit = int(cache_bytes // window_bytes) - max(1, int(depth))
+        p = max(0, min(int(requested), fit))
+        if not self.enabled:
+            return p
+        with self._mu:
+            hot = self.samples.cell("tier", 0, 1)
+            cold = self.samples.cell("tier", 0, 0)
+            if (hot is not None and cold is not None
+                    and hot.n >= WARM_MIN_SAMPLES
+                    and cold.n >= WARM_MIN_SAMPLES
+                    and hot.ewma <= cold.ewma):
+                p = min(p, 1)
+            self._tier_prefetch = p
+        return p
+
+    # -- planning ----------------------------------------------------------
+
+    def _native_cells(self) -> List[dict]:
+        if self.store is None:
+            return []
+        try:
+            return self.store.sched_cells()
+        except Exception:
+            return []
+
+    def _wire_route(self) -> str:
+        """The wire path's route label: "uring" when the store's
+        io_uring wire loop is engaged, else "tcp". Both map to the
+        same native route pin (knob 1)."""
+        try:
+            if self.store is not None and \
+                    self.store.transport_facts().get("wire") == "uring":
+                return "uring"
+        except Exception:
+            pass
+        return "tcp"
+
+    def compute(self, cells: Optional[List[dict]] = None) -> Plan:
+        """Build (but do not apply) a joint plan from substrate cells.
+        ``cells`` defaults to the live native snapshot; the planner
+        units pass canned rows."""
+        rows = self._native_cells() if cells is None else cells
+        pins = pinned_knobs()
+        plan = Plan(pins=pins)
+        for name, cls in _CLS.items():
+            route_cells = {int(r["knob"]): r for r in rows
+                           if r["source"] == _ROUTE_SRC
+                           and int(r["cls"]) == cls}
+            lane_cells = {int(r["knob"]): r for r in rows
+                          if r["source"] == _LANES_SRC
+                          and int(r["cls"]) == cls}
+            # Route: argmax over the two measured path cells. Left to
+            # the adaptive router until both paths hold clean samples
+            # (the router's own collection/calibration does that part).
+            # The wire cell (knob 1) is one PATH with two possible
+            # labels: "tcp", or "uring" when the io_uring wire loop is
+            # engaged — the planner plans across {cma, tcp, uring}
+            # with no fourth tuner (the ring batches the same wire
+            # leg, so the same measurement cell covers it).
+            wire = self._wire_route()
+            if f"route_{name}" not in pins:
+                cma = route_cells.get(0)
+                wc = route_cells.get(1)
+                if cma and wc and \
+                        cma["n"] >= WARM_MIN_SAMPLES and \
+                        wc["n"] >= WARM_MIN_SAMPLES:
+                    cma_bw, wire_bw = cma["ewma_bps"], wc["ewma_bps"]
+                    prev = self._plan.route.get(name)
+                    h = _ROUTE_HYSTERESIS[name]
+                    if prev is None:
+                        pick = "wire" if wire_bw > cma_bw else "cma"
+                    elif prev == "cma":
+                        pick = "wire" if wire_bw > h * cma_bw else "cma"
+                    else:  # previously on the wire path (tcp or uring)
+                        pick = "cma" if cma_bw > h * wire_bw else "wire"
+                    plan.route[name] = wire if pick == "wire" else "cma"
+            # Lanes: model argmax (measured beats extrapolated; the
+            # core-budget term caps unmeasured growth).
+            if f"lanes_{name}" not in pins:
+                plan.lanes[name] = self.model.best_lanes(lane_cells)
+            best_l = plan.lanes[name] if plan.lanes[name] else 1
+            t = self.model.lane_throughput(lane_cells, best_l) \
+                if lane_cells else None
+            if t is None and plan.route[name] is not None:
+                rc = route_cells.get(
+                    0 if plan.route[name] == "cma" else 1)
+                t = rc["ewma_bps"] if rc else None
+            if t:
+                plan.predicted_gbps[name] = round(t / 1e9, 3)
+        # Depth/width close over the same core budget — but ONLY for an
+        # owner that actually runs a readahead pipeline
+        # (requested_depth >= 1). A readahead-less loader has no
+        # business setting the store's admission width: it would
+        # silently throttle the store's other async users.
+        if self.requested_depth >= 1:
+            width = pins.get("width")
+            if not isinstance(width, int):
+                width = self.model.plan_width(self.nvars,
+                                              self.requested_depth)
+                plan.width = width
+            depth = pins.get("depth")
+            if not isinstance(depth, int):
+                plan.depth = self.model.plan_depth(self.requested_depth,
+                                                   width)
+        # Per-tenant QoS budgets: share-weighted splits of the planned
+        # (or pinned/live) width and the widest planned lane cell —
+        # additional cells of the SAME joint plan. The async half is
+        # enforced natively by the admission gate; the lane half is
+        # applied through SetTenantLaneBudget in apply().
+        shares = self._tenant_shares()
+        if shares:
+            from ..tenant import share_split
+
+            width_base = plan.width if plan.width else \
+                pins.get("width") if isinstance(pins.get("width"), int) \
+                else self._live_width()
+            lane_base = max([l for l in plan.lanes.values() if l] or
+                            [self._live_lanes()])
+            widths = share_split(max(1, int(width_base)), shares)
+            lanes = share_split(max(1, int(lane_base)), shares)
+            plan.tenants = {t: {"width": widths[t], "lanes": lanes[t]}
+                            for t in shares}
+        return plan
+
+    def _tenant_shares(self) -> Dict[str, int]:
+        """Configured QoS shares, read from the store's ledger (env or
+        runtime setters). {} = tenancy not in play."""
+        if self.store is None or not hasattr(self.store, "tenant_stats"):
+            return {}
+        try:
+            stats = self.store.tenant_stats()
+        except Exception:
+            return {}
+        # The share gauge is 0 for tenants that never ran
+        # SetTenantShare (quota-only, snapshot-pin-only rows): only
+        # EXPLICITLY configured tenants enter the split, so the
+        # planner's denominator is the native gate's
+        # async_share_total_ — sum of configured weights, even when
+        # every configured weight is 1.
+        shares = {t: int(row.get("share", 0)) for t, row in stats.items()}
+        return {t: w for t, w in shares.items() if w > 0}
+
+    def _live_width(self) -> int:
+        try:
+            return int(self.store.async_width)
+        except Exception:
+            return 1
+
+    def _live_lanes(self) -> int:
+        try:
+            return int(self.store.lane_state().get("max_lanes", 1) or 1)
+        except Exception:
+            return 1
+
+    def apply(self, plan: Plan) -> Plan:
+        """Push the plan's unpinned knobs through the native setters.
+        Knobs left ``None`` release the planner pin (the adaptive tuner
+        owns them again)."""
+        if self.store is None:
+            return plan
+        for name, cls in _CLS.items():
+            if f"route_{name}" not in plan.pins:
+                # "uring" shares the wire pin (1): the ring is a
+                # different wire LOOP, not a different native route.
+                mode = {-1: -1, "cma": 0, "tcp": 1, "uring": 1}[
+                    plan.route[name] if plan.route[name] else -1]
+                self.store.sched_pin_route(cls, mode)
+                plan.engaged = plan.engaged or plan.route[name] is not None
+            if f"lanes_{name}" not in plan.pins:
+                self.store.sched_pin_lanes(
+                    cls, plan.lanes[name] if plan.lanes[name] else -1)
+                plan.engaged = plan.engaged or plan.lanes[name] is not None
+        if plan.width is not None and "width" not in plan.pins:
+            self.store.set_async_width(plan.width)
+            plan.engaged = True
+        if plan.depth is not None and "depth" not in plan.pins:
+            plan.engaged = True  # consumed by the loader (planned_depth)
+        if plan.tenants and hasattr(self.store, "set_tenant_lane_budget"):
+            # Lane half of the tenant QoS budgets (the async half is
+            # enforced natively by the share-aware admission gate).
+            # Non-TCP backends never raise (the native call is a no-op
+            # there), so any exception is a REAL failure — surface it
+            # and do not record the budgets as engaged.
+            applied = 0
+            for tenant, budget in plan.tenants.items():
+                try:
+                    self.store.set_tenant_lane_budget(tenant,
+                                                      budget["lanes"])
+                    applied += 1
+                except Exception as e:
+                    warnings.warn(
+                        f"tenant lane budget {tenant!r} not applied: "
+                        f"{e}", RuntimeWarning, stacklevel=2)
+            plan.engaged = plan.engaged or applied > 0
+        return plan
+
+    def replan(self, reason: str) -> Plan:
+        """compute + apply + record — the single entry every trigger
+        (epoch boundary, degradation, peer change) funnels through.
+        Serialized: concurrent triggers (a worker's degradation vs the
+        consumer's epoch boundary) must not interleave two plans' knob
+        writes — the store would end up with a mixed assignment
+        neither plan computed."""
+        if not self.enabled:
+            return self._plan
+        with self._replan_mu:
+            # ddtrace: the replan + its applied plan, next to the
+            # transport events that motivated it.
+            traced = trace_enabled()
+            rank = -1
+            if traced:
+                if self.store is not None:
+                    rank = int(getattr(self.store, "rank", -1) or 0)
+                trace_emit("plan_replan", 0, rank, self.replans + 1)
+            plan = self.apply(self.compute())
+            plan.reason = reason
+            with self._mu:
+                self._plan = plan
+                self.replans += 1
+                if len(self.reasons) < 64:
+                    self.reasons.append(reason)
+            if traced:
+                trace_emit("plan_applied", 0, rank, self.replans,
+                           int(bool(plan.engaged)),
+                           int(plan.depth or 0))
+        return plan
+
+    # -- triggers ----------------------------------------------------------
+
+    def on_epoch(self) -> Plan:
+        return self.replan("epoch")
+
+    def on_degradation(self, what: str) -> Plan:
+        """Ladder engagement / kErrPeerLost classification: the regime
+        the plan was built for no longer holds."""
+        return self.replan(f"degraded:{what}")
+
+    def on_peer_change(self) -> Plan:
+        """update_peer released the native pins and reset the tuners;
+        rebuild (mostly releasing knobs until fresh samples land)."""
+        return self.replan("peer_change")
+
+    def on_admission_pressure(self, deferred: int, rejected: int) -> Plan:
+        """Serving-gateway defer pressure crossed an epoch boundary:
+        this job's reads were deferred (or shed outright) to protect a
+        tenant's SLO, so the measured throughput the current plan is
+        steering by includes queueing the plan did not choose. Replan —
+        typically narrowing async width / lane spread so the gateway
+        stops having to do the throttling for us."""
+        if rejected > 0:
+            return self.replan(f"admission:rejected={int(rejected)}")
+        return self.replan(f"admission:deferred={int(deferred)}")
+
+    # -- consumption -------------------------------------------------------
+
+    def planned_depth(self, requested: int) -> int:
+        """The readahead depth the loader should run this epoch: the
+        user pin, else the plan, else the requested value — never above
+        ``requested`` (the ring the caller budgeted for)."""
+        self.requested_depth = max(1, int(requested))
+        pins = self._plan.pins
+        if isinstance(pins.get("depth"), int):
+            # A user pin is explicit — it wins even above `requested`.
+            return max(1, int(pins["depth"]))
+        if self.enabled and self._plan.depth is not None:
+            return max(1, min(self._plan.depth, self.requested_depth))
+        return self.requested_depth
+
+    def snapshot(self) -> Dict:
+        """The ``summary()["sched"]`` payload: enablement, the current
+        joint plan, predicted vs measured throughput, pins, replan
+        triggers, the core-budget regime and the peer-liveness view the
+        plan was built against (a dead peer's replan reason reads
+        ``peer_change`` — the heartbeat detector fires the same
+        listener elastic recovery does)."""
+        suspected: List[int] = []
+        if self.store is not None:
+            try:
+                suspected = [r for r, s in
+                             enumerate(self.store.health_state()) if s]
+            except Exception:
+                suspected = []
+        with self._mu:
+            plan = self._plan
+            # Measured side of predicted-vs-measured: the host
+            # substrate's delivered window-fetch EWMA at the depth run.
+            measured = 0.0
+            cell = self.samples.cell(
+                "window", 0, plan.depth or self.requested_depth)
+            if cell is not None:
+                measured = round(cell.ewma / 1e9, 3)
+            # Per-tier read cells (tiered storage): the measured
+            # hot-hit vs cold-miss window-fetch EWMAs and the warm-
+            # ahead depth last planned from them.
+            hot = self.samples.cell("tier", 0, 1)
+            cold = self.samples.cell("tier", 0, 0)
+            tier = {
+                "hot_hit_gbps": round(hot.ewma / 1e9, 3)
+                if hot is not None and hot.ewma else 0.0,
+                "cold_miss_gbps": round(cold.ewma / 1e9, 3)
+                if cold is not None and cold.ewma else 0.0,
+                "prefetch": self._tier_prefetch,
+            }
+            return {
+                "enabled": self.enabled,
+                "engaged": plan.engaged,
+                "plan": {"route": dict(plan.route),
+                         "lanes": dict(plan.lanes),
+                         "depth": plan.depth, "width": plan.width,
+                         "tenants": {t: dict(b) for t, b in
+                                     plan.tenants.items()}},
+                "pins": dict(plan.pins),
+                "predicted_gbps": dict(plan.predicted_gbps),
+                "measured_window_gbps": measured,
+                "replans": self.replans,
+                "reasons": list(self.reasons),
+                "no_core_headroom": self.no_core_headroom,
+                "cores": self.model.cores,
+                "peers": self.model.peers,
+                "suspected_peers": suspected,
+                "tier": tier,
+            }

@@ -1311,11 +1311,16 @@ class DDStore:
 
     def sched_pin_lanes(self, cls: int, lanes: int) -> None:
         """Planner lane-width pin (>= 1, or -1 to release) for one
-        traffic class. No-op on the local backend (no lanes)."""
-        try:
-            self._native.sched_pin_lanes(cls, lanes)
-        except DDStoreError:
-            pass
+        traffic class; a width above the lane pool is clamped to the
+        pool. No-op on the local backend (no lanes). The native setter
+        refuses widths above 64 rather than clamping them, so the clamp
+        happens here, and a refusal on a TCP store surfaces."""
+        pool = self._native.lane_state().get("max_lanes")
+        if pool is None:
+            return  # non-TCP backend: nothing to pin
+        if lanes >= 1:
+            lanes = min(int(lanes), int(pool))
+        self._native.sched_pin_lanes(cls, lanes)
 
     def set_async_width(self, n: int) -> None:
         """Async admission width override (<= 0 restores the

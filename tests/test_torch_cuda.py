@@ -2,8 +2,10 @@
 (forward, dq, dk/dv) against their plain versions, the transformer
 block's use of them, the loader's staging onto the card (with and
 without readahead, and of a ``GraphBatch``), a VAE step and an MPNN step
-on the card against the CPU step, and a two-process store-fed DDP VAE
-on one card. Elsewhere they skip.
+on the card against the CPU step, a two-process store-fed DDP VAE on one
+card, and the device-collective fetch and loader epoch in a one-process
+NCCL group (byte-equal to the host path, the exchange on the card).
+Elsewhere they skip.
 
 On the card (the repository's conftest imports jax, which that machine
 need not have, hence ``--noconftest``)::
@@ -358,3 +360,13 @@ def test_mpnn_step_on_the_card_matches_cpu(cuda, dtype):
         card = _step_errors(_mpnn_step(weights, dtype, gb), ref, weights)
         assert card[0] <= max(3 * cpu[0], 2.0 ** -8), (card, cpu)
         assert card[1] <= 3 * cpu[1] and card[3] <= 3 * cpu[3], (card, cpu)
+
+
+def test_nccl_device_collective_on_the_card(cuda, tmp_path):
+    from torch_workers import nccl_collective, spawn
+
+    (r,) = spawn(1, nccl_collective, str(tmp_path))
+    assert r["fetch"] and r["loader"] and r["reason"] is None
+    assert r["exchange_device"].startswith("cuda")
+    assert r["summary"]["exchange_device"].startswith("cuda")
+    assert r["summary"]["exchanges"] == 8

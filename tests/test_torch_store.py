@@ -133,6 +133,20 @@ def test_feistel_permutation_matches_reference(n, seed):
         rperm.FeistelPermutation(n, seed)(0)
 
 
+@pytest.mark.parametrize("path", ["dense", "feistel", "rng"])
+def test_seeded_perm_slice_matches_reference(path, monkeypatch):
+    if path == "feistel":  # the streamed policy, at a testable size
+        monkeypatch.setattr(tperm, "DENSE_MAX", 64)
+        monkeypatch.setattr(rperm, "DENSE_MAX", 64)
+    for total, begin, end in ((1000, 0, 1000), (1000, 250, 500),
+                              (97, 90, 97)):
+        rngs = [np.random.default_rng(4) if path == "rng" else None
+                for _ in "ab"]
+        got = tperm.seeded_perm_slice(total, begin, end, 17, rngs[0])
+        want = rperm.seeded_perm_slice(total, begin, end, 17, rngs[1])
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("mode", ["dense", "streamed"])
 @pytest.mark.parametrize("total,world,drop_last,shuffle",
                          [(103, 4, False, True), (103, 4, True, True),
@@ -227,8 +241,14 @@ def test_loader_transform_and_callable_dataset():
 
 @pytest.mark.parametrize("kw", [dict(device_collective=True)])
 def test_loader_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tld.DeviceLoader(lambda i: i, range(4), 2, device="cpu", **kw)
+    # Every loader option is ported now: device_collective no longer
+    # raises. Without a process group (and with a bare callable) it
+    # reads through the host path and says why, as the reference does.
+    tl = tld.DeviceLoader(lambda i: np.asarray(i), range(4), 2,
+                          device="cpu", **kw)
+    assert not tl._collective_ready
+    assert "process group" in tl.collective_fallback_reason
+    assert [b.tolist() for b in tl] == [[0, 1], [2, 3]]
 
 
 def test_loader_defaults_to_the_card(monkeypatch):
