@@ -104,7 +104,40 @@ Phases; any failure raises and ends the run with a non-zero exit:
    of the VAE variable, whose shards must be the plain seeded
    permutation of the rows, their multiset unchanged. The two-rank
    checks run in phases 7 and 8's rank processes after their counted
-   epochs, so no other process is spawned.
+   epochs, so no other process is spawned;
+10. elastic: 4 rank processes on the one card (``spawn``) over a
+   ``FileGroup`` and the TCP store (read timeout 5 s, connect 3 s,
+   barrier 60 s, ``DDSTORE_CMA=0``), each registering a quarter of
+   ``synthetic_mnist(60000)`` and of a 10,000-row eval split. First the
+   services: a 4 MiB quota for tenant "eval" on every rank, the split
+   added under the tenant and a larger variable refused with
+   ``ERR_QUOTA``; each rank reads the whole split through a
+   ``gateway_session`` and a loader onto the card (its bytes equal to
+   the handle's ``get_batch``, digest for digest) and computes the VAE's
+   eval loss, with native tracing on; rank 0 merges the four trace dumps
+   into Chrome JSON under ``chiprun_out/elastic/`` and pulls every
+   rank's metric cells. Then every rank checkpoints its shard
+   (``save_shard``) and trains its own VAE (full width, bf16 hidden
+   layers, Adam 1e-3, local batch 64, no DDP) through a loader, saving
+   model and Adam state asynchronously every 50 steps. Once rank 2 is
+   past 100 steps with its step-100 save complete it is SIGKILLed; the
+   survivors' loaders raise ``ERR_PEER_LOST`` and they call
+   ``elastic_recover``; rank 2 is relaunched to ``elastic_rejoin`` from
+   its shard file and ``restore_train_state`` onto the card, and a fresh
+   process retakes its first step from the same checkpoint and batch.
+   All four train 100 steps more, rank 0's last 20 under
+   ``utils.profile.trace``. Checked: the refusal code, the session's
+   bytes, the rejoined shard against its file, a fixed index set over
+   every shard equal before and after, the restored parameters against
+   the digest written at that save, every restored Adam state tensor
+   (the 0-dim step counts included) on the device and in the dtype the
+   saved optimizer had it, the first step bit for bit, losses
+   falling on every rank, at least 20 ``ddstore:fetch`` and 20
+   ``ddstore:stage`` ranges beside CUDA kernels in the trace, no
+   attention launch. Any failed rank, or the phase deadline, kills
+   every child. Before the phase, the main process times
+   ``utils.profile.annotate`` alone, the span the loaders open around
+   every fetch and stage, with no trace active.
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
@@ -124,9 +157,11 @@ import math
 import multiprocessing as mp
 import os
 import queue
+import shutil
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -137,6 +172,7 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from ddstore_tpu_torch import _build as native_build
+from ddstore_tpu_torch import binding, elastic_recover, elastic_rejoin, obs
 from ddstore_tpu_torch.data.dataset import (DistributedSampler,
                                             ShardedDataset, nsplit)
 from ddstore_tpu_torch.data.device_fetch import (device_fetch_batch,
@@ -160,8 +196,9 @@ from ddstore_tpu_torch.ops import _build, attention
 from ddstore_tpu_torch.ops.xent import fused_linear_xent
 from ddstore_tpu_torch.parallel import (global_shuffle_epoch,
                                         host_global_shuffle, permute_rows)
-from ddstore_tpu_torch.rendezvous import TorchGroup
-from ddstore_tpu_torch.store import DDStore
+from ddstore_tpu_torch.rendezvous import FileGroup, TorchGroup
+from ddstore_tpu_torch.store import DDStore, DDStoreError
+from ddstore_tpu_torch.utils import checkpoint, profile as uprofile
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of
 # a kernel is max(bytes / memory rate, operations / peak rate).
@@ -215,6 +252,28 @@ GNN_STEPS, GNN_EVAL_BATCHES, GNN_TREND = 1024, 64, 100
 GNN_PROFILE_STEPS, GNN_NCCL_STEPS = 20, 5
 GNN_F32_TOL = (1e-5, 1e-4, 1e-4)
 GNN_BF16_RUNS, GNN_BF16_FACTOR = 8, 3.0
+# The elastic phase (10): four rank processes on the one card over a
+# FileGroup and the TCP store, in the environment of
+# tests/test_elastic.py (DDSTORE_CMA=0 as phases 7-8: the other ranks'
+# rows cross TCP). synthetic_mnist(60000) as uint8, 15,000 rows a rank,
+# and a 10,000-row eval split (2,500 a rank) under tenant "eval", whose
+# per-rank quota (4 MiB) holds the split's 1.96 MB but not 3,000 rows
+# more. Each rank trains its own VAE (full width, bf16 hidden layers,
+# Adam 1e-3) on local batches of 64, with no DDP (a torch.distributed
+# group does not survive a member's death; examples/elastic_train.py
+# trains the same way), and saves its model and Adam state every 50
+# steps. Rank 2 is SIGKILLed once past 100 steps; the survivors recover,
+# it rejoins from its checkpoints, and all four train 100 steps more, the
+# last 20 of rank 0's under the profiler.
+EL_RANKS, EL_VICTIM, EL_BATCH, EL_VAR = 4, 2, 64, "mnist"
+EL_EVAL_SAMPLES, EL_EVAL_BATCH, EL_EVAL_SEED = 10000, 128, 7
+EL_QUOTA, EL_OVER_ROWS, EL_FIXED = 4 << 20, 3000, 1024
+EL_SAVE_EVERY, EL_KILL_AFTER, EL_AFTER, EL_PROFILE_STEPS = 50, 100, 100, 20
+EL_TREND, EL_DEADLINE_S, EL_OUT = 20, 420, os.path.join("chiprun_out",
+                                                         "elastic")
+EL_ENV = {"DDSTORE_READ_TIMEOUT_S": "5", "DDSTORE_CONNECT_TIMEOUT_S": "3",
+          "DDSTORE_BARRIER_TIMEOUT_S": "60", "DDSTORE_CMA": "0",
+          "DDSTORE_HOST": "127.0.0.1"}
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -1943,14 +2002,654 @@ def phase_collective(dev, seed, card, va, gn):
     return {"launches": launches}
 
 
-def kernel_table(kern, bwd, sl, tr, va, gn, co):
+class VarRows:
+    """One registered store variable as a loader dataset (a rejoined
+    rank holds its restored shard, which ShardedDataset would register
+    again). ``reader`` serves the reads: the store by default, a gateway
+    session for the eval split."""
+
+    label_var = None
+
+    def __init__(self, store, var, reader=None):
+        self.store, self.data_var = store, var
+        self.reader = store if reader is None else reader
+
+    def __len__(self):
+        return self.store.total_rows(self.data_var)
+
+    def specs(self):
+        return [self.store.sample_spec(self.data_var)]
+
+    def fetch(self, idx, out=None):
+        return self.reader.get_batch(
+            self.data_var, np.ascontiguousarray(idx, np.int64), out=out)
+
+
+def _write_json(path, obj) -> None:
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(obj, f)
+    os.replace(tmp, path)
+
+
+def _el_dirs(work):
+    return {k: os.path.join(work, k) for k in
+            ("rdv", "elastic", "ckpt", "trace")}
+
+
+def _fixed_digest(store, seed):
+    """Digest of one get_batch of a fixed index set, which must cover
+    every rank's shard."""
+    n = store.total_rows(EL_VAR)
+    idx = np.sort(np.random.default_rng(seed + 5).choice(
+        n, EL_FIXED, replace=False))
+    owners = set(store.owner_of_rows(EL_VAR, idx).tolist())
+    check(owners == set(range(EL_RANKS)), f"fixed set owners {owners}")
+    return hashlib.sha256(store.get_batch(EL_VAR, idx).tobytes()).hexdigest()
+
+
+class ElasticTrainer:
+    """One rank's VAE, its Adam, its loader over the store, its progress
+    log (a line per step: the step and the loss) and its checkpoints:
+    every EL_SAVE_EVERY steps an async save of the model and the Adam
+    state, step-stamped, with the parameters' digest and the device and
+    dtype of every Adam state tensor beside it."""
+
+    def __init__(self, store, rank, work, seed, dev, log_tag):
+        self.rank, self.seed, self.dev = rank, seed, dev
+        self.ckpt = _el_dirs(work)["ckpt"]
+        self.model = tvae.VAE(device=dev).init_weights(
+            torch.Generator(device=dev).manual_seed(seed + 10 + rank))
+        _, self.opt = tvae.create_train_state(self.model)
+        self.step_fn = tvae.make_train_step(self.model, self.opt)
+        self.gen = torch.Generator(device=dev).manual_seed(seed + 20 + rank)
+        self.sampler = DistributedSampler(store.total_rows(EL_VAR), EL_RANKS,
+                                          rank, seed=seed)
+        self.loader = DeviceLoader(VarRows(store, EL_VAR), self.sampler,
+                                   EL_BATCH, device=dev)
+        self.t, self.epoch, self.losses = 0, 0, []
+        self.step_s, self.step_s_saving = [], []
+        self.pending, self.saved = None, []
+        self.log = open(os.path.join(work, f"log.{log_tag}.r{rank}"), "a")
+
+    def state(self):
+        return {"model": self.model.state_dict(),
+                "opt": self.opt.state_dict(), "step": self.t}
+
+    def placement(self):
+        """Each Adam state tensor's parameter index, key, device and
+        dtype, 0-dim ones (the step counts) included."""
+        return [[i, k, str(v.device), str(v.dtype)]
+                for i, p in enumerate(self.model.parameters())
+                for k, v in sorted(self.opt.state[p].items())]
+
+    def batches(self):
+        """Batches epoch after epoch; each epoch a new loader iterator."""
+        while True:
+            self.sampler.set_epoch(self.epoch)
+            self.epoch += 1
+            yield from self.loader
+
+    def train(self, xb) -> float:
+        saving = self.pending is not None and not self.pending.done()
+        t0 = time.perf_counter()
+        loss = float(self.step_fn(xb, generator=self.gen))  # syncs
+        (self.step_s_saving if saving else self.step_s).append(
+            time.perf_counter() - t0)
+        self.t += 1
+        self.losses.append(loss)
+        self.log.write(f"{self.t} {loss!r}\n")
+        self.log.flush()
+        if self.t % EL_SAVE_EVERY == 0:
+            self.save()
+        return loss
+
+    def save(self) -> None:
+        if self.pending is not None:
+            self.pending.wait()  # one write at a time
+            for old in self.saved[:-1]:  # keep the last complete one
+                os.unlink(old)
+            self.saved = self.saved[-1:]
+        path = os.path.join(self.ckpt, f"state.r{self.rank}.s{self.t:06d}")
+        with open(path + ".digest", "w") as f:
+            f.write(param_digest(self.model))
+        _write_json(path + ".place", self.placement())
+        self.pending = checkpoint.save_train_state_async(path + ".pt",
+                                                         self.state())
+        self.saved.append(path + ".pt")
+
+    def restore(self):
+        """The newest complete checkpoint of this rank (a save cut by
+        the kill leaves only its digest): its path and step, the
+        parameters checked against the digest written at that save."""
+        done = sorted(f for f in os.listdir(self.ckpt)
+                      if f.startswith(f"state.r{self.rank}.s")
+                      and f.endswith(".pt"))
+        check(bool(done), f"rank {self.rank}: no train-state checkpoint")
+        path = os.path.join(self.ckpt, done[-1])
+        got = checkpoint.restore_train_state(path, self.state())
+        self.model.load_state_dict(got["model"])
+        self.opt.load_state_dict(got["opt"])
+        self.t = int(got["step"])
+        with open(path[:-3] + ".digest") as f:
+            want = f.read()
+        check(param_digest(self.model) == want,
+              f"rank {self.rank}: restored parameters != the digest "
+              f"written at step {self.t}")
+        with open(path[:-3] + ".place") as f:
+            want = json.load(f)
+        check(any(k == "step" for _, k, _, _ in want)
+              and all(d == ("cpu" if k == "step" else str(self.dev))
+                      for _, k, d, _ in want),
+              f"rank {self.rank}: the saved Adam state is not placed as "
+              f"Adam places it: {want[:3]}")
+        check(self.placement() == want,
+              f"rank {self.rank}: the restored Adam state is placed "
+              f"otherwise than the saved one")
+        return path
+
+    def finish(self):
+        if self.pending is not None:
+            self.pending.wait()
+        self.log.close()
+        return {"losses": self.losses, "steps": self.t,
+                "step_ms": float(np.median(self.step_s)) * 1e3,
+                "step_saving_ms": float(np.median(self.step_s_saving)) * 1e3
+                if self.step_s_saving else None,
+                "steps_saving": len(self.step_s_saving)}
+
+
+def _el_services(store, rank, work, seed, dev):
+    """Phase 10 A, before training: the eval split under tenant "eval"
+    (a quota, an over-quota add refused), read whole by a gateway
+    session through a loader onto the card with native tracing on, the
+    VAE's eval loss; the trace dumps, the store's summaries."""
+    data = synthetic_mnist(EL_EVAL_SAMPLES, seed + EL_EVAL_SEED)[0]
+    counts = nsplit(len(data), EL_RANKS)
+    begin = sum(counts[:rank])
+    # the quota is each rank's native ledger: with it on rank 0 alone, an
+    # over-quota add would be refused there and strand the others in the
+    # add's barrier
+    store.set_tenant_quota("eval", EL_QUOTA)
+    h = store.attach("eval")
+    h.add("eval", data[begin:begin + counts[rank]])
+    try:
+        h.add("eval_over", np.zeros((EL_OVER_ROWS, tvae.IMAGE_DIM),
+                                    np.uint8))
+        refused = None
+    except DDStoreError as e:
+        refused = e.code
+    check(refused == binding.ERR_QUOTA,
+          f"rank {rank}: over-quota add gave {refused}, not ERR_QUOTA")
+    store.gateway_configure(enabled=1)
+    binding.trace_configure(1)
+    binding.trace_reset()
+    model = tvae.VAE(device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(seed + 10 + rank))
+    ev = tvae.make_eval_step(model)
+    gen = torch.Generator(device=dev).manual_seed(seed + 40 + rank)
+    sess = store.gateway_session(tenant="eval")
+    loader = DeviceLoader(VarRows(h, "eval", reader=sess),
+                          DistributedSampler(EL_EVAL_SAMPLES, 1, 0,
+                                             shuffle=False),
+                          EL_EVAL_BATCH, device=dev, drop_last=False)
+    got, loss, nb = hashlib.sha256(), 0.0, 0
+    t0 = time.perf_counter()
+    for xb in loader:
+        check(xb.device == dev, f"eval batch on {xb.device}")
+        loss += float(ev(xb, generator=gen))
+        got.update(xb.cpu().numpy().tobytes())
+        nb += 1
+    eval_s = time.perf_counter() - t0
+    summary = loader.metrics.summary()
+    trace_summary = store.trace_summary()
+    sess_stats = sess.stats()
+    sess.close()
+    dump = os.path.join(_el_dirs(work)["trace"], f"r{rank}.npy")
+    obs.save_dump(dump, store.trace_dump())
+    binding.trace_configure(0)
+    want = hashlib.sha256()
+    for b in range(0, EL_EVAL_SAMPLES, EL_EVAL_BATCH):
+        want.update(h.get_batch("eval", np.arange(
+            b, min(EL_EVAL_SAMPLES, b + EL_EVAL_BATCH))).tobytes())
+    check(got.hexdigest() == want.hexdigest(),
+          f"rank {rank}: the session's eval bytes != the handle's")
+    out = {"eval_loss": loss / EL_EVAL_SAMPLES, "eval_s": eval_s,
+           "eval_batches": nb, "refused": refused,
+           "session": sess_stats, "tenant_stats": store.tenant_stats(),
+           "loader_tenants": summary.get("tenants"),
+           "loader_trace_captured": summary.get("trace", {}).get(
+               "captured"),
+           "trace_summary": trace_summary,
+           "metrics_summary": store.metrics_summary()}
+    store.barrier()  # every dump written, every eval read done
+    if rank == 0:
+        merged = obs.merge(obs.load_dump(os.path.join(
+            _el_dirs(work)["trace"], f"r{r}.npy")) for r in range(EL_RANKS))
+        os.makedirs(EL_OUT, exist_ok=True)
+        with open(os.path.join(EL_OUT, "store_trace.json"), "w") as f:
+            json.dump(obs.chrome_trace(merged), f)
+        cells, dead = store.cluster_metrics()
+        out.update(events=len(merged), span_latency=obs.span_latency(merged),
+                   cluster_dead=dead, cluster=obs.latency_table(cells))
+    store.barrier()  # rank 0 pulled every rank's cells
+    # the elastic rebuild restores the default namespace only
+    h.free("eval")
+    return out
+
+
+def _el_initial(rank, work, seed, dev):
+    dirs = _el_dirs(work)
+    store = DDStore(FileGroup(dirs["rdv"], rank, EL_RANKS), backend="tcp")
+    data = synthetic_mnist(VAE_SAMPLES, seed)[0]
+    counts = nsplit(len(data), EL_RANKS)
+    begin = sum(counts[:rank])
+    store.add(EL_VAR, data[begin:begin + counts[rank]])
+    del data
+    out = {"services": _el_services(store, rank, work, seed, dev)}
+    checkpoint.save_shard(store, EL_VAR, dirs["ckpt"])
+    out["fixed_before"] = _fixed_digest(store, seed)
+    store.barrier()
+    tr = ElasticTrainer(store, rank, work, seed, dev, "initial")
+    try:
+        for xb in tr.batches():  # until the victim's death surfaces
+            tr.train(xb)
+    except DDStoreError as e:
+        out["t_detect"] = time.time()
+        out["error"] = str(e)[:200]
+        out["error_code"] = e.code
+    out["steps_before"] = tr.t
+    t0 = time.perf_counter()
+    elastic_recover(store, dirs["elastic"], timeout=180)
+    out["recover_s"] = time.perf_counter() - t0
+    out.update(_el_after(store, tr, rank, seed))
+    out["train"] = tr.finish()
+    out["launches"] = launch_counts()
+    store.barrier()
+    store.close()
+    return out
+
+
+def _el_after(store, tr, rank, seed):
+    """After the recovery, on every rank: the fixed rows again, EL_AFTER
+    steps (counting the steps the caller took since), the last
+    EL_PROFILE_STEPS of rank 0's on a new loader iterator under
+    utils.profile.trace."""
+    out = {"fixed_after": _fixed_digest(store, seed), "t_after": tr.t}
+    batches = tr.batches()
+    while tr.t < out["t_after"] + EL_AFTER - EL_PROFILE_STEPS:
+        tr.train(next(batches))
+    batches.close()
+    logdir = os.path.join(EL_OUT, "profile")
+    batches = tr.batches()
+    if rank == 0:
+        with uprofile.trace(logdir):
+            for _ in range(EL_PROFILE_STEPS):
+                tr.train(next(batches))
+        out["profile"] = _profile_counts(logdir)
+    else:
+        for _ in range(EL_PROFILE_STEPS):
+            tr.train(next(batches))
+    batches.close()
+    return out
+
+
+def _profile_counts(logdir):
+    """Ranges, kernels and size of the trace utils.profile.trace wrote."""
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)
+             if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"profile files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name") for e in events
+             if e.get("cat") == "user_annotation"]
+    return {"fetch": names.count("ddstore:fetch"),
+            "stage": names.count("ddstore:stage"),
+            "kernels": sum(e.get("cat") == "kernel" for e in events),
+            "bytes": os.path.getsize(files[0]), "path": files[0]}
+
+
+def _el_rejoin(rank, work, seed, dev):
+    dirs = _el_dirs(work)
+    t_start = time.time()
+    store = elastic_rejoin(dirs["elastic"], rank, EL_RANKS, dirs["ckpt"],
+                           timeout=180)
+    t_ready = time.time()
+    begin, end = store.my_row_range(EL_VAR)
+    with open(os.path.join(dirs["ckpt"], f"{EL_VAR}.r{rank}.bin"),
+              "rb") as f:
+        check(store.get(EL_VAR, begin, end - begin).tobytes() == f.read(),
+              "the rejoined shard != its checkpoint file")
+    tr = ElasticTrainer(store, rank, work, seed, dev, "rejoin")
+    t_trainer = time.time()
+    path = tr.restore()
+    restored, t_restored = tr.t, time.time()
+    # the first step after the restore, recorded for the fresh process
+    tr.gen = torch.Generator(device=dev).manual_seed(seed + 30 + rank)
+    tr.sampler.set_epoch(tr.epoch)
+    idx = tr.sampler.epoch_indices()[:EL_BATCH]
+    batches = tr.batches()
+    xb = next(batches)
+    t_batch = time.time()
+    check(xb.cpu().numpy().tobytes() == store.get_batch(EL_VAR, idx)
+          .tobytes(), "the rejoiner's first batch != get_batch")
+    loss = tr.train(xb)
+    t_first = time.time()
+    _write_json(os.path.join(work, "first_step.json"), {
+        "ckpt": path, "indices": idx.tolist(), "gen_seed": seed + 30 + rank,
+        "loss": loss.hex(), "digest": param_digest(tr.model)})
+    batches.close()
+    out = {"t_start": t_start, "t_ready": t_ready, "t_trainer": t_trainer,
+           "t_restored": t_restored, "t_batch": t_batch, "t_first": t_first,
+           "restored_step": restored}
+    out.update(_el_after(store, tr, rank, seed))
+    out["train"] = tr.finish()
+    out["launches"] = launch_counts()
+    store.barrier()
+    store.close()
+    return out
+
+
+def _el_check(rank, work, seed, dev):
+    """The fresh process: the rejoiner's first step again, from the same
+    checkpoint, batch and generator seed; bit for bit."""
+    path = os.path.join(work, "first_step.json")
+    deadline = time.monotonic() + EL_DEADLINE_S
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, "no first step to check")
+        time.sleep(0.1)
+    with open(path) as f:
+        rec = json.load(f)
+    model = tvae.VAE(device=dev)
+    _, opt = tvae.create_train_state(model)
+    got = checkpoint.restore_train_state(
+        rec["ckpt"], {"model": model.state_dict(),
+                      "opt": opt.state_dict(), "step": 0})
+    model.load_state_dict(got["model"])
+    opt.load_state_dict(got["opt"])
+    data = synthetic_mnist(VAE_SAMPLES, seed)[0]
+    xb = torch.from_numpy(data[np.asarray(rec["indices"])]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(rec["gen_seed"])
+    loss = float(tvae.make_train_step(model, opt)(xb, generator=gen))
+    digest = param_digest(model)
+    return {"loss": loss.hex(), "want_loss": rec["loss"],
+            "loss_gap": abs(loss - float.fromhex(rec["loss"])),
+            "equal": loss.hex() == rec["loss"] and digest == rec["digest"],
+            "params_equal": digest == rec["digest"]}
+
+
+def elastic_rank(rank, mode, work, seed):
+    """One process of phase 10. ``mode``: "initial" (a rank from the
+    start), "rejoin" (the victim relaunched) or "check" (the fresh
+    process that retakes the rejoiner's first step). The result, or the
+    traceback, goes to a file in ``work``; a failure exits non-zero."""
+    try:
+        os.environ.update(EL_ENV)
+        check(torch.cuda.is_available(), f"rank {rank}: no CUDA device")
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        zero_launch_counts()
+        fn = {"initial": _el_initial, "rejoin": _el_rejoin,
+              "check": _el_check}[mode]
+        res = fn(rank, work, seed, torch.device("cuda", 0))
+        _write_json(os.path.join(work, f"result.{mode}.r{rank}.json"), res)
+    except BaseException:  # noqa: BLE001 — the supervisor reports it
+        with open(os.path.join(work, f"error.{mode}.r{rank}.txt"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
+def _el_steps(work, tag, rank):
+    """Steps a rank has logged, with their losses."""
+    try:
+        with open(os.path.join(work, f"log.{tag}.r{rank}")) as f:
+            lines = [ln.split() for ln in f.read().splitlines()]
+    except FileNotFoundError:
+        return []
+    return [float(v) for t, v in lines]
+
+
+def _el_supervise(seed, work):
+    """Start the four ranks and the fresh checking process (it waits for
+    the rejoiner's first step), SIGKILL the victim once it is past
+    EL_KILL_AFTER steps, relaunch it as a rejoiner, and wait for
+    everyone; any failure, or the phase deadline, kills every child."""
+    ctx = mp.get_context("spawn")
+    procs, times = {}, {}
+
+    def start(mode, rank):
+        p = ctx.Process(target=elastic_rank, args=(rank, mode, work, seed))
+        p.start()
+        procs[(mode, rank)] = p
+
+    def failed():
+        for (mode, rank), p in procs.items():
+            if p.exitcode not in (None, 0) and not (
+                    mode == "initial" and rank == EL_VICTIM
+                    and "t_kill" in times):
+                err = os.path.join(work, f"error.{mode}.r{rank}.txt")
+                tb = open(err).read() if os.path.exists(err) else ""
+                return f"{mode} rank {rank} exited {p.exitcode}: {tb}"
+        return None
+
+    deadline = time.monotonic() + EL_DEADLINE_S
+    try:
+        for r in range(EL_RANKS):
+            start("initial", r)
+        start("check", EL_VICTIM)
+        # once past EL_KILL_AFTER steps, with that step's checkpoint
+        # complete (the async save renames its file into place)
+        saved = os.path.join(_el_dirs(work)["ckpt"],
+                             f"state.r{EL_VICTIM}.s{EL_KILL_AFTER:06d}.pt")
+        while len(_el_steps(work, "initial", EL_VICTIM)) <= EL_KILL_AFTER \
+                or not os.path.exists(saved):
+            why = failed()
+            check(why is None, f"elastic: {why}")
+            check(time.monotonic() < deadline, "elastic: victim never "
+                  f"passed {EL_KILL_AFTER} steps")
+            time.sleep(0.02)
+        victim = procs[("initial", EL_VICTIM)]
+        victim.kill()  # SIGKILL
+        times["t_kill"] = time.time()
+        victim.join()
+        times["victim_steps"] = len(_el_steps(work, "initial", EL_VICTIM))
+        time.sleep(1.0)  # a beat, as the reference's supervisor
+        times["t_launch"] = time.time()
+        start("rejoin", EL_VICTIM)
+        while any(p.exitcode is None for p in procs.values()):
+            why = failed()
+            check(why is None, f"elastic: {why}")
+            check(time.monotonic() < deadline, "elastic: phase deadline "
+                  f"({EL_DEADLINE_S} s) passed")
+            time.sleep(0.1)
+        why = failed()
+        check(why is None, f"elastic: {why}")
+    finally:
+        for p in procs.values():
+            if p.is_alive():
+                p.kill()
+            p.join()
+    res = {}
+    for (mode, rank) in procs:
+        if (mode, rank) != ("initial", EL_VICTIM):
+            with open(os.path.join(work, f"result.{mode}.r{rank}.json")) \
+                    as f:
+                res[(mode, rank)] = json.load(f)
+    return res, times
+
+
+def annotate_cost(card, n=100_000):
+    """What ``utils.profile.annotate`` costs per span in this process,
+    which uses the card, with no trace active: as the loaders run it (no
+    NVTX tool attached), with its NVTX range forced on (what an attached
+    tool adds before its own cost), and an empty ``with`` block. Best of
+    three runs of ``n`` spans each, in ns."""
+    import contextlib
+
+    def per_span(make):
+        best = math.inf
+        for _ in range(3):
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                with make("ddstore:fetch"):
+                    pass
+            best = min(best, (time.perf_counter_ns() - t0) / n)
+        return best
+
+    check(torch.cuda.is_initialized(), "annotate cost: the card is unused")
+    default = per_span(uprofile.annotate)
+    tool, uprofile._NVTX_TOOL = uprofile._NVTX_TOOL, True
+    try:
+        nvtx = per_span(uprofile.annotate)
+    finally:
+        uprofile._NVTX_TOOL = tool
+    empty = per_span(lambda name: contextlib.nullcontext())
+    print(f"annotate cost | {card}: {default:.1f} ns a span with no trace "
+          f"and no NVTX tool attached (as the loaders run; NVTX tool "
+          f"{'attached' if tool else 'absent'}), {nvtx:.1f} ns with its "
+          f"NVTX range forced on, {empty:.1f} ns an empty with-block; "
+          f"best of 3 x {n} spans", flush=True)
+    return {"default_ns": default, "nvtx_ns": nvtx, "empty_ns": empty}
+
+
+def phase_elastic(seed, card):
+    """Phase 10: four store-fed VAE ranks with tenants, a gateway
+    session and tracing, checkpoints, a SIGKILLed rank, its recovery and
+    rejoin, and a profile."""
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    for d in ("ckpt", "trace"):
+        os.makedirs(_el_dirs(work)[d])
+    shutil.rmtree(EL_OUT, ignore_errors=True)
+    os.makedirs(EL_OUT)
+    try:
+        res, times = _el_supervise(seed, work)
+        pre_kill = _el_steps(work, "initial", EL_VICTIM)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    ranks = {r: res[("rejoin" if r == EL_VICTIM else "initial", r)]
+             for r in range(EL_RANKS)}
+    survivors = [r for r in range(EL_RANKS) if r != EL_VICTIM]
+    # A. services
+    for r in survivors:
+        sv = ranks[r]["services"]
+        print(f"elastic services rank {r} | {card}: eval split read whole "
+              f"through a gateway session ({sv['eval_batches']} batches of "
+              f"{EL_EVAL_BATCH}, bytes = the handle's) in "
+              f"{sv['eval_s']:.3f} s, eval loss per sample "
+              f"{sv['eval_loss']:.3f}; over-quota add refused with code "
+              f"{sv['refused']}; session {json.dumps(sv['session'])}; "
+              f"tenant_stats {json.dumps(sv['tenant_stats'])}; loader "
+              f"tenants {json.dumps(sv['loader_tenants'])}", flush=True)
+        check(sv["loader_tenants"] and "eval" in sv["loader_tenants"],
+              f"rank {r}: no tenants section in the loader's summary")
+        check(sv["session"]["admission_giveups"] == 0 and
+              not sv["session"]["expired"], f"rank {r}: session {sv}")
+    s0 = ranks[0]["services"]
+    print(f"elastic trace | {card}: {s0['events']} native events from "
+          f"{EL_RANKS} ranks merged into {EL_OUT}/store_trace.json; "
+          f"span latency (class|route|peer: count, p50, p99 ms) "
+          + "; ".join(f"{k}: {v['count']}, {v['p50_ms']}, {v['p99_ms']}"
+                      for k, v in sorted(s0["span_latency"].items())),
+          flush=True)
+    counters = {k: v for k, v in s0["trace_summary"].items()
+                if k != "span_latency"}
+    print(f"elastic metrics | {card}: rank 0 metrics_summary "
+          f"{json.dumps(s0['metrics_summary'])}; cluster_metrics over "
+          f"{EL_RANKS} ranks (dead {s0['cluster_dead']}): "
+          f"{json.dumps(s0['cluster'])}; trace_summary "
+          f"{json.dumps(counters)}", flush=True)
+    check(s0["cluster_dead"] == [] and s0["events"] > 0 and
+          s0["span_latency"], "elastic: trace or cluster metrics empty")
+    # B. the elastic run
+    rj, chk = ranks[EL_VICTIM], res[("check", EL_VICTIM)]
+    lost = times["victim_steps"] - rj["restored_step"]
+    for r in survivors:
+        x = ranks[r]
+        detect = x["t_detect"] - times["t_kill"]
+        print(f"elastic rank {r} | {card}: {x['steps_before']} steps before "
+              f"the death; kill -> error {detect:.3f} s ({x['error_code']}: "
+              f"{x['error'][:80]}); recover {x['recover_s']:.3f} s",
+              flush=True)
+    for r in range(EL_RANKS):
+        t = ranks[r]["train"]
+        saving = (f"{t['step_saving_ms']:.3f} ms over {t['steps_saving']} "
+                  f"steps" if t["step_saving_ms"] is not None
+                  else "no step overlapped a save")
+        print(f"elastic rank {r} train | {card}: {t['steps']} steps, median "
+              f"step {t['step_ms']:.3f} ms without a save in flight, "
+              f"{saving} with one; launches {ranks[r]['launches']}",
+              flush=True)
+    since = {k: rj[k] - times["t_launch"] for k in
+             ("t_start", "t_ready", "t_trainer", "t_restored", "t_batch",
+              "t_first")}
+    print(f"elastic rejoin | {card}: victim killed after "
+          f"{times['victim_steps']} steps, restored its step "
+          f"{rj['restored_step']} checkpoint ({lost} steps lost); launch -> "
+          f"process up {since['t_start']:.3f} s -> store ready "
+          f"{since['t_ready']:.3f} s -> model, optimizer, loader made "
+          f"{since['t_trainer']:.3f} s -> train state restored "
+          f"{since['t_restored']:.3f} s -> first batch "
+          f"{since['t_batch']:.3f} s -> first step {since['t_first']:.3f} "
+          f"s; fresh-process first step equal {chk['equal']} (loss gap "
+          f"{chk['loss_gap']}, parameters equal {chk['params_equal']})",
+          flush=True)
+    prof = ranks[0]["profile"]
+    print(f"elastic profile rank 0 | {card}: {EL_PROFILE_STEPS} steps under "
+          f"utils.profile.trace: ddstore:fetch {prof['fetch']}, "
+          f"ddstore:stage {prof['stage']}, CUDA kernels {prof['kernels']}; "
+          f"{prof['bytes']} bytes at {prof['path']}; phase wall "
+          f"{wall:.1f} s", flush=True)
+    for r in survivors:
+        check(ranks[r]["error_code"] == binding.ERR_PEER_LOST,
+              f"rank {r}: error {ranks[r]['error_code']}")
+    for r in range(EL_RANKS):
+        x = ranks[r]
+        check(x["fixed_after"] == ranks[0]["fixed_after"] ==
+              res[("initial", 0)]["fixed_before"],
+              f"rank {r}: fixed rows changed across the recovery")
+        losses = (pre_kill + x["train"]["losses"] if r == EL_VICTIM
+                  else x["train"]["losses"])
+        first = float(np.mean(losses[:EL_TREND]))
+        last = float(np.mean(losses[-EL_TREND:]))
+        check(all(math.isfinite(v) for v in losses) and last < first,
+              f"rank {r}: losses {first} -> {last}")
+        check(x["train"]["steps"] - x["t_after"] == EL_AFTER,
+              f"rank {r}: {x['train']['steps'] - x['t_after']} steps after")
+        check(not any(x["launches"].values()),
+              f"rank {r}: attention launched {x['launches']}")
+    for r in survivors:
+        check(res[("initial", r)]["fixed_before"] ==
+              res[("initial", 0)]["fixed_before"], "fixed rows differ")
+    check(rj["restored_step"] >= EL_KILL_AFTER and
+          0 <= lost < 2 * EL_SAVE_EVERY,
+          f"restored step {rj['restored_step']} of {times['victim_steps']}")
+    check(chk["equal"], f"the rejoiner's first step differs from a fresh "
+                        f"process's: loss {chk['loss']} vs "
+                        f"{chk['want_loss']}, parameters equal "
+                        f"{chk['params_equal']}")
+    check(prof["fetch"] >= EL_PROFILE_STEPS and
+          prof["stage"] >= EL_PROFILE_STEPS and prof["kernels"] > 0,
+          f"profile: {prof}")
+    with open(os.path.join(EL_OUT, "ranks.json"), "w") as f:
+        json.dump({"times": times, "ranks": {str(k): v for k, v in
+                                             ranks.items()}}, f)
+    return {"launches": {k: sum(ranks[r]["launches"][k]
+                                for r in range(EL_RANKS))
+                         for k in ranks[0]["launches"]}, "wall_s": wall}
+
+
+def kernel_table(kern, bwd, sl, tr, va, gn, co, el):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them."""
     by_path = {k: {"serving": sl["launches"][k], "training": v,
                    "vae_ddp": va["launches"][k],
                    "gnn_ddp": gn["launches"][k],
                    "vae_collective": va["collective_launches"][k],
-                   "collective_nccl": co["launches"][k]}
+                   "collective_nccl": co["launches"][k],
+                   "elastic": el["launches"][k]}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -2054,8 +2753,10 @@ def main() -> int:
     va = phase_vae(dev, args.seed, card)
     gn = phase_gnn(dev, args.seed, card)
     co = phase_collective(dev, args.seed, card, va, gn)
+    annotate_cost(card)
+    el = phase_elastic(args.seed, card)
 
-    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co)),
+    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el)),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

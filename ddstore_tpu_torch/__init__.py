@@ -11,6 +11,8 @@ on the card, every kernel the TPU package wrote in Pallas is a CUDA
 kernel under ``ops/csrc/``, built at first use.
 """
 
+from .elastic import recover as elastic_recover
+from .elastic import rejoin as elastic_rejoin
 from .rendezvous import (FileGroup, PodConfig, ProcessGroup, SingleGroup,
                          ThreadGroup, TorchGroup, auto_group, detect_pod_env,
                          parse_nodelist, pod_bootstrap)
@@ -18,4 +20,5 @@ from .store import DDStore, DDStoreError
 
 __all__ = ["DDStore", "DDStoreError", "ProcessGroup", "SingleGroup",
            "ThreadGroup", "FileGroup", "TorchGroup", "auto_group",
-           "PodConfig", "detect_pod_env", "parse_nodelist", "pod_bootstrap"]
+           "PodConfig", "detect_pod_env", "parse_nodelist", "pod_bootstrap",
+           "elastic_recover", "elastic_rejoin"]

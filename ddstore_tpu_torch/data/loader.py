@@ -41,11 +41,15 @@ is the other). Before each exchange the ranks agree on a staged-ok flag
 strands the others in the exchange.
 
 Over a store that has them, the loader wires the store's counters into
-``metrics.summary()`` (scatter plan, faults, failover, integrity,
-tiering, live latency, SLOs, gateway, lanes) and runs the cost-model
-scheduler (:mod:`~ddstore_tpu_torch.sched`): a replan at every epoch
-start, after every degradation, and on peer changes; the readahead
-depth it plans; the SLO and admission checks at every epoch end.
+``metrics.summary()`` (scatter plan, faults, failover, tenants,
+trace, integrity, tiering, live latency, SLOs, gateway, lanes) and runs
+the cost-model scheduler (:mod:`~ddstore_tpu_torch.sched`): a replan at
+every epoch start, after every degradation, and on peer changes; the
+readahead depth it plans; the SLO and admission checks at every epoch
+end. Fetch and staging run inside profiler spans (``ddstore:fetch``,
+``ddstore:stage``; ``ddstore:device_fetch`` and
+``ddstore:device_exchange`` on the collective path) that
+``utils.profile.trace`` records from every thread.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ import torch
 from .._device import resolve_device
 from ..binding import ERR_ADMISSION, ERR_PEER_LOST, DDStoreError
 from ..utils.metrics import PipelineMetrics
+from ..utils.profile import annotate
 from .device_fetch import host_bytes_over_dcn
 
 __all__ = ["DeviceLoader"]
@@ -236,16 +241,23 @@ class DeviceLoader:
 
     def _wire_sources(self, store) -> None:
         """Each per-epoch summary the store can source: the scatter
-        planner, the fault/retry ledger, replicated-read failover,
-        integrity, tiering, the live latency histograms, the SLO monitor,
-        the serving gateway and the per-lane bytes. Each section appears
-        in ``summary()`` only when its feature is in force."""
+        planner, the fault/retry ledger, replicated-read failover, the
+        tenant ledger, the trace counters, integrity, tiering, the live
+        latency histograms, the SLO monitor, the serving gateway and the
+        per-lane bytes. Each section appears in ``summary()`` only when
+        its feature is in force."""
         if store is None:
             return
         m = self.metrics
+        if hasattr(store, "trace_summary"):
+            # The epoch-start snapshot needs the counters only, not the
+            # ring dump and percentile pass of the full summary.
+            m.set_trace_source(store.trace_summary,
+                               getattr(store, "trace_stats", None))
         for name, setter in (("plan_stats", m.set_plan_source),
                              ("fault_stats", m.set_fault_source),
                              ("failover_stats", m.set_failover_source),
+                             ("tenant_stats", m.set_tenant_source),
                              ("integrity_stats", m.set_integrity_source),
                              ("tiering_stats", m.set_tiering_source),
                              ("metrics_snapshot", m.set_latency_source),
@@ -453,7 +465,7 @@ class DeviceLoader:
 
     def _fetch_host(self, idx: np.ndarray, seq: int, ra):
         pinned = self._pinned_out(len(idx))
-        with self.metrics.fetch.timed():
+        with self.metrics.fetch.timed(), annotate("ddstore:fetch"):
             batch = None
             if ra is not None:
                 batch = self._read_window(idx, seq, ra, pinned)
@@ -465,7 +477,7 @@ class DeviceLoader:
         return self._stage(batch)
 
     def _stage(self, batch):
-        with self.metrics.stage.timed():
+        with self.metrics.stage.timed(), annotate("ddstore:stage"):
             host = _tree_map(
                 lambda x: x if isinstance(x, torch.Tensor)
                 else torch.from_numpy(np.ascontiguousarray(x)), batch)
@@ -499,7 +511,7 @@ class DeviceLoader:
             names.append(label_var)
         d = self._share[1]
         staged, err = [], None
-        with self.metrics.fetch.timed():
+        with self.metrics.fetch.timed(), annotate("ddstore:device_fetch"):
             try:
                 rows = ra.batch_rows(seq, idx=self._owned(idx)) \
                     if ra is not None else [None] * len(names)
@@ -546,7 +558,8 @@ class DeviceLoader:
         dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self.group)
         agreed = int(flag.item())
         if agreed == _STAGED:
-            with self.metrics.stage.timed():
+            with self.metrics.stage.timed(), \
+                    annotate("ddstore:device_exchange"):
                 out = [exchange_staged(sf, self.group, self.device)
                        for sf in staged]
             self.metrics.add_exchange()

@@ -9,11 +9,6 @@ are threads of one process, ``"tcp"`` (optionally over io_uring,
 ``DDSTORE_TRANSPORT=uring``) for ranks in separate processes or hosts.
 The native core reads the same ``DDSTORE_*`` environment knobs as the
 JAX package's, so one launch environment configures both.
-
-Methods that need modules of later slices of the port (tenant handles,
-the serving gateway's sessions, the trace/metrics summaries of ``obs``,
-``utils.checkpoint``) raise ``NotImplementedError`` naming the
-slice.
 """
 
 from __future__ import annotations
@@ -107,12 +102,6 @@ class AsyncBatchRead:
         if not self._released:
             self._released = True
             self._native.async_release(self._ticket)
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    """The error of a method whose module comes with a later slice."""
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A, {item})")
 
 
 def _check_varname(name: str) -> None:
@@ -262,7 +251,7 @@ class DDStore:
         self._closed = False
 
         rank, world = self.group.rank, self.group.size
-        # Elastic-recovery bookkeeping (ddstore_tpu.elastic): which
+        # Elastic-recovery bookkeeping (ddstore_tpu_torch.elastic): which
         # endpoint each peer currently lives at, what this rank
         # advertises, and how many recovery generations have committed.
         self._advertised = None
@@ -693,9 +682,41 @@ class DDStore:
 
     def spill_to_disk(self, name: str, directory: str,
                       chunk_rows: int = 65536) -> str:
-        """Move this variable's local shard to a file-backed mapping;
-        needs ``utils.checkpoint``."""
-        raise _later("spill_to_disk (utils.checkpoint)", "item 11")
+        """Move this variable's local shard from RAM to a file-backed
+        mapping (collective: every rank spills its own shard). Remote
+        readers are unaffected: the shard is first written to disk, then
+        the backing memory is swapped to the mmap ATOMICALLY under the
+        native store's exclusive lock (``Rebind``) — a concurrent remote
+        read is served from either the old RAM buffer or the new page
+        cache mapping, both holding identical bytes; there is no window
+        where the variable is missing (the free+re-add alternative had
+        one). The on-disk artifact is a checkpoint shard
+        (``utils.save_shard`` format, JSON sidecar included), so a
+        spilled variable restores across restarts with
+        ``utils.load_shard(..., mmap=True)``."""
+        from .utils.checkpoint import save_shard
+
+        m = self._require(name)
+        path = save_shard(self, name, directory, chunk_rows=chunk_rows)
+        nrows = m.all_nrows[self.rank]
+        if nrows:
+            arr = np.memmap(path, dtype=m.dtype, mode="r",
+                            shape=(nrows,) + tuple(m.sample_shape))
+        else:  # mmap of an empty file is invalid
+            arr = np.empty((0,) + tuple(m.sample_shape), m.dtype)
+        self._native.rebind(self._wname(name), arr)
+        m.pinned = arr  # keep the mapping alive; old pin (if any) drops
+        m.readonly = True
+        m.tier = "cold"
+        self._native.set_var_tier(self._wname(name), 1)
+        # Spilled shards are readonly by construction — eligible for
+        # O_DIRECT serving under the same gate as add_file.
+        if nrows and self._cold_direct_wanted():
+            self._native.set_var_file(self._wname(name), path)
+        # Collective completion: once any rank returns, every rank's swap
+        # is done (mirrors add()'s barrier guarantee).
+        self.barrier()
+        return path
 
     # -- ragged variables --------------------------------------------------
     #
@@ -979,8 +1000,9 @@ class DDStore:
     def trace_dump(self):
         """Every live trace event of this process as a structured
         numpy array (``binding.TRACE_EVENT_DTYPE``), time-sorted.
-        Feed per-rank dumps to ``python -m ddstore_tpu.obs merge`` for
-        Chrome trace-event JSON, or ``obs.span_tree`` for text."""
+        Feed per-rank dumps to ``python -m ddstore_tpu_torch.obs
+        merge`` for Chrome trace-event JSON, or ``obs.span_tree`` for
+        text."""
         from . import binding
 
         return binding.trace_dump()
@@ -1001,7 +1023,16 @@ class DDStore:
         return binding.trace_stats()
 
     def trace_summary(self) -> dict:
-        raise _later("trace_summary (obs)", "item 16")
+        """The ``summary()["trace"]`` payload: counters, ring
+        occupancy, and (while tracing) measured span-latency p50/p99
+        per (op class, route, peer) from the ring data.
+        ``DeviceLoader.metrics`` wires this in automatically."""
+        from . import binding
+        from .obs import trace_summary
+
+        st = binding.trace_stats()
+        events = binding.trace_dump() if st.get("enabled") else None
+        return trace_summary(st, events)
 
     # -- ddmetrics: live latency histograms + SLO monitor ------------------
     #
@@ -1038,7 +1069,23 @@ class DDStore:
         return self._native.metrics_pull(target)
 
     def cluster_metrics(self):
-        raise _later("cluster_metrics (obs)", "item 16")
+        """The CLUSTER latency surface: every reachable rank's cells
+        merged bucket-wise (``obs.merge_metrics``). Returns
+        ``(cells, dead)`` where ``dead`` lists peers that could not be
+        pulled (suspected/unreachable — the view assembles around
+        them, no give-up, no exception)."""
+        from .binding import DDStoreError
+        from .obs import merge_metrics
+
+        snaps = []
+        dead = []
+        for r in range(self.world):
+            try:
+                snaps.append(self.metrics_snapshot() if r == self.rank
+                             else self.metrics_pull(r))
+            except DDStoreError:
+                dead.append(r)
+        return merge_metrics(snaps), dead
 
     def metrics_stats(self) -> dict:
         """Histogram registry counters
@@ -1046,7 +1093,13 @@ class DDStore:
         return self._native.metrics_stats()
 
     def metrics_summary(self) -> dict:
-        raise _later("metrics_summary (obs)", "item 16")
+        """The ``summary()["latency"]`` payload: per-cell count/mean/
+        p50/p90/p99 (``obs.latency_table`` over this rank's live
+        cells). ``DeviceLoader.metrics`` wires this in automatically
+        and reports per-epoch deltas."""
+        from .obs import latency_table
+
+        return latency_table(self.metrics_snapshot())
 
     def set_tenant_slos(self, spec: str) -> None:
         """Replace the per-tenant latency objectives
@@ -1204,7 +1257,14 @@ class DDStore:
         self._native.tier_configure(cache_bytes)
 
     def set_tier_placement(self, tenant: str, cold: bool) -> None:
-        raise _later("tenant tier placement (tenant)", "item 16")
+        """Placement policy for ``tenant``'s replication mirrors and
+        snapshot kept copies: ``cold`` lands them as file-backed
+        mappings under ``DDSTORE_TIER_COLD_DIR`` (NVMe page cache,
+        evictable) instead of pinned RAM — a busy trainer pins RAM, an
+        eval snapshot reader tolerates NVMe latency. Load-time:
+        ``DDSTORE_TIER_PLACEMENT``."""
+        self._check_tenant_label(tenant)
+        self._native.set_tier_placement(tenant, cold)
 
     def var_tier(self, name: str) -> str:
         """The registered storage tier of ``name``: ``"hot"`` (RAM) or
@@ -1296,7 +1356,7 @@ class DDStore:
 
     def sched_cells(self) -> list:
         """Warm-window measurement cells (router + lane tuners) for the
-        cost-model scheduler (:mod:`ddstore_tpu.sched`): one dict per
+        cost-model scheduler (:mod:`ddstore_tpu_torch.sched`): one dict per
         (source, class, knob) cell with its EWMA bytes/s and clean
         sample count. ``[]`` for the local backend."""
         return self._native.sched_cells()
@@ -1397,17 +1457,65 @@ class DDStore:
         return ""
 
     def attach(self, tenant: str = "", snapshot: bool = False):
-        raise _later("tenant handles (tenant)", "item 16")
+        """Attach a tenant-scoped handle to this (long-lived, shared)
+        store. The handle shares the native store, group and rank but
+        scopes every registration to its own namespace — handles of
+        different tenants cannot see, read, update, or free each
+        other's variables. The DEFAULT namespace (variables registered
+        through this root store) stays readable from every handle —
+        that is how an eval or inference job attaches to the resident
+        training shards.
+
+        ``snapshot=True`` additionally pins the CURRENT content version
+        of every shard on every rank: the handle is read-only and its
+        reads stay byte-stable while the owner keeps calling
+        ``update()`` + epoch fences (copy-on-publish keeps the pinned
+        version for updated shards only; ``detach()`` — or the context
+        manager exit — releases the pins and reclaims kept copies on
+        last detach). The acquire places pins rank by rank, so do not
+        race it against a writer's ``update``: attach at a quiescent
+        point (between epoch fences, or after a ``barrier()`` with the
+        writer) or the snapshot may pin different content versions on
+        different ranks. Updates landing AFTER the acquire are exactly
+        what the pins protect against."""
+        from .tenant import TenantHandle
+
+        return TenantHandle(self, tenant, snapshot=snapshot)
 
     def set_tenant_quota(self, tenant: str, max_bytes: int,
                          max_vars: int = -1) -> None:
-        raise _later("tenant quotas (tenant)", "item 16")
+        """Byte/var registration budget for ``tenant`` (< 0 =
+        unlimited; runtime equivalent of ``DDSTORE_TENANT_QUOTAS``).
+        An over-budget ``add``/``init`` raises ``DDStoreError`` with
+        code ``ERR_QUOTA`` (-11) — admission refused, nothing died."""
+        self._check_tenant_label(tenant)
+        self._native.tenant_set_quota(tenant, max_bytes, max_vars)
 
     def set_tenant_share(self, tenant: str, share: int) -> None:
-        raise _later("tenant shares (tenant)", "item 16")
+        """Async-admission weight (runtime equivalent of
+        ``DDSTORE_TENANT_SHARES``): with any share configured, each
+        tenant runs at most ``max(1, width * share / total)``
+        concurrent async batched reads — one tenant's readahead cannot
+        starve another's scatter reads."""
+        self._check_tenant_label(tenant)
+        self._native.tenant_set_share(tenant, share)
 
     def set_tenant_lane_budget(self, tenant: str, lanes: int) -> None:
-        raise _later("tenant lane budgets (tenant)", "item 16")
+        """QoS lane budget: cap the transport lanes ``tenant``'s
+        striped reads engage (<= 0 clears; the cost-model scheduler
+        plans these from the shares). No-op on non-TCP backends."""
+        self._check_tenant_label(tenant)
+        self._native.tenant_set_lane_budget(tenant, lanes)
+
+    @staticmethod
+    def _check_tenant_label(tenant: str) -> None:
+        """Every native entry point keyed by a tenant label goes
+        through here: control characters collide with the native
+        name-scoping / names-CSV formats, and the env-spec delimiters
+        would desynchronize the Python ledger from the native gate."""
+        from .tenant.handle import _check_tenant_label
+
+        _check_tenant_label(tenant)
 
     def tenant_stats(self) -> Dict[str, dict]:
         """Per-tenant ledger: ``{tenant: {bytes, vars, quota_*,
@@ -1444,7 +1552,19 @@ class DDStore:
     def gateway_session(self, tenant: str = "", snapshot: bool = False,
                         quota_bytes: int = 0, target: int = -1,
                         max_retries: int = None, seed: int = None):
-        raise _later("gateway sessions (gateway)", "item 16")
+        """Open an ephemeral reader session against ``target``'s
+        gateway (< 0 = this rank): a lease-renewed
+        :class:`~ddstore_tpu_torch.gateway.GatewaySession` whose reads honor
+        admission control (``ERR_ADMISSION`` → seeded-jitter backoff
+        using the retry-after hint). Use as a context manager; a
+        reader SIGKILLed mid-session is reaped within O(lease) — its
+        pins, quota reservation and lane share released."""
+        from .gateway import GatewaySession
+
+        self._check_tenant_label(tenant)
+        return GatewaySession(self, tenant=tenant, snapshot=snapshot,
+                              quota_bytes=quota_bytes, target=target,
+                              max_retries=max_retries, seed=seed)
 
     def gateway_drain(self, deadline_ms: int = 1000) -> bool:
         """Graceful drain: stop admitting, let in-flight reads finish

@@ -4,9 +4,8 @@ epoch's wall clock the consumer did not spend waiting for a batch), the
 bytes-moved ledger (host path and device-collective fetch), the loader's
 degraded-mode events, the readahead window accounting, and the
 store-sourced per-epoch summaries (scatter plan, faults, failover,
-integrity, tiering, live latency, SLOs, gateway, lanes) beside the
-cost-model scheduler's plan. The tenant and trace summaries come with
-the store's tenant handles and trace consumers."""
+integrity, tiering, live latency, SLOs, gateway, lanes, tenants,
+trace) beside the cost-model scheduler's plan."""
 
 from __future__ import annotations
 
@@ -191,6 +190,20 @@ class PipelineMetrics:
         # summary()["sched"] is how a bench record explains WHY each
         # transport knob was set this epoch.
         self._sched_source: Optional[Callable[[], Dict]] = None
+        # Per-tenant ledger source (DDStore.tenant_stats): snapshotted
+        # at epoch boundaries, summary()["tenants"] carries the
+        # per-tenant deltas (quota rejections, admissions/deferrals,
+        # read/served traffic) plus the live gauges.
+        self._tenant_source: Optional[Callable[[], Dict]] = None
+        self._tenant_begin: Optional[Dict] = None
+        self._tenant_end: Optional[Dict] = None
+        # ddtrace source (DDStore.trace_summary): summary()["trace"]
+        # carries per-epoch captured/dropped/flight deltas plus the
+        # measured span-latency percentiles while tracing is on.
+        self._trace_source: Optional[Callable[[], Dict]] = None
+        self._trace_counters_source: Optional[Callable[[], Dict]] = None
+        self._trace_begin: Optional[Dict] = None
+        self._trace_end: Optional[Dict] = None
         # Integrity source (DDStore.integrity_stats): snapshotted at
         # epoch boundaries — summary()["integrity"] is how an epoch
         # record proves "every remote byte verified, N mismatches
@@ -328,6 +341,105 @@ class PipelineMetrics:
             else:
                 out[k] = max(0, int(end[k]) - int(
                     self._failover_begin.get(k, 0)))
+        return out
+
+    #: gauge keys of the integrity source (reported raw, never delta'd
+    #: — keep in sync with binding.INTEGRITY_GAUGE_KEYS).
+    INTEGRITY_GAUGES = ("verify_mode", "sums_tables", "last_corrupt_peer")
+
+    #: gauge keys of the tenant source (reported raw, never delta'd —
+    #: keep in sync with binding.TENANT_GAUGE_KEYS).
+    TENANT_GAUGES = ("quota_bytes", "quota_vars", "bytes", "vars",
+                     "snapshot_pins", "share")
+
+    def set_tenant_source(self,
+                          source: Optional[Callable[[], Dict]]) -> None:
+        """Attach a zero-arg callable returning the per-tenant ledger
+        (``DDStore.tenant_stats`` — ``{tenant: {counter: value}}``).
+        Snapshotted at epoch boundaries; ``summary()["tenants"]``
+        reports per-tenant per-epoch deltas (gauges raw) — how an
+        epoch record proves "the capped tenant was rejected/deferred,
+        the others kept their throughput" on its own."""
+        self._tenant_source = source
+
+    def _snap_tenants(self) -> Optional[Dict]:
+        if self._tenant_source is None:
+            return None
+        try:
+            return {t: dict(v) for t, v in self._tenant_source().items()}
+        except Exception:
+            return None
+
+    def tenant_summary(self) -> Dict:
+        """Per-epoch tenant view: counter deltas + the live gauges,
+        one row per tenant (tenants appearing mid-epoch delta against
+        an implicit zero baseline)."""
+        out: Dict = {}
+        if self._tenant_begin is None:
+            return out
+        end = self._tenant_end if self._tenant_end is not None \
+            else self._snap_tenants()
+        if end is None:
+            return out
+        for tenant, row in end.items():
+            begin = self._tenant_begin.get(tenant, {})
+            trow: Dict = {}
+            for k, v in row.items():
+                if k in self.TENANT_GAUGES:
+                    trow[k] = int(v)
+                else:
+                    trow[k] = max(0, int(v) - int(begin.get(k, 0)))
+            out[tenant] = trow
+        return out
+
+    #: gauge keys of the trace source (reported raw, never delta'd —
+    #: keep in sync with binding.TRACE_STAT_KEYS's gauge subset plus
+    #: the derived ring_occupancy); "span_latency" (a dict) also
+    #: passes through live.
+    TRACE_GAUGES = ("enabled", "ring_events", "threads", "capacity",
+                    "live", "ring_occupancy", "flight_events")
+
+    def set_trace_source(self, source: Optional[Callable[[], Dict]],
+                         counters_source: Optional[Callable[[], Dict]]
+                         = None) -> None:
+        """Attach a zero-arg callable returning the ddtrace payload
+        (``DDStore.trace_summary`` — monotone captured/dropped/flight/
+        span counters + ring gauges + measured span-latency
+        percentiles). Snapshotted at epoch boundaries;
+        ``summary()["trace"]`` reports per-epoch counter deltas with
+        the gauges and percentile table live. ``counters_source``, when
+        given (``DDStore.trace_stats``), is used for the BEGIN
+        snapshot: it only needs the counter scalars, and the full
+        source's ring dump + percentile pass would run per epoch start
+        for nothing."""
+        self._trace_source = source
+        self._trace_counters_source = counters_source or source
+
+    def _snap_trace(self, begin: bool = False) -> Optional[Dict]:
+        src = self._trace_counters_source if begin else self._trace_source
+        if src is None:
+            return None
+        try:
+            return dict(src())
+        except Exception:
+            return None
+
+    def trace_summary(self) -> Dict:
+        """Per-epoch trace view: events captured/dropped this epoch,
+        flight-recorder activity, ring occupancy, and the measured
+        per-(class, route, peer) span latency percentiles."""
+        out: Dict = {}
+        if self._trace_begin is None:
+            return out
+        end = self._trace_end if self._trace_end is not None \
+            else self._snap_trace()
+        if end is None:
+            return out
+        for k, v in end.items():
+            if k in self.TRACE_GAUGES or k == "span_latency":
+                out[k] = v
+            else:
+                out[k] = max(0, int(v) - int(self._trace_begin.get(k, 0)))
         return out
 
     #: gauge keys of the integrity source (reported raw, never delta'd
@@ -675,6 +787,10 @@ class PipelineMetrics:
         self._fault_end = None
         self._failover_begin = self._snap_failover()
         self._failover_end = None
+        self._tenant_begin = self._snap_tenants()
+        self._tenant_end = None
+        self._trace_begin = self._snap_trace(begin=True)
+        self._trace_end = None
         self._integrity_begin = self._snap_integrity()
         self._integrity_end = None
         self._tiering_begin = self._snap_tiering()
@@ -705,6 +821,8 @@ class PipelineMetrics:
         self._plan_end = self._snap_plan()
         self._fault_end = self._snap_faults()
         self._failover_end = self._snap_failover()
+        self._tenant_end = self._snap_tenants()
+        self._trace_end = self._snap_trace()
         self._integrity_end = self._snap_integrity()
         self._tiering_end = self._snap_tiering()
         self._latency_end = self._snap_latency()
@@ -762,6 +880,21 @@ class PipelineMetrics:
                    or any(v for k, v in fo.items()
                           if k not in self.FAILOVER_GAUGES)):
             out["failover"] = fo
+        tn = self.tenant_summary()
+        # Included when any tenant beyond the bare default is known, or
+        # any tenant activity fired — a multi-tenant epoch's record
+        # shows quota/QoS behavior on its own; single-tenant default
+        # epochs stay unchanged.
+        if tn and (set(tn) != {""} or
+                   any(v for k, v in tn.get("", {}).items()
+                       if k not in self.TENANT_GAUGES)):
+            out["tenants"] = tn
+        tr = self.trace_summary()
+        # Included while tracing records (the whole payload is the
+        # result a trace A/B reads) or if anything was captured this
+        # epoch; untraced epochs stay byte-identical.
+        if tr and (tr.get("enabled") or tr.get("captured", 0)):
+            out["trace"] = tr
         ig = self.integrity_summary()
         # Included while verification/scrubbing is in force (an all-zero
         # mismatch row is the "every byte verified clean" result an

@@ -2,8 +2,8 @@
 (forward, dq, dk/dv) against their plain versions, the transformer
 block's use of them, the loader's staging onto the card (with and
 without readahead, and of a ``GraphBatch``), a VAE step and an MPNN step
-on the card against the CPU step, a two-process store-fed DDP VAE on one
-card, and the device-collective fetch and loader epoch in a one-process
+on the card against the CPU step, a restored train state placed as the
+saved one, a two-process store-fed DDP VAE on one card, and the device-collective fetch and loader epoch in a one-process
 NCCL group (byte-equal to the host path, the exchange on the card).
 Elsewhere they skip.
 
@@ -297,6 +297,36 @@ def test_vae_step_on_the_card_matches_cpu(cuda):
     for n in want:
         scale = want[n].abs().max()
         assert (got[n] - want[n]).abs().max() <= 2e-2 * scale, n
+
+
+def test_restored_adam_state_is_placed_as_a_stepped_one(cuda, tmp_path):
+    """A train state saved from the card and restored into a fresh model
+    and Adam puts every optimizer state tensor, Adam's 0-dim ``step``
+    included, where the optimizer that was saved had it."""
+    from ddstore_tpu_torch.utils import checkpoint
+
+    def placement(model, opt):
+        return [(i, k, v.device, v.dtype)
+                for i, p in enumerate(model.parameters())
+                for k, v in sorted(opt.state[p].items())]
+
+    model = vae.VAE(device=cuda)
+    _, opt = vae.create_train_state(model)
+    vae.make_train_step(model, opt)(
+        torch.rand((64, vae.IMAGE_DIM), device=cuda),
+        generator=torch.Generator(device=cuda).manual_seed(0))
+    path = str(tmp_path / "state.pt")
+    checkpoint.save_train_state(path, {"model": model.state_dict(),
+                                       "opt": opt.state_dict()})
+    fresh = vae.VAE(device=cuda)
+    _, fresh_opt = vae.create_train_state(fresh)
+    got = checkpoint.restore_train_state(
+        path, {"model": fresh.state_dict(), "opt": fresh_opt.state_dict()})
+    fresh.load_state_dict(got["model"])
+    fresh_opt.load_state_dict(got["opt"])
+    want = placement(model, opt)
+    assert any(k == "step" for _, k, _, _ in want)
+    assert placement(fresh, fresh_opt) == want
 
 
 def test_two_process_store_fed_step_on_the_card(cuda, tmp_path):

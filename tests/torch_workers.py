@@ -38,9 +38,10 @@ def spawn(world, target, tmp, *args, timeout=240):
     return [results[r] for r in range(world)]
 
 
-def run_threads(world, fn):
+def run_threads(world, fn, timeout=120):
     """Run ``fn(rank)`` on ``world`` threads (the ranks of a
-    ``ThreadGroup``); their results by rank. A failing rank fails the
+    ``ThreadGroup``); their results by rank. A failing rank, or one
+    still running when its join of ``timeout`` seconds ends, fails the
     test."""
     out, errs = [None] * world, []
 
@@ -50,12 +51,14 @@ def run_threads(world, fn):
         except BaseException as e:  # noqa: BLE001 — reported below
             errs.append((r, e))
 
-    ts = [threading.Thread(target=member, args=(r,)) for r in range(world)]
+    ts = [threading.Thread(target=member, args=(r,), daemon=True)
+          for r in range(world)]
     for t in ts:
         t.start()
     for t in ts:
-        t.join(timeout=120)
+        t.join(timeout=timeout)
     assert not errs, errs
+    assert not any(t.is_alive() for t in ts), "rank thread hung"
     return out
 
 
