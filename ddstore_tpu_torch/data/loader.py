@@ -40,6 +40,13 @@ is the other). Before each exchange the ranks agree on a staged-ok flag
 (one integer ``all_reduce(MIN)``), so a rank whose staging failed never
 strands the others in the exchange.
 
+With ``mesh`` and ``spec=("dp", "sp")`` (the reference's ``P("dp",
+"sp")`` placement of a token batch) the sampler gives this dp slot's
+rows, and the loader stages only this rank's sequence chunk of each row,
+``[j * S/sp, (j + 1) * S/sp)`` for its position ``j`` along ``sp``: the
+rows are read whole, and the chunk alone is copied into the pinned
+buffer and on to the card.
+
 Over a store that has them, the loader wires the store's counters into
 ``metrics.summary()`` (scatter plan, faults, failover, tenants,
 trace, integrity, tiering, live latency, SLOs, gateway, lanes) and runs
@@ -168,6 +175,14 @@ class DeviceLoader:
         ``collective_fallback_reason``.
     group: the ``torch.distributed`` process group the exchange runs on
         (default: the world).
+    mesh / spec: the SPMD placement of each batch. ``spec=("dp", "sp")``
+        with a :func:`~ddstore_tpu_torch.parallel.mesh.make_mesh` mesh
+        stages this rank's sequence chunk of every row (the sampler gives
+        the rows of this rank's dp slot; ``batch_size`` is that slot's
+        batch), and :meth:`seq_positions` gives the chunk's global
+        positions. ``("dp",)`` (or no spec) stages whole rows. Any other
+        spec shards over axes whose placements need tensor parallelism
+        (ROADMAP item 14), and raises.
     """
 
     def __init__(self, dataset, sampler: Iterable[int], batch_size: int,
@@ -176,7 +191,8 @@ class DeviceLoader:
                  transform: Optional[Callable] = None,
                  readahead_windows: int = 0,
                  readahead_window_batches: int = 8,
-                 device_collective: bool = False, group=None):
+                 device_collective: bool = False, group=None, mesh=None,
+                 spec=None):
         self.dataset = dataset
         self.sampler = sampler
         self.batch_size = int(batch_size)
@@ -218,6 +234,8 @@ class DeviceLoader:
             self.metrics.set_sched_source(self.sched.snapshot)
         self.device_collective = bool(device_collective)
         self.group = group
+        # this rank's [lo, hi) of each row under spec ("dp", "sp")
+        self.seq_range: Optional[tuple] = self._seq_range_of(mesh, spec)
         self.collective_fallback_reason: Optional[str] = None
         self._share = (0, 1)  # (rank, world) of each global batch's slice
         self._collective_ready = False
@@ -266,6 +284,60 @@ class DeviceLoader:
                              ("lane_bytes", m.set_lane_source)):
             if hasattr(store, name):
                 setter(getattr(store, name))
+
+    def _seq_range_of(self, mesh, spec):
+        """This rank's ``[lo, hi)`` of each row for ``spec=("dp",
+        "sp")``, else None. Raises on a spec the port cannot place."""
+        spec = None if spec is None else tuple(spec)
+        if spec in (None, ("dp",), ("dp", None)):
+            return None
+        if spec != ("dp", "sp"):
+            raise NotImplementedError(
+                f"spec {spec}: the port places batches over ('dp',) and "
+                f"('dp', 'sp'); other placements need ROADMAP item 14")
+        from ..parallel.mesh import axis_index, axis_size
+
+        if mesh is None or not hasattr(self.dataset, "specs"):
+            raise ValueError("spec ('dp', 'sp') needs a mesh and a dataset "
+                             "with specs() (fixed-width rows)")
+        if self.device_collective:
+            raise ValueError("spec ('dp', 'sp') stages sequence chunks; the "
+                             "device-collective fetch delivers whole rows")
+        sp, j = axis_size(mesh, "sp"), axis_index(mesh, "sp")
+        widths = {shape[0] for shape, _ in self.dataset.specs()}
+        if len(widths) != 1 or next(iter(widths)) % sp:
+            raise ValueError(f"rows of widths {sorted(widths)} do not split "
+                             f"into {sp} equal sequence chunks")
+        c = next(iter(widths)) // sp
+        return (j * c, (j + 1) * c)
+
+    def seq_positions(self, rows: int) -> torch.Tensor:
+        """(rows, chunk) int32 global positions of the staged chunk on
+        ``device`` (the whole row's positions without a sequence split)."""
+        if self.seq_range is None:
+            (width, *_), _ = self.dataset.specs()[0]
+            lo, hi = 0, width
+        else:
+            lo, hi = self.seq_range
+        return torch.arange(lo, hi, dtype=torch.int32,
+                            device=self.device).expand(rows, hi - lo)
+
+    def _seq_chunk(self, batch):
+        """This rank's sequence chunk of every row, copied into pinned
+        buffers (when staging to the card): the only bytes staged."""
+        lo, hi = self.seq_range
+
+        def cut(a):
+            a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+            part = a[:, lo:hi]
+            if self._copy_stream is None:
+                return torch.from_numpy(np.ascontiguousarray(part))
+            out = torch.empty(part.shape, dtype=_torch_dtype(part.dtype),
+                              pin_memory=True)
+            np.copyto(out.numpy(), part)
+            return out
+
+        return _tree_map(cut, batch)
 
     def _readahead_usable(self) -> bool:
         store = getattr(self.dataset, "store", None)
@@ -464,7 +536,7 @@ class DeviceLoader:
         return self._fetch_host(self._my_slice(idx), seq, ra)
 
     def _fetch_host(self, idx: np.ndarray, seq: int, ra):
-        pinned = self._pinned_out(len(idx))
+        pinned = None if self.seq_range else self._pinned_out(len(idx))
         with self.metrics.fetch.timed(), annotate("ddstore:fetch"):
             batch = None
             if ra is not None:
@@ -474,6 +546,8 @@ class DeviceLoader:
         if self.transform is not None:
             with self._transform_lock:
                 batch = self.transform(batch)
+        if self.seq_range:
+            batch = self._seq_chunk(batch)
         return self._stage(batch)
 
     def _stage(self, batch):

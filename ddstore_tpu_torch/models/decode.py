@@ -3,7 +3,10 @@ of ``ddstore_tpu/models/decode.py:38-349``, dense models).
 
 The prompt prefills in one full forward pass, which runs the
 flash-attention kernel on the card and returns every layer's K/V heads to
-seed the cache; then one cached step per new token. The step's attention
+seed the cache; then one cached step per new token. With
+``prefill_mesh`` the prefill runs over the mesh's ``sp`` axis, each rank
+its chunk of the prompt through ring attention; the cache is then
+gathered and every rank decodes the same tokens. The step's attention
 over the cache is plain PyTorch, as it was plain XLA in the reference
 (``decode.py:122-127``); the layer math around it is the training
 :class:`~ddstore_tpu_torch.models.transformer.Block`'s own.
@@ -14,13 +17,16 @@ one slot per layer per step, with no copy of the cache.
 
 from __future__ import annotations
 
+import copy
 import math
 import time
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
-from .transformer import TransformerLM
+from ..parallel.mesh import axis_index, axis_size
+from .transformer import TransformerLM, _refuse_unported_axes
 
 __all__ = ["init_cache", "decode_step", "filter_logits", "generate"]
 
@@ -115,8 +121,8 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
              max_new_tokens: int, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
              top_k: Optional[int] = None, top_p: Optional[float] = None,
-             prompt_lengths=None, stats: Optional[dict] = None
-             ) -> torch.Tensor:
+             prompt_lengths=None, stats: Optional[dict] = None,
+             prefill_mesh=None) -> torch.Tensor:
     """Autoregressive continuation of ``prompt`` (B, P) int ->
     (B, P + max_new_tokens).
 
@@ -128,7 +134,20 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
     land in columns ``[P, P + max_new_tokens)``.
 
     ``stats``, when given, receives ``prefill_s`` and ``decode_s`` (host
-    seconds, the card synchronized at each boundary) and ``decode_steps``.
+    seconds, the card synchronized at each boundary), ``decode_steps``
+    and ``first_logits``, the (B, vocab) f32 logits of the first new
+    token.
+
+    **Long prompts** (``decode.py:227-230``): with ``prefill_mesh`` every
+    rank of the mesh's ``sp`` axis (the model's ``sp_axis``) prefills its
+    chunk of the prompt, ``[i * P/sp, (i + 1) * P/sp)``, through ring
+    attention; the layers' K/V chunks are ``all_gather``ed over the axis
+    into the full cache, the features of each row's last real position
+    reach every rank (one all-reduce over the axis: the rank holding a
+    position contributes it, the others zeros), and the decode loop runs
+    the same on every rank. Every rank passes the whole prompt, and all
+    of them call this together. ``P`` must divide by ``sp`` into chunks
+    that are multiples of 8 (``ValueError`` otherwise).
     """
     if temperature > 0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs `generator`")
@@ -164,24 +183,35 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
         if stats is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
+    _refuse_unported_axes(prefill_mesh)
+    sp = axis_size(prefill_mesh, model.sp_axis)
+    if sp > 1 and (plen % sp or (plen // sp) % 8):
+        raise ValueError(f"ring prefill of {plen} prompt tokens over sp={sp}"
+                         f" needs chunks that are multiples of 8")
+
     sync()
     t0 = time.perf_counter()
     cache = init_cache(model, b, total)
-    positions = torch.arange(plen, dtype=torch.int32,
-                             device=dev).expand(b, plen)
-    feats, kvs = model(prompt, positions, return_features=True,
-                       return_kv=True)
-    for i, (k, v) in enumerate(kvs):
-        cache["k"][i, :, :, :plen] = k
-        cache["v"][i, :, :, :plen] = v
-    # feats are already post-lnf: apply only the head (a second LayerNorm
-    # is the documented trap). Padded rows condition on their last real
-    # position.
-    last = feats[:, -1] if lengths is None else \
-        feats[torch.arange(b, device=dev), lengths - 1]
+    if sp > 1:
+        last = _ring_prefill(model, prompt, cache, prefill_mesh, sp,
+                             lengths)
+    else:
+        positions = torch.arange(plen, dtype=torch.int32,
+                                 device=dev).expand(b, plen)
+        feats, kvs = model(prompt, positions, return_features=True,
+                           return_kv=True)
+        for i, (k, v) in enumerate(kvs):
+            cache["k"][i, :, :, :plen] = k
+            cache["v"][i, :, :, :plen] = v
+        # feats are already post-lnf: apply only the head (a second
+        # LayerNorm is the documented trap). Padded rows condition on
+        # their last real position.
+        last = feats[:, -1] if lengths is None else \
+            feats[torch.arange(b, device=dev), lengths - 1]
     toks = torch.zeros((b, total), dtype=prompt.dtype, device=dev)
     toks[:, :plen] = prompt
-    toks[:, plen] = pick(last.float() @ model.lmhead.head.weight.float().t())
+    first_logits = last.float() @ model.lmhead.head.weight.float().t()
+    toks[:, plen] = pick(first_logits)
     sync()
     t1 = time.perf_counter()
     col = torch.arange(total, device=dev)
@@ -200,5 +230,41 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
     sync()
     if stats is not None:
         stats.update(prefill_s=t1 - t0, decode_s=time.perf_counter() - t1,
-                     decode_steps=max_new_tokens - 1)
+                     decode_steps=max_new_tokens - 1,
+                     first_logits=first_logits)
     return toks
+
+
+def _ring_prefill(model: TransformerLM, prompt: torch.Tensor, cache: Cache,
+                  mesh, sp: int, lengths) -> torch.Tensor:
+    """This rank's chunk of the prompt through the ring; fills ``cache``
+    with the gathered K/V of the whole prompt and returns the (B, dim)
+    features of each row's last real position."""
+    b, plen = prompt.shape
+    dev = prompt.device
+    group = mesh.get_group(model.sp_axis)
+    j, c = axis_index(mesh, model.sp_axis), plen // sp
+    positions = torch.arange(j * c, (j + 1) * c, dtype=torch.int32,
+                             device=dev).expand(b, c)
+    ring = copy.copy(model)  # shares the parameters; the ring's mesh
+    ring.mesh = mesh
+    feats, kvs = ring(prompt[:, j * c:(j + 1) * c].contiguous(), positions,
+                      return_features=True, return_kv=True)
+    # every layer's K and V in one gather: (layers, 2, B, H, c, hd)
+    local = torch.stack([torch.stack(kv) for kv in kvs])
+    staged = local.is_cuda and str(dist.get_backend(group)).lower() == "gloo"
+    if staged:  # through host memory, as the ring's shifts over gloo
+        local = local.cpu()
+    parts = [torch.empty_like(local) for _ in range(sp)]
+    dist.all_gather(parts, local, group=group)
+    full = torch.cat(parts, dim=4).to(dev)
+    cache["k"][:, :, :, :plen] = full[:, 0]
+    cache["v"][:, :, :, :plen] = full[:, 1]
+    want = torch.full((b,), plen - 1, device=dev) if lengths is None \
+        else lengths - 1
+    mine = (want >= j * c) & (want < (j + 1) * c)
+    rows = (want - j * c).clamp(0, c - 1)
+    last = feats[torch.arange(b, device=dev), rows].float()
+    last = torch.where(mine[:, None], last, torch.zeros_like(last))
+    dist.all_reduce(last, group=group)
+    return last

@@ -13,27 +13,41 @@ Numerics follow the flax reference:
 Attention in :class:`Block` is :func:`~ddstore_tpu_torch.ops.attention.
 flash_attention` at every length (one that is not a multiple of 8 is
 padded for it and cut back): the forward and backward kernels on the
-card, their plain versions on the CPU. :func:`make_train_step` is the
-reference's Adam step with optional gradient accumulation. Ring
-attention, MoE and rematerialization are later slices and raise here.
+card, their plain versions on the CPU. With a ``mesh`` whose ``sp`` axis
+is larger than 1 the model runs on this rank's sequence chunk and its
+attention is :func:`~ddstore_tpu_torch.parallel.ring_attention.
+ring_attention` over that axis. ``remat`` recomputes each block in the
+backward (``torch.utils.checkpoint``), optionally saving what
+``remat_policy`` names. :func:`make_train_step` is the reference's Adam
+step with optional gradient accumulation, and over a mesh the dp x sp
+step: one all-reduce of the gradients over the world after the backward.
+MoE, tensor and pipeline parallelism are later slices and raise here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import hashlib
 import math
 from typing import Callable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..ops.attention import flash_attention
 from ..ops.xent import fused_linear_xent
+from ..parallel.mesh import axis_size
+from ..parallel.ring_attention import ring_attention
 
 __all__ = ["Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
-           "lm_loss", "TrainState", "create_train_state", "make_train_step"]
+           "lm_loss", "TrainState", "create_train_state", "make_train_step",
+           "REMAT_POLICIES", "param_digest", "broadcast_parameters",
+           "all_reduce_gradients"]
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -93,7 +107,8 @@ class Block(nn.Module):
         h = F.gelu(_dense(self.up, h, dt), approximate="tanh")
         return x + _dense(self.down, h, dt)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, KV]:
+    def forward(self, x: torch.Tensor, mesh=None, sp_axis: str = "sp"
+                ) -> Tuple[torch.Tensor, KV]:
         """Returns the block output and this layer's (k, v) heads.
 
         Attention is ``flash_attention``: the kernels on the card, the
@@ -101,7 +116,21 @@ class Block(nn.Module):
         is not a multiple of 8 is right-padded to one, and cut back after:
         under the causal mask the padded keys come after every real query,
         so the real rows are exact, and the gradient of the cut flows back
-        through the pad as zeros."""
+        through the pad as zeros.
+
+        With ``mesh`` (``sp_axis`` larger than 1), ``x`` is this rank's
+        sequence chunk and attention is ``ring_attention`` over the axis,
+        unpadded: its chunks must be multiples of 8, as the reference's
+        kernel needs."""
+        if axis_size(mesh, sp_axis) > 1:
+            if x.shape[1] % 8:
+                raise ValueError(f"ring attention needs sequence chunks "
+                                 f"that are multiples of 8, got "
+                                 f"{x.shape[1]}")
+            q, k, v = self.qkv_heads(x)
+            out, _ = ring_attention(q, k, v, mesh=mesh, axis=sp_axis,
+                                    causal=True)
+            return self.finish(x, out), (k, v)
         s = x.shape[1]
         pad = -s % 8
         q, k, v = self.qkv_heads(F.pad(x, (0, 0, 0, pad)) if pad else x)
@@ -152,32 +181,95 @@ class LMHead(nn.Module):
         return F.linear(x, self.head.weight.float())
 
 
+# The jax.checkpoint_policies names with an op-level counterpart in
+# torch's selective checkpointing: the products each one saves (JAX's
+# "dots" are dot_generals; those "with no batch dims" are the Dense
+# layers' 2-D products, not attention's batched ones). The other JAX
+# policies name values (offloading, named checkpoints) that have none.
+_DOTS = ("mm", "addmm", "bmm", "baddbmm")
+REMAT_POLICIES = {
+    "everything_saveable": None,  # saves all: the model checkpoints nothing
+    "nothing_saveable": (),
+    "dots_saveable": _DOTS,
+    "checkpoint_dots": _DOTS,
+    "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
+}
+
+# Mesh axes of the parallel layers still to come, and their ROADMAP items.
+_UNPORTED_AXES = {"tp": 14, "ep": 14, "fsdp": 14, "pp": 15}
+
+
+def _refuse_unported_axes(mesh) -> None:
+    for axis, item in _UNPORTED_AXES.items():
+        if axis_size(mesh, axis) > 1:
+            raise NotImplementedError(
+                f"a mesh with a {axis!r} axis of size > 1 needs ROADMAP "
+                f"item {item}, which is not ported yet (dp and sp are)")
+
+
+def _remat_context_fn(policy: Optional[str]):
+    """The ``context_fn`` of ``torch.utils.checkpoint`` for ``policy``:
+    ``None`` for a plain checkpoint (everything recomputed), else the
+    selective contexts that save the outputs of the policy's products."""
+    if not policy or policy == "nothing_saveable":
+        return None
+    saved = REMAT_POLICIES[policy]
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    ops = {getattr(torch.ops.aten, name).default for name in saved}
+
+    def policy_fn(ctx, func, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if func in ops \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts,
+                             policy_fn)
+
+
+def _block_out(blk: "Block", x, mesh, sp_axis):
+    return blk(x, mesh, sp_axis)[0]
+
+
 class TransformerLM(nn.Module):
     """Causal LM: ``forward(tokens, positions)`` on (B, S) int tensors ->
     (B, S, vocab) f32 logits.
 
     ``device`` defaults to the card; pass ``device="cpu"`` for the plain
     path. Parameters are f32; ``compute_dtype`` is the activation dtype.
+
+    ``mesh`` (a :func:`~ddstore_tpu_torch.parallel.mesh.make_mesh` mesh
+    with ``dp`` and ``sp`` axes) switches attention to ring attention over
+    ``sp_axis`` when that axis is larger than 1; the model then runs on
+    this rank's ``(B/dp, S/sp)`` tokens with their global positions.
+    ``remat`` recomputes every block in the backward; ``remat_policy``
+    names what it saves instead, one of ``REMAT_POLICIES``
+    (``everything_saveable`` saves all, so it turns ``remat`` off).
     """
 
     def __init__(self, vocab: int = 1024, dim: int = 256, heads: int = 8,
                  layers: int = 4, mlp_ratio: int = 4,
                  compute_dtype: torch.dtype = torch.bfloat16,
-                 device=None, mesh=None, n_experts: int = 0,
-                 remat: bool = False):
+                 device=None, mesh=None, sp_axis: str = "sp",
+                 n_experts: int = 0, remat: bool = False,
+                 remat_policy: Optional[str] = None):
         super().__init__()
-        if mesh is not None:
-            raise NotImplementedError("ring attention (mesh) is not ported "
-                                      "yet")
         if n_experts > 0:
-            raise NotImplementedError("MoE blocks are not ported yet")
-        if remat:
-            raise NotImplementedError("remat is not ported yet")
+            raise NotImplementedError("MoE blocks need ROADMAP item 13, "
+                                      "which is not ported yet")
+        _refuse_unported_axes(mesh)
+        if remat and remat_policy and remat_policy not in REMAT_POLICIES:
+            raise ValueError(
+                f"remat_policy {remat_policy!r} has no counterpart in the "
+                f"port; valid: {sorted(REMAT_POLICIES)}")
         device = resolve_device(device)
         self.vocab, self.dim, self.heads, self.layers = vocab, dim, heads, \
             layers
         self.mlp_ratio = mlp_ratio
         self.compute_dtype = compute_dtype
+        self.mesh, self.sp_axis = mesh, sp_axis
+        self.remat = bool(remat) and remat_policy != "everything_saveable"
+        self.remat_policy = remat_policy
         self.embed = EmbedPE(vocab, dim, compute_dtype, device=device)
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio, compute_dtype, device=device)
@@ -210,11 +302,23 @@ class TransformerLM(nn.Module):
                 return_features: bool = False, return_kv: bool = False):
         """``return_features`` returns the post-final-LayerNorm features
         instead of logits; ``return_kv`` also returns each layer's (k, v)
-        heads (B, H, S, hd), which seed the decode cache."""
+        heads (B, H, S, hd), which seed the decode cache.
+
+        Under ``remat``, with gradients enabled and no ``return_kv``, each
+        block runs under ``torch.utils.checkpoint`` (non-reentrant): its
+        activations are recomputed in the backward, ring shifts
+        included, save what ``remat_policy`` keeps."""
+        remat = self.remat and torch.is_grad_enabled() and not return_kv
+        ctx_fn = _remat_context_fn(self.remat_policy) if remat else None
         x = self.embed(tokens, positions)
         kvs: List[KV] = []
         for blk in self.blocks:
-            x, kv = blk(x)
+            if remat:
+                kw = {} if ctx_fn is None else {"context_fn": ctx_fn}
+                x = checkpoint(_block_out, blk, x, self.mesh, self.sp_axis,
+                               use_reentrant=False, **kw)
+                continue
+            x, kv = blk(x, self.mesh, self.sp_axis)
             if return_kv:
                 kvs.append(kv)
         out = self.lmhead(x, return_features)
@@ -261,21 +365,77 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(model: nn.Module, lr: float = 3e-4
+def param_digest(model: nn.Module) -> str:
+    """sha256 of the model's parameters' bytes, in order."""
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@torch.no_grad()
+def broadcast_parameters(model: nn.Module, src: int = 0,
+                         group=None) -> None:
+    """Overwrite every rank's parameters with rank ``src``'s, in one
+    broadcast of their flattened f32 values (for weights restored on one
+    rank). A collective."""
+    params = list(model.parameters())
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    dist.broadcast(flat, src, group=group)
+    off = 0
+    for p in params:
+        p.copy_(flat[off:off + p.numel()].view_as(p))
+        off += p.numel()
+
+
+def create_train_state(model: nn.Module, lr: float = 3e-4, mesh=None
                        ) -> Tuple[TrainState, torch.optim.Optimizer]:
     """Adam over the model's parameters with optax's defaults (b1 0.9, b2
     0.999, eps 1e-8 added outside the square root, no weight decay), as
     ``optax.adam(lr)`` at ``transformer.py:315``; returns (state, opt)
-    like the reference's (state, tx)."""
+    like the reference's (state, tx).
+
+    With ``mesh`` (dp and sp axes) the parameters are replicated, as the
+    reference's ``rules = P()`` branch places them (``:339``): every rank
+    has drawn them from the same seed, and a digest of them is checked
+    equal over the world (``ValueError`` where it is not; weights
+    restored on one rank reach the others by :func:`broadcast_parameters`
+    first)."""
+    if mesh is not None:
+        _refuse_unported_axes(mesh)
+        digests = [None] * dist.get_world_size()
+        dist.all_gather_object(digests, param_digest(model))
+        if len(set(digests)) != 1:
+            raise ValueError("the ranks' parameters differ; draw them from "
+                             "one seed or broadcast_parameters() first")
     opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
                            eps=1e-8, weight_decay=0.0)
     return TrainState(model, opt), opt
 
 
+@torch.no_grad()
+def all_reduce_gradients(params: List[nn.Parameter], world: int) -> None:
+    """One all-reduce of the flattened f32 gradients over the default
+    group, then each gradient set to the sum divided by ``world`` (a
+    missing gradient counts as 0). A collective."""
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    dist.all_reduce(flat)
+    flat.div_(world)
+    off = 0
+    for p in params:
+        n = p.numel()
+        if p.grad is None:
+            p.grad = torch.empty_like(p)
+        p.grad.copy_(flat[off:off + n].view_as(p))
+        off += n
+
+
 def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
                     fused_xent: Optional[bool] = None,
                     accum_steps: int = 1,
-                    state: Optional[TrainState] = None
+                    state: Optional[TrainState] = None, mesh=None
                     ) -> Callable[[torch.Tensor, torch.Tensor,
                                    torch.Tensor], torch.Tensor]:
     """The train step over ``(tokens, targets, positions)``, all (B, S):
@@ -292,7 +452,32 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
     forward and backward, the f32 gradients are summed and divided by
     ``accum_steps``, and one update applies them; the loss is the mean of
     the chunk losses. A batch that does not divide raises ``ValueError``.
+
+    With ``mesh`` (dp and sp axes; the reference's ``P(dp, sp)`` step,
+    ``:400-422``) each rank passes its own ``(B/dp, S/sp)`` tokens,
+    targets and global positions; its loss is the mean over its tokens.
+    After the backward (the last chunk's, under ``accum_steps``) one
+    all-reduce of the flattened f32 gradients over the whole world,
+    divided by the world size, gives every rank the gradient of the
+    global token mean (the chunks are equal), and the returned loss is
+    all-reduced the same way, so every rank reports the reference's
+    replicated scalar. ``mesh`` defaults to ``model.mesh``, whose ring
+    carries the sequence axis; a mesh that splits the sequence (``sp`` >
+    1) but is not the model's raises ``ValueError``, since the model would
+    then attend within each rank's chunk alone. The gradient reduction
+    runs on the default group, after the ring's last backward shift.
     """
+    if mesh is None:
+        mesh = model.mesh
+    elif mesh is not model.mesh and axis_size(mesh, model.sp_axis) > 1:
+        raise ValueError(
+            f"make_train_step's mesh splits the sequence over "
+            f"{model.sp_axis!r}, but the model's ring runs over "
+            f"model.mesh ({model.mesh!r}); build the model with this mesh")
+    if mesh is not None:
+        _refuse_unported_axes(mesh)
+    world = dist.get_world_size() if mesh is not None else 1
+    params = list(model.parameters())
 
     def lossf(tok, tgt, pos):
         return lm_loss(model, tok, tgt, pos, fused_xent=fused_xent)
@@ -315,13 +500,19 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
                 part = lossf(*chunk)
                 part.backward()
                 loss = loss + part.detach()
-            for p in model.parameters():
+            for p in params:
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
             loss = loss / accum_steps
+        loss = loss.detach()
+        if mesh is not None:
+            all_reduce_gradients(params, world)
+            loss = loss.float().clone()
+            dist.all_reduce(loss)
+            loss = loss / world
         opt.step()
         if state is not None:
             state.step += 1
-        return loss.detach()
+        return loss
 
     return step

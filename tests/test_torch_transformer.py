@@ -140,12 +140,37 @@ def test_from_flax_rejects_mismatched_trees():
         weights.from_flax(params, other)
 
 
-@pytest.mark.parametrize("kw", [dict(n_experts=2), dict(mesh=object()),
-                                dict(remat=True)])
+def _mesh(**axes):
+    """A mesh of these axes for a constructor to read (no process group:
+    the constructor refuses before any collective)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    sizes = tuple(axes.values())
+    return DeviceMesh("cpu", torch.arange(int(np.prod(sizes))).view(sizes),
+                      mesh_dim_names=tuple(axes), _init_backend=False,
+                      _rank=0)
+
+
+# MoE (item 13), a tensor-parallel axis (item 14) and a pipeline axis
+# (item 15) still refuse; a dp x sp mesh and remat are ported.
+@pytest.mark.parametrize("kw", [lambda: dict(n_experts=2),
+                                lambda: dict(mesh=_mesh(dp=1, tp=2)),
+                                lambda: dict(mesh=_mesh(pp=2, sp=1))],
+                         ids=["kw0", "kw1", "kw2"])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
+    kw = kw()
+    item = {"n_experts": "13"}.get(next(iter(kw)), None) or \
+        ("14" if "tp" in kw["mesh"].mesh_dim_names else "15")
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=1,
                           device="cpu", **kw)
+
+
+def test_unknown_remat_policy_raises_listing_the_ported_ones():
+    with pytest.raises(ValueError, match="dots_with_no_batch_dims_saveable"):
+        ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=1, device="cpu",
+                          remat=True, remat_policy="offload_dot_with_no_"
+                          "batch_dims")
 
 
 def test_init_weights_is_seeded():

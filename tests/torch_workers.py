@@ -617,3 +617,292 @@ def nccl_collective(rank, world, tmp, steps=6):
     finally:
         store.close()
         dist.destroy_process_group()
+
+
+def _ring_chunk(case, mesh, t):
+    """This rank's chunk of a full (B, H, S, D) array under ``case``'s
+    layout: B over dp (unless the batch is replicated), H over tp, S over
+    sp; returns the chunk and its index (slices of B, H and S)."""
+    from ddstore_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    idx = []
+    for dim, axis in ((0, None if case.get("replicate_batch") else "dp"),
+                      (1, "tp"), (2, "sp")):
+        n = axis_size(mesh, axis) if axis else 1
+        i = axis_index(mesh, axis) if axis else 0
+        c = t.shape[dim] // n
+        idx.append((i * c, (i + 1) * c))
+    return t[tuple(slice(lo, hi) for lo, hi in idx)], idx
+
+
+def ring_cases(rank, world, tmp, cases):
+    """Each ring-attention case on this rank's chunks, in a gloo world:
+    per case the chunk's index, out, lse and (when the case has ``do``)
+    dq, dk and dv of sum(out * do), with the shifts it made; or the
+    ``ValueError`` it raised."""
+    import torch
+
+    from ddstore_tpu_torch.parallel import make_mesh, ring_attention
+    from ddstore_tpu_torch.parallel.ring_attention import ring_shift_stats
+
+    dist = torch_world(rank, world, tmp)
+    out = {}
+    try:
+        meshes = {}
+        for name, case in cases.items():
+            key = tuple(sorted(case["axes"].items()))
+            if key not in meshes:
+                meshes[key] = make_mesh(case["axes"], "cpu")
+            mesh = meshes[key]
+            dt = getattr(torch, case["dtype"])
+            chunks = [_ring_chunk(case, mesh, torch.from_numpy(case[n]))
+                      for n in ("q", "k", "v")]
+            q, k, v = (c.to(dt).requires_grad_() for c, _ in chunks)
+            for key2 in ring_shift_stats:
+                ring_shift_stats[key2] = 0
+            try:
+                o, lse = ring_attention(q, k, v, mesh=mesh,
+                                        causal=case["causal"],
+                                        impl=case.get("impl", "auto"),
+                                        heads_axis="tp")
+            except ValueError as e:
+                out[name] = {"error": str(e)}
+                continue
+            res = {"index": chunks[0][1], "out": o.detach().float().numpy(),
+                   "lse": lse.detach().numpy(), "dtype": str(o.dtype)}
+            if "do" in case:
+                do, _ = _ring_chunk(case, mesh, torch.from_numpy(case["do"]))
+                (o.float() * do).sum().backward()
+                res.update(dq=q.grad.numpy(), dk=k.grad.numpy(),
+                           dv=v.grad.numpy())
+            res["shifts"] = dict(ring_shift_stats)
+            out[name] = res
+        out["_meshes"] = {key: (m.mesh_dim_names, {
+            a: m.get_local_rank(a) for a in m.mesh_dim_names})
+            for key, m in meshes.items()}
+        try:
+            make_mesh({"dp": 3, "sp": 4}, "cpu")
+        except ValueError as e:
+            out["_bad_mesh"] = str(e)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+class _IndexStream:
+    """A sized, replayable sampler over fixed indices."""
+
+    def __init__(self, idx):
+        self.idx = [int(i) for i in idx]
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __iter__(self):
+        return iter(self.idx)
+
+
+def _grads_tree(model):
+    from ddstore_tpu_torch import weights
+
+    return weights.to_flax({n: p.grad for n, p in model.named_parameters()})
+
+
+def longcontext_cases(rank, world, tmp, params, batches, lr, remat_params,
+                      prefill, loader_case):
+    """The dp x sp slice in a gloo world of ``dp * sp`` ranks on the mesh
+    ``{"dp": 2, "sp": world // 2}``: train steps from ``params`` on the
+    full ``batches`` (each rank takes its (B/dp, S/sp) part), with and
+    without accumulation; the first batch's gradient under each remat
+    setting; ``generate(prefill_mesh=...)``; the loader's
+    ``spec=("dp", "sp")`` chunks of a TCP store. Everything as numpy."""
+    import torch
+
+    from ddstore_tpu_torch import weights
+    from ddstore_tpu_torch.data.dataset import ShardedDataset
+    from ddstore_tpu_torch.data.loader import DeviceLoader
+    from ddstore_tpu_torch.models import decode
+    from ddstore_tpu_torch.models import transformer as ttr
+    from ddstore_tpu_torch.parallel import make_mesh
+    from ddstore_tpu_torch.parallel.mesh import axis_index
+    from ddstore_tpu_torch.parallel.ring_attention import ring_shift_stats
+    from ddstore_tpu_torch.rendezvous import TorchGroup
+    from ddstore_tpu_torch.store import DDStore
+
+    dist = torch_world(rank, world, tmp)
+    mesh = make_mesh({"dp": 2, "sp": world // 2}, "cpu")
+    i, j = axis_index(mesh, "dp"), axis_index(mesh, "sp")
+
+    def part(t):
+        b, s = t.shape[0] // 2, t.shape[1] // (world // 2)
+        return torch.from_numpy(
+            np.ascontiguousarray(t[i * b:(i + 1) * b, j * s:(j + 1) * s]))
+
+    def model_of(tree, **kw):
+        m = ttr.TransformerLM(compute_dtype=torch.float32, device="cpu",
+                              mesh=mesh, **params["cfg"], **kw)
+        return weights.from_flax(tree, m)
+
+    out = {"dp": i, "sp": j}
+    try:
+        for accum in (1, 2):
+            model = model_of(params["tree"])
+            state, opt = ttr.create_train_state(model, lr=lr, mesh=mesh)
+            step = ttr.make_train_step(model, opt, state=state, mesh=mesh,
+                                       accum_steps=accum)
+            losses, grads = [], None
+            for tok, tgt, pos in batches:
+                losses.append(float(step(part(tok), part(tgt), part(pos))))
+                if grads is None:
+                    grads = _grads_tree(model)
+            out[f"train{accum}"] = {"losses": losses, "grads": grads,
+                                    "params": weights.to_flax(model),
+                                    "digest": ttr.param_digest(model),
+                                    "steps": state.step}
+        tok, tgt, pos = (part(t) for t in batches[0])
+        # the step's mesh defaults to the model's; a model with no ring
+        # is refused a mesh that splits the sequence
+        model = model_of(params["tree"])
+        _, opt = ttr.create_train_state(model, lr=lr)
+        out["default_mesh_loss"] = float(ttr.make_train_step(model, opt)(
+            tok, tgt, pos))
+        plain = ttr.TransformerLM(compute_dtype=torch.float32, device="cpu",
+                                  **params["cfg"])
+        try:
+            ttr.make_train_step(plain, opt, mesh=mesh)
+            out["foreign_mesh"] = None
+        except ValueError as e:
+            out["foreign_mesh"] = str(e)
+        remat = {}
+        for key, kw in remat_params.items():
+            model = model_of(params["tree"], **kw)
+            for n in ring_shift_stats:
+                ring_shift_stats[n] = 0
+            ttr.lm_loss(model, tok, tgt, pos).backward()
+            remat[key] = {"grads": _grads_tree(model),
+                          "shifts": dict(ring_shift_stats)}
+            ttr.all_reduce_gradients(list(model.parameters()), world)
+            remat[key]["mean"] = _grads_tree(model)
+        out["remat"] = remat
+        model = model_of(params["tree"])
+        out["round_trip"] = weights.to_flax(model)
+        # replicas that differ are refused; rank 0's broadcast makes them
+        # equal
+        with torch.no_grad():
+            next(model.parameters()).add_(rank)
+        try:
+            ttr.create_train_state(model, mesh=mesh)
+            out["differ"] = None
+        except ValueError as e:
+            out["differ"] = str(e)
+        ttr.broadcast_parameters(model)
+        ttr.create_train_state(model, mesh=mesh)
+        out["broadcast"] = weights.to_flax(model)
+
+        pm = ttr.TransformerLM(compute_dtype=torch.float32, device="cpu",
+                               **prefill["cfg"])
+        weights.from_flax(prefill["tree"], pm)
+        res = {}
+        for name, (prompt, n_new, lengths) in prefill["cases"].items():
+            try:
+                toks = decode.generate(pm, torch.from_numpy(prompt), n_new,
+                                       prompt_lengths=lengths,
+                                       prefill_mesh=mesh)
+                res[name] = toks.numpy()
+            except ValueError as e:
+                res[name] = str(e)
+        out["prefill"] = res
+
+        store = DDStore(TorchGroup(), backend="tcp")
+        try:
+            windows, nexts, idx, bsz = loader_case
+            ds = ShardedDataset(store, windows, nexts)
+            # this dp slot's rows of each global batch of the index stream
+            half = bsz // 2
+            mine = np.concatenate([idx[b + i * half:b + (i + 1) * half]
+                                   for b in range(0, len(idx), bsz)])
+            loader = DeviceLoader(ds, _IndexStream(mine), half,
+                                  device="cpu", mesh=mesh, spec=("dp", "sp"))
+            out["loader"] = {
+                "batches": [(a.numpy(), b.numpy()) for a, b in loader],
+                "positions": loader.seq_positions(half).numpy(),
+                "seq_range": loader.seq_range}
+            for spec in (("sp",), ("dp", "tp")):
+                try:
+                    DeviceLoader(ds, _IndexStream(mine), half, device="cpu",
+                                 mesh=mesh, spec=spec)
+                    out["loader"][spec] = None
+                except NotImplementedError as e:
+                    out["loader"][spec] = str(e)
+        finally:
+            store.close()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_cuda(rank, world, tmp):
+    """Two ranks on card 0 in a gloo world: ring attention on the card
+    against the whole sequence in one ``flash_attention`` call (per-row
+    relative errors of out, dq, dk, dv; lse's largest error), the launches
+    the ring made, and a small model's gradients with remat on and off."""
+    import torch
+
+    from ddstore_tpu_torch.models import transformer as ttr
+    from ddstore_tpu_torch.ops import attention
+    from ddstore_tpu_torch.parallel import make_mesh, ring_attention
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist = torch_world(rank, world, tmp)
+    try:
+        mesh = make_mesh({"dp": 1, "sp": world})
+        g = torch.Generator(device=dev).manual_seed(5)
+        b, h, s, d = 1, 4, 1024, 64
+        q, k, v, do = (torch.randn((b, h, s, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        c = s // world
+        sl = slice(rank * c, (rank + 1) * c)
+        ql, kl, vl = (t[:, :, sl].clone().requires_grad_()
+                      for t in (q, k, v))
+        names = ("flash_fwd_launches", "flash_bwd_dq_launches",
+                 "flash_bwd_dkv_launches")
+        for n in names:
+            setattr(attention, n, 0)
+        out, lse = ring_attention(ql, kl, vl, mesh=mesh, causal=True)
+        (out.float() * do[:, :, sl].float()).sum().backward()
+        torch.cuda.synchronize()
+        launches = [getattr(attention, n) for n in names]
+        qf, kf, vf = (t.clone().requires_grad_() for t in (q, k, v))
+        ro, rl = attention.flash_attention(qf, kf, vf, causal=True)
+        (ro.float() * do.float()).sum().backward()
+
+        def row_rel(got, want):
+            got, want = got.float(), want[:, :, sl].float()
+            norm = want.norm(dim=-1)
+            floor = 1e-3 * float(norm.max())
+            return float(((got - want).norm(dim=-1)
+                          / norm.clamp_min(floor)).max())
+
+        res = {"launches": launches,
+               "lse": float((lse - rl[:, :, sl]).abs().max()),
+               "rel": {n: row_rel(a, w) for n, a, w in (
+                   ("out", out, ro), ("dq", ql.grad, qf.grad),
+                   ("dk", kl.grad, kf.grad), ("dv", vl.grad, vf.grad))}}
+        grads = []
+        tok = torch.randint(0, 256, (2, 128), generator=g, device=dev)
+        pos = torch.arange(128, device=dev).expand(2, 128)
+        for remat in (False, True):
+            m = ttr.TransformerLM(vocab=256, dim=128, heads=2, layers=2,
+                                  compute_dtype=torch.float32, device=dev,
+                                  mesh=mesh, remat=remat)
+            m.init_weights(torch.Generator(device=dev).manual_seed(1))
+            ttr.lm_loss(m, tok[:, sl.start // 8:sl.stop // 8],
+                        tok[:, sl.start // 8:sl.stop // 8],
+                        pos[:, sl.start // 8:sl.stop // 8]).backward()
+            grads.append([p.grad.cpu() for p in m.parameters()])
+        res["remat_max_diff"] = max(float((a - b_).abs().max())
+                                    for a, b_ in zip(*grads))
+        return res
+    finally:
+        dist.destroy_process_group()
