@@ -166,6 +166,30 @@ Phases; any failure raises and ends the run with a non-zero exit:
    (the diagonal chunk and the unmasked past chunk) against its plain
    version and SDPA.
 
+12. MoE, expert and tensor parallelism, ZeRO-3 (ROADMAP items 13 and
+   14): (a) in the main process, the LM above with 8 experts and top-2
+   routing (638 M parameters) fed from phase 5's windows: its first
+   step's loss against the same weights in f32 through the plain
+   attention, and a padded ``generate`` with ``prompt_lengths`` on the
+   f32 model (routing and tokens unchanged by the padding); then 2
+   warm-up and 4 counted Adam steps of (8, 2048) (launches zeroed just
+   before, read just after), tokens routed to each expert, the drop share
+   and the aux of every layer, ``generate`` on 8 prompts of 2048 + 32
+   (the first token equal to the full forward's argmax), and the decode
+   step's MoE at batch 8 both ways (every expert, or a gather of each
+   token's 2), timed in turns. (b) two rank processes on the card over
+   gloo, each registering half of the windows in a TCP store, run the
+   layouts ``ep2`` (the MoE LM), ``tp2`` and ``fsdp2`` (the dense LM) at
+   B 2, S 2048 through ``DeviceLoader(spec=...)``: 1 warm-up and 3
+   counted steps each; the first step's loss, gathered gradients and
+   gathered parameters against one process's step from the same weights
+   and batch on rank 0 (phase 11's tolerances; a bias that starts at 0
+   by the share of its elements moved the other way), the ranks' losses
+   equal, peak memory per rank beside one process's, the collectives'
+   calls and bytes of a step and each layout's collective timed alone.
+   Then each kernel at tp 2's heads, (2, 8, 2048, 64), against its plain
+   version and SDPA.
+
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -177,6 +201,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import itertools
 import json
@@ -222,14 +247,17 @@ from ddstore_tpu_torch.models import vae as tvae
 from ddstore_tpu_torch.models.transformer import param_digest
 from ddstore_tpu_torch.ops import _build, attention
 from ddstore_tpu_torch.ops.xent import fused_linear_xent
-from ddstore_tpu_torch.parallel import (global_shuffle_epoch,
+from ddstore_tpu_torch.parallel import (collectives, data_axes,
+                                        global_shuffle_epoch,
                                         host_global_shuffle, make_mesh,
                                         permute_rows, ring_attention)
+from ddstore_tpu_torch.parallel.collectives import collective_stats
 from ddstore_tpu_torch.parallel.ring_attention import _shift as _ring_shift
 from ddstore_tpu_torch.parallel.ring_attention import ring_shift_stats
 from ddstore_tpu_torch.rendezvous import FileGroup, TorchGroup
 from ddstore_tpu_torch.store import DDStore, DDStoreError
 from ddstore_tpu_torch.utils import checkpoint, profile as uprofile
+from ddstore_tpu_torch.weights import to_flax
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): the bound of
 # a kernel is max(bytes / memory rate, operations / peak rate).
@@ -350,6 +378,25 @@ LONG_LOSS_TOL, LONG_GRAD_TOL = 2e-2, 2e-2
 # relative errors in the plain version too (0.19 in dq on an H100); the
 # kernel checks hold it to its plain version.
 RING_BAND_FACTOR, RING_ROW_FACTOR = 2.0, 16.0
+# The MoE and model-parallel phase (12): (a) the LM above with 8 experts
+# and top-2 routing (the reference's MoE block, models/moe.py), one
+# process at (8, 2048), 2 warm-up and 4 counted Adam steps (lr 1e-3), the
+# first step's loss against the same step in f32 through the plain
+# attention at the small model's bf16 loss tolerance (phase 4); (b) two
+# rank processes on the one card over gloo (DDSTORE_CMA=0 as phases
+# 7-11), each layout at B 2, 1 warm-up and 3 counted steps, held to one
+# process's step at phase 11's tolerances: the loss, each gradient's L2
+# error over its norm, and each updated parameter's; a leaf that is zero
+# before the step (a bias) holds Adam's first update, +-lr wherever its
+# gradient is not near 0, so it is held by the share of its elements
+# that the step moves the other way from one process's (bf16 rounds the
+# gradients near 0 to either sign: 0.29 % at tp 2 on an H100 at 700 W).
+MOE_EXPERTS, MOE_TOP_K, MOE_WARMUP, MOE_STEPS = 8, 2, 2, 4
+MOE_LOSS_TOL = 2e-2
+LAYOUT_RANKS, LAYOUT_BATCH, LAYOUT_WARMUP, LAYOUT_STEPS = 2, 2, 1, 3
+LAYOUT_FLIP_TOL = 0.02
+LAYOUTS = (("ep2", {"ep": 2}, True), ("tp2", {"tp": 2}, False),
+           ("fsdp2", {"fsdp": 2}, False))
 LONG_BAND = 256
 LONG_REF_BLOCK = 1024  # queries per block of the f32 reference
 
@@ -1155,7 +1202,7 @@ def _store_rank(phase, rank, world, port, seed):
     store = DDStore(group, backend="tcp")
     try:
         train = {"vae": _vae_train, "gnn": _gnn_train,
-                 "long": _long_rank}[phase]
+                 "long": _long_rank, "layouts": _layouts_rank}[phase]
         out = train(rank, group, store, torch.device("cuda", 0), seed)
         out["transport"] = store.transport_facts()
         out["cma_ops"] = store.cma_ops
@@ -3143,16 +3190,20 @@ def long_single(dev, seed, card):
     return runs
 
 
-def long_chunk_kernels(dev):
+def long_chunk_kernels(dev, b=LONG_BATCH, h=HEADS, c=LONG_SEQ // LONG_SP,
+                       chunks=None, label="the ring's"):
     """The three kernels at the ring's chunk shapes ((2, 16, 4096, 64)
     bf16 on the main path's layout): the diagonal chunk (causal) and the
     past chunk (q_offset 4096, kv_offset 0: every pair live, no block
     masked), each held row by row against its plain version on the same
     inputs with a random lse cotangent, as the ring's steps get one;
     timed against the plain versions and SDPA at the same mask (is_causal
-    True and False), with their bounds."""
+    True and False), with their bounds. ``b``, ``h``, ``c`` and
+    ``chunks`` ((name, q_offset, SDPA's is_causal) each) give other
+    shapes: tensor parallelism's ``H / tp`` heads at the whole
+    sequence."""
     g = torch.Generator(device=dev).manual_seed(99)
-    b, h, c, d = LONG_BATCH, HEADS, LONG_SEQ // LONG_SP, DIM // HEADS
+    d = DIM // HEADS
     dim = h * d
     base = torch.randn((b, c, 3 * dim), generator=g, device=dev) \
         .to(torch.bfloat16).requires_grad_()
@@ -3165,7 +3216,8 @@ def long_chunk_kernels(dev):
     which_of = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv")}
     res = {}
     tol = ROW_REL_TOL["bfloat16"]
-    for chunk, qo, causal_sdpa in (("diagonal", 0, True), ("past", c, False)):
+    for chunk, qo, causal_sdpa in chunks or (("diagonal", 0, True),
+                                             ("past", c, False)):
         kw = dict(causal=True, q_offset=qo, kv_offset=0, scale=d ** -0.5)
         # the lse cotangent every ring step's backward gets
         dlse = torch.randn((b, h, c), generator=g, device=dev)
@@ -3195,11 +3247,11 @@ def long_chunk_kernels(dev):
                                                     dead[which])
             errs[which + "_abs"], errs[which] = e_abs, e_rel
             check(nonzero_dead == 0 and e_rel <= tol,
-                  f"ring's {chunk} chunk: {which} disagrees with the plain "
+                  f"{label} {chunk}: {which} disagrees with the plain "
                   f"version ({e_rel:.3e} per row > {tol}, or {nonzero_dead} "
                   f"dead rows not 0)")
         check(errs["lse_abs"] <= TOL["bfloat16"][1],
-              f"ring's {chunk} chunk: lse {errs['lse_abs']:.3e}")
+              f"{label} {chunk}: lse {errs['lse_abs']:.3e}")
         del got, want, want_out, want_lse
         sd_out = sdpa(ql, kl, vl, is_causal=causal_sdpa)
         fns = {
@@ -3244,7 +3296,7 @@ def long_chunk_kernels(dev):
                 "max_abs_err": max(errs[w + "_abs"] for w in which_of[kind]),
                 "max_row_rel_err": max(errs[w] for w in which_of[kind])}
         res[chunk] = row
-        print(f"kernels at the ring's {chunk} chunk (B,H,S,D)=({b},{h},{c},"
+        print(f"kernels at {label} {chunk} (B,H,S,D)=({b},{h},{c},"
               f"{d}) bf16 q_offset={qo}, dlse random: against the plain "
               f"versions {json.dumps(errs)} (per row {tol}, lse "
               f"{TOL['bfloat16'][1]}); " + "; ".join(
@@ -3370,18 +3422,492 @@ def phase_long(dev, seed, card):
                                  for r in ranks]}
 
 
-def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc):
+# ---------------------------------------------------------------------------
+# Phase 12: MoE with expert parallelism, Megatron TP and FSDP/ZeRO-3
+# (ROADMAP items 13 and 14).
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The LM's attention through its plain version (``mha_reference``)
+    instead of the kernels, for a reference run on the card."""
+    saved = ttr.flash_attention
+
+    def plain(q, k, v, causal=False, **kw):
+        return attention.mha_reference(q, k, v, causal=causal, **kw)
+
+    ttr.flash_attention = plain
+    try:
+        yield
+    finally:
+        ttr.flash_attention = saved
+
+
+def moe_model(dev, seed, dtype=torch.bfloat16, mesh=None):
+    model = ttr.TransformerLM(vocab=VOCAB, dim=DIM, heads=HEADS,
+                              layers=LAYERS, compute_dtype=dtype, device=dev,
+                              mesh=mesh, n_experts=MOE_EXPERTS,
+                              moe_top_k=MOE_TOP_K)
+    return model.init_weights(torch.Generator(device=dev).manual_seed(seed))
+
+
+def moe_flops_per_step(b, s):
+    """Routed model FLOPs of one MoE train step, counted as
+    :func:`lm_flops_per_step` counts the dense one but with the MLP's
+    16Td^2 a layer replaced by the router (2TdE) and k experts a token
+    (k x 16Td^2): the work the routing asks for, not the capacity-padded
+    buffers the experts run over."""
+    t = b * s
+    fwd = LAYERS * (8 * t * DIM * DIM + 2 * t * DIM * MOE_EXPERTS
+                    + MOE_TOP_K * 16 * t * DIM * DIM + 2 * b * s * s * DIM) \
+        + 2 * t * DIM * VOCAB
+    return 3 * fwd
+
+
+def moe_routing_stats(model):
+    """Per layer: tokens routed to each expert (all k choices), the drop
+    share and the aux of the model's last forward."""
+    out = []
+    for blk in model.blocks:
+        st = blk.moe.stats
+        routed = st["routed"].tolist()
+        out.append({"routed": routed,
+                    "drop_share": 1 - float(st["kept"].sum())
+                    / max(1, sum(routed)),
+                    "aux": float(st["aux"])})
+    return out
+
+
+def phase_moe(dev, seed, ds, card):
+    """Phase 12 (a): the MoE LM at full width, one process, store-fed."""
+    print(f"moe: TransformerLM({VOCAB}, {DIM}, {HEADS}, {LAYERS}, bf16) with "
+          f"{MOE_EXPERTS} experts, top-{MOE_TOP_K}, at ({BATCH}, {SEQ})",
+          flush=True)
+    loader = DeviceLoader(ds, DistributedSampler(WINDOWS, 1, 0,
+                                                 seed=seed + 30),
+                          BATCH, device=dev)
+    model = moe_model(dev, seed + 30)
+    n_params = sum(p.numel() for p in model.parameters())
+    state, opt = ttr.create_train_state(model, lr=TRAIN_LR)
+    step = ttr.make_train_step(model, opt, state=state)
+    positions = torch.arange(SEQ, dtype=torch.int32,
+                             device=dev).expand(BATCH, SEQ)
+    batches = iter(loader)
+    tok, tgt = next(batches)
+    # the first step's loss against the same weights in f32 on the card
+    # through the plain attention
+    ref = moe_model(dev, seed + 30, torch.float32)
+    with torch.no_grad(), plain_attention():
+        ref_loss = float(ttr.lm_loss(ref, tok, tgt, positions))
+    pad = moe_padding_check(ref, tok)
+    del ref
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()  # count the main path alone
+    t_start = time.perf_counter()
+    losses, step_s = [], []
+    for i in range(MOE_WARMUP + MOE_STEPS):
+        if i:
+            tok, tgt = next(batches)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, positions)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+    routing = moe_routing_stats(model)
+    prompts = next(batches)[0]
+    batches.close()
+    train_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    stats = {}
+    out = tdec.generate(model, prompts, NEW_TOKENS, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts()
+    steps = MOE_WARMUP + MOE_STEPS
+    want = {"flash_fwd": LAYERS * (steps + 1),
+            "flash_bwd_dq": LAYERS * steps, "flash_bwd_dkv": LAYERS * steps}
+    med = float(np.median(step_s[MOE_WARMUP:]))
+    flops = moe_flops_per_step(BATCH, SEQ)
+    msg = (f"moe train | {card}: {n_params / 1e6:.1f} M params; first step "
+           f"loss {losses[0]:.6f} against f32 with plain attention "
+           f"{ref_loss:.6f} (tol {MOE_LOSS_TOL}); losses {losses}; step ms "
+           f"{[round(x * 1e3, 3) for x in step_s]}; median after "
+           f"{MOE_WARMUP} warm-up {med * 1e3:.3f} ms = "
+           f"{BATCH * SEQ / med:.1f} tokens/s; routed FLOPs {flops:.4e} a "
+           f"step (k = {MOE_TOP_K} experts a token), MFU "
+           f"{flops / med / PEAK_BF16_FLOPS:.4f} of {PEAK_BF16_FLOPS:.3e}; "
+           f"peak memory (train) {train_peak:.3f} GiB; input_pipeline_"
+           f"efficiency {loader.metrics.efficiency:.4f}")
+    print(msg, flush=True)
+    check(all(math.isfinite(x) for x in losses), msg)
+    check(abs(losses[0] - ref_loss) <= MOE_LOSS_TOL, msg)
+    check(state.step == steps, f"moe state.step {state.step}")
+    for i, r in enumerate(routing):
+        print(f"moe routing layer {i} (last step, {BATCH * SEQ} tokens x "
+              f"{MOE_TOP_K}): routed per expert {r['routed']}, drop share "
+              f"{r['drop_share']:.4f}, aux {r['aux']:.5f}", flush=True)
+        check(sum(r["routed"]) == BATCH * SEQ * MOE_TOP_K,
+              f"moe layer {i}: {sum(r['routed'])} assignments")
+    first = out[:, SEQ]
+    with torch.no_grad():
+        full = model(prompts, positions)[:, -1].argmax(-1)
+    msg = (f"moe serve | {card}: generate {tuple(out.shape)}; prefill "
+           f"{stats['prefill_s']:.4f} s = "
+           f"{BATCH * SEQ / stats['prefill_s']:.1f} tokens/s (one sample, "
+           f"cache allocation included); decode "
+           f"{stats['decode_s'] / stats['decode_steps'] * 1e3:.3f} ms per "
+           f"step ({BATCH} sequences); first token equal to the full "
+           f"forward's argmax {int((first == full).sum())}/{BATCH}; "
+           f"launches {launches} (want {want}); wall {wall:.3f} s")
+    print(msg, flush=True)
+    check(torch.equal(first, full), msg)
+    check(launches == want, msg)
+    del full
+    dec = moe_decode_variants(model, dev)
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "median_ms": med * 1e3,
+            "tokens_per_s": BATCH * SEQ / med,
+            "mfu": flops / med / PEAK_BF16_FLOPS, "peak_gib": train_peak,
+            "routing": routing, "pad": pad, "decode_variants": dec}
+
+
+def moe_padding_check(model, prompts):
+    """``generate`` with ``prompt_lengths`` on 2 prompts of SEQ / 2 real
+    tokens (1,024), padded to 3/4 SEQ and to SEQ: the prefill's routing
+    (tokens routed to each expert, every layer) and the new tokens must not
+    change with the padding. On the f32 model (the kernels in f32): in
+    bf16 the products' rounding may differ with the row count, and a
+    token near a tie between two experts would then flip whatever the
+    padding."""
+    real, runs = SEQ // 2, {}
+    for total in (SEQ * 3 // 4, SEQ):
+        p = prompts[:2, :total].clone()
+        p[:, real:] = VOCAB - 1
+        toks = tdec.generate(model, p, 8, prompt_lengths=[real, real])
+        runs[total] = (toks[:, total:], [b.moe.stats["routed"].tolist()
+                                         for b in model.blocks])
+    (ta, ra), (tb, rb) = runs.values()
+    msg = (f"moe prefill with prompt_lengths (f32): 2 prompts of {real} "
+           f"tokens padded to {list(runs)}: new tokens equal "
+           f"{bool(torch.equal(ta, tb))}, routing equal {ra == rb} (layer 0 "
+           f"routed {ra[0]})")
+    print(msg, flush=True)
+    check(torch.equal(ta, tb) and ra == rb, msg)
+    return {"tokens_equal": True, "routing_equal": True}
+
+
+def moe_decode_gather(moe, h):
+    """The decode step's MoE the other way (a yardstick, not the port's
+    path): each token's k experts' weights gathered and run alone; the
+    same function as ``decode.moe_decode``."""
+    dt, k = moe.compute_dtype, moe.top_k
+    b, d = h.shape
+    probs = torch.softmax(h.float() @ moe.router.weight.float().t(), -1)
+    topv, topi = torch.topk(probs, k, dim=-1)
+    gates = topv if k == 1 else topv / topv.sum(-1, keepdim=True)
+    e = topi.reshape(-1)
+    x = h.to(dt).repeat_interleave(k, 0)[:, None]
+    he = torch.relu(torch.bmm(x, moe.w1[e].to(dt))
+                    + moe.b1[e][:, None].to(dt))
+    oe = (torch.bmm(he, moe.w2[e].to(dt))
+          + moe.b2[e][:, None].to(dt))[:, 0].view(b, k, d)
+    return (oe.float() * gates[..., None]).sum(1).to(dt)
+
+
+def moe_decode_variants(model, dev):
+    """The decode step's MoE at batch 8 both ways: every expert on every
+    token (``decode.moe_decode``, the port's) and a gather of each
+    token's k experts' weights; the same output, timed in turns."""
+    moe = model.blocks[0].moe
+    g = torch.Generator(device=dev).manual_seed(3)
+    h = torch.randn((BATCH, DIM), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    fns = {"all_experts": lambda: tdec.moe_decode(moe, h),
+           "gather": lambda: moe_decode_gather(moe, h)}
+    with torch.no_grad():
+        err = float((fns["all_experts"]().float()
+                     - fns["gather"]().float()).abs().max())
+        t = {n: [] for n in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for n in order:
+                t[n].append(time_ms(fns[n], 20))
+    ms = {n: sum(x) / len(x) for n, x in t.items()}
+    print(f"moe decode step's MoE at batch {BATCH} (one layer): all experts "
+          f"{ms['all_experts']:.4f} ms, gather of each token's "
+          f"{MOE_TOP_K} {ms['gather']:.4f} ms (rounds {json.dumps(t)}); "
+          f"max abs difference {err:.3e}", flush=True)
+    check(err <= 2e-2, f"moe decode variants differ by {err}")
+    return ms
+
+
+def layout_store(store, rank, seed):
+    """This rank's half of the slices' windows (``make_store``'s corpus)
+    in the TCP store."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, VOCAB, size=64)
+    corpus = np.tile(base, WINDOWS * SEQ // 64 + 2)
+    starts = rng.integers(0, len(corpus) - SEQ - 1, size=WINDOWS)
+    counts = nsplit(WINDOWS, store.world)
+    lo = sum(counts[:rank])
+    at = starts[lo:lo + counts[rank], None] + np.arange(SEQ)
+    return ShardedDataset(store, corpus[at].astype(np.int32),
+                          corpus[at + 1].astype(np.int32), pre_sharded=True)
+
+
+def _grads_at_step(model, opt):
+    """The gathered gradients (``weights.to_flax``, a collective) of the
+    next time ``opt`` steps, in ``seen``; the hook then removes itself
+    (no reference cycle keeps the model and its optimizer alive)."""
+    seen = {}
+
+    def hooked(*a, **k):
+        seen["grads"] = to_flax({n: p.grad
+                                 for n, p in model.named_parameters()})
+        del opt.step
+        return opt.step(*a, **k)
+
+    opt.step = hooked
+    return seen
+
+
+def _flat_tree(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _worst_rel(got, want, only=None):
+    """(worst L2 error over L2 norm, its leaf) of two flat trees, over
+    the leaves ``only`` names (default all)."""
+    worst, name = 0.0, ""
+    for k, w in want.items():
+        if only is not None and k not in only:
+            continue
+        w64 = np.asarray(w, np.float64)
+        e = float(np.linalg.norm(np.asarray(got[k], np.float64) - w64)
+                  / max(np.linalg.norm(w64), 1e-30))
+        if e > worst:
+            worst, name = e, k
+    return worst, name
+
+
+def _worst_flip(got, want, before, only):
+    """(worst share of elements the step moved the other way from
+    ``want``'s step, its leaf), over the leaves ``only`` names."""
+    worst, name = 0.0, ""
+    for k in only:
+        a = np.sign(np.asarray(got[k]) - before[k])
+        b = np.sign(np.asarray(want[k]) - before[k])
+        share = float((a != b).mean())
+        if share > worst:
+            worst, name = share, k
+    return worst, name
+
+
+def layout_collectives(name, mesh, dev):
+    """The layout's collectives timed alone, at the main path's sizes
+    (host clock; gloo is synchronous): ep, the per-assignment expert
+    outputs summed over ep (k x B x S x dim f32); tp, a row-parallel
+    product's output summed over tp (B x S x dim f32); fsdp, one block's
+    f32 parameters all-gathered and their gradients reduce-scattered
+    (through pinned host memory)."""
+    t = LAYOUT_BATCH * SEQ
+    if name == "ep2":
+        x = torch.zeros((MOE_TOP_K * t, DIM), device=dev)
+        g = mesh.get_group("ep")
+        return {"all_reduce_moe_out_ms": median_ms(
+            lambda: collectives.all_reduce(x, g), 5),
+            "bytes": x.numel() * 4}
+    if name == "tp2":
+        x = torch.zeros((t, DIM), device=dev)
+        g = mesh.get_group("tp")
+        return {"all_reduce_row_parallel_ms": median_ms(
+            lambda: collectives.all_reduce(x, g), 5),
+            "bytes": x.numel() * 4}
+    n = 12 * DIM * DIM + 4 * DIM * 2 + 5 * DIM  # one dense block, f32
+    n -= n % 2
+    g = mesh.get_group("fsdp")
+    full = torch.zeros(n, device=dev)
+    half = torch.zeros(n // 2, device=dev)
+    return {"all_gather_block_ms": median_ms(
+        lambda: collectives.all_gather_into(full, half, g), 5),
+        "reduce_scatter_block_ms": median_ms(
+            lambda: collectives.reduce_scatter(half, full, g), 5),
+        "bytes": full.numel() * 4}
+
+
+def layout_run(rank, group, ds, dev, seed, name, axes, moe):
+    """One layout: LAYOUT_WARMUP + LAYOUT_STEPS steps of the full-width LM
+    (the MoE one for ``moe``) placed over ``make_mesh(axes)`` on the two
+    ranks, store-fed through ``DeviceLoader(spec=...)``; the first step's
+    loss, gathered gradients and gathered parameters against one
+    process's step from the same weights and batch on rank 0."""
+    mesh = make_mesh(axes)
+    make = moe_model if moe else long_model
+    model = make(dev, seed + 40)
+    state, opt = ttr.create_train_state(model, lr=TRAIN_LR, mesh=mesh)
+    step = ttr.make_train_step(model, opt, state=state)
+    seen = _grads_at_step(model, opt)
+    data = data_axes(mesh)
+    slots, slot = (2, rank) if data else (1, 0)
+    per = LAYOUT_BATCH // slots
+    loader = DeviceLoader(ds, DistributedSampler(len(ds), slots, slot,
+                                                 seed=seed + 40),
+                          per, device=dev, mesh=mesh, spec=(data,))
+    pos = torch.arange(SEQ, dtype=torch.int32, device=dev).expand(per, SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    collective_stats.update(calls=0, bytes=0)
+    losses, step_s = [], []
+    batches = iter(loader)
+    for i in range(LAYOUT_WARMUP + LAYOUT_STEPS):
+        tok, tgt = next(batches)
+        if i == 0:
+            first = (tok, tgt)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, pos)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+        if i == 0:
+            params = to_flax(model)
+            calls = dict(collective_stats)
+    batches.close()
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_s": step_s,
+           "launches": launch_counts(), "steps": state.step,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "collectives_first_step": calls,
+           "efficiency": loader.metrics.efficiency,
+           "placements": {n: [tuple(p.to_local().shape),
+                              str(tuple(p.placements))]
+                          for n, p in list(model.named_parameters())[:8]
+                          if hasattr(p, "placements")}}
+    grads = seen["grads"]
+    # the global batch of the first step, for the reference
+    if data:
+        parts = [[torch.empty_like(t.cpu()) for _ in range(2)]
+                 for t in first]
+        for p, t in zip(parts, first):
+            dist.all_gather(p, t.cpu())
+        first = tuple(torch.cat(p).to(dev) for p in parts)
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    out["alone"] = layout_collectives(name, mesh, dev)
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        ref = make(dev, seed + 40)
+        before = _flat_tree(to_flax(ref))
+        _, ropt = ttr.create_train_state(ref, lr=TRAIN_LR)
+        rseen = _grads_at_step(ref, ropt)
+        full_pos = torch.arange(SEQ, dtype=torch.int32,
+                                device=dev).expand(LAYOUT_BATCH, SEQ)
+        ref_loss = float(ttr.make_train_step(ref, ropt)(*first, full_pos))
+        out["one_process_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rgrads = _flat_tree(rseen["grads"])
+        rparams = _flat_tree(to_flax(ref))
+        del ref, ropt
+        torch.cuda.empty_cache()
+        out["ref_loss"] = ref_loss
+        out["worst_grad"] = _worst_rel(_flat_tree(grads), rgrads)
+        # the leaves zero before the step hold Adam's +-lr alone, whose
+        # sign is what a step can get wrong; the others by their values
+        zero = {k for k, v in before.items() if not np.any(v)}
+        flat = _flat_tree(params)
+        out["worst_param"] = _worst_rel(flat, rparams, set(before) - zero)
+        out["worst_flip"] = _worst_flip(flat, rparams, before, zero)
+    del grads, params
+    dist.barrier()
+    return out
+
+
+def _layouts_rank(rank, group, store, dev, seed):
+    t0 = time.perf_counter()
+    ds = layout_store(store, rank, seed)
+    out = {"setup_s": time.perf_counter() - t0}
+    for name, axes, moe in LAYOUTS:
+        out[name] = layout_run(rank, group, ds, dev, seed, name, axes, moe)
+    return out
+
+
+def phase_layouts(seed, card, moe_peak_gib):
+    """Phase 12 (b): the ep2, tp2 and fsdp2 layouts on two ranks."""
+    print(f"layouts: {LAYOUT_RANKS} rank processes on cuda:0 (gloo), "
+          f"{', '.join(n for n, _, _ in LAYOUTS)} at B {LAYOUT_BATCH}, S "
+          f"{SEQ}; {WINDOWS} windows in a TCP store", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks("layouts", LAYOUT_RANKS, seed)
+    wall = time.perf_counter() - t0
+    res = {}
+    for name, axes, moe in LAYOUTS:
+        per = [r[name] for r in ranks]
+        r0 = per[0]
+        med = max(float(np.median(x["step_s"][LAYOUT_WARMUP:]))
+                  for x in per)
+        msg = (f"layout {name} ({axes}, {'MoE' if moe else 'dense'} LM) | "
+               f"{card}: losses {r0['losses']}; step ms per rank "
+               f"{[[round(s * 1e3, 3) for s in x['step_s']] for x in per]}"
+               f"; median after {LAYOUT_WARMUP} warm-up {med * 1e3:.3f} ms "
+               f"= {LAYOUT_BATCH * SEQ / med:.1f} tokens/s; first step loss "
+               f"{r0['losses'][0]:.6f} against one process "
+               f"{r0['ref_loss']:.6f} (tol {LONG_LOSS_TOL}); worst "
+               f"gradient L2 error over its norm {r0['worst_grad'][0]:.3e} "
+               f"({r0['worst_grad'][1]}), worst updated parameter "
+               f"{r0['worst_param'][0]:.3e} ({r0['worst_param'][1]}) (tol "
+               f"{LONG_GRAD_TOL}); zero-initialised leaves' share moved "
+               f"the other way {r0['worst_flip'][0]:.4f} "
+               f"({r0['worst_flip'][1]}; tol {LAYOUT_FLIP_TOL}); peak GiB "
+               f"per rank "
+               f"{[round(x['peak_bytes'] / 2**30, 3) for x in per]} beside "
+               f"one process's "
+               f"{r0['one_process_peak_bytes'] / 2**30:.3f}"
+               + (f" (the MoE LM at B {BATCH}: {moe_peak_gib:.3f})"
+                  if moe else "")
+               + f"; first step's collectives per rank "
+               f"{[x['collectives_first_step'] for x in per]}; alone "
+               f"{[x['alone'] for x in per]}; launches "
+               f"{[x['launches'] for x in per]}; placements (rank 0) "
+               f"{json.dumps(r0['placements'])}")
+        print(msg, flush=True)
+        check(all(math.isfinite(v) for x in per for v in x["losses"]), msg)
+        check(per[0]["losses"] == per[1]["losses"], msg)
+        check(abs(r0["losses"][0] - r0["ref_loss"]) <= LONG_LOSS_TOL, msg)
+        check(r0["worst_grad"][0] <= LONG_GRAD_TOL and
+              r0["worst_param"][0] <= LONG_GRAD_TOL and
+              r0["worst_flip"][0] <= LAYOUT_FLIP_TOL, msg)
+        n = LAYERS * (LAYOUT_WARMUP + LAYOUT_STEPS)
+        want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        check(all(x["launches"] == want for x in per), msg)
+        check(all(x["steps"] == LAYOUT_WARMUP + LAYOUT_STEPS for x in per),
+              msg)
+        res[name] = {"median_ms": med * 1e3,
+                     "tokens_per_s": LAYOUT_BATCH * SEQ / med,
+                     "launches": {k: sum(x["launches"][k] for x in per)
+                                  for k in want}}
+    print(f"layouts phase wall {wall:.1f} s (rank processes)", flush=True)
+    return res
+
+
+def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them; the
     long-context ring's launches (both ranks, remat off; and per rank),
-    and each kernel at the ring's chunk shapes."""
+    each kernel at the ring's chunk shapes, and at tensor parallelism's
+    heads (phase 12)."""
     by_path = {k: {"serving": sl["launches"][k], "training": v,
                    "vae_ddp": va["launches"][k],
                    "gnn_ddp": gn["launches"][k],
                    "vae_collective": va["collective_launches"][k],
                    "collective_nccl": co["launches"][k],
                    "elastic": el["launches"][k],
-                   "long_context": lc["launches"][k]}
+                   "long_context": lc["launches"][k],
+                   "moe": mo["launches"][k],
+                   **{f"layout_{n}": lay[n]["launches"][k]
+                      for n, _, _ in LAYOUTS}}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -3426,6 +3952,7 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc):
                                         for r in lc["launches_by_rank"]]
         row["ring_chunks"] = {c: lc["chunks"][c][row["name"]]
                               for c in ("diagonal", "past")}
+        row["tp_heads"] = tpk["tp_heads"][row["name"]]
     return {"kernels": rows, "sdpa_backward_ms": bwd["ms"]["sdpa_backward"],
             "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"]}
 
@@ -3494,8 +4021,19 @@ def main() -> int:
     el = phase_elastic(args.seed, card)
     lc = phase_long(dev, args.seed, card)
 
-    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc)),
-          flush=True)
+    # 12. MoE, expert and tensor parallelism, FSDP/ZeRO-3
+    t12 = time.perf_counter()
+    store, ds = make_store(args.seed)
+    mo = phase_moe(dev, args.seed, ds, card)
+    store.close()
+    lay = phase_layouts(args.seed, card, mo["peak_gib"])
+    tpk = long_chunk_kernels(dev, b=LAYOUT_BATCH, h=HEADS // 2, c=SEQ,
+                             chunks=(("tp_heads", 0, True),),
+                             label="tp 2's heads")
+    print(f"phase 12 wall {time.perf_counter() - t12:.1f} s", flush=True)
+
+    print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
+                                  lay, tpk)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,12 +40,16 @@ is the other). Before each exchange the ranks agree on a staged-ok flag
 (one integer ``all_reduce(MIN)``), so a rank whose staging failed never
 strands the others in the exchange.
 
-With ``mesh`` and ``spec=("dp", "sp")`` (the reference's ``P("dp",
-"sp")`` placement of a token batch) the sampler gives this dp slot's
-rows, and the loader stages only this rank's sequence chunk of each row,
-``[j * S/sp, (j + 1) * S/sp)`` for its position ``j`` along ``sp``: the
-rows are read whole, and the chunk alone is copied into the pinned
-buffer and on to the card.
+With ``mesh`` and a ``spec`` (the reference's ``PartitionSpec`` of a
+token batch, ``(batch axes, sequence axis)``) the sampler gives the rows
+of this rank's data slot (its position along the batch axes, ``dp`` and
+``fsdp``: ``data_axes``), and with a sequence axis, ``("dp", "sp")``, the
+loader stages only this rank's chunk of each row, ``[j * S/sp, (j + 1) *
+S/sp)`` for its position ``j`` along ``sp``: the rows are read whole,
+and the chunk alone is copied into the pinned buffer and on to the card.
+Ranks along the axes the spec does not name (``tp``, ``ep``) read the
+same rows, as the reference replicates a batch over them; nothing is
+broadcast.
 
 Over a store that has them, the loader wires the store's counters into
 ``metrics.summary()`` (scatter plan, faults, failover, tenants,
@@ -175,14 +179,17 @@ class DeviceLoader:
         ``collective_fallback_reason``.
     group: the ``torch.distributed`` process group the exchange runs on
         (default: the world).
-    mesh / spec: the SPMD placement of each batch. ``spec=("dp", "sp")``
-        with a :func:`~ddstore_tpu_torch.parallel.mesh.make_mesh` mesh
-        stages this rank's sequence chunk of every row (the sampler gives
-        the rows of this rank's dp slot; ``batch_size`` is that slot's
-        batch), and :meth:`seq_positions` gives the chunk's global
-        positions. ``("dp",)`` (or no spec) stages whole rows. Any other
-        spec shards over axes whose placements need tensor parallelism
-        (ROADMAP item 14), and raises.
+    mesh / spec: the SPMD placement of each batch, ``(batch, sequence)``
+        with a :func:`~ddstore_tpu_torch.parallel.mesh.make_mesh` mesh:
+        the batch entry is ``None``, a data axis (``"dp"``, ``"fsdp"``)
+        or a tuple of them (the sampler gives the rows of this rank's
+        slot along them; ``batch_size`` is that slot's batch); a
+        sequence entry names the mesh axis the rows are split over
+        (``("dp", "sp")``): this rank's chunk of every row is staged, and
+        :meth:`seq_positions` gives the chunk's global positions. Without
+        one (``("dp",)``, ``(("dp", "fsdp"),)`` or no spec) whole rows
+        are staged, on every rank along the other axes alike. A spec that
+        puts the batch on a model axis raises ``NotImplementedError``.
     """
 
     def __init__(self, dataset, sampler: Iterable[int], batch_size: int,
@@ -234,7 +241,7 @@ class DeviceLoader:
             self.metrics.set_sched_source(self.sched.snapshot)
         self.device_collective = bool(device_collective)
         self.group = group
-        # this rank's [lo, hi) of each row under spec ("dp", "sp")
+        # this rank's [lo, hi) of each row under a spec that splits them
         self.seq_range: Optional[tuple] = self._seq_range_of(mesh, spec)
         self.collective_fallback_reason: Optional[str] = None
         self._share = (0, 1)  # (rank, world) of each global batch's slice
@@ -286,24 +293,31 @@ class DeviceLoader:
                 setter(getattr(store, name))
 
     def _seq_range_of(self, mesh, spec):
-        """This rank's ``[lo, hi)`` of each row for ``spec=("dp",
-        "sp")``, else None. Raises on a spec the port cannot place."""
-        spec = None if spec is None else tuple(spec)
-        if spec in (None, ("dp",), ("dp", None)):
-            return None
-        if spec != ("dp", "sp"):
+        """This rank's ``[lo, hi)`` of each row when ``spec``'s second
+        entry splits the rows over a mesh axis, else None. Raises on a
+        spec the port cannot place."""
+        spec = () if spec is None else tuple(spec)
+        batch = spec[0] if spec else None
+        names = (batch,) if isinstance(batch, str) else tuple(batch or ())
+        bad = [a for a in names if a not in ("dp", "fsdp")]
+        if bad or len(spec) > 2:
             raise NotImplementedError(
-                f"spec {spec}: the port places batches over ('dp',) and "
-                f"('dp', 'sp'); other placements need ROADMAP item 14")
+                f"spec {spec}: the port places a batch's rows over the data "
+                f"axes ('dp', 'fsdp') and its sequence over one mesh axis")
+        axis = spec[1] if len(spec) == 2 else None
+        if axis is None:
+            return None
         from ..parallel.mesh import axis_index, axis_size
 
         if mesh is None or not hasattr(self.dataset, "specs"):
-            raise ValueError("spec ('dp', 'sp') needs a mesh and a dataset "
-                             "with specs() (fixed-width rows)")
+            raise ValueError(f"spec {spec} needs a mesh and a dataset with "
+                             f"specs() (fixed-width rows)")
+        if axis not in (mesh.mesh_dim_names or ()):
+            raise ValueError(f"spec {spec}: the mesh has no {axis!r} axis")
         if self.device_collective:
-            raise ValueError("spec ('dp', 'sp') stages sequence chunks; the "
-                             "device-collective fetch delivers whole rows")
-        sp, j = axis_size(mesh, "sp"), axis_index(mesh, "sp")
+            raise ValueError(f"spec {spec} stages sequence chunks; the "
+                             f"device-collective fetch delivers whole rows")
+        sp, j = axis_size(mesh, axis), axis_index(mesh, axis)
         widths = {shape[0] for shape, _ in self.dataset.specs()}
         if len(widths) != 1 or next(iter(widths)) % sp:
             raise ValueError(f"rows of widths {sorted(widths)} do not split "

@@ -1,6 +1,7 @@
 """Long-context LM training: store-fed token windows, a dp x sp mesh, ring
-attention and rematerialized blocks (the port of
-``examples/lm_longcontext.py``, its dp x sp path).
+attention and rematerialized blocks, with tensor parallelism and an
+expert-parallel MoE (the port of ``examples/lm_longcontext.py``; its
+pipeline path is a later slice).
 
 Sequences are sharded across the ``sp`` axis of the mesh, so each rank
 holds ``S/sp`` of every window's activations; K/V chunks go round the
@@ -10,9 +11,11 @@ and stream through the loader, each rank staging only its sequence chunk
 of its dp slot's rows.
 
 The port runs one rank per device: with ``W`` ranks, ``dp = min(--dp,
-W)`` and ``sp = W // dp``. The sampler hands out dp slots' rows
-(``DistributedSampler(n, dp, dp_index)``), and the ranks of one dp slot
-read the same windows.
+W)``, ``--tp`` ranks split each block's heads and MLP, and the ranks left
+over, ``W // (dp * tp)``, go to ``ep`` when ``--experts`` asks for an MoE,
+else to ``sp`` (the reference's ``:106-127``). The sampler hands out dp
+slots' rows (``DistributedSampler(n, dp, dp_index)``), and the ranks of
+one dp slot read the same windows.
 
 Two processes on the CPU, through a file rendezvous (dp 1 x sp 2)::
 
@@ -26,7 +29,10 @@ On the card drop ``--device cpu`` and give heads of 64 or 128 features
 gloo (NCCL takes one card per rank), one rank per card uses NCCL.
 ``--accum-steps N`` trains the same batch in 1/N the activation memory;
 ``--generate N`` ends the run with a KV-cached greedy continuation of a
-training window's prefix, its prompt prefilled over the ring.
+training window's prefix, its prompt prefilled over the ring (on whole
+parameters gathered from the tensor and expert shards). ``--tp 2`` or
+``--experts 4 --moe-top-k 2`` over 2 ranks run those layouts; ``--pp``
+refuses (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -55,8 +61,8 @@ def main(argv=None) -> None:
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline stages (ROADMAP item 15: not ported)")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel axis size (ROADMAP item 14: not "
-                        "ported)")
+                   help="tensor-parallel axis size (splits each block's "
+                        "heads and MLP columns)")
     p.add_argument("--microbatches", type=int, default=2,
                    help="microbatches per step under --pp")
     p.add_argument("--schedule",
@@ -90,19 +96,18 @@ def main(argv=None) -> None:
                    help="nucleus sampling: smallest token set with "
                         "cumulative probability >= p")
     p.add_argument("--experts", type=int, default=0,
-                   help="MoE experts (ROADMAP item 13: not ported)")
+                   help="swap the MLP for an expert-parallel MoE with this "
+                        "many experts (sharded over the ranks left after "
+                        "dp * tp)")
     p.add_argument("--moe-top-k", type=int, default=1,
                    help="experts per token (1=Switch, 2=GShard)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     args = p.parse_args(argv)
-    for flag, value, item in (("--pp", args.pp > 1, 15),
-                              ("--tp", args.tp > 1, 14),
-                              ("--experts", args.experts > 0, 13)):
-        if value:
-            raise SystemExit(f"{flag} needs ROADMAP item {item}, which the "
-                             f"port does not have yet")
+    if args.pp > 1:
+        raise SystemExit("--pp needs ROADMAP item 15, which the port does "
+                         "not have yet")
 
     import numpy as np
     import torch
@@ -120,11 +125,15 @@ def main(argv=None) -> None:
 
     group, _, dev = launch(args.device)
     world, rank = group.size, group.rank
-    dp = min(args.dp, world)
-    if world % dp:
-        raise SystemExit(f"{world} ranks do not split into dp={dp} slots")
-    sp = world // dp
-    mesh = make_mesh({"dp": dp, "sp": sp}, dev.type) if world > 1 else None
+    dp, tp = min(args.dp, world), args.tp
+    if world % (dp * tp):
+        raise SystemExit(f"{world} ranks do not split into dp={dp} x "
+                         f"tp={tp}")
+    # the ranks left after dp x tp serve the experts, else the sequence
+    rest = world // (dp * tp)
+    ep, sp = (rest, 1) if args.experts else (1, rest)
+    axes = {"dp": dp, "ep": ep, "sp": sp, "tp": tp}
+    mesh = make_mesh(axes, dev.type) if world > 1 else None
     dp_index = axis_index(mesh, "dp")
 
     store = DDStore(group)
@@ -142,6 +151,7 @@ def main(argv=None) -> None:
     model = transformer.TransformerLM(
         vocab=args.vocab, dim=args.dim, heads=args.heads or args.dim // 32,
         layers=args.layers, compute_dtype=dtype, device=dev, mesh=mesh,
+        n_experts=args.experts, moe_top_k=args.moe_top_k,
         remat=args.remat or args.remat_policy is not None,
         remat_policy=args.remat_policy)
     model.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
@@ -187,6 +197,8 @@ def main(argv=None) -> None:
         if world > 1:
             dist.broadcast(first, 0)
         prompt = first[None, :plen]
+        if ep * tp > 1:  # decode on whole parameters
+            model = transformer.unshard(model)
         out = decode.generate(model, prompt, args.generate,
                               temperature=args.temperature,
                               generator=torch.Generator(device=dev)

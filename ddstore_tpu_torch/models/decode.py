@@ -1,5 +1,5 @@
 """Incremental (KV-cached) decoding for :class:`TransformerLM` (the port
-of ``ddstore_tpu/models/decode.py:38-349``, dense models).
+of ``ddstore_tpu/models/decode.py:38-349``).
 
 The prompt prefills in one full forward pass, which runs the
 flash-attention kernel on the card and returns every layer's K/V heads to
@@ -13,6 +13,20 @@ over the cache is plain PyTorch, as it was plain XLA in the reference
 
 Unlike the reference's immutable arrays, the cache is updated in place:
 one slot per layer per step, with no copy of the cache.
+
+MoE blocks decode with dropless per-token top-k routing (the reference's
+``decode.py:133-153``): each token's k experts with the training gates,
+no capacity. :func:`moe_decode` computes every expert on every token and
+combines each token's k, as the reference does: one read of each
+expert's weights. A gather of each token's k experts' weights computes
+the same function but reads B x k of them; at batch 8, top-2, it took
+2.6x as long on an H100 at 700 W (``PERF.md``). The prefill routes as
+training does, with ``token_mask`` from ``prompt_lengths`` and the
+capacity of the real token count (``:276-294``), so its routing does not
+depend on the padding.
+
+A placed model (tensor, expert or fully-sharded parameters) decodes
+through :func:`~ddstore_tpu_torch.models.transformer.unshard`.
 """
 
 from __future__ import annotations
@@ -26,9 +40,12 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import axis_index, axis_size
-from .transformer import TransformerLM, _refuse_unported_axes
+from .moe import default_capacity
+from .transformer import (TransformerLM, _layer_norm,
+                          _refuse_unported_axes)
 
-__all__ = ["init_cache", "decode_step", "filter_logits", "generate"]
+__all__ = ["init_cache", "decode_step", "filter_logits", "generate",
+           "moe_decode"]
 
 Cache = Dict[str, torch.Tensor]
 
@@ -75,6 +92,7 @@ def decode_step(model: TransformerLM, cache: Cache, pos, tokens: torch.Tensor,
                 <= slot)[None, None, None, :]
     else:
         live = live_mask[:, None, None, :]
+    _refuse_placed(model)
     for i, blk in enumerate(model.blocks):
         q, k, v = blk.qkv_heads(x)  # (B, H, 1, hd)
         cache["k"][i, :, :, slot] = k[:, :, 0]
@@ -86,8 +104,38 @@ def decode_step(model: TransformerLM, cache: Cache, pos, tokens: torch.Tensor,
         a = torch.softmax(s.masked_fill(~live, NEG_INF), dim=-1)
         out = torch.einsum("bhqk,bhkd->bhqd", a.to(dt).float(),
                            cache["v"][i].float())
-        x = blk.finish(x, out.to(dt))
+        x = blk.attend_out(x, out.to(dt))
+        if blk.n_experts > 0:
+            h = _layer_norm(blk.ln2, x).to(dt).reshape(b, model.dim)
+            x = x + moe_decode(blk.moe, h).reshape(b, 1, model.dim)
+        else:
+            x = blk.mlp(x)[0]
     return model.lmhead(x), cache
+
+
+def moe_decode(moe, h: torch.Tensor) -> torch.Tensor:
+    """Dropless top-k MoE for the (B, d) tokens of a decode step, in the
+    compute dtype: every expert on every token, then each token's k
+    outputs gated as in training (the raw router probability at k = 1,
+    renormalised over the k otherwise) and summed in f32
+    (``decode.py:140-153``)."""
+    dt = moe.compute_dtype
+    b, d = h.shape
+    probs = torch.softmax(h.float() @ moe.router.weight.float().t(), -1)
+    topv, topi = torch.topk(probs, moe.top_k, dim=-1)          # (B, k)
+    gates = topv if moe.top_k == 1 else topv / topv.sum(-1, keepdim=True)
+    x = h.to(dt)[None].expand(moe.n_experts, b, d)              # (E, B, d)
+    he = torch.relu(torch.bmm(x, moe.w1.to(dt)) + moe.b1[:, None].to(dt))
+    oe = torch.bmm(he, moe.w2.to(dt)) + moe.b2[:, None].to(dt)
+    oe = oe.transpose(0, 1).gather(                               # (B,k,d)
+        1, topi[..., None].expand(b, moe.top_k, d))
+    return (oe.float() * gates[..., None]).sum(1).to(dt)
+
+
+def _refuse_placed(model: TransformerLM) -> None:
+    if any(hasattr(p, "placements") for p in model.parameters()):
+        raise ValueError("decode runs on whole parameters; pass "
+                         "transformer.unshard(model) for a placed model")
 
 
 def filter_logits(lg: torch.Tensor, top_k: Optional[int] = None,
@@ -184,7 +232,11 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
             torch.cuda.synchronize(dev)
 
     _refuse_unported_axes(prefill_mesh)
+    _refuse_placed(model)
     sp = axis_size(prefill_mesh, model.sp_axis)
+    if sp > 1 and model.n_experts > 0:
+        raise NotImplementedError("an MoE prefill over a split sequence is "
+                                  "not ported (ROADMAP.md queue A)")
     if sp > 1 and (plen % sp or (plen // sp) % 8):
         raise ValueError(f"ring prefill of {plen} prompt tokens over sp={sp}"
                          f" needs chunks that are multiples of 8")
@@ -198,8 +250,16 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
     else:
         positions = torch.arange(plen, dtype=torch.int32,
                                  device=dev).expand(b, plen)
+        moe = {}
+        if lengths is not None and model.n_experts > 0:
+            # pads take no capacity, and the capacity is the real tokens'
+            moe["token_mask"] = torch.arange(plen, device=dev)[None, :] \
+                < lengths[:, None]
+            if model.moe_capacity is None:
+                moe["moe_capacity"] = default_capacity(
+                    int(lengths.sum()), model.n_experts, model.moe_top_k)
         feats, kvs = model(prompt, positions, return_features=True,
-                           return_kv=True)
+                           return_kv=True, **moe)
         for i, (k, v) in enumerate(kvs):
             cache["k"][i, :, :, :plen] = k
             cache["v"][i, :, :, :plen] = v

@@ -41,7 +41,7 @@ from .._device import resolve_device
 from ..data.graphs import GraphBatch
 from . import transformer
 from .transformer import LN_EPS, TrainState, _dense, _layer_norm
-from .vae import _allreduce_sum
+from .vae import _allreduce_sum, _fsdp_state, place_fsdp
 
 __all__ = ["GraphBatch", "MPNN", "apply_batch", "loss_fn",
            "create_train_state", "make_train_step", "make_eval_step"]
@@ -159,17 +159,14 @@ def loss_fn(pred: torch.Tensor, y: torch.Tensor,
         graph_mask.sum(), min=1)
 
 
-def create_train_state(model: MPNN, lr: float = 1e-3, fsdp: bool = False
+def create_train_state(model: MPNN, lr: float = 1e-3, mesh=None
                        ) -> Tuple[TrainState, torch.optim.Optimizer]:
     """Adam over the model's parameters at ``lr`` with optax's defaults,
-    as ``optax.adam(lr)``; returns (state, opt). ``fsdp=True`` (the
-    reference's ZeRO-3 over an ``fsdp`` mesh axis) comes with the
-    model-parallel slice and raises."""
-    if fsdp:
-        raise NotImplementedError(
-            "FSDP/ZeRO for the GNN is not ported yet (ROADMAP.md queue A, "
-            "item 14)")
-    return transformer.create_train_state(model, lr)
+    as ``optax.adam(lr)``; returns (state, opt). With a ``mesh`` whose
+    ``fsdp`` axis is larger than 1 (the reference's ZeRO-3 for the GNN,
+    ``gnn.py:108-131``) the parameters are first placed by FSDP2
+    (``vae.place_fsdp``)."""
+    return place_fsdp(model, lr, mesh)
 
 
 def _global_se_and_count(se: torch.Tensor, graph_mask: torch.Tensor,
@@ -198,10 +195,18 @@ def make_train_step(model: MPNN, opt: torch.optim.Optimizer, group=None,
     between the forward and the backward), so the summed gradients are
     those of the loss over the global batch for any split of real graphs
     between the ranks. The loss returned is that global loss. Every rank
-    must call the step the same number of times. FSDP/ZeRO (``fsdp``
-    meshes) come with item 14."""
+    must call the step the same number of times.
+
+    With a ZeRO-3 ``state`` (:func:`create_train_state` over an ``fsdp``
+    mesh) the step runs without DDP over the data ranks (``dp`` and
+    ``fsdp``): FSDP2 sums the gradients, the count of real graphs is
+    all-reduced over them as above, and each rank passes its slots of
+    the global batch."""
     net = model
-    if group is not None:
+    zero3 = _fsdp_state(state)
+    if zero3 is not None:
+        group = zero3[0]
+    elif group is not None:
         dev = model.device
         net = DistributedDataParallel(
             model, device_ids=[dev.index] if dev.type == "cuda" else None,
@@ -213,6 +218,8 @@ def make_train_step(model: MPNN, opt: torch.optim.Optimizer, group=None,
         se = _masked_se(apply_batch(net, batch), batch.y, batch.graph_mask)
         se_all, n = _global_se_and_count(se, batch.graph_mask, group)
         (se / n).backward()
+        if zero3 is not None:
+            transformer.all_reduce_gradients(zero3[1], 1, zero3[0])
         opt.step()
         if state is not None:
             state.step += 1

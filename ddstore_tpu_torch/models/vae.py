@@ -16,6 +16,11 @@ batch, and the returned loss is the all-reduced sum of the ranks' sums.
 The reference draws ``eps`` from one key for the global batch; here each
 rank draws its own from a ``torch.Generator``, or takes it as an
 argument (its rows of the global ``eps``).
+
+Over a mesh with an ``fsdp`` axis (the reference's ZeRO-3 for the VAE,
+``vae.py:101-121``) the parameters and Adam's moments are sharded by FSDP2
+(``parallel.fsdp.place_zero3``), its gradient reduction a sum, and the
+step takes this rank's rows of the batch sharded over the data axes.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from torch import nn
 from torch.nn.parallel import DistributedDataParallel
 
 from .._device import resolve_device
+from ..parallel.mesh import axes_group, axis_size
 from . import transformer
 from .transformer import TrainState, _dense
 
@@ -138,11 +144,41 @@ def _dequantize(batch: torch.Tensor) -> torch.Tensor:
     return batch
 
 
-def create_train_state(model: VAE, lr: float = 1e-3
+def create_train_state(model: VAE, lr: float = 1e-3, mesh=None
                        ) -> Tuple[TrainState, torch.optim.Optimizer]:
     """Adam over the model's parameters at ``lr`` with optax's defaults,
-    as ``optax.adam(lr)``; returns (state, opt)."""
-    return transformer.create_train_state(model, lr)
+    as ``optax.adam(lr)``; returns (state, opt). With a ``mesh`` whose
+    ``fsdp`` axis is larger than 1, the parameters (the same on every
+    rank) are first placed ZeRO-3 (:func:`place_fsdp`)."""
+    return place_fsdp(model, lr, mesh)
+
+
+def place_fsdp(model: nn.Module, lr: float, mesh
+               ) -> Tuple[TrainState, torch.optim.Optimizer]:
+    """The VAE's and the GNN's state: ZeRO-3 over a mesh with an ``fsdp``
+    axis (``parallel.fsdp.place_zero3`` with ``fsdp_rules``; the
+    reduce-scatter sums, as the reference's summed gradients do), else
+    unplaced (DDP replicates)."""
+    if mesh is None or axis_size(mesh, "fsdp") == 1:
+        state, opt = transformer.create_train_state(model, lr)
+        state.mesh = mesh
+        return state, opt
+    from ..parallel.fsdp import place_zero3
+
+    transformer._check_replicas(model)
+    place_zero3(model, mesh, divide_factor=1.0)
+    opt = transformer.adam(model.parameters(), lr)
+    return TrainState(model, opt, mesh=mesh), opt
+
+
+def _fsdp_state(state: Optional[TrainState]):
+    """The data group and the gradients to reduce by hand (the ones FSDP
+    left whole) of a ZeRO-3 state, or None."""
+    if state is None or axis_size(state.mesh, "fsdp") == 1:
+        return None
+    group = axes_group(state.mesh, ("dp", "fsdp"))
+    return group, [p for p in state.model.parameters()
+                   if not transformer._fsdp_managed(p)]
 
 
 def _allreduce_sum(group, bucket):
@@ -167,8 +203,16 @@ def make_train_step(model: VAE, opt: torch.optim.Optimizer,
     model is wrapped in ``DistributedDataParallel`` (which broadcasts
     rank 0's parameters once), gradients are summed over the group, and
     the loss returned is the sum over the group's batches. Every rank
-    must call the step the same number of times."""
+    must call the step the same number of times.
+
+    With a ZeRO-3 ``state`` (:func:`create_train_state` over an ``fsdp``
+    mesh) the step runs without DDP: FSDP2 sums the gradients over the
+    data ranks (``dp`` and ``fsdp``), each rank passes its rows of the
+    global batch, and the loss returned is the sum over them."""
     net = model
+    zero3 = _fsdp_state(state)
+    if zero3 is not None:
+        group = None
     if group is not None:
         dev = model.device
         net = DistributedDataParallel(
@@ -183,10 +227,14 @@ def make_train_step(model: VAE, opt: torch.optim.Optimizer,
         logits, mu, logvar = net(x, eps=eps, generator=generator)
         loss = loss_fn(logits, x, mu, logvar)
         loss.backward()
+        if zero3 is not None:
+            transformer.all_reduce_gradients(zero3[1], 1, zero3[0])
         opt.step()
         loss = loss.detach()
         if group is not None:
             dist.all_reduce(loss, group=group)
+        elif zero3 is not None and zero3[0] is not None:
+            dist.all_reduce(loss, group=zero3[0])
         if state is not None:
             state.step += 1
         return loss

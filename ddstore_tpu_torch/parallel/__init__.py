@@ -1,22 +1,44 @@
 """Parallel layer of the port over ``torch.distributed`` process groups:
-device meshes, ring attention over a sequence-parallel axis, the
-epoch-wise global shuffle and the row exchanges (the port of
-``ddstore_tpu/parallel/``: ``mesh.py``, ``ring_attention.py`` and
-``shuffle.py``; the TP/FSDP and pipeline layers come with later
-slices)."""
+device meshes and DTensor placements, ring attention over a
+sequence-parallel axis, tensor and expert parallelism, ZeRO-3 through
+FSDP2, the epoch-wise global shuffle and the row exchanges (the port of
+``ddstore_tpu/parallel/``: ``mesh.py``, ``ring_attention.py``, ``tp.py``,
+``fsdp.py`` and ``shuffle.py``; the pipeline layer comes with a later
+slice)."""
 
-from .mesh import AXIS_ORDER, data_parallel_mesh, make_mesh
+from .fsdp import data_axes, fsdp_compose, fsdp_rules, place_zero3
+from .mesh import (AXIS_ORDER, Placement, axes_group, batch_sharding,
+                   data_parallel_mesh, local_mesh, make_mesh, replicate,
+                   shard_batch)
 from .ring_attention import ring_attention, ring_self_attention
 from .shuffle import (all_to_all_rows, exchange_rows, global_shuffle_epoch,
                       host_global_shuffle, permute_rows,
                       ragged_global_shuffle)
+from .tp import (Strided, expert_rules, megatron_rules, shard_pytree,
+                 shardings_of, torch_spec)
 
 __all__ = [
     "AXIS_ORDER",
     "make_mesh",
     "data_parallel_mesh",
+    "local_mesh",
+    "axes_group",
+    "Placement",
+    "batch_sharding",
+    "replicate",
+    "shard_batch",
     "ring_attention",
     "ring_self_attention",
+    "megatron_rules",
+    "expert_rules",
+    "Strided",
+    "torch_spec",
+    "shard_pytree",
+    "shardings_of",
+    "fsdp_rules",
+    "fsdp_compose",
+    "place_zero3",
+    "data_axes",
     "all_to_all_rows",
     "exchange_rows",
     "permute_rows",

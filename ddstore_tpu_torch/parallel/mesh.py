@@ -15,19 +15,24 @@ its own process group (``mesh.get_group("sp")``), made when the mesh is.
 * ``ep`` — expert parallel (MoE routing).
 
 The reference's ``local_mesh``, ``batch_sharding``, ``replicate`` and
-``shard_batch`` are GSPMD placements of whole arrays; their counterparts
-are DTensor placements, which come with tensor parallelism and FSDP.
+``shard_batch`` (``mesh.py:59-84``) place whole arrays with GSPMD; here
+they are DTensor placements: :class:`Placement` is a mesh and one
+placement a mesh dim, and :func:`shard_batch` wraps this rank's rows as
+its shard of the global batch. :func:`axes_group` is the process group
+of the ranks that differ only along some axes (the data ranks of a step,
+``dp`` x ``sp`` x ``fsdp``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["AXIS_ORDER", "make_mesh", "data_parallel_mesh", "axis_size",
-           "axis_index"]
+           "axis_index", "axes_group", "local_mesh", "Placement",
+           "batch_sharding", "replicate", "shard_batch"]
 
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")  # outer -> inner
 
@@ -82,3 +87,98 @@ def axis_index(mesh, axis: str) -> int:
     if axis_size(mesh, axis) == 1:
         return 0
     return int(mesh.get_local_rank(axis))
+
+
+def axes_group(mesh, axes: Sequence[str]):
+    """The process group of this rank and the ranks that differ from it
+    only along ``axes`` (axes the mesh lacks, or of size 1, are left out);
+    None when that is this rank alone. A collective the first time a mesh
+    is asked for a set of axes (every rank makes every such group, in the
+    same order); cached on the mesh after."""
+    axes = tuple(a for a in (mesh.mesh_dim_names or ())
+                 if a in axes and axis_size(mesh, a) > 1) \
+        if mesh is not None else ()
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    cache = mesh.__dict__.setdefault("_ddstore_groups", {})
+    if axes not in cache:
+        names = list(mesh.mesh_dim_names)
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        ranks = mesh.mesh.permute(*rest, *keep).reshape(
+            -1, int(torch.tensor([mesh.mesh.shape[i] for i in keep]).prod()))
+        me = dist.get_rank()
+        for row in ranks.tolist():
+            g = dist.new_group(row)
+            if me in row:
+                cache[axes] = g
+    return cache[axes]
+
+
+def local_mesh(device_type: Optional[str] = None):
+    """A one-axis ``dp`` mesh over the ranks on this host (the
+    reference's mesh over ``jax.local_devices()``), as a dim of a
+    ``("host", "dp")`` mesh over the world. A collective; every host must
+    hold the same number of ranks."""
+    import socket
+
+    from torch.distributed.device_mesh import DeviceMesh
+
+    hosts = [None] * dist.get_world_size()
+    dist.all_gather_object(hosts, socket.gethostname())
+    order = sorted(set(hosts), key=hosts.index)
+    rows = [[r for r, h in enumerate(hosts) if h == host] for host in order]
+    if len({len(r) for r in rows}) != 1:
+        raise ValueError(f"hosts hold different numbers of ranks: "
+                         f"{[len(r) for r in rows]}")
+    if device_type is None:
+        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    mesh = DeviceMesh(device_type, torch.tensor(rows),
+                      mesh_dim_names=("host", "dp"))
+    return mesh["dp"]
+
+
+class Placement(NamedTuple):
+    """A DTensor placement: the mesh and one placement for each of its
+    dims (the counterpart of a ``NamedSharding``)."""
+
+    mesh: object
+    placements: Tuple
+
+
+def batch_sharding(mesh, axis: str = "dp") -> Placement:
+    """A batch's placement: the leading dim split over ``axis``, the
+    rest replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return Placement(mesh, tuple(Shard(0) if a == axis else Replicate()
+                                 for a in mesh.mesh_dim_names))
+
+
+def replicate(mesh) -> Placement:
+    from torch.distributed.tensor import Replicate
+
+    return Placement(mesh, tuple(Replicate() for _ in mesh.mesh_dim_names))
+
+
+def shard_batch(mesh, batch, axis: str = "dp"):
+    """This rank's rows of a global batch as DTensors over ``mesh``,
+    sharded over ``axis`` (the reference's
+    ``make_array_from_process_local_data``): each tensor of ``batch`` (a
+    tensor, or a tuple, list or dict of them) is this rank's shard, every
+    rank's shard of one size. Nothing is copied or sent."""
+    from torch.distributed.tensor import DTensor
+
+    pl = batch_sharding(mesh, axis)
+
+    def wrap(t):
+        if isinstance(t, dict):
+            return {k: wrap(v) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(wrap(v) for v in t)
+        return DTensor.from_local(t, pl.mesh, pl.placements,
+                                  run_check=False)
+
+    return wrap(batch)

@@ -5,7 +5,9 @@ The trees are the reference's, as numpy arrays. ``TransformerLM``
 (``ddstore_tpu/models/transformer.py``): ``embed/tok/embedding``,
 ``block{i}/{ln1,ln2}/{scale,bias}``, ``block{i}/{qkv,proj}/kernel``,
 ``block{i}/{up,down}/{kernel,bias}`` and
-``lmhead/{lnf/{scale,bias},head/kernel}``. ``VAE``
+``lmhead/{lnf/{scale,bias},head/kernel}``; an MoE block has
+``block{i}/moe/router/kernel`` and the raw expert parameters
+``block{i}/moe/{w1,b1,w2,b2}`` in place of ``up``/``down``. ``VAE``
 (``ddstore_tpu/models/vae.py``): ``encoder/Dense_{0,1,2}`` (hidden, mu,
 logvar) and ``decoder/Dense_{0,1}`` (hidden, logits), each with
 ``kernel`` and ``bias``. ``MPNN`` (``ddstore_tpu/models/gnn.py``):
@@ -13,9 +15,13 @@ logvar) and ``decoder/Dense_{0,1}`` (hidden, logits), each with
 each with ``kernel`` and ``bias``, and ``ln{l}/{scale,bias}``; the
 port's submodules carry the same names. Dense kernels are ``(in, out)``
 and torch ``Linear`` weights ``(out, in)``, so kernels are transposed;
-a LayerNorm's ``scale`` is its ``weight``.
-:func:`to_flax` is the inverse of :func:`from_flax`; the tests use it to
-compare gradients and optimizer updates leaf by leaf, by flax path.
+a LayerNorm's ``scale`` is its ``weight``. The expert parameters are not
+Dense kernels and keep their layout. :func:`to_flax` is the inverse of
+:func:`from_flax`; the tests use it to compare gradients and optimizer
+updates leaf by leaf, by flax path. A sharded model (DTensor parameters:
+tensor, expert or fully-sharded parallelism) is carried through its full
+tensors: :func:`to_flax` gathers them (a collective of the model's
+ranks), and :func:`from_flax` loads a model before it is placed.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["from_flax", "to_flax"]
+__all__ = ["from_flax", "to_flax", "flax_name", "full_tensor"]
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -47,7 +53,7 @@ _VAE_DENSE = {"encoder.fc": "encoder/Dense_0",
               "decoder.fc_out": "decoder/Dense_1"}
 
 
-def _flax_name(torch_name: str) -> str:
+def flax_name(torch_name: str) -> str:
     """``blocks.0.qkv.weight`` -> ``block0/qkv/kernel``,
     ``encoder.fc_mu.bias`` -> ``encoder/Dense_1/bias`` and so on."""
     layer, _, leaf = torch_name.rpartition(".")
@@ -78,7 +84,10 @@ def from_flax(params: Mapping[str, Any], model: nn.Module) -> nn.Module:
     flat = _flatten(params)
     state = {}
     for name, p in model.state_dict().items():
-        key = _flax_name(name)
+        if hasattr(p, "placements"):
+            raise ValueError(f"{name} is sharded; load the weights before "
+                             f"placing the model")
+        key = flax_name(name)
         if key not in flat:
             raise KeyError(f"flax tree has no {key} (for {name})")
         arr = np.asarray(flat.pop(key), dtype=np.float32)
@@ -108,8 +117,8 @@ def to_flax(src: Union[nn.Module, Mapping[str, torch.Tensor]]
         else src.items()
     tree: Dict[str, Any] = {}
     for name, t in items:
-        key = _flax_name(name)
-        arr = t.detach().to("cpu", torch.float32).numpy()
+        key = flax_name(name)
+        arr = full_tensor(t.detach()).to("cpu", torch.float32).numpy()
         if key.endswith("/kernel"):
             arr = arr.T
         *path, leaf = key.split("/")
@@ -118,3 +127,33 @@ def to_flax(src: Union[nn.Module, Mapping[str, torch.Tensor]]
             node = node.setdefault(part, {})
         node[leaf] = np.array(arr, order="C")
     return {"params": tree}
+
+
+def full_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor of a DTensor, a plain tensor as it is. A
+    collective of the DTensor's mesh: its shards are gathered through host
+    memory with ``all_gather`` over each sharded mesh dim, the innermost
+    first (gloo, two ranks on one card, takes no CUDA tensor in DTensor's
+    own all-gather), and put back in place: a ``Shard(d)`` concatenates
+    the ranks' shards along ``d``; a ``_StridedShard(d, split_factor=k)``
+    (the per-head ``qkv``) interleaves them, rank ``r`` holding the
+    ``r``-th piece of each of the ``k`` blocks."""
+    if not hasattr(t, "full_tensor"):
+        return t
+    import torch.distributed as dist
+
+    mesh = t.device_mesh
+    local = t.to_local().detach().cpu()
+    for i in reversed(range(mesh.ndim)):
+        pl = t.placements[i]
+        if pl.is_replicate():
+            continue
+        d = pl.dim  # a parameter is never a partial sum
+        n = mesh.size(i)
+        parts = [torch.empty_like(local) for _ in range(n)]
+        dist.all_gather(parts, local.contiguous(), group=mesh.get_group(i))
+        split = getattr(pl, "split_factor", 1)
+        blocks = [p.chunk(split, d) for p in parts]
+        local = torch.cat([blocks[r][j] for j in range(split)
+                           for r in range(n)], d)
+    return local.to(t.device)

@@ -251,8 +251,11 @@ def test_tree_and_forward_shapes():
     assert (~gb.node_mask).any(axis=1).all()  # padding in every slot
     pred = tgnn.apply_batch(tm, _torch_batch(gb))
     assert pred.shape == (8, G, 1) and pred.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tgnn.create_train_state(tm, fsdp=True)
+    # ZeRO-3 follows the mesh (tests/test_torch_fsdp.py places it over
+    # dp x fsdp); without one the state leaves the parameters whole
+    state, _ = tgnn.create_train_state(tm)
+    assert state.mesh is None
+    assert not any(hasattr(p, "placements") for p in tm.parameters())
 
 
 @pytest.mark.parametrize("dtype,rtol,atol", [(jnp.float32, 1e-5, 1e-6),

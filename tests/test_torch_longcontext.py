@@ -279,8 +279,41 @@ def test_loader_chunks_match_reference_placement(world, jmesh):
         store.close()
 
 
-@pytest.mark.parametrize("spec", [("sp",), ("dp", "tp")])
+@pytest.mark.parametrize("spec", [("sp",)])
 def test_loader_refuses_other_specs(world, spec):
+    # a batch on a model or sequence axis: only dp and fsdp hold rows
     _, _, ranks = world
     for r in ranks:
-        assert "item 14" in r["loader"][spec]
+        assert "data axes" in r["loader"][spec]
+
+
+@pytest.mark.parametrize("spec", [("dp",), ("dp", "tp")])
+def test_loader_places_over_a_tp_mesh(world, spec):
+    # the reference's P("dp") and P("dp", "tp") of the same global batches
+    # on a dp x tp mesh: ranks along tp read the same rows, whole or in
+    # their chunk along tp
+    _, _, ranks = world
+    windows, nexts, idx, bsz = _loader_case()
+    from ddstore_tpu import DDStore as JStore
+
+    tmesh = j_make_mesh({"dp": 2, "tp": 2}, jax.devices()[:WORLD])
+    store = JStore()
+    try:
+        ds = JDataset(store, windows, nexts)
+        jl = JLoader(ds, [int(i) for i in idx], bsz, mesh=tmesh,
+                     spec=jax.sharding.PartitionSpec(*spec))
+        where = {int(d.id): pos for pos, d in np.ndenumerate(tmesh.devices)}
+        for b, (jtok, jtgt) in enumerate(jl):
+            for arr, k in ((jtok, 0), (jtgt, 1)):
+                for sh in arr.addressable_shards:
+                    i, j = where[int(sh.device.id)]
+                    r = ranks[i * 2 + j]["loader"][spec]
+                    assert r["tp"] == j
+                    np.testing.assert_array_equal(r["batches"][b][k],
+                                                  np.asarray(sh.data))
+    finally:
+        store.close()
+    for r in ranks:
+        got = r["loader"][spec]
+        assert got["seq_range"] == (None if spec == ("dp",) else
+                                    (16 * got["tp"], 16 * (got["tp"] + 1)))

@@ -827,13 +827,22 @@ def longcontext_cases(rank, world, tmp, params, batches, lr, remat_params,
                 "batches": [(a.numpy(), b.numpy()) for a, b in loader],
                 "positions": loader.seq_positions(half).numpy(),
                 "seq_range": loader.seq_range}
-            for spec in (("sp",), ("dp", "tp")):
-                try:
-                    DeviceLoader(ds, _IndexStream(mine), half, device="cpu",
-                                 mesh=mesh, spec=spec)
-                    out["loader"][spec] = None
-                except NotImplementedError as e:
-                    out["loader"][spec] = str(e)
+            try:
+                DeviceLoader(ds, _IndexStream(mine), half, device="cpu",
+                             mesh=mesh, spec=("sp",))
+                out["loader"][("sp",)] = None
+            except NotImplementedError as e:
+                out["loader"][("sp",)] = str(e)
+            # over a dp x tp mesh: whole rows alike on both tp ranks, and
+            # the sequence split over tp when the spec names it
+            tmesh = make_mesh({"dp": 2, "tp": world // 2}, "cpu")
+            for spec in (("dp",), ("dp", "tp")):
+                loader = DeviceLoader(ds, _IndexStream(mine), half,
+                                      device="cpu", mesh=tmesh, spec=spec)
+                out["loader"][spec] = {
+                    "batches": [(a.numpy(), b.numpy()) for a, b in loader],
+                    "seq_range": loader.seq_range,
+                    "tp": axis_index(tmesh, "tp")}
         finally:
             store.close()
         return out
@@ -904,5 +913,216 @@ def ring_cuda(rank, world, tmp):
         res["remat_max_diff"] = max(float((a - b_).abs().max())
                                     for a, b_ in zip(*grads))
         return res
+    finally:
+        dist.destroy_process_group()
+
+
+def _data_slot(mesh):
+    """(index, count) of this rank's slot along the mesh's data axes (dp
+    then fsdp, the reference's ``P(("dp", "fsdp"))`` order)."""
+    from ddstore_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    n = axis_size(mesh, "dp") * axis_size(mesh, "fsdp")
+    i = axis_index(mesh, "dp") * axis_size(mesh, "fsdp") \
+        + axis_index(mesh, "fsdp")
+    return i, n
+
+
+def _placements(model):
+    """{name: (local shape, placements or None)} of the parameters."""
+    return {n: (tuple(p.to_local().shape), str(tuple(p.placements)))
+            if hasattr(p, "placements") else (tuple(p.shape), None)
+            for n, p in model.named_parameters()}
+
+
+def model_parallel_cases(rank, world, tmp, cases, lr):
+    """One train step of each of ``cases`` ({name: {"family": "lm", "vae"
+    or "gnn", "axes", "cfg", "tree", "batch"}}, and "lr" where it is not
+    ``lr``) in one gloo world, the
+    model placed over ``make_mesh(axes)`` by its ``create_train_state``
+    and each rank passing its part of the global batch (its data slot's
+    rows, its sequence chunk). Per case: the loss, every rank's digest of
+    the gathered parameters, and on rank 0 the reduced gradients and the
+    parameters after the step (``weights.to_flax``, gathered whole) and
+    the placements."""
+    import hashlib
+
+    import torch
+
+    from ddstore_tpu_torch import weights
+    from ddstore_tpu_torch.data.graphs import GraphBatch
+    from ddstore_tpu_torch.models import gnn, vae
+    from ddstore_tpu_torch.models import transformer as ttr
+    from ddstore_tpu_torch.parallel import make_mesh
+    from ddstore_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    dist = torch_world(rank, world, tmp)
+    out = {}
+
+    def grads_at_step(model, opt):
+        """Snapshot the reduced gradients when ``opt`` steps."""
+        seen, step = {}, opt.step
+
+        def hooked(*a, **k):
+            seen["grads"] = weights.to_flax(
+                {n: p.grad for n, p in model.named_parameters()})
+            return step(*a, **k)
+
+        opt.step = hooked
+        return seen
+
+    try:
+        for name, case in cases.items():
+            mesh = make_mesh(case["axes"], "cpu")
+            i, n = _data_slot(mesh)
+            cfg, fam, lr_ = case["cfg"], case["family"], case.get("lr", lr)
+            if fam == "lm":
+                sp, j = axis_size(mesh, "sp"), axis_index(mesh, "sp")
+
+                def part(t):
+                    b, s = t.shape[0] // n, t.shape[1] // sp
+                    return torch.from_numpy(np.ascontiguousarray(
+                        t[i * b:(i + 1) * b, j * s:(j + 1) * s]))
+
+                model = ttr.TransformerLM(
+                    compute_dtype=torch.float32, device="cpu",
+                    mesh=mesh if sp > 1 else None, **cfg)
+                weights.from_flax(case["tree"], model)
+                state, opt = ttr.create_train_state(model, lr=lr_,
+                                                    mesh=mesh)
+                seen = grads_at_step(model, opt)
+                step = ttr.make_train_step(model, opt, state=state)
+                loss = step(*(part(t) for t in case["batch"]))
+            elif fam == "vae":
+                raw, eps = case["batch"]
+                b = len(raw) // n
+                model = vae.VAE(compute_dtype=torch.float32, device="cpu")
+                weights.from_flax(case["tree"], model)
+                state, opt = vae.create_train_state(model, lr=lr_, mesh=mesh)
+                seen = grads_at_step(model, opt)
+                loss = vae.make_train_step(model, opt, state=state)(
+                    torch.from_numpy(raw[i * b:(i + 1) * b]),
+                    eps=torch.from_numpy(eps[i * b:(i + 1) * b]))
+            else:
+                gb = GraphBatch(*(torch.from_numpy(np.ascontiguousarray(
+                    f[i:i + 1])) for f in case["batch"]))
+                model = gnn.MPNN(n_graphs=gb.y.shape[1],
+                                 compute_dtype=torch.float32, device="cpu",
+                                 **cfg)
+                weights.from_flax(case["tree"], model)
+                state, opt = gnn.create_train_state(model, lr=lr_, mesh=mesh)
+                seen = grads_at_step(model, opt)
+                loss = gnn.make_train_step(model, opt, state=state)(gb)
+            tree = weights.to_flax(model)
+            digest = hashlib.sha256()
+            for path, leaf in sorted(_flat(tree).items()):
+                digest.update(path.encode() + leaf.tobytes())
+            res = {"loss": float(loss), "digest": digest.hexdigest(),
+                   "steps": state.step}
+            if rank == 0:
+                res.update(params=tree, grads=seen["grads"],
+                           placements=_placements(model))
+            out[name] = res
+        out["_mesh"] = _mesh_helpers(rank, world)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_helpers(rank, world):
+    """The DTensor counterparts of the reference's mesh helpers on a dp x
+    tp mesh, and the step's refusal of a tp mesh without a placed
+    state."""
+    import torch
+
+    from ddstore_tpu_torch.models import transformer as ttr
+    from ddstore_tpu_torch.parallel import (batch_sharding, local_mesh,
+                                            make_mesh, replicate,
+                                            shard_batch, shardings_of)
+
+    mesh = make_mesh({"dp": 2, "tp": world // 2}, "cpu")
+    rows = torch.full((3, 5), float(rank))
+    batch = shard_batch(mesh, {"x": rows, "y": [rows[:, 0]]})
+    model = ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=1,
+                              device="cpu")
+    _, opt = ttr.create_train_state(model)
+    try:
+        ttr.make_train_step(model, opt, mesh=mesh)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    return {"batch_sharding": [str(p) for p in
+                               batch_sharding(mesh).placements],
+            "replicate": [str(p) for p in replicate(mesh).placements],
+            "global_shape": tuple(batch["x"].shape),
+            "y_shape": tuple(batch["y"][0].shape),
+            "local": batch["x"].to_local().tolist(),
+            "local_mesh": (local_mesh("cpu").mesh_dim_names,
+                           local_mesh("cpu").size()),
+            "shardings": shardings_of(model)["blocks.0.qkv.weight"],
+            "refusal": refusal}
+
+
+def _flat(tree, prefix=""):
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            flat[prefix + k] = np.asarray(v)
+    return flat
+
+
+def layouts_cuda(rank, world, tmp):
+    """Two ranks on card 0 in a gloo world: a small f32 LM placed over
+    ``{"tp": 2}`` (the dense LM), ``{"ep": 2}`` (4 experts, top-2) and
+    ``{"fsdp": 2}`` takes one step on the card; rank 0 also takes the
+    same step in one process on the CPU (the plain attention) from the
+    same weights and batch. Per layout: the losses and the gathered
+    parameters' largest ``|card - CPU| - 5e-3 |CPU|`` after the step."""
+    import torch
+
+    torch.cuda.set_device(0)
+    from ddstore_tpu_torch import weights
+    from ddstore_tpu_torch.models import transformer as ttr
+    from ddstore_tpu_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    dist = torch_world(rank, world, tmp)
+    cfg = dict(vocab=512, dim=256, heads=4, layers=2,
+               compute_dtype=torch.float32)
+    g = np.random.default_rng(3)
+    tok = torch.from_numpy(g.integers(0, 512, (2, 128)))
+    tgt = torch.from_numpy(g.integers(0, 512, (2, 128)))
+    pos = torch.arange(128).expand(2, 128)
+    out = {}
+    try:
+        for name, axes, moe in (("tp2", {"tp": 2}, {}),
+                                ("ep2", {"ep": 2}, dict(n_experts=4,
+                                                        moe_top_k=2)),
+                                ("fsdp2", {"fsdp": 2}, {})):
+            mesh = make_mesh(axes)
+
+            cpu = ttr.TransformerLM(device="cpu", **cfg, **moe)
+            cpu.init_weights(torch.Generator().manual_seed(1))
+            card = ttr.TransformerLM(device=dev, **cfg, **moe)
+            card.load_state_dict(cpu.state_dict())
+            state, opt = ttr.create_train_state(card, lr=1e-3, mesh=mesh)
+            rows = slice(rank, rank + 1) if "fsdp" in axes else slice(0, 2)
+            loss = float(ttr.make_train_step(card, opt, state=state)(
+                *(t[rows].to(dev) for t in (tok, tgt, pos))))
+            tree = weights.to_flax(card)
+            res = {"loss": loss}
+            if rank == 0:
+                _, copt = ttr.create_train_state(cpu, lr=1e-3)
+                res["cpu_loss"] = float(ttr.make_train_step(cpu, copt)(
+                    tok, tgt, pos))
+                want = _flat(weights.to_flax(cpu)["params"])
+                got = _flat(tree["params"])
+                res["worst"] = max(float((np.abs(got[k] - w)
+                                          - 5e-3 * np.abs(w)).max())
+                                   for k, w in want.items())
+            out[name] = res
+        return out
     finally:
         dist.destroy_process_group()
