@@ -190,6 +190,26 @@ Phases; any failure raises and ends the run with a non-zero exit:
    Then each kernel at tp 2's heads, (2, 8, 2048, 64), against its plain
    version and SDPA.
 
+13. pipeline parallelism (ROADMAP item 15): two rank processes on the
+   card over gloo, each registering half of the windows in a TCP store,
+   fed by ``DeviceLoader`` (dp 1, both stages read the same rows), run the
+   LM above over pp 2 (``create_pp_train_state``, ``make_pp_train_step``)
+   under ``gpipe`` and ``1f1b`` at M 4 x 2 x 2048 and ``interleaved`` and
+   ``interleaved_1f1b`` at V 2: 1 warm-up and 3 counted steps each
+   (launches zeroed just before, read just after: each rank's 4 layers x
+   4 microbatches x 4 steps of every kernel), one more under
+   torch.profiler on rank 0 for its busy share. The first step's loss,
+   gathered gradients and updated parameters against one process's
+   ``make_train_step`` on the same weights and batch (phase 11's
+   tolerances, phase 12's rule for leaves that start at 0), the ranks'
+   losses equal; median step, tokens/s, MFU, peak per rank, one hand-off
+   (2, 2048, 1024) bf16 timed alone and the expected bubble printed. Then
+   ``lm_from_stages`` and ``generate`` on rank 0 (the first token equal to
+   the full forward's argmax); GPipe and 1F1B at M 8 (1F1B's peak below
+   GPipe's on both ranks); and the MoE LM under 1F1B over pp 2, 1 warm-up
+   and 2 steps, held to one process's pp 1 1F1B over the same
+   microbatches.
+
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -399,6 +419,21 @@ LAYOUTS = (("ep2", {"ep": 2}, True), ("tp2", {"tp": 2}, False),
            ("fsdp2", {"fsdp": 2}, False))
 LONG_BAND = 256
 LONG_REF_BLOCK = 1024  # queries per block of the f32 reference
+# The pipeline phase (13): the LM above over pp 2, two rank processes on
+# the one card over gloo (DDSTORE_CMA=0 as phases 7-12), each registering
+# half of phase 5's windows in a TCP store, fed by DeviceLoader (dp 1:
+# both stages read the same rows). Each schedule: M 4 microbatches of 2 x
+# 2048 (interleaved: V 2), 1 warm-up and 3 counted Adam steps (lr 1e-3),
+# the first step held to one process's make_train_step on the same weights
+# and batch at phase 11's tolerances (phase 12's rule for leaves that
+# start at 0); then GPipe and 1F1B at M 8 with remat off, 1F1B's peak
+# below GPipe's; the MoE LM of phase 12 under 1F1B, 1 warm-up and 2 steps,
+# held to one process running the same schedule at pp 1; generate on the
+# stages reassembled on rank 0.
+PP_RANKS, PP_M, PP_MB, PP_V, PP_WARMUP, PP_STEPS = 2, 4, 2, 2, 1, 3
+PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", PP_V),
+                ("interleaved_1f1b", PP_V))
+PP_MEM_M, PP_MOE_STEPS, PP_NEW_TOKENS = 8, 2, 8
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -1202,7 +1237,8 @@ def _store_rank(phase, rank, world, port, seed):
     store = DDStore(group, backend="tcp")
     try:
         train = {"vae": _vae_train, "gnn": _gnn_train,
-                 "long": _long_rank, "layouts": _layouts_rank}[phase]
+                 "long": _long_rank, "layouts": _layouts_rank,
+                 "pp": _pp_rank}[phase]
         out = train(rank, group, store, torch.device("cuda", 0), seed)
         out["transport"] = store.transport_facts()
         out["cma_ops"] = store.cma_ops
@@ -3892,12 +3928,397 @@ def phase_layouts(seed, card, moe_peak_gib):
     return res
 
 
-def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk):
+def pp_batches(ds, dev, seed, rows):
+    """Batches of ``rows`` rows of the dp slot (dp 1: both stages read the
+    same rows) through the loader."""
+    loader = DeviceLoader(ds, DistributedSampler(len(ds), 1, 0, seed=seed),
+                          rows, device=dev)
+    return loader, iter(loader)
+
+
+def pp_stage_step(model, mesh, schedule, nv, m, lr=TRAIN_LR):
+    """This rank's stage of ``model`` over ``mesh`` and its step (the
+    model's modules move into the stage)."""
+    state, opt = ttr.create_pp_train_state(model, PP_RANKS, lr=lr, mesh=mesh,
+                                           n_virtual=nv)
+    step = ttr.make_pp_train_step(state.model, opt, mesh, PP_RANKS, m,
+                                  schedule=schedule, n_virtual=nv,
+                                  state=state)
+    return state, opt, step
+
+
+def pp_flat(pieces, stage):
+    """The flat tree of every stage's ``weights.stage_tree`` piece, pads
+    dropped."""
+    from ddstore_tpu_torch import weights
+
+    outer, stages = weights.join_stage_trees(pieces, stage.layers,
+                                             stage.n_stages, stage.n_virtual)
+    return _flat_tree(weights.tree_from_stages(
+        outer, stages, stage.layers, stage.n_stages, stage.n_virtual))
+
+
+def pp_gathered(stage, mesh, tensors=None):
+    """On rank 0 the flat tree of every stage's ``tensors`` (default its
+    parameters); None on rank 1 (a collective)."""
+    from ddstore_tpu_torch import weights
+
+    pieces = [None] * PP_RANKS
+    dist.all_gather_object(pieces, weights.stage_tree(stage, tensors))
+    return pp_flat(pieces, stage) if dist.get_rank() == 0 else None
+
+
+def pp_reference(make, dev, seed, first, m=None):
+    """One process's first step on the same weights and batch: with ``m``
+    the pp 1 pipeline over ``m`` microbatches (1F1B), else
+    ``make_train_step``. (loss, gradients, parameters before, after)."""
+    torch.cuda.reset_peak_memory_stats()
+    ref = make(dev, seed)
+    before = _flat_tree(to_flax(ref))
+    pos = torch.arange(SEQ, dtype=torch.int32,
+                       device=dev).expand(first[0].shape[0], SEQ)
+    if m is None:
+        _, opt = ttr.create_train_state(ref, lr=TRAIN_LR)
+        seen = _grads_at_step(ref, opt)
+        loss = float(ttr.make_train_step(ref, opt)(*first, pos))
+        grads, after = _flat_tree(seen["grads"]), _flat_tree(to_flax(ref))
+    else:
+        state, opt = ttr.create_pp_train_state(ref, 1, lr=TRAIN_LR)
+        stage = state.model
+        seen = {}
+        step_ = opt.step
+
+        def hooked(*a, **k):
+            seen["g"] = {n: p.grad for n, p in stage.named_parameters()}
+            return step_(*a, **k)
+
+        opt.step = hooked
+        loss = float(ttr.make_pp_train_step(stage, opt, None, 1, m,
+                                            schedule="1f1b")(*first, pos))
+        from ddstore_tpu_torch.weights import stage_tree
+        grads = pp_flat([stage_tree(stage, seen["g"])], stage)
+        after = pp_flat([stage_tree(stage)], stage)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del ref
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grads": grads, "before": before, "after": after,
+            "peak_bytes": peak}
+
+
+def pp_against(ref, loss, grads, params):
+    """The first pp step against one process's: the loss difference, the
+    worst gradient and updated parameter (L2 error over L2 norm), and the
+    zero-initialised leaves' share moved the other way."""
+    zero = {k for k, v in ref["before"].items() if not np.any(v)}
+    return {"loss_diff": abs(loss - ref["loss"]), "ref_loss": ref["loss"],
+            "worst_grad": _worst_rel(grads, ref["grads"]),
+            "worst_param": _worst_rel(params, ref["after"],
+                                      set(ref["before"]) - zero),
+            "worst_flip": _worst_flip(params, ref["after"], ref["before"],
+                                      zero)}
+
+
+def pp_hop_ms(mesh, dev):
+    """One activation hand-off (2, 2048, 1024) bf16 to the other stage and
+    back from it, timed alone (median of 5, host clock; gloo through
+    pinned host memory)."""
+    from ddstore_tpu_torch.parallel.pipeline import _FWD_TAG, _Stage
+
+    st = _Stage(mesh, "pp", 1, 1)
+    x = torch.zeros((PP_MB, SEQ, DIM), dtype=torch.bfloat16, device=dev)
+    return median_ms(lambda: st.exchange([(x, 1, _FWD_TAG)],
+                                         [(x, 1, _FWD_TAG)]), 5)
+
+
+def pp_run(rank, mesh, ds, dev, seed, schedule, nv, ref):
+    """PP_WARMUP + PP_STEPS steps of the full-width LM under ``schedule``
+    (launches zeroed just before, read just after), one more step under
+    torch.profiler on rank 0; the first step against ``ref``."""
+    from ddstore_tpu_torch.parallel.pipeline import pipeline_stats
+
+    state, opt, step = pp_stage_step(long_model(dev, seed + 50), mesh,
+                                     schedule, nv, PP_M)
+    stage = state.model
+    seen = {}
+    step_ = opt.step
+
+    def hooked(*a, **k):
+        if "g" not in seen:
+            seen["g"] = {n: p.grad for n, p in stage.named_parameters()}
+        return step_(*a, **k)
+
+    opt.step = hooked
+    loader, batches = pp_batches(ds, dev, seed + 50, PP_M * PP_MB)
+    pos = torch.arange(SEQ, dtype=torch.int32,
+                       device=dev).expand(PP_M * PP_MB, SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    pipeline_stats.update(hops=0, bytes=0, stash_high_water=0)
+    losses, step_s = [], []
+    for i in range(PP_WARMUP + PP_STEPS):
+        tok, tgt = next(batches)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, pos)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+        if i == 0:
+            first = (tok, tgt)
+            grads = pp_gathered(stage, mesh, seen["g"])
+            params = pp_gathered(stage, mesh)
+            hops = dict(pipeline_stats)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_s": step_s, "launches": launch_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "hops_first_step": hops, "steps": state.step,
+           "stash_high_water": pipeline_stats["stash_high_water"],
+           "efficiency": loader.metrics.efficiency}
+    tok, tgt = next(batches)
+    if rank == 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(tok, tgt, pos))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        busy_ms, by_name = device_busy(prof)
+        top = sorted(by_name.items(), key=lambda r: -r[1][0])[:6]
+        out["busy"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                       "share": busy_ms / wall_ms,
+                       "top": [(k[:50], round(ms, 3), n)
+                               for k, (ms, n) in top]}
+    else:
+        float(step(tok, tgt, pos))
+    batches.close()
+    if rank == 0:
+        out.update(pp_against(ref, losses[0], grads, params))
+    if schedule == "gpipe":
+        out["decode"] = pp_decode(rank, stage, mesh, first[0], dev)
+    del stage, state, opt, step, grads, params
+    torch.cuda.empty_cache()
+    return out
+
+
+@torch.no_grad()
+def pp_decode(rank, stage, mesh, tokens, dev):
+    """``lm_from_stages`` then ``generate`` on rank 0: the first token
+    against the full forward's argmax at the prompt's end."""
+    whole = ttr.lm_from_stages(stage, mesh)
+    if rank != 0:
+        return None
+    prompt = tokens[:2].long()
+    pos = torch.arange(SEQ, device=dev).expand(2, SEQ)
+    want = whole(prompt, pos)[:, -1].argmax(-1)
+    t0 = time.perf_counter()
+    out = tdec.generate(whole, prompt, PP_NEW_TOKENS)
+    torch.cuda.synchronize()
+    got = out[:, SEQ]
+    res = {"first_tokens": got.tolist(), "argmax": want.tolist(),
+           "s": time.perf_counter() - t0}
+    del whole
+    torch.cuda.empty_cache()
+    return res
+
+
+def pp_memory(mesh, ds, dev, seed):
+    """GPipe and 1F1B at M = PP_MEM_M (remat off): the peak of a step
+    after one warm-up step, per rank."""
+    out = {}
+    for schedule in ("gpipe", "1f1b"):
+        state, opt, step = pp_stage_step(long_model(dev, seed + 50), mesh,
+                                         schedule, 1, PP_MEM_M)
+        loader, batches = pp_batches(ds, dev, seed + 50, PP_MEM_M * PP_MB)
+        pos = torch.arange(SEQ, dtype=torch.int32, device=dev).expand(
+            PP_MEM_M * PP_MB, SEQ)
+        float(step(*next(batches), pos))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        float(step(*next(batches), pos))
+        out[schedule] = {"peak_bytes": torch.cuda.max_memory_allocated(dev),
+                         "step_s": time.perf_counter() - t0}
+        batches.close()
+        del state, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_moe(rank, mesh, ds, dev, seed):
+    """The MoE LM under 1F1B over pp 2, 1 warm-up and PP_MOE_STEPS steps;
+    its first step against one process's pp 1 1F1B over the same
+    microbatches on rank 0."""
+    state, opt, step = pp_stage_step(moe_model(dev, seed + 60), mesh, "1f1b",
+                                     1, PP_M)
+    stage = state.model
+    seen = {}
+    step_ = opt.step
+
+    def hooked(*a, **k):
+        if "g" not in seen:
+            seen["g"] = {n: p.grad for n, p in stage.named_parameters()}
+        return step_(*a, **k)
+
+    opt.step = hooked
+    loader, batches = pp_batches(ds, dev, seed + 60, PP_M * PP_MB)
+    pos = torch.arange(SEQ, dtype=torch.int32,
+                       device=dev).expand(PP_M * PP_MB, SEQ)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses, step_s = [], []
+    for i in range(1 + PP_MOE_STEPS):
+        tok, tgt = next(batches)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, pos)))
+        step_s.append(time.perf_counter() - t1)
+        if i == 0:
+            first = (tok, tgt)
+            grads = pp_gathered(stage, mesh, seen["g"])
+            params = pp_gathered(stage, mesh)
+    batches.close()
+    out = {"losses": losses, "step_s": step_s, "launches": launch_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "steps": state.step}
+    del stage, state, opt, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref = pp_reference(moe_model, dev, seed + 60, first, m=PP_M)
+        out.update(pp_against(ref, losses[0], grads, params))
+    dist.barrier()
+    return out
+
+
+def _pp_rank(rank, group, store, dev, seed):
+    t0 = time.perf_counter()
+    ds = layout_store(store, rank, seed)
+    mesh = make_mesh({"pp": PP_RANKS})
+    check(mesh.get_local_rank("pp") == rank, "mesh position")
+    out = {"setup_s": time.perf_counter() - t0}
+    ref = None
+    if rank == 0:  # one process's first step, shared by the schedules
+        loader, batches = pp_batches(ds, dev, seed + 50, PP_M * PP_MB)
+        first = next(batches)
+        batches.close()
+        ref = pp_reference(long_model, dev, seed + 50, first)
+    dist.barrier()
+    out["runs"] = {name: pp_run(rank, mesh, ds, dev, seed, name, nv, ref)
+                   for name, nv in PP_SCHEDULES}
+    del ref
+    out["hop_ms"] = pp_hop_ms(mesh, dev)
+    out["memory"] = pp_memory(mesh, ds, dev, seed)
+    out["moe"] = pp_moe(rank, mesh, ds, dev, seed)
+    return out
+
+
+def phase_pp(seed, card):
+    """Phase 13: the LM's pipeline schedules over pp 2 on two ranks."""
+    names = ", ".join(n for n, _ in PP_SCHEDULES)
+    print(f"pp: {PP_RANKS} rank processes on cuda:0 (gloo), the LM over pp "
+          f"{PP_RANKS} at M {PP_M} x {PP_MB} x {SEQ} ({names}; interleaved "
+          f"V {PP_V}); {WINDOWS} windows in a TCP store", flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks("pp", PP_RANKS, seed)
+    wall = time.perf_counter() - t0
+    flops = lm_flops_per_step(VOCAB, DIM, LAYERS, PP_M * PP_MB, SEQ)
+    hop = [r["hop_ms"] for r in ranks]
+    res = {"runs": {}, "hop_ms": hop}
+    for name, nv in PP_SCHEDULES:
+        per = [r["runs"][name] for r in ranks]
+        r0 = per[0]
+        med = max(float(np.median(x["step_s"][PP_WARMUP:])) for x in per)
+        bubble = (PP_RANKS - 1) / (PP_M * nv + PP_RANKS - 1)
+        msg = (f"pp {name} (V {nv}) | {card}: losses {r0['losses']}; step "
+               f"ms per rank {[[round(s * 1e3, 3) for s in x['step_s']] for x in per]}"
+               f"; median after {PP_WARMUP} warm-up {med * 1e3:.3f} ms = "
+               f"{PP_M * PP_MB * SEQ / med:.1f} tokens/s, MFU "
+               f"{flops / med / PEAK_BF16_FLOPS:.4%}; expected bubble "
+               f"(S-1)/(M*V+S-1) {bubble:.4f}; first step loss "
+               f"{r0['losses'][0]:.6f} against one process "
+               f"{r0['ref_loss']:.6f} (tol {LONG_LOSS_TOL}); worst gradient "
+               f"{r0['worst_grad'][0]:.3e} ({r0['worst_grad'][1]}), worst "
+               f"updated parameter {r0['worst_param'][0]:.3e} "
+               f"({r0['worst_param'][1]}) (tol {LONG_GRAD_TOL}); zero-"
+               f"initialised leaves moved the other way "
+               f"{r0['worst_flip'][0]:.4f} ({r0['worst_flip'][1]}; tol "
+               f"{LAYOUT_FLIP_TOL}); peak GiB per rank "
+               f"{[round(x['peak_bytes'] / 2**30, 3) for x in per]}; stash "
+               f"high-water per rank {[x['stash_high_water'] for x in per]}; "
+               f"first step's hand-offs {[x['hops_first_step'] for x in per]}"
+               f"; one hop alone (2, {SEQ}, {DIM}) bf16 ms per rank "
+               f"{[round(h, 3) for h in hop]}; rank 0 busy "
+               f"{r0['busy']['share']:.1%} of {r0['busy']['wall_ms']:.1f} ms "
+               f"(top {r0['busy']['top']}); efficiency "
+               f"{[round(x['efficiency'], 4) for x in per]}; launches "
+               f"{[x['launches'] for x in per]}")
+        print(msg, flush=True)
+        check(all(math.isfinite(v) for x in per for v in x["losses"]), msg)
+        check(per[0]["losses"] == per[1]["losses"], msg)
+        check(r0["loss_diff"] <= LONG_LOSS_TOL, msg)
+        check(r0["worst_grad"][0] <= LONG_GRAD_TOL and
+              r0["worst_param"][0] <= LONG_GRAD_TOL and
+              r0["worst_flip"][0] <= LAYOUT_FLIP_TOL, msg)
+        # each rank's 4 layers, every microbatch, forward and backward
+        n = LAYERS // PP_RANKS * PP_M * (PP_WARMUP + PP_STEPS)
+        want = {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+        check(all(x["launches"] == want for x in per), msg)
+        check(all(x["steps"] == PP_WARMUP + PP_STEPS for x in per), msg)
+        res["runs"][name] = {
+            "median_ms": med * 1e3, "bubble": bubble,
+            "launches_by_rank": [x["launches"] for x in per]}
+    dec = ranks[0]["runs"]["gpipe"]["decode"]
+    msg = (f"pp decode | {card}: generate {PP_NEW_TOKENS} tokens after 2 "
+           f"prompts of {SEQ} on the stages reassembled on rank 0 in "
+           f"{dec['s']:.3f} s; first tokens {dec['first_tokens']} against "
+           f"the full forward's argmax {dec['argmax']}")
+    print(msg, flush=True)
+    check(dec["first_tokens"] == dec["argmax"], msg)
+    mem = [r["memory"] for r in ranks]
+    msg = (f"pp memory at M {PP_MEM_M} (remat off) | {card}: peak GiB per "
+           f"rank gpipe {[round(x['gpipe']['peak_bytes'] / 2**30, 3) for x in mem]}"
+           f", 1f1b {[round(x['1f1b']['peak_bytes'] / 2**30, 3) for x in mem]}"
+           f"; step s gpipe {[round(x['gpipe']['step_s'], 3) for x in mem]}, "
+           f"1f1b {[round(x['1f1b']['step_s'], 3) for x in mem]}")
+    print(msg, flush=True)
+    check(all(x["1f1b"]["peak_bytes"] < x["gpipe"]["peak_bytes"]
+              for x in mem), msg)
+    moe = [r["moe"] for r in ranks]
+    m0 = moe[0]
+    msg = (f"pp moe (1f1b, {MOE_EXPERTS} experts, top-{MOE_TOP_K}) | "
+           f"{card}: losses {m0['losses']}; step ms per rank "
+           f"{[[round(s * 1e3, 3) for s in x['step_s']] for x in moe]}; "
+           f"first step loss {m0['losses'][0]:.6f} against one process at "
+           f"pp 1 {m0['ref_loss']:.6f}; worst gradient "
+           f"{m0['worst_grad'][0]:.3e} ({m0['worst_grad'][1]}), parameter "
+           f"{m0['worst_param'][0]:.3e} ({m0['worst_param'][1]}), flips "
+           f"{m0['worst_flip'][0]:.4f}; peak GiB per rank "
+           f"{[round(x['peak_bytes'] / 2**30, 3) for x in moe]}; launches "
+           f"{[x['launches'] for x in moe]}")
+    print(msg, flush=True)
+    check(all(math.isfinite(v) for x in moe for v in x["losses"]), msg)
+    check(moe[0]["losses"] == moe[1]["losses"], msg)
+    check(m0["loss_diff"] <= LONG_LOSS_TOL, msg)
+    check(m0["worst_grad"][0] <= LONG_GRAD_TOL and
+          m0["worst_param"][0] <= LONG_GRAD_TOL and
+          m0["worst_flip"][0] <= LAYOUT_FLIP_TOL, msg)
+    n = LAYERS // PP_RANKS * PP_M * (1 + PP_MOE_STEPS)
+    check(all(x["launches"] == {"flash_fwd": n, "flash_bwd_dq": n,
+                                "flash_bwd_dkv": n} for x in moe), msg)
+    res["moe_launches_by_rank"] = [x["launches"] for x in moe]
+    print(f"pp phase wall {wall:.1f} s (rank processes)", flush=True)
+    return res
+
+
+def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them; the
     long-context ring's launches (both ranks, remat off; and per rank),
     each kernel at the ring's chunk shapes, and at tensor parallelism's
-    heads (phase 12)."""
+    heads (phase 12); the pipeline's (phase 13: both ranks, every
+    schedule and the MoE run; and per schedule and rank)."""
+    def pp_total(k):
+        runs = [r["launches_by_rank"] for r in ppr["runs"].values()]
+        return sum(x[k] for per in runs + [ppr["moe_launches_by_rank"]]
+                   for x in per)
+
     by_path = {k: {"serving": sl["launches"][k], "training": v,
                    "vae_ddp": va["launches"][k],
                    "gnn_ddp": gn["launches"][k],
@@ -3907,7 +4328,8 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk):
                    "long_context": lc["launches"][k],
                    "moe": mo["launches"][k],
                    **{f"layout_{n}": lay[n]["launches"][k]
-                      for n, _, _ in LAYOUTS}}
+                      for n, _, _ in LAYOUTS},
+                   "pp": pp_total(k)}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -3953,6 +4375,11 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk):
         row["ring_chunks"] = {c: lc["chunks"][c][row["name"]]
                               for c in ("diagonal", "past")}
         row["tp_heads"] = tpk["tp_heads"][row["name"]]
+        row["pp_launches_by_rank"] = {
+            **{n: [x[row["name"]] for x in r["launches_by_rank"]]
+               for n, r in ppr["runs"].items()},
+            "moe_1f1b": [x[row["name"]]
+                         for x in ppr["moe_launches_by_rank"]]}
     return {"kernels": rows, "sdpa_backward_ms": bwd["ms"]["sdpa_backward"],
             "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"]}
 
@@ -4032,8 +4459,13 @@ def main() -> int:
                              label="tp 2's heads")
     print(f"phase 12 wall {time.perf_counter() - t12:.1f} s", flush=True)
 
+    # 13. pipeline parallelism
+    t13 = time.perf_counter()
+    ppr = phase_pp(args.seed, card)
+    print(f"phase 13 wall {time.perf_counter() - t13:.1f} s", flush=True)
+
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
-                                  lay, tpk)), flush=True)
+                                  lay, tpk, ppr)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

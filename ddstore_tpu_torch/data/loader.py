@@ -47,9 +47,10 @@ of this rank's data slot (its position along the batch axes, ``dp`` and
 loader stages only this rank's chunk of each row, ``[j * S/sp, (j + 1) *
 S/sp)`` for its position ``j`` along ``sp``: the rows are read whole,
 and the chunk alone is copied into the pinned buffer and on to the card.
-Ranks along the axes the spec does not name (``tp``, ``ep``) read the
-same rows, as the reference replicates a batch over them; nothing is
-broadcast.
+Ranks along the axes the spec does not name (``tp``, ``ep``, ``pp``)
+read the same rows, as the reference replicates a batch over them; nothing
+is broadcast (under pp the first stage reads the tokens and the last the
+targets of the same rows).
 
 Over a store that has them, the loader wires the store's counters into
 ``metrics.summary()`` (scatter plan, faults, failover, tenants,

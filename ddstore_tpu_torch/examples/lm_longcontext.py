@@ -1,7 +1,7 @@
 """Long-context LM training: store-fed token windows, a dp x sp mesh, ring
-attention and rematerialized blocks, with tensor parallelism and an
-expert-parallel MoE (the port of ``examples/lm_longcontext.py``; its
-pipeline path is a later slice).
+attention and rematerialized blocks, with tensor parallelism, an
+expert-parallel MoE and pipeline stages (the port of
+``examples/lm_longcontext.py``).
 
 Sequences are sharded across the ``sp`` axis of the mesh, so each rank
 holds ``S/sp`` of every window's activations; K/V chunks go round the
@@ -11,11 +11,12 @@ and stream through the loader, each rank staging only its sequence chunk
 of its dp slot's rows.
 
 The port runs one rank per device: with ``W`` ranks, ``dp = min(--dp,
-W)``, ``--tp`` ranks split each block's heads and MLP, and the ranks left
-over, ``W // (dp * tp)``, go to ``ep`` when ``--experts`` asks for an MoE,
-else to ``sp`` (the reference's ``:106-127``). The sampler hands out dp
-slots' rows (``DistributedSampler(n, dp, dp_index)``), and the ranks of
-one dp slot read the same windows.
+W)``, ``--pp`` ranks hold one pipeline stage each, ``--tp`` ranks split
+each block's heads and MLP, and the ranks left over, ``W // (dp * pp *
+tp)``, go to ``ep`` when ``--experts`` asks for an MoE, else to ``sp``
+(the reference's ``:105-123``). The sampler hands out dp slots' rows
+(``DistributedSampler(n, dp, dp_index)``), and the ranks of one dp slot
+read the same windows.
 
 Two processes on the CPU, through a file rendezvous (dp 1 x sp 2)::
 
@@ -31,8 +32,12 @@ gloo (NCCL takes one card per rank), one rank per card uses NCCL.
 ``--generate N`` ends the run with a KV-cached greedy continuation of a
 training window's prefix, its prompt prefilled over the ring (on whole
 parameters gathered from the tensor and expert shards). ``--tp 2`` or
-``--experts 4 --moe-top-k 2`` over 2 ranks run those layouts; ``--pp``
-refuses (ROADMAP item 15).
+``--experts 4 --moe-top-k 2`` over 2 ranks run those layouts. ``--pp 2``
+trains the pipelined step (``--schedule``, ``--microbatches`` per dp
+slot's batch of ``2 * microbatches`` rows, ``--virtual-stages`` under the
+interleaved schedules; ``--remat`` re-runs each stage in GPipe's
+backward), and ``--generate`` then decodes on rank 0 from the stages
+reassembled by ``lm_from_stages``.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ def main(argv=None) -> None:
                         "64 and 128, so pass dim // 64 there)")
     p.add_argument("--dp", type=int, default=2)
     p.add_argument("--pp", type=int, default=1,
-                   help="pipeline stages (ROADMAP item 15: not ported)")
+                   help="pipeline stages (>1 selects the pipelined train "
+                        "step; composes with dp, sp, --tp and --experts)")
     p.add_argument("--tp", type=int, default=1,
                    help="tensor-parallel axis size (splits each block's "
                         "heads and MLP columns)")
@@ -105,9 +111,6 @@ def main(argv=None) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--device", default="cuda", help="cuda or cpu")
     args = p.parse_args(argv)
-    if args.pp > 1:
-        raise SystemExit("--pp needs ROADMAP item 15, which the port does "
-                         "not have yet")
 
     import numpy as np
     import torch
@@ -125,14 +128,15 @@ def main(argv=None) -> None:
 
     group, _, dev = launch(args.device)
     world, rank = group.size, group.rank
-    dp, tp = min(args.dp, world), args.tp
-    if world % (dp * tp):
+    dp, pp, tp = min(args.dp, world), args.pp, args.tp
+    if world % (dp * pp * tp):
         raise SystemExit(f"{world} ranks do not split into dp={dp} x "
-                         f"tp={tp}")
-    # the ranks left after dp x tp serve the experts, else the sequence
-    rest = world // (dp * tp)
+                         f"pp={pp} x tp={tp}")
+    # the ranks left after dp x pp x tp serve the experts, else the
+    # sequence
+    rest = world // (dp * pp * tp)
     ep, sp = (rest, 1) if args.experts else (1, rest)
-    axes = {"dp": dp, "ep": ep, "sp": sp, "tp": tp}
+    axes = {"pp": pp, "dp": dp, "ep": ep, "sp": sp, "tp": tp}
     mesh = make_mesh(axes, dev.type) if world > 1 else None
     dp_index = axis_index(mesh, "dp")
 
@@ -155,10 +159,28 @@ def main(argv=None) -> None:
         remat=args.remat or args.remat_policy is not None,
         remat_policy=args.remat_policy)
     model.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
-    state, opt = transformer.create_train_state(model, lr=args.lr, mesh=mesh)
-    step = transformer.make_train_step(model, opt, state=state, mesh=mesh,
-                                       accum_steps=args.accum_steps)
-    batch = 2  # a dp slot's rows (the reference's 2 * dp over all slots)
+    if pp > 1:
+        # the pipelined step: stages over pp (Megatron over tp, the ring
+        # over sp, the experts over ep inside each stage)
+        if args.accum_steps != 1:
+            raise SystemExit("--accum-steps composes with the sequential "
+                             "step only; under --pp use --microbatches")
+        nv = args.virtual_stages \
+            if args.schedule.startswith("interleaved") else 1
+        state, opt = transformer.create_pp_train_state(
+            model, pp, lr=args.lr, mesh=mesh, n_virtual=nv)
+        step = transformer.make_pp_train_step(
+            state.model, opt, mesh, pp, args.microbatches,
+            schedule=args.schedule, n_virtual=nv, remat=args.remat,
+            state=state)
+        batch = args.microbatches * 2  # the reference's microbatches*2*dp
+    else:
+        state, opt = transformer.create_train_state(model, lr=args.lr,
+                                                    mesh=mesh)
+        step = transformer.make_train_step(model, opt, state=state,
+                                           mesh=mesh,
+                                           accum_steps=args.accum_steps)
+        batch = 2  # a dp slot's rows (the reference's 2 * dp over all)
     sampler = DistributedSampler(len(ds), dp, dp_index, seed=args.seed)
     for epoch in range(args.epochs):
         sampler.set_epoch(epoch)
@@ -186,8 +208,9 @@ def main(argv=None) -> None:
                   flush=True)
     if args.generate > 0:
         # KV-cached greedy continuation of rank 0's first window's prefix,
-        # its prompt prefilled over the ring (every rank takes part)
-        unit = 8 * sp
+        # its prompt prefilled over the ring (every rank takes part; under
+        # pp rank 0 alone decodes, on the stages reassembled)
+        unit = 8 * sp if pp == 1 else 8
         plen = min(args.seq, -(-max(32, unit) // unit) * unit)
         want = np.full(args.generate, -1, np.int64)  # -1: past the corpus
         tail = corpus[starts[0] + plen:starts[0] + plen + args.generate]
@@ -197,21 +220,27 @@ def main(argv=None) -> None:
         if world > 1:
             dist.broadcast(first, 0)
         prompt = first[None, :plen]
-        if ep * tp > 1:  # decode on whole parameters
+        prefill_mesh = mesh if sp > 1 else None
+        if pp > 1:
+            model = transformer.lm_from_stages(state.model, mesh)
+            prefill_mesh = None
+        elif ep * tp > 1:  # decode on whole parameters
             model = transformer.unshard(model)
-        out = decode.generate(model, prompt, args.generate,
-                              temperature=args.temperature,
-                              generator=torch.Generator(device=dev)
-                              .manual_seed(args.seed + 1),
-                              top_k=args.top_k, top_p=args.top_p,
-                              prefill_mesh=mesh if sp > 1 else None)
-        cont = out[0, plen:].cpu().numpy()
-        want = first[plen:].cpu().numpy()
-        n = int((want >= 0).sum())  # the corpus may end mid-continuation
-        acc = float((cont[:n] == want[:n]).mean()) if n else float("nan")
-        if rank == 0:
-            print(f"generate: {args.generate} tokens, pattern accuracy "
-                  f"{acc:.2f}: {cont[:24].tolist()}", flush=True)
+        if model is not None:
+            out = decode.generate(model, prompt, args.generate,
+                                  temperature=args.temperature,
+                                  generator=torch.Generator(device=dev)
+                                  .manual_seed(args.seed + 1),
+                                  top_k=args.top_k, top_p=args.top_p,
+                                  prefill_mesh=prefill_mesh)
+            cont = out[0, plen:].cpu().numpy()
+            want = first[plen:].cpu().numpy()
+            n = int((want >= 0).sum())  # the corpus may end mid-way
+            acc = float((cont[:n] == want[:n]).mean()) if n \
+                else float("nan")
+            if rank == 0:
+                print(f"generate: {args.generate} tokens, pattern accuracy "
+                      f"{acc:.2f}: {cont[:24].tolist()}", flush=True)
     finish(store)
 
 

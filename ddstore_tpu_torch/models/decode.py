@@ -41,8 +41,7 @@ import torch.distributed as dist
 
 from ..parallel.mesh import axis_index, axis_size
 from .moe import default_capacity
-from .transformer import (TransformerLM, _layer_norm,
-                          _refuse_unported_axes)
+from .transformer import TransformerLM, _layer_norm
 
 __all__ = ["init_cache", "decode_step", "filter_logits", "generate",
            "moe_decode"]
@@ -231,7 +230,6 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
         if stats is not None and dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    _refuse_unported_axes(prefill_mesh)
     _refuse_placed(model)
     sp = axis_size(prefill_mesh, model.sp_axis)
     if sp > 1 and model.n_experts > 0:

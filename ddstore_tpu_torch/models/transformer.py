@@ -31,7 +31,16 @@ the reference's rules (``parallel.tp``, ``parallel.fsdp``): tensor and
 expert shards as DTensors, ZeRO-3 through FSDP2. The layers compute on
 their local shards and take their collectives from their parameters'
 placements; the head, vocab-sharded under tp, gets a vocab-parallel
-cross-entropy. Pipeline parallelism is a later slice and raises.
+cross-entropy.
+
+Pipeline parallelism (the reference's ``transformer.py:425-826``):
+:func:`create_pp_train_state` cuts the model into stages
+(:func:`lm_to_stages`; this rank keeps its :class:`PipelineStage`: the
+embedding on the first stage, the head on the last, its chunks of
+blocks), and :func:`make_pp_train_step` runs the GPipe, 1F1B or
+interleaved schedules of :mod:`~ddstore_tpu_torch.parallel.pipeline` over
+the mesh's ``pp`` axis, composed with dp, and with tp, sp and ep inside
+each stage. :func:`lm_from_stages` reassembles the whole model on rank 0.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ from ..ops.attention import flash_attention
 from ..ops.xent import fused_linear_xent
 from ..parallel.collectives import (all_reduce, copy_to_group,
                                     reduce_from_group)
-from ..parallel.mesh import axes_group, axis_size
+from ..parallel.mesh import axes_group, axis_index, axis_size
 from ..parallel.ring_attention import ring_attention
 from .moe import MoeMlp, _axis_of, _local, init_expert_
 
@@ -61,7 +70,10 @@ __all__ = ["Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
            "lm_loss", "MOE_AUX_WEIGHT", "moe_aux_sum", "TrainState",
            "create_train_state", "make_train_step", "REMAT_POLICIES",
            "param_digest", "broadcast_parameters", "all_reduce_gradients",
-           "unshard"]
+           "unshard", "head_nll", "StageChunk", "PipelineStage",
+           "lm_to_stages", "lm_from_stages", "create_pp_train_state",
+           "pp_gpipe_value_and_grad", "pp_1f1b_value_and_grad",
+           "make_pp_train_step", "pp_batch_rows", "PP_SCHEDULES"]
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -257,20 +269,9 @@ REMAT_POLICIES = {
     "dots_with_no_batch_dims_saveable": ("mm", "addmm"),
 }
 
-# Mesh axes of the parallel layers still to come, and their ROADMAP items.
-_UNPORTED_AXES = {"pp": 15}
 # The data axes of a step: their ranks hold different tokens (those of
 # tp and ep hold the same).
 DATA_AXES = ("dp", "sp", "fsdp")
-
-
-def _refuse_unported_axes(mesh) -> None:
-    for axis, item in _UNPORTED_AXES.items():
-        if axis_size(mesh, axis) > 1:
-            raise NotImplementedError(
-                f"a mesh with a {axis!r} axis of size > 1 needs ROADMAP "
-                f"item {item}, which is not ported yet (dp, sp, tp, ep and "
-                f"fsdp are)")
 
 
 def _remat_context_fn(policy: Optional[str]):
@@ -328,7 +329,6 @@ class TransformerLM(nn.Module):
                  moe_capacity: Optional[int] = None, remat: bool = False,
                  remat_policy: Optional[str] = None):
         super().__init__()
-        _refuse_unported_axes(mesh)
         if n_experts > 0 and axis_size(mesh, sp_axis) > 1:
             raise NotImplementedError(
                 "MoE over a mesh that splits the sequence (sp x ep routing "
@@ -438,23 +438,33 @@ class TransformerLM(nn.Module):
 
     def _nll(self, x: torch.Tensor, targets: torch.Tensor, fused: bool,
              xent_block: int) -> torch.Tensor:
-        feats = self.lmhead(x, features_only=True)
-        w = self.lmhead.head.weight
-        group, idx = _axis_of(w, 0)
-        if group is not None:
-            if fused:
-                raise ValueError("the fused cross-entropy needs the whole "
-                                 "vocab head; a tensor-parallel head is "
-                                 "vocab-sharded (pass fused_xent=False)")
-            return _vocab_parallel_nll(feats, _local(w), targets, group,
-                                       idx)
-        if not fused:
-            logp = torch.log_softmax(F.linear(feats, w.float()), dim=-1)
-            return -logp.gather(-1, targets.long()[..., None])[..., 0]
-        nll = fused_linear_xent(
-            feats.reshape(-1, feats.shape[-1]).to(self.compute_dtype),
-            w.t(), targets.reshape(-1), xent_block, self.compute_dtype)
-        return nll.view(targets.shape)
+        return head_nll(self.lmhead, x, targets, fused, xent_block,
+                        self.compute_dtype)
+
+
+def head_nll(lmhead: LMHead, x: torch.Tensor, targets: torch.Tensor,
+             fused: bool, xent_block: int, compute_dtype: torch.dtype
+             ) -> torch.Tensor:
+    """Each token's f32 negative log-likelihood under ``lmhead`` from the
+    last block's output ``x``: through the fused cross-entropy when
+    ``fused``, the vocab-parallel one when the head is split over tensor
+    ranks."""
+    feats = lmhead(x, features_only=True)
+    w = lmhead.head.weight
+    group, idx = _axis_of(w, 0)
+    if group is not None:
+        if fused:
+            raise ValueError("the fused cross-entropy needs the whole "
+                             "vocab head; a tensor-parallel head is "
+                             "vocab-sharded (pass fused_xent=False)")
+        return _vocab_parallel_nll(feats, _local(w), targets, group, idx)
+    if not fused:
+        logp = torch.log_softmax(F.linear(feats, w.float()), dim=-1)
+        return -logp.gather(-1, targets.long()[..., None])[..., 0]
+    nll = fused_linear_xent(
+        feats.reshape(-1, feats.shape[-1]).to(compute_dtype),
+        w.t(), targets.reshape(-1), xent_block, compute_dtype)
+    return nll.view(targets.shape)
 
 
 def _vocab_parallel_nll(feats: torch.Tensor, w: torch.Tensor,
@@ -624,7 +634,6 @@ def create_train_state(model: nn.Module, lr: float = 3e-4, mesh=None
     and fsdp). The optimizer is made on the placed parameters, so its
     moments are sharded alike."""
     if mesh is not None:
-        _refuse_unported_axes(mesh)
         if axis_size(mesh, "fsdp") > 1 and axis_size(mesh, "sp") > 1:
             raise NotImplementedError("fsdp with a sequence-parallel axis "
                                       "is not ported (ROADMAP.md queue A)")
@@ -740,8 +749,11 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
             f"make_train_step's mesh splits the sequence over "
             f"{model.sp_axis!r}, but the model's ring runs over "
             f"model.mesh ({model.mesh!r}); build the model with this mesh")
+    if axis_size(mesh, "pp") > 1:
+        raise ValueError("mesh has a pp axis: the pipelined step is "
+                         "make_pp_train_step, over the stages "
+                         "create_pp_train_state splits the model into")
     if mesh is not None:
-        _refuse_unported_axes(mesh)
         if any(axis_size(mesh, a) > 1 for a in ("tp", "ep", "fsdp")) and \
                 (state is None or state.mesh is not mesh):
             raise ValueError("mesh has tp/ep/fsdp axes: pass the `state` "
@@ -811,3 +823,477 @@ def unshard(model: TransformerLM, device=None) -> TransformerLM:
         moe_top_k=model.moe_top_k, moe_capacity=model.moe_capacity,
         remat=model.remat, remat_policy=model.remat_policy)
     return from_flax(tree, plain).to(plain.device)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline parallelism: the LM cut into stages (the reference's
+# transformer.py:425-826). The blocks run through the schedules of
+# parallel/pipeline.py, a rank holding its stage's chunks; the embedding
+# lives on the first stage and the head on the last (the reference
+# replicates both over pp: ROADMAP C).
+# ---------------------------------------------------------------------------
+
+
+def _stage_group_size(layers: int, n_stages: int) -> int:
+    """Layers per stage (ceil: trailing stages pad), the one size rule of
+    ``lm_to_stages``, ``lm_from_stages`` and the stage body. Refuses a
+    layout where a whole stage would be padding."""
+    g = -(-layers // n_stages)
+    if layers <= (n_stages - 1) * g:
+        raise ValueError(
+            f"{n_stages} stages of {g} layers leave at least one stage "
+            f"with zero real layers (layers={layers}); use fewer stages")
+    return g
+
+
+class StageChunk(nn.Module):
+    """One chunk of the model: ``g`` consecutive blocks (``layers``),
+    the trailing ones zero-parameter pads where the depth does not divide.
+    The ``_valid`` buffer marks the real ones (the reference's float
+    ``_valid`` leaf); a pad is never run, so it stays an identity with no
+    gradient, and Adam moves none of its weights."""
+
+    def __init__(self, layers: List[Block], valid: List[bool]):
+        super().__init__()
+        self.layers = nn.ModuleList(layers)
+        self.register_buffer("_valid", torch.tensor(valid, dtype=torch.bool,
+                                                    device=layers[0].qkv
+                                                    .weight.device))
+        self.valid = [bool(v) for v in valid]
+
+
+class PipelineStage(nn.Module):
+    """This rank's part of a :class:`TransformerLM` cut into pipeline
+    stages: the embedding on the first stage, the head on the last, and
+    the stage's ``n_virtual`` chunks (``chunks[v]`` is model chunk ``v·S +
+    stage``). It keeps the model's configuration; the schedules of
+    :func:`make_pp_train_step` run it."""
+
+    def __init__(self, model: TransformerLM, stage: int, n_stages: int,
+                 n_virtual: int, chunks: List[StageChunk]):
+        super().__init__()
+        for k in ("vocab", "dim", "heads", "layers", "mlp_ratio",
+                  "compute_dtype", "sp_axis", "n_experts", "moe_top_k",
+                  "moe_capacity"):
+            setattr(self, k, getattr(model, k))
+        self.stage, self.n_stages, self.n_virtual = stage, n_stages, \
+            n_virtual
+        self.group_size = _stage_group_size(model.layers,
+                                            n_stages * n_virtual)
+        self.embed = model.embed if stage == 0 else None
+        self.chunks = nn.ModuleList(chunks)
+        self.lmhead = model.lmhead if stage == n_stages - 1 else None
+
+    @property
+    def device(self) -> torch.device:
+        return self.chunks[0].layers[0].ln1.weight.device
+
+
+def lm_to_stages(model: TransformerLM, n_stages: int, n_virtual: int = 1,
+                 stage: int = 0) -> PipelineStage:
+    """Stage ``stage`` of ``model`` cut into ``n_stages * n_virtual``
+    contiguous chunks of ``ceil(layers / chunks)`` blocks (the reference's
+    ``lm_to_stages``, ``transformer.py:452-496``, for one stage): its
+    chunks are model chunks ``v·S + stage``, the device-major order of
+    ``interleave_order``. The model's modules move into the stage (no
+    copy); trailing pads are zero-parameter blocks. Uneven depths pad the
+    trailing chunks; a chunk of pads alone raises ``ValueError``."""
+    from ..parallel.pipeline import interleave_order
+
+    n_chunks = n_stages * n_virtual
+    g = _stage_group_size(model.layers, n_chunks)
+    order = interleave_order(n_stages, n_virtual)
+    chunks = []
+    for pos in range(stage * n_virtual, (stage + 1) * n_virtual):
+        layers, valid = [], []
+        for j in range(g):
+            li = order[pos] * g + j
+            if li < model.layers:
+                layers.append(model.blocks[li])
+            else:
+                pad = Block(model.dim, model.heads, model.mlp_ratio,
+                            model.compute_dtype, device=model.device,
+                            n_experts=model.n_experts,
+                            moe_top_k=model.moe_top_k,
+                            moe_capacity=model.moe_capacity)
+                with torch.no_grad():
+                    for p in pad.parameters():
+                        p.zero_()
+                layers.append(pad)
+            valid.append(li < model.layers)
+        chunks.append(StageChunk(layers, valid))
+    return PipelineStage(model, stage, n_stages, n_virtual, chunks)
+
+
+def lm_from_stages(stage: PipelineStage, mesh=None, pp_axis: str = "pp",
+                   device=None) -> Optional[TransformerLM]:
+    """The whole model, reassembled from every stage, on global rank 0
+    (None on the others); pads dropped (the reference's
+    ``lm_from_stages``, ``:499-513``). A collective of the mesh's ranks:
+    tensor and expert shards are gathered whole, and each stage's rank at
+    position 0 of every other axis sends its stage to rank 0. The model
+    is mesh-free, on ``device`` (default the stage's)."""
+    from ..parallel.mesh import stage_ring
+    from ..weights import from_flax, stage_tree, tree_from_stages
+
+    piece = stage_tree(stage)
+    ring = stage_ring(mesh, pp_axis)
+    others = [a for a in (mesh.mesh_dim_names if mesh is not None else ())
+              if a != pp_axis]
+    root = all(axis_index(mesh, a) == 0 for a in others)
+    pieces = [piece]
+    if ring.size > 1 and root:
+        pieces = [None] * ring.size if ring.index == 0 else None
+        dist.gather_object(piece, pieces, dst=dist.get_global_rank(
+            ring.group, 0), group=ring.group)
+    if not (root and ring.index == 0):
+        return None
+    from ..weights import join_stage_trees
+
+    outer, stages = join_stage_trees(pieces, stage.layers, stage.n_stages,
+                                     stage.n_virtual)
+    flat = tree_from_stages(outer, stages, stage.layers, stage.n_stages,
+                            stage.n_virtual)
+    model = TransformerLM(
+        vocab=stage.vocab, dim=stage.dim, heads=stage.heads,
+        layers=stage.layers, mlp_ratio=stage.mlp_ratio,
+        compute_dtype=stage.compute_dtype,
+        device=stage.device if device is None else device,
+        n_experts=stage.n_experts, moe_top_k=stage.moe_top_k,
+        moe_capacity=stage.moe_capacity)
+    return from_flax(flat, model)
+
+
+def _head_xent(stage: PipelineStage, lmhead: LMHead, y, targets,
+               fused: bool, xent_block: int = 8192) -> torch.Tensor:
+    """The head and the token-mean cross-entropy of post-block
+    activations, the one head of every schedule (fused as ``lm_loss``
+    fuses it; vocab-parallel under tensor parallelism)."""
+    return head_nll(lmhead, y, targets, fused, xent_block,
+                    stage.compute_dtype).mean()
+
+
+def _make_stage_fn(model, n_chunks: int, with_aux: bool = False, mesh=None):
+    """The stage body of the schedules: ``(chunk, x) -> x``, or ``(x,
+    side)`` with ``with_aux``, ``side`` the chunk's real layers' MoE aux
+    summed and divided by ``layers`` (so the sum over chunks is the
+    sequential step's layer mean). A pad layer is skipped. With a mesh
+    whose sp axis is larger than 1 the blocks ring their attention over
+    it (pp x sp)."""
+    _stage_group_size(model.layers, n_chunks)
+    sp_mesh = mesh if axis_size(mesh, model.sp_axis) > 1 else None
+
+    def stage_fn(chunk: StageChunk, x):
+        side = None
+        for blk, real in zip(chunk.layers, chunk.valid):
+            if not real:
+                continue
+            x, _, a = blk(x, sp_mesh, model.sp_axis)
+            if with_aux:
+                side = a if side is None else side + a
+        if with_aux:
+            return x, side / model.layers
+        return x
+
+    return stage_fn
+
+
+def pp_batch_rows(batch: int, n_microbatches: int, dp: int, j: int
+                  ) -> List[int]:
+    """The global rows of a ``batch``-row step that dp rank ``j`` holds
+    under the reference's placement (``transformer.py:624-628`` and
+    ``pipeline.py:129``): microbatch ``i`` is rows ``[i·mb, (i + 1)·mb)``
+    and its dp shard ``j`` rows ``[i·mb + j·mb/dp, i·mb + (j + 1)·mb/dp)``.
+    A pp step takes these rows, in this order, as rank ``j``'s batch."""
+    mb = batch // n_microbatches
+    sub = mb // dp
+    return [i * mb + j * sub + r for i in range(n_microbatches)
+            for r in range(sub)]
+
+
+def _microbatch(x: torch.Tensor, n_microbatches: int) -> torch.Tensor:
+    """(B, ...) -> (M, B // M, ...): contiguous slices of the batch."""
+    b = x.shape[0]
+    if b % n_microbatches:
+        raise ValueError(f"batch of {b} rows does not split into "
+                         f"{n_microbatches} microbatches")
+    return x.reshape(n_microbatches, b // n_microbatches, *x.shape[1:])
+
+
+def _pp_finish(stage: PipelineStage, st, mesh, dp_axis, head_sum, side_sum,
+               aux_weight, m):
+    """The step's loss, replicated on every rank: the head's microbatch
+    mean plus the side losses over the pp ring, averaged over the data
+    ranks (dp x sp); and each parameter's gradient averaged over them."""
+    loss = torch.zeros((), dtype=torch.float32, device=side_sum.device)
+    if st.d == st.s - 1:
+        loss = loss + head_sum / m
+    loss = loss + aux_weight * side_sum / m
+    if st.ring is not None and st.ring.group is not None:
+        dist.all_reduce(loss, group=st.ring.group)
+    data = axes_group(mesh, tuple(a for a in (dp_axis, stage.sp_axis)
+                                  if a is not None))
+    if data is not None:
+        n = dist.get_world_size(data)
+        all_reduce_gradients(list(stage.parameters()), n, data)
+        dist.all_reduce(loss, group=data)
+        loss = loss / n
+    return loss.detach()
+
+
+def _pp_prologue(stage, tokens, targets, positions, m):
+    """The embedding on the first stage (its graph kept for the inputs'
+    gradient), the targets by microbatch, and the activation's shape."""
+    b, s_local = tokens.shape
+    mb = _microbatch(tokens, m).shape[1]
+    x = stage.embed(tokens, positions) if stage.embed is not None else None
+    xm = None if x is None else _microbatch(x, m)
+    like = torch.empty((mb, s_local, stage.dim), dtype=stage.compute_dtype,
+                       device=tokens.device)
+    return x, xm, _microbatch(targets, m), like
+
+
+def pp_gpipe_value_and_grad(stage: PipelineStage, stage_fn, tokens, targets,
+                            positions, *,
+                            n_microbatches: int, mesh=None,
+                            pp_axis: str = "pp",
+                            dp_axis: Optional[str] = None,
+                            remat: bool = False, with_aux: bool = False,
+                            aux_weight: float = 0.0,
+                            fused_xent: bool = False,
+                            xent_block: int = 8192,
+                            n_virtual: int = 1) -> torch.Tensor:
+    """The loss, and every stage parameter's gradient in ``.grad``,
+    through the GPipe schedule (the interleaved one at ``n_virtual > 1``):
+    the production path of ``make_pp_train_step(schedule="gpipe")``. A
+    collective of the mesh's ranks, each passing its dp slot's rows
+    (:func:`pp_batch_rows`) and its sequence chunk.
+
+    ``stage`` is this rank's :class:`PipelineStage` (the reference's
+    ``(outer, stages)`` state, this rank's part of it). The first stage
+    embeds and feeds the microbatches; the last runs the head
+    on each microbatch's output as it comes out of the forward ticks, and
+    its cotangent starts that microbatch's backward. Gradients are
+    averaged over the data ranks; the loss is returned on every rank."""
+    from ..parallel.pipeline import GPipe, _Stage
+
+    m = n_microbatches
+    st = _Stage(mesh, pp_axis, n_virtual, m)
+    x, xm, tm, like = _pp_prologue(stage, tokens, targets, positions, m)
+    head_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    dys = {}
+
+    def on_final(i, y):
+        nonlocal head_sum
+        yl = y.detach().requires_grad_()
+        with torch.enable_grad():
+            loss = _head_xent(stage, stage.lmhead, yl, tm[i], fused_xent,
+                              xent_block)
+            (loss / m).backward()
+        head_sum = head_sum + loss.detach().float()
+        dys[i] = yl.grad
+
+    eng = GPipe(st, stage_fn, list(stage.chunks), lambda i: xm[i], like,
+                with_aux=with_aux, remat=remat)
+    side = eng.forward(on_final)
+    dx = eng.backward(lambda i: dys.pop(i), aux_weight / m)
+    if x is not None:
+        x.backward(torch.stack([dx[i] for i in range(m)]).view_as(x))
+    return _pp_finish(stage, st, mesh, dp_axis, head_sum, side, aux_weight,
+                      m)
+
+
+def pp_1f1b_value_and_grad(stage: PipelineStage, stage_fn, tokens, targets,
+                           positions, *,
+                           n_microbatches: int, mesh=None,
+                           pp_axis: str = "pp",
+                           dp_axis: Optional[str] = None,
+                           with_aux: bool = False, aux_weight: float = 0.0,
+                           fused_xent: bool = False, xent_block: int = 8192,
+                           n_virtual: int = 1) -> torch.Tensor:
+    """As :func:`pp_gpipe_value_and_grad` through the fused 1F1B schedule
+    (interleaved at ``n_virtual > 1``): the head runs on the last stage
+    in the tick its microbatch's output is made, and that microbatch's
+    backward starts there; at most ``2·V·S - 1`` stage graphs are live on
+    a rank."""
+    from ..parallel.pipeline import _Stage, run_1f1b
+
+    m = n_microbatches
+    st = _Stage(mesh, pp_axis, n_virtual, m)
+    x, xm, tm, like = _pp_prologue(stage, tokens, targets, positions, m)
+    head_sum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+
+    def head(i, y):
+        nonlocal head_sum
+        yl = y.detach().requires_grad_()
+        with torch.enable_grad():
+            loss = _head_xent(stage, stage.lmhead, yl, tm[i], fused_xent,
+                              xent_block)
+            (loss / m).backward()
+        head_sum = head_sum + loss.detach().float()
+        return yl.grad
+
+    side, dx = run_1f1b(st, stage_fn, list(stage.chunks), lambda i: xm[i],
+                        like, head, with_aux=with_aux,
+                        side_cot=aux_weight / m)
+    if x is not None:
+        x.backward(torch.stack([dx[i] for i in range(m)]).view_as(x))
+    return _pp_finish(stage, st, mesh, dp_axis, head_sum, side, aux_weight,
+                      m)
+
+
+def _pp_rules(mesh, pp_axis, tp_axis, ep_axis):
+    """The placement of a stage's parameters (``create_pp_train_state``,
+    ``transformer.py:604-611``): its chunks by ``pp_stage_rules`` read
+    for one stage, the embedding and head by Megatron's rules over tp;
+    None when nothing is sharded."""
+    from ..parallel.tp import megatron_rules, pp_stage_rules, \
+        stage_local_rules
+
+    tp = tp_axis if axis_size(mesh, tp_axis) > 1 else None
+    ep = ep_axis if axis_size(mesh, ep_axis) > 1 else None
+    if tp is None and ep is None:
+        return None
+    inner = stage_local_rules(pp_stage_rules(pp_axis, tp, ep))
+    outer = megatron_rules(tp) if tp else (lambda path, leaf: ())
+
+    def rules(path, leaf):
+        return inner(path, leaf) if path[0] == "chunks" else \
+            outer(path, leaf)
+
+    return rules
+
+
+def create_pp_train_state(model: TransformerLM, n_stages: int,
+                          lr: float = 3e-4, mesh=None, pp_axis: str = "pp",
+                          tp_axis: str = "tp", ep_axis: str = "ep",
+                          n_virtual: int = 1
+                          ) -> Tuple[TrainState, torch.optim.Optimizer]:
+    """This rank's stage of ``model`` (:func:`lm_to_stages` at its
+    position along ``pp_axis``) and Adam over it, as the reference's
+    ``create_pp_train_state`` (``transformer.py:583-621``) returns its
+    ``(outer, stages)`` state. Every rank holds the same full weights
+    (checked as ``create_train_state`` checks them); the model's modules
+    move into the stage. ``n_virtual > 1`` cuts ``V·S`` chunks for the
+    interleaved schedules.
+
+    On a mesh whose ``tp_axis`` is larger than 1 the chunks carry
+    Megatron's placement (``parallel.tp.pp_stage_rules``, q, k and v by
+    heads) and the head is vocab-sharded; a larger ``ep_axis`` shards the
+    experts. An MoE layer routes each microbatch's dp shard alone, as the
+    reference's stages do. A mesh with an ``fsdp`` axis raises: the
+    reference places tp and ep only over a pp mesh."""
+    s = axis_size(mesh, pp_axis)
+    if mesh is None and n_stages != 1:
+        raise ValueError(f"{n_stages} stages need a mesh with a "
+                         f"{pp_axis!r} axis of that size")
+    if mesh is not None and s != n_stages:
+        raise ValueError(f"n_stages={n_stages} but the mesh's {pp_axis!r} "
+                         f"axis has size {s}")
+    if axis_size(mesh, "fsdp") > 1:
+        raise NotImplementedError(
+            "pipeline stages over an fsdp axis: the reference's "
+            "create_pp_train_state places tp and ep only (fsdp would be "
+            "replicated); use dp with pp")
+    if model.n_experts > 0 and axis_size(mesh, model.sp_axis) > 1:
+        raise NotImplementedError(
+            "MoE over a mesh that splits the sequence is not ported "
+            "(ROADMAP.md queue A, item 20), inside a pipeline stage too")
+    if mesh is not None:
+        _check_replicas(model)
+        if model.heads % axis_size(mesh, tp_axis):
+            raise ValueError(f"{model.heads} heads do not split over "
+                             f"{tp_axis}={axis_size(mesh, tp_axis)}")
+        if model.n_experts % axis_size(mesh, ep_axis):
+            raise ValueError(f"{model.n_experts} experts do not split over "
+                             f"{ep_axis}={axis_size(mesh, ep_axis)}")
+    stage = lm_to_stages(model, n_stages, n_virtual,
+                         axis_index(mesh, pp_axis))
+    for chunk in stage.chunks:
+        for blk in chunk.layers:
+            if blk.n_experts > 0:
+                blk.moe.route_group = None
+    rules = _pp_rules(mesh, pp_axis, tp_axis, ep_axis)
+    if rules is not None:
+        from ..parallel.tp import shard_pytree
+        shard_pytree(stage, mesh, rules)
+    opt = adam(stage.parameters(), lr)
+    return TrainState(stage, opt, mesh=mesh), opt
+
+
+PP_SCHEDULES = ("gpipe", "1f1b", "interleaved", "interleaved_1f1b")
+
+
+def make_pp_train_step(model: PipelineStage, opt: torch.optim.Optimizer,
+                       mesh, n_stages: int, n_microbatches: int,
+                       pp_axis: str = "pp", dp_axis: str = "dp",
+                       tp_axis: str = "tp", remat: bool = False,
+                       schedule: str = "gpipe",
+                       fused_xent: Optional[bool] = None,
+                       xent_block: int = 8192, n_virtual: int = 1,
+                       state: Optional[TrainState] = None
+                       ) -> Callable[[torch.Tensor, torch.Tensor,
+                                      torch.Tensor], torch.Tensor]:
+    """The dp x pp train step over ``(tokens, targets, positions)``: this
+    rank's stage (``model``, from :func:`create_pp_train_state`) runs the
+    ``schedule``, then one ``opt`` update. Each rank passes its dp slot's
+    rows in :func:`pp_batch_rows`' order (the ranks of one slot pass the
+    same rows; the first stage reads the tokens, the last the targets)
+    and, over sp, its sequence chunk; the local batch splits into
+    ``n_microbatches``. Returns the loss (f32, every rank the same).
+
+    * ``"gpipe"``: :func:`pp_gpipe_value_and_grad`; every microbatch's
+      stage graph is live until the backward, unless ``remat``.
+    * ``"1f1b"``: :func:`pp_1f1b_value_and_grad`, at most ``2S - 1``
+      live.
+    * ``"interleaved"`` / ``"interleaved_1f1b"``: the same with
+      ``n_virtual`` chunks a stage (the state must be cut with the same
+      ``n_virtual``; ``n_microbatches`` a multiple of the stages).
+
+    MoE models add ``MOE_AUX_WEIGHT`` times the microbatch mean of their
+    layers' mean aux, each microbatch's dp shard routed alone (capacity
+    clips microbatch-sized token sets, as the reference's stages do).
+    ``fused_xent`` None fuses the head at ``vocab >= 2 * xent_block``
+    unless the mesh has a tp axis (``transformer.py:773-780``)."""
+    if schedule not in PP_SCHEDULES:
+        raise ValueError(f"unknown schedule: {schedule!r}")
+    if not schedule.startswith("interleaved") and n_virtual != 1:
+        raise ValueError(
+            f"n_virtual={n_virtual} only applies to the interleaved "
+            f"schedules, got {schedule!r}")
+    if model.n_stages != n_stages or model.n_virtual != n_virtual:
+        raise ValueError(
+            f"the stage was cut for {model.n_stages} stages x "
+            f"{model.n_virtual} chunks, the step asks for {n_stages} x "
+            f"{n_virtual}: build the state with the same n_virtual")
+    if axis_size(mesh, pp_axis) != n_stages:
+        raise ValueError(f"n_stages={n_stages} but the mesh's {pp_axis!r} "
+                         f"axis has size {axis_size(mesh, pp_axis)}")
+    if fused_xent is None:
+        fused_xent = model.vocab >= 2 * xent_block \
+            and not axis_size(mesh, tp_axis) > 1
+    moe = model.n_experts > 0
+    aux_weight = MOE_AUX_WEIGHT if moe else 0.0
+    stage_fn = _make_stage_fn(model, n_stages * n_virtual, with_aux=moe,
+                              mesh=mesh)
+    dp = dp_axis if axis_size(mesh, dp_axis) > 1 else None
+    kw = dict(n_microbatches=n_microbatches, mesh=mesh, pp_axis=pp_axis,
+              dp_axis=dp, with_aux=moe, aux_weight=aux_weight,
+              fused_xent=fused_xent, xent_block=xent_block,
+              n_virtual=n_virtual)
+    if schedule.endswith("1f1b"):
+        grads_of = functools.partial(pp_1f1b_value_and_grad, **kw)
+    else:
+        grads_of = functools.partial(pp_gpipe_value_and_grad, remat=remat,
+                                     **kw)
+
+    def step(tokens: torch.Tensor, targets: torch.Tensor,
+             positions: torch.Tensor) -> torch.Tensor:
+        opt.zero_grad(set_to_none=True)
+        loss = grads_of(model, stage_fn, tokens, targets, positions)
+        opt.step()
+        if state is not None:
+            state.step += 1
+        return loss
+
+    return step

@@ -20,18 +20,21 @@ they are DTensor placements: :class:`Placement` is a mesh and one
 placement a mesh dim, and :func:`shard_batch` wraps this rank's rows as
 its shard of the global batch. :func:`axes_group` is the process group
 of the ranks that differ only along some axes (the data ranks of a step,
-``dp`` x ``sp`` x ``fsdp``).
+``dp`` x ``sp`` x ``fsdp``), and :func:`stage_ring` a rank's pipeline
+ring: the group of the ranks that differ from it only along ``pp``, with
+a timeout of its own, and its neighbours on that axis.
 """
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["AXIS_ORDER", "make_mesh", "data_parallel_mesh", "axis_size",
-           "axis_index", "axes_group", "local_mesh", "Placement",
+           "axis_index", "axes_group", "stage_ring", "StageRing", "local_mesh", "Placement",
            "batch_sharding", "replicate", "shard_batch"]
 
 AXIS_ORDER = ("pp", "dp", "ep", "sp", "tp")  # outer -> inner
@@ -115,6 +118,51 @@ def axes_group(mesh, axes: Sequence[str]):
             if me in row:
                 cache[axes] = g
     return cache[axes]
+
+
+class StageRing(NamedTuple):
+    """A rank's place on the pipeline axis: the process group of the ranks
+    that differ from it only along that axis (None at size 1), its index
+    and the axis size, and the global ranks of the stages before and
+    after it (mod ``size``)."""
+
+    group: object
+    index: int
+    size: int
+    prev: int
+    next: int
+
+
+#: seconds a stage hand-off waits for its peer before it raises (a
+#: mismatched schedule fails instead of hanging the job)
+STAGE_TIMEOUT_S = 600.0
+
+
+def stage_ring(mesh, axis: str = "pp") -> StageRing:
+    """This rank's :class:`StageRing` along ``axis``. The group is made
+    with ``STAGE_TIMEOUT_S``: a collective the first time a mesh is asked
+    for it (every rank makes every row's group, in the same order);
+    cached on the mesh after."""
+    n = axis_size(mesh, axis)
+    if n == 1:
+        me = dist.get_rank() if dist.is_initialized() else 0
+        return StageRing(None, 0, 1, me, me)
+    cache = mesh.__dict__.setdefault("_ddstore_groups", {})
+    key = ("stage", axis)
+    if key not in cache:
+        names = list(mesh.mesh_dim_names)
+        k = names.index(axis)
+        rest = [i for i in range(len(names)) if i != k]
+        rows = mesh.mesh.permute(*rest, k).reshape(-1, n).tolist()
+        me = dist.get_rank()
+        for row in rows:
+            g = dist.new_group(row, timeout=datetime.timedelta(
+                seconds=STAGE_TIMEOUT_S))
+            if me in row:
+                i = row.index(me)
+                cache[key] = StageRing(g, i, n, row[(i - 1) % n],
+                                       row[(i + 1) % n])
+    return cache[key]
 
 
 def local_mesh(device_type: Optional[str] = None):

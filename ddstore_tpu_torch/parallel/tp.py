@@ -1,6 +1,5 @@
 """Tensor and expert parallelism as DTensor placements (the port of
-``ddstore_tpu/parallel/tp.py:25-143``; ``pp_stage_rules`` comes with
-pipeline parallelism).
+``ddstore_tpu/parallel/tp.py:25-143``).
 
 The reference places parameters by rules and lets GSPMD insert the
 collectives. Here the rules are the same functions of a leaf's flax path
@@ -36,7 +35,8 @@ from torch import nn
 
 from .mesh import Placement, axis_index, axis_size
 
-__all__ = ["Strided", "megatron_rules", "expert_rules", "torch_spec",
+__all__ = ["Strided", "megatron_rules", "expert_rules", "pp_stage_rules",
+           "stage_local_rules", "torch_spec",
            "shard_pytree", "shardings_of", "local_shard", "to_placements"]
 
 
@@ -98,6 +98,68 @@ def expert_rules(ep_axis: str = "ep",
                 return (ep_axis, None)
             return ()  # router replicated
         return base(path, leaf) if base else ()
+
+    return rules
+
+
+def pp_stage_rules(pp_axis: str = "pp", tp_axis: Optional[str] = None,
+                   ep_axis: Optional[str] = None) -> Callable:
+    """Rules for a STAGE-STACKED parameter tree (leading dim the stage,
+    over ``pp_axis``), with Megatron's tensor parallelism and, for MoE
+    stacks, expert parallelism on the other dims (pp x tp, pp x ep):
+
+    ==================  =========================================
+    every leaf           dim 0 = pp
+    qkv kernel           (pp, None, Strided(tp, 3))  (by heads)
+    up kernel            (pp, None, tp)   (column)
+    proj/down kernel     (pp, tp, None)   (row)
+    up bias              (pp, tp)
+    moe w1 / w2          (pp, ep, None, tp) / (pp, ep, tp, None)
+    moe b1 / b2          (pp, ep, tp) / (pp, ep, None)
+    everything else      (pp, None, ...)
+    ==================  =========================================
+
+    The reference's (``tp.py:72-118``) with ``qkv`` by heads, as
+    :func:`megatron_rules`. A rank holds its own stage's layers, not the
+    stack: :func:`stage_local_rules` reads these for them."""
+
+    def rules(path, leaf):
+        nd = leaf.ndim
+        spec = [pp_axis] + [None] * (nd - 1)
+        names = set(path)
+        if "moe" in names:
+            if path[-1] in ("w1", "w2", "b1", "b2") and nd >= 3:
+                spec[1] = ep_axis  # expert dim (None when ep unset)
+            if tp_axis:
+                if path[-1] == "w1" and nd == 4:
+                    spec[3] = tp_axis
+                elif path[-1] == "w2" and nd == 4:
+                    spec[2] = tp_axis
+                elif path[-1] == "b1" and nd == 3:
+                    spec[2] = tp_axis
+        elif tp_axis:
+            if path[-1] == "kernel" and nd >= 3:
+                if "qkv" in names:
+                    spec[-1] = Strided(tp_axis, 3)
+                elif "up" in names:
+                    spec[-1] = tp_axis
+                elif {"proj", "down"} & names:
+                    spec[1] = tp_axis
+            elif path[-1] == "bias" and nd == 2 and "up" in names:
+                spec[1] = tp_axis
+        return tuple(spec)
+
+    return rules
+
+
+def stage_local_rules(stacked: Callable) -> Callable:
+    """Rules for one stage's own layers from rules of the stage-stacked
+    tree (:func:`pp_stage_rules`): a layer's leaf read as a row of the
+    stack, its stage entry dropped."""
+
+    def rules(path, leaf):
+        row = torch.empty((1,) + tuple(leaf.shape), device="meta")
+        return tuple(stacked(path, row))[1:]
 
     return rules
 

@@ -151,15 +151,26 @@ def _mesh(**axes):
                       _rank=0)
 
 
-# A pipeline axis (item 15) still refuses; MoE, tp, ep, fsdp, a dp x sp
-# mesh and remat are ported.
-@pytest.mark.parametrize("kw", [lambda: dict(mesh=_mesh(pp=2, sp=1))],
-                         ids=["kw2"])
-def test_unported_options_raise(kw):
-    kw = kw()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=1,
-                          device="cpu", **kw)
+def test_pp_mesh_builds_a_pp_state():
+    """A pp mesh builds a model, and its stages (``lm_to_stages``, what
+    ``create_pp_train_state`` keeps on each rank); ``make_train_step``
+    given it points to ``make_pp_train_step``."""
+    mesh = _mesh(pp=2, sp=1)
+    model = ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=3,
+                              device="cpu", mesh=mesh)
+    _, opt = ttr.create_train_state(model)
+    with pytest.raises(ValueError, match="make_pp_train_step"):
+        ttr.make_train_step(model, opt, mesh=mesh)
+    blocks = list(model.blocks)
+    first, last = (ttr.lm_to_stages(model, 2, 1, d) for d in range(2))
+    assert first.embed is model.embed and first.lmhead is None
+    assert last.lmhead is model.lmhead and last.embed is None
+    assert list(first.chunks[0].layers) == blocks[:2]
+    # 3 layers over 2 stages of 2: the last stage pads with a zero layer
+    assert last.chunks[0].layers[0] is blocks[2]
+    assert last.chunks[0].valid == [True, False]
+    assert all(float(p.detach().abs().max()) == 0.0
+               for p in last.chunks[0].layers[1].parameters())
 
 
 def test_unknown_remat_policy_raises_listing_the_ported_ones():
