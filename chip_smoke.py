@@ -210,6 +210,23 @@ Phases; any failure raises and ends the run with a non-zero exit:
    and 2 steps, held to one process's pp 1 1F1B over the same
    microbatches.
 
+14. MoE and fsdp over a split sequence (ROADMAP item 20): (a) two rank
+   processes on the card over gloo, fed as phase 11 (B 2, S 8192 through
+   ``DeviceLoader(spec=("dp", "sp"))``), run phase 12's MoE LM over dp 1 x
+   sp 2, its layers routing both ranks' sequence chunks in the global
+   token order: the first step's loss and gradients against one
+   process's on the same weights and batch (phase 11's tolerances), each
+   layer's global per-expert counts and drop share beside one process's;
+   2 warm-up and 4 counted steps (launches zeroed just before, read just
+   after: rank r's ring runs r + 1 chunks of every kernel a layer), the
+   routing all-gather timed alone; ``generate`` with the MoE ring prefill,
+   its first-token logits against the mesh-free prefill's. The host's
+   ``diag.capability_report()`` is printed first. (b) four rank processes
+   on the card run the dense LM over sp 2 x fsdp 2 at B 2, S 4096 through
+   ``DeviceLoader(spec=("fsdp", "sp"))``: 1 warm-up and 3 counted steps,
+   the first step's loss, gathered gradients and parameters against one
+   process's step (phase 12's rules), peak memory per rank.
+
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -244,7 +261,8 @@ import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
 from ddstore_tpu_torch import _build as native_build
-from ddstore_tpu_torch import binding, elastic_recover, elastic_rejoin, obs
+from ddstore_tpu_torch import (binding, diag, elastic_recover,
+                               elastic_rejoin, obs)
 from ddstore_tpu_torch.data.dataset import (DistributedSampler,
                                             ShardedDataset, nsplit)
 from ddstore_tpu_torch.data.device_fetch import (device_fetch_batch,
@@ -434,6 +452,23 @@ PP_RANKS, PP_M, PP_MB, PP_V, PP_WARMUP, PP_STEPS = 2, 4, 2, 2, 1, 3
 PP_SCHEDULES = (("gpipe", 1), ("1f1b", 1), ("interleaved", PP_V),
                 ("interleaved_1f1b", PP_V))
 PP_MEM_M, PP_MOE_STEPS, PP_NEW_TOKENS = 8, 2, 8
+# The split-sequence phase (14): (a) phase 12's MoE LM over a dp 1 x sp 2
+# mesh, two rank processes on the one card over gloo (DDSTORE_CMA=0 as
+# phases 7-13), fed as phase 11 (B 2, S 8192, DeviceLoader(spec=("dp",
+# "sp"))), its layers routing both ranks' chunks in the global token
+# order; 2 warm-up and 4 counted Adam steps (lr 1e-3); the first step's
+# loss and gradients against one process's on the same weights and batch
+# at phase 11's tolerances, each layer's global routing beside one
+# process's; generate with the MoE ring prefill, its first-token logits
+# against the mesh-free prefill's at phase 11's ROW_REL_TOL. (b) the dense
+# LM over sp 2 x fsdp 2, four rank processes on the one card, B 2, S 4096
+# (phase 11's corpus at that width), 1 warm-up and 3 counted steps (lr
+# 1e-3), the first step held to one process's at phase 12's tolerances;
+# then the three kernels at (b)'s ring chunks, (1, 16, 2048, 64) bf16,
+# against their plain versions. The steps' gradient all-reduces over sp
+# are timed alone after the counted runs.
+MSP_SP, MSP_WARMUP, MSP_STEPS = 2, 2, 4
+FSP_RANKS, FSP_SEQ, FSP_WARMUP, FSP_STEPS = 4, 4096, 1, 3
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -1238,7 +1273,8 @@ def _store_rank(phase, rank, world, port, seed):
     try:
         train = {"vae": _vae_train, "gnn": _gnn_train,
                  "long": _long_rank, "layouts": _layouts_rank,
-                 "pp": _pp_rank}[phase]
+                 "pp": _pp_rank, "moesp": _moesp_rank,
+                 "fsdpsp": _fsdpsp_rank}[phase]
         out = train(rank, group, store, torch.device("cuda", 0), seed)
         out["transport"] = store.transport_facts()
         out["cma_ops"] = store.cma_ops
@@ -2824,21 +2860,21 @@ def _long_corpus(seed):
     return base, rng.integers(0, 64, size=LONG_WINDOWS)
 
 
-def _long_windows(base, starts):
-    """Windows of LONG_SEQ + 1 tokens at ``starts``: (tokens, next
-    tokens), each (n, LONG_SEQ) int32."""
-    w = base[(starts[:, None] + np.arange(LONG_SEQ + 1)) % 64] \
+def _long_windows(base, starts, seq=LONG_SEQ):
+    """Windows of ``seq`` + 1 tokens at ``starts``: (tokens, next
+    tokens), each (n, seq) int32."""
+    w = base[(starts[:, None] + np.arange(seq + 1)) % 64] \
         .astype(np.int32)
     return np.ascontiguousarray(w[:, :-1]), np.ascontiguousarray(w[:, 1:])
 
 
-def long_store(store, rank, seed):
-    """This rank's half of the 4,096 windows (tokens and next tokens as
-    two variables) in the TCP store."""
+def long_store(store, rank, seed, seq=LONG_SEQ):
+    """This rank's share of the 4,096 windows of ``seq`` + 1 tokens
+    (tokens and next tokens as two variables) in the TCP store."""
     base, starts = _long_corpus(seed)
     counts = nsplit(LONG_WINDOWS, store.world)
     lo = sum(counts[:rank])
-    tok, nxt = _long_windows(base, starts[lo:lo + counts[rank]])
+    tok, nxt = _long_windows(base, starts[lo:lo + counts[rank]], seq)
     return ShardedDataset(store, tok, nxt, pre_sharded=True)
 
 
@@ -4307,13 +4343,374 @@ def phase_pp(seed, card):
     return res
 
 
-def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr):
+
+# ---------------------------------------------------------------------------
+# Phase 14: MoE and fsdp over a split sequence (ROADMAP item 20).
+
+
+def msp_first_step(rank, mesh, ds, dev, seed):
+    """The MoE LM's first step over the ring: its loss and all-reduced
+    gradients, and each layer's global routing, held on rank 0 against one
+    process's on the same weights and batch on the card."""
+    model = moe_model(dev, seed + 50, mesh=mesh)
+    ttr.create_train_state(model, mesh=mesh)  # digests; routing over sp
+    sampler, loader = long_loader(ds, mesh, dev, seed + 50)
+    batches = iter(loader)
+    tok, tgt = next(batches)
+    batches.close()
+    pos = loader.seq_positions(LONG_BATCH)
+    loss = ttr.lm_loss(model, tok, tgt, pos)
+    loss.backward()
+    ttr.all_reduce_gradients(list(model.parameters()), MSP_SP)
+    ring_loss = loss.detach().float().clone()
+    dist.all_reduce(ring_loss)
+    out = {"ring_loss": float(ring_loss) / MSP_SP,
+           "routing": moe_routing_stats(model)}
+    if rank == 0:
+        idx = sampler.epoch_indices()[:LONG_BATCH]
+        full_tok, full_tgt = (torch.from_numpy(a).to(dev)
+                              for a in ds.fetch(idx))
+        ref = moe_model(dev, seed + 50)
+        full_pos = torch.arange(LONG_SEQ, dtype=torch.int32,
+                                device=dev).expand(LONG_BATCH, LONG_SEQ)
+        ref_loss = ttr.lm_loss(ref, full_tok, full_tgt, full_pos)
+        ref_loss.backward()
+        worst, worst_name = 0.0, ""
+        for (n, p), pr in zip(model.named_parameters(), ref.parameters()):
+            e = rel_l2(p.grad, pr.grad)
+            if e > worst:
+                worst, worst_name = e, n
+        out.update(ref_loss=float(ref_loss.detach()), worst_grad=worst,
+                   worst_grad_name=worst_name,
+                   ref_routing=moe_routing_stats(ref))
+        del ref
+    del model
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def msp_train(rank, group, mesh, ds, dev, seed):
+    """MSP_WARMUP + MSP_STEPS steps of the MoE LM over the ring (the
+    counts zeroed just before, read just after)."""
+    model = moe_model(dev, seed + 50, mesh=mesh)
+    state, opt = ttr.create_train_state(model, lr=LONG_LR, mesh=mesh)
+    step = ttr.make_train_step(model, opt, state=state)
+    _, loader = long_loader(ds, mesh, dev, seed + 50)
+    pos = loader.seq_positions(LONG_BATCH)
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    batches = iter(loader)
+    for _ in range(MSP_WARMUP + MSP_STEPS):
+        tok, tgt = next(batches)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, pos)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+    batches.close()
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_s": step_s, "launches": launch_counts(),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "efficiency": loader.metrics.efficiency, "steps": state.step,
+           "routing": moe_routing_stats(model),
+           "digests": group.allgather(param_digest(model))}
+    # the step's gradient all-reduce over sp alone, after the counted run
+    params = list(model.parameters())
+    out["grad_allreduce_ms"] = median_ms(lambda: ttr.all_reduce_gradients(
+        params, MSP_SP, mesh.get_group("sp")), 3)
+    out["grad_allreduce_bytes"] = 4 * sum(p.numel() for p in params)
+    del model, opt, state, step, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def msp_prefill(rank, mesh, ds, dev, seed):
+    """generate with the MoE ring prefill over sp (2 prompts of LONG_SEQ,
+    LONG_NEW_TOKENS new tokens): its first-token logits against the
+    mesh-free prefill's on rank 0."""
+    model = moe_model(dev, seed + 55)
+    prompts = torch.from_numpy(ds.fetch(np.arange(LONG_BATCH) * 5)[0]) \
+        .to(dev).long()
+    zero_launch_counts()
+    st = {}
+    got = tdec.generate(model, prompts, LONG_NEW_TOKENS, stats=st,
+                        prefill_mesh=mesh)
+    torch.cuda.synchronize()
+    out = {"launches": launch_counts(), "prefill_s": st["prefill_s"],
+           "decode_ms": st["decode_s"] / st["decode_steps"] * 1e3,
+           "routing": moe_routing_stats(model)}
+    check(got.shape == (LONG_BATCH, LONG_SEQ + LONG_NEW_TOKENS) and
+          torch.equal(got[:, :LONG_SEQ], prompts), "MoE ring generate shape")
+    if rank == 0:
+        st0 = {}
+        want = tdec.generate(model, prompts, LONG_NEW_TOKENS, stats=st0)
+        out.update(
+            first_logits_rel=max(rel_l2(a, b) for a, b in zip(
+                st["first_logits"], st0["first_logits"])),
+            first_logits_abs=float((st["first_logits"]
+                                    - st0["first_logits"]).abs().max()),
+            equal_share=float((got[:, LONG_SEQ:] == want[:, LONG_SEQ:])
+                              .float().mean()),
+            meshfree_prefill_s=st0["prefill_s"])
+    del model
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _moesp_rank(rank, group, store, dev, seed):
+    mesh = make_mesh({"dp": 1, "sp": MSP_SP})
+    t0 = time.perf_counter()
+    ds = long_store(store, rank, seed)
+    out = {"setup_s": time.perf_counter() - t0}
+    out["first_step"] = msp_first_step(rank, mesh, ds, dev, seed)
+    out["train"] = msp_train(rank, group, mesh, ds, dev, seed)
+    # the routing all-gather of a layer alone: (k, B_local, E) row counts,
+    # the valid count and the place
+    counts = torch.zeros(MOE_TOP_K * LONG_BATCH * MOE_EXPERTS + 2,
+                         dtype=torch.int64, device=dev)
+    out["route_gather_ms"] = median_ms(lambda: collectives.all_gather_counts(
+        counts, mesh.get_group("sp")), 20)
+    out["prefill"] = msp_prefill(rank, mesh, ds, dev, seed)
+    return out
+
+
+def fsp_run(rank, group, ds, dev, seed):
+    """The dense LM over fsdp 2 x sp 2: FSP_WARMUP + FSP_STEPS steps
+    store-fed through ``DeviceLoader(spec=("fsdp", "sp"))``; the first
+    step's loss, gathered gradients and gathered parameters against one
+    process's step from the same weights and global batch on rank 0."""
+    mesh = make_mesh({"sp": MSP_SP, "fsdp": 2})
+    fi, j = mesh.get_local_rank("fsdp"), mesh.get_local_rank("sp")
+    model = long_model(dev, seed + 60, mesh)
+    state, opt = ttr.create_train_state(model, lr=TRAIN_LR, mesh=mesh)
+    step = ttr.make_train_step(model, opt, state=state)
+    seen = _grads_at_step(model, opt)
+    per = LAYOUT_BATCH // 2
+    loader = DeviceLoader(ds, DistributedSampler(len(ds), 2, fi,
+                                                 seed=seed + 60),
+                          per, device=dev, mesh=mesh, spec=("fsdp", "sp"))
+    pos = loader.seq_positions(per)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    losses, step_s = [], []
+    batches = iter(loader)
+    for i in range(FSP_WARMUP + FSP_STEPS):
+        tok, tgt = next(batches)
+        if i == 0:
+            first = (tok, tgt)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, pos)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+        if i == 0:
+            params = to_flax(model)
+    batches.close()
+    torch.cuda.synchronize()
+    out = {"losses": losses, "step_s": step_s, "launches": launch_counts(),
+           "steps": state.step, "at": (fi, j),
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "efficiency": loader.metrics.efficiency}
+    # the step's sp all-reduce of this rank's gradient shards alone, after
+    # the counted run (FSDP2's own collectives are not timed apart)
+    sharded = [p for p in model.parameters() if ttr._fsdp_managed(p)]
+    out["sp_allreduce_ms"] = median_ms(lambda: ttr.all_reduce_gradients(
+        sharded, MSP_SP, mesh.get_group("sp")), 3)
+    out["sp_allreduce_bytes"] = 4 * sum(ttr._local(p).numel()
+                                        for p in sharded)
+    del sharded
+    grads = seen["grads"]
+    # the first step's global batch: each rank's (row block, chunk)
+    parts = [[torch.empty_like(t.cpu()) for _ in range(FSP_RANKS)]
+             for t in first]
+    for p, t in zip(parts, first):
+        dist.all_gather(p, t.cpu())
+    coords = [None] * FSP_RANKS
+    dist.all_gather_object(coords, (fi, j))
+    full = []
+    for p in parts:
+        rows = [torch.cat([p[coords.index((f, c))] for c in range(MSP_SP)],
+                          dim=1) for f in range(2)]
+        full.append(torch.cat(rows).to(dev))
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    if rank == 0:
+        ref = long_model(dev, seed + 60)
+        before = _flat_tree(to_flax(ref))
+        _, ropt = ttr.create_train_state(ref, lr=TRAIN_LR)
+        rseen = _grads_at_step(ref, ropt)
+        full_pos = torch.arange(FSP_SEQ, dtype=torch.int32,
+                                device=dev).expand(LAYOUT_BATCH, FSP_SEQ)
+        out["ref_loss"] = float(ttr.make_train_step(ref, ropt)(*full,
+                                                                full_pos))
+        rgrads = _flat_tree(rseen["grads"])
+        rparams = _flat_tree(to_flax(ref))
+        del ref, ropt
+        torch.cuda.empty_cache()
+        out["worst_grad"] = _worst_rel(_flat_tree(grads), rgrads)
+        zero = {k for k, v in before.items() if not np.any(v)}
+        flat = _flat_tree(params)
+        out["worst_param"] = _worst_rel(flat, rparams, set(before) - zero)
+        out["worst_flip"] = _worst_flip(flat, rparams, before, zero)
+    del grads, params
+    dist.barrier()
+    return out
+
+
+def _fsdpsp_rank(rank, group, store, dev, seed):
+    t0 = time.perf_counter()
+    ds = long_store(store, rank, seed, FSP_SEQ)
+    out = {"setup_s": time.perf_counter() - t0}
+    out["run"] = fsp_run(rank, group, ds, dev, seed)
+    return out
+
+
+def _routing_line(stats):
+    return [(s["routed"], round(s["drop_share"], 4)) for s in stats]
+
+
+def phase_moe_sp(seed, card):
+    """Phase 14: (a) the MoE LM over dp 1 x sp 2; (b) the dense LM over
+    fsdp 2 x sp 2."""
+    print(f"moe sp: {MSP_SP} rank processes on cuda:0 (gloo), mesh dp 1 x "
+          f"sp {MSP_SP}; TransformerLM({VOCAB}, {DIM}, {HEADS}, {LAYERS}, "
+          f"bf16) with {MOE_EXPERTS} experts, top-{MOE_TOP_K}, at B "
+          f"{LONG_BATCH}, S {LONG_SEQ}; {LONG_WINDOWS} windows of "
+          f"{LONG_SEQ + 1} tokens in a TCP store", flush=True)
+    print(f"moe sp host capabilities | {card}: "
+          f"{json.dumps(diag.capability_report(), sort_keys=True)}",
+          flush=True)
+    t0 = time.perf_counter()
+    ranks = run_ranks("moesp", MSP_SP, seed)
+    wall = time.perf_counter() - t0
+    fs = ranks[0]["first_step"]
+    msg = (f"moe sp first step | {card}: ring loss {fs['ring_loss']:.6f} "
+           f"against one process sp 1 {fs['ref_loss']:.6f} (tol "
+           f"{LONG_LOSS_TOL}); worst gradient L2 error over its norm "
+           f"{fs['worst_grad']:.3e} ({fs['worst_grad_name']}; tol "
+           f"{LONG_GRAD_TOL}); per layer global (routed per expert, drop "
+           f"share) over sp {_routing_line(fs['routing'])} beside one "
+           f"process's {_routing_line(fs['ref_routing'])}")
+    print(msg, flush=True)
+    check(abs(fs["ring_loss"] - fs["ref_loss"]) <= LONG_LOSS_TOL and
+          fs["worst_grad"] <= LONG_GRAD_TOL, msg)
+    # the routing is global: every rank counts the same assignments
+    # (its aux is its own share)
+    check(ranks[1]["first_step"]["ring_loss"] == fs["ring_loss"] and
+          _routing_line(ranks[1]["first_step"]["routing"])
+          == _routing_line(fs["routing"]),
+          "moe sp: the ranks' first steps differ")
+    per = [r["train"] for r in ranks]
+    med = max(float(np.median(x["step_s"][MSP_WARMUP:])) for x in per)
+    flops = moe_flops_per_step(LONG_BATCH, LONG_SEQ)
+    steps = MSP_WARMUP + MSP_STEPS
+    msg = (f"moe sp train | {card}: losses {per[0]['losses']}; step ms per "
+           f"rank {[[round(s * 1e3, 3) for s in x['step_s']] for x in per]}"
+           f"; median after {MSP_WARMUP} warm-up {med * 1e3:.3f} ms = "
+           f"{LONG_BATCH * LONG_SEQ / med:.1f} tokens/s in total, MFU on "
+           f"routed FLOPs {flops / med / PEAK_BF16_FLOPS:.4f}; peak GiB per "
+           f"rank {[round(x['peak_bytes'] / 2**30, 3) for x in per]}; "
+           f"input_pipeline_efficiency "
+           f"{[round(x['efficiency'], 4) for x in per]}; last step's "
+           f"routing {_routing_line(per[0]['routing'])}; routing all-gather "
+           f"alone ms per rank "
+           f"{[round(r['route_gather_ms'], 4) for r in ranks]}; the "
+           f"gradient all-reduce over sp alone "
+           f"({per[0]['grad_allreduce_bytes']} bytes f32) ms per rank "
+           f"{[round(x['grad_allreduce_ms'], 3) for x in per]}; launches "
+           f"{[x['launches'] for x in per]}")
+    print(msg, flush=True)
+    check(all(math.isfinite(v) for v in per[0]["losses"]), msg)
+    check(per[0]["losses"] == per[1]["losses"], msg)
+    check(len(set(per[0]["digests"])) == 1 and
+          per[0]["digests"] == per[1]["digests"], msg)
+    for r, x in enumerate(per):
+        n = LAYERS * (r + 1) * steps
+        check(x["launches"] == {"flash_fwd": n, "flash_bwd_dq": n,
+                                "flash_bwd_dkv": n}, msg)
+        check(x["steps"] == steps, msg)
+    pf = [r["prefill"] for r in ranks]
+    msg = (f"moe sp ring prefill | {card}: {LONG_BATCH} prompts of "
+           f"{LONG_SEQ} + {LONG_NEW_TOKENS} tokens over sp {MSP_SP}: "
+           f"prefill s {[round(p['prefill_s'], 4) for p in pf]} (mesh-free "
+           f"on rank 0 {pf[0]['meshfree_prefill_s']:.4f}); decode ms per "
+           f"step {[round(p['decode_ms'], 3) for p in pf]}; first-token "
+           f"logits L2 error over norm {pf[0]['first_logits_rel']:.3e} (tol"
+           f" {ROW_REL_TOL['bfloat16']}), max abs "
+           f"{pf[0]['first_logits_abs']:.3e}; equal tokens "
+           f"{pf[0]['equal_share']:.3f}; launches "
+           f"{[p['launches'] for p in pf]}")
+    print(msg, flush=True)
+    check(pf[0]["first_logits_rel"] <= ROW_REL_TOL["bfloat16"], msg)
+    for r, p in enumerate(pf):
+        check(p["launches"]["flash_fwd"] == LAYERS * (r + 1) and
+              p["launches"]["flash_bwd_dq"] == 0, msg)
+    print(f"moe sp wall {wall:.1f} s (rank processes)", flush=True)
+
+    print(f"fsdp sp: {FSP_RANKS} rank processes on cuda:0 (gloo), mesh sp "
+          f"{MSP_SP} x fsdp 2; the dense LM at B {LAYOUT_BATCH}, S "
+          f"{FSP_SEQ}; {LONG_WINDOWS} windows of {FSP_SEQ + 1} tokens in a "
+          f"TCP store", flush=True)
+    t0 = time.perf_counter()
+    franks = [r["run"] for r in run_ranks("fsdpsp", FSP_RANKS, seed)]
+    fwall = time.perf_counter() - t0
+    r0 = franks[0]
+    fmed = max(float(np.median(x["step_s"][FSP_WARMUP:])) for x in franks)
+    fflops = lm_flops_per_step(VOCAB, DIM, LAYERS, LAYOUT_BATCH, FSP_SEQ)
+    msg = (f"fsdp sp train | {card}: losses {r0['losses']}; step ms per "
+           f"rank {[[round(s * 1e3, 3) for s in x['step_s']] for x in franks]}"
+           f"; median after {FSP_WARMUP} warm-up {fmed * 1e3:.3f} ms = "
+           f"{LAYOUT_BATCH * FSP_SEQ / fmed:.1f} tokens/s in total, MFU "
+           f"{fflops / fmed / PEAK_BF16_FLOPS:.4f}; first step loss "
+           f"{r0['losses'][0]:.6f} against one process {r0['ref_loss']:.6f}"
+           f" (tol {LONG_LOSS_TOL}); worst gradient L2 error over its norm "
+           f"{r0['worst_grad'][0]:.3e} ({r0['worst_grad'][1]}), worst "
+           f"updated parameter {r0['worst_param'][0]:.3e} "
+           f"({r0['worst_param'][1]}) (tol {LONG_GRAD_TOL}); zero-initialised"
+           f" leaves' share moved the other way {r0['worst_flip'][0]:.4f} "
+           f"({r0['worst_flip'][1]}; tol {LAYOUT_FLIP_TOL}); peak GiB per "
+           f"rank {[round(x['peak_bytes'] / 2**30, 3) for x in franks]}; "
+           f"(fsdp, sp) per rank {[x['at'] for x in franks]}; "
+           f"input_pipeline_efficiency "
+           f"{[round(x['efficiency'], 4) for x in franks]}; the sp "
+           f"all-reduce of the gradient shards alone (bytes f32 per rank "
+           f"{[x['sp_allreduce_bytes'] for x in franks]}) ms per rank "
+           f"{[round(x['sp_allreduce_ms'], 3) for x in franks]}; launches "
+           f"{[x['launches'] for x in franks]}")
+    print(msg, flush=True)
+    check(all(math.isfinite(v) for x in franks for v in x["losses"]), msg)
+    check(all(x["losses"] == r0["losses"] for x in franks), msg)
+    check(abs(r0["losses"][0] - r0["ref_loss"]) <= LONG_LOSS_TOL, msg)
+    check(r0["worst_grad"][0] <= LONG_GRAD_TOL and
+          r0["worst_param"][0] <= LONG_GRAD_TOL and
+          r0["worst_flip"][0] <= LAYOUT_FLIP_TOL, msg)
+    fsteps = FSP_WARMUP + FSP_STEPS
+    for x in franks:
+        n = LAYERS * (x["at"][1] + 1) * fsteps
+        check(x["launches"] == {"flash_fwd": n, "flash_bwd_dq": n,
+                                "flash_bwd_dkv": n}, msg)
+        check(x["steps"] == fsteps, msg)
+    print(f"fsdp sp wall {fwall:.1f} s (rank processes)", flush=True)
+    by_rank = [x["launches"] for x in per]
+    return {"moe_sp_launches_by_rank": by_rank,
+            "fsdp_sp_launches_by_rank": [x["launches"] for x in franks],
+            "launches": {k: sum(x[k] for x in by_rank)
+                         + sum(x["launches"][k] for x in franks)
+                         for k in by_rank[0]}}
+
+
+def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
+                 msp, fsk):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them; the
     long-context ring's launches (both ranks, remat off; and per rank),
     each kernel at the ring's chunk shapes, and at tensor parallelism's
     heads (phase 12); the pipeline's (phase 13: both ranks, every
-    schedule and the MoE run; and per schedule and rank)."""
+    schedule and the MoE run; and per schedule and rank); the split
+    sequence's (phase 14: the MoE over sp 2 and the dense LM over fsdp 2 x
+    sp 2, in total and per rank), and each kernel at fsdp 2 x sp 2's ring
+    chunks."""
     def pp_total(k):
         runs = [r["launches_by_rank"] for r in ppr["runs"].values()]
         return sum(x[k] for per in runs + [ppr["moe_launches_by_rank"]]
@@ -4329,7 +4726,8 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr):
                    "moe": mo["launches"][k],
                    **{f"layout_{n}": lay[n]["launches"][k]
                       for n, _, _ in LAYOUTS},
-                   "pp": pp_total(k)}
+                   "pp": pp_total(k),
+                   "moe_fsdp_sp": msp["launches"][k]}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -4375,11 +4773,16 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr):
         row["ring_chunks"] = {c: lc["chunks"][c][row["name"]]
                               for c in ("diagonal", "past")}
         row["tp_heads"] = tpk["tp_heads"][row["name"]]
+        row["fsdp_sp_chunks"] = {c: fsk[c][row["name"]]
+                                 for c in ("diagonal", "past")}
         row["pp_launches_by_rank"] = {
             **{n: [x[row["name"]] for x in r["launches_by_rank"]]
                for n, r in ppr["runs"].items()},
             "moe_1f1b": [x[row["name"]]
                          for x in ppr["moe_launches_by_rank"]]}
+        row["sp_launches_by_rank"] = {
+            n: [x[row["name"]] for x in msp[f"{n}_launches_by_rank"]]
+            for n in ("moe_sp", "fsdp_sp")}
     return {"kernels": rows, "sdpa_backward_ms": bwd["ms"]["sdpa_backward"],
             "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"]}
 
@@ -4464,8 +4867,16 @@ def main() -> int:
     ppr = phase_pp(args.seed, card)
     print(f"phase 13 wall {time.perf_counter() - t13:.1f} s", flush=True)
 
+    # 14. MoE and fsdp over a split sequence
+    t14 = time.perf_counter()
+    msp = phase_moe_sp(args.seed, card)
+    # fsdp 2 x sp 2's ring chunks: one row of a rank's, S / sp positions
+    fsk = long_chunk_kernels(dev, b=LAYOUT_BATCH // 2, h=HEADS,
+                             c=FSP_SEQ // MSP_SP, label="fsdp sp's")
+    print(f"phase 14 wall {time.perf_counter() - t14:.1f} s", flush=True)
+
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
-                                  lay, tpk, ppr)), flush=True)
+                                  lay, tpk, ppr, msp, fsk)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

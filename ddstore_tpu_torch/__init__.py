@@ -11,6 +11,7 @@ on the card, every kernel the TPU package wrote in Pallas is a CUDA
 kernel under ``ops/csrc/``, built at first use.
 """
 
+from .binding import fault_configure
 from .elastic import recover as elastic_recover
 from .elastic import rejoin as elastic_rejoin
 from .rendezvous import (FileGroup, PodConfig, ProcessGroup, SingleGroup,
@@ -18,7 +19,7 @@ from .rendezvous import (FileGroup, PodConfig, ProcessGroup, SingleGroup,
                          parse_nodelist, pod_bootstrap)
 from .store import DDStore, DDStoreError
 
-__all__ = ["DDStore", "DDStoreError", "ProcessGroup", "SingleGroup",
-           "ThreadGroup", "FileGroup", "TorchGroup", "auto_group",
+__all__ = ["DDStore", "DDStoreError", "fault_configure", "ProcessGroup",
+           "SingleGroup", "ThreadGroup", "FileGroup", "TorchGroup", "auto_group",
            "PodConfig", "detect_pod_env", "parse_nodelist", "pod_bootstrap",
            "elastic_recover", "elastic_rejoin"]

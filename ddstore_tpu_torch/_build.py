@@ -16,7 +16,16 @@ default visibility: it defines the C API and nothing else.
 
 The build is race-safe: one process builds at a time (a lock file), into
 a staging directory, and the finished library is moved into place with
-``os.replace``. A failed build raises; there is no fallback.
+``os.replace``. A failed build raises; there is no fallback. Staging
+directories that a killed build left behind are swept at every build.
+
+Sanitizer builds: ``DDSTORE_SANITIZE=thread|address|undefined`` (the
+registered knob, read as the reference reads it) builds a separately
+cached library beside the plain one, ``libddstore_torch_<mode>.so``, every
+unit compiled and the library linked with ``-fsanitize=<mode> -O1
+-fno-omit-frame-pointer -g``. A sanitized library cannot be loaded into a
+stock python; run it in a process with the sanitizer's runtime in
+``LD_PRELOAD`` (``tests/test_torch_sanitizers.py``).
 
     python -m ddstore_tpu_torch._build [--force]
 """
@@ -49,29 +58,73 @@ _CXX = ["g++", "-O2", "-std=c++17", "-fPIC", "-pthread", "-Wall",
 _VERSION_SCRIPT = "{ global: dds_*; local: *; };\n"
 _lock = threading.Lock()
 
+_SANITIZERS = {"thread": "-fsanitize=thread",
+               "address": "-fsanitize=address",
+               "undefined": "-fsanitize=undefined"}
 
-def _stale() -> bool:
-    if not os.path.exists(LIB_PATH):
+
+def _sanitize_mode() -> str:
+    mode = os.environ.get("DDSTORE_SANITIZE", "").strip().lower()
+    if mode and mode not in _SANITIZERS:
+        raise ValueError(
+            f"DDSTORE_SANITIZE={mode!r}: expected one of {set(_SANITIZERS)}")
+    return mode
+
+
+def _lib_path(mode: str) -> str:
+    """The library of sanitizer ``mode`` ("" for the plain one), named
+    after ``LIB_PATH``."""
+    if not mode:
+        return LIB_PATH
+    root, ext = os.path.splitext(LIB_PATH)
+    return f"{root}_{mode}{ext}"
+
+
+def _mode_flags(mode: str) -> list:
+    # -O1 and frame pointers give usable sanitizer reports
+    return [_SANITIZERS[mode], "-O1", "-fno-omit-frame-pointer", "-g"] \
+        if mode else []
+
+
+def _stale(lib: str = None) -> bool:
+    lib = LIB_PATH if lib is None else lib
+    if not os.path.exists(lib):
         return True
-    lib_mtime = os.path.getmtime(LIB_PATH)
+    lib_mtime = os.path.getmtime(lib)
     return any(os.path.getmtime(os.path.join(NATIVE_DIR, f)) > lib_mtime
                for f in SOURCES + HEADERS)
 
 
-def _compile(src: str, obj: str) -> None:
+def _sweep_strays(max_age_s: float = 600.0) -> None:
+    """Remove the staging directories (``stage*``) of builds killed before
+    their cleanup. A live build's directory is at most minutes old, so one
+    older than ``max_age_s`` is dead."""
+    import glob
+    import time
+
+    for stray in glob.glob(os.path.join(BUILD_DIR, "stage*")):
+        try:
+            if time.time() - os.path.getmtime(stray) > max_age_s:
+                shutil.rmtree(stray)
+        except OSError:
+            pass
+
+
+def _compile(src: str, obj: str, mode: str = "") -> None:
     vis = "-fvisibility=default" if src == "capi.cc" \
         else "-fvisibility=hidden"
     res = subprocess.run(
-        _CXX + [vis, "-c", os.path.join(NATIVE_DIR, src), "-o", obj],
+        _CXX + _mode_flags(mode)
+        + [vis, "-c", os.path.join(NATIVE_DIR, src), "-o", obj],
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"native build failed ({src}):\n{res.stderr}")
 
 
-def _build_into(stage: str) -> str:
+def _build_into(stage: str, mode: str = "") -> str:
     objs = [os.path.join(stage, s[:-3] + ".o") for s in SOURCES]
     with ThreadPoolExecutor(max_workers=max(1, os.cpu_count() or 1)) as ex:
-        for fut in [ex.submit(_compile, s, o)
+        for fut in [ex.submit(_compile, s, o, mode)
                     for s, o in zip(SOURCES, objs)]:
             fut.result()
     script = os.path.join(stage, "exports.map")
@@ -79,8 +132,9 @@ def _build_into(stage: str) -> str:
         f.write(_VERSION_SCRIPT)
     lib = os.path.join(stage, "lib.so")
     res = subprocess.run(
-        ["g++", "-shared", "-pthread", "-Wl,-Bsymbolic",
-         f"-Wl,--version-script={script}", *objs, "-o", lib],
+        ["g++", "-shared", "-pthread", *_mode_flags(mode)[:1],
+         "-Wl,-Bsymbolic", f"-Wl,--version-script={script}", *objs,
+         "-o", lib],
         capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"native link failed:\n{res.stderr}")
@@ -88,22 +142,27 @@ def _build_into(stage: str) -> str:
 
 
 def build(force: bool = False) -> str:
-    """Return the path of the built library, compiling it first when it
-    is missing, older than a source, or ``force`` is set."""
+    """Return the path of the built library of the ``DDSTORE_SANITIZE``
+    mode (the plain one without it), compiling it first when it is
+    missing, older than a source, or ``force`` is set."""
+    mode = _sanitize_mode()
+    lib = _lib_path(mode)
     with _lock:
-        if not force and not _stale():
-            return LIB_PATH
+        if os.path.isdir(BUILD_DIR):
+            _sweep_strays()
+        if not force and not _stale(lib):
+            return lib
         os.makedirs(BUILD_DIR, exist_ok=True)
         with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
             fcntl.flock(lock, fcntl.LOCK_EX)  # another process may build
-            if not force and not _stale():
-                return LIB_PATH
+            if not force and not _stale(lib):
+                return lib
             stage = tempfile.mkdtemp(prefix="stage", dir=BUILD_DIR)
             try:
-                os.replace(_build_into(stage), LIB_PATH)
+                os.replace(_build_into(stage, mode), lib)
             finally:
                 shutil.rmtree(stage, ignore_errors=True)
-        return LIB_PATH
+        return lib
 
 
 def main(argv=None) -> None:

@@ -147,7 +147,12 @@ class DeviceLoader:
         1 for a bare callable unless it declares ``thread_safe = True``.
     drop_last: drop the trailing partial batch.
     transform: optional host-side function applied to each fetched numpy
-        batch (serialized under a lock when there are several workers).
+        batch. With several workers it runs under a lock (fetch and
+        staging still run in parallel), so a stateful transform is
+        race-free by default; the lock guarantees exclusion, not order.
+        Mark the transform ``thread_safe = True`` (or pass
+        ``transform_thread_safe=True``) to let it run on several workers
+        at once.
     readahead_windows: > 0 enables epoch-window readahead
         (:mod:`~ddstore_tpu_torch.data.readahead`): the sampler's epoch
         is sliced into windows of ``readahead_window_batches`` batches,
@@ -197,6 +202,7 @@ class DeviceLoader:
                  device=None, prefetch: int = 4,
                  workers: Optional[int] = None, drop_last: bool = True,
                  transform: Optional[Callable] = None,
+                 transform_thread_safe: bool = False,
                  readahead_windows: int = 0,
                  readahead_window_batches: int = 8,
                  device_collective: bool = False, group=None, mesh=None,
@@ -213,7 +219,11 @@ class DeviceLoader:
         self.workers = max(1, int(workers))
         self.drop_last = drop_last
         self.transform = transform
-        self._transform_lock = threading.Lock()
+        self._transform_lock = None
+        if (transform is not None and self.workers > 1
+                and not transform_thread_safe
+                and not getattr(transform, "thread_safe", False)):
+            self._transform_lock = threading.Lock()
         self.metrics = PipelineMetrics()
         self._copy_stream = torch.cuda.Stream(self.device) \
             if self.device.type == "cuda" else None
@@ -559,7 +569,10 @@ class DeviceLoader:
             if batch is None:
                 batch = self._read(idx, pinned)
         if self.transform is not None:
-            with self._transform_lock:
+            if self._transform_lock is not None:
+                with self._transform_lock:
+                    batch = self.transform(batch)
+            else:
                 batch = self.transform(batch)
         if self.seq_range:
             batch = self._seq_chunk(batch)

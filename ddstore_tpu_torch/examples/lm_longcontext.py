@@ -47,6 +47,15 @@ import contextlib
 import time
 
 
+def rank_axes(world: int, dp: int, pp: int, tp: int, experts: int) -> dict:
+    """The mesh's axis sizes over ``world`` ranks: the ranks left after dp
+    x pp x tp serve the experts when ``experts`` asks for an MoE, else the
+    sequence (``examples/lm_longcontext.py:118-123``)."""
+    rest = world // (dp * pp * tp)
+    ep, sp = (rest, 1) if experts else (1, rest)
+    return {"pp": pp, "dp": dp, "ep": ep, "sp": sp, "tp": tp}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         prog="python -m ddstore_tpu_torch.examples.lm_longcontext",
@@ -132,11 +141,8 @@ def main(argv=None) -> None:
     if world % (dp * pp * tp):
         raise SystemExit(f"{world} ranks do not split into dp={dp} x "
                          f"pp={pp} x tp={tp}")
-    # the ranks left after dp x pp x tp serve the experts, else the
-    # sequence
-    rest = world // (dp * pp * tp)
-    ep, sp = (rest, 1) if args.experts else (1, rest)
-    axes = {"pp": pp, "dp": dp, "ep": ep, "sp": sp, "tp": tp}
+    axes = rank_axes(world, dp, pp, tp, args.experts)
+    ep, sp = axes["ep"], axes["sp"]
     mesh = make_mesh(axes, dev.type) if world > 1 else None
     dp_index = axis_index(mesh, "dp")
 

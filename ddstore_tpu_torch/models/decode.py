@@ -40,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.mesh import axis_index, axis_size
-from .moe import default_capacity
+from .moe import default_capacity, routing_over
 from .transformer import TransformerLM, _layer_norm
 
 __all__ = ["init_cache", "decode_step", "filter_logits", "generate",
@@ -194,7 +194,9 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
     position contributes it, the others zeros), and the decode loop runs
     the same on every rank. Every rank passes the whole prompt, and all
     of them call this together. ``P`` must divide by ``sp`` into chunks
-    that are multiples of 8 (``ValueError`` otherwise).
+    that are multiples of 8 (``ValueError`` otherwise). An MoE model's
+    layers route the chunks over the axis in the whole prompt's token
+    order, so the prefill routes as the mesh-free one does.
     """
     if temperature > 0 and generator is None:
         raise ValueError("sampling (temperature > 0) needs `generator`")
@@ -232,30 +234,28 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
 
     _refuse_placed(model)
     sp = axis_size(prefill_mesh, model.sp_axis)
-    if sp > 1 and model.n_experts > 0:
-        raise NotImplementedError("an MoE prefill over a split sequence is "
-                                  "not ported (ROADMAP.md queue A)")
     if sp > 1 and (plen % sp or (plen // sp) % 8):
         raise ValueError(f"ring prefill of {plen} prompt tokens over sp={sp}"
                          f" needs chunks that are multiples of 8")
+
+    moe = {}
+    if lengths is not None and model.n_experts > 0:
+        # pads take no capacity, and the capacity is the real tokens'
+        moe["token_mask"] = torch.arange(plen, device=dev)[None, :] \
+            < lengths[:, None]
+        if model.moe_capacity is None:
+            moe["moe_capacity"] = default_capacity(
+                int(lengths.sum()), model.n_experts, model.moe_top_k)
 
     sync()
     t0 = time.perf_counter()
     cache = init_cache(model, b, total)
     if sp > 1:
         last = _ring_prefill(model, prompt, cache, prefill_mesh, sp,
-                             lengths)
+                             lengths, moe)
     else:
         positions = torch.arange(plen, dtype=torch.int32,
                                  device=dev).expand(b, plen)
-        moe = {}
-        if lengths is not None and model.n_experts > 0:
-            # pads take no capacity, and the capacity is the real tokens'
-            moe["token_mask"] = torch.arange(plen, device=dev)[None, :] \
-                < lengths[:, None]
-            if model.moe_capacity is None:
-                moe["moe_capacity"] = default_capacity(
-                    int(lengths.sum()), model.n_experts, model.moe_top_k)
         feats, kvs = model(prompt, positions, return_features=True,
                            return_kv=True, **moe)
         for i, (k, v) in enumerate(kvs):
@@ -294,10 +294,12 @@ def generate(model: TransformerLM, prompt: torch.Tensor,
 
 
 def _ring_prefill(model: TransformerLM, prompt: torch.Tensor, cache: Cache,
-                  mesh, sp: int, lengths) -> torch.Tensor:
+                  mesh, sp: int, lengths, moe: dict) -> torch.Tensor:
     """This rank's chunk of the prompt through the ring; fills ``cache``
     with the gathered K/V of the whole prompt and returns the (B, dim)
-    features of each row's last real position."""
+    features of each row's last real position. MoE layers route the
+    prompt's chunks over the axis in the order of the whole prompt
+    (``moe`` holds the token mask and capacity of the whole prompt)."""
     b, plen = prompt.shape
     dev = prompt.device
     group = mesh.get_group(model.sp_axis)
@@ -306,8 +308,12 @@ def _ring_prefill(model: TransformerLM, prompt: torch.Tensor, cache: Cache,
                              device=dev).expand(b, c)
     ring = copy.copy(model)  # shares the parameters; the ring's mesh
     ring.mesh = mesh
-    feats, kvs = ring(prompt[:, j * c:(j + 1) * c].contiguous(), positions,
-                      return_features=True, return_kv=True)
+    if "token_mask" in moe:
+        moe = dict(moe, token_mask=moe["token_mask"][:, j * c:(j + 1) * c])
+    with routing_over(model.modules(), group, (0, j, sp)):
+        feats, kvs = ring(prompt[:, j * c:(j + 1) * c].contiguous(),
+                          positions, return_features=True, return_kv=True,
+                          **moe)
     # every layer's K and V in one gather: (layers, 2, B, H, c, hd)
     local = torch.stack([torch.stack(kv) for kv in kvs])
     staged = local.is_cuda and str(dist.get_backend(group)).lower() == "gloo"

@@ -26,11 +26,17 @@ gather reads each assignment's output for the f32 gated sum. Dropped
 assignments write to, and read from, one spare row past the buffer.
 
 **Routing over a data group.** The reference sees the step's global token
-set. Here each rank holds its rows, so with ``route_group`` (the ranks that
-hold different tokens: the mesh's ``dp`` and ``fsdp`` axes) the capacity
-is that of the global token count, and one ``all_gather`` of the ``(k,
-E)`` counts a layer gives each assignment its slot in the global
-choice-major ``(k, b*S + s)`` order. Each rank runs its own kept
+set: it flattens the ``(B, S)`` batch row-major and takes every choice's
+capacity claims in that order. Here each rank holds a block of rows and,
+over ``sp``, one chunk of each of them. With ``route_group`` (the ranks
+that hold different tokens: the mesh's ``dp``, ``fsdp`` and ``sp`` axes)
+and ``route_place`` (this rank's block of rows, its chunk, and the number
+of chunks a row is cut into) the capacity is that of the global token
+count, and one ``all_gather`` a layer of the ``(k, rows, E)`` counts gives
+each assignment its slot in the global choice-major ``(k, b*S + s)``
+order: every assignment of earlier choices, then in its choice those of
+every earlier row (all of its chunks), then those of earlier chunks of its
+row, then its position in its own chunk. Each rank runs its own kept
 assignments through the experts (the FFN is row-wise, so no token moves).
 ``frac`` and ``mean_prob`` are global: the aux this rank returns is ``D``
 times its share (``D`` the group's size), whose mean over the group is the
@@ -48,6 +54,7 @@ expert dim). Under ``ep x tp`` the experts' hidden dim is split over
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -59,7 +66,7 @@ from torch import nn
 from ..parallel.collectives import (all_gather_counts, copy_to_group,
                                     group_size, reduce_from_group)
 
-__all__ = ["default_capacity", "Routing", "route", "MoeMlp"]
+__all__ = ["default_capacity", "Routing", "route", "MoeMlp", "routing_over"]
 
 
 def default_capacity(tokens: int, n_experts: int, top_k: int,
@@ -87,10 +94,17 @@ class Routing(NamedTuple):
 
 
 def route(logits: torch.Tensor, top_k: int, capacity: int,
-          valid: Optional[torch.Tensor] = None, group=None) -> Routing:
-    """Top-k routing of ``logits`` (T, E) with choice-major capacity
-    claims, over the tokens of every rank of ``group`` (this rank's tokens
-    after those of the ranks before it, in each choice)."""
+          valid: Optional[torch.Tensor] = None, group=None, rows: int = 1,
+          place: Optional[Tuple[int, int, int]] = None) -> Routing:
+    """Top-k routing of ``logits`` (T, E), this rank's ``rows`` rows of
+    ``T / rows`` tokens, with choice-major capacity claims over the tokens
+    of every rank of ``group`` in the global row-major order.
+
+    ``place`` is ``(block, chunk, chunks)``: this rank holds rows ``[block
+    * rows, (block + 1) * rows)`` of the global batch, and chunk ``chunk``
+    of the ``chunks`` a row is cut into along the sequence. Every rank of
+    the group passes its own, and they cover the batch. None is ``(group
+    rank, 0, 1)``: whole rows, blocks in rank order."""
     t, e = logits.shape
     probs = torch.softmax(logits.float(), dim=-1)
     topv, topi = torch.topk(probs, top_k, dim=-1)
@@ -99,22 +113,36 @@ def route(logits: torch.Tensor, top_k: int, capacity: int,
     v = torch.ones(t, dtype=torch.bool, device=logits.device) \
         if valid is None else valid.to(torch.bool)
     oh = F.one_hot(expert, e) * v[None, :, None]          # (k, T, E)
-    counts = oh.sum(1)                                    # (k, E)
-    mine = torch.cat([counts.reshape(-1), v.sum().reshape(1)])
-    every = all_gather_counts(mine, group)                # (D, k*E + 1)
-    rank = dist.get_rank(group) if group_size(group) > 1 else 0
-    total = every.sum(0)
-    before = every[:rank].sum(0)
-    tot_c = total[:-1].view(top_k, e)
-    # global slot of (choice c, expert x): every earlier choice's
-    # assignments to x, then those of the ranks before this one in choice c
-    off = torch.cumsum(tot_c, 0) - tot_c + before[:-1].view(top_k, e)
-    pos = torch.cumsum(oh, 1).gather(2, expert[..., None])[..., 0] - 1
-    slot = off.gather(1, expert) + pos
-    local_slot = (torch.cumsum(counts, 0) - counts).gather(1, expert) + pos
+    per_row = oh.view(top_k, rows, t // rows, e)
+    row_counts = per_row.sum(2)                           # (k, R, E)
+    counts = row_counts.sum(1)                            # (k, E)
+    d = group_size(group)
+    block, chunk, chunks = place if place is not None else \
+        (dist.get_rank(group) if d > 1 else 0, 0, 1)
+    mine = torch.cat([row_counts.reshape(-1), v.sum().reshape(1),
+                      torch.tensor([block * chunks + chunk],
+                                   device=logits.device)])
+    every = all_gather_counts(mine, group)                # (D, k*R*E + 2)
+    # every rank's row counts in the global order of (row, chunk)
+    order = torch.argsort(every[:, -1])
+    g = every[order, :-2].view(d // chunks, chunks, top_k, rows, e)
+    g = g.permute(2, 0, 3, 1, 4).reshape(top_k, -1, e)    # (k, N, E)
+    tot_c = g.sum(1)
+    # the slot of this rank's first assignment to x in (choice c, local
+    # row r): every earlier choice's assignments to x, then those of
+    # every earlier (row, chunk) of choice c
+    mine_at = torch.arange(rows, device=logits.device) * chunks \
+        + (block * rows * chunks + chunk)
+    off = (torch.cumsum(tot_c, 0) - tot_c)[:, None, :] \
+        + (torch.cumsum(g, 1) - g)[:, mine_at, :]         # (k, R, E)
+    ex = expert.view(top_k, rows, t // rows)
+    pos = torch.cumsum(per_row, 2).gather(3, ex[..., None])[..., 0] - 1
+    slot = (off.gather(2, ex) + pos).view(top_k, t)
+    lpos = torch.cumsum(oh, 1).gather(2, expert[..., None])[..., 0] - 1
+    local_slot = (torch.cumsum(counts, 0) - counts).gather(1, expert) + lpos
     kept = v[None, :] & (slot < capacity)
     return Routing(probs, expert, gates.t(), slot, local_slot, kept, tot_c,
-                   total[-1], capacity)
+                   every[:, -2].sum(), capacity)
 
 
 class MoeMlp(nn.Module):
@@ -123,10 +151,12 @@ class MoeMlp(nn.Module):
     Parameters (the reference's names and shapes): ``router`` (a Linear
     ``d -> E`` without bias), ``w1 (E, d, h)``, ``b1 (E, h)``, ``w2 (E, h,
     d)``, ``b2 (E, d)``. ``route_group`` is the data group routing runs
-    over (set by ``transformer.create_train_state`` from the mesh; None
-    routes this rank's tokens alone). After each forward, ``stats`` holds
-    the group's assignments per expert (``routed``, (E,)), the kept ones
-    and the aux, detached."""
+    over and ``route_place`` this rank's ``(block, chunk, chunks)`` in it
+    (:func:`route`; both set from the mesh by ``transformer.
+    create_train_state`` or :func:`routing_over`; None routes this rank's
+    tokens alone). After each forward, ``stats`` holds the group's
+    assignments per expert (``routed``, (E,)), the kept ones and the aux,
+    detached."""
 
     def __init__(self, dim: int, n_experts: int, hidden: int,
                  capacity_factor: float = 2.0, top_k: int = 1,
@@ -142,6 +172,7 @@ class MoeMlp(nn.Module):
         self.capacity_factor, self.capacity = capacity_factor, capacity
         self.compute_dtype = compute_dtype
         self.route_group = None
+        self.route_place: Optional[Tuple[int, int, int]] = None
         self.stats: dict = {}
         self.router = nn.Linear(dim, n_experts, bias=False, device=device)
         e, h = n_experts, hidden
@@ -158,20 +189,22 @@ class MoeMlp(nn.Module):
                                 self.capacity_factor)
 
     def routing(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
-                capacity: Optional[int] = None) -> Routing:
-        """The routing of ``x`` (T, d) over ``route_group``; ``capacity``
-        overrides the layer's own for this call."""
+                capacity: Optional[int] = None, rows: int = 1) -> Routing:
+        """The routing of ``x`` (T, d), ``rows`` rows of this rank's
+        tokens, over ``route_group``; ``capacity`` overrides the layer's
+        own for this call."""
         t = x.shape[0] * group_size(self.route_group)
         cap = self.capacity_for(t) if capacity is None else min(t, capacity)
         logits = F.linear(x.float(), _local(self.router.weight).float())
-        return route(logits, self.top_k, cap, valid, self.route_group)
+        return route(logits, self.top_k, cap, valid, self.route_group, rows,
+                     self.route_place)
 
     def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
-                capacity: Optional[int] = None
+                capacity: Optional[int] = None, rows: int = 1
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         t, d = x.shape
         k, dt = self.top_k, self.compute_dtype
-        r = self.routing(x, valid, capacity)
+        r = self.routing(x, valid, capacity, rows)
         w1, b1, w2, b2 = (_local(p) for p in (self.w1, self.b1, self.w2,
                                                 self.b2))
         ep_group, ep_rank = _axis_of(self.w1, 0)
@@ -212,6 +245,22 @@ class MoeMlp(nn.Module):
                       "kept": torch.clamp(routed, max=cap).detach(),
                       "aux": aux.detach()}
         return y.to(x.dtype), aux
+
+
+@contextlib.contextmanager
+def routing_over(layers, group, place: Tuple[int, int, int]):
+    """Route every MoE layer of ``layers`` over ``group`` from ``place``
+    while the block runs (the ring prefill's sequence chunks), restoring
+    each layer's own routing after."""
+    moes = [m for m in layers if isinstance(m, MoeMlp)]
+    saved = [(m.route_group, m.route_place) for m in moes]
+    for m in moes:
+        m.route_group, m.route_place = group, place
+    try:
+        yield
+    finally:
+        for m, (g, p) in zip(moes, saved):
+            m.route_group, m.route_place = g, p
 
 
 def _local(p: torch.Tensor) -> torch.Tensor:

@@ -73,7 +73,8 @@ __all__ = ["Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
            "unshard", "head_nll", "StageChunk", "PipelineStage",
            "lm_to_stages", "lm_from_stages", "create_pp_train_state",
            "pp_gpipe_value_and_grad", "pp_1f1b_value_and_grad",
-           "make_pp_train_step", "pp_batch_rows", "PP_SCHEDULES"]
+           "make_pp_train_step", "pp_batch_rows", "PP_SCHEDULES",
+           "route_layout"]
 
 LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -171,7 +172,7 @@ class Block(nn.Module):
         h = _layer_norm(self.ln2, x).to(dt)
         if self.n_experts > 0:
             y, aux = self.moe(h.reshape(b * s, self.dim), valid,
-                              moe_capacity)
+                              moe_capacity, rows=b)
             return x + y.reshape(b, s, self.dim).to(dt), aux
         h = F.gelu(_dense(self.up, h, dt), approximate="tanh")
         return x + _row_dense(self.down, h, dt), None
@@ -316,9 +317,9 @@ class TransformerLM(nn.Module):
 
     ``n_experts > 0`` makes every block's MLP a top-``moe_top_k`` MoE
     with ``moe_capacity`` slots an expert (None: ``default_capacity``);
-    after each forward ``moe_aux`` holds the layers' aux losses. Under a
-    mesh with ``sp`` larger than 1 the MoE refuses (routing over a split
-    sequence is not ported).
+    after each forward ``moe_aux`` holds the layers' aux losses. Over a
+    mesh, :func:`create_train_state` makes the layers route over the data
+    ranks (dp, fsdp and sp) in the global token order.
     """
 
     def __init__(self, vocab: int = 1024, dim: int = 256, heads: int = 8,
@@ -329,11 +330,6 @@ class TransformerLM(nn.Module):
                  moe_capacity: Optional[int] = None, remat: bool = False,
                  remat_policy: Optional[str] = None):
         super().__init__()
-        if n_experts > 0 and axis_size(mesh, sp_axis) > 1:
-            raise NotImplementedError(
-                "MoE over a mesh that splits the sequence (sp x ep routing "
-                "in the global token order) is not ported (ROADMAP.md "
-                "queue A)")
         if remat and remat_policy and remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {remat_policy!r} has no counterpart in the "
@@ -630,13 +626,12 @@ def create_train_state(model: nn.Module, lr: float = 3e-4, mesh=None
     megatron_rules``, q, k and v split by heads); the experts over ``ep``
     (``expert_rules``); ZeRO-3 over ``fsdp`` through FSDP2
     (``parallel.fsdp.place_zero3``), on top of the tp or ep placement when
-    both are present. The MoE layers route over the mesh's data axes (dp
-    and fsdp). The optimizer is made on the placed parameters, so its
+    both are present; over fsdp x sp the step sums the sharded gradients
+    over sp too. The MoE layers route over the mesh's data axes (dp, fsdp
+    and sp) in the global token order (:func:`~ddstore_tpu_torch.models.
+    moe.route`). The optimizer is made on the placed parameters, so its
     moments are sharded alike."""
     if mesh is not None:
-        if axis_size(mesh, "fsdp") > 1 and axis_size(mesh, "sp") > 1:
-            raise NotImplementedError("fsdp with a sequence-parallel axis "
-                                      "is not ported (ROADMAP.md queue A)")
         _check_replicas(model)
         if isinstance(model, TransformerLM):
             _place_lm(model, mesh)
@@ -647,6 +642,18 @@ def create_train_state(model: nn.Module, lr: float = 3e-4, mesh=None
     return TrainState(model, opt, mesh=mesh), opt
 
 
+def route_layout(mesh, row_axes: Tuple[str, ...], sp_axis: str = "sp"):
+    """(group, place) of MoE routing over ``mesh``: the ranks that differ
+    along ``row_axes`` (which split the batch's rows, in that order) and
+    ``sp_axis`` (which splits each row's sequence), and this rank's
+    ``(block, chunk, chunks)`` among them (``moe.route``)."""
+    block = 0
+    for a in row_axes:
+        block = block * axis_size(mesh, a) + axis_index(mesh, a)
+    place = (block, axis_index(mesh, sp_axis), axis_size(mesh, sp_axis))
+    return axes_group(mesh, tuple(row_axes) + (sp_axis,)), place
+
+
 def _place_lm(model: TransformerLM, mesh) -> None:
     from ..parallel.fsdp import place_zero3
     from ..parallel.tp import shard_pytree
@@ -655,9 +662,9 @@ def _place_lm(model: TransformerLM, mesh) -> None:
         if model.n_experts % axis_size(mesh, "ep"):
             raise ValueError(f"{model.n_experts} experts do not split over "
                              f"ep={axis_size(mesh, 'ep')}")
-        group = axes_group(mesh, ("dp", "fsdp"))
+        group, place = route_layout(mesh, ("dp", "fsdp"), model.sp_axis)
         for blk in model.blocks:
-            blk.moe.route_group = group
+            blk.moe.route_group, blk.moe.route_place = group, place
     if model.heads % axis_size(mesh, "tp"):
         raise ValueError(f"{model.heads} heads do not split over "
                          f"tp={axis_size(mesh, 'tp')}")
@@ -725,7 +732,8 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
     same ones); its loss is the mean over its tokens. After the backward
     (the last chunk's, under ``accum_steps``) the gradient of each
     parameter is averaged over the data ranks that hold the same shard of
-    it: FSDP2's reduce-scatter for the fully-sharded ones, and one
+    it: FSDP2's reduce-scatter for the fully-sharded ones (then, over sp,
+    one all-reduce of their shards), and one
     all-reduce of the others' flattened f32 gradients over the ``dp`` x
     ``sp`` x ``fsdp`` group, divided by its size. Never over ``tp`` or
     ``ep``: their ranks hold the same tokens, and the layers' own
@@ -764,6 +772,12 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
     reduced = [p for p in params if not _fsdp_managed(p)]
     data = axes_group(mesh, DATA_AXES)
     n_data = 1 if data is None else dist.get_world_size(data)
+    # FSDP2 reduces over its own mesh (fsdp, and dp when hybrid): the sp
+    # ranks hold other tokens of the same rows, so their sharded
+    # gradients are summed over sp too, and FSDP2's mean over its ranks
+    # becomes the mean over all the data ranks
+    sharded = [p for p in params if _fsdp_managed(p)]
+    sp_group = axes_group(mesh, (model.sp_axis,)) if sharded else None
 
     def lossf(tok, tgt, pos):
         return lm_loss(model, tok, tgt, pos, fused_xent=fused_xent)
@@ -794,6 +808,9 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
         if mesh is not None:
             if data is not None:
                 all_reduce_gradients(reduced, n_data, data)
+            if sp_group is not None:
+                all_reduce_gradients(sharded, dist.get_world_size(sp_group),
+                                     sp_group)
             loss = loss.float().clone()
             dist.all_reduce(loss)
             loss = loss / world
@@ -1181,7 +1198,8 @@ def create_pp_train_state(model: TransformerLM, n_stages: int,
     Megatron's placement (``parallel.tp.pp_stage_rules``, q, k and v by
     heads) and the head is vocab-sharded; a larger ``ep_axis`` shards the
     experts. An MoE layer routes each microbatch's dp shard alone, as the
-    reference's stages do. A mesh with an ``fsdp`` axis raises: the
+    reference's stages do (over sp, the shard's rows in the global order of
+    their chunks). A mesh with an ``fsdp`` axis raises: the
     reference places tp and ep only over a pp mesh."""
     s = axis_size(mesh, pp_axis)
     if mesh is None and n_stages != 1:
@@ -1195,10 +1213,6 @@ def create_pp_train_state(model: TransformerLM, n_stages: int,
             "pipeline stages over an fsdp axis: the reference's "
             "create_pp_train_state places tp and ep only (fsdp would be "
             "replicated); use dp with pp")
-    if model.n_experts > 0 and axis_size(mesh, model.sp_axis) > 1:
-        raise NotImplementedError(
-            "MoE over a mesh that splits the sequence is not ported "
-            "(ROADMAP.md queue A, item 20), inside a pipeline stage too")
     if mesh is not None:
         _check_replicas(model)
         if model.heads % axis_size(mesh, tp_axis):
@@ -1209,10 +1223,12 @@ def create_pp_train_state(model: TransformerLM, n_stages: int,
                              f"{ep_axis}={axis_size(mesh, ep_axis)}")
     stage = lm_to_stages(model, n_stages, n_virtual,
                          axis_index(mesh, pp_axis))
+    # a stage routes one microbatch's dp shard: its rows, whole over sp
+    group, place = route_layout(mesh, (), model.sp_axis)
     for chunk in stage.chunks:
         for blk in chunk.layers:
             if blk.n_experts > 0:
-                blk.moe.route_group = None
+                blk.moe.route_group, blk.moe.route_place = group, place
     rules = _pp_rules(mesh, pp_axis, tp_axis, ep_axis)
     if rules is not None:
         from ..parallel.tp import shard_pytree

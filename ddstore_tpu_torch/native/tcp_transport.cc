@@ -1754,8 +1754,14 @@ int TcpTransport::ReadVOnRetry(Peer& p, int lane0, int nlanes,
       [&]() {
         // The failed attempt closed ITS lane (ReadVOn's fail(), or a
         // dial that never opened it); count the redial the stripe now
-        // owes (racy unlocked peek — a counter, not an invariant).
-        if (used->fd < 0)
+        // owes. The fd is read under the lane's lock: another stripe may
+        // be redialling the same lane.
+        bool closed;
+        {
+          std::lock_guard<std::mutex> lane(used->mu);
+          closed = used->fd < 0;
+        }
+        if (closed)
           retry_.reconnects.fetch_add(1, std::memory_order_relaxed);
         ++att;  // rotate: the next attempt runs on the next lane
       },

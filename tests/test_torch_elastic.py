@@ -2,13 +2,21 @@
 tiered restores against the JAX package's, case by case with
 ``tests/test_elastic.py`` and ``tests/test_elastic_tiering.py``.
 
-The spawned-world cases run the JAX package's own worker scripts twice
-at once: as written, and with every ``ddstore_tpu`` import pointed at
+The spawned-world cases run worker scripts twice at once: as written for
+the JAX package, and with every ``ddstore_tpu`` import pointed at
 ``ddstore_tpu_torch``. Each world of real TCP processes loses its victim
 to SIGKILL; the survivors detect the death, recover, and the relaunched
-rank rejoins from its checkpoint. Both worlds must pass the reference's
-own checks, commit the same generation files, and serve the same rows
-afterwards (a digest of every row of every variable, rank by rank)."""
+rank rejoins from its checkpoint. Both worlds must pass the worker's own
+checks, commit the same generation files, and serve the same rows
+afterwards (a digest of every row of every variable, rank by rank).
+
+The worlds of every case start together in one module-scoped fixture:
+each waits out the reference's read and barrier timeouts, so they
+overlap instead of adding up. Each case keeps its own world. One world
+cannot lose two victims in turn: after a recovery the store's group is
+the new generation's, and the reference's ``elastic.recover`` refuses a
+store whose group is not its world group
+(``ddstore_tpu/elastic.py:217-223``), as the port's copy does."""
 
 import os
 import signal
@@ -101,6 +109,9 @@ def _world(pkg, tmp, template, world, victim, env, out):
 
 
 def _both_worlds(tmp, template, world, victim, env):
+    """Both packages' worlds of one case, at once; each finished world's
+    result, or the exception that ended it, by package."""
+    tmp.mkdir()
     out = {}
     ts = [threading.Thread(target=_world, args=(pkg, tmp, template, world,
                                                 victim, env, out))
@@ -109,7 +120,15 @@ def _both_worlds(tmp, template, world, victim, env):
         t.start()
     for t in ts:
         t.join(400)
-    assert not any(t.is_alive() for t in ts), "a world hung"
+    if any(t.is_alive() for t in ts):
+        return AssertionError("a world hung")
+    return out
+
+
+def _passed(out):
+    """The case's worlds, each of whose ranks exited 0."""
+    if isinstance(out, BaseException):
+        raise out
     for pkg in ("jax", "torch"):
         if isinstance(out[pkg], BaseException):
             raise out[pkg]
@@ -128,12 +147,42 @@ def _env(**kw):
                 DDSTORE_READ_TIMEOUT_S="5", JAX_PLATFORMS="cpu", **kw)
 
 
+# case: (worker, world, victim, extra environment)
+_CASES = {
+    **{f"inrun[{v}-{r}]": (test_elastic._WORKER, 4, v,
+                           dict(DDSTORE_REPLICATION=str(r),
+                                DDSTORE_BARRIER_TIMEOUT_S="60"))
+       for v, r in ((2, 1), (0, 1), (2, 2))},
+    "spilled[1]": (test_elastic_tiering._WORKER, 3, 1,
+                   dict(DDSTORE_BARRIER_TIMEOUT_S="15")),
+}
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Every case's worlds, all started at once: {case: result}."""
+    tmp = tmp_path_factory.mktemp("elastic")
+    out = {}
+
+    def run(name, worker, world, victims, env):
+        out[name] = _both_worlds(tmp / name, worker, world, victims,
+                                 _env(**env))
+
+    ts = [threading.Thread(target=run, args=(name,) + case)
+          for name, case in _CASES.items()]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(420)
+    for name in _CASES:
+        out.setdefault(name, AssertionError(f"{name}: a world hung"))
+    return out
+
+
 @pytest.mark.parametrize("victim,replication", [(2, 1), (0, 1), (2, 2)])
-def test_elastic_inrun_recovery(tmp_path, victim, replication):
+def test_elastic_inrun_recovery(worlds, victim, replication):
     world = 4
-    out = _both_worlds(tmp_path, test_elastic._WORKER, world, victim,
-                       _env(DDSTORE_REPLICATION=str(replication),
-                            DDSTORE_BARRIER_TIMEOUT_S="60"))
+    out = _passed(worlds[f"inrun[{victim}-{replication}]"])
     for pkg in ("jax", "torch"):
         for r in range(world):
             log = out[pkg]["logs"][r]
@@ -213,10 +262,9 @@ def test_mmap_shards_serve_identical_over_tcp_and_cma(tmp_path,
 
 
 @pytest.mark.parametrize("victim", [1])
-def test_elastic_recovery_of_spilled_variable(tmp_path, victim):
+def test_elastic_recovery_of_spilled_variable(worlds, victim):
     world = 3
-    out = _both_worlds(tmp_path, test_elastic_tiering._WORKER, world,
-                       victim, _env(DDSTORE_BARRIER_TIMEOUT_S="15"))
+    out = _passed(worlds[f"spilled[{victim}]"])
     for pkg in ("jax", "torch"):
         for r in range(world):
             log = out[pkg]["logs"][r]

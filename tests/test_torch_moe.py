@@ -286,11 +286,17 @@ def test_prefill_routing_ignores_padding_under_pressure():
 
 
 def test_moe_refuses_a_split_sequence():
+    """MoE over a mesh that splits the sequence was refused until routing
+    took the global token order (``tests/test_torch_moe_sp.py`` holds it
+    to the reference): the model now builds over a dp x sp mesh, its
+    layers routing this rank's tokens alone until ``create_train_state``
+    places them."""
     from torch.distributed.device_mesh import DeviceMesh
 
     mesh = DeviceMesh("cpu", torch.arange(2).view(1, 2),
                       mesh_dim_names=("dp", "sp"), _init_backend=False,
                       _rank=0)
-    with pytest.raises(NotImplementedError, match="queue A"):
-        ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=1, n_experts=2,
+    m = ttr.TransformerLM(vocab=64, dim=32, heads=4, layers=1, n_experts=2,
                           device="cpu", mesh=mesh)
+    assert m.mesh is mesh and m.blocks[0].moe.route_group is None
+    assert m.blocks[0].moe.route_place is None
