@@ -27,7 +27,13 @@ unit compiled and the library linked with ``-fsanitize=<mode> -O1
 stock python; run it in a process with the sanitizer's runtime in
 ``LD_PRELOAD`` (``tests/test_torch_sanitizers.py``).
 
-    python -m ddstore_tpu_torch._build [--force]
+The native demo: :func:`build_demo` links ``native/demo.cc`` (the store
+core driven from C++ alone: thread ranks on the local transport, then
+TCP on localhost) with the same units but ``capi.cc`` into the
+executable ``_kbuild/native/dds_demo``, stale-aware and under the same
+lock. ``dds_demo [world]`` exits 0 when every rank read its peers' rows.
+
+    python -m ddstore_tpu_torch._build [--force] [--demo]
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 NATIVE_DIR = os.path.join(_PKG_DIR, "native")
 BUILD_DIR = os.path.join(_PKG_DIR, "_kbuild", "native")
 LIB_PATH = os.path.join(BUILD_DIR, "libddstore_torch.so")
+DEMO_PATH = os.path.join(BUILD_DIR, "dds_demo")
+DEMO_SOURCE = "demo.cc"
 SOURCES = ["store.cc", "local_transport.cc", "tcp_transport.cc",
            "uring_transport.cc", "worker_pool.cc", "cma.cc", "fault.cc",
            "gateway.cc", "health.cc", "integrity.cc", "metrics_hist.cc",
@@ -86,13 +94,13 @@ def _mode_flags(mode: str) -> list:
         if mode else []
 
 
-def _stale(lib: str = None) -> bool:
+def _stale(lib: str = None, extra=()) -> bool:
     lib = LIB_PATH if lib is None else lib
     if not os.path.exists(lib):
         return True
     lib_mtime = os.path.getmtime(lib)
     return any(os.path.getmtime(os.path.join(NATIVE_DIR, f)) > lib_mtime
-               for f in SOURCES + HEADERS)
+               for f in SOURCES + HEADERS + list(extra))
 
 
 def _sweep_strays(max_age_s: float = 600.0) -> None:
@@ -121,12 +129,19 @@ def _compile(src: str, obj: str, mode: str = "") -> None:
         raise RuntimeError(f"native build failed ({src}):\n{res.stderr}")
 
 
-def _build_into(stage: str, mode: str = "") -> str:
-    objs = [os.path.join(stage, s[:-3] + ".o") for s in SOURCES]
+def _compile_all(stage: str, sources, mode: str = "") -> list:
+    """Compile ``sources`` into ``stage``, one ``g++ -c`` each, all at
+    once; returns the objects."""
+    objs = [os.path.join(stage, s[:-3] + ".o") for s in sources]
     with ThreadPoolExecutor(max_workers=max(1, os.cpu_count() or 1)) as ex:
         for fut in [ex.submit(_compile, s, o, mode)
-                    for s, o in zip(SOURCES, objs)]:
+                    for s, o in zip(sources, objs)]:
             fut.result()
+    return objs
+
+
+def _build_into(stage: str, mode: str = "") -> str:
+    objs = _compile_all(stage, SOURCES, mode)
     script = os.path.join(stage, "exports.map")
     with open(script, "w") as f:
         f.write(_VERSION_SCRIPT)
@@ -141,28 +156,53 @@ def _build_into(stage: str, mode: str = "") -> str:
     return lib
 
 
+def _built(target: str, make, force: bool, extra=()) -> str:
+    """``target``, made by ``make(stage) -> path`` in a staging directory
+    and moved into place when it is missing, older than a source, or
+    ``force`` is set; one build at a time across processes."""
+    with _lock:
+        if os.path.isdir(BUILD_DIR):
+            _sweep_strays()
+        if not force and not _stale(target, extra):
+            return target
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)  # another process may build
+            if not force and not _stale(target, extra):
+                return target
+            stage = tempfile.mkdtemp(prefix="stage", dir=BUILD_DIR)
+            try:
+                os.replace(make(stage), target)
+            finally:
+                shutil.rmtree(stage, ignore_errors=True)
+        return target
+
+
 def build(force: bool = False) -> str:
     """Return the path of the built library of the ``DDSTORE_SANITIZE``
     mode (the plain one without it), compiling it first when it is
     missing, older than a source, or ``force`` is set."""
     mode = _sanitize_mode()
-    lib = _lib_path(mode)
-    with _lock:
-        if os.path.isdir(BUILD_DIR):
-            _sweep_strays()
-        if not force and not _stale(lib):
-            return lib
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)  # another process may build
-            if not force and not _stale(lib):
-                return lib
-            stage = tempfile.mkdtemp(prefix="stage", dir=BUILD_DIR)
-            try:
-                os.replace(_build_into(stage, mode), lib)
-            finally:
-                shutil.rmtree(stage, ignore_errors=True)
-        return lib
+    return _built(_lib_path(mode), lambda st: _build_into(st, mode), force)
+
+
+def _demo_into(stage: str) -> str:
+    units = [s for s in SOURCES if s != "capi.cc"] + [DEMO_SOURCE]
+    objs = _compile_all(stage, units)
+    exe = os.path.join(stage, "dds_demo")
+    res = subprocess.run(["g++", "-pthread", *objs, "-o", exe],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"dds_demo link failed:\n{res.stderr}")
+    return exe
+
+
+def build_demo(force: bool = False) -> str:
+    """Return the path of ``dds_demo``, the native demo linked with the
+    port's core (the reference's CMake target of that name), building it
+    first when it is missing, older than a source, or ``force`` is
+    set."""
+    return _built(DEMO_PATH, _demo_into, force, extra=[DEMO_SOURCE])
 
 
 def main(argv=None) -> None:
@@ -173,8 +213,10 @@ def main(argv=None) -> None:
         description="Build the port's native store core (stale-aware).")
     ap.add_argument("--force", action="store_true",
                     help="rebuild even when the library is fresh")
+    ap.add_argument("--demo", action="store_true",
+                    help="build the native demo dds_demo instead")
     args = ap.parse_args(argv)
-    print(build(force=args.force))
+    print((build_demo if args.demo else build)(force=args.force))
 
 
 if __name__ == "__main__":

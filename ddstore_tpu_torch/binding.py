@@ -13,6 +13,7 @@ pure C++).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -335,14 +336,19 @@ ERR_ADMISSION = -13  # serving-gateway admission refusal: over-share
 #                      back-off hint (seeded-jitter retry, then give up)
 
 
+ERR_CLOSED = -64     # the binding's own: a call on a NativeStore whose
+#                      close() has begun (no native code; nothing died)
+
+
 class DDStoreError(RuntimeError):
     """Raised when the native core reports an error (maps the C error codes
     the way the reference surfaces C++ throws through Cython ``except +``,
-    pyddstore.pyx:44-50)."""
+    pyddstore.pyx:44-50), or a call on a closed store (:data:`ERR_CLOSED`)."""
 
     def __init__(self, code: int, context: str = ""):
         self.code = code
-        msg = _load().dds_error_string(code).decode()
+        msg = "store is closed" if code == ERR_CLOSED else \
+            _load().dds_error_string(code).decode()
         super().__init__(f"{context}: {msg}" if context else msg)
 
 
@@ -715,7 +721,15 @@ def _as_i64p(arr: np.ndarray):
 
 
 class NativeStore:
-    """Thin, byte-oriented wrapper over one native store instance."""
+    """Thin, byte-oriented wrapper over one native store instance.
+
+    Every call on the handle goes through :meth:`_call`, which counts it
+    in flight from reading the handle until the foreign call returns.
+    :meth:`close` waits until no call is in flight before it frees the
+    native store, and a call that starts once :meth:`close` has begun
+    raises :class:`DDStoreError` (:data:`ERR_CLOSED`) without touching
+    the handle. ctypes releases the GIL inside each call, so without this
+    another thread's ``close`` could free the store under a read."""
 
     def __init__(self, handle: int, local_gid: Optional[str] = None):
         if not handle:
@@ -723,6 +737,26 @@ class NativeStore:
         self._h = handle
         self._local_gid = local_gid
         self._lib = _load()
+        self._lock = threading.Lock()
+        self._idle = threading.Condition(self._lock)  # close() waits on it
+        self._in_flight = 0
+        self._closing = False
+
+    def _call(self, fn, *args):
+        """``fn(handle, *args)`` counted in flight; raises
+        :data:`ERR_CLOSED` once :meth:`close` has begun."""
+        with self._lock:
+            if self._closing:
+                raise DDStoreError(ERR_CLOSED, fn.__name__)
+            self._in_flight += 1
+            h = self._h
+        try:
+            return fn(h, *args)
+        finally:
+            with self._lock:
+                self._in_flight -= 1
+                if self._closing and not self._in_flight:
+                    self._idle.notify_all()
 
     # -- constructors ------------------------------------------------------
 
@@ -756,7 +790,7 @@ class NativeStore:
 
     @property
     def server_port(self) -> int:
-        return self._lib.dds_server_port(self._h)
+        return self._call(self._lib.dds_server_port)
 
     def set_peers(self, hosts: Sequence[str], ports: Sequence[int]) -> None:
         """Each host entry may be a comma-separated per-NIC address list;
@@ -764,20 +798,21 @@ class NativeStore:
         n = len(hosts)
         harr = (ctypes.c_char_p * n)(*[h.encode() for h in hosts])
         parr = (ctypes.c_int * n)(*ports)
-        _check(self._lib.dds_set_peers(self._h, harr, parr, n), "set_peers")
+        _check(self._call(self._lib.dds_set_peers, harr, parr, n), "set_peers")
 
     def set_ifaces(self, addrs: Sequence[str]) -> None:
         """Local per-NIC source addresses; outgoing pool connections bind
         to them round-robin (multi-NIC striping, DDSTORE_IFACES)."""
-        _check(self._lib.dds_set_ifaces(
-            self._h, ",".join(addrs).encode()), "set_ifaces")
+        _check(self._call(
+            self._lib.dds_set_ifaces, ",".join(addrs).encode()), "set_ifaces")
 
     def update_peer(self, target: int, host: str, port: int) -> None:
         """Elastic recovery: re-point one peer at a relaunched
         replacement's endpoint (stale connections closed, CMA re-probed
         against the new pid)."""
-        _check(self._lib.dds_update_peer(
-            self._h, target, host.encode(), port), f"update_peer({target})")
+        _check(self._call(
+            self._lib.dds_update_peer,
+            target, host.encode(), port), f"update_peer({target})")
 
     def routing_state(self) -> dict:
         """Adaptive routing snapshot for both traffic classes (bulk =
@@ -793,8 +828,9 @@ class NativeStore:
             cro = ctypes.c_int64()
             via = ctypes.c_int()
             cal = ctypes.c_int()
-            _check(self._lib.dds_routing_state(
-                self._h, cls, ctypes.byref(cma), ctypes.byref(tcp),
+            _check(self._call(
+                self._lib.dds_routing_state,
+                cls, ctypes.byref(cma), ctypes.byref(tcp),
                 ctypes.byref(dec), ctypes.byref(cro), ctypes.byref(via),
                 ctypes.byref(cal)),
                 "routing_state")
@@ -806,7 +842,7 @@ class NativeStore:
                         f"{label}_calibrated": bool(cal.value)})
         # Same-host Unix-lane dials: whether loopback peers actually took
         # the UDS fast lane or silently fell back to loopback TCP.
-        out["uds_conns"] = self._lib.dds_uds_conns(self._h)
+        out["uds_conns"] = self._call(self._lib.dds_uds_conns)
         return out
 
     def set_retry_deadline(self, seconds: float) -> None:
@@ -819,7 +855,7 @@ class NativeStore:
         keep their full budgets; still advisory within this store —
         concurrent reads on it see the reduced budget while set, so
         callers must clear it in a ``finally``."""
-        _check(self._lib.dds_set_retry_deadline(self._h, float(seconds)),
+        _check(self._call(self._lib.dds_set_retry_deadline, float(seconds)),
                "set_retry_deadline")
 
     def lane_state(self) -> dict:
@@ -829,7 +865,7 @@ class NativeStore:
         (per-lane throughput stopped scaling), and the best measured
         stripe bandwidth. ``{}`` for non-TCP backends."""
         arr = (ctypes.c_int64 * 8)()
-        if self._lib.dds_lane_state(self._h, arr) != 0:
+        if self._call(self._lib.dds_lane_state, arr) != 0:
             return {}
         out = dict(zip(LANE_STATE_KEYS, list(arr)[:len(LANE_STATE_KEYS)]))
         for k in ("parked", "autotune", "scatter_parked"):
@@ -844,7 +880,7 @@ class NativeStore:
         is what ``PipelineMetrics`` does with its lane source."""
         cap = 64
         arr = (ctypes.c_int64 * cap)()
-        n = self._lib.dds_lane_bytes(self._h, int(target), arr, cap)
+        n = self._call(self._lib.dds_lane_bytes, int(target), arr, cap)
         if n < 0:
             return []
         return list(arr)[:n]
@@ -857,7 +893,7 @@ class NativeStore:
         against; the planner then leaves the transport knobs alone)."""
         cap = 64
         arr = (ctypes.c_double * (cap * 5))()
-        n = self._lib.dds_sched_cells(self._h, arr, cap)
+        n = self._call(self._lib.dds_sched_cells, arr, cap)
         if n < 0:
             return []
         return [dict(zip(SCHED_CELL_COLS, arr[i * 5:(i + 1) * 5]))
@@ -868,15 +904,15 @@ class NativeStore:
         scatter): ``mode`` 0 = CMA, 1 = TCP, -1 = release to the
         adaptive router. Ranks below the user env pins
         (``DDSTORE_CMA_BULK``/``SCATTER``); released by a peer update."""
-        _check(self._lib.dds_sched_pin_route(self._h, int(cls), int(mode)),
+        _check(self._call(self._lib.dds_sched_pin_route, int(cls), int(mode)),
                f"sched_pin_route({cls}, {mode})")
 
     def sched_pin_lanes(self, cls: int, lanes: int) -> None:
         """Planner lane-width pin for traffic class ``cls``: ``lanes``
         >= 1 pins the stripe width (clamped to the pool size), -1
         releases to the lane autotuner."""
-        _check(self._lib.dds_sched_pin_lanes(self._h, int(cls),
-                                             int(lanes)),
+        _check(self._call(self._lib.dds_sched_pin_lanes, int(cls),
+                          int(lanes)),
                f"sched_pin_lanes({cls}, {lanes})")
 
     def set_async_width(self, n: int) -> None:
@@ -885,14 +921,14 @@ class NativeStore:
         ``DDSTORE_ASYNC_THREADS`` / core-ladder default. Excess issues
         queue and start as running reads complete — the ticket contract
         is unchanged."""
-        _check(self._lib.dds_set_async_width(self._h, int(n)),
+        _check(self._call(self._lib.dds_set_async_width, int(n)),
                f"set_async_width({n})")
 
     @property
     def async_width(self) -> int:
         """The admission width currently in force (override, env, or
         the 4/2/1 core-ladder default)."""
-        return int(self._lib.dds_async_width(self._h))
+        return int(self._call(self._lib.dds_async_width))
 
     # -- tenant namespaces / quotas / snapshot epochs ----------------------
 
@@ -901,8 +937,9 @@ class NativeStore:
         """Byte/var budget for ``tenant`` (< 0 = unlimited). Checked
         atomically at add/init registration; over-budget registrations
         raise :data:`ERR_QUOTA` — a distinct, non-fatal class."""
-        _check(self._lib.dds_tenant_set_quota(
-            self._h, tenant.encode(), int(max_bytes), int(max_vars)),
+        _check(self._call(
+            self._lib.dds_tenant_set_quota,
+            tenant.encode(), int(max_bytes), int(max_vars)),
             f"tenant_set_quota({tenant})")
 
     def tenant_set_share(self, tenant: str, share: int) -> None:
@@ -910,16 +947,16 @@ class NativeStore:
         ``tenant`` runs at most ``max(1, width * share / total)``
         concurrent async batched reads; excess defers and admits as
         slots free (ticket contract unchanged)."""
-        _check(self._lib.dds_tenant_set_share(
-            self._h, tenant.encode(), int(share)),
+        _check(self._call(
+            self._lib.dds_tenant_set_share, tenant.encode(), int(share)),
             f"tenant_set_share({tenant})")
 
     def tenant_set_lane_budget(self, tenant: str, lanes: int) -> None:
         """QoS lane budget: striped reads of ``tenant``'s variables
         engage at most ``lanes`` transport lanes (<= 0 clears). No-op
         on non-TCP backends."""
-        _check(self._lib.dds_tenant_set_lane_budget(
-            self._h, tenant.encode(), int(lanes)),
+        _check(self._call(
+            self._lib.dds_tenant_set_lane_budget, tenant.encode(), int(lanes)),
             f"tenant_set_lane_budget({tenant})")
 
     def tenant_names(self) -> list:
@@ -928,7 +965,7 @@ class NativeStore:
         labels cannot otherwise carry it."""
         cap = 1 << 16
         buf = ctypes.create_string_buffer(cap)
-        n = self._lib.dds_tenant_names(self._h, buf, cap)
+        n = self._call(self._lib.dds_tenant_names, buf, cap)
         if n <= 0:
             return []
         raw = buf.value.decode()
@@ -938,7 +975,7 @@ class NativeStore:
     def tenant_stats(self, tenant: str) -> dict:
         """Ledger snapshot for one tenant (:data:`TENANT_STAT_KEYS`)."""
         arr = (ctypes.c_int64 * 16)()
-        _check(self._lib.dds_tenant_stats(self._h, tenant.encode(), arr),
+        _check(self._call(self._lib.dds_tenant_stats, tenant.encode(), arr),
                f"tenant_stats({tenant})")
         return dict(zip(TENANT_STAT_KEYS,
                         list(arr)[:len(TENANT_STAT_KEYS)]))
@@ -948,7 +985,7 @@ class NativeStore:
         snapshot id the reader's scoped names carry. All-or-nothing: a
         peer that cannot be pinned fails the acquire (pins already
         placed are rolled back)."""
-        sid = self._lib.dds_snapshot_acquire(self._h, tenant.encode())
+        sid = self._call(self._lib.dds_snapshot_acquire, tenant.encode())
         if sid <= 0:
             raise DDStoreError(int(sid), "snapshot_acquire")
         return int(sid)
@@ -956,7 +993,7 @@ class NativeStore:
     def snapshot_release(self, snap_id: int) -> None:
         """Release a snapshot everywhere; kept versions whose last pin
         this was are reclaimed. Idempotent."""
-        _check(self._lib.dds_snapshot_release(self._h, int(snap_id)),
+        _check(self._call(self._lib.dds_snapshot_release, int(snap_id)),
                f"snapshot_release({snap_id})")
 
     def snapshot_stats(self) -> dict:
@@ -964,7 +1001,7 @@ class NativeStore:
         versions and their RAM cost, plus the monotone count of pins
         reclaimed by the stale-pin reaper (TTL / dead owner)."""
         arr = (ctypes.c_int64 * 4)()
-        _check(self._lib.dds_snapshot_stats(self._h, arr),
+        _check(self._call(self._lib.dds_snapshot_stats, arr),
                "snapshot_stats")
         return {"active_snapshots": int(arr[0]),
                 "kept_versions": int(arr[1]),
@@ -983,8 +1020,9 @@ class NativeStore:
         reaper; ``pin_ttl_ms`` arms stranded-pin reclaim even with the
         gateway off. Load-time knobs: ``DDSTORE_GATEWAY`` /
         ``DDSTORE_GW_*`` / ``DDSTORE_SNAP_PIN_TTL_MS``."""
-        _check(self._lib.dds_gateway_configure(
-            self._h, int(enabled), int(lease_ms), int(defer_ms),
+        _check(self._call(
+            self._lib.dds_gateway_configure,
+            int(enabled), int(lease_ms), int(defer_ms),
             int(queue_cap), int(admit_margin_pct), int(lane_share),
             int(pin_ttl_ms)), "gateway_configure")
 
@@ -995,8 +1033,8 @@ class NativeStore:
         (< 0 = this rank) and return the session token. The lease
         must be renewed at ~lease/3 or its pins/quota/lane share are
         reaped."""
-        token = int(self._lib.dds_gateway_attach(
-            self._h, int(target), tenant.encode(),
+        token = int(self._call(
+            self._lib.dds_gateway_attach, int(target), tenant.encode(),
             1 if with_snapshot else 0, int(quota_bytes)))
         if token < 0:
             raise DDStoreError(token, f"gateway_attach({tenant!r})")
@@ -1004,22 +1042,22 @@ class NativeStore:
 
     def gateway_renew(self, token: int, target: int = -1) -> None:
         """Lease heartbeat; raises ``ERR_NOT_FOUND`` after expiry."""
-        _check(self._lib.dds_gateway_renew(self._h, int(target),
-                                           int(token)),
+        _check(self._call(self._lib.dds_gateway_renew, int(target),
+                          int(token)),
                f"gateway_renew({token})")
 
     def gateway_detach(self, token: int, target: int = -1) -> None:
         """Graceful goodbye: releases the lease's snapshot pins, quota
         reservation and (last-of-tenant) lane share."""
-        _check(self._lib.dds_gateway_detach(self._h, int(target),
-                                            int(token)),
+        _check(self._call(self._lib.dds_gateway_detach, int(target),
+                          int(token)),
                f"gateway_detach({token})")
 
     def gateway_drain(self, deadline_ms: int = 1000) -> bool:
         """Stop admitting, wait up to ``deadline_ms`` for in-flight
         reads, shed the rest with ``ERR_ADMISSION``. True when the
         gateway went quiet inside the deadline."""
-        rc = int(self._lib.dds_gateway_drain(self._h, int(deadline_ms)))
+        rc = int(self._call(self._lib.dds_gateway_drain, int(deadline_ms)))
         if rc == 0:
             return True
         if rc == ERR_TRANSPORT:
@@ -1029,7 +1067,7 @@ class NativeStore:
     def gateway_reap(self) -> int:
         """One synchronous lease/pin reap pass (the deterministic test
         hook for the background reaper). Returns reclaimed pin count."""
-        rc = int(self._lib.dds_gateway_reap(self._h))
+        rc = int(self._call(self._lib.dds_gateway_reap))
         if rc < 0:
             raise DDStoreError(rc, "gateway_reap")
         return rc
@@ -1037,7 +1075,7 @@ class NativeStore:
     def gateway_stats(self) -> dict:
         """Gateway counters (:data:`GATEWAY_STAT_KEYS`)."""
         arr = (ctypes.c_int64 * 16)()
-        _check(self._lib.dds_gateway_stats(self._h, arr),
+        _check(self._call(self._lib.dds_gateway_stats, arr),
                "gateway_stats")
         return dict(zip(GATEWAY_STAT_KEYS,
                         list(arr)[:len(GATEWAY_STAT_KEYS)]))
@@ -1047,22 +1085,22 @@ class NativeStore:
     def metrics_configure(self, enabled: int) -> None:
         """Flip THIS store's histograms at runtime (0/1; -1 keeps).
         Load-time knob: ``DDSTORE_METRICS`` (default on)."""
-        _check(self._lib.dds_metrics_configure(self._h, int(enabled)),
+        _check(self._call(self._lib.dds_metrics_configure, int(enabled)),
                "metrics_configure")
 
     def metrics_enabled(self) -> bool:
-        return bool(self._lib.dds_metrics_enabled(self._h))
+        return bool(self._call(self._lib.dds_metrics_enabled))
 
     def metrics_reset(self) -> None:
         """Zero every cell's counters (claimed keys stay interned)."""
-        _check(self._lib.dds_metrics_reset(self._h), "metrics_reset")
+        _check(self._call(self._lib.dds_metrics_reset), "metrics_reset")
 
     def _metrics_decode(self, fn, *args) -> np.ndarray:
-        need = int(self._lib.dds_metrics_snapshot(self._h, None, 0))
+        need = int(self._call(self._lib.dds_metrics_snapshot, None, 0))
         if need <= 0:
             return np.empty(0, dtype=METRICS_CELL_DTYPE)
         buf = ctypes.create_string_buffer(need)
-        n = int(fn(*args, buf, need))
+        n = int(self._call(fn, *args, buf, need))
         if n < 0:
             raise DDStoreError(n, "metrics snapshot/pull")
         return np.frombuffer(buf.raw[:n],
@@ -1072,8 +1110,7 @@ class NativeStore:
         """This store's live histogram cells as a structured array
         (:data:`METRICS_CELL_DTYPE`): one row per (class, route, peer,
         reading-tenant) with log2 latency/bytes buckets."""
-        return self._metrics_decode(self._lib.dds_metrics_snapshot,
-                                    self._h)
+        return self._metrics_decode(self._lib.dds_metrics_snapshot)
 
     def metrics_pull(self, target: int) -> np.ndarray:
         """Pull ``target``'s cells over the control plane (kOpMetrics
@@ -1081,12 +1118,12 @@ class NativeStore:
         Raises ``DDStoreError(ERR_PEER_LOST)`` for a detector-
         suspected/dead peer — zero control budget burned, no giveup."""
         return self._metrics_decode(self._lib.dds_metrics_pull,
-                                    self._h, int(target))
+                                    int(target))
 
     def metrics_stats(self) -> dict:
         """Histogram registry counters (:data:`METRICS_STAT_KEYS`)."""
         arr = (ctypes.c_int64 * 8)()
-        _check(self._lib.dds_metrics_stats(self._h, arr),
+        _check(self._call(self._lib.dds_metrics_stats, arr),
                "metrics_stats")
         return dict(zip(METRICS_STAT_KEYS,
                         list(arr)[:len(METRICS_STAT_KEYS)]))
@@ -1095,7 +1132,7 @@ class NativeStore:
         """Interned reading-tenant labels in slot order (slot 0 is the
         default tenant ``""``)."""
         buf = ctypes.create_string_buffer(4096)
-        n = self._lib.dds_metrics_tenants(self._h, buf, 4096)
+        n = self._call(self._lib.dds_metrics_tenants, buf, 4096)
         if n < 0:
             raise DDStoreError(n, "metrics_tenants")
         return buf.value.decode().split(",")
@@ -1104,8 +1141,9 @@ class NativeStore:
                        tenant: str, lat_ns: int, nbytes: int) -> None:
         """Fold one synthetic op sample into the histograms (test /
         Python-side-op hook)."""
-        _check(self._lib.dds_metrics_record(
-            self._h, int(cls), int(route), int(peer), tenant.encode(),
+        _check(self._call(
+            self._lib.dds_metrics_record,
+            int(cls), int(route), int(peer), tenant.encode(),
             int(lat_ns), int(nbytes)), "metrics_record")
 
     def slo_configure(self, spec: str) -> None:
@@ -1113,7 +1151,7 @@ class NativeStore:
         (``"t=p99:5ms,t2=p50:200us"``; a bare ``"p99:5ms"`` names the
         default tenant; empty clears). Baselines reset to the current
         histograms. Load-time knob: ``DDSTORE_TENANT_SLOS``."""
-        _check(self._lib.dds_slo_configure(self._h, spec.encode()),
+        _check(self._call(self._lib.dds_slo_configure, spec.encode()),
                f"slo_configure({spec!r})")
 
     def slo_evaluate(self) -> list:
@@ -1124,7 +1162,7 @@ class NativeStore:
         p-quantile's whole log2 bucket lies above the objective."""
         cap = 64
         arr = (ctypes.c_int64 * (cap * 6))()
-        n = int(self._lib.dds_slo_evaluate(self._h, arr, cap))
+        n = int(self._call(self._lib.dds_slo_evaluate, arr, cap))
         if n < 0:
             raise DDStoreError(n, "slo_evaluate")
         return [list(arr[i * 6:i * 6 + 5]) for i in range(n)]
@@ -1132,7 +1170,7 @@ class NativeStore:
     def slo_stats(self) -> dict:
         """SLO monitor counters (:data:`SLO_STAT_KEYS`)."""
         arr = (ctypes.c_int64 * 8)()
-        _check(self._lib.dds_slo_stats(self._h, arr), "slo_stats")
+        _check(self._call(self._lib.dds_slo_stats, arr), "slo_stats")
         return dict(zip(SLO_STAT_KEYS, list(arr)[:len(SLO_STAT_KEYS)]))
 
     # -- replication / failover / heartbeat -------------------------------
@@ -1141,25 +1179,25 @@ class NativeStore:
     def replication(self) -> int:
         """Replication factor in force (``DDSTORE_REPLICATION`` clamped
         to ``[1, world]``; 1 = off, exactly the pre-replication tree)."""
-        return int(self._lib.dds_replication(self._h))
+        return int(self._call(self._lib.dds_replication))
 
     def replicate(self, name: str) -> None:
         """Pull/refresh this rank's mirrors of ``name`` (the shards of
         the next R-1 ranks). Call AFTER the registration barrier."""
-        _check(self._lib.dds_replicate(self._h, name.encode()),
+        _check(self._call(self._lib.dds_replicate, name.encode()),
                f"replicate({name})")
 
     def refresh_mirrors(self) -> None:
         """Re-pull every mirror this rank hosts, creating missing ones
         (the elastic-recovery rebuild). Suspected/unreachable owners
         are skipped, never fatal."""
-        _check(self._lib.dds_refresh_mirrors(self._h), "refresh_mirrors")
+        _check(self._call(self._lib.dds_refresh_mirrors), "refresh_mirrors")
 
     def replica_set(self, owner: int) -> list:
         """Replica chain of ``owner``'s shard, primary first."""
         cap = 64
         arr = (ctypes.c_int * cap)()
-        n = self._lib.dds_replica_set(self._h, int(owner), arr, cap)
+        n = self._call(self._lib.dds_replica_set, int(owner), arr, cap)
         if n < 0:
             raise DDStoreError(n, f"replica_set({owner})")
         return list(arr)[:n]
@@ -1169,7 +1207,7 @@ class NativeStore:
         data-path ladder give-ups), one bool per rank."""
         cap = 1024
         arr = (ctypes.c_int64 * cap)()
-        n = self._lib.dds_health_state(self._h, arr, cap)
+        n = self._call(self._lib.dds_health_state, arr, cap)
         if n < 0:
             return []
         return [bool(v) for v in list(arr)[:n]]
@@ -1178,15 +1216,16 @@ class NativeStore:
                             suspect_n: int = 0) -> None:
         """(Re)start the heartbeat detector at ``interval_ms`` (<= 0
         stops it; ``suspect_n`` <= 0 keeps the env/default threshold)."""
-        _check(self._lib.dds_heartbeat_configure(
-            self._h, int(interval_ms), int(suspect_n)),
+        _check(self._call(
+            self._lib.dds_heartbeat_configure,
+            int(interval_ms), int(suspect_n)),
             "heartbeat_configure")
 
     def mark_suspect(self, target: int, suspected: bool = True) -> None:
         """Force one peer into (or out of) the suspect set — the
         deterministic failover-routing hook tests use."""
-        _check(self._lib.dds_mark_suspect(self._h, int(target),
-                                          int(bool(suspected))),
+        _check(self._call(self._lib.dds_mark_suspect, int(target),
+                          int(bool(suspected))),
                f"mark_suspect({target})")
 
     def failover_stats(self) -> dict:
@@ -1196,7 +1235,7 @@ class NativeStore:
         set losses, mirror fill/refresh traffic, and the ping ledger.
         Monotone except the :data:`FAILOVER_GAUGE_KEYS` gauges."""
         arr = (ctypes.c_int64 * 16)()
-        _check(self._lib.dds_failover_stats(self._h, arr),
+        _check(self._call(self._lib.dds_failover_stats, arr),
                "failover_stats")
         return dict(zip(FAILOVER_STAT_KEYS,
                         list(arr)[:len(FAILOVER_STAT_KEYS)]))
@@ -1205,10 +1244,10 @@ class NativeStore:
     def barrier_seq(self) -> int:
         """The transport's collective sequence count (elastic rejoin
         syncs a fresh rank to the group's)."""
-        return int(self._lib.dds_barrier_seq(self._h))
+        return int(self._call(self._lib.dds_barrier_seq))
 
     def set_barrier_seq(self, seq: int) -> None:
-        _check(self._lib.dds_set_barrier_seq(self._h, seq),
+        _check(self._call(self._lib.dds_set_barrier_seq, seq),
                "set_barrier_seq")
 
     # -- data plane --------------------------------------------------------
@@ -1221,36 +1260,36 @@ class NativeStore:
         # (nrows=0) must still agree with its peers on the row width.
         disp = int(np.prod(arr.shape[1:], dtype=np.int64)) if arr.ndim > 1 else 1
         table = np.ascontiguousarray(all_nrows, dtype=np.int64)
-        _check(self._lib.dds_add(
-            self._h, name.encode(), arr.ctypes.data, nrows, disp,
+        _check(self._call(
+            self._lib.dds_add, name.encode(), arr.ctypes.data, nrows, disp,
             arr.itemsize, _as_i64p(table), int(copy)), f"add({name})")
 
     def init(self, name: str, nrows: int, disp: int, itemsize: int,
              all_nrows: Sequence[int]) -> None:
         table = np.ascontiguousarray(all_nrows, dtype=np.int64)
-        _check(self._lib.dds_init(self._h, name.encode(), nrows, disp,
-                                  itemsize, _as_i64p(table)), f"init({name})")
+        _check(self._call(self._lib.dds_init, name.encode(), nrows, disp,
+                          itemsize, _as_i64p(table)), f"init({name})")
 
     def update(self, name: str, arr: np.ndarray, row_offset: int) -> None:
         assert arr.flags["C_CONTIGUOUS"]
         nrows = arr.shape[0] if arr.ndim else 0
-        _check(self._lib.dds_update(self._h, name.encode(), arr.ctypes.data,
-                                    nrows, row_offset), f"update({name})")
+        _check(self._call(self._lib.dds_update, name.encode(), arr.ctypes.data,
+                          nrows, row_offset), f"update({name})")
 
     def get(self, name: str, out: np.ndarray, start: int,
             count: int, tenant: str = "") -> None:
         assert out.flags["C_CONTIGUOUS"] and out.flags["WRITEABLE"]
-        _check(self._lib.dds_get(self._h, name.encode(), out.ctypes.data,
-                                 start, count, tenant.encode()),
+        _check(self._call(self._lib.dds_get, name.encode(), out.ctypes.data,
+                          start, count, tenant.encode()),
                f"get({name}, {start})")
 
     def get_batch(self, name: str, out: np.ndarray,
                   starts: np.ndarray, tenant: str = "") -> None:
         assert out.flags["C_CONTIGUOUS"] and out.flags["WRITEABLE"]
         starts = np.ascontiguousarray(starts, dtype=np.int64)
-        _check(self._lib.dds_get_batch(self._h, name.encode(),
-                                       out.ctypes.data, _as_i64p(starts),
-                                       len(starts), tenant.encode()),
+        _check(self._call(self._lib.dds_get_batch, name.encode(),
+                          out.ctypes.data, _as_i64p(starts),
+                          len(starts), tenant.encode()),
                f"get_batch({name})")
 
     # -- async batched reads ----------------------------------------------
@@ -1265,8 +1304,9 @@ class NativeStore:
                         starts: np.ndarray, tenant: str = "") -> int:
         assert out.flags["C_CONTIGUOUS"] and out.flags["WRITEABLE"]
         starts = np.ascontiguousarray(starts, dtype=np.int64)
-        ticket = self._lib.dds_get_batch_async(
-            self._h, name.encode(), out.ctypes.data, _as_i64p(starts),
+        ticket = self._call(
+            self._lib.dds_get_batch_async,
+            name.encode(), out.ctypes.data, _as_i64p(starts),
             len(starts), tenant.encode())
         if ticket < 0:
             raise DDStoreError(int(ticket), f"get_batch_async({name})")
@@ -1288,8 +1328,9 @@ class NativeStore:
             raise ValueError("read_runs_async: array length mismatch")
         if n and int((arrs[2] + arrs[3]).max()) > out.nbytes:
             raise ValueError("read_runs_async: dst span exceeds out")
-        ticket = self._lib.dds_read_runs_async(
-            self._h, name.encode(), out.ctypes.data, _as_i64p(arrs[0]),
+        ticket = self._call(
+            self._lib.dds_read_runs_async,
+            name.encode(), out.ctypes.data, _as_i64p(arrs[0]),
             _as_i64p(arrs[1]), _as_i64p(arrs[2]), _as_i64p(arrs[3]), n,
             tenant.encode())
         if ticket < 0:
@@ -1304,29 +1345,33 @@ class NativeStore:
         the high-level handle must release the ticket even for a failed
         read, so raising here would leak it."""
         ts = ctypes.c_double(0.0)
-        rc = self._lib.dds_async_wait(self._h, ticket, timeout_ms,
-                                      ctypes.byref(ts))
+        rc = self._call(self._lib.dds_async_wait, ticket, timeout_ms,
+                        ctypes.byref(ts))
         return rc, ts.value
 
     def async_release(self, ticket: int) -> int:
         """Block until the read completes, then free the ticket. Returns
         the read's error code (0 = ok) — never raises: release is the
-        teardown barrier and must always free the slot."""
-        return int(self._lib.dds_async_release(self._h, ticket))
+        teardown barrier and must always free the slot. On a closed store
+        it returns :data:`ERR_CLOSED` (the tickets went with the store)."""
+        try:
+            return int(self._call(self._lib.dds_async_release, ticket))
+        except DDStoreError as e:
+            return e.code
 
     @property
     def async_pending(self) -> int:
         """Unreleased async tickets (0 after a clean loader teardown)."""
-        return int(self._lib.dds_async_pending(self._h))
+        return int(self._call(self._lib.dds_async_pending))
 
     def query(self, name: str):
         total = _i64(0)
         disp = _i64(0)
         itemsize = _i64(0)
         local = _i64(0)
-        _check(self._lib.dds_query(self._h, name.encode(),
-                                   ctypes.byref(total), ctypes.byref(disp),
-                                   ctypes.byref(itemsize), ctypes.byref(local)),
+        _check(self._call(self._lib.dds_query, name.encode(),
+                          ctypes.byref(total), ctypes.byref(disp),
+                          ctypes.byref(itemsize), ctypes.byref(local)),
                f"query({name})")
         return {"total_rows": total.value, "disp": disp.value,
                 "itemsize": itemsize.value, "local_rows": local.value}
@@ -1334,13 +1379,13 @@ class NativeStore:
     # -- control plane -----------------------------------------------------
 
     def epoch_begin(self) -> None:
-        _check(self._lib.dds_epoch_begin(self._h), "epoch_begin")
+        _check(self._call(self._lib.dds_epoch_begin), "epoch_begin")
 
     def epoch_end(self) -> None:
-        _check(self._lib.dds_epoch_end(self._h), "epoch_end")
+        _check(self._call(self._lib.dds_epoch_end), "epoch_end")
 
     def set_epoch_collective(self, collective: bool) -> None:
-        _check(self._lib.dds_set_epoch_collective(self._h, int(collective)))
+        _check(self._call(self._lib.dds_set_epoch_collective, int(collective)))
 
     def fence_reset(self) -> None:
         """Force the epoch-fence state machine closed (local,
@@ -1350,7 +1395,7 @@ class NativeStore:
         complete the fence while others roll back), so ``recover()``
         resets every rank to one agreed pre-fence state before the
         group re-enters its first post-recovery epoch."""
-        _check(self._lib.dds_fence_reset(self._h), "fence_reset")
+        _check(self._call(self._lib.dds_fence_reset), "fence_reset")
 
     def rebind(self, name: str, arr: np.ndarray) -> None:
         """Atomically swap the local shard's backing memory to ``arr``
@@ -1359,23 +1404,23 @@ class NativeStore:
         keeps it alive. Concurrent readers see old or new bytes, never a
         missing variable."""
         assert arr.flags["C_CONTIGUOUS"]
-        _check(self._lib.dds_rebind(self._h, name.encode(),
-                                    arr.ctypes.data if arr.size else None),
+        _check(self._call(self._lib.dds_rebind, name.encode(),
+                          arr.ctypes.data if arr.size else None),
                f"rebind({name})")
 
     def free_var(self, name: str) -> None:
-        _check(self._lib.dds_free_var(self._h, name.encode()),
+        _check(self._call(self._lib.dds_free_var, name.encode()),
                f"free({name})")
 
     def barrier(self, tag: int) -> None:
-        _check(self._lib.dds_barrier(self._h, tag), "barrier")
+        _check(self._call(self._lib.dds_barrier, tag), "barrier")
 
     @property
     def cma_ops(self) -> int:
         """Reads served via the same-host CMA fast path (shared-memory
         mapped gather, or process_vm_readv for borrowed shards); 0 for
         non-TCP backends or when DDSTORE_CMA=0."""
-        return self._lib.dds_cma_ops(self._h)
+        return self._call(self._lib.dds_cma_ops)
 
     def plan_stats(self) -> dict:
         """Cumulative scatter-read planner statistics (``get_batch``):
@@ -1385,7 +1430,7 @@ class NativeStore:
         ``coalesce_ratio`` = unique rows fetched per transport run (1.0 =
         nothing coalesced; higher = fewer, larger segments on the wire)."""
         arr = (ctypes.c_int64 * 8)()
-        _check(self._lib.dds_plan_stats(self._h, arr), "plan_stats")
+        _check(self._call(self._lib.dds_plan_stats, arr), "plan_stats")
         (batches, rows, runs, local_runs, peer_lists, dedup_hits,
          scratch_runs, scratch_bytes) = list(arr)
         raw = {
@@ -1414,8 +1459,8 @@ class NativeStore:
         (reader-side checksum verification; also enables sum
         computation); ``scrub_ms`` -1 keeps / 0 stops the background
         scrubber / >0 (re)starts it at that per-mirror tick."""
-        _check(self._lib.dds_integrity_configure(
-            self._h, int(verify), int(scrub_ms)),
+        _check(self._call(
+            self._lib.dds_integrity_configure, int(verify), int(scrub_ms)),
             f"integrity_configure({verify}, {scrub_ms})")
 
     def integrity_stats(self) -> dict:
@@ -1425,7 +1470,7 @@ class NativeStore:
         scrubber's checked/divergent/repaired ledger. Monotone except
         the :data:`INTEGRITY_GAUGE_KEYS` gauges."""
         arr = (ctypes.c_int64 * 16)()
-        _check(self._lib.dds_integrity_stats(self._h, arr),
+        _check(self._call(self._lib.dds_integrity_stats, arr),
                "integrity_stats")
         return dict(zip(INTEGRITY_STAT_KEYS,
                         list(arr)[:len(INTEGRITY_STAT_KEYS)]))
@@ -1440,8 +1485,8 @@ class NativeStore:
             count = int(self.query(name)["local_rows"]) - row0
         out = np.empty(max(int(count), 0), dtype=np.uint64)
         seq = _i64(-1)
-        _check(self._lib.dds_integrity_sums(
-            self._h, name.encode(), int(row0), int(count),
+        _check(self._call(
+            self._lib.dds_integrity_sums, name.encode(), int(row0), int(count),
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
             ctypes.byref(seq)), f"integrity_sums({name})")
         return out, int(seq.value)
@@ -1450,7 +1495,7 @@ class NativeStore:
         """One synchronous scrub pass over every resident mirror;
         returns the number of divergent mirrors found (repairs run
         inline, counted in :meth:`integrity_stats`)."""
-        n = int(self._lib.dds_integrity_scrub(self._h))
+        n = int(self._call(self._lib.dds_integrity_scrub))
         if n < 0:
             raise DDStoreError(n, "integrity_scrub")
         return n
@@ -1461,20 +1506,20 @@ class NativeStore:
         """Runtime hot-row cache budget (bytes; 0 disables and evicts
         everything, < 0 keeps). Load-time:
         ``DDSTORE_TIER_CACHE_BYTES``."""
-        _check(self._lib.dds_tier_configure(self._h, int(cache_bytes)),
+        _check(self._call(self._lib.dds_tier_configure, int(cache_bytes)),
                f"tier_configure({cache_bytes})")
 
     def set_var_tier(self, name: str, tier: int) -> None:
         """Record a registered variable's storage tier (0 = hot
         RAM/shm, 1 = cold file-backed mmap). Drives the
         ``cold_vars``/``cold_bytes`` gauges; serving is tier-agnostic."""
-        _check(self._lib.dds_set_var_tier(self._h, name.encode(),
-                                          int(tier)),
+        _check(self._call(self._lib.dds_set_var_tier, name.encode(),
+                          int(tier)),
                f"set_var_tier({name})")
 
     def var_tier(self, name: str) -> int:
         """The recorded tier of ``name`` (0 hot, 1 cold)."""
-        rc = int(self._lib.dds_var_tier(self._h, name.encode()))
+        rc = int(self._call(self._lib.dds_var_tier, name.encode()))
         if rc < 0:
             raise DDStoreError(rc, f"var_tier({name})")
         return rc
@@ -1484,8 +1529,9 @@ class NativeStore:
         kept copies: cold lands them file-backed under
         ``DDSTORE_TIER_COLD_DIR`` (load-time:
         ``DDSTORE_TIER_PLACEMENT``)."""
-        _check(self._lib.dds_set_tier_placement(
-            self._h, tenant.encode(), 1 if cold else 0),
+        _check(self._call(
+            self._lib.dds_set_tier_placement,
+            tenant.encode(), 1 if cold else 0),
             f"set_tier_placement({tenant})")
 
     def cache_prefetch(self, name: str, rows, window: int = 0,
@@ -1496,8 +1542,9 @@ class NativeStore:
         ``tenant``'s byte quota until eviction. Advisory: disabled /
         duplicate / over-budget calls are counted no-ops."""
         idx = np.ascontiguousarray(rows, dtype=np.int64).reshape(-1)
-        rc = int(self._lib.dds_cache_prefetch(
-            self._h, name.encode(), _as_i64p(idx), idx.size,
+        rc = int(self._call(
+            self._lib.dds_cache_prefetch,
+            name.encode(), _as_i64p(idx), idx.size,
             int(window), tenant.encode()))
         if rc < 0:
             raise DDStoreError(rc, f"cache_prefetch({name})")
@@ -1505,7 +1552,7 @@ class NativeStore:
     def cache_evict(self, window: int = -1) -> int:
         """Evict window ``window``'s cache entries (< 0: every entry),
         releasing their quota charges. Returns the count evicted."""
-        rc = int(self._lib.dds_cache_evict(self._h, int(window)))
+        rc = int(self._call(self._lib.dds_cache_evict, int(window)))
         if rc < 0:
             raise DDStoreError(rc, f"cache_evict({window})")
         return rc
@@ -1515,7 +1562,7 @@ class NativeStore:
         occupancy gauges, cold-tier registrations, and the monotone
         hit/miss/fill/evict ledger."""
         arr = (ctypes.c_int64 * 16)()
-        _check(self._lib.dds_tiering_stats(self._h, arr),
+        _check(self._call(self._lib.dds_tiering_stats, arr),
                "tiering_stats")
         return dict(zip(TIERING_STAT_KEYS,
                         list(arr)[:len(TIERING_STAT_KEYS)]))
@@ -1526,14 +1573,14 @@ class NativeStore:
         """1 = uring handle with the ring engaged, 0 = uring handle
         serving through the TCP fallback (kernel refused the probe),
         -1 = not a uring handle."""
-        return int(self._lib.dds_uring_state(self._h))
+        return int(self._call(self._lib.dds_uring_state))
 
     def uring_reason(self) -> str:
         """This handle's engagement/fallback reason ("ok" when
         engaged; e.g. "io_uring_setup: Operation not permitted" under
         a gVisor-class kernel). Empty string for non-uring handles."""
         buf = ctypes.create_string_buffer(256)
-        rc = int(self._lib.dds_uring_reason(self._h, buf, 256))
+        rc = int(self._call(self._lib.dds_uring_reason, buf, 256))
         if rc < 0:
             return ""
         return buf.value.decode(errors="replace")
@@ -1542,7 +1589,7 @@ class NativeStore:
         """Wire-loop counters (:data:`URING_STAT_KEYS`). Raises on
         non-uring handles."""
         arr = (ctypes.c_int64 * 7)()
-        _check(self._lib.dds_uring_stats(self._h, arr), "uring_stats")
+        _check(self._call(self._lib.dds_uring_stats, arr), "uring_stats")
         return dict(zip(URING_STAT_KEYS, list(arr)))
 
     def cold_direct_stats(self) -> dict:
@@ -1550,7 +1597,7 @@ class NativeStore:
         (:data:`COLD_DIRECT_STAT_KEYS`); zeros until a var registers
         via :meth:`set_var_file`. Works on every handle kind."""
         arr = (ctypes.c_int64 * 6)()
-        _check(self._lib.dds_cold_direct_stats(self._h, arr),
+        _check(self._call(self._lib.dds_cold_direct_stats, arr),
                "cold_direct_stats")
         return dict(zip(COLD_DIRECT_STAT_KEYS, list(arr)))
 
@@ -1560,8 +1607,8 @@ class NativeStore:
         faulting the mmap. Returns False (never raises) when io_uring
         or O_DIRECT is unavailable — the var stays on the mmap path,
         which serves identical bytes."""
-        rc = int(self._lib.dds_set_var_file(self._h, name.encode(),
-                                            path.encode()))
+        rc = int(self._call(self._lib.dds_set_var_file, name.encode(),
+                            path.encode()))
         if rc in (ERR_NOT_FOUND, ERR_INVALID_ARG):
             raise DDStoreError(rc, f"set_var_file({name})")
         return rc == 0
@@ -1572,7 +1619,7 @@ class NativeStore:
         gather factor of the half-window refill (1.0 = the old
         one-sendmsg-per-frame steady state)."""
         arr = (ctypes.c_int64 * 2)()
-        _check(self._lib.dds_req_send_stats(self._h, arr),
+        _check(self._call(self._lib.dds_req_send_stats, arr),
                "req_send_stats")
         return {"req_frames": int(arr[0]), "req_sends": int(arr[1])}
 
@@ -1585,26 +1632,38 @@ class NativeStore:
         none). A seeded schedule reproduces these counters exactly across
         identical runs — the determinism the chaos tests pin."""
         arr = (ctypes.c_int64 * 16)()
-        _check(self._lib.dds_fault_stats(self._h, arr), "fault_stats")
+        _check(self._call(self._lib.dds_fault_stats, arr), "fault_stats")
         return dict(zip(FAULT_STAT_KEYS, list(arr)[:len(FAULT_STAT_KEYS)]))
 
     @property
     def rank(self) -> int:
-        return self._lib.dds_rank(self._h)
+        return self._call(self._lib.dds_rank)
 
     @property
     def world(self) -> int:
-        return self._lib.dds_world(self._h)
+        return self._call(self._lib.dds_world)
 
     def close(self) -> None:
-        if self._h:
-            self._lib.dds_destroy(self._h)
-            self._h = 0
-            if self._local_gid is not None:
-                # Drop the process-global LocalGroup registry entry (peers
-                # that still exist keep the group alive via shared_ptr).
-                self._lib.dds_release_local_group(self._local_gid.encode())
-                self._local_gid = None
+        """Free the native store, once. Calls that start from here on
+        raise :data:`ERR_CLOSED`; ``dds_destroy`` runs when the calls
+        already in flight on other threads have returned. A call that
+        blocks (a barrier, or a read of a dead peer) holds ``close`` until
+        it returns, within the store's own retry deadline
+        (``DDSTORE_OP_DEADLINE_S``). Idempotent: a second ``close``, or
+        one that another thread's ``close`` is still waiting in, returns
+        at once."""
+        with self._lock:
+            if self._closing:
+                return
+            self._closing = True
+            self._idle.wait_for(lambda: not self._in_flight)
+            h, self._h = self._h, 0
+        self._lib.dds_destroy(h)
+        if self._local_gid is not None:
+            # Drop the process-global LocalGroup registry entry (peers
+            # that still exist keep the group alive via shared_ptr).
+            self._lib.dds_release_local_group(self._local_gid.encode())
+            self._local_gid = None
 
     def __del__(self):  # best-effort teardown
         try:

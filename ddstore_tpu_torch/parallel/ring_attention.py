@@ -12,23 +12,26 @@ over the whole sequence. Under a causal mask a chunk entirely in the
 query chunk's future is not launched (out 0, lse -inf): rank ``idx`` runs
 ``idx + 1`` of its ``n`` steps.
 
-Each live step is :func:`~ddstore_tpu_torch.ops.attention.flash_attention`
-with ``q_offset = idx * S/n`` and ``kv_offset = src * S/n``: the forward
-kernel on the card, and in the backward the dq and dk/dv kernels, which
-get the step's lse cotangent from :func:`_combine`'s gradient. The shift
-is :class:`_RingShift`, one ``batch_isend_irecv`` of K and V packed into
-one buffer; its backward shifts the gradient the other way. Autograd
-differentiates the rest, so the gradient is the reference's ``jax.grad``
-through ``ppermute`` and ``_combine``.
+Each live step's forward is :func:`~ddstore_tpu_torch.ops.attention.
+flash_attention` with ``q_offset = idx * S/n`` and ``kv_offset = src *
+S/n``: the forward kernel on the card. The shift is one
+``batch_isend_irecv`` of K and V packed into one buffer. The whole ring
+is one autograd function, :class:`_Ring`. Its backward runs the dq and
+dk/dv kernels of each live step on the caller's ``do`` with the final
+lse and one ``c = rowsum(do * out) - dlse``, as a flash backward does
+across key blocks, and sends each chunk's gradient back the way the chunk
+came. This departs from the reference, whose ``jax.grad`` goes through
+``_combine`` and hands each step's bf16 partial out a cotangent ``w_i *
+do`` rounded to bf16: the port's bf16 dk rows of keys near the sequence
+end keep one whole-sequence call's precision (``ROADMAP.md`` C). The two
+agree in f32.
 
 Every shift, forward or backward, is a collective of the ``sp`` group.
 The order of the p2p operations is the same on every rank: the forward
-runs its ``n - 1`` shifts in step order; in the backward, the shifts of a
-layer form a chain (each one's gradient feeds the one before), and
-:class:`_RingJoin` ties a last chunk that no live step read to the output,
-so every rank runs all ``n - 1`` backward shifts even where its own
-gradient for that chunk is 0. Forward and backward shifts carry distinct
-tags, so a forward shift that a rematerialized block replays inside the
+runs its ``n - 1`` shifts in step order, and the backward runs ``n - 1``
+shifts in the reverse order on every rank, a rank whose own gradient for
+a chunk is 0 included. Forward and backward shifts carry distinct tags,
+so a forward shift that a rematerialized block replays inside the
 backward can never be matched with a peer's backward shift of the same
 shape.
 
@@ -38,12 +41,15 @@ and receive take host memory); NCCL takes them as they are.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from ..ops.attention import flash_attention, mha_reference
+from ..ops.attention import (_flash_bwd_cuda, flash_attention,
+                             flash_bwd_dkv_reference, flash_bwd_dq_reference,
+                             flash_bwd_prep, mha_reference)
 from .mesh import axis_index, axis_size
 
 __all__ = ["ring_attention", "ring_self_attention", "ring_shift_stats"]
@@ -100,68 +106,84 @@ def _shift(t: torch.Tensor, group, n: int, idx: int, direction: int,
     return recv.to(t.device) if staged else recv
 
 
-class _RingShift(torch.autograd.Function):
-    """One step of the K/V rotation: the packed chunk goes to the next
-    rank of the ring and the previous rank's arrives; the backward sends
-    the gradient back the way the chunk came."""
+class _Ring(torch.autograd.Function):
+    """The ring on this rank's chunks (``ring_attention.py:53-115``), one
+    function from ``(q, k, v)`` to ``(out, lse)``.
+
+    The forward attends to each live step's chunk with ``attend(q, k, v,
+    q_offset, kv_offset) -> (out_i, lse_i)``, merges the partials with
+    :func:`_combine` and runs the ``n - 1`` shifts of the packed K/V in
+    step order. It saves q, the chunks the live steps read, and the final
+    out and lse: no per-step partial.
+
+    The backward forms ``c = rowsum(do * out) - dlse`` once and runs
+    ``grads(q, k, v, do, lse, c, q_offset=, kv_offset=) -> (dq, dk, dv)``
+    on each live step's chunk with the final lse and c: the gradient of
+    the whole row's softmax, so no step's share of ``do`` is rounded on
+    its own. dq sums over the steps in f32. Each chunk's (dk, dv) goes
+    back round the ring to its owner packed in the chunk's dtype, one
+    backward shift for each forward shift in reverse order, on every rank:
+    a rank that read a chunk in no live step passes on a zero share."""
 
     @staticmethod
-    def forward(ctx, kv, group, n, idx, step):
-        ctx.ring = (group, n, idx, step)
-        ring_shift_stats["forward"] += 1
-        return _shift(kv, group, n, idx, 1, _FWD_TAG + step)
-
-    @staticmethod
-    def backward(ctx, g):
-        group, n, idx, step = ctx.ring
-        ring_shift_stats["backward"] += 1
-        return _shift(g, group, n, idx, -1, _BWD_TAG + step), None, None, \
-            None, None
-
-
-class _RingJoin(torch.autograd.Function):
-    """``(out, lse)`` unchanged, with the chunks no live step read as
-    further inputs: their shifts then take part in the backward (with a
-    zero gradient of this rank's own), as the ring's protocol needs."""
-
-    @staticmethod
-    def forward(ctx, out, lse, *unread):
-        ctx.unread = [(t.shape, t.dtype, t.device) for t in unread]
-        return out.view_as(out), lse.view_as(lse)
-
-    @staticmethod
-    def backward(ctx, g_out, g_lse):
-        return (g_out, g_lse) + tuple(
-            torch.zeros(s, dtype=d, device=dev) for s, d, dev in ctx.unread)
-
-
-def _ring(q, k, v, group, n, idx, causal, attend):
-    """The ring on this rank's chunks (``ring_attention.py:53-115``):
-    ``attend(q, k, v, q_offset, kv_offset) -> (out, lse)``."""
-    sq, sk = q.shape[2], k.shape[2]
-    acc_out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    acc_lse = torch.full(q.shape[:3], float("-inf"), dtype=torch.float32,
-                         device=q.device)
-    kv: Optional[torch.Tensor] = None
-    read = True
-    for step in range(n):
-        src = (idx - step) % n
-        if step > 0:
-            k, v = kv[0], kv[1]
-        # A chunk entirely in the query chunk's future is fully masked:
-        # out 0 and lse -inf, which _combine leaves the running pair
-        # exactly as it is, so the step is skipped.
-        read = not causal or src <= idx
-        if read:
-            out_i, lse_i = attend(q, k, v, idx * sq, src * sk)
-            acc_out, acc_lse = _combine(acc_out, acc_lse, out_i, lse_i)
-        if step < n - 1:
-            packed = torch.stack((k, v)) if kv is None else kv
-            kv = _RingShift.apply(packed, group, n, idx, step)
-    out = acc_out.to(q.dtype)
-    if read:
+    def forward(ctx, q, k, v, group, n, idx, causal, attend, grads):
+        sq, sk = q.shape[2], k.shape[2]
+        acc_out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        acc_lse = torch.full(q.shape[:3], float("-inf"), dtype=torch.float32,
+                             device=q.device)
+        kv: Optional[torch.Tensor] = None
+        live, received = [], []
+        for step in range(n):
+            src = (idx - step) % n
+            kk, vv = (k, v) if kv is None else (kv[0], kv[1])
+            # A chunk entirely in the query chunk's future is fully masked:
+            # out 0 and lse -inf, which _combine leaves the running pair
+            # exactly as it is, so the step is skipped.
+            if not causal or src <= idx:
+                out_i, lse_i = attend(q, kk, vv, idx * sq, src * sk)
+                acc_out, acc_lse = _combine(acc_out, acc_lse, out_i, lse_i)
+                live.append(step)
+                if kv is not None:
+                    received.append(kv)
+            if step < n - 1:
+                packed = torch.stack((k, v)) if kv is None else kv
+                ring_shift_stats["forward"] += 1
+                kv = _shift(packed, group, n, idx, 1, _FWD_TAG + step)
+        out = acc_out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, acc_lse, *received)
+        ctx.ring = (group, n, idx, live, grads)
+        ctx.set_materialize_grads(False)
         return out, acc_lse
-    return _RingJoin.apply(out, acc_lse, kv)
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse, *received = ctx.saved_tensors
+        group, n, idx, live, grads = ctx.ring
+        sq, sk = q.shape[2], k.shape[2]
+        if do is None:
+            do = torch.zeros_like(out)
+        c = flash_bwd_prep(do, out, dlse)
+        # step 0 reads this rank's own chunk, and is always live
+        chunks = dict(zip(live, [(k, v)] + [(t[0], t[1]) for t in received]))
+        dq = g = None
+        for step in reversed(range(n)):
+            if step < n - 1:
+                # g is the gradient of the chunk that forward shift `step`
+                # brought: it goes back to the rank it came from
+                ring_shift_stats["backward"] += 1
+                g = _shift(g, group, n, idx, -1, _BWD_TAG + step)
+            if step in chunks:
+                kk, vv = chunks[step]
+                dq_i, dk_i, dv_i = grads(q, kk, vv, do, lse, c,
+                                         q_offset=idx * sq,
+                                         kv_offset=(idx - step) % n * sk)
+                dq = dq_i.float() if dq is None else dq + dq_i.float()
+                dkv = torch.stack((dk_i, dv_i))
+                g = dkv if g is None else g + dkv
+            elif g is None:
+                g = torch.zeros((2,) + tuple(k.shape), dtype=k.dtype,
+                                device=k.device)
+        return dq.to(q.dtype), g[0], g[1], None, None, None, None, None, None
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -200,15 +222,23 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"impl='flash' needs equal tile-aligned "
                          f"chunks, got ({sq},{sk})")
     fn = flash_attention if use_flash else mha_reference
+    scale = 1.0 / math.sqrt(q.shape[-1])
 
     def attend(qq, kk, vv, q_off, kv_off):
         return fn(qq, kk, vv, causal=causal, q_offset=q_off,
                   kv_offset=kv_off)
 
+    def grads(qq, kk, vv, do, lse, c, **offsets):
+        cfg = dict(causal=causal, scale=scale, **offsets)
+        if use_flash and qq.device.type != "cpu":
+            return _flash_bwd_cuda(qq, kk, vv, do, lse, c, **cfg)
+        return (flash_bwd_dq_reference(qq, kk, vv, do, lse, c, **cfg),) + \
+            flash_bwd_dkv_reference(qq, kk, vv, do, lse, c, **cfg)
+
     if n == 1:
         return attend(q, k, v, 0, 0)
-    return _ring(q, k, v, mesh.get_group(axis), n, axis_index(mesh, axis),
-                 causal, attend)
+    return _Ring.apply(q, k, v, mesh.get_group(axis), n,
+                       axis_index(mesh, axis), causal, attend, grads)
 
 
 def ring_self_attention(x_heads: torch.Tensor, *, mesh, axis: str = "sp",

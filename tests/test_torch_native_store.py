@@ -191,16 +191,29 @@ def _depart(lines, f):
 
 
 def test_native_sources_are_the_reference_copy():
-    # the same code as the reference core, but for the departures named
-    # in DEPARTURES; comments may differ
+    # the same code as the reference core and its demo, but for the
+    # departures named in DEPARTURES; comments may differ
     here = os.path.dirname(os.path.abspath(__file__))
     ref_dir = os.path.join(os.path.dirname(here), "ddstore_tpu", "native")
-    for f in _build.SOURCES + _build.HEADERS:
+    files = _build.SOURCES + _build.HEADERS + [_build.DEMO_SOURCE]
+    for f in files:
         with open(os.path.join(ref_dir, f)) as a, \
                 open(os.path.join(_build.NATIVE_DIR, f)) as b:
             assert _depart(_code(a.read()), f) == _code(b.read()), f
-    assert sorted(os.listdir(_build.NATIVE_DIR)) == \
-        sorted(_build.SOURCES + _build.HEADERS)
+    assert sorted(os.listdir(_build.NATIVE_DIR)) == sorted(files)
+
+
+def test_native_demo_runs_on_both_transports():
+    # the reference's ctest (native/CMakeLists.txt:55, `dds_demo 4`):
+    # four thread ranks on the local transport, then four over TCP on
+    # localhost, each reading every peer's rank stamp
+    demo = _build.build_demo()
+    assert os.path.dirname(demo) == _build.BUILD_DIR
+    res = subprocess.run([demo, "4"], capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.splitlines() == ["local transport: ok",
+                                       "tcp transport:   ok"]
 
 
 def test_build_is_stale_aware(tmp_path, monkeypatch):
@@ -216,6 +229,27 @@ def test_build_is_stale_aware(tmp_path, monkeypatch):
     assert not _build._stale()
     os.utime(src / "wire.h", (t + 20, t + 20))  # a header counts too
     assert _build._stale()
+
+
+def test_demo_build_is_stale_aware(tmp_path, monkeypatch):
+    # dds_demo is rebuilt when demo.cc or any unit of the core is newer;
+    # the library does not look at demo.cc
+    src = tmp_path / "native"
+    shutil.copytree(_build.NATIVE_DIR, src)
+    monkeypatch.setattr(_build, "NATIVE_DIR", str(src))
+    exe, lib = tmp_path / "dds_demo", tmp_path / "lib.so"
+    t = max(os.path.getmtime(f) for f in src.iterdir())
+    for f in (exe, lib):
+        f.write_bytes(b"")
+        os.utime(f, (t + 10, t + 10))
+    demo = [_build.DEMO_SOURCE]
+    assert not _build._stale(str(exe), demo)
+    os.utime(src / "demo.cc", (t + 20, t + 20))
+    assert _build._stale(str(exe), demo)
+    assert not _build._stale(str(lib))
+    os.utime(exe, (t + 30, t + 30))
+    os.utime(src / "store.cc", (t + 40, t + 40))
+    assert _build._stale(str(exe), demo)
 
 
 def _session_read(s):

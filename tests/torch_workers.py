@@ -673,8 +673,9 @@ def ring_cases(rank, world, tmp, cases):
             if "do" in case:
                 do, _ = _ring_chunk(case, mesh, torch.from_numpy(case["do"]))
                 (o.float() * do).sum().backward()
-                res.update(dq=q.grad.numpy(), dk=k.grad.numpy(),
-                           dv=v.grad.numpy())
+                res.update(dq=q.grad.float().numpy(),
+                           dk=k.grad.float().numpy(),
+                           dv=v.grad.float().numpy())
             res["shifts"] = dict(ring_shift_stats)
             out[name] = res
         out["_meshes"] = {key: (m.mesh_dim_names, {
