@@ -227,6 +227,25 @@ Phases; any failure raises and ends the run with a non-zero exit:
    the first step's loss, gathered gradients and parameters against one
    process's step (phase 12's rules), peak memory per rank.
 
+15. head dims (the reference's kernels take any head dim; the port's up
+   to 256): each kernel against its plain version at head dims 8, 16, 20,
+   32, 40, 96, 160 and 256 on a bf16 causal case with ragged tiles, a
+   bf16 case with q_offset 192 and kv_offset 64, and an f32 non-causal
+   one, with an lse cotangent (dq and dk/dv bit-identical over two
+   launches, the launch counters moved by each case); each kernel at H D
+   = 1024 with head dims 32, 128 and 256 (and 10 heads of 96) on the
+   LM's (8, 2048) in its qkv-view layout, held row by row against its
+   plain version and timed against it and SDPA; the three kernels at the
+   example's ring chunks (below, head dim 32) against their plain
+   versions; the LM above at 32 heads (head dim 32) and 4 (256), eval
+   loss, 3 Adam steps and ``generate`` of 8 tokens (launches zeroed just
+   before, read just after), the first step's loss against the same step
+   under the plain attention; then the port's
+   ``examples/lm_longcontext.py`` ``main`` at the reference's defaults
+   (head dim 32) over dp 2 x sp 2, four rank processes on the card
+   (gloo), one epoch: finite losses equal on every rank, every kernel
+   launched on every rank.
+
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
@@ -471,6 +490,31 @@ PP_MEM_M, PP_MOE_STEPS, PP_NEW_TOKENS = 8, 2, 8
 # are timed alone after the counted runs.
 MSP_SP, MSP_WARMUP, MSP_STEPS = 2, 2, 4
 FSP_RANKS, FSP_SEQ, FSP_WARMUP, FSP_STEPS = 4, 4096, 1, 3
+# The head-dims phase (15): the three kernels at head dims below, inside
+# and above the 64 and 128 tiles, one not a multiple of 8 (20) and the
+# 256 tile's edge, each on a bf16 causal case with ragged last tiles, a
+# bf16 case with global offsets and an f32 non-causal one, with an lse
+# cotangent (kernel tolerances as above); each kernel at (8, 2048) with
+# DIM // d heads of each head dim d in HD_TIMED (H D = 960 at 96) in the
+# LM's qkv-view layout, held to its plain version and timed; the kernels
+# at the example's ring chunks, (2, 4, 1024, 32) (HD_EX_CHUNK); the
+# LM above at HD_LM_HEADS heads (head dims 32 and 256), its first step's
+# loss held to the same step under the plain attention at MOE_LOSS_TOL;
+# the long-context example at its own defaults over dp 2 x sp 2 (four
+# ranks on the card, gloo), one epoch of HD_EX_WINDOWS windows a rank.
+HD_DIMS = (8, 16, 20, 32, 40, 96, 160, 256)
+HD_CASES = (("bf16_causal_ragged", (1, 4, 200, 200), torch.bfloat16, True,
+             0, 0),
+            ("bf16_offsets", (2, 4, 256, 256), torch.bfloat16, True, 192,
+             64),
+            ("f32_full", (1, 4, 136, 136), torch.float32, False, 0, 0))
+HD_TIMED = (32, 96, 128, 256)
+HD_LM_HEADS = (32, 4)
+HD_STEPS, HD_NEW_TOKENS = 3, 8
+HD_EX_RANKS, HD_EX_WINDOWS, HD_EX_DEADLINE_S = 4, 64, 240
+# the example's ring chunk at its defaults over dp 2 x sp 2: (a dp slot's
+# 2 rows, heads 128 // 32, seq 2048 / sp, head dim 32)
+HD_EX_CHUNK = (2, 4, 1024, 32)
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -3339,7 +3383,7 @@ def long_single(dev, seed, card):
 
 
 def long_chunk_kernels(dev, b=LONG_BATCH, h=HEADS, c=LONG_SEQ // LONG_SP,
-                       chunks=None, label="the ring's"):
+                       chunks=None, label="the ring's", d=DIM // HEADS):
     """The three kernels at the ring's chunk shapes ((2, 16, 4096, 64)
     bf16 on the main path's layout): the diagonal chunk (causal) and the
     past chunk (q_offset 4096, kv_offset 0: every pair live, no block
@@ -3349,9 +3393,8 @@ def long_chunk_kernels(dev, b=LONG_BATCH, h=HEADS, c=LONG_SEQ // LONG_SP,
     True and False), with their bounds. ``b``, ``h``, ``c`` and
     ``chunks`` ((name, q_offset, SDPA's is_causal) each) give other
     shapes: tensor parallelism's ``H / tp`` heads at the whole
-    sequence."""
+    sequence; ``d`` another head dim."""
     g = torch.Generator(device=dev).manual_seed(99)
-    d = DIM // HEADS
     dim = h * d
     base = torch.randn((b, c, 3 * dim), generator=g, device=dev) \
         .to(torch.bfloat16).requires_grad_()
@@ -4803,8 +4846,401 @@ def phase_moe_sp(seed, card):
                          for k in by_rank[0]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the kernels at every head dim up to 256 (the reference's
+# flash_attention takes any D), the LM at other head dims, and the
+# long-context example at the reference's defaults (hd = 128 // 4 = 32).
+
+
+def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
+    """The three kernels against their plain versions on one case at head
+    dim d, with an lse cotangent and do as autograd hands it over (a (B,
+    H, S, D) view of a (B, S, H, D) buffer); returns {kernel: (max abs
+    error, max row relative error)}."""
+    b, h, sq, sk = shape
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((b, h, sk, d), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    do = torch.randn((b, sq, h, d), generator=g, device=dev).to(dt) \
+        .transpose(1, 2)
+    dlse = torch.randn((b, h, sq), generator=g, device=dev)
+    kw = dict(causal=causal, q_offset=qo, kv_offset=ko, scale=d ** -0.5)
+    before = launch_counts()
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=causal,
+                                             q_offset=qo, kv_offset=ko)
+        c = attention.flash_bwd_prep(do, out, dlse)
+        got = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c, **kw)}
+        got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
+            q, k, v, do, lse, c, **kw)
+        again = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                    **kw)}
+        again["dk"], again["dv"] = attention._flash_bwd_dkv_cuda(
+            q, k, v, do, lse, c, **kw)
+        torch.cuda.synchronize()
+        moved = {n: v2 - before[n] for n, v2 in launch_counts().items()}
+        ref_out, ref_lse = attention.mha_reference(
+            q, k, v, causal=causal, q_offset=qo, kv_offset=ko)
+        want = {"dq": attention.flash_bwd_dq_reference(q, k, v, do, lse, c,
+                                                       **kw)}
+        want["dk"], want["dv"] = attention.flash_bwd_dkv_reference(
+            q, k, v, do, lse, c, **kw)
+    tag = f"head dims d={d} {name}"
+    check(moved == {"flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
+          f"{tag}: launch counters moved {moved}")
+    dname = str(dt).split(".")[-1]
+    tol = ROW_REL_TOL[dname]
+    live = torch.isfinite(ref_lse)
+    check(out.shape == q.shape and out.dtype == dt and
+          not torch.isnan(out).any() and not torch.isnan(lse).any(),
+          f"{tag}: out shape/dtype/NaN")
+    check(bool((torch.isfinite(lse) == live).all()) and
+          bool((out[~live] == 0).all()), f"{tag}: fully-masked rows")
+    diff = out.float() - ref_out.float()
+    e_out = float(diff.abs().max())
+    e_lse = float((lse[live] - ref_lse[live]).abs().max()) \
+        if live.any() else 0.0
+    _, e_rel, _ = row_errors(out, ref_out, ~live)
+    t_out, t_lse = TOL[dname]
+    res = {"flash_fwd": (max(e_out, e_lse), e_rel)}
+    line = [f"out max_abs_err={e_out:.3e} lse={e_lse:.3e} "
+            f"max_row_rel_err={e_rel:.3e}"]
+    check(e_out <= t_out and e_lse <= t_lse and e_rel <= tol,
+          f"{tag}: forward disagrees with the plain version ({line[0]})")
+    dead = {"dq": ~live, "dk": dead_keys(b, h, sq, sk, causal, qo, ko, dev)}
+    dead["dv"] = dead["dk"]
+    for which, kern in (("dq", "flash_bwd_dq"), ("dk", "flash_bwd_dkv"),
+                        ("dv", "flash_bwd_dkv")):
+        t = got[which]
+        check(t.shape == want[which].shape and t.dtype == dt and
+              not torch.isnan(t).any(), f"{tag}: {which} shape/NaN")
+        e_abs, e_row, nonzero_dead = row_errors(t, want[which], dead[which])
+        line.append(f"{which} max_abs_err={e_abs:.3e} "
+                    f"max_row_rel_err={e_row:.3e}")
+        check(nonzero_dead == 0 and e_row <= tol,
+              f"{tag}: {which} disagrees with the plain version ({e_row:.3e}"
+              f" > {tol} or {nonzero_dead} dead rows not 0)")
+        prev = res.get(kern, (0.0, 0.0))
+        res[kern] = (max(prev[0], e_abs), max(prev[1], e_row))
+    same = all(torch.equal(again[x], got[x]) for x in got)
+    check(same, f"{tag}: dq or dk/dv differs between two launches")
+    print(f"{tag}: b,h,sq,sk={b},{h},{sq},{sk} {dname} causal={causal} "
+          f"q_offset={qo} kv_offset={ko} dlse=yes; {'; '.join(line)}; "
+          f"bit-identical over two launches {same}; launches moved {moved} "
+          f"(tol per row {tol})", flush=True)
+    return res
+
+
+def head_dim_timing(g, dev, d):
+    """Each kernel at the LM's (8, 2048) with DIM // d heads of d (H D =
+    DIM where d divides it; the main path's qkv-view layout, bf16 causal)
+    held row by row against its plain version (out, lse, dq, dk, dv on
+    the same inputs), then timed against it and SDPA, in turns."""
+    b, h, s = BATCH, DIM // d, SEQ
+    width = h * d
+    base = torch.randn((b, s, 3 * width), generator=g, device=dev) \
+        .to(torch.bfloat16).requires_grad_()
+    ql, kl, vl = (t.reshape(b, s, h, d).transpose(1, 2)
+                  for t in base.split(width, dim=-1))
+    q, k, v = (t.detach() for t in (ql, kl, vl))
+    do = torch.randn((b, s, h, d), generator=g, device=dev) \
+        .to(torch.bfloat16).transpose(1, 2)
+    kw = dict(causal=True, q_offset=0, kv_offset=0, scale=d ** -0.5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=True)
+        c = attention.flash_bwd_prep(do, out)
+        got = {"out": out,
+               "dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c, **kw)}
+        got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
+            q, k, v, do, lse, c, **kw)
+        want_out, want_lse = attention.mha_reference(q, k, v, causal=True)
+        want = {"out": want_out,
+                "dq": attention.flash_bwd_dq_reference(q, k, v, do, lse, c,
+                                                       **kw)}
+        want["dk"], want["dv"] = attention.flash_bwd_dkv_reference(
+            q, k, v, do, lse, c, **kw)
+    torch.cuda.synchronize()
+    tag = f"head dims timing d={d} at (B,H,S,D)=({b},{h},{s},{d})"
+    tol = ROW_REL_TOL["bfloat16"]
+    live = torch.isfinite(want_lse)
+    check(bool((torch.isfinite(lse) == live).all()) and
+          not torch.isnan(lse).any(), f"{tag}: lse's fully-masked rows")
+    e_lse = float((lse[live] - want_lse[live]).abs().max())
+    check(e_lse <= TOL["bfloat16"][1],
+          f"{tag}: lse disagrees with the plain version ({e_lse:.3e})")
+    dead = {"out": ~live, "dq": ~live,
+            "dk": dead_keys(b, h, s, s, True, 0, 0, dev)}
+    dead["dv"] = dead["dk"]
+    errs = {}
+    for which, t in got.items():
+        check(t.shape == want[which].shape and t.dtype == torch.bfloat16
+              and not torch.isnan(t).any(), f"{tag}: {which} shape/NaN")
+        e_abs, e_rel, nonzero_dead = row_errors(t, want[which], dead[which])
+        errs[which] = (e_abs, e_rel)
+        check(nonzero_dead == 0 and e_rel <= tol,
+              f"{tag}: {which} disagrees with the plain version ({e_rel:.3e}"
+              f" per row > {tol}, or {nonzero_dead} dead rows not 0)")
+    print(f"{tag} bf16 causal, the LM's qkv views (q strides {q.stride()}):"
+          f" against the plain versions lse max_abs_err={e_lse:.3e}; "
+          + "; ".join(f"{w} max_abs_err={a:.3e} max_row_rel_err={r:.3e}"
+                      for w, (a, r) in errs.items())
+          + f" (tol per row {tol})", flush=True)
+    del got, want, want_out, want_lse
+    sd_out = sdpa(ql, kl, vl, is_causal=True)
+    fns = {
+        "fwd": (lambda: attention.flash_attention(q, k, v, causal=True), 20),
+        "dq": (lambda: attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                    **kw), 20),
+        "dkv": (lambda: attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c,
+                                                      **kw), 20),
+        "fwd_plain": (lambda: attention.mha_reference(q, k, v, causal=True),
+                      3),
+        "dq_plain": (lambda: attention.flash_bwd_dq_reference(
+            q, k, v, do, lse, c, **kw), 2),
+        "dkv_plain": (lambda: attention.flash_bwd_dkv_reference(
+            q, k, v, do, lse, c, **kw), 2),
+        "sdpa": (lambda: sdpa(q, k, v, is_causal=True), 20),
+        "sdpa_backward": (lambda: torch.autograd.grad(
+            sd_out, (ql, kl, vl), do, retain_graph=True), 20),
+    }
+    t = {n: [] for n in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for n in order:
+            fn, iters = fns[n]
+            with contextlib.nullcontext() if n == "sdpa_backward" \
+                    else torch.no_grad():
+                t[n].append(time_ms(fn, iters))
+    ms = {n: sum(x) / len(x) for n, x in t.items()}
+    res = {}
+    for kern, kind, lib in (("flash_fwd", "fwd", "sdpa"),
+                            ("flash_bwd_dq", "dq", None),
+                            ("flash_bwd_dkv", "dkv", None)):
+        flops, nbytes = attention_work(b, h, s, s, d, 2, True, 0, 0, kind)
+        bound, bound_by = bound_of(flops, nbytes)
+        checked = [errs[w] for w in {"fwd": ("out",), "dq": ("dq",),
+                                     "dkv": ("dk", "dv")}[kind]]
+        res[kern] = {"shape": [b, h, s, d], "ms": ms[kind],
+                     "plain_ms": ms[kind + "_plain"], "bound_ms": bound,
+                     "bound_by": bound_by,
+                     "library_ms": ms[lib] if lib else None,
+                     "max_abs_err": max(max(a for a, _ in checked),
+                                        e_lse if kind == "fwd" else 0.0),
+                     "max_row_rel_err": max(r for _, r in checked)}
+        print(f"head dims timing {kern} at (B,H,S,D)=({b},{h},{s},{d}) bf16 "
+              f"causal: kernel_ms={ms[kind]:.4f} plain_ms="
+              f"{ms[kind + '_plain']:.4f} bound_ms={bound:.4f} ({bound_by}:"
+              f" {flops:.4e} FLOP, {nbytes:.4e} B) library_ms="
+              f"{ms[lib] if lib else None} achieved_TFLOPs="
+              f"{flops / ms[kind] / 1e9:.1f}", flush=True)
+    res["sdpa_backward_ms"] = ms["sdpa_backward"]
+    print(f"head dims timing d={d}: dq + dkv = {ms['dq'] + ms['dkv']:.4f} ms "
+          f"against library_ms(sdpa backward)={ms['sdpa_backward']:.4f}; "
+          f"rounds={json.dumps(t)}", flush=True)
+    del base, ql, kl, vl, q, k, v, do, out, lse, c, sd_out
+    torch.cuda.empty_cache()
+    return res
+
+
+def head_dim_lm(dev, seed, ds, heads, card):
+    """The LM at bench.py:3169's width with ``heads`` heads (head dim
+    DIM // heads), store-fed: the eval loss, HD_STEPS Adam steps and
+    ``generate`` of HD_NEW_TOKENS tokens, launches zeroed just before and
+    read just after; the first step's loss against the same weights and
+    batch under the plain attention."""
+    hd = DIM // heads
+    loader = DeviceLoader(ds, DistributedSampler(WINDOWS, 1, 0,
+                                                 seed=seed + 50 + heads),
+                          BATCH, device=dev)
+    model = ttr.TransformerLM(vocab=VOCAB, dim=DIM, heads=heads,
+                              layers=LAYERS, compute_dtype=torch.bfloat16,
+                              device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(seed + heads))
+    state, opt = ttr.create_train_state(model, lr=TRAIN_LR)
+    step = ttr.make_train_step(model, opt, state=state)
+    positions = torch.arange(SEQ, dtype=torch.int32,
+                             device=dev).expand(BATCH, SEQ)
+    batches = iter(loader)
+    tok, tgt = next(batches)
+    with torch.no_grad(), plain_attention():
+        ref_loss = float(ttr.lm_loss(model, tok, tgt, positions))
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()  # count this path alone
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        eval_loss = float(ttr.lm_loss(model, tok, tgt, positions))
+    losses, step_s = [], []
+    for i in range(HD_STEPS):
+        if i:
+            tok, tgt = next(batches)
+        t1 = time.perf_counter()
+        losses.append(float(step(tok, tgt, positions)))  # syncs
+        step_s.append(time.perf_counter() - t1)
+    prompts = next(batches)[0]
+    batches.close()
+    out = tdec.generate(model, prompts, HD_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    want = {"flash_fwd": LAYERS * (HD_STEPS + 2),
+            "flash_bwd_dq": LAYERS * HD_STEPS,
+            "flash_bwd_dkv": LAYERS * HD_STEPS}
+    med = float(np.median(step_s[1:]))
+    msg = (f"head dims LM hd={hd} | {card}: TransformerLM({VOCAB}, {DIM}, "
+           f"heads={heads}, {LAYERS}, bf16) at ({BATCH}, {SEQ}); eval loss "
+           f"{eval_loss:.6f}; first step loss {losses[0]:.6f} against the "
+           f"plain attention's {ref_loss:.6f} (tol {MOE_LOSS_TOL}); losses "
+           f"{losses}; step ms {[round(x * 1e3, 3) for x in step_s]}; "
+           f"median after the first {med * 1e3:.3f} ms = "
+           f"{BATCH * SEQ / med:.1f} tokens/s; generate {tuple(out.shape)}; "
+           f"peak memory {peak_gib:.3f} GiB; wall {wall:.3f} s; launches "
+           f"{launches} (want {want})")
+    print(msg, flush=True)
+    check(all(math.isfinite(x) for x in losses + [eval_loss]), msg)
+    check(abs(losses[0] - ref_loss) <= MOE_LOSS_TOL, msg)
+    check(state.step == HD_STEPS, msg)
+    check(out.shape == (BATCH, SEQ + HD_NEW_TOKENS) and
+          bool(torch.equal(out[:, :SEQ], prompts)) and
+          bool(((out >= 0) & (out < VOCAB)).all()), msg)
+    check(launches == want, msg)
+    del model, opt, state, step
+    torch.cuda.empty_cache()
+    return {"launches": launches, "median_ms": med * 1e3,
+            "step_ms": [x * 1e3 for x in step_s], "peak_gib": peak_gib,
+            "first_loss": losses[0], "plain_loss": ref_loss}
+
+
+# Each rank of the example: its ``main`` with the arguments given, then
+# one line of this rank's result (head_dim_example reads it from the log).
+HD_EX_RANK = """\
+import json, sys
+from ddstore_tpu_torch.examples import lm_longcontext
+from ddstore_tpu_torch.ops import attention
+res = lm_longcontext.main(sys.argv[1:])
+res["launches"] = {n: getattr(attention, n + "_launches")
+                   for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+print("example result " + json.dumps(res), flush=True)
+"""
+
+
+def head_dim_example(seed, card):
+    """The port's ``examples/lm_longcontext.py`` (its ``main``, as
+    ``python -m`` runs it) at the reference's defaults (dim 128, heads
+    dim // 32: head dim 32) over dp 2 x sp 2, four rank processes sharing
+    the card through a file rendezvous (gloo), one epoch of HD_EX_WINDOWS
+    windows a rank: each rank's losses finite and equal across the ranks,
+    and every kernel launched on every rank (the ring's chunks)."""
+    work = tempfile.mkdtemp(prefix="hd_example_")
+    rdv = os.path.join(work, "rdv")
+    os.makedirs(rdv)
+    args = ["--epochs", "1", "--windows", str(HD_EX_WINDOWS), "--seed",
+            str(seed)]
+    cmd = [sys.executable, "-c", HD_EX_RANK] + args
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, DDSTORE_WORLD=str(HD_EX_RANKS),
+               DDSTORE_RDV_DIR=rdv, DDSTORE_HOST="127.0.0.1",
+               PYTHONPATH=os.pathsep.join(
+                   [root, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w+")
+            for r in range(HD_EX_RANKS)]
+    procs = [subprocess.Popen(cmd, env=dict(env, DDSTORE_RANK=str(r)),
+                              cwd=root, stdout=logs[r],
+                              stderr=subprocess.STDOUT)
+             for r in range(HD_EX_RANKS)]
+    try:
+        deadline = time.monotonic() + HD_EX_DEADLINE_S
+        while any(p.poll() is None for p in procs):
+            failed = [r for r, p in enumerate(procs)
+                      if p.returncode not in (None, 0)]
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    shutil.rmtree(work, ignore_errors=True)
+    codes = [p.returncode for p in procs]
+    results = [[json.loads(ln[len("example result "):])
+                for ln in text.splitlines()
+                if ln.startswith("example result ")] for text in texts]
+    if codes != [0] * HD_EX_RANKS or any(len(r) != 1 for r in results):
+        for r, text in enumerate(texts):
+            print(f"head dims example rank {r} (exit {codes[r]}):\n"
+                  f"{text[-3000:]}", flush=True)
+    check(codes == [0] * HD_EX_RANKS and
+          all(len(r) == 1 for r in results),
+          f"head dims example: exit codes {codes} after {wall:.1f} s, "
+          f"result lines a rank {[len(r) for r in results]}")
+    ranks = [r[0] for r in results]
+    epoch_line = [ln for ln in texts[0].splitlines()
+                  if ln.startswith("epoch")]
+    msg = (f"head dims example | {card}: lm_longcontext.main({args}) over "
+           f"{HD_EX_RANKS} ranks, axes {ranks[0]['axes']}, heads "
+           f"{ranks[0]['heads']} (head dim {128 // ranks[0]['heads']}); "
+           f"{len(ranks[0]['losses'])} steps a rank, losses (rank 0) "
+           f"{[round(x, 4) for x in ranks[0]['losses']]}; rank 0 printed "
+           f"{epoch_line}; launches per rank "
+           f"{[x['launches'] for x in ranks]}; wall {wall:.1f} s")
+    print(msg, flush=True)
+    check(ranks[0]["axes"]["dp"] == 2 and ranks[0]["axes"]["sp"] == 2 and
+          ranks[0]["heads"] == 4, msg)
+    check(len(ranks[0]["losses"]) > 0 and
+          all(math.isfinite(x) for x in ranks[0]["losses"]), msg)
+    # the step's loss is reduced over the world: every rank's is the same
+    check(all(x["losses"] == ranks[0]["losses"] for x in ranks), msg)
+    check(all(n > 0 for x in ranks for n in x["launches"].values()), msg)
+    return {"launches": {k: sum(x["launches"][k] for x in ranks)
+                         for k in ranks[0]["launches"]},
+            "launches_by_rank": [x["launches"] for x in ranks],
+            "losses": ranks[0]["losses"], "wall_s": wall}
+
+
+def phase_head_dims(dev, seed, card):
+    """Phase 15."""
+    g = torch.Generator(device=dev).manual_seed(5678)
+    errs = {}
+    for d in HD_DIMS:
+        for name, shape, dt, causal, qo, ko in HD_CASES:
+            for kern, (e_abs, e_rel) in head_dim_case(
+                    g, dev, d, name, shape, dt, causal, qo, ko).items():
+                prev = errs.get(kern, (0.0, 0.0))
+                errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
+    torch.cuda.empty_cache()
+    timing = {d: head_dim_timing(g, dev, d) for d in HD_TIMED}
+    b, h, c, d = HD_EX_CHUNK
+    chunks = long_chunk_kernels(dev, b=b, h=h, c=c, d=d,
+                                label="the example's")
+    for kern in errs:
+        checked = [t[kern] for t in timing.values()] + \
+            [chunks[x][kern] for x in ("diagonal", "past")]
+        errs[kern] = (max([errs[kern][0]] +
+                          [x["max_abs_err"] for x in checked]),
+                      max([errs[kern][1]] +
+                          [x["max_row_rel_err"] for x in checked]))
+    store, ds = make_store(seed)
+    lms = {DIM // heads: head_dim_lm(dev, seed, ds, heads, card)
+           for heads in HD_LM_HEADS}
+    store.close()
+    ex = head_dim_example(seed, card)
+    return {"errs": errs, "timing": timing, "example_chunks": chunks,
+            "lm": lms, "example": ex}
+
+
 def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
-                 msp, fsk):
+                 msp, fsk, hd):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them; the
     long-context ring's launches (both ranks, remat off; and per rank),
@@ -4813,7 +5249,11 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
     schedule and the MoE run; and per schedule and rank); the split
     sequence's (phase 14: the MoE over sp 2 and the dense LM over fsdp 2 x
     sp 2, in total and per rank), and each kernel at fsdp 2 x sp 2's ring
-    chunks."""
+    chunks; the head dims' (phase 15: the LM at each head dim and the
+    long-context example, each kernel's largest error over the head-dim
+    cases, the timed shapes and the example's chunks, each kernel at H D
+    = 1024 with head dims 32, 128, 256, and at 10 heads of 96, and at the
+    example's ring chunks)."""
     def pp_total(k):
         runs = [r["launches_by_rank"] for r in ppr["runs"].values()]
         return sum(x[k] for per in runs + [ppr["moe_launches_by_rank"]]
@@ -4830,7 +5270,10 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
                    **{f"layout_{n}": lay[n]["launches"][k]
                       for n, _, _ in LAYOUTS},
                    "pp": pp_total(k),
-                   "moe_fsdp_sp": msp["launches"][k]}
+                   "moe_fsdp_sp": msp["launches"][k],
+                   **{f"head_dims_lm_hd{d}": r["launches"][k]
+                      for d, r in hd["lm"].items()},
+                   "lm_longcontext_example": hd["example"]["launches"][k]}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -4886,8 +5329,21 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
         row["sp_launches_by_rank"] = {
             n: [x[row["name"]] for x in msp[f"{n}_launches_by_rank"]]
             for n in ("moe_sp", "fsdp_sp")}
+        e_abs, e_rel = hd["errs"][row["name"]]
+        row["head_dims"] = {
+            "dims": list(HD_DIMS), "max_abs_err": e_abs,
+            "max_row_rel_err": e_rel,
+            "timing": {str(d): t[row["name"]]
+                       for d, t in hd["timing"].items()},
+            "example_chunks": {c: hd["example_chunks"][c][row["name"]]
+                               for c in ("diagonal", "past")},
+            "example_launches_by_rank": [
+                x[row["name"]] for x in hd["example"]["launches_by_rank"]]}
     return {"kernels": rows, "sdpa_backward_ms": bwd["ms"]["sdpa_backward"],
-            "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"]}
+            "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"],
+            "head_dims_sdpa_backward_ms": {
+                str(d): t["sdpa_backward_ms"]
+                for d, t in hd["timing"].items()}}
 
 
 def main() -> int:
@@ -4979,8 +5435,13 @@ def main() -> int:
                              c=FSP_SEQ // MSP_SP, label="fsdp sp's")
     print(f"phase 14 wall {time.perf_counter() - t14:.1f} s", flush=True)
 
+    # 15. head dims
+    t15 = time.perf_counter()
+    hd = phase_head_dims(dev, args.seed, card)
+    print(f"phase 15 wall {time.perf_counter() - t15:.1f} s", flush=True)
+
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
-                                  lay, tpk, ppr, msp, fsk)), flush=True)
+                                  lay, tpk, ppr, msp, fsk, hd)), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,7 @@ Two processes on the CPU, through a file rendezvous (dp 1 x sp 2)::
         ddstore_tpu_torch.examples.lm_longcontext --device cpu --dp 1 \\
         --seq 256 --epochs 1 --steps 4 & done; wait
 
-On the card drop ``--device cpu`` and give heads of 64 or 128 features
-(``--heads``, the kernels' head dims): ranks that share a card talk over
+On the card drop ``--device cpu``: ranks that share a card talk over
 gloo (NCCL takes one card per rank), one rank per card uses NCCL.
 ``--accum-steps N`` trains the same batch in 1/N the activation memory;
 ``--generate N`` ends the run with a KV-cached greedy continuation of a
@@ -56,7 +55,9 @@ def rank_axes(world: int, dp: int, pp: int, tp: int, experts: int) -> dict:
     return {"pp": pp, "dp": dp, "ep": ep, "sp": sp, "tp": tp}
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Run the example; returns this rank's mesh axes, its heads and its
+    step losses."""
     p = argparse.ArgumentParser(
         prog="python -m ddstore_tpu_torch.examples.lm_longcontext",
         description=__doc__.split("\n\n")[0])
@@ -69,8 +70,7 @@ def main(argv=None) -> None:
     p.add_argument("--layers", type=int, default=2)
     p.add_argument("--heads", type=int, default=None,
                    help="attention heads (default dim // 32, the "
-                        "reference's; the card's kernels take head dims "
-                        "64 and 128, so pass dim // 64 there)")
+                        "reference's)")
     p.add_argument("--dp", type=int, default=2)
     p.add_argument("--pp", type=int, default=1,
                    help="pipeline stages (>1 selects the pipelined train "
@@ -158,8 +158,9 @@ def main(argv=None) -> None:
     ds = ShardedDataset(store, windows, nexts)
 
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    heads = args.heads or args.dim // 32
     model = transformer.TransformerLM(
-        vocab=args.vocab, dim=args.dim, heads=args.heads or args.dim // 32,
+        vocab=args.vocab, dim=args.dim, heads=heads,
         layers=args.layers, compute_dtype=dtype, device=dev, mesh=mesh,
         n_experts=args.experts, moe_top_k=args.moe_top_k,
         remat=args.remat or args.remat_policy is not None,
@@ -188,6 +189,7 @@ def main(argv=None) -> None:
                                            accum_steps=args.accum_steps)
         batch = 2  # a dp slot's rows (the reference's 2 * dp over all)
     sampler = DistributedSampler(len(ds), dp, dp_index, seed=args.seed)
+    losses = []
     for epoch in range(args.epochs):
         sampler.set_epoch(epoch)
         loader = DeviceLoader(ds, sampler, batch, device=dev, mesh=mesh,
@@ -202,7 +204,8 @@ def main(argv=None) -> None:
                 if args.steps is not None and i >= args.steps:
                     break
                 with profile.step_annotate(i):
-                    tot += float(step(tok, tgt, pos))
+                    losses.append(float(step(tok, tgt, pos)))
+                tot += losses[-1]
                 nb += 1
         dt = time.perf_counter() - t0
         m = loader.metrics.summary()
@@ -248,6 +251,7 @@ def main(argv=None) -> None:
                 print(f"generate: {args.generate} tokens, pattern accuracy "
                       f"{acc:.2f}: {cont[:24].tolist()}", flush=True)
     finish(store)
+    return {"axes": axes, "heads": heads, "losses": losses}
 
 
 if __name__ == "__main__":

@@ -14,11 +14,12 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
 * :func:`flash_attention` is differentiable. On a CUDA tensor its forward
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
   of ``csrc/flash_bwd.cu`` (in bf16 all three kernels stream their tiles
-  by TMA and multiply with wgmma, ``csrc/sm90.cuh``); on a CPU tensor
-  both run the plain versions,
-  so the CPU tests exercise the backward arithmetic the card runs. On the
-  card it launches the kernels or raises; it never falls back to the plain
-  version there.
+  by TMA and multiply with wgmma, ``csrc/sm90.cuh``, up to head dim 128,
+  and on mma.sync from 129 to 256); on a CPU tensor both run the plain
+  versions, so the CPU tests exercise the backward arithmetic the card
+  runs. On the card it launches the kernels or raises; it never falls back
+  to the plain version there. The kernels take every head dim from 1 to
+  :data:`MAX_HEAD_DIM` (:func:`_kernel_width`), in bf16 or f32.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from . import _build
 __all__ = ["mha_reference", "flash_attention", "flash_bwd_prep",
            "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
            "flash_fwd_launches", "flash_bwd_dq_launches",
-           "flash_bwd_dkv_launches"]
+           "flash_bwd_dkv_launches", "MAX_HEAD_DIM"]
 
 NEG_INF = float("-inf")
 
@@ -45,7 +46,26 @@ flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+#: the largest head dim the kernels take
+MAX_HEAD_DIM = 256
+#: the kernels' tile widths: TMA + wgmma at 64 and 128, mma.sync at 256
+_TILE_WIDTHS = (64, 128, 256)
+
+
+def _kernel_width(d: int) -> Tuple[int, int]:
+    """(width, tile) of head dim ``d`` on the card: ``width`` is ``d``
+    rounded up to a multiple of 8, what the kernels read (a TMA row must
+    be a multiple of 16 bytes, so the wrappers zero-pad q, k, v and do to
+    it and slice the results back), and ``tile`` the narrowest of the
+    kernels' tile widths that holds it (in the tile, TMA or the loads
+    zero-fill the columns past ``width``; the C entries pick the same
+    tile from ``width``). Raises ``ValueError`` for a head dim the
+    kernels do not take."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"the flash kernels take head dims 1 to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    width = -(-d // 8) * 8
+    return width, next(w for w in _TILE_WIDTHS if w >= width)
 
 
 def _causal_mask(sq: int, sk: int, q_offset: int, kv_offset: int,
@@ -195,12 +215,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     block_q_dkv, block_k_dkv) are the reference's tile upper bounds and
     are checked the same way, with the same messages. The CUDA kernels
     tile by their own sizes whatever they say (in bf16: forward 192
-    query rows at head dim 64 and 128 at 128, by 128 keys; dq 128 query
-    rows by 64 keys; dk/dv 128 keys by 64 queries at head dim 64 and 32
-    at 128; in f32: forward 16 by 32, backward 16 by 32 or 16) and mask
-    the ragged last
-    tiles themselves. On the card they take bf16 or f32 with head dim 64
-    or 128.
+    query rows at tile width 64 and 128 at 128, by 128 keys; dq 128 query
+    rows by 64 keys; dk/dv 128 keys by 64 queries at width 64 and 32 at
+    128; at width 256 forward 64 by 64, dq 64 by 32, dk/dv 64 keys by 32
+    queries; in f32: forward 16 by 32, backward 16 by 32 or 16) and mask
+    the ragged last tiles themselves. On the card they take bf16 or f32
+    with any head dim from 1 to 256 (:func:`_kernel_width`); ``scale``
+    defaults to ``1/sqrt(d)`` of the true head dim.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -239,7 +260,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
-def _check_cuda_inputs(what: str, q, k, v) -> None:
+def _check_cuda_inputs(what: str, q, k, v) -> int:
+    """Raises on what the kernels do not take; returns the head dim's
+    width on the card (:func:`_kernel_width`)."""
     if q.device.type != "cuda":
         raise ValueError(f"{what}: tensors on {q.device}; the kernel runs "
                          f"on CUDA and the plain version on the CPU")
@@ -248,14 +271,13 @@ def _check_cuda_inputs(what: str, q, k, v) -> None:
     if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{what} kernel takes bf16 or f32 (q, k, v all "
                         f"alike), got {q.dtype}, {k.dtype}, {v.dtype}")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"{what} kernel takes head dim in {_HEAD_DIMS}, "
-                         f"got {d}")
+    width, _ = _kernel_width(d)
     if k.shape != (b, h, sk, d) or v.shape != k.shape or \
             not q.device == k.device == v.device:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not agree (or lie on "
                          f"different devices)")
+    return width
 
 
 def _load_fwd() -> ctypes.CDLL:
@@ -270,15 +292,22 @@ def _load_fwd() -> ctypes.CDLL:
     return lib
 
 
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` itself, or a copy zero-padded along the head dim to ``width``
+    (a head dim that is not a multiple of 8)."""
+    d = t.shape[-1]
+    return t if d == width else torch.nn.functional.pad(t, (0, width - d))
+
+
 def _flash_fwd_cuda(q, k, v, causal, q_offset, kv_offset, scale):
     global flash_fwd_launches
-    _check_cuda_inputs("flash_attention", q, k, v)
+    width = _check_cuda_inputs("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    q, k, v = (_aligned(_padded(t, width)) for t in (q, k, v))
     # out is laid out (B, S, H, D) and returned as its (B, H, S, D) view,
     # so that merging the heads back is free.
-    out = torch.empty((b, sq, h, d), dtype=q.dtype,
+    out = torch.empty((b, sq, h, width), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     lib = _load_fwd()
@@ -287,14 +316,14 @@ def _flash_fwd_cuda(q, k, v, causal, q_offset, kv_offset, scale):
         err = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], b, h, sq, sk, d,
+            *v.stride()[:3], *out.stride()[:3], b, h, sq, sk, width,
             _DTYPE_CODES[q.dtype], int(bool(causal)), int(q_offset),
             int(kv_offset), float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} "
                            f"({lib.flash_fwd_error_string(err).decode()})")
     flash_fwd_launches += 1
-    return out, lse
+    return out[..., :d], lse
 
 
 def _load_bwd() -> ctypes.CDLL:
@@ -322,12 +351,8 @@ def _grad_like(t: torch.Tensor) -> torch.Tensor:
 def _bwd_launch(name, q, k, v, do, lse, c, outs, causal, q_offset,
                 kv_offset, scale):
     """One launch of ``name`` (flash_bwd_dq or flash_bwd_dkv) on the
-    current stream, writing ``outs``; raises on a CUDA error."""
-    _check_cuda_inputs("flash_attention backward", q, k, v)
-    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
-        raise ValueError(f"flash_attention backward: do {tuple(do.shape)} "
-                         f"{do.dtype} does not match q {tuple(q.shape)} "
-                         f"{q.dtype}")
+    current stream, writing ``outs``, on operands :func:`_bwd_operands`
+    made; raises on a CUDA error."""
     b, h, sq, d = q.shape
     lib = _load_bwd()
     strides = [s for t in (q, k, v, do) + outs
@@ -347,11 +372,17 @@ def _bwd_launch(name, q, k, v, do, lse, c, outs, causal, q_offset,
 
 
 def _bwd_operands(q, k, v, do, lse, c):
-    """The operands as the kernels read them: q, k, v, do as
+    """The operands as the kernels read them: q, k, v, do zero-padded to
+    the kernels' width of the head dim (:func:`_kernel_width`) and as
     :func:`_aligned` leaves them, lse and c contiguous f32 with 16-byte
-    aligned bases."""
-    return (_aligned(q), _aligned(k), _aligned(v), _aligned(do),
-            _aligned_rows(lse), _aligned_rows(c))
+    aligned bases. Checks the operands first."""
+    width = _check_cuda_inputs("flash_attention backward", q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"flash_attention backward: do {tuple(do.shape)} "
+                         f"{do.dtype} does not match q {tuple(q.shape)} "
+                         f"{q.dtype}")
+    return tuple(_aligned(_padded(t, width)) for t in (q, k, v, do)) + (
+        _aligned_rows(lse), _aligned_rows(c))
 
 
 def _aligned_rows(t: torch.Tensor) -> torch.Tensor:
@@ -367,28 +398,34 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, c, *, causal, q_offset, kv_offset,
                        scale):
     """dq by the dq kernel (one launch); (B, H, Sq, D) in q's dtype."""
     global flash_bwd_dq_launches
+    d = q.shape[-1]
     q, k, v, do, lse, c = _bwd_operands(q, k, v, do, lse, c)
     dq = _grad_like(q)
     _bwd_launch("flash_bwd_dq", q, k, v, do, lse, c, (dq, None), causal,
                 q_offset, kv_offset, scale)
     flash_bwd_dq_launches += 1
-    return dq
+    return dq[..., :d]
 
 
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, c, *, causal, q_offset,
                         kv_offset, scale):
     """(dk, dv) by the dk/dv kernel (one launch), in k's dtype."""
     global flash_bwd_dkv_launches
+    d = k.shape[-1]
     q, k, v, do, lse, c = _bwd_operands(q, k, v, do, lse, c)
     dk, dv = _grad_like(k), _grad_like(v)
     _bwd_launch("flash_bwd_dkv", q, k, v, do, lse, c, (dk, dv), causal,
                 q_offset, kv_offset, scale)
     flash_bwd_dkv_launches += 1
-    return dk, dv
+    return dk[..., :d], dv[..., :d]
 
 
 def _flash_bwd_cuda(q, k, v, do, lse, c, **cfg):
     """The dq kernel, then the dk/dv kernel, on the current stream;
-    returns (dq, dk, dv) in the input dtype."""
-    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, c, **cfg)
-    return (dq,) + _flash_bwd_dkv_cuda(q, k, v, do, lse, c, **cfg)
+    returns (dq, dk, dv) in the input dtype. The operands are padded and
+    aligned once for both launches."""
+    d = q.shape[-1]
+    ops = _bwd_operands(q, k, v, do, lse, c)
+    dq = _flash_bwd_dq_cuda(*ops, **cfg)
+    dk, dv = _flash_bwd_dkv_cuda(*ops, **cfg)
+    return dq[..., :d], dk[..., :d], dv[..., :d]

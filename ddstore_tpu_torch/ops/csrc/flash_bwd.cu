@@ -28,6 +28,15 @@
 // query rows), and ragged last tiles of any length that is a multiple of 8
 // are masked in the kernel.
 //
+// Head dims: d is a multiple of 8 from 8 to 256 (the wrapper zero-pads
+// other head dims and slices the gradients back), in three
+// instantiations: tile widths 64 and 128 of the bf16 TMA + wgmma kernels,
+// whose tensor maps declare the true d so that TMA zero-fills the tiles'
+// columns past it (zero columns of Q, K, V and dO leave S and dP as they
+// are, and give zero columns of dQ, dK and dV, which the stores skip),
+// and for 128 < d <= 256 simpler bf16 kernels on mma.sync (below). The
+// f32 kernels take the same widths, with loads and stores masked at d.
+//
 // Bound on the H100 SXM at the LM's shape, (B, H, S, D) = (8, 16, 2048,
 // 64) bf16 causal, 2.686e8 live score pairs: dq does 3 products of 2*D
 // FLOP a pair (s, dp, dq), 1.03e11 FLOP = 0.104 ms at 989 TFLOP/s, against
@@ -75,8 +84,18 @@
 //   most queries under the causal mask, launch first.
 //   Left out: warp-specialised ping-pong between the consumer warpgroups,
 //   K and V held in registers as A fragments (the SS products re-read
-//   them from shared memory for every query tile), persistent blocks, and
-//   a fused dq.
+//   them from shared memory for every query tile), persistent blocks, a
+//   fused dq, and tiles narrower than 64 features.
+// * bf16, 128 < d <= 256: right rather than fast, on mma.sync m16n8k16
+//   with plain 16-byte loads into padded shared rows (columns past d
+//   zero) and ldmatrix.trans for the operands whose contracted dim runs
+//   down their rows. dq: one block of 4 warps per 64 queries (16 a warp);
+//   Q and dO stay in shared memory, 32-key K and V tiles stream through
+//   it; dQ's 128 accumulators a thread for 16 rows x 256 features fit
+//   beside S and dP of a 32-key tile. dk/dv: two D-wide accumulators would
+//   not fit, so each block owns 64 keys and one half (128 features) of
+//   dK and dV, and forms S^T and dP^T over all 256 features for its half:
+//   the two halves' blocks repeat those two products (1.5x the FLOPs).
 // * f32: the same algorithm on the CUDA cores, one dot product per score
 //   (the tensor cores take no f32 inputs); exact in f32, for checking the
 //   math without bf16 rounding. The LM runs in bf16.
@@ -110,6 +129,7 @@ struct Args {
   long long s1b, s1h, s1s;
   long long s2b, s2h, s2s;
   int h, sq, sk;
+  int d;  // head dim, a multiple of 8 up to the instantiation's width
   int causal;
   long long q_offset, kv_offset;
   float scale;
@@ -175,6 +195,7 @@ struct DqParams {
   __nv_bfloat16* dq;
   long long s1b, s1h, s1s;
   int h, sq, sk;
+  int d;  // true head dim: the stores skip the tile's columns past it
   int causal;
   long long q_offset, kv_offset;
   float scale;
@@ -417,9 +438,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                              static_cast<long long>(row) * p.s1s;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(dqp + 8 * j + 2 * t) =
-              __floats2bfloat162_rn(dq[4 * j + 2 * hr] * p.scale,
-                                    dq[4 * j + 2 * hr + 1] * p.scale);
+          if (8 * j < p.d)
+            *reinterpret_cast<__nv_bfloat162*>(dqp + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(dq[4 * j + 2 * hr] * p.scale,
+                                      dq[4 * j + 2 * hr + 1] * p.scale);
       }
     }
   }
@@ -447,6 +469,7 @@ struct DkvParams {
   long long s1b, s1h, s1s;
   long long s2b, s2h, s2s;
   int h, sq, sk;
+  int d;  // true head dim: the stores skip the tile's columns past it
   int causal;
   long long q_offset, kv_offset;
   float scale;
@@ -712,6 +735,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                              static_cast<long long>(row) * p.s2s;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
+          if (8 * j >= p.d) continue;
           *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * j + 2 * t) =
               __floats2bfloat162_rn(dk[4 * j + 2 * hr] * p.scale,
                                     dk[4 * j + 2 * hr + 1] * p.scale);
@@ -724,20 +748,375 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// bf16, 128 < d <= 256: mma.sync
+
+constexpr int kWideD = 256;  // the tiles' width; columns past d are zero
+constexpr int kWideThreads = 128;
+constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
+
+// dq: one block per (64 queries, head, batch), 4 warps x 16 query rows;
+// K and V tiles of 32 keys.
+constexpr int kWideDqBQ = 64;
+constexpr int kWideDqBK = 32;
+constexpr int kWideDqBytes = (2 * kWideDqBQ + 2 * kWideDqBK) * kWideST * 2;
+
+__global__ void __launch_bounds__(kWideThreads)
+    flash_bwd_dq_wide_kernel(Args a) {
+  constexpr int ST = kWideST, BQ = kWideDqBQ, BK = kWideDqBK;
+  extern __shared__ __align__(16) uint8_t smem_dq_wide[];
+  auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem_dq_wide);
+  __nv_bfloat16* do_s = q_s + BQ * ST;
+  __nv_bfloat16* k_s = do_s + BQ * ST;
+  __nv_bfloat16* v_s = k_s + BK * ST;
+
+  const int q0 = blockIdx.x * BQ;
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const long long bh = static_cast<long long>(bb) * a.h + hh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;
+  const auto* qp =
+      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
+  const auto* kp =
+      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
+  const auto* vp =
+      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
+  const auto* dp_ =
+      static_cast<const __nv_bfloat16*>(a.dout) + bb * a.sdb + hh * a.sdh;
+  auto* dqp = static_cast<__nv_bfloat16*>(a.o1) + bb * a.s1b + hh * a.s1h;
+
+  // Q and dO stay in shared memory for the whole key loop.
+  sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0, a.sq,
+                                                 a.d, tid);
+  sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0, a.sq,
+                                                 a.d, tid);
+
+  // Rows g and g + 8 of this warp's 16.
+  float lse2[2], cr[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    lse2[hr] = safe_lse(a, bh, q0 + wr + g + 8 * hr) * kLog2e;
+    cr[hr] = row_c(a, bh, q0 + wr + g + 8 * hr);
+  }
+  float acc[kWideD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kWideD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  const float sl2 = a.scale * kLog2e;
+  const long long q_lo = a.q_offset + q0;
+  const int nk = (a.sk + BK - 1) / BK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * BK;
+    bool diag = false;
+    if (a.causal) {
+      bool live;
+      causal_liveness<BQ, BK>(q_lo, a.kv_offset + k0, live, diag);
+      if (!live) break;  // every later tile lies further in the future
+    }
+    const bool masked = diag || k0 + BK > a.sk || q0 + BQ > a.sq;
+    __syncthreads();  // the previous tile's k_s/v_s reads are done
+    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0, a.sk,
+                                                   a.d, tid);
+    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0, a.sk,
+                                                   a.d, tid);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp.
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kWideD / 16; ++kk) {
+      uint32_t qf[4], dof[4];
+      sm90::load_a<ST>(qf, q_s, wr, kk, g, t);
+      sm90::load_a<ST>(dof, do_s, wr, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
+        sm90::mma16816(s[nt], qf, sm90::ld32(&k_s[off]),
+                       sm90::ld32(&k_s[off + 8]));
+        sm90::mma16816(dp[nt], dof, sm90::ld32(&v_s[off]),
+                       sm90::ld32(&v_s[off + 8]));
+      }
+    }
+
+    // dS = P (dP - c), P = exp2(S scale log2e - lse log2e).
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        float x = s[nt][e] * sl2;
+        if (masked &&
+            pair_masked(a, q0 + wr + g + 8 * hr, k0 + nt * 8 + 2 * t + (e & 1)))
+          x = -INFINITY;
+        s[nt][e] = exp2f(x - lse2[hr]) * (dp[nt][e] - cr[hr]);
+      }
+
+    // dQ += dS K: dS re-packed as A fragments over the keys; K's keys run
+    // down its rows (ldmatrix.trans).
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t da[4] = {
+          sm90::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          sm90::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < kWideD / 8; dt += 2) {
+        uint32_t b[4];
+        sm90::load_b_kmajor_x2<ST>(b, k_s, kk, dt, lane);
+        sm90::mma16816(acc[dt], da, b[0], b[1]);
+        sm90::mma16816(acc[dt + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  // Every row below Sq is written: 0 where no live key reaches it.
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = q0 + wr + g + 8 * hr;
+    if (row < a.sq) {
+#pragma unroll
+      for (int dt = 0; dt < kWideD / 8; ++dt)
+        if (8 * dt < a.d)
+          *reinterpret_cast<__nv_bfloat162*>(dqp + row * a.s1s + dt * 8 +
+                                             2 * t) =
+              __floats2bfloat162_rn(acc[dt][2 * hr] * a.scale,
+                                    acc[dt][2 * hr + 1] * a.scale);
+    }
+  }
+}
+
+// dk/dv: one block per (64 keys, half of the features, head, batch), 4
+// warps x 16 key rows; query tiles of 32. The block's half of dK and dV
+// takes 128 accumulators a thread.
+constexpr int kWideDkvBK = 64;
+constexpr int kWideDkvBQ = 32;
+constexpr int kWideHalf = kWideD / 2;
+constexpr int kWideDkvBytes =
+    (2 * kWideDkvBK + 2 * kWideDkvBQ) * kWideST * 2 + 2 * kWideDkvBQ * 4;
+
+__global__ void __launch_bounds__(kWideThreads)
+    flash_bwd_dkv_wide_kernel(Args a) {
+  constexpr int ST = kWideST, BK = kWideDkvBK, BQ = kWideDkvBQ;
+  extern __shared__ __align__(16) uint8_t smem_dkv_wide[];
+  auto* k_s = reinterpret_cast<__nv_bfloat16*>(smem_dkv_wide);
+  __nv_bfloat16* v_s = k_s + BK * ST;
+  __nv_bfloat16* q_s = v_s + BK * ST;
+  __nv_bfloat16* do_s = q_s + BQ * ST;
+  auto* lse_s = reinterpret_cast<float*>(do_s + BQ * ST);  // log2 units
+  float* c_s = lse_s + BQ;
+
+  const int k0 = (blockIdx.x >> 1) * BK;
+  const int f0 = (blockIdx.x & 1) * kWideHalf;  // this block's features
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const long long bh = static_cast<long long>(bb) * a.h + hh;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wr = warp * 16;
+  const auto* qp =
+      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
+  const auto* kp =
+      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
+  const auto* vp =
+      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
+  const auto* dp_ =
+      static_cast<const __nv_bfloat16*>(a.dout) + bb * a.sdb + hh * a.sdh;
+  auto* dkp = static_cast<__nv_bfloat16*>(a.o1) + bb * a.s1b + hh * a.s1h;
+  auto* dvp = static_cast<__nv_bfloat16*>(a.o2) + bb * a.s2b + hh * a.s2h;
+
+  // K and V stay in shared memory for the whole query loop, all features.
+  sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0, a.sk,
+                                                 a.d, tid);
+  sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0, a.sk,
+                                                 a.d, tid);
+
+  float dk[kWideHalf / 8][4], dv[kWideHalf / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kWideHalf / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
+
+  // The first query tile that can see this key tile: its last query
+  // q_offset + q0 + BQ - 1 must reach the tile's first key.
+  const long long k_lo = a.kv_offset + k0;
+  int it0 = 0;
+  if (a.causal) {
+    const long long x = k_lo - a.q_offset;
+    it0 = x <= 0 ? 0 : static_cast<int>(x / BQ);
+  }
+  const float sl2 = a.scale * kLog2e;
+  const int nq = (a.sq + BQ - 1) / BQ;
+  for (int it = it0; it < nq; ++it) {
+    const int q0 = it * BQ;
+    bool diag = false;
+    if (a.causal) {
+      bool live;
+      causal_liveness<BQ, BK>(a.q_offset + q0, k_lo, live, diag);
+      if (!live) continue;
+    }
+    const bool masked = diag || q0 + BQ > a.sq || k0 + BK > a.sk;
+    __syncthreads();  // the previous tile's q_s/do_s reads are done
+    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0, a.sq,
+                                                   a.d, tid);
+    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0,
+                                                   a.sq, a.d, tid);
+    for (int r = tid; r < BQ; r += kWideThreads) {
+      lse_s[r] = safe_lse(a, bh, q0 + r) * kLog2e;
+      c_s[r] = row_c(a, bh, q0 + r);
+    }
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T over all features: 16 keys x 32
+    // queries per warp.
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kWideD / 16; ++kk) {
+      uint32_t kf[4], vf[4];
+      sm90::load_a<ST>(kf, k_s, wr, kk, g, t);
+      sm90::load_a<ST>(vf, v_s, wr, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < BQ / 8; ++nt) {
+        const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
+        sm90::mma16816(st[nt], kf, sm90::ld32(&q_s[off]),
+                       sm90::ld32(&q_s[off + 8]));
+        sm90::mma16816(dpt[nt], vf, sm90::ld32(&do_s[off]),
+                       sm90::ld32(&do_s[off + 8]));
+      }
+    }
+
+    // P^T and dS^T = P^T (dP^T - c); the query is the column here.
+#pragma unroll
+    for (int nt = 0; nt < BQ / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = nt * 8 + 2 * t + (e & 1);  // query within the tile
+        float x = st[nt][e] * sl2;
+        if (masked && pair_masked(a, q0 + qc, k0 + wr + g + 8 * (e >> 1)))
+          x = -INFINITY;
+        const float pr = exp2f(x - lse_s[qc]);
+        st[nt][e] = pr;
+        dpt[nt][e] = pr * (dpt[nt][e] - c_s[qc]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q over this block's features: the
+    // accumulators re-packed as A fragments over the queries; dO and Q
+    // read with their queries down the rows (ldmatrix.trans).
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t pa[4] = {
+          sm90::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
+          sm90::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
+          sm90::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+          sm90::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t da[4] = {
+          sm90::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
+          sm90::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
+          sm90::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+          sm90::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < kWideHalf / 8; dt += 2) {
+        uint32_t b[4];
+        sm90::load_b_kmajor_x2<ST>(b, do_s + f0, kk, dt, lane);
+        sm90::mma16816(dv[dt], pa, b[0], b[1]);
+        sm90::mma16816(dv[dt + 1], pa, b[2], b[3]);
+        sm90::load_b_kmajor_x2<ST>(b, q_s + f0, kk, dt, lane);
+        sm90::mma16816(dk[dt], da, b[0], b[1]);
+        sm90::mma16816(dk[dt + 1], da, b[2], b[3]);
+      }
+    }
+  }
+
+  // Every key row below Sk is written: 0 where no query sees it.
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = k0 + wr + g + 8 * hr;
+    if (row < a.sk) {
+#pragma unroll
+      for (int dt = 0; dt < kWideHalf / 8; ++dt) {
+        const int col = f0 + dt * 8 + 2 * t;
+        if (f0 + 8 * dt >= a.d) continue;
+        *reinterpret_cast<__nv_bfloat162*>(dkp + row * a.s1s + col) =
+            __floats2bfloat162_rn(dk[dt][2 * hr] * a.scale,
+                                  dk[dt][2 * hr + 1] * a.scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvp + row * a.s2s + col) =
+            __floats2bfloat162_rn(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
+      }
+    }
+  }
+}
+
+int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideDqBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.sq + kWideDqBQ - 1) / kWideDqBQ, a.h, b);
+  flash_bwd_dq_wide_kernel<<<grid, kWideThreads, kWideDqBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkv_wide(const Args& a, int b, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideDkvBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(2 * ((a.sk + kWideDkvBK - 1) / kWideDkvBK), a.h, b);
+  flash_bwd_dkv_wide_kernel<<<grid, kWideThreads, kWideDkvBytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores. 128 threads = 16 rows x 8 lanes; a row's 8 threads are
 // adjacent lanes of one warp, and lane c8 of a row takes the columns
-// c8 + 8 i of the streamed tile and the features c8 + 8 j.
+// c8 + 8 i of the streamed tile and the features c8 + 8 j. Loads zero the
+// features past d (they add nothing to a dot product), and stores skip
+// them.
 
 constexpr int kThreads = 128;
 constexpr int kSRows = 16;   // rows per block (queries for dq, keys for dk/dv)
 constexpr int kSDkvBQ = 16;  // queries per tile of the dk/dv kernel
 
-// Keys per tile of the dq kernel: 32, or 16 at D = 128 to stay within
-// 48 KB of static shared memory.
+// Keys per tile of the dq kernel: 32 at D = 64, 16 at the wider tiles.
 template <int D>
 __host__ __device__ constexpr int dq_f32_bk() {
   return D == 64 ? 32 : 16;
 }
+
+// Dynamic shared memory of the dq kernel, in floats: Q and dO [kSRows][D +
+// 1], K and V [BK][D + 1], dS [kSRows][BK + 1] (67 KB at D = 256).
+template <int D>
+struct F32DqSmem {
+  static constexpr int kBK = dq_f32_bk<D>();
+  static constexpr int kDo = kSRows * (D + 1);
+  static constexpr int kK = 2 * kSRows * (D + 1);
+  static constexpr int kV = kK + kBK * (D + 1);
+  static constexpr int kDs = kV + kBK * (D + 1);
+  static constexpr int kBytes = (kDs + kSRows * (kBK + 1)) * 4;
+};
+
+// The dk/dv kernel's, in floats: K and V [kSRows][D + 1], Q and dO
+// [kSDkvBQ][D + 1], P and dS [kSRows][kSDkvBQ + 1], lse and c [kSDkvBQ].
+template <int D>
+struct F32DkvSmem {
+  static constexpr int kV = kSRows * (D + 1);
+  static constexpr int kQ = 2 * kSRows * (D + 1);
+  static constexpr int kDo = kQ + kSDkvBQ * (D + 1);
+  static constexpr int kP = kDo + kSDkvBQ * (D + 1);
+  static constexpr int kDs = kP + kSRows * (kSDkvBQ + 1);
+  static constexpr int kLse = kDs + kSRows * (kSDkvBQ + 1);
+  static constexpr int kC = kLse + kSDkvBQ;
+  static constexpr int kBytes = (kC + kSDkvBQ) * 4;
+};
 
 __device__ __forceinline__ float dot_row(const float* x, const float* y,
                                          int d) {
@@ -749,12 +1128,15 @@ __device__ __forceinline__ float dot_row(const float* x, const float* y,
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
-  constexpr int BK = dq_f32_bk<D>();
-  __shared__ float q_s[kSRows][D + 1];
-  __shared__ float do_s[kSRows][D + 1];
-  __shared__ float k_s[BK][D + 1];
-  __shared__ float v_s[BK][D + 1];
-  __shared__ float ds_s[kSRows][BK + 1];
+  using L = F32DqSmem<D>;
+  constexpr int BK = L::kBK;
+  extern __shared__ __align__(16) uint8_t smem_dq_f32[];
+  float* base = reinterpret_cast<float*>(smem_dq_f32);
+  auto q_s = reinterpret_cast<float(*)[D + 1]>(base);
+  auto do_s = reinterpret_cast<float(*)[D + 1]>(base + L::kDo);
+  auto k_s = reinterpret_cast<float(*)[D + 1]>(base + L::kK);
+  auto v_s = reinterpret_cast<float(*)[D + 1]>(base + L::kV);
+  auto ds_s = reinterpret_cast<float(*)[BK + 1]>(base + L::kDs);
 
   const int q0 = blockIdx.x * kSRows;
   const int hh = blockIdx.y, bb = blockIdx.z;
@@ -769,7 +1151,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
 
   for (int e = tid; e < kSRows * D; e += kThreads) {
     const int rr = e / D, d = e % D;
-    const bool in = q0 + rr < a.sq;
+    const bool in = q0 + rr < a.sq && d < a.d;
     q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
     do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
   }
@@ -794,7 +1176,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
     __syncthreads();  // the previous tile's k_s/v_s reads are done
     for (int e = tid; e < BK * D; e += kThreads) {
       const int rr = e / D, d = e % D;
-      const bool in = k0 + rr < a.sk;
+      const bool in = k0 + rr < a.sk && d < a.d;
       k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
       v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
     }
@@ -818,19 +1200,23 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
   if (row < a.sq) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      dqp[row * a.s1s + c8 + 8 * j] = acc[j] * a.scale;
+      if (8 * j < a.d) dqp[row * a.s1s + c8 + 8 * j] = acc[j] * a.scale;
   }
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
-  __shared__ float k_s[kSRows][D + 1];
-  __shared__ float v_s[kSRows][D + 1];
-  __shared__ float q_s[kSDkvBQ][D + 1];
-  __shared__ float do_s[kSDkvBQ][D + 1];
-  __shared__ float p_s[kSRows][kSDkvBQ + 1];
-  __shared__ float ds_s[kSRows][kSDkvBQ + 1];
-  __shared__ float lse_s[kSDkvBQ], c_s[kSDkvBQ];
+  using L = F32DkvSmem<D>;
+  extern __shared__ __align__(16) uint8_t smem_dkv_f32[];
+  float* base = reinterpret_cast<float*>(smem_dkv_f32);
+  auto k_s = reinterpret_cast<float(*)[D + 1]>(base);
+  auto v_s = reinterpret_cast<float(*)[D + 1]>(base + L::kV);
+  auto q_s = reinterpret_cast<float(*)[D + 1]>(base + L::kQ);
+  auto do_s = reinterpret_cast<float(*)[D + 1]>(base + L::kDo);
+  auto p_s = reinterpret_cast<float(*)[kSDkvBQ + 1]>(base + L::kP);
+  auto ds_s = reinterpret_cast<float(*)[kSDkvBQ + 1]>(base + L::kDs);
+  float* lse_s = base + L::kLse;
+  float* c_s = base + L::kC;
 
   const int k0 = blockIdx.x * kSRows;
   const int hh = blockIdx.y, bb = blockIdx.z;
@@ -846,7 +1232,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
 
   for (int e = tid; e < kSRows * D; e += kThreads) {
     const int rr = e / D, d = e % D;
-    const bool in = k0 + rr < a.sk;
+    const bool in = k0 + rr < a.sk && d < a.d;
     k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
     v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
   }
@@ -874,7 +1260,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
     __syncthreads();  // the previous tile's q_s/do_s reads are done
     for (int e = tid; e < kSDkvBQ * D; e += kThreads) {
       const int rr = e / D, d = e % D;
-      const bool in = q0 + rr < a.sq;
+      const bool in = q0 + rr < a.sq && d < a.d;
       q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
       do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
     }
@@ -906,6 +1292,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
   if (key < a.sk) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (8 * j >= a.d) continue;
       dkp[key * a.s1s + c8 + 8 * j] = dk[j] * a.scale;
       dvp[key * a.s2s + c8 + 8 * j] = dv[j];
     }
@@ -916,16 +1303,16 @@ template <int D>
 int launch_dq_bf16(const Args& a, int b, cudaStream_t st) {
   using L = DqSmem<D>;
   DqParams p;
-  int err = sm90::encode_rows_bf16(&p.q, a.q, D, a.sq, a.h, b, a.sqs, a.sqh,
-                                   a.sqb, kDqBM);
+  int err = sm90::encode_rows_bf16(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
+                                   a.sqh, a.sqb, kDqBM);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.dout, a.dout, D, a.sq, a.h, b, a.sds,
+    err = sm90::encode_rows_bf16(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
                                  a.sdh, a.sdb, kDqBM);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.k, a.k, D, a.sk, a.h, b, a.sks, a.skh,
+    err = sm90::encode_rows_bf16(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
                                  a.skb, kDqBN);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.v, a.v, D, a.sk, a.h, b, a.svs, a.svh,
+    err = sm90::encode_rows_bf16(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
                                  a.svb, kDqBN);
   if (err) return err;
   p.lse = a.lse;
@@ -937,6 +1324,7 @@ int launch_dq_bf16(const Args& a, int b, cudaStream_t st) {
   p.h = a.h;
   p.sq = a.sq;
   p.sk = a.sk;
+  p.d = a.d;
   p.causal = a.causal;
   p.q_offset = a.q_offset;
   p.kv_offset = a.kv_offset;
@@ -952,27 +1340,19 @@ int launch_dq_bf16(const Args& a, int b, cudaStream_t st) {
 }
 
 template <int D>
-int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {
-  if (dtype == 1) return launch_dq_bf16<D>(a, b, st);
-  dim3 grid((a.sq + kSRows - 1) / kSRows, a.h, b);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
 int launch_dkv_bf16(const Args& a, int b, cudaStream_t st) {
   constexpr int BQ = dkv_bq<D>();
   DkvParams p;
-  int err = sm90::encode_rows_bf16(&p.q, a.q, D, a.sq, a.h, b, a.sqs, a.sqh,
-                                   a.sqb, BQ);
+  int err = sm90::encode_rows_bf16(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
+                                   a.sqh, a.sqb, BQ);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.dout, a.dout, D, a.sq, a.h, b, a.sds,
+    err = sm90::encode_rows_bf16(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
                                  a.sdh, a.sdb, BQ);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.k, a.k, D, a.sk, a.h, b, a.sks, a.skh,
+    err = sm90::encode_rows_bf16(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
                                  a.skb, kDkvBN);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.v, a.v, D, a.sk, a.h, b, a.svs, a.svh,
+    err = sm90::encode_rows_bf16(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
                                  a.svb, kDkvBN);
   const long long rows = static_cast<long long>(b) * a.h;
   if (!err) err = sm90::encode_f32_rows(&p.lse, a.lse, a.sq, rows, BQ);
@@ -989,6 +1369,7 @@ int launch_dkv_bf16(const Args& a, int b, cudaStream_t st) {
   p.h = a.h;
   p.sq = a.sq;
   p.sk = a.sk;
+  p.d = a.d;
   p.causal = a.causal;
   p.q_offset = a.q_offset;
   p.kv_offset = a.kv_offset;
@@ -1004,11 +1385,51 @@ int launch_dkv_bf16(const Args& a, int b, cudaStream_t st) {
 }
 
 template <int D>
-int launch_dkv(const Args& a, int b, int dtype, cudaStream_t st) {
-  if (dtype == 1) return launch_dkv_bf16<D>(a, b, st);
-  dim3 grid((a.sk + kSRows - 1) / kSRows, a.h, b);
-  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, 0, st>>>(a);
+int launch_dq_f32(const Args& a, int b, cudaStream_t st) {
+  constexpr int bytes = F32DqSmem<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.sq + kSRows - 1) / kSRows, a.h, b);
+  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_f32(const Args& a, int b, cudaStream_t st) {
+  constexpr int bytes = F32DkvSmem<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_f32_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.sk + kSRows - 1) / kSRows, a.h, b);
+  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, bytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of head dim a.d: tile widths 64, 128 (bf16: TMA +
+// wgmma) and 256 (bf16: mma.sync).
+int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {
+  if (dtype == 1) {
+    if (a.d <= 64) return launch_dq_bf16<64>(a, b, st);
+    if (a.d <= 128) return launch_dq_bf16<128>(a, b, st);
+    return launch_dq_wide(a, b, st);
+  }
+  if (a.d <= 64) return launch_dq_f32<64>(a, b, st);
+  if (a.d <= 128) return launch_dq_f32<128>(a, b, st);
+  return launch_dq_f32<256>(a, b, st);
+}
+
+int launch_dkv(const Args& a, int b, int dtype, cudaStream_t st) {
+  if (dtype == 1) {
+    if (a.d <= 64) return launch_dkv_bf16<64>(a, b, st);
+    if (a.d <= 128) return launch_dkv_bf16<128>(a, b, st);
+    return launch_dkv_wide(a, b, st);
+  }
+  if (a.d <= 64) return launch_dkv_f32<64>(a, b, st);
+  if (a.d <= 128) return launch_dkv_f32<128>(a, b, st);
+  return launch_dkv_f32<256>(a, b, st);
 }
 
 int make_args(Args& a, const void* q, const void* k, const void* v,
@@ -1016,15 +1437,16 @@ int make_args(Args& a, const void* q, const void* k, const void* v,
               void* o2, const long long* st, int b, int h, int sq, int sk,
               int d, int dtype, int causal, long long q_offset,
               long long kv_offset, float scale) {
-  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128) || b <= 0 ||
-      h <= 0 || sq <= 0 || sk < 0 || st == nullptr)
+  if ((dtype != 0 && dtype != 1) || d < 8 || d > 256 || d % 8 != 0 ||
+      b <= 0 || h <= 0 || sq <= 0 || sk < 0 || st == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   a = Args{q,      k,      v,      dout,   static_cast<const float*>(lse),
            static_cast<const float*>(c),   o1,     o2,
            st[0],  st[1],  st[2],  st[3],  st[4],  st[5],
            st[6],  st[7],  st[8],  st[9],  st[10], st[11],
            st[12], st[13], st[14], st[15], st[16], st[17],
-           h,      sq,     sk,     causal, q_offset, kv_offset, scale};
+           h,      sq,     sk,     d,      causal, q_offset, kv_offset,
+           scale};
   return 0;
 }
 
@@ -1036,8 +1458,9 @@ extern "C" {
 // dtype), lse and c (f32, (B*H, Sq) contiguous), then the outputs: dq and
 // NULL for flash_bwd_dq, dk and dv for flash_bwd_dkv. strides: 18 element
 // strides, (batch, head, sequence) of q, k, v, do, out1, out2 (out2's are
-// ignored by flash_bwd_dq). dtype: 0 = float32, 1 = bfloat16; d in {64,
-// 128}. Returns the CUDA error of the launch (0 = success).
+// ignored by flash_bwd_dq). dtype: 0 = float32, 1 = bfloat16; d a
+// multiple of 8 from 8 to 256. Returns the CUDA error of the launch (0 =
+// success).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* c, void* dq,
                  void* unused, const long long* strides, int b, int h, int sq,
@@ -1049,8 +1472,7 @@ int flash_bwd_dq(const void* q, const void* k, const void* v,
                             scale);
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_dq<64>(a, b, dtype, st)
-                 : launch_dq<128>(a, b, dtype, st);
+  return launch_dq(a, b, dtype, st);
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -1065,8 +1487,7 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (bad) return bad;
   if (sk == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch_dkv<64>(a, b, dtype, st)
-                 : launch_dkv<128>(a, b, dtype, st);
+  return launch_dkv(a, b, dtype, st);
 }
 
 const char* flash_bwd_error_string(int code) {

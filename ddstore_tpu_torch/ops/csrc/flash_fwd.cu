@@ -19,6 +19,17 @@
 // guards the ragged last query tile itself, so any length that is a
 // multiple of 8 works without the TPU's block-divisibility rule.
 //
+// Head dims: the TPU kernel takes any D (its block's last dim is the
+// array's). Here d is a multiple of 8 from 8 to 256 (the wrapper zero-pads
+// other head dims to the next multiple of 8 and slices the result back),
+// and three instantiations cover it: the tile widths 64 (d <= 64) and 128
+// (d <= 128) of the bf16 TMA + wgmma kernel, whose tensor maps declare the
+// true d so that TMA zero-fills the tile's columns past it (zero columns
+// of Q and K leave the scores as they are, zero columns of V give zero
+// columns of O, and the stores skip every column past d), and for
+// 128 < d <= 256 a simpler bf16 kernel on mma.sync (below). The f32
+// kernel takes the same three widths, with loads and stores masked at d.
+//
 // Bound on the H100 SXM: the work is 4*B*H*Sq*Sk*D FLOPs (QK^T and PV,
 // about half of that for causal) against 989 TFLOP/s in bf16, and the
 // bytes are q, k, v read once and out, lse written once against 3.35 TB/s.
@@ -46,7 +57,17 @@
 //   Left out: warp-specialised ping-pong between the consumer warpgroups
 //   (softmax of one overlapping the products of the other on purpose, not
 //   by chance), overlap of the next S product with this tile's softmax,
-//   persistent blocks, and a TMA store of out.
+//   persistent blocks, a TMA store of out, and tiles narrower than 64
+//   features: at d = 32 the tensor cores do the work of d = 64.
+// * bf16, 128 < d <= 256: at d = 256 one warpgroup's O accumulator alone
+//   would take 128 registers a thread for 64 rows, beside S; this range
+//   runs a kernel that is right rather than fast: one block of 4 warps
+//   takes 64 query rows (16 a warp), stages Q once and 64-key K and V
+//   tiles by plain 16-byte loads into padded shared rows (columns past d
+//   zero), forms S = Q K^T and O += P V with mma.sync m16n8k16 (P
+//   repacked from the S accumulators as A fragments, V's B fragments by
+//   ldmatrix.trans), and runs the same online softmax. Left out: TMA,
+//   wgmma, a ring of tiles overlapping loads with the math.
 // * f32: the same algorithm on the CUDA cores (16 query rows x 32-key
 //   tiles per block, one dot product per score), exact in f32; wgmma has
 //   no f32 input type, and the LM runs in bf16.
@@ -75,6 +96,7 @@ struct Args {
   long long svb, svh, svs;
   long long sob, soh, sos;
   int h, sq, sk;
+  int d;  // head dim, a multiple of 8 up to the instantiation's width
   int causal;
   long long q_offset, kv_offset;
   float scale;
@@ -129,6 +151,7 @@ struct FwdParams {
   float* lse;
   long long sob, soh, sos;
   int h, sq, sk;
+  int d;  // true head dim: the stores skip the tile's columns past it
   int causal;
   long long q_offset, kv_offset;
   float scale;  // nonzero (the C entry maps 0 to a tiny positive scale)
@@ -386,9 +409,10 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
                             static_cast<long long>(row) * p.sos;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + 2 * t) =
-              __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv,
-                                    o[4 * j + 2 * hr + 1] * inv);
+          if (8 * j < p.d)
+            *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv,
+                                      o[4 * j + 2 * hr + 1] * inv);
         if (t == 0)
           p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] =
               m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
@@ -401,13 +425,13 @@ template <int D>
 int launch_bf16(const Args& a, int b, cudaStream_t stream) {
   using C = FwdCfg<D>;
   FwdParams p;
-  int err = sm90::encode_rows_bf16(&p.q, a.q, D, a.sq, a.h, b, a.sqs, a.sqh,
-                                   a.sqb, C::kBM);
+  int err = sm90::encode_rows_bf16(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
+                                   a.sqh, a.sqb, C::kBM);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.k, a.k, D, a.sk, a.h, b, a.sks, a.skh,
+    err = sm90::encode_rows_bf16(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
                                  a.skb, kBN);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.v, a.v, D, a.sk, a.h, b, a.svs, a.svh,
+    err = sm90::encode_rows_bf16(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
                                  a.svb, kBN);
   if (err) return err;
   p.o = static_cast<__nv_bfloat16*>(a.o);
@@ -418,6 +442,7 @@ int launch_bf16(const Args& a, int b, cudaStream_t stream) {
   p.h = a.h;
   p.sq = a.sq;
   p.sk = a.sk;
+  p.d = a.d;
   p.causal = a.causal;
   p.q_offset = a.q_offset;
   p.kv_offset = a.kv_offset;
@@ -435,6 +460,188 @@ int launch_bf16(const Args& a, int b, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16, 128 < d <= 256: mma.sync
+
+constexpr int kWideD = 256;    // the tile's width; columns past d are zero
+constexpr int kWideBQ = 64;    // query rows per block (4 warps x 16)
+constexpr int kWideBK = 64;    // keys per tile
+constexpr int kWideThreads = 128;
+constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
+constexpr int kWideBytes = (kWideBQ + 2 * kWideBK) * kWideST * 2;
+
+__global__ void __launch_bounds__(kWideThreads)
+    flash_fwd_wide_kernel(Args a) {
+  extern __shared__ __align__(16) uint8_t smem_wide[];
+  auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem_wide);
+  __nv_bfloat16* k_s = q_s + kWideBQ * kWideST;
+  __nv_bfloat16* v_s = k_s + kWideBK * kWideST;
+
+  const int q0 = blockIdx.x * kWideBQ;
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma group and thread-in-group
+  const int wr = warp * 16;              // this warp's first row in the tile
+  const __nv_bfloat16* qp =
+      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
+  const __nv_bfloat16* kp =
+      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
+  const __nv_bfloat16* vp =
+      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
+  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + bb * a.sob +
+                      hh * a.soh;
+
+  // Q stays in shared memory for the whole key loop (rows past Sq zero).
+  sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
+      q_s, qp, a.sqs, q0, a.sq, a.d, tid);
+
+  // Rows g and g + 8 of this warp's 16: running max (log2 units) and this
+  // thread's share of the running denominator.
+  float m_r[2] = {-INFINITY, -INFINITY};
+  float l_r[2] = {0.f, 0.f};
+  float acc[kWideD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kWideD / 8; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+
+  const float sl2 = a.scale * kLog2e;
+  const long long q_lo = a.q_offset + q0;
+  const int nk = (a.sk + kWideBK - 1) / kWideBK;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int k0 = kt * kWideBK;
+    bool diag = false;
+    if (a.causal) {
+      bool live;
+      causal_liveness<kWideBQ, kWideBK>(q_lo, a.kv_offset + k0, live, diag);
+      if (!live) break;  // every later tile lies further in the future
+    }
+    const bool masked = diag || (k0 + kWideBK > a.sk);
+    __syncthreads();  // the previous tile's k_s/v_s reads are done
+    // Keys past Sk are zero: their p is 0, and 0 * garbage could be NaN.
+    sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+        k_s, kp, a.sks, k0, a.sk, a.d, tid);
+    sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+        v_s, vp, a.svs, k0, a.sk, a.d, tid);
+    __syncthreads();
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
+    float s[kWideBK / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kWideBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kWideD / 16; ++kk) {
+      uint32_t qf[4];
+      sm90::load_a<kWideST>(qf, q_s, wr, kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < kWideBK / 8; ++nt) {
+        const int off = (nt * 8 + g) * kWideST + kk * 16 + 2 * t;
+        sm90::mma16816(s[nt], qf, sm90::ld32(&k_s[off]),
+                       sm90::ld32(&k_s[off + 8]));
+      }
+    }
+
+    // Scale into log2 units; mask only diagonal and ragged tiles.
+#pragma unroll
+    for (int nt = 0; nt < kWideBK / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] *= sl2;
+        if (masked) {
+          const int row = q0 + wr + g + (e >> 1) * 8;
+          const int col = k0 + nt * 8 + 2 * t + (e & 1);
+          if (col >= a.sk ||
+              (a.causal && a.kv_offset + col > a.q_offset + row))
+            s[nt][e] = -INFINITY;
+        }
+      }
+
+    // Online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3).
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < kWideBK / 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[hr], mx);
+      // Rows masked so far keep m = -inf; subtracting 0 instead keeps
+      // exp2(-inf - 0) = 0 exact, with no inf - inf.
+      const float safe = m_new == -INFINITY ? 0.f : m_new;
+      const float corr = m_r[hr] == -INFINITY ? 0.f : exp2f(m_r[hr] - safe);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kWideBK / 8; ++nt)
+#pragma unroll
+        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+          const float pr = exp2f(s[nt][e] - safe);
+          s[nt][e] = pr;
+          sum += pr;
+        }
+      l_r[hr] = l_r[hr] * corr + sum;
+      m_r[hr] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < kWideD / 8; ++dt) {
+        acc[dt][2 * hr] *= corr;
+        acc[dt][2 * hr + 1] *= corr;
+      }
+    }
+
+    // acc += P V: the S accumulators of n-tiles 2kk, 2kk+1 are exactly the
+    // A fragment of keys [16kk, 16kk + 16); V's keys run down its rows.
+#pragma unroll
+    for (int kk = 0; kk < kWideBK / 16; ++kk) {
+      const uint32_t pa[4] = {
+          sm90::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          sm90::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dt = 0; dt < kWideD / 8; dt += 2) {
+        uint32_t b[4];
+        sm90::load_b_kmajor_x2<kWideST>(b, v_s, kk, dt, lane);
+        sm90::mma16816(acc[dt], pa, b[0], b[1]);
+        sm90::mma16816(acc[dt + 1], pa, b[2], b[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_r[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lc = fmaxf(l, 1e-30f);
+    const float inv = 1.f / lc;
+    const int row = q0 + wr + g + 8 * hr;
+    if (row < a.sq) {
+#pragma unroll
+      for (int dt = 0; dt < kWideD / 8; ++dt)
+        if (8 * dt < a.d)
+          *reinterpret_cast<__nv_bfloat162*>(op + row * a.sos + dt * 8 +
+                                             2 * t) =
+              __floats2bfloat162_rn(acc[dt][2 * hr] * inv,
+                                    acc[dt][2 * hr + 1] * inv);
+      if (t == 0)
+        a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
+            m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
+    }
+  }
+}
+
+int launch_wide(const Args& a, int b, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((a.sq + kWideBQ - 1) / kWideBQ, a.h, b);
+  flash_fwd_wide_kernel<<<grid, kWideThreads, kWideBytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // f32: CUDA cores
 
 constexpr int kSBQ = 16;  // query rows per block
@@ -443,13 +650,26 @@ constexpr int kF32Threads = 128;
 // 128 threads: thread = (row r = tid / 8, lane-in-row c8 = tid % 8); a row's
 // 8 threads are adjacent lanes of one warp.
 
+// Dynamic shared memory, in floats: Q [kSBQ][D + 1], K [kSBK][D + 1], V
+// [kSBK][D], P [kSBQ][kSBK + 1] (84 KB at D = 256).
+template <int D>
+struct F32Smem {
+  static constexpr int kK = kSBQ * (D + 1);
+  static constexpr int kV = kK + kSBK * (D + 1);
+  static constexpr int kP = kV + kSBK * D;
+  static constexpr int kBytes = (kP + kSBQ * (kSBK + 1)) * 4;
+};
+
 template <int D>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32_kernel(Args a) {
-  __shared__ float q_s[kSBQ][D + 1];
-  __shared__ float k_s[kSBK][D + 1];
-  __shared__ float v_s[kSBK][D];
-  __shared__ float p_s[kSBQ][kSBK + 1];
+  using L = F32Smem<D>;
+  extern __shared__ __align__(16) uint8_t smem_f32[];
+  float* base = reinterpret_cast<float*>(smem_f32);
+  auto q_s = reinterpret_cast<float(*)[D + 1]>(base);
+  auto k_s = reinterpret_cast<float(*)[D + 1]>(base + L::kK);
+  auto v_s = reinterpret_cast<float(*)[D]>(base + L::kV);
+  auto p_s = reinterpret_cast<float(*)[kSBK + 1]>(base + L::kP);
 
   const int q0 = blockIdx.x * kSBQ;
   const int hh = blockIdx.y, bb = blockIdx.z;
@@ -459,9 +679,11 @@ __global__ void __launch_bounds__(kF32Threads)
   const float* vp = static_cast<const float*>(a.v) + bb * a.svb + hh * a.svh;
   float* op = static_cast<float*>(a.o) + bb * a.sob + hh * a.soh;
 
+  // Columns past d are zero: they add nothing to the scores, and give
+  // zero columns of out, which are not stored.
   for (int e = tid; e < kSBQ * D; e += kF32Threads) {
     const int rr = e / D, d = e % D;
-    q_s[rr][d] = q0 + rr < a.sq ? qp[(q0 + rr) * a.sqs + d] : 0.f;
+    q_s[rr][d] = q0 + rr < a.sq && d < a.d ? qp[(q0 + rr) * a.sqs + d] : 0.f;
   }
 
   float m = -INFINITY, l = 0.f;  // l: this thread's share of the row's sum
@@ -483,7 +705,7 @@ __global__ void __launch_bounds__(kF32Threads)
     __syncthreads();  // the previous tile's k_s/v_s reads are done
     for (int e = tid; e < kSBK * D; e += kF32Threads) {
       const int rr = e / D, d = e % D;
-      const bool in = k0 + rr < a.sk;
+      const bool in = k0 + rr < a.sk && d < a.d;
       k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
       v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
     }
@@ -538,7 +760,8 @@ __global__ void __launch_bounds__(kF32Threads)
   const int row = q0 + r;
   if (row < a.sq) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) op[row * a.sos + c8 + 8 * j] = acc[j] / lc;
+    for (int j = 0; j < D / 8; ++j)
+      if (8 * j < a.d) op[row * a.sos + c8 + 8 * j] = acc[j] / lc;
     if (c8 == 0)
       a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
           m == -INFINITY ? -INFINITY : m + logf(lc);
@@ -546,20 +769,37 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 template <int D>
-int launch(const Args& a, int b, int dtype, cudaStream_t stream) {
-  if (dtype == 1) return launch_bf16<D>(a, b, stream);
+int launch_f32(const Args& a, int b, cudaStream_t stream) {
+  constexpr int bytes = F32Smem<D>::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((a.sq + kSBQ - 1) / kSBQ, a.h, b);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(a);
+  flash_fwd_f32_kernel<D><<<grid, kF32Threads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of head dim a.d: tile widths 64, 128 (bf16: TMA +
+// wgmma) and 256 (bf16: mma.sync).
+int launch(const Args& a, int b, int dtype, cudaStream_t stream) {
+  if (dtype == 1) {
+    if (a.d <= 64) return launch_bf16<64>(a, b, stream);
+    if (a.d <= 128) return launch_bf16<128>(a, b, stream);
+    return launch_wide(a, b, stream);
+  }
+  if (a.d <= 64) return launch_f32<64>(a, b, stream);
+  if (a.d <= 128) return launch_f32<128>(a, b, stream);
+  return launch_f32<256>(a, b, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d in {64, 128}. Strides are in
-// elements; in bf16 the base pointers are 16-byte aligned and the strides
-// multiples of 8 elements (TMA's rule). Returns the CUDA error of the
+// dtype: 0 = float32, 1 = bfloat16; d a multiple of 8 from 8 to 256.
+// Strides are in elements; in bf16 the base pointers are 16-byte aligned
+// and the strides multiples of 8 elements (TMA's rule). Returns the CUDA error of the
 // launch (0 = success), or a tensor-map error (flash_fwd_error_string).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, long long sqb, long long sqh, long long sqs,
@@ -568,16 +808,15 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
               long long sos, int b, int h, int sq, int sk, int d, int dtype,
               int causal, long long q_offset, long long kv_offset,
               float scale, void* stream) {
-  if ((dtype != 0 && dtype != 1) || (d != 64 && d != 128) || b <= 0 ||
-      h <= 0 || sq <= 0 || sk < 0)
+  if ((dtype != 0 && dtype != 1) || d < 8 || d > 256 || d % 8 != 0 ||
+      b <= 0 || h <= 0 || sq <= 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,   k,   v,   o,   static_cast<float*>(lse),
          sqb, sqh, sqs, skb, skh,
          sks, svb, svh, svs, sob,
          soh, sos, h,   sq,  sk,
-         causal, q_offset, kv_offset, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return d == 64 ? launch<64>(a, b, dtype, st) : launch<128>(a, b, dtype, st);
+         d,   causal, q_offset, kv_offset, scale};
+  return launch(a, b, dtype, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_fwd_error_string(int code) {

@@ -1,13 +1,19 @@
 // Raw-PTX building blocks for Hopper (sm_90a) kernels, shared by
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, 128-byte
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
-// kernels use (bf16 in, f32 accumulate), setmaxnreg, and on the host the
-// tensor-map encoder. No CuTe/CUTLASS: each source builds in seconds.
+// kernels use (bf16 in, f32 accumulate), setmaxnreg, the mma.sync and
+// ldmatrix pieces of the kernels for head dims past 128, and on the host
+// the tensor-map encoder. No CuTe/CUTLASS: each source builds in seconds.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XORed
 // with r % 8, each box 1024-byte aligned. A tile wider than 64 columns
-// (D = 128) is two such boxes, one after the other. Descriptors:
+// (D = 128) is two such boxes, one after the other. The tensor map's
+// feature dim is the operand's true head dim d (a multiple of 8, at most
+// the tile's width), so TMA fills the columns past d with zeros: zero
+// columns of Q and K leave every score as it is, and zero columns of V,
+// dO and Q give zero columns of O, dQ, dK and dV, which the kernels'
+// stores skip. Descriptors:
 // * K-major (the contracted dimension along a row, as Q and K rows are in
 //   Q K^T): SBO = 1024 bytes (8 rows), LBO unused; the k16 step inside a
 //   box is +32 bytes on the start address, and steps 4..7 of D = 128 start
@@ -175,6 +181,81 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// mma.sync m16n8k16 (sm_80 and up), for the kernels of head dims past 128
+// (flash_fwd.cu and flash_bwd.cu, "wide"): d += a b for one 16 x 8 x 16
+// tile, a row-major 16 x 16 bf16 (4 packed pairs a thread: {row g, k 2t..},
+// {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}), b column-major 16 x 8
+// (b0 = {k 2t, 2t + 1; n g}, b1 = the same at k + 8); d is rows g, g + 8 x
+// columns 2t, 2t + 1, for g = lane / 4, t = lane % 4.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment of rows [r0, r0 + 16), k columns [16 kk, 16 kk + 16) of a
+// row-major bf16 tile in shared memory with row stride ST.
+template <int ST>
+__device__ __forceinline__ void load_a(uint32_t (&f)[4],
+                                       const __nv_bfloat16* s, int r0, int kk,
+                                       int g, int t) {
+  f[0] = ld32(&s[(r0 + g) * ST + kk * 16 + 2 * t]);
+  f[1] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 2 * t]);
+  f[2] = ld32(&s[(r0 + g) * ST + kk * 16 + 8 + 2 * t]);
+  f[3] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 8 + 2 * t]);
+}
+
+// Four 8x8 bf16 matrices from shared memory, transposed: lane i gives the
+// address of row i % 8 of matrix i / 8, and receives in register m the
+// elements (2 * (i % 4), i / 4) and (2 * (i % 4) + 1, i / 4) of matrix m,
+// i.e. the mma B fragment of a matrix stored with k along its rows.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
+                                          const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// The B fragments of k rows [16 kk, 16 kk + 16) and n columns [8 nt, 8 nt +
+// 16) (two n-tiles: b[0], b[1] for nt, b[2], b[3] for nt + 1) of a
+// row-major bf16 tile with k along its rows (V in P V, K in dS K, dO and Q
+// in P^T dO and dS^T Q), row stride ST.
+template <int ST>
+__device__ __forceinline__ void load_b_kmajor_x2(uint32_t (&b)[4],
+                                                 const __nv_bfloat16* s,
+                                                 int kk, int nt, int lane) {
+  const int mat = lane / 8, r = lane % 8;
+  ldsm_x4_t(b, &s[(kk * 16 + (mat & 1) * 8 + r) * ST + (nt + (mat >> 1)) * 8]);
+}
+
+// Copies rows [r0, r0 + R) of a (seq, d) bf16 operand (row stride
+// `row_stride` elements, 16-byte aligned rows) into a shared tile of row
+// stride ST and D columns, with `threads` threads: rows past n and columns
+// past d (a multiple of 8) are zero.
+template <int R, int D, int ST, int threads>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long row_stride, int r0,
+                                           int n, int d, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int ch = tid; ch < R * CPR; ch += threads) {
+    const int r = ch / CPR, cc = ch % CPR;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n && cc * 8 < d)
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride +
+                                            cc * 8);
+    *reinterpret_cast<uint4*>(&dst[r * ST + cc * 8]) = val;
+  }
+}
+
 // wgmma.mma_async m64nNk16, bf16 in, f32 accumulate, over one warpgroup.
 // d holds N / 2 floats a thread: d[4 j + e] is row 16 w + g + 8 (e / 2),
 // column 8 j + 2 t + (e % 2) of the 64 x N tile, for warp w of the
@@ -335,10 +416,11 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 (B, H, S, D) operand with element strides (sb, sh, ss) and unit
+// A bf16 (B, H, S, d) operand with element strides (sb, sh, ss) and unit
 // feature stride, read in boxes of 64 features x `rows` rows with the
-// 128-byte swizzle. Dims innermost first: (D, S, H, B). Returns 0 or an
-// error code as above.
+// 128-byte swizzle; features past d (d < 64, or a second box past d) are
+// zero-filled. Dims innermost first: (d, S, H, B). Returns 0 or an error
+// code as above.
 inline int encode_rows_bf16(CUtensorMap* map, const void* base, int d, int s,
                             int h, int b, long long ss, long long sh,
                             long long sb, int rows) {

@@ -37,6 +37,10 @@ from ddstore_tpu_torch.store import DDStore
 
 pytestmark = pytest.mark.gpu
 
+# head dims other than 64 and 128: below, inside and above the 64 and 128
+# tiles, not a multiple of 8 (20), and the 256 tile's edge
+HEAD_DIMS = (8, 16, 20, 32, 40, 96, 160, 256)
+
 
 @pytest.fixture
 def cuda():
@@ -51,7 +55,12 @@ def cuda():
 @pytest.mark.parametrize("s,d,causal,q_off,kv_off",
                          [(256, 64, True, 0, 0), (200, 64, False, 0, 0),
                           (136, 128, True, 0, 0), (128, 64, True, 0, 64),
-                          (40, 64, True, 0, 0), (200, 128, True, 0, 0)])
+                          (40, 64, True, 0, 0), (200, 128, True, 0, 0)]
+                         # every tile width, zero-filled past d, and head
+                         # dims padded to a multiple of 8 (20)
+                         + [(200, d, True, 0, 0) for d in HEAD_DIMS]
+                         + [(136, d, False, 0, 0) for d in HEAD_DIMS]
+                         + [(256, d, True, 192, 64) for d in HEAD_DIMS])
 def test_kernel_matches_plain(cuda, dtype, tol, s, d, causal, q_off,
                               kv_off):
     g = torch.Generator(device=cuda).manual_seed(s + d)
@@ -101,7 +110,10 @@ def _rows_close(got, want, dead, rel):
                           # one 128-row dq block whose second warpgroup
                           # holds 8 rows below Sq and 56 past it
                           (72, 72, 64, True, 0, 0),
-                          (72, 136, 128, False, 0, 0)])
+                          (72, 136, 128, False, 0, 0)]
+                         + [(200, 200, d, True, 0, 0) for d in HEAD_DIMS]
+                         + [(256, 256, d, True, 192, 64) for d in HEAD_DIMS]
+                         + [(72, 136, d, False, 0, 0) for d in (20, 160)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -137,7 +149,7 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 32, 160, 256])
 def test_dkv_kernel_is_deterministic(cuda, d, kernel):
     # Each dq row (dq kernel) and each dk/dv row (dk/dv kernel) is written
     # by one block, with no atomics: two launches on the same inputs give
@@ -160,8 +172,8 @@ def test_dkv_kernel_is_deterministic(cuda, d, kernel):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 1, 16, 32), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    q = torch.zeros((1, 1, 16, 264), device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         attention.flash_attention(q, q, q)
     q = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or f32"):
@@ -177,9 +189,9 @@ def test_backward_refuses_what_it_does_not_take(cuda):
     h = q.half()
     with pytest.raises(TypeError, match="bf16 or f32"):
         attention._flash_bwd_cuda(h, h, h, h, lse, lse, **kw)
-    q32 = torch.zeros((1, 1, 16, 32), device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        attention._flash_bwd_cuda(q32, q32, q32, q32, lse, lse, **kw)
+    wide = torch.zeros((1, 1, 16, 264), device=cuda)
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
+        attention._flash_bwd_cuda(wide, wide, wide, wide, lse, lse, **kw)
 
 
 def test_block_backward_launches_both_kernels(cuda):
