@@ -227,9 +227,9 @@ Phases; any failure raises and ends the run with a non-zero exit:
    the first step's loss, gathered gradients and parameters against one
    process's step (phase 12's rules), peak memory per rank.
 
-15. head dims (the reference's kernels take any head dim; the port's up
-   to 256): each kernel against its plain version at head dims 8, 16, 20,
-   32, 40, 96, 160 and 256 on a bf16 causal case with ragged tiles, a
+15. head dims (the reference's kernels take any head dim): each kernel
+   against its plain version at head dims 8, 16, 20, 32, 40, 96, 160 and
+   256 on a bf16 causal case with ragged tiles, a
    bf16 case with q_offset 192 and kv_offset 64, and an f32 non-causal
    one, with an lse cotangent (dq and dk/dv bit-identical over two
    launches, the launch counters moved by each case); each kernel at H D
@@ -245,6 +245,22 @@ Phases; any failure raises and ends the run with a non-zero exit:
    (head dim 32) over dp 2 x sp 2, four rank processes on the card
    (gloo), one epoch: finite losses equal on every rank, every kernel
    launched on every rank.
+
+16. fp16 and head dims past 256 (the reference's kernels take any float
+   dtype and any head dim): each kernel against its plain version on
+   phase 15's three cases (ragged causal, global offsets, full; an lse
+   cotangent; dq and dk/dv bit-identical over two launches; the launch
+   counters moved by each case, and the plain versions and SDPA made to
+   raise while the kernels run) in fp16 at phase 15's head dims, and in
+   bf16, fp16 and f32 at 264, 300, 320, 512, 1000 and 1024 (chunks of 256
+   features), the fp16 tolerances a fifth of bf16's; each kernel at (8,
+   2048) in the LM's qkv views in fp16 at hd 64, 128 and 256, and in
+   bf16, fp16 and f32 at hd 512 (2 heads), against its plain version and
+   SDPA (and which SDPA backend takes hd 512); the LM above in fp16 (16
+   heads) and in bf16 at 2 heads (hd 512), store-fed: eval loss, 3 Adam
+   steps and ``generate`` of 8 tokens (launches zeroed just before and
+   read just after), the first step's loss within 2e-2 of the same step
+   under the plain attention.
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
@@ -273,6 +289,7 @@ import tempfile
 import threading
 import time
 import traceback
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -321,6 +338,10 @@ from ddstore_tpu_torch.weights import to_flax
 # a kernel is max(bytes / memory rate, operations / peak rate).
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# fp16 runs on the tensor cores at the bf16 rate; f32 on the CUDA cores
+# (the f32 kernels; the guide's table: 67 TFLOP/s outside the tensor cores)
+PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
+              "float32": 67e12}
 
 # The repo's LM config (bench.py:3169) and the slices' traffic.
 VOCAB, DIM, HEADS, LAYERS = 32768, 1024, 16, 8
@@ -515,6 +536,25 @@ HD_EX_RANKS, HD_EX_WINDOWS, HD_EX_DEADLINE_S = 4, 64, 240
 # the example's ring chunk at its defaults over dp 2 x sp 2: (a dp slot's
 # 2 rows, heads 128 // 32, seq 2048 / sp, head dim 32)
 HD_EX_CHUNK = (2, 4, 1024, 32)
+# The fp16 and wide phase (16): the three kernels against their plain
+# versions on HD_CASES' shapes, flags and offsets (with an lse cotangent),
+# in fp16 at HD_DIMS and in each of FW_DTYPES at the head dims FW_DIMS
+# past 256 (chunks of 256; 300 and 1000 padded to a multiple of 8), the
+# fp16 tolerances beside TOL; each kernel at the LM's (8, 2048) in its
+# qkv views at FW_TIMED (dtype, head dim), H = DIM // d, against its
+# plain version and SDPA (and SDPA's route past 256); the LM above in
+# fp16 at 16 heads and in bf16 at 2 heads (hd 512), store-fed: eval
+# loss, HD_STEPS Adam steps and generate of HD_NEW_TOKENS, the first
+# step's loss held to the same step under the plain attention at
+# MOE_LOSS_TOL.
+FW_DIMS = (264, 300, 320, 512, 1000, 1024)
+FW_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+FW_TIMED = ((torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
+            (torch.bfloat16, 512), (torch.float16, 512),
+            (torch.float32, 512))
+# launches a timing round (the f32 kernels run on the CUDA cores)
+FW_ITERS = {"bfloat16": 20, "float16": 20, "float32": 4}
+FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2))
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -523,8 +563,12 @@ HD_EX_CHUNK = (2, 4, 1024, 32)
 # The backward kernels are held to the same per-row relative error for
 # dq, dk and dv (see row_errors): bf16 rounds P and dS to bf16 at 2**-8
 # before their products, f32 only sums in another order.
-TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}
-ROW_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+# fp16 (phase 16) rounds 8x finer than bf16 (2**-11 against 2**-8): its
+# tolerances are about a fifth of bf16's, which leaves room for the
+# summation order.
+TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4),
+       "float16": (4e-3, 2e-3)}
+ROW_REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4, "float16": 4e-3}
 
 # Kernel cases: name, (b, h, sq, sk, d), dtype, causal, q_offset,
 # kv_offset; the lm_* cases take the main path's layout (qkv_views).
@@ -611,9 +655,10 @@ def attention_work(b, h, sq, sk, d, itemsize, causal, q_offset, kv_offset,
     return flops, nbytes
 
 
-def bound_of(flops, nbytes):
-    """(bound ms, what bounds it) on the H100 SXM's published peaks."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound_of(flops, nbytes, dname="bfloat16"):
+    """(bound ms, what bounds it) on the H100 SXM's published peaks, the
+    operations at the peak of dtype ``dname``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -3647,6 +3692,32 @@ def plain_attention():
         ttr.flash_attention = saved
 
 
+@contextlib.contextmanager
+def no_plain_path():
+    """Inside, the plain versions of the three kernels and SDPA raise: a
+    run of the kernels' path that reached any of them would fail, so the
+    launch counters alone stand for the work done."""
+    def refuse(name):
+        def fn(*a, **k):
+            raise RuntimeError(f"chip_smoke: {name} reached on the kernels' "
+                               f"path")
+        return fn
+
+    names = ("mha_reference", "flash_bwd_dq_reference",
+             "flash_bwd_dkv_reference")
+    saved = [getattr(attention, n) for n in names]
+    saved_sdpa = torch.nn.functional.scaled_dot_product_attention
+    for n in names:
+        setattr(attention, n, refuse(n))
+    torch.nn.functional.scaled_dot_product_attention = refuse("SDPA")
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(attention, n, fn)
+        torch.nn.functional.scaled_dot_product_attention = saved_sdpa
+
+
 def moe_model(dev, seed, dtype=torch.bfloat16, mesh=None):
     model = ttr.TransformerLM(vocab=VOCAB, dim=DIM, heads=HEADS,
                               layers=LAYERS, compute_dtype=dtype, device=dev,
@@ -4867,17 +4938,19 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
     kw = dict(causal=causal, q_offset=qo, kv_offset=ko, scale=d ** -0.5)
     before = launch_counts()
     with torch.no_grad():
-        out, lse = attention.flash_attention(q, k, v, causal=causal,
-                                             q_offset=qo, kv_offset=ko)
-        c = attention.flash_bwd_prep(do, out, dlse)
-        got = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c, **kw)}
-        got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
-            q, k, v, do, lse, c, **kw)
-        again = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
-                                                    **kw)}
-        again["dk"], again["dv"] = attention._flash_bwd_dkv_cuda(
-            q, k, v, do, lse, c, **kw)
-        torch.cuda.synchronize()
+        with no_plain_path():
+            out, lse = attention.flash_attention(q, k, v, causal=causal,
+                                                 q_offset=qo, kv_offset=ko)
+            c = attention.flash_bwd_prep(do, out, dlse)
+            got = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                      **kw)}
+            got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
+                q, k, v, do, lse, c, **kw)
+            again = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                        **kw)}
+            again["dk"], again["dv"] = attention._flash_bwd_dkv_cuda(
+                q, k, v, do, lse, c, **kw)
+            torch.cuda.synchronize()
         moved = {n: v2 - before[n] for n, v2 in launch_counts().items()}
         ref_out, ref_lse = attention.mha_reference(
             q, k, v, causal=causal, q_offset=qo, kv_offset=ko)
@@ -4902,7 +4975,7 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
         if live.any() else 0.0
     _, e_rel, _ = row_errors(out, ref_out, ~live)
     t_out, t_lse = TOL[dname]
-    res = {"flash_fwd": (max(e_out, e_lse), e_rel)}
+    res = {"flash_fwd": (max(e_out, e_lse), e_rel), "moved": moved}
     line = [f"out max_abs_err={e_out:.3e} lse={e_lse:.3e} "
             f"max_row_rel_err={e_rel:.3e}"]
     check(e_out <= t_out and e_lse <= t_lse and e_rel <= tol,
@@ -4931,29 +5004,33 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
     return res
 
 
-def head_dim_timing(g, dev, d):
+def head_dim_timing(g, dev, d, dt=torch.bfloat16, iters=20):
     """Each kernel at the LM's (8, 2048) with DIM // d heads of d (H D =
-    DIM where d divides it; the main path's qkv-view layout, bf16 causal)
-    held row by row against its plain version (out, lse, dq, dk, dv on
-    the same inputs), then timed against it and SDPA, in turns."""
+    DIM where d divides it; the main path's qkv-view layout, causal, in
+    ``dt``) held row by row against its plain version (out, lse, dq, dk,
+    dv on the same inputs), then timed against it and SDPA, in turns
+    (``iters`` launches a round for the kernels and SDPA)."""
     b, h, s = BATCH, DIM // d, SEQ
+    dname = str(dt).split(".")[-1]
     width = h * d
     base = torch.randn((b, s, 3 * width), generator=g, device=dev) \
-        .to(torch.bfloat16).requires_grad_()
+        .to(dt).requires_grad_()
     ql, kl, vl = (t.reshape(b, s, h, d).transpose(1, 2)
                   for t in base.split(width, dim=-1))
     q, k, v = (t.detach() for t in (ql, kl, vl))
     do = torch.randn((b, s, h, d), generator=g, device=dev) \
-        .to(torch.bfloat16).transpose(1, 2)
+        .to(dt).transpose(1, 2)
     kw = dict(causal=True, q_offset=0, kv_offset=0, scale=d ** -0.5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     with torch.no_grad():
-        out, lse = attention.flash_attention(q, k, v, causal=True)
-        c = attention.flash_bwd_prep(do, out)
-        got = {"out": out,
-               "dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c, **kw)}
-        got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
-            q, k, v, do, lse, c, **kw)
+        with no_plain_path():
+            out, lse = attention.flash_attention(q, k, v, causal=True)
+            c = attention.flash_bwd_prep(do, out)
+            got = {"out": out,
+                   "dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                      **kw)}
+            got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
+                q, k, v, do, lse, c, **kw)
         want_out, want_lse = attention.mha_reference(q, k, v, causal=True)
         want = {"out": want_out,
                 "dq": attention.flash_bwd_dq_reference(q, k, v, do, lse, c,
@@ -4962,26 +5039,27 @@ def head_dim_timing(g, dev, d):
             q, k, v, do, lse, c, **kw)
     torch.cuda.synchronize()
     tag = f"head dims timing d={d} at (B,H,S,D)=({b},{h},{s},{d})"
-    tol = ROW_REL_TOL["bfloat16"]
+    tol = ROW_REL_TOL[dname]
     live = torch.isfinite(want_lse)
     check(bool((torch.isfinite(lse) == live).all()) and
           not torch.isnan(lse).any(), f"{tag}: lse's fully-masked rows")
     e_lse = float((lse[live] - want_lse[live]).abs().max())
-    check(e_lse <= TOL["bfloat16"][1],
+    check(e_lse <= TOL[dname][1],
           f"{tag}: lse disagrees with the plain version ({e_lse:.3e})")
     dead = {"out": ~live, "dq": ~live,
             "dk": dead_keys(b, h, s, s, True, 0, 0, dev)}
     dead["dv"] = dead["dk"]
     errs = {}
     for which, t in got.items():
-        check(t.shape == want[which].shape and t.dtype == torch.bfloat16
+        check(t.shape == want[which].shape and t.dtype == dt
               and not torch.isnan(t).any(), f"{tag}: {which} shape/NaN")
         e_abs, e_rel, nonzero_dead = row_errors(t, want[which], dead[which])
         errs[which] = (e_abs, e_rel)
         check(nonzero_dead == 0 and e_rel <= tol,
               f"{tag}: {which} disagrees with the plain version ({e_rel:.3e}"
               f" per row > {tol}, or {nonzero_dead} dead rows not 0)")
-    print(f"{tag} bf16 causal, the LM's qkv views (q strides {q.stride()}):"
+    print(f"{tag} {dname} causal, the LM's qkv views (q strides "
+          f"{q.stride()}):"
           f" against the plain versions lse max_abs_err={e_lse:.3e}; "
           + "; ".join(f"{w} max_abs_err={a:.3e} max_row_rel_err={r:.3e}"
                       for w, (a, r) in errs.items())
@@ -4989,20 +5067,21 @@ def head_dim_timing(g, dev, d):
     del got, want, want_out, want_lse
     sd_out = sdpa(ql, kl, vl, is_causal=True)
     fns = {
-        "fwd": (lambda: attention.flash_attention(q, k, v, causal=True), 20),
+        "fwd": (lambda: attention.flash_attention(q, k, v, causal=True),
+                iters),
         "dq": (lambda: attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
-                                                    **kw), 20),
+                                                    **kw), iters),
         "dkv": (lambda: attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c,
-                                                      **kw), 20),
+                                                      **kw), iters),
         "fwd_plain": (lambda: attention.mha_reference(q, k, v, causal=True),
                       3),
         "dq_plain": (lambda: attention.flash_bwd_dq_reference(
             q, k, v, do, lse, c, **kw), 2),
         "dkv_plain": (lambda: attention.flash_bwd_dkv_reference(
             q, k, v, do, lse, c, **kw), 2),
-        "sdpa": (lambda: sdpa(q, k, v, is_causal=True), 20),
+        "sdpa": (lambda: sdpa(q, k, v, is_causal=True), iters),
         "sdpa_backward": (lambda: torch.autograd.grad(
-            sd_out, (ql, kl, vl), do, retain_graph=True), 20),
+            sd_out, (ql, kl, vl), do, retain_graph=True), iters),
     }
     t = {n: [] for n in fns}
     for order in (list(fns), list(fns)[::-1]):
@@ -5016,8 +5095,9 @@ def head_dim_timing(g, dev, d):
     for kern, kind, lib in (("flash_fwd", "fwd", "sdpa"),
                             ("flash_bwd_dq", "dq", None),
                             ("flash_bwd_dkv", "dkv", None)):
-        flops, nbytes = attention_work(b, h, s, s, d, 2, True, 0, 0, kind)
-        bound, bound_by = bound_of(flops, nbytes)
+        flops, nbytes = attention_work(b, h, s, s, d, q.element_size(),
+                                       True, 0, 0, kind)
+        bound, bound_by = bound_of(flops, nbytes, dname)
         checked = [errs[w] for w in {"fwd": ("out",), "dq": ("dq",),
                                      "dkv": ("dk", "dv")}[kind]]
         res[kern] = {"shape": [b, h, s, d], "ms": ms[kind],
@@ -5027,33 +5107,36 @@ def head_dim_timing(g, dev, d):
                      "max_abs_err": max(max(a for a, _ in checked),
                                         e_lse if kind == "fwd" else 0.0),
                      "max_row_rel_err": max(r for _, r in checked)}
-        print(f"head dims timing {kern} at (B,H,S,D)=({b},{h},{s},{d}) bf16 "
-              f"causal: kernel_ms={ms[kind]:.4f} plain_ms="
+        print(f"head dims timing {kern} at (B,H,S,D)=({b},{h},{s},{d}) "
+              f"{dname} causal: kernel_ms={ms[kind]:.4f} plain_ms="
               f"{ms[kind + '_plain']:.4f} bound_ms={bound:.4f} ({bound_by}:"
               f" {flops:.4e} FLOP, {nbytes:.4e} B) library_ms="
               f"{ms[lib] if lib else None} achieved_TFLOPs="
               f"{flops / ms[kind] / 1e9:.1f}", flush=True)
     res["sdpa_backward_ms"] = ms["sdpa_backward"]
-    print(f"head dims timing d={d}: dq + dkv = {ms['dq'] + ms['dkv']:.4f} ms "
-          f"against library_ms(sdpa backward)={ms['sdpa_backward']:.4f}; "
-          f"rounds={json.dumps(t)}", flush=True)
+    print(f"head dims timing d={d} {dname}: dq + dkv = "
+          f"{ms['dq'] + ms['dkv']:.4f} ms against library_ms(sdpa "
+          f"backward)={ms['sdpa_backward']:.4f}; rounds={json.dumps(t)}",
+          flush=True)
     del base, ql, kl, vl, q, k, v, do, out, lse, c, sd_out
     torch.cuda.empty_cache()
     return res
 
 
-def head_dim_lm(dev, seed, ds, heads, card):
+def head_dim_lm(dev, seed, ds, heads, card, dtype=torch.bfloat16):
     """The LM at bench.py:3169's width with ``heads`` heads (head dim
-    DIM // heads), store-fed: the eval loss, HD_STEPS Adam steps and
-    ``generate`` of HD_NEW_TOKENS tokens, launches zeroed just before and
-    read just after; the first step's loss against the same weights and
-    batch under the plain attention."""
+    DIM // heads) in ``dtype``, store-fed: the eval loss, HD_STEPS Adam
+    steps and ``generate`` of HD_NEW_TOKENS tokens, launches zeroed just
+    before and read just after (no plain attention or SDPA reachable in
+    between); the first step's loss against the same weights and batch
+    under the plain attention."""
     hd = DIM // heads
+    dname = str(dtype).split(".")[-1]
     loader = DeviceLoader(ds, DistributedSampler(WINDOWS, 1, 0,
                                                  seed=seed + 50 + heads),
                           BATCH, device=dev)
     model = ttr.TransformerLM(vocab=VOCAB, dim=DIM, heads=heads,
-                              layers=LAYERS, compute_dtype=torch.bfloat16,
+                              layers=LAYERS, compute_dtype=dtype,
                               device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(seed + heads))
     state, opt = ttr.create_train_state(model, lr=TRAIN_LR)
@@ -5070,19 +5153,20 @@ def head_dim_lm(dev, seed, ds, heads, card):
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()  # count this path alone
     t_start = time.perf_counter()
-    with torch.no_grad():
-        eval_loss = float(ttr.lm_loss(model, tok, tgt, positions))
-    losses, step_s = [], []
-    for i in range(HD_STEPS):
-        if i:
-            tok, tgt = next(batches)
-        t1 = time.perf_counter()
-        losses.append(float(step(tok, tgt, positions)))  # syncs
-        step_s.append(time.perf_counter() - t1)
-    prompts = next(batches)[0]
-    batches.close()
-    out = tdec.generate(model, prompts, HD_NEW_TOKENS)
-    torch.cuda.synchronize()
+    with no_plain_path():
+        with torch.no_grad():
+            eval_loss = float(ttr.lm_loss(model, tok, tgt, positions))
+        losses, step_s = [], []
+        for i in range(HD_STEPS):
+            if i:
+                tok, tgt = next(batches)
+            t1 = time.perf_counter()
+            losses.append(float(step(tok, tgt, positions)))  # syncs
+            step_s.append(time.perf_counter() - t1)
+        prompts = next(batches)[0]
+        batches.close()
+        out = tdec.generate(model, prompts, HD_NEW_TOKENS)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t_start
     launches = launch_counts()
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -5090,8 +5174,9 @@ def head_dim_lm(dev, seed, ds, heads, card):
             "flash_bwd_dq": LAYERS * HD_STEPS,
             "flash_bwd_dkv": LAYERS * HD_STEPS}
     med = float(np.median(step_s[1:]))
-    msg = (f"head dims LM hd={hd} | {card}: TransformerLM({VOCAB}, {DIM}, "
-           f"heads={heads}, {LAYERS}, bf16) at ({BATCH}, {SEQ}); eval loss "
+    msg = (f"head dims LM hd={hd} {dname} | {card}: TransformerLM({VOCAB}, "
+           f"{DIM}, heads={heads}, {LAYERS}, {dname}) at ({BATCH}, {SEQ}); "
+           f"eval loss "
            f"{eval_loss:.6f}; first step loss {losses[0]:.6f} against the "
            f"plain attention's {ref_loss:.6f} (tol {MOE_LOSS_TOL}); losses "
            f"{losses}; step ms {[round(x * 1e3, 3) for x in step_s]}; "
@@ -5214,8 +5299,9 @@ def phase_head_dims(dev, seed, card):
     errs = {}
     for d in HD_DIMS:
         for name, shape, dt, causal, qo, ko in HD_CASES:
-            for kern, (e_abs, e_rel) in head_dim_case(
-                    g, dev, d, name, shape, dt, causal, qo, ko).items():
+            res = head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko)
+            res.pop("moved")
+            for kern, (e_abs, e_rel) in res.items():
                 prev = errs.get(kern, (0.0, 0.0))
                 errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
     torch.cuda.empty_cache()
@@ -5239,8 +5325,146 @@ def phase_head_dims(dev, seed, card):
             "lm": lms, "example": ex}
 
 
+# Phase 16: the kernels in fp16 and at head dims past 256 (the reference's
+# kernels take any float dtype and any D), and the LM in fp16 and at hd 512.
+
+
+def sdpa_route(q, k, v):
+    """SDPA's route at these inputs (causal): which backends take them,
+    each tried alone under ``sdpa_kernel``, the one a default call picks
+    (PyTorch's own choice, ``torch._fused_sdp_choice``), and the largest
+    kernels of one default call under the profiler (empty where the
+    profiler caught no device events). The library yardstick only."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    took = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION",
+                 "CUDNN_ATTENTION", "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        try:
+            with warnings.catch_warnings(), torch.no_grad(), \
+                    sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                sdpa(q, k, v, is_causal=True)
+            torch.cuda.synchronize()
+            took.append(name)
+        except RuntimeError:
+            pass
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        sdpa(q, k, v, is_causal=True)
+        torch.cuda.synchronize()
+    _, by_name = device_busy(prof)
+    top = [k2 for k2, _ in sorted(by_name.items(), key=lambda r: -r[1][0])]
+    chosen = SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True))
+    return {"backends_that_take_it": took, "default": chosen.name,
+            "default_kernels": top[:3]}
+
+
+def wide_class(d):
+    """The kernels' instantiation class of head dim d: its tile width,
+    or "chunks" past 256 (the chunk loop)."""
+    width, tile, chunks = attention._kernel_width(d)
+    return "chunks" if chunks > 1 else str(tile)
+
+
+def phase_fp16_wide(dev, seed, card):
+    """Phase 16."""
+    g = torch.Generator(device=dev).manual_seed(4321)
+    errs, launched, n_cases = {}, {}, 0
+    for dt, dims in ((torch.float16, HD_DIMS),) + tuple(
+            (dt, FW_DIMS) for dt in FW_DTYPES):
+        dname = str(dt).split(".")[-1]
+        for d in dims:
+            for name, shape, _, causal, qo, ko in HD_CASES:
+                # HD_CASES' shapes, flags and offsets, in dtype dt
+                tag = f"{dname}_{name.split('_', 1)[1]}"
+                res = head_dim_case(g, dev, d, tag, shape, dt, causal, qo, ko)
+                key = (dname, wide_class(d))
+                seen = launched.setdefault(key, dict.fromkeys(res["moved"],
+                                                              0))
+                for kern, n in res.pop("moved").items():
+                    seen[kern] += n
+                for kern, (e_abs, e_rel) in res.items():
+                    prev = errs.setdefault(dname, {}).get(kern, (0.0, 0.0))
+                    errs[dname][kern] = (max(prev[0], e_abs),
+                                         max(prev[1], e_rel))
+                n_cases += 1
+    print(f"fp16 and wide head dims: {n_cases} cases held to the plain "
+          f"versions; worst (max abs, max row rel) per dtype {errs}; "
+          f"launches per (dtype, tile or chunks) {launched}", flush=True)
+    torch.cuda.empty_cache()
+    timing = {}
+    for dt, d in FW_TIMED:
+        dname = str(dt).split(".")[-1]
+        t = head_dim_timing(g, dev, d, dt, iters=FW_ITERS[dname])
+        if d > 256:
+            b, h, s = BATCH, DIM // d, SEQ
+            q, k, v = qkv_views(g, dev, b, h, s, d, dt)
+            t["sdpa_route"] = sdpa_route(q, k, v)
+            print(f"fp16 and wide head dims: SDPA at (B,H,S,D)=({b},{h},{s},"
+                  f"{d}) {dname} causal: {t['sdpa_route']}", flush=True)
+            del q, k, v
+        timing[(dname, d)] = t
+        torch.cuda.empty_cache()
+    store, ds = make_store(seed)
+    lms = {name: head_dim_lm(dev, seed, ds, heads, card, dt)
+           for name, dt, heads in FW_LMS}
+    store.close()
+    return {"errs": errs, "launched": launched, "n_cases": n_cases,
+            "timing": timing, "lm": lms}
+
+
+def fp16_wide_rows(fw):
+    """The kernels' JSON rows of phase 16's variants: each kernel at each
+    timed (dtype, head dim), its launches those of the LM that runs the
+    variant (fp16 at hd 64, bf16 at hd 512), else those of phase 16's
+    cases of its dtype and tile (or chunks)."""
+    lm_of = {("float16", "64"): "fp16", ("bfloat16", "chunks"): "hd512"}
+    rows = []
+    for (dname, d), t in fw["timing"].items():
+        cls = wide_class(d)
+        lm = lm_of.get((dname, cls))
+        for name, line, fn, src in (
+                ("flash_fwd", 92, "_flash_kernel", "flash_fwd.cu"),
+                ("flash_bwd_dq", 213, "_bwd_dq_kernel", "flash_bwd.cu"),
+                ("flash_bwd_dkv", 263, "_bwd_dkv_kernel", "flash_bwd.cu")):
+            r = t[name]
+            rows.append({
+                "name": f"{name}[{dname} d{d}]",
+                "route": "cuda",
+                "design": ("cuda cores" if dname == "float32" else
+                           "wgmma+tma" if d <= 128 else "mma.sync")
+                + (", chunks of 256" if cls == "chunks" else ""),
+                "source": f"ddstore_tpu_torch/ops/csrc/{src}",
+                "replaces": f"ddstore_tpu/ops/attention.py:{line}",
+                "replaces_function": fn,
+                "launches": (fw["lm"][lm]["launches"][name] if lm else
+                             fw["launched"][(dname, cls)][name]),
+                "launches_from": (
+                    f"phase 16 LM {lm}" if lm else
+                    f"phase 16 cases, {dname} "
+                    + ("chunks of 256" if cls == "chunks" else f"tile {cls}")),
+                "max_abs_err": r["max_abs_err"],
+                "max_row_rel_err": r["max_row_rel_err"],
+                "shape": r["shape"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"],
+                # the backward of one SDPA call gives dq, dk and dv:
+                # sdpa_backward_ms
+                "library_ms": r["library_ms"],
+                "sdpa_backward_ms": t["sdpa_backward_ms"],
+                **({"sdpa_route": t["sdpa_route"]}
+                   if "sdpa_route" in t else {})})
+    return rows
+
+
+
 def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
-                 msp, fsk, hd):
+                 msp, fsk, hd, fw):
     """The kernels' JSON line: launches are the training path's (the
     path that runs all three), with each path's counts beside them; the
     long-context ring's launches (both ranks, remat off; and per rank),
@@ -5253,7 +5477,9 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
     long-context example, each kernel's largest error over the head-dim
     cases, the timed shapes and the example's chunks, each kernel at H D
     = 1024 with head dims 32, 128, 256, and at 10 heads of 96, and at the
-    example's ring chunks)."""
+    example's ring chunks); phase 16's LMs (fp16, hd 512) by path, its
+    worst errors per dtype, and a row of each of its timed variants
+    (``fp16_wide_rows``)."""
     def pp_total(k):
         runs = [r["launches_by_rank"] for r in ppr["runs"].values()]
         return sum(x[k] for per in runs + [ppr["moe_launches_by_rank"]]
@@ -5273,7 +5499,9 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
                    "moe_fsdp_sp": msp["launches"][k],
                    **{f"head_dims_lm_hd{d}": r["launches"][k]
                       for d, r in hd["lm"].items()},
-                   "lm_longcontext_example": hd["example"]["launches"][k]}
+                   "lm_longcontext_example": hd["example"]["launches"][k],
+                   **{f"lm_{n}": r["launches"][k]
+                      for n, r in fw["lm"].items()}}
                for k, v in tr["launches"].items()}
     ms = kern["ms"]
     rows = [{
@@ -5339,6 +5567,11 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
                                for c in ("diagonal", "past")},
             "example_launches_by_rank": [
                 x[row["name"]] for x in hd["example"]["launches_by_rank"]]}
+        row["fp16_wide"] = {
+            "cases": fw["n_cases"],
+            "worst_by_dtype": {dn: e[row["name"]]
+                               for dn, e in fw["errs"].items()}}
+    rows += fp16_wide_rows(fw)
     return {"kernels": rows, "sdpa_backward_ms": bwd["ms"]["sdpa_backward"],
             "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"],
             "head_dims_sdpa_backward_ms": {
@@ -5440,8 +5673,14 @@ def main() -> int:
     hd = phase_head_dims(dev, args.seed, card)
     print(f"phase 15 wall {time.perf_counter() - t15:.1f} s", flush=True)
 
+    # 16. fp16 and head dims past 256
+    t16 = time.perf_counter()
+    fw = phase_fp16_wide(dev, args.seed, card)
+    print(f"phase 16 wall {time.perf_counter() - t16:.1f} s", flush=True)
+
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
-                                  lay, tpk, ppr, msp, fsk, hd)), flush=True)
+                                  lay, tpk, ppr, msp, fsk, hd, fw)),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,13 +13,15 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   dtype where the kernels do.
 * :func:`flash_attention` is differentiable. On a CUDA tensor its forward
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
-  of ``csrc/flash_bwd.cu`` (in bf16 all three kernels stream their tiles
-  by TMA and multiply with wgmma, ``csrc/sm90.cuh``, up to head dim 128,
-  and on mma.sync from 129 to 256); on a CPU tensor both run the plain
-  versions, so the CPU tests exercise the backward arithmetic the card
-  runs. On the card it launches the kernels or raises; it never falls back
-  to the plain version there. The kernels take every head dim from 1 to
-  :data:`MAX_HEAD_DIM` (:func:`_kernel_width`), in bf16 or f32.
+  of ``csrc/flash_bwd.cu`` (in bf16 and fp16 all three kernels stream
+  their tiles by TMA and multiply with wgmma, ``csrc/sm90.cuh``, up to
+  head dim 128, and on mma.sync past it, in chunks of 256 features past
+  256); on a CPU tensor both run the plain versions, so the CPU tests
+  exercise the backward arithmetic the card runs. On the card it launches
+  the kernels or raises; it never falls back to the plain version there.
+  The kernels take every head dim from 1 up (:func:`_kernel_width`), in
+  bf16, fp16 or f32: what the reference's kernels take (f64 never reaches
+  them, since the JAX package does not turn on ``jax_enable_x64``).
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from . import _build
 __all__ = ["mha_reference", "flash_attention", "flash_bwd_prep",
            "flash_bwd_dq_reference", "flash_bwd_dkv_reference",
            "flash_fwd_launches", "flash_bwd_dq_launches",
-           "flash_bwd_dkv_launches", "MAX_HEAD_DIM"]
+           "flash_bwd_dkv_launches"]
 
 NEG_INF = float("-inf")
 
@@ -45,27 +47,29 @@ flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest head dim the kernels take
-MAX_HEAD_DIM = 256
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the kernels' tile widths: TMA + wgmma at 64 and 128, mma.sync at 256
+#: (and the f32 kernels' widths); past 256 the head dim is taken in
+#: chunks of the widest
 _TILE_WIDTHS = (64, 128, 256)
 
 
-def _kernel_width(d: int) -> Tuple[int, int]:
-    """(width, tile) of head dim ``d`` on the card: ``width`` is ``d``
-    rounded up to a multiple of 8, what the kernels read (a TMA row must
-    be a multiple of 16 bytes, so the wrappers zero-pad q, k, v and do to
-    it and slice the results back), and ``tile`` the narrowest of the
-    kernels' tile widths that holds it (in the tile, TMA or the loads
-    zero-fill the columns past ``width``; the C entries pick the same
-    tile from ``width``). Raises ``ValueError`` for a head dim the
-    kernels do not take."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"the flash kernels take head dims 1 to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+def _kernel_width(d: int) -> Tuple[int, int, int]:
+    """(width, tile, chunks) of head dim ``d`` on the card: ``width`` is
+    ``d`` rounded up to a multiple of 8, what the kernels read (a TMA row
+    must be a multiple of 16 bytes, so the wrappers zero-pad q, k, v and
+    do to it and slice the results back); ``tile`` the narrowest of the
+    kernels' tile widths that holds it, or the widest past it; ``chunks``
+    how many tiles cover the width, each a grid block's share of the
+    output (1 up to 256). In the last tile TMA or the loads zero-fill the
+    columns past ``width``; the C entries pick the same tile and chunks
+    from ``width``. Raises ``ValueError`` for a head dim below 1."""
+    if d < 1:
+        raise ValueError(f"the flash kernels take head dims from 1 up, "
+                         f"got {d}")
     width = -(-d // 8) * 8
-    return width, next(w for w in _TILE_WIDTHS if w >= width)
+    tile = next((w for w in _TILE_WIDTHS if w >= width), _TILE_WIDTHS[-1])
+    return width, tile, -(-width // tile)
 
 
 def _causal_mask(sq: int, sk: int, q_offset: int, kv_offset: int,
@@ -214,14 +218,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``block_q``/``block_k`` and ``bwd_blocks`` = (block_q_dq, block_k_dq,
     block_q_dkv, block_k_dkv) are the reference's tile upper bounds and
     are checked the same way, with the same messages. The CUDA kernels
-    tile by their own sizes whatever they say (in bf16: forward 192
-    query rows at tile width 64 and 128 at 128, by 128 keys; dq 128 query
-    rows by 64 keys; dk/dv 128 keys by 64 queries at width 64 and 32 at
-    128; at width 256 forward 64 by 64, dq 64 by 32, dk/dv 64 keys by 32
-    queries; in f32: forward 16 by 32, backward 16 by 32 or 16) and mask
-    the ragged last tiles themselves. On the card they take bf16 or f32
-    with any head dim from 1 to 256 (:func:`_kernel_width`); ``scale``
-    defaults to ``1/sqrt(d)`` of the true head dim.
+    tile by their own sizes whatever they say (in bf16 and fp16: forward
+    192 query rows at tile width 64 and 128 at 128, by 128 keys; dq 128
+    query rows by 64 keys; dk/dv 128 keys by 64 queries at width 64 and 32
+    at 128; at width 256 and in each 256-feature chunk past it forward 64
+    by 64, dq 64 by 32, dk/dv 64 keys by 32 queries; in f32: forward 16 by
+    32, backward 16 by 32 or 16) and mask the ragged last tiles
+    themselves. On the card they take bf16, fp16 or f32 with any head dim
+    from 1 up (:func:`_kernel_width`); ``scale`` defaults to ``1/sqrt(d)``
+    of the true head dim.
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -269,9 +274,9 @@ def _check_cuda_inputs(what: str, q, k, v) -> int:
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
-        raise TypeError(f"{what} kernel takes bf16 or f32 (q, k, v all "
-                        f"alike), got {q.dtype}, {k.dtype}, {v.dtype}")
-    width, _ = _kernel_width(d)
+        raise TypeError(f"{what} kernel takes bf16, fp16 or f32 (q, k, v "
+                        f"all alike), got {q.dtype}, {k.dtype}, {v.dtype}")
+    width, _, _ = _kernel_width(d)
     if k.shape != (b, h, sk, d) or v.shape != k.shape or \
             not q.device == k.device == v.device:
         raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "

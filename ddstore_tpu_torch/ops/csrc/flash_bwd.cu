@@ -28,14 +28,20 @@
 // query rows), and ragged last tiles of any length that is a multiple of 8
 // are masked in the kernel.
 //
-// Head dims: d is a multiple of 8 from 8 to 256 (the wrapper zero-pads
-// other head dims and slices the gradients back), in three
-// instantiations: tile widths 64 and 128 of the bf16 TMA + wgmma kernels,
-// whose tensor maps declare the true d so that TMA zero-fills the tiles'
-// columns past it (zero columns of Q, K, V and dO leave S and dP as they
-// are, and give zero columns of dQ, dK and dV, which the stores skip),
-// and for 128 < d <= 256 simpler bf16 kernels on mma.sync (below). The
-// f32 kernels take the same widths, with loads and stores masked at d.
+// Head dims and dtypes: d is any multiple of 8 from 8 up (the wrapper
+// zero-pads other head dims and slices the gradients back), in bf16, fp16
+// or f32. The 16-bit kernels are templated on the element type (sm90::Bf16,
+// sm90::F16: the same tiles, barriers and register budgets; P and dS are
+// rounded to the input dtype before their products, as the reference
+// rounds them), in four instantiations each: tile widths 64 and 128 of the
+// TMA + wgmma kernels, whose tensor maps declare the true d so that TMA
+// zero-fills the tiles' columns past it (zero columns of Q, K, V and dO
+// leave S and dP as they are, and give zero columns of dQ, dK and dV,
+// which the stores skip), and for d > 128 simpler kernels on mma.sync
+// (below): one 256-feature tile up to d = 256, chunks of 256 past it. The
+// f32 kernels take the widths 64, 128, 256 and chunks of 256, with loads
+// and stores masked at d. Shared memory and registers are sized by the
+// tile or chunk, never by d.
 //
 // Bound on the H100 SXM at the LM's shape, (B, H, S, D) = (8, 16, 2048,
 // 64) bf16 causal, 2.686e8 live score pairs: dq does 3 products of 2*D
@@ -44,11 +50,12 @@
 // at 3.35 TB/s; dk/dv does 4 (s, dp, dv, dk), 1.375e11 FLOP = 0.139 ms,
 // against about 203 MB = 0.061 ms. Both are bound by operations.
 //
-// Design, and what it leaves on the table. Both bf16 kernels are a TMA tile
-// ring + wgmma (sm90.cuh) in blocks of three warpgroups: warpgroup 2 gives
-// up its registers (setmaxnreg, 24 left against 240 for each consumer) and
-// one of its threads issues every TMA load; warpgroups 0 and 1 each own 64
-// rows of the block's resident operand.
+// Design, and what it leaves on the table. Both 16-bit kernels at d <= 128
+// (bf16 below; fp16 the same) are a TMA tile ring + wgmma (sm90.cuh) in
+// blocks of three warpgroups: warpgroup 2 gives up its registers
+// (setmaxnreg, 24 left against 240 for each consumer) and one of its
+// threads issues every TMA load; warpgroups 0 and 1 each own 64 rows of
+// the block's resident operand.
 // * bf16 dq: one block per 128 queries. The producer loads Q and dO once,
 //   then streams the K and V tiles through a ring of three shared stages
 //   completed on mbarriers ("full" when TMA has landed, "empty" when both
@@ -86,19 +93,28 @@
 //   K and V held in registers as A fragments (the SS products re-read
 //   them from shared memory for every query tile), persistent blocks, a
 //   fused dq, and tiles narrower than 64 features.
-// * bf16, 128 < d <= 256: right rather than fast, on mma.sync m16n8k16
+// * bf16 and fp16, d > 128: right rather than fast, on mma.sync m16n8k16
 //   with plain 16-byte loads into padded shared rows (columns past d
 //   zero) and ldmatrix.trans for the operands whose contracted dim runs
 //   down their rows. dq: one block of 4 warps per 64 queries (16 a warp);
 //   Q and dO stay in shared memory, 32-key K and V tiles stream through
 //   it; dQ's 128 accumulators a thread for 16 rows x 256 features fit
 //   beside S and dP of a 32-key tile. dk/dv: two D-wide accumulators would
-//   not fit, so each block owns 64 keys and one half (128 features) of
-//   dK and dV, and forms S^T and dP^T over all 256 features for its half:
-//   the two halves' blocks repeat those two products (1.5x the FLOPs).
+//   not fit, so each block owns 64 keys and one part (128 features) of
+//   dK and dV, and forms S^T and dP^T over all the features for its part:
+//   the parts' blocks repeat those two products (at d = 256, 1.5x the
+//   FLOPs). Past d = 256 the features come in nc = ceil(d / 256) chunks:
+//   dq's blocks each own one chunk of dQ, dk/dv's one of ceil(d / 128)
+//   parts (a grid axis folded into the tile axis); for each streamed tile
+//   a block stages the chunks of both operands in turn into the same
+//   shared rows and sums S and dP (S^T and dP^T) over them, then takes the
+//   chunk its output needs (staged again unless it was the last). Every
+//   block forms the same S in the same order, so P is the same in each;
+//   the outputs stay disjoint, so the gradients stay bit-deterministic.
 // * f32: the same algorithm on the CUDA cores, one dot product per score
 //   (the tensor cores take no f32 inputs); exact in f32, for checking the
-//   math without bf16 rounding. The LM runs in bf16.
+//   math without bf16 rounding. The LM runs in bf16. Past d = 256 the
+//   same chunk loop, in chunks of 256 for dQ, dK and dV alike.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -192,7 +208,7 @@ struct DqParams {
   CUtensorMap k, v;     // boxes of 64 features x 64 rows
   const float* lse;     // (B*H, Sq), contiguous
   const float* c;       // (B*H, Sq), contiguous
-  __nv_bfloat16* dq;
+  void* dq;             // E::T
   long long s1b, s1h, s1s;
   int h, sq, sk;
   int d;  // true head dim: the stores skip the tile's columns past it
@@ -230,9 +246,9 @@ __device__ __forceinline__ int dq_key_tiles(const DqParams& p,
   return static_cast<int>(x / kDqBN + 1 < nk ? x / kDqBN + 1 : nk);
 }
 
-template <int D>
+template <int D, class E>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-    flash_bwd_dq_bf16_kernel(const __grid_constant__ DqParams p) {
+    flash_bwd_dq_wgmma_kernel(const __grid_constant__ DqParams p) {
   using L = DqSmem<D>;
   constexpr int BN = kDqBN;
   extern __shared__ uint8_t smem_raw[];
@@ -311,7 +327,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const float sl2 = p.scale * kLog2e;
 
     float s[BN / 2], dp[BN / 2];  // S and dP of one tile; then dS in dp
-    uint32_t da[BN / 16][4];      // dS in bf16: the A fragments of dS K
+    uint32_t da[BN / 16][4];      // dS in E: the A fragments of dS K
 
     auto stage = [&](int i) {
       return smem + L::kRing + (i % kStages) * 2 * L::kKT;
@@ -329,15 +345,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const int ka = (kk / 4) * L::kQBox + (kk % 4) * 32;
         const int kb = (kk / 4) * L::kKBox + (kk % 4) * 32;
-        sm90::Wgmma<BN>::ss(s, sm90::desc_k(qs + ka), sm90::desc_k(ks + kb),
-                            kk > 0);
+        sm90::Wgmma<BN, E>::ss(s, sm90::desc_k(qs + ka),
+                               sm90::desc_k(ks + kb), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int ka = (kk / 4) * L::kQBox + (kk % 4) * 32;
         const int kb = (kk / 4) * L::kKBox + (kk % 4) * 32;
-        sm90::Wgmma<BN>::ss(dp, sm90::desc_k(dos + ka),
-                            sm90::desc_k(vs + kb), kk > 0);
+        sm90::Wgmma<BN, E>::ss(dp, sm90::desc_k(dos + ka),
+                               sm90::desc_k(vs + kb), kk > 0);
       }
       sm90::wgmma_commit();
     };
@@ -348,8 +364,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        sm90::Wgmma<D>::rs_mn(dq, da[kk],
-                              sm90::desc_mn(ks + kk * 16 * 128, L::kKBox), 1);
+        sm90::Wgmma<D, E>::rs_mn(dq, da[kk],
+                                 sm90::desc_mn(ks + kk * 16 * 128, L::kKBox),
+                                 1);
       sm90::wgmma_commit();
     };
     // P = exp2(S scale log2e - lse log2e) and dS = P (dP - c) of tile i,
@@ -387,7 +404,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           da[kk][r] =
-              sm90::pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+              sm90::pack<E>(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
     };
     // dQ of tile i waited for; then its stage may be refilled.
     auto finish_dq = [&](int i) {
@@ -433,15 +450,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     for (int hr = 0; hr < 2; ++hr) {
       const int row = r0 + 8 * hr;
       if (row < p.sq) {
-        __nv_bfloat16* dqp = p.dq + static_cast<long long>(bb) * p.s1b +
+        typename E::T* dqp = static_cast<typename E::T*>(p.dq) +
+                             static_cast<long long>(bb) * p.s1b +
                              static_cast<long long>(hh) * p.s1h +
                              static_cast<long long>(row) * p.s1s;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           if (8 * j < p.d)
-            *reinterpret_cast<__nv_bfloat162*>(dqp + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(dq[4 * j + 2 * hr] * p.scale,
-                                      dq[4 * j + 2 * hr + 1] * p.scale);
+            *reinterpret_cast<typename E::T2*>(dqp + 8 * j + 2 * t) =
+                E::pack2(dq[4 * j + 2 * hr] * p.scale,
+                         dq[4 * j + 2 * hr + 1] * p.scale);
       }
     }
   }
@@ -464,8 +482,8 @@ struct DkvParams {
   CUtensorMap q, dout;  // boxes of 64 features x BQ rows
   CUtensorMap k, v;     // boxes of 64 features x 128 rows
   CUtensorMap lse, c;   // (B*H, Sq) f32, boxes of BQ
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  void* dk;             // E::T
+  void* dv;             // E::T
   long long s1b, s1h, s1s;
   long long s2b, s2h, s2s;
   int h, sq, sk;
@@ -494,9 +512,9 @@ struct DkvSmem {
   static constexpr int kStageTx = 2 * kQT + 2 * kBQ * 4;
 };
 
-template <int D>
+template <int D, class E>
 __global__ void __launch_bounds__(kBlockThreads, 1)
-    flash_bwd_dkv_bf16_kernel(const __grid_constant__ DkvParams p) {
+    flash_bwd_dkv_wgmma_kernel(const __grid_constant__ DkvParams p) {
   using L = DkvSmem<D>;
   constexpr int BQ = L::kBQ;
   extern __shared__ uint8_t smem_raw[];
@@ -604,15 +622,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       for (int kk = 0; kk < D / 16; ++kk) {
         const int ka = (kk / 4) * L::kKBox + (kk % 4) * 32;
         const int kb = (kk / 4) * L::kQBox + (kk % 4) * 32;
-        sm90::Wgmma<BQ>::ss(st, sm90::desc_k(ks + ka), sm90::desc_k(qs + kb),
-                            kk > 0);
+        sm90::Wgmma<BQ, E>::ss(st, sm90::desc_k(ks + ka),
+                               sm90::desc_k(qs + kb), kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const int ka = (kk / 4) * L::kKBox + (kk % 4) * 32;
         const int kb = (kk / 4) * L::kQBox + (kk % 4) * 32;
-        sm90::Wgmma<BQ>::ss(dpt, sm90::desc_k(vs + ka),
-                            sm90::desc_k(dos + kb), kk > 0);
+        sm90::Wgmma<BQ, E>::ss(dpt, sm90::desc_k(vs + ka),
+                               sm90::desc_k(dos + kb), kk > 0);
       }
       sm90::wgmma_commit();
     };
@@ -625,10 +643,10 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
-        sm90::Wgmma<D>::rs_mn(dv, pa[kk],
-                              sm90::desc_mn(dos + kk * 16 * 128, L::kQBox), 1);
-        sm90::Wgmma<D>::rs_mn(dk, da[kk],
-                              sm90::desc_mn(qs + kk * 16 * 128, L::kQBox), 1);
+        sm90::Wgmma<D, E>::rs_mn(
+            dv, pa[kk], sm90::desc_mn(dos + kk * 16 * 128, L::kQBox), 1);
+        sm90::Wgmma<D, E>::rs_mn(
+            dk, da[kk], sm90::desc_mn(qs + kk * 16 * 128, L::kQBox), 1);
       }
       sm90::wgmma_commit();
     };
@@ -677,9 +695,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           pa[kk][r] =
-              sm90::pack_bf16(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
+              sm90::pack<E>(st[8 * kk + 2 * r], st[8 * kk + 2 * r + 1]);
           da[kk][r] =
-              sm90::pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+              sm90::pack<E>(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
         }
     };
 
@@ -727,20 +745,22 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     for (int hr = 0; hr < 2; ++hr) {
       const int row = r0 + 8 * hr;
       if (row < p.sk) {
-        __nv_bfloat16* dkp = p.dk + static_cast<long long>(bb) * p.s1b +
+        typename E::T* dkp = static_cast<typename E::T*>(p.dk) +
+                             static_cast<long long>(bb) * p.s1b +
                              static_cast<long long>(hh) * p.s1h +
                              static_cast<long long>(row) * p.s1s;
-        __nv_bfloat16* dvp = p.dv + static_cast<long long>(bb) * p.s2b +
+        typename E::T* dvp = static_cast<typename E::T*>(p.dv) +
+                             static_cast<long long>(bb) * p.s2b +
                              static_cast<long long>(hh) * p.s2h +
                              static_cast<long long>(row) * p.s2s;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           if (8 * j >= p.d) continue;
-          *reinterpret_cast<__nv_bfloat162*>(dkp + 8 * j + 2 * t) =
-              __floats2bfloat162_rn(dk[4 * j + 2 * hr] * p.scale,
-                                    dk[4 * j + 2 * hr + 1] * p.scale);
-          *reinterpret_cast<__nv_bfloat162*>(dvp + 8 * j + 2 * t) =
-              __floats2bfloat162_rn(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+          *reinterpret_cast<typename E::T2*>(dkp + 8 * j + 2 * t) =
+              E::pack2(dk[4 * j + 2 * hr] * p.scale,
+                       dk[4 * j + 2 * hr + 1] * p.scale);
+          *reinterpret_cast<typename E::T2*>(dvp + 8 * j + 2 * t) =
+              E::pack2(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
         }
       }
     }
@@ -748,11 +768,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, 128 < d <= 256: mma.sync
+// bf16 and fp16, d > 128: mma.sync
 
 constexpr int kWideD = 256;  // the tiles' width; columns past d are zero
 constexpr int kWideThreads = 128;
 constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
+
+// The columns of feature chunk c (kWideD wide) below the true d.
+__device__ __forceinline__ int chunk_cols(int d, int c) {
+  const int left = d - c * kWideD;
+  return left < kWideD ? left : kWideD;
+}
 
 // dq: one block per (64 queries, head, batch), 4 warps x 16 query rows;
 // K and V tiles of 32 keys.
@@ -760,36 +786,48 @@ constexpr int kWideDqBQ = 64;
 constexpr int kWideDqBK = 32;
 constexpr int kWideDqBytes = (2 * kWideDqBQ + 2 * kWideDqBK) * kWideST * 2;
 
+// kChunked = false: 128 < d <= 256, one tile of kWideD features; Q and dO
+// stay in shared memory for the whole key loop. kChunked = true: d > 256,
+// in nc = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is the
+// chunk oc of dQ it owns, S = Q K^T and dP = dO V^T sum over the chunks
+// (each staged in turn into the same shared rows), and dQ += dS K takes
+// K's chunk oc (staged again unless it was the last one).
+template <class E, bool kChunked>
 __global__ void __launch_bounds__(kWideThreads)
     flash_bwd_dq_wide_kernel(Args a) {
+  using T = typename E::T;
   constexpr int ST = kWideST, BQ = kWideDqBQ, BK = kWideDqBK;
   extern __shared__ __align__(16) uint8_t smem_dq_wide[];
-  auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem_dq_wide);
-  __nv_bfloat16* do_s = q_s + BQ * ST;
-  __nv_bfloat16* k_s = do_s + BQ * ST;
-  __nv_bfloat16* v_s = k_s + BK * ST;
+  auto* q_s = reinterpret_cast<T*>(smem_dq_wide);
+  T* do_s = q_s + BQ * ST;
+  T* k_s = do_s + BQ * ST;
+  T* v_s = k_s + BK * ST;
 
-  const int q0 = blockIdx.x * BQ;
+  int nc = 1, oc = 0, qt = blockIdx.x;
+  if constexpr (kChunked) {
+    nc = (a.d + kWideD - 1) / kWideD;
+    qt = blockIdx.x / nc;
+    oc = blockIdx.x % nc;
+  }
+  const int q0 = qt * BQ;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
-  const auto* qp =
-      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const auto* kp =
-      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
-  const auto* vp =
-      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
-  const auto* dp_ =
-      static_cast<const __nv_bfloat16*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  auto* dqp = static_cast<__nv_bfloat16*>(a.o1) + bb * a.s1b + hh * a.s1h;
+  const T* qp = static_cast<const T*>(a.q) + bb * a.sqb + hh * a.sqh;
+  const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
+  const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
+  const T* dp_ = static_cast<const T*>(a.dout) + bb * a.sdb + hh * a.sdh;
+  T* dqp = static_cast<T*>(a.o1) + bb * a.s1b + hh * a.s1h;
 
   // Q and dO stay in shared memory for the whole key loop.
-  sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0, a.sq,
-                                                 a.d, tid);
-  sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0, a.sq,
-                                                 a.d, tid);
+  if constexpr (!kChunked) {
+    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0, a.sq,
+                                                   a.d, tid);
+    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0,
+                                                   a.sq, a.d, tid);
+  }
 
   // Rows g and g + 8 of this warp's 16.
   float lse2[2], cr[2];
@@ -816,32 +854,60 @@ __global__ void __launch_bounds__(kWideThreads)
       if (!live) break;  // every later tile lies further in the future
     }
     const bool masked = diag || k0 + BK > a.sk || q0 + BQ > a.sq;
-    __syncthreads();  // the previous tile's k_s/v_s reads are done
-    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0, a.sk,
-                                                   a.d, tid);
-    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0, a.sk,
-                                                   a.d, tid);
-    __syncthreads();
 
-    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp.
+    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp, over the
+    // features of the tiles in shared memory.
     float s[BK / 8][4], dp[BK / 8][4];
 #pragma unroll
     for (int nt = 0; nt < BK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+    auto sdp = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kWideD / 16; ++kk) {
-      uint32_t qf[4], dof[4];
-      sm90::load_a<ST>(qf, q_s, wr, kk, g, t);
-      sm90::load_a<ST>(dof, do_s, wr, kk, g, t);
+      for (int kk = 0; kk < kWideD / 16; ++kk) {
+        uint32_t qf[4], dof[4];
+        sm90::load_a<ST>(qf, q_s, wr, kk, g, t);
+        sm90::load_a<ST>(dof, do_s, wr, kk, g, t);
 #pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
-        sm90::mma16816(s[nt], qf, sm90::ld32(&k_s[off]),
-                       sm90::ld32(&k_s[off + 8]));
-        sm90::mma16816(dp[nt], dof, sm90::ld32(&v_s[off]),
-                       sm90::ld32(&v_s[off + 8]));
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
+          sm90::mma16816<E>(s[nt], qf, sm90::ld32(&k_s[off]),
+                            sm90::ld32(&k_s[off + 8]));
+          sm90::mma16816<E>(dp[nt], dof, sm90::ld32(&v_s[off]),
+                            sm90::ld32(&v_s[off + 8]));
+        }
       }
+    };
+    if constexpr (kChunked) {
+      for (int c = 0; c < nc; ++c) {
+        // the previous chunk's (or tile's) shared reads are done
+        __syncthreads();
+        const int cols = chunk_cols(a.d, c);
+        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+            q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
+        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+            do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
+        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+            k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
+        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+            v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
+        __syncthreads();
+        sdp();
+      }
+      if (oc != nc - 1) {  // dQ's chunk of K
+        __syncthreads();
+        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+            k_s, kp + oc * kWideD, a.sks, k0, a.sk, chunk_cols(a.d, oc), tid);
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();  // the previous tile's k_s/v_s reads are done
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0,
+                                                     a.sk, a.d, tid);
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0,
+                                                     a.sk, a.d, tid);
+      __syncthreads();
+      sdp();
     }
 
     // dS = P (dP - c), P = exp2(S scale log2e - lse log2e).
@@ -862,79 +928,106 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint32_t da[4] = {
-          sm90::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          sm90::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          sm90::pack<E>(s[2 * kk][0], s[2 * kk][1]),
+          sm90::pack<E>(s[2 * kk][2], s[2 * kk][3]),
+          sm90::pack<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          sm90::pack<E>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dt = 0; dt < kWideD / 8; dt += 2) {
         uint32_t b[4];
         sm90::load_b_kmajor_x2<ST>(b, k_s, kk, dt, lane);
-        sm90::mma16816(acc[dt], da, b[0], b[1]);
-        sm90::mma16816(acc[dt + 1], da, b[2], b[3]);
+        sm90::mma16816<E>(acc[dt], da, b[0], b[1]);
+        sm90::mma16816<E>(acc[dt + 1], da, b[2], b[3]);
       }
     }
   }
 
-  // Every row below Sq is written: 0 where no live key reaches it.
+  // Every row below Sq is written: 0 where no live key reaches it. This
+  // block's columns: [oc kWideD, oc kWideD + kWideD) below d.
+  const int f0 = oc * kWideD;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = q0 + wr + g + 8 * hr;
     if (row < a.sq) {
 #pragma unroll
       for (int dt = 0; dt < kWideD / 8; ++dt)
-        if (8 * dt < a.d)
-          *reinterpret_cast<__nv_bfloat162*>(dqp + row * a.s1s + dt * 8 +
+        if (f0 + 8 * dt < a.d)
+          *reinterpret_cast<typename E::T2*>(dqp + row * a.s1s + f0 + dt * 8 +
                                              2 * t) =
-              __floats2bfloat162_rn(acc[dt][2 * hr] * a.scale,
-                                    acc[dt][2 * hr + 1] * a.scale);
+              E::pack2(acc[dt][2 * hr] * a.scale,
+                       acc[dt][2 * hr + 1] * a.scale);
     }
   }
 }
 
-// dk/dv: one block per (64 keys, half of the features, head, batch), 4
-// warps x 16 key rows; query tiles of 32. The block's half of dK and dV
-// takes 128 accumulators a thread.
+// dk/dv: one block per (64 keys, a part of kWideHalf features, head,
+// batch), 4 warps x 16 key rows; query tiles of 32. The block's part of dK
+// and dV takes 128 accumulators a thread.
 constexpr int kWideDkvBK = 64;
 constexpr int kWideDkvBQ = 32;
 constexpr int kWideHalf = kWideD / 2;
 constexpr int kWideDkvBytes =
     (2 * kWideDkvBK + 2 * kWideDkvBQ) * kWideST * 2 + 2 * kWideDkvBQ * 4;
 
+// The parts of kWideHalf features dK and dV are split into: two at d <=
+// kWideD, ceil(d / kWideHalf) past it.
+__host__ __device__ __forceinline__ int dkv_parts(int d, bool chunked) {
+  return chunked ? (d + kWideHalf - 1) / kWideHalf : 2;
+}
+
+// kChunked = false: 128 < d <= 256, one tile; K and V stay in shared
+// memory for the whole query loop, and the two halves' blocks repeat S^T
+// and dP^T. kChunked = true: d > 256, in nc = ceil(d / kWideD) chunks; the
+// block's blockIdx.x % parts is its part of dK and dV, S^T = K Q^T and dP^T
+// = V dO^T sum over the chunks (K, V, Q and dO staged in turn into the same
+// shared rows), and dV, dK take the part's columns of dO and Q (their chunk
+// staged again unless it was the last one).
+template <class E, bool kChunked>
 __global__ void __launch_bounds__(kWideThreads)
     flash_bwd_dkv_wide_kernel(Args a) {
+  using T = typename E::T;
   constexpr int ST = kWideST, BK = kWideDkvBK, BQ = kWideDkvBQ;
   extern __shared__ __align__(16) uint8_t smem_dkv_wide[];
-  auto* k_s = reinterpret_cast<__nv_bfloat16*>(smem_dkv_wide);
-  __nv_bfloat16* v_s = k_s + BK * ST;
-  __nv_bfloat16* q_s = v_s + BK * ST;
-  __nv_bfloat16* do_s = q_s + BQ * ST;
+  auto* k_s = reinterpret_cast<T*>(smem_dkv_wide);
+  T* v_s = k_s + BK * ST;
+  T* q_s = v_s + BK * ST;
+  T* do_s = q_s + BQ * ST;
   auto* lse_s = reinterpret_cast<float*>(do_s + BQ * ST);  // log2 units
   float* c_s = lse_s + BQ;
 
-  const int k0 = (blockIdx.x >> 1) * BK;
-  const int f0 = (blockIdx.x & 1) * kWideHalf;  // this block's features
+  // This block's keys and features [f0, f0 + kWideHalf), which lie in
+  // chunk pc at column fc.
+  int nc = 1, pc = 0, k0, f0;
+  if constexpr (kChunked) {
+    const int parts = dkv_parts(a.d, true);
+    nc = (a.d + kWideD - 1) / kWideD;
+    k0 = (blockIdx.x / parts) * BK;
+    f0 = (blockIdx.x % parts) * kWideHalf;
+    pc = f0 / kWideD;
+  } else {
+    k0 = (blockIdx.x >> 1) * BK;
+    f0 = (blockIdx.x & 1) * kWideHalf;
+  }
+  const int fc = f0 - pc * kWideD;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
   const int wr = warp * 16;
-  const auto* qp =
-      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const auto* kp =
-      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
-  const auto* vp =
-      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
-  const auto* dp_ =
-      static_cast<const __nv_bfloat16*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  auto* dkp = static_cast<__nv_bfloat16*>(a.o1) + bb * a.s1b + hh * a.s1h;
-  auto* dvp = static_cast<__nv_bfloat16*>(a.o2) + bb * a.s2b + hh * a.s2h;
+  const T* qp = static_cast<const T*>(a.q) + bb * a.sqb + hh * a.sqh;
+  const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
+  const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
+  const T* dp_ = static_cast<const T*>(a.dout) + bb * a.sdb + hh * a.sdh;
+  T* dkp = static_cast<T*>(a.o1) + bb * a.s1b + hh * a.s1h;
+  T* dvp = static_cast<T*>(a.o2) + bb * a.s2b + hh * a.s2h;
 
   // K and V stay in shared memory for the whole query loop, all features.
-  sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0, a.sk,
-                                                 a.d, tid);
-  sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0, a.sk,
-                                                 a.d, tid);
+  if constexpr (!kChunked) {
+    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0, a.sk,
+                                                   a.d, tid);
+    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0, a.sk,
+                                                   a.d, tid);
+  }
 
   float dk[kWideHalf / 8][4], dv[kWideHalf / 8][4];
 #pragma unroll
@@ -961,37 +1054,71 @@ __global__ void __launch_bounds__(kWideThreads)
       if (!live) continue;
     }
     const bool masked = diag || q0 + BQ > a.sq || k0 + BK > a.sk;
-    __syncthreads();  // the previous tile's q_s/do_s reads are done
-    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0, a.sq,
-                                                   a.d, tid);
-    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0,
-                                                   a.sq, a.d, tid);
-    for (int r = tid; r < BQ; r += kWideThreads) {
-      lse_s[r] = safe_lse(a, bh, q0 + r) * kLog2e;
-      c_s[r] = row_c(a, bh, q0 + r);
-    }
-    __syncthreads();
 
-    // S^T = K Q^T and dP^T = V dO^T over all features: 16 keys x 32
-    // queries per warp.
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries per warp, over
+    // the features of the tiles in shared memory.
     float st[BQ / 8][4], dpt[BQ / 8][4];
 #pragma unroll
     for (int nt = 0; nt < BQ / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
+    auto sdp = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kWideD / 16; ++kk) {
-      uint32_t kf[4], vf[4];
-      sm90::load_a<ST>(kf, k_s, wr, kk, g, t);
-      sm90::load_a<ST>(vf, v_s, wr, kk, g, t);
+      for (int kk = 0; kk < kWideD / 16; ++kk) {
+        uint32_t kf[4], vf[4];
+        sm90::load_a<ST>(kf, k_s, wr, kk, g, t);
+        sm90::load_a<ST>(vf, v_s, wr, kk, g, t);
 #pragma unroll
-      for (int nt = 0; nt < BQ / 8; ++nt) {
-        const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
-        sm90::mma16816(st[nt], kf, sm90::ld32(&q_s[off]),
-                       sm90::ld32(&q_s[off + 8]));
-        sm90::mma16816(dpt[nt], vf, sm90::ld32(&do_s[off]),
-                       sm90::ld32(&do_s[off + 8]));
+        for (int nt = 0; nt < BQ / 8; ++nt) {
+          const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
+          sm90::mma16816<E>(st[nt], kf, sm90::ld32(&q_s[off]),
+                            sm90::ld32(&q_s[off + 8]));
+          sm90::mma16816<E>(dpt[nt], vf, sm90::ld32(&do_s[off]),
+                            sm90::ld32(&do_s[off + 8]));
+        }
       }
+    };
+    auto stage_lse_c = [&]() {
+      for (int r = tid; r < BQ; r += kWideThreads) {
+        lse_s[r] = safe_lse(a, bh, q0 + r) * kLog2e;
+        c_s[r] = row_c(a, bh, q0 + r);
+      }
+    };
+    if constexpr (kChunked) {
+      for (int c = 0; c < nc; ++c) {
+        // the previous chunk's (or tile's) shared reads are done
+        __syncthreads();
+        const int cols = chunk_cols(a.d, c);
+        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+            k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
+        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+            v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
+        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+            q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
+        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+            do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
+        if (c == 0) stage_lse_c();
+        __syncthreads();
+        sdp();
+      }
+      if (pc != nc - 1) {  // the part's chunk of Q and dO
+        __syncthreads();
+        const int cols = chunk_cols(a.d, pc);
+        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+            q_s, qp + pc * kWideD, a.sqs, q0, a.sq, cols, tid);
+        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+            do_s, dp_ + pc * kWideD, a.sds, q0, a.sq, cols, tid);
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();  // the previous tile's q_s/do_s reads are done
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0,
+                                                     a.sq, a.d, tid);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0,
+                                                     a.sq, a.d, tid);
+      stage_lse_c();
+      __syncthreads();
+      sdp();
     }
 
     // P^T and dS^T = P^T (dP^T - c); the query is the column here.
@@ -1014,24 +1141,24 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
       const uint32_t pa[4] = {
-          sm90::pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-          sm90::pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-          sm90::pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          sm90::pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+          sm90::pack<E>(st[2 * kk][0], st[2 * kk][1]),
+          sm90::pack<E>(st[2 * kk][2], st[2 * kk][3]),
+          sm90::pack<E>(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+          sm90::pack<E>(st[2 * kk + 1][2], st[2 * kk + 1][3])};
       const uint32_t da[4] = {
-          sm90::pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-          sm90::pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-          sm90::pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-          sm90::pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+          sm90::pack<E>(dpt[2 * kk][0], dpt[2 * kk][1]),
+          sm90::pack<E>(dpt[2 * kk][2], dpt[2 * kk][3]),
+          sm90::pack<E>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+          sm90::pack<E>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
 #pragma unroll
       for (int dt = 0; dt < kWideHalf / 8; dt += 2) {
         uint32_t b[4];
-        sm90::load_b_kmajor_x2<ST>(b, do_s + f0, kk, dt, lane);
-        sm90::mma16816(dv[dt], pa, b[0], b[1]);
-        sm90::mma16816(dv[dt + 1], pa, b[2], b[3]);
-        sm90::load_b_kmajor_x2<ST>(b, q_s + f0, kk, dt, lane);
-        sm90::mma16816(dk[dt], da, b[0], b[1]);
-        sm90::mma16816(dk[dt + 1], da, b[2], b[3]);
+        sm90::load_b_kmajor_x2<ST>(b, do_s + fc, kk, dt, lane);
+        sm90::mma16816<E>(dv[dt], pa, b[0], b[1]);
+        sm90::mma16816<E>(dv[dt + 1], pa, b[2], b[3]);
+        sm90::load_b_kmajor_x2<ST>(b, q_s + fc, kk, dt, lane);
+        sm90::mma16816<E>(dk[dt], da, b[0], b[1]);
+        sm90::mma16816<E>(dk[dt + 1], da, b[2], b[3]);
       }
     }
   }
@@ -1045,33 +1172,38 @@ __global__ void __launch_bounds__(kWideThreads)
       for (int dt = 0; dt < kWideHalf / 8; ++dt) {
         const int col = f0 + dt * 8 + 2 * t;
         if (f0 + 8 * dt >= a.d) continue;
-        *reinterpret_cast<__nv_bfloat162*>(dkp + row * a.s1s + col) =
-            __floats2bfloat162_rn(dk[dt][2 * hr] * a.scale,
-                                  dk[dt][2 * hr + 1] * a.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dvp + row * a.s2s + col) =
-            __floats2bfloat162_rn(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
+        *reinterpret_cast<typename E::T2*>(dkp + row * a.s1s + col) =
+            E::pack2(dk[dt][2 * hr] * a.scale, dk[dt][2 * hr + 1] * a.scale);
+        *reinterpret_cast<typename E::T2*>(dvp + row * a.s2s + col) =
+            E::pack2(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
       }
     }
   }
 }
 
+template <class E, bool kChunked>
 int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWideDqBytes);
+      flash_bwd_dq_wide_kernel<E, kChunked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDqBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.sq + kWideDqBQ - 1) / kWideDqBQ, a.h, b);
-  flash_bwd_dq_wide_kernel<<<grid, kWideThreads, kWideDqBytes, st>>>(a);
+  const int nc = kChunked ? (a.d + kWideD - 1) / kWideD : 1;
+  dim3 grid((a.sq + kWideDqBQ - 1) / kWideDqBQ * nc, a.h, b);
+  flash_bwd_dq_wide_kernel<E, kChunked>
+      <<<grid, kWideThreads, kWideDqBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class E, bool kChunked>
 int launch_dkv_wide(const Args& a, int b, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWideDkvBytes);
+      flash_bwd_dkv_wide_kernel<E, kChunked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDkvBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(2 * ((a.sk + kWideDkvBK - 1) / kWideDkvBK), a.h, b);
-  flash_bwd_dkv_wide_kernel<<<grid, kWideThreads, kWideDkvBytes, st>>>(a);
+  dim3 grid(dkv_parts(a.d, kChunked) * ((a.sk + kWideDkvBK - 1) / kWideDkvBK),
+            a.h, b);
+  flash_bwd_dkv_wide_kernel<E, kChunked>
+      <<<grid, kWideThreads, kWideDkvBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1080,7 +1212,8 @@ int launch_dkv_wide(const Args& a, int b, cudaStream_t st) {
 // adjacent lanes of one warp, and lane c8 of a row takes the columns
 // c8 + 8 i of the streamed tile and the features c8 + 8 j. Loads zero the
 // features past d (they add nothing to a dot product), and stores skip
-// them.
+// them. D is the tiles' width: the head dim's (d <= 256), or one chunk of
+// it (d > 256: kChunked, below).
 
 constexpr int kThreads = 128;
 constexpr int kSRows = 16;   // rows per block (queries for dq, keys for dk/dv)
@@ -1119,14 +1252,29 @@ struct F32DkvSmem {
 };
 
 __device__ __forceinline__ float dot_row(const float* x, const float* y,
-                                         int d) {
-  float acc = 0.f;
+                                         int d, float acc = 0.f) {
 #pragma unroll 16
   for (int i = 0; i < d; ++i) acc = fmaf(x[i], y[i], acc);
   return acc;
 }
 
-template <int D>
+// A chunk of rows of an f32 operand into a shared tile of row stride D + 1
+// (sm90::stage_rows_f32).
+template <int R, int D>
+__device__ __forceinline__ void stage_f32(float (*dst)[D + 1],
+                                          const float* src,
+                                          long long row_stride, int r0, int n,
+                                          int c0, int d, int tid) {
+  sm90::stage_rows_f32<R, D, D + 1, kThreads>(&dst[0][0], src, row_stride,
+                                              r0, n, c0, d, tid);
+}
+
+// kChunked = false: d <= D, one tile; Q and dO stay in shared memory.
+// kChunked = true: d > D, in nc = ceil(d / D) chunks of D = 256; the
+// block's blockIdx.x % nc is the chunk oc of dQ it owns, S and dP sum over
+// the chunks staged in turn, and dQ += dS K takes K's chunk oc (staged
+// again unless it was the last one).
+template <int D, bool kChunked>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
   using L = F32DqSmem<D>;
   constexpr int BK = L::kBK;
@@ -1138,7 +1286,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
   auto v_s = reinterpret_cast<float(*)[D + 1]>(base + L::kV);
   auto ds_s = reinterpret_cast<float(*)[BK + 1]>(base + L::kDs);
 
-  const int q0 = blockIdx.x * kSRows;
+  int nc = 1, oc = 0, qt = blockIdx.x;
+  if constexpr (kChunked) {
+    nc = (a.d + D - 1) / D;
+    qt = blockIdx.x / nc;
+    oc = blockIdx.x % nc;
+  }
+  const int q0 = qt * kSRows;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
   const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
@@ -1149,11 +1303,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
       static_cast<const float*>(a.dout) + bb * a.sdb + hh * a.sdh;
   float* dqp = static_cast<float*>(a.o1) + bb * a.s1b + hh * a.s1h;
 
-  for (int e = tid; e < kSRows * D; e += kThreads) {
-    const int rr = e / D, d = e % D;
-    const bool in = q0 + rr < a.sq && d < a.d;
-    q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
-    do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
+  if constexpr (!kChunked) {
+    for (int e = tid; e < kSRows * D; e += kThreads) {
+      const int rr = e / D, d = e % D;
+      const bool in = q0 + rr < a.sq && d < a.d;
+      q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
+      do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
+    }
   }
   const int row = q0 + r;
   const float lse = safe_lse(a, bh, row);
@@ -1173,21 +1329,48 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
       if (!live) break;
     }
     const bool masked = diag || k0 + BK > a.sk || q0 + kSRows > a.sq;
-    __syncthreads();  // the previous tile's k_s/v_s reads are done
-    for (int e = tid; e < BK * D; e += kThreads) {
-      const int rr = e / D, d = e % D;
-      const bool in = k0 + rr < a.sk && d < a.d;
-      k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
-      v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
+    float qk[BK / 8], dov[BK / 8];  // S and dP over the chunks so far
+    if constexpr (kChunked) {
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) qk[i] = dov[i] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        // the previous chunk's (or tile's) shared reads are done
+        __syncthreads();
+        stage_f32<kSRows, D>(q_s, qp, a.sqs, q0, a.sq, c * D, a.d, tid);
+        stage_f32<kSRows, D>(do_s, dp_, a.sds, q0, a.sq, c * D, a.d, tid);
+        stage_f32<BK, D>(k_s, kp, a.sks, k0, a.sk, c * D, a.d, tid);
+        stage_f32<BK, D>(v_s, vp, a.svs, k0, a.sk, c * D, a.d, tid);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          const int col = c8 + 8 * i;
+          qk[i] = dot_row(q_s[r], k_s[col], D, qk[i]);
+          dov[i] = dot_row(do_s[r], v_s[col], D, dov[i]);
+        }
+      }
+      if (oc != nc - 1) {  // dQ's chunk of K
+        __syncthreads();
+        stage_f32<BK, D>(k_s, kp, a.sks, k0, a.sk, oc * D, a.d, tid);
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();  // the previous tile's k_s/v_s reads are done
+      for (int e = tid; e < BK * D; e += kThreads) {
+        const int rr = e / D, d = e % D;
+        const bool in = k0 + rr < a.sk && d < a.d;
+        k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
+        v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
+      }
+      __syncthreads();
     }
-    __syncthreads();
 #pragma unroll
     for (int i = 0; i < BK / 8; ++i) {
       const int col = c8 + 8 * i;
-      float s = dot_row(q_s[r], k_s[col], D) * a.scale;
+      float s = (kChunked ? qk[i] : dot_row(q_s[r], k_s[col], D)) * a.scale;
       if (masked && pair_masked(a, row, k0 + col)) s = -INFINITY;
       const float p = expf(s - lse);
-      ds_s[r][col] = p * (dot_row(do_s[r], v_s[col], D) - cr);
+      ds_s[r][col] =
+          p * ((kChunked ? dov[i] : dot_row(do_s[r], v_s[col], D)) - cr);
     }
     __syncwarp();  // a row's ds_s is written and read by its own 8 lanes
     for (int col = 0; col < BK; ++col) {
@@ -1197,14 +1380,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
         acc[j] = fmaf(ds, k_s[col][c8 + 8 * j], acc[j]);
     }
   }
+  const int f0 = oc * D;  // this block's columns of dQ
   if (row < a.sq) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      if (8 * j < a.d) dqp[row * a.s1s + c8 + 8 * j] = acc[j] * a.scale;
+      if (f0 + 8 * j < a.d)
+        dqp[row * a.s1s + f0 + c8 + 8 * j] = acc[j] * a.scale;
   }
 }
 
-template <int D>
+// kChunked = false: d <= D, one tile; K and V stay in shared memory.
+// kChunked = true: d > D, in nc = ceil(d / D) chunks of D = 256; the
+// block's blockIdx.x % nc is the chunk oc of dK and dV it owns, S^T and
+// dP^T sum over the chunks (K, V, Q and dO staged in turn), and dV, dK
+// take dO's and Q's chunk oc (staged again unless it was the last one).
+template <int D, bool kChunked>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
   using L = F32DkvSmem<D>;
   extern __shared__ __align__(16) uint8_t smem_dkv_f32[];
@@ -1218,7 +1408,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
   float* lse_s = base + L::kLse;
   float* c_s = base + L::kC;
 
-  const int k0 = blockIdx.x * kSRows;
+  int nc = 1, oc = 0, kt = blockIdx.x;
+  if constexpr (kChunked) {
+    nc = (a.d + D - 1) / D;
+    kt = blockIdx.x / nc;
+    oc = blockIdx.x % nc;
+  }
+  const int k0 = kt * kSRows;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
   const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
@@ -1230,11 +1426,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
   float* dkp = static_cast<float*>(a.o1) + bb * a.s1b + hh * a.s1h;
   float* dvp = static_cast<float*>(a.o2) + bb * a.s2b + hh * a.s2h;
 
-  for (int e = tid; e < kSRows * D; e += kThreads) {
-    const int rr = e / D, d = e % D;
-    const bool in = k0 + rr < a.sk && d < a.d;
-    k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
-    v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
+  if constexpr (!kChunked) {
+    for (int e = tid; e < kSRows * D; e += kThreads) {
+      const int rr = e / D, d = e % D;
+      const bool in = k0 + rr < a.sk && d < a.d;
+      k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
+      v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
+    }
   }
   const int key = k0 + r;
   float dk[D / 8], dv[D / 8];
@@ -1257,26 +1455,60 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
       if (!live) continue;
     }
     const bool masked = diag || q0 + kSDkvBQ > a.sq || k0 + kSRows > a.sk;
-    __syncthreads();  // the previous tile's q_s/do_s reads are done
-    for (int e = tid; e < kSDkvBQ * D; e += kThreads) {
-      const int rr = e / D, d = e % D;
-      const bool in = q0 + rr < a.sq && d < a.d;
-      q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
-      do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
+    float kq[kSDkvBQ / 8], vdo[kSDkvBQ / 8];  // S^T, dP^T over the chunks
+    if constexpr (kChunked) {
+#pragma unroll
+      for (int i = 0; i < kSDkvBQ / 8; ++i) kq[i] = vdo[i] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        // the previous chunk's (or tile's) shared reads are done
+        __syncthreads();
+        stage_f32<kSRows, D>(k_s, kp, a.sks, k0, a.sk, c * D, a.d, tid);
+        stage_f32<kSRows, D>(v_s, vp, a.svs, k0, a.sk, c * D, a.d, tid);
+        stage_f32<kSDkvBQ, D>(q_s, qp, a.sqs, q0, a.sq, c * D, a.d, tid);
+        stage_f32<kSDkvBQ, D>(do_s, dp_, a.sds, q0, a.sq, c * D, a.d, tid);
+        if (c == 0) {
+          for (int rr = tid; rr < kSDkvBQ; rr += kThreads) {
+            lse_s[rr] = safe_lse(a, bh, q0 + rr);
+            c_s[rr] = row_c(a, bh, q0 + rr);
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kSDkvBQ / 8; ++i) {
+          const int qc = c8 + 8 * i;
+          kq[i] = dot_row(k_s[r], q_s[qc], D, kq[i]);
+          vdo[i] = dot_row(v_s[r], do_s[qc], D, vdo[i]);
+        }
+      }
+      if (oc != nc - 1) {  // the chunk oc of Q and dO
+        __syncthreads();
+        stage_f32<kSDkvBQ, D>(q_s, qp, a.sqs, q0, a.sq, oc * D, a.d, tid);
+        stage_f32<kSDkvBQ, D>(do_s, dp_, a.sds, q0, a.sq, oc * D, a.d, tid);
+        __syncthreads();
+      }
+    } else {
+      __syncthreads();  // the previous tile's q_s/do_s reads are done
+      for (int e = tid; e < kSDkvBQ * D; e += kThreads) {
+        const int rr = e / D, d = e % D;
+        const bool in = q0 + rr < a.sq && d < a.d;
+        q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
+        do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
+      }
+      for (int rr = tid; rr < kSDkvBQ; rr += kThreads) {
+        lse_s[rr] = safe_lse(a, bh, q0 + rr);
+        c_s[rr] = row_c(a, bh, q0 + rr);
+      }
+      __syncthreads();
     }
-    for (int rr = tid; rr < kSDkvBQ; rr += kThreads) {
-      lse_s[rr] = safe_lse(a, bh, q0 + rr);
-      c_s[rr] = row_c(a, bh, q0 + rr);
-    }
-    __syncthreads();
 #pragma unroll
     for (int i = 0; i < kSDkvBQ / 8; ++i) {
       const int qc = c8 + 8 * i;
-      float s = dot_row(k_s[r], q_s[qc], D) * a.scale;
+      float s = (kChunked ? kq[i] : dot_row(k_s[r], q_s[qc], D)) * a.scale;
       if (masked && pair_masked(a, q0 + qc, key)) s = -INFINITY;
       const float p = expf(s - lse_s[qc]);
       p_s[r][qc] = p;
-      ds_s[r][qc] = p * (dot_row(v_s[r], do_s[qc], D) - c_s[qc]);
+      ds_s[r][qc] =
+          p * ((kChunked ? vdo[i] : dot_row(v_s[r], do_s[qc], D)) - c_s[qc]);
     }
     __syncwarp();
     for (int qc = 0; qc < kSDkvBQ; ++qc) {
@@ -1289,35 +1521,36 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
     }
     __syncwarp();  // p_s/ds_s are rewritten by the next tile
   }
+  const int f0 = oc * D;  // this block's columns of dK and dV
   if (key < a.sk) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      if (8 * j >= a.d) continue;
-      dkp[key * a.s1s + c8 + 8 * j] = dk[j] * a.scale;
-      dvp[key * a.s2s + c8 + 8 * j] = dv[j];
+      if (f0 + 8 * j >= a.d) continue;
+      dkp[key * a.s1s + f0 + c8 + 8 * j] = dk[j] * a.scale;
+      dvp[key * a.s2s + f0 + c8 + 8 * j] = dv[j];
     }
   }
 }
 
-template <int D>
-int launch_dq_bf16(const Args& a, int b, cudaStream_t st) {
+template <int D, class E>
+int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
   using L = DqSmem<D>;
   DqParams p;
-  int err = sm90::encode_rows_bf16(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
-                                   a.sqh, a.sqb, kDqBM);
+  int err = sm90::encode_rows<E>(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs, a.sqh,
+                                 a.sqb, kDqBM);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
-                                 a.sdh, a.sdb, kDqBM);
+    err = sm90::encode_rows<E>(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
+                               a.sdh, a.sdb, kDqBM);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                                 a.skb, kDqBN);
+    err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
+                               a.skb, kDqBN);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                                 a.svb, kDqBN);
+    err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
+                               a.svb, kDqBN);
   if (err) return err;
   p.lse = a.lse;
   p.c = a.c;
-  p.dq = static_cast<__nv_bfloat16*>(a.o1);
+  p.dq = a.o1;
   p.s1b = a.s1b;
   p.s1h = a.s1h;
   p.s1s = a.s1s;
@@ -1331,35 +1564,35 @@ int launch_dq_bf16(const Args& a, int b, cudaStream_t st) {
   p.scale = a.scale;
   constexpr int bytes = L::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_bf16_kernel<D>,
+      flash_bwd_dq_wgmma_kernel<D, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.h, b, (a.sq + kDqBM - 1) / kDqBM);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kBlockThreads, bytes, st>>>(p);
+  flash_bwd_dq_wgmma_kernel<D, E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_dkv_bf16(const Args& a, int b, cudaStream_t st) {
+template <int D, class E>
+int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
   constexpr int BQ = dkv_bq<D>();
   DkvParams p;
-  int err = sm90::encode_rows_bf16(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
-                                   a.sqh, a.sqb, BQ);
+  int err = sm90::encode_rows<E>(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs, a.sqh,
+                                 a.sqb, BQ);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
-                                 a.sdh, a.sdb, BQ);
+    err = sm90::encode_rows<E>(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
+                               a.sdh, a.sdb, BQ);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                                 a.skb, kDkvBN);
+    err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
+                               a.skb, kDkvBN);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                                 a.svb, kDkvBN);
+    err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
+                               a.svb, kDkvBN);
   const long long rows = static_cast<long long>(b) * a.h;
   if (!err) err = sm90::encode_f32_rows(&p.lse, a.lse, a.sq, rows, BQ);
   if (!err) err = sm90::encode_f32_rows(&p.c, a.c, a.sq, rows, BQ);
   if (err) return err;
-  p.dk = static_cast<__nv_bfloat16*>(a.o1);
-  p.dv = static_cast<__nv_bfloat16*>(a.o2);
+  p.dk = a.o1;
+  p.dv = a.o2;
   p.s1b = a.s1b;
   p.s1h = a.s1h;
   p.s1s = a.s1s;
@@ -1376,60 +1609,74 @@ int launch_dkv_bf16(const Args& a, int b, cudaStream_t st) {
   p.scale = a.scale;
   constexpr int bytes = DkvSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16_kernel<D>,
+      flash_bwd_dkv_wgmma_kernel<D, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.h, b, (a.sk + kDkvBN - 1) / kDkvBN);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kBlockThreads, bytes, st>>>(p);
+  flash_bwd_dkv_wgmma_kernel<D, E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kChunked>
 int launch_dq_f32(const Args& a, int b, cudaStream_t st) {
   constexpr int bytes = F32DqSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_bwd_dq_f32_kernel<D, kChunked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.sq + kSRows - 1) / kSRows, a.h, b);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, bytes, st>>>(a);
+  const int nc = kChunked ? (a.d + D - 1) / D : 1;
+  dim3 grid((a.sq + kSRows - 1) / kSRows * nc, a.h, b);
+  flash_bwd_dq_f32_kernel<D, kChunked><<<grid, kThreads, bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kChunked>
 int launch_dkv_f32(const Args& a, int b, cudaStream_t st) {
   constexpr int bytes = F32DkvSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32_kernel<D>,
+      flash_bwd_dkv_f32_kernel<D, kChunked>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.sk + kSRows - 1) / kSRows, a.h, b);
-  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, bytes, st>>>(a);
+  const int nc = kChunked ? (a.d + D - 1) / D : 1;
+  dim3 grid((a.sk + kSRows - 1) / kSRows * nc, a.h, b);
+  flash_bwd_dkv_f32_kernel<D, kChunked><<<grid, kThreads, bytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of head dim a.d: tile widths 64, 128 (bf16: TMA +
-// wgmma) and 256 (bf16: mma.sync).
+// The instantiation of head dim a.d in a 16-bit type E: tile widths 64 and
+// 128 (TMA + wgmma), 256 (mma.sync), and chunks of 256 past it.
+template <class E>
+int launch_dq16(const Args& a, int b, cudaStream_t st) {
+  if (a.d <= 64) return launch_dq_wgmma<64, E>(a, b, st);
+  if (a.d <= 128) return launch_dq_wgmma<128, E>(a, b, st);
+  if (a.d <= kWideD) return launch_dq_wide<E, false>(a, b, st);
+  return launch_dq_wide<E, true>(a, b, st);
+}
+
+template <class E>
+int launch_dkv16(const Args& a, int b, cudaStream_t st) {
+  if (a.d <= 64) return launch_dkv_wgmma<64, E>(a, b, st);
+  if (a.d <= 128) return launch_dkv_wgmma<128, E>(a, b, st);
+  if (a.d <= kWideD) return launch_dkv_wide<E, false>(a, b, st);
+  return launch_dkv_wide<E, true>(a, b, st);
+}
+
 int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    if (a.d <= 64) return launch_dq_bf16<64>(a, b, st);
-    if (a.d <= 128) return launch_dq_bf16<128>(a, b, st);
-    return launch_dq_wide(a, b, st);
-  }
-  if (a.d <= 64) return launch_dq_f32<64>(a, b, st);
-  if (a.d <= 128) return launch_dq_f32<128>(a, b, st);
-  return launch_dq_f32<256>(a, b, st);
+  if (dtype == 1) return launch_dq16<sm90::Bf16>(a, b, st);
+  if (dtype == 2) return launch_dq16<sm90::F16>(a, b, st);
+  if (a.d <= 64) return launch_dq_f32<64, false>(a, b, st);
+  if (a.d <= 128) return launch_dq_f32<128, false>(a, b, st);
+  if (a.d <= 256) return launch_dq_f32<256, false>(a, b, st);
+  return launch_dq_f32<256, true>(a, b, st);
 }
 
 int launch_dkv(const Args& a, int b, int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    if (a.d <= 64) return launch_dkv_bf16<64>(a, b, st);
-    if (a.d <= 128) return launch_dkv_bf16<128>(a, b, st);
-    return launch_dkv_wide(a, b, st);
-  }
-  if (a.d <= 64) return launch_dkv_f32<64>(a, b, st);
-  if (a.d <= 128) return launch_dkv_f32<128>(a, b, st);
-  return launch_dkv_f32<256>(a, b, st);
+  if (dtype == 1) return launch_dkv16<sm90::Bf16>(a, b, st);
+  if (dtype == 2) return launch_dkv16<sm90::F16>(a, b, st);
+  if (a.d <= 64) return launch_dkv_f32<64, false>(a, b, st);
+  if (a.d <= 128) return launch_dkv_f32<128, false>(a, b, st);
+  if (a.d <= 256) return launch_dkv_f32<256, false>(a, b, st);
+  return launch_dkv_f32<256, true>(a, b, st);
 }
 
 int make_args(Args& a, const void* q, const void* k, const void* v,
@@ -1437,8 +1684,8 @@ int make_args(Args& a, const void* q, const void* k, const void* v,
               void* o2, const long long* st, int b, int h, int sq, int sk,
               int d, int dtype, int causal, long long q_offset,
               long long kv_offset, float scale) {
-  if ((dtype != 0 && dtype != 1) || d < 8 || d > 256 || d % 8 != 0 ||
-      b <= 0 || h <= 0 || sq <= 0 || sk < 0 || st == nullptr)
+  if (dtype < 0 || dtype > 2 || d < 8 || d % 8 != 0 || b <= 0 || h <= 0 ||
+      sq <= 0 || sk < 0 || st == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   a = Args{q,      k,      v,      dout,   static_cast<const float*>(lse),
            static_cast<const float*>(c),   o1,     o2,
@@ -1458,9 +1705,9 @@ extern "C" {
 // dtype), lse and c (f32, (B*H, Sq) contiguous), then the outputs: dq and
 // NULL for flash_bwd_dq, dk and dv for flash_bwd_dkv. strides: 18 element
 // strides, (batch, head, sequence) of q, k, v, do, out1, out2 (out2's are
-// ignored by flash_bwd_dq). dtype: 0 = float32, 1 = bfloat16; d a
-// multiple of 8 from 8 to 256. Returns the CUDA error of the launch (0 =
-// success).
+// ignored by flash_bwd_dq). dtype: 0 = float32, 1 = bfloat16, 2 =
+// float16; d a multiple of 8 from 8 up. Returns the CUDA error of the
+// launch (0 = success).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* c, void* dq,
                  void* unused, const long long* strides, int b, int h, int sq,

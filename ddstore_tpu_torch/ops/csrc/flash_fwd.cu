@@ -19,16 +19,21 @@
 // guards the ragged last query tile itself, so any length that is a
 // multiple of 8 works without the TPU's block-divisibility rule.
 //
-// Head dims: the TPU kernel takes any D (its block's last dim is the
-// array's). Here d is a multiple of 8 from 8 to 256 (the wrapper zero-pads
-// other head dims to the next multiple of 8 and slices the result back),
-// and three instantiations cover it: the tile widths 64 (d <= 64) and 128
-// (d <= 128) of the bf16 TMA + wgmma kernel, whose tensor maps declare the
-// true d so that TMA zero-fills the tile's columns past it (zero columns
-// of Q and K leave the scores as they are, zero columns of V give zero
-// columns of O, and the stores skip every column past d), and for
-// 128 < d <= 256 a simpler bf16 kernel on mma.sync (below). The f32
-// kernel takes the same three widths, with loads and stores masked at d.
+// Head dims and dtypes: the TPU kernel takes any D (its block's last dim is
+// the array's) and any float dtype. Here d is any multiple of 8 from 8 up
+// (the wrapper zero-pads other head dims to the next multiple of 8 and
+// slices the result back), in bf16, fp16 or f32. The 16-bit kernels are
+// templated on the element type (sm90::Bf16, sm90::F16: the same tiles,
+// barriers and register budgets, only the PTX type and the conversions
+// differ), in four instantiations each: the tile widths 64 (d <= 64) and
+// 128 (d <= 128) of the TMA + wgmma kernel, whose tensor maps declare the
+// true d so that TMA zero-fills the tile's columns past it (zero columns of
+// Q and K leave the scores as they are, zero columns of V give zero columns
+// of O, and the stores skip every column past d), and for d > 128 a
+// simpler kernel on mma.sync (below): one 256-feature tile up to d = 256,
+// chunks of 256 past it. The f32 kernel takes the widths 64, 128, 256 and
+// chunks of 256, with loads and stores masked at d. Shared memory and
+// registers are sized by the tile or chunk, never by d.
 //
 // Bound on the H100 SXM: the work is 4*B*H*Sq*Sk*D FLOPs (QK^T and PV,
 // about half of that for causal) against 989 TFLOP/s in bf16, and the
@@ -37,8 +42,8 @@
 // 6.9e10 FLOP = 0.0695 ms against 1.35e8 B = 0.040 ms: operations bound it.
 //
 // Design:
-// * bf16: one block per (kWG x 64 query rows, head, batch), with kWG = 3
-//   consumer warpgroups at D = 64 and 2 at D = 128, plus one producer
+// * bf16, d <= 128: one block per (kWG x 64 query rows, head, batch), with
+//   kWG = 3 consumer warpgroups at D = 64 and 2 at D = 128, plus one producer
 //   warpgroup. The producer gives most of its registers to the consumers
 //   (setmaxnreg), and one of its threads loads the Q tile once and then
 //   streams 128-key K and V tiles by TMA into a ring of kStages = 3 shared
@@ -59,18 +64,28 @@
 //   by chance), overlap of the next S product with this tile's softmax,
 //   persistent blocks, a TMA store of out, and tiles narrower than 64
 //   features: at d = 32 the tensor cores do the work of d = 64.
-// * bf16, 128 < d <= 256: at d = 256 one warpgroup's O accumulator alone
+// * The same kernel in fp16: P is rounded to fp16 (2^-11) where bf16 rounds
+//   it to bf16 (2^-8), as the reference rounds it to the input dtype.
+// * bf16 and fp16, d > 128: at d = 256 one warpgroup's O accumulator alone
 //   would take 128 registers a thread for 64 rows, beside S; this range
 //   runs a kernel that is right rather than fast: one block of 4 warps
 //   takes 64 query rows (16 a warp), stages Q once and 64-key K and V
 //   tiles by plain 16-byte loads into padded shared rows (columns past d
 //   zero), forms S = Q K^T and O += P V with mma.sync m16n8k16 (P
 //   repacked from the S accumulators as A fragments, V's B fragments by
-//   ldmatrix.trans), and runs the same online softmax. Left out: TMA,
-//   wgmma, a ring of tiles overlapping loads with the math.
+//   ldmatrix.trans), and runs the same online softmax. Past d = 256 the
+//   features come in nc = ceil(d / 256) chunks: a grid axis of chunks
+//   (folded into the query-tile axis) gives each block one chunk of O;
+//   for each key tile the block stages the Q and K chunks in turn into
+//   the same shared rows and sums S over them, then multiplies P by its
+//   chunk of V. Every chunk's block forms the same S in the same order,
+//   so m, l and P agree bit for bit, and chunk 0 stores lse. The nc blocks
+//   repeat S (nc times the minimal Q K^T work). Left out: TMA, wgmma, a
+//   ring of tiles overlapping loads with the math.
 // * f32: the same algorithm on the CUDA cores (16 query rows x 32-key
 //   tiles per block, one dot product per score), exact in f32; wgmma has
-//   no f32 input type, and the LM runs in bf16.
+//   no f32 input type, and the LM runs in bf16. Past d = 256 the same
+//   chunk loop as above, in chunks of 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -147,7 +162,7 @@ struct FwdCfg {
 struct FwdParams {
   CUtensorMap q;     // boxes of 64 features x kBM rows
   CUtensorMap k, v;  // boxes of 64 features x kBN rows
-  __nv_bfloat16* o;
+  void* o;           // E::T
   float* lse;
   long long sob, soh, sos;
   int h, sq, sk;
@@ -168,9 +183,9 @@ __device__ __forceinline__ int fwd_key_tiles(const FwdParams& p,
   return static_cast<int>(x / kBN + 1 < nk ? x / kBN + 1 : nk);
 }
 
-template <int D>
+template <int D, class E>
 __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
-    flash_fwd_bf16_kernel(const __grid_constant__ FwdParams p) {
+    flash_fwd_wgmma_kernel(const __grid_constant__ FwdParams p) {
   using C = FwdCfg<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align1024(smem_raw);
@@ -238,7 +253,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     float m_r[2] = {-INFINITY, -INFINITY};  // running max of S sl2
     float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
     float sc[kBN / 2];           // S of one tile, then its P in f32
-    uint32_t pa[kBN / 16][4];    // P in bf16: the A fragments of P V
+    uint32_t pa[kBN / 16][4];    // P in E: the A fragments of P V
     float corr[2];
 
     auto stage = [&](int i) {
@@ -250,7 +265,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::Wgmma<kBN>::ss(
+        sm90::Wgmma<kBN, E>::ss(
             sc, sm90::desc_k(qs + (kk / 4) * C::kQBox + (kk % 4) * 32),
             sm90::desc_k(ks + (kk / 4) * C::kKBox + (kk % 4) * 32), kk > 0);
       sm90::wgmma_commit();
@@ -261,7 +276,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBN / 16; ++kk)
-        sm90::Wgmma<D>::rs_mn(o, pa[kk],
+        sm90::Wgmma<D, E>::rs_mn(o, pa[kk],
                               sm90::desc_mn(vs + kk * 16 * 128, C::kKBox),
                               1);
       sm90::wgmma_commit();
@@ -348,8 +363,8 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       for (int kk = 0; kk < kBN / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          pa[kk][r] = sm90::pack_bf16(sc[8 * kk + 2 * r],
-                                      sc[8 * kk + 2 * r + 1]);
+          pa[kk][r] = sm90::pack<E>(sc[8 * kk + 2 * r],
+                                    sc[8 * kk + 2 * r + 1]);
     };
     auto wait_full = [&](int i) {
       sm90::mbar_wait(&full[i % kStages], (i / kStages) & 1);
@@ -404,15 +419,15 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       const float inv = 1.f / lc;
       const int row = q0 + r0 + 8 * hr;
       if (row < p.sq) {
-        __nv_bfloat16* op = p.o + static_cast<long long>(bb) * p.sob +
+        typename E::T* op = static_cast<typename E::T*>(p.o) +
+                            static_cast<long long>(bb) * p.sob +
                             static_cast<long long>(hh) * p.soh +
                             static_cast<long long>(row) * p.sos;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
           if (8 * j < p.d)
-            *reinterpret_cast<__nv_bfloat162*>(op + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(o[4 * j + 2 * hr] * inv,
-                                      o[4 * j + 2 * hr + 1] * inv);
+            *reinterpret_cast<typename E::T2*>(op + 8 * j + 2 * t) =
+                E::pack2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
         if (t == 0)
           p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] =
               m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
@@ -421,20 +436,20 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
   }
 }
 
-template <int D>
-int launch_bf16(const Args& a, int b, cudaStream_t stream) {
+template <int D, class E>
+int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
   using C = FwdCfg<D>;
   FwdParams p;
-  int err = sm90::encode_rows_bf16(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
-                                   a.sqh, a.sqb, C::kBM);
+  int err = sm90::encode_rows<E>(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs, a.sqh,
+                                 a.sqb, C::kBM);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                                 a.skb, kBN);
+    err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
+                               a.skb, kBN);
   if (!err)
-    err = sm90::encode_rows_bf16(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                                 a.svb, kBN);
+    err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
+                               a.svb, kBN);
   if (err) return err;
-  p.o = static_cast<__nv_bfloat16*>(a.o);
+  p.o = a.o;
   p.lse = a.lse;
   p.sob = a.sob;
   p.soh = a.soh;
@@ -451,16 +466,16 @@ int launch_bf16(const Args& a, int b, cudaStream_t stream) {
   p.scale = a.scale == 0.f ? 1e-30f : a.scale;
   constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_wgmma_kernel<D, E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.h, b, (a.sq + C::kBM - 1) / C::kBM);
-  flash_fwd_bf16_kernel<D><<<grid, C::kThreads, bytes, stream>>>(p);
+  flash_fwd_wgmma_kernel<D, E><<<grid, C::kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// bf16, 128 < d <= 256: mma.sync
+// bf16 and fp16, d > 128: mma.sync
 
 constexpr int kWideD = 256;    // the tile's width; columns past d are zero
 constexpr int kWideBQ = 64;    // query rows per block (4 warps x 16)
@@ -469,30 +484,47 @@ constexpr int kWideThreads = 128;
 constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
 constexpr int kWideBytes = (kWideBQ + 2 * kWideBK) * kWideST * 2;
 
+// The columns of feature chunk c (kWideD wide) below the true d.
+__device__ __forceinline__ int chunk_cols(int d, int c) {
+  const int left = d - c * kWideD;
+  return left < kWideD ? left : kWideD;
+}
+
+// kChunked = false: 128 < d <= 256, one tile of kWideD features; Q stays
+// in shared memory for the whole key loop. kChunked = true: d > 256, in nc
+// = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is the chunk oc of
+// O it owns, S = Q K^T sums over the chunks (each staged in turn into the
+// same shared rows), and P V takes V's chunk oc. Every chunk's block forms
+// the same S in the same order, so the same m, l and P; chunk 0 stores lse.
+template <class E, bool kChunked>
 __global__ void __launch_bounds__(kWideThreads)
     flash_fwd_wide_kernel(Args a) {
+  using T = typename E::T;
   extern __shared__ __align__(16) uint8_t smem_wide[];
-  auto* q_s = reinterpret_cast<__nv_bfloat16*>(smem_wide);
-  __nv_bfloat16* k_s = q_s + kWideBQ * kWideST;
-  __nv_bfloat16* v_s = k_s + kWideBK * kWideST;
+  auto* q_s = reinterpret_cast<T*>(smem_wide);
+  T* k_s = q_s + kWideBQ * kWideST;
+  T* v_s = k_s + kWideBK * kWideST;
 
-  const int q0 = blockIdx.x * kWideBQ;
+  int nc = 1, oc = 0, qt = blockIdx.x;
+  if constexpr (kChunked) {
+    nc = (a.d + kWideD - 1) / kWideD;
+    qt = blockIdx.x / nc;
+    oc = blockIdx.x % nc;
+  }
+  const int q0 = qt * kWideBQ;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma group and thread-in-group
   const int wr = warp * 16;              // this warp's first row in the tile
-  const __nv_bfloat16* qp =
-      static_cast<const __nv_bfloat16*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const __nv_bfloat16* kp =
-      static_cast<const __nv_bfloat16*>(a.k) + bb * a.skb + hh * a.skh;
-  const __nv_bfloat16* vp =
-      static_cast<const __nv_bfloat16*>(a.v) + bb * a.svb + hh * a.svh;
-  __nv_bfloat16* op = static_cast<__nv_bfloat16*>(a.o) + bb * a.sob +
-                      hh * a.soh;
+  const T* qp = static_cast<const T*>(a.q) + bb * a.sqb + hh * a.sqh;
+  const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
+  const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
+  T* op = static_cast<T*>(a.o) + bb * a.sob + hh * a.soh;
 
   // Q stays in shared memory for the whole key loop (rows past Sq zero).
-  sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
-      q_s, qp, a.sqs, q0, a.sq, a.d, tid);
+  if constexpr (!kChunked)
+    sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
+        q_s, qp, a.sqs, q0, a.sq, a.d, tid);
 
   // Rows g and g + 8 of this warp's 16: running max (log2 units) and this
   // thread's share of the running denominator.
@@ -516,30 +548,52 @@ __global__ void __launch_bounds__(kWideThreads)
       if (!live) break;  // every later tile lies further in the future
     }
     const bool masked = diag || (k0 + kWideBK > a.sk);
-    __syncthreads();  // the previous tile's k_s/v_s reads are done
-    // Keys past Sk are zero: their p is 0, and 0 * garbage could be NaN.
-    sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-        k_s, kp, a.sks, k0, a.sk, a.d, tid);
-    sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-        v_s, vp, a.svs, k0, a.sk, a.d, tid);
-    __syncthreads();
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys.
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys; over the
+    // features of the tiles in shared memory.
     float s[kWideBK / 8][4];
 #pragma unroll
     for (int nt = 0; nt < kWideBK / 8; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+    auto qk = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < kWideD / 16; ++kk) {
-      uint32_t qf[4];
-      sm90::load_a<kWideST>(qf, q_s, wr, kk, g, t);
+      for (int kk = 0; kk < kWideD / 16; ++kk) {
+        uint32_t qf[4];
+        sm90::load_a<kWideST>(qf, q_s, wr, kk, g, t);
 #pragma unroll
-      for (int nt = 0; nt < kWideBK / 8; ++nt) {
-        const int off = (nt * 8 + g) * kWideST + kk * 16 + 2 * t;
-        sm90::mma16816(s[nt], qf, sm90::ld32(&k_s[off]),
-                       sm90::ld32(&k_s[off + 8]));
+        for (int nt = 0; nt < kWideBK / 8; ++nt) {
+          const int off = (nt * 8 + g) * kWideST + kk * 16 + 2 * t;
+          sm90::mma16816<E>(s[nt], qf, sm90::ld32(&k_s[off]),
+                            sm90::ld32(&k_s[off + 8]));
+        }
       }
+    };
+    if constexpr (kChunked) {
+      for (int c = 0; c < nc; ++c) {
+        // the previous chunk's (or tile's) q_s/k_s/v_s reads are done
+        __syncthreads();
+        const int cols = chunk_cols(a.d, c);
+        sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
+            q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
+        sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+            k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
+        if (c == 0)
+          sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+              v_s, vp + oc * kWideD, a.svs, k0, a.sk, chunk_cols(a.d, oc),
+              tid);
+        __syncthreads();
+        qk();
+      }
+    } else {
+      __syncthreads();  // the previous tile's k_s/v_s reads are done
+      // Keys past Sk are zero: their p is 0, and 0 * garbage could be NaN.
+      sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+          k_s, kp, a.sks, k0, a.sk, a.d, tid);
+      sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+          v_s, vp, a.svs, k0, a.sk, a.d, tid);
+      __syncthreads();
+      qk();
     }
 
     // Scale into log2 units; mask only diagonal and ragged tiles.
@@ -594,20 +648,22 @@ __global__ void __launch_bounds__(kWideThreads)
 #pragma unroll
     for (int kk = 0; kk < kWideBK / 16; ++kk) {
       const uint32_t pa[4] = {
-          sm90::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          sm90::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          sm90::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          sm90::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+          sm90::pack<E>(s[2 * kk][0], s[2 * kk][1]),
+          sm90::pack<E>(s[2 * kk][2], s[2 * kk][3]),
+          sm90::pack<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          sm90::pack<E>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dt = 0; dt < kWideD / 8; dt += 2) {
         uint32_t b[4];
         sm90::load_b_kmajor_x2<kWideST>(b, v_s, kk, dt, lane);
-        sm90::mma16816(acc[dt], pa, b[0], b[1]);
-        sm90::mma16816(acc[dt + 1], pa, b[2], b[3]);
+        sm90::mma16816<E>(acc[dt], pa, b[0], b[1]);
+        sm90::mma16816<E>(acc[dt + 1], pa, b[2], b[3]);
       }
     }
   }
 
+  // This block's columns of O: [oc kWideD, oc kWideD + kWideD) below d.
+  const int f0 = oc * kWideD;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     float l = l_r[hr];
@@ -619,25 +675,27 @@ __global__ void __launch_bounds__(kWideThreads)
     if (row < a.sq) {
 #pragma unroll
       for (int dt = 0; dt < kWideD / 8; ++dt)
-        if (8 * dt < a.d)
-          *reinterpret_cast<__nv_bfloat162*>(op + row * a.sos + dt * 8 +
-                                             2 * t) =
-              __floats2bfloat162_rn(acc[dt][2 * hr] * inv,
-                                    acc[dt][2 * hr + 1] * inv);
-      if (t == 0)
+        if (f0 + 8 * dt < a.d)
+          *reinterpret_cast<typename E::T2*>(op + row * a.sos + f0 +
+                                             dt * 8 + 2 * t) =
+              E::pack2(acc[dt][2 * hr] * inv, acc[dt][2 * hr + 1] * inv);
+      if (t == 0 && oc == 0)
         a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
             m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
     }
   }
 }
 
+template <class E, bool kChunked>
 int launch_wide(const Args& a, int b, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWideBytes);
+      flash_fwd_wide_kernel<E, kChunked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.sq + kWideBQ - 1) / kWideBQ, a.h, b);
-  flash_fwd_wide_kernel<<<grid, kWideThreads, kWideBytes, stream>>>(a);
+  const int nc = kChunked ? (a.d + kWideD - 1) / kWideD : 1;
+  dim3 grid((a.sq + kWideBQ - 1) / kWideBQ * nc, a.h, b);
+  flash_fwd_wide_kernel<E, kChunked>
+      <<<grid, kWideThreads, kWideBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -651,7 +709,8 @@ constexpr int kF32Threads = 128;
 // 8 threads are adjacent lanes of one warp.
 
 // Dynamic shared memory, in floats: Q [kSBQ][D + 1], K [kSBK][D + 1], V
-// [kSBK][D], P [kSBQ][kSBK + 1] (84 KB at D = 256).
+// [kSBK][D], P [kSBQ][kSBK + 1] (84 KB at D = 256). D is the tile's width:
+// the head dim's (d <= 256), or one chunk of it (d > 256).
 template <int D>
 struct F32Smem {
   static constexpr int kK = kSBQ * (D + 1);
@@ -660,7 +719,12 @@ struct F32Smem {
   static constexpr int kBytes = (kP + kSBQ * (kSBK + 1)) * 4;
 };
 
-template <int D>
+// kChunked = false: d <= D, one tile. kChunked = true: d > D, in nc =
+// ceil(d / D) chunks of D = 256; the block's blockIdx.x % nc is the chunk
+// oc of O it owns, S = Q K^T sums over the chunks staged in turn, and P V
+// takes V's chunk oc. Every chunk's block forms the same S in the same
+// order; chunk 0 stores lse.
+template <int D, bool kChunked>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32_kernel(Args a) {
   using L = F32Smem<D>;
@@ -671,7 +735,13 @@ __global__ void __launch_bounds__(kF32Threads)
   auto v_s = reinterpret_cast<float(*)[D]>(base + L::kV);
   auto p_s = reinterpret_cast<float(*)[kSBK + 1]>(base + L::kP);
 
-  const int q0 = blockIdx.x * kSBQ;
+  int nc = 1, oc = 0, qt = blockIdx.x;
+  if constexpr (kChunked) {
+    nc = (a.d + D - 1) / D;
+    qt = blockIdx.x / nc;
+    oc = blockIdx.x % nc;
+  }
+  const int q0 = qt * kSBQ;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
   const float* qp = static_cast<const float*>(a.q) + bb * a.sqb + hh * a.sqh;
@@ -681,9 +751,12 @@ __global__ void __launch_bounds__(kF32Threads)
 
   // Columns past d are zero: they add nothing to the scores, and give
   // zero columns of out, which are not stored.
-  for (int e = tid; e < kSBQ * D; e += kF32Threads) {
-    const int rr = e / D, d = e % D;
-    q_s[rr][d] = q0 + rr < a.sq && d < a.d ? qp[(q0 + rr) * a.sqs + d] : 0.f;
+  if constexpr (!kChunked) {
+    for (int e = tid; e < kSBQ * D; e += kF32Threads) {
+      const int rr = e / D, d = e % D;
+      q_s[rr][d] =
+          q0 + rr < a.sq && d < a.d ? qp[(q0 + rr) * a.sqs + d] : 0.f;
+    }
   }
 
   float m = -INFINITY, l = 0.f;  // l: this thread's share of the row's sum
@@ -702,23 +775,52 @@ __global__ void __launch_bounds__(kF32Threads)
       if (!live) break;
     }
     const bool masked = diag || (k0 + kSBK > a.sk);
-    __syncthreads();  // the previous tile's k_s/v_s reads are done
-    for (int e = tid; e < kSBK * D; e += kF32Threads) {
-      const int rr = e / D, d = e % D;
-      const bool in = k0 + rr < a.sk && d < a.d;
-      k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
-      v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
-    }
-    __syncthreads();
-
     float s[kSBK / 8];
+    if constexpr (kChunked) {
+#pragma unroll
+      for (int i = 0; i < kSBK / 8; ++i) s[i] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        // the previous chunk's (or tile's) q_s/k_s/v_s reads are done
+        __syncthreads();
+        sm90::stage_rows_f32<kSBQ, D, D + 1, kF32Threads>(
+            &q_s[0][0], qp, a.sqs, q0, a.sq, c * D, a.d, tid);
+        sm90::stage_rows_f32<kSBK, D, D + 1, kF32Threads>(
+            &k_s[0][0], kp, a.sks, k0, a.sk, c * D, a.d, tid);
+        if (c == 0)
+          sm90::stage_rows_f32<kSBK, D, D, kF32Threads>(
+              &v_s[0][0], vp, a.svs, k0, a.sk, oc * D, a.d, tid);
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kSBK / 8; ++i) {
+          const int col = c8 + 8 * i;
+          float dot = s[i];
+#pragma unroll 16
+          for (int d = 0; d < D; ++d) dot = fmaf(q_s[r][d], k_s[col][d], dot);
+          s[i] = dot;
+        }
+      }
+    } else {
+      __syncthreads();  // the previous tile's k_s/v_s reads are done
+      for (int e = tid; e < kSBK * D; e += kF32Threads) {
+        const int rr = e / D, d = e % D;
+        const bool in = k0 + rr < a.sk && d < a.d;
+        k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
+        v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
+      }
+      __syncthreads();
+    }
+
     float mx = -INFINITY;
 #pragma unroll
     for (int i = 0; i < kSBK / 8; ++i) {
       const int col = c8 + 8 * i;
       float dot = 0.f;
+      if constexpr (kChunked) {
+        dot = s[i];
+      } else {
 #pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = fmaf(q_s[r][d], k_s[col][d], dot);
+        for (int d = 0; d < D; ++d) dot = fmaf(q_s[r][d], k_s[col][d], dot);
+      }
       dot *= a.scale;
       if (masked && (k0 + col >= a.sk ||
                      (a.causal && a.kv_offset + k0 + col >
@@ -758,49 +860,58 @@ __global__ void __launch_bounds__(kF32Threads)
   l += __shfl_xor_sync(0xffffffffu, l, 4);
   const float lc = fmaxf(l, 1e-30f);
   const int row = q0 + r;
+  const int f0 = oc * D;  // this block's columns of O
   if (row < a.sq) {
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      if (8 * j < a.d) op[row * a.sos + c8 + 8 * j] = acc[j] / lc;
-    if (c8 == 0)
+      if (f0 + 8 * j < a.d) op[row * a.sos + f0 + c8 + 8 * j] = acc[j] / lc;
+    if (c8 == 0 && oc == 0)
       a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
           m == -INFINITY ? -INFINITY : m + logf(lc);
   }
 }
 
-template <int D>
+template <int D, bool kChunked>
 int launch_f32(const Args& a, int b, cudaStream_t stream) {
   constexpr int bytes = F32Smem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_fwd_f32_kernel<D, kChunked>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((a.sq + kSBQ - 1) / kSBQ, a.h, b);
-  flash_fwd_f32_kernel<D><<<grid, kF32Threads, bytes, stream>>>(a);
+  const int nc = kChunked ? (a.d + D - 1) / D : 1;
+  dim3 grid((a.sq + kSBQ - 1) / kSBQ * nc, a.h, b);
+  flash_fwd_f32_kernel<D, kChunked><<<grid, kF32Threads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of head dim a.d: tile widths 64, 128 (bf16: TMA +
-// wgmma) and 256 (bf16: mma.sync).
+// The instantiation of head dim a.d in a 16-bit type E: tile widths 64 and
+// 128 (TMA + wgmma), 256 (mma.sync), and chunks of 256 past it.
+template <class E>
+int launch16(const Args& a, int b, cudaStream_t stream) {
+  if (a.d <= 64) return launch_wgmma<64, E>(a, b, stream);
+  if (a.d <= 128) return launch_wgmma<128, E>(a, b, stream);
+  if (a.d <= kWideD) return launch_wide<E, false>(a, b, stream);
+  return launch_wide<E, true>(a, b, stream);
+}
+
 int launch(const Args& a, int b, int dtype, cudaStream_t stream) {
-  if (dtype == 1) {
-    if (a.d <= 64) return launch_bf16<64>(a, b, stream);
-    if (a.d <= 128) return launch_bf16<128>(a, b, stream);
-    return launch_wide(a, b, stream);
-  }
-  if (a.d <= 64) return launch_f32<64>(a, b, stream);
-  if (a.d <= 128) return launch_f32<128>(a, b, stream);
-  return launch_f32<256>(a, b, stream);
+  if (dtype == 1) return launch16<sm90::Bf16>(a, b, stream);
+  if (dtype == 2) return launch16<sm90::F16>(a, b, stream);
+  if (a.d <= 64) return launch_f32<64, false>(a, b, stream);
+  if (a.d <= 128) return launch_f32<128, false>(a, b, stream);
+  if (a.d <= 256) return launch_f32<256, false>(a, b, stream);
+  return launch_f32<256, true>(a, b, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; d a multiple of 8 from 8 to 256.
-// Strides are in elements; in bf16 the base pointers are 16-byte aligned
-// and the strides multiples of 8 elements (TMA's rule). Returns the CUDA error of the
-// launch (0 = success), or a tensor-map error (flash_fwd_error_string).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d a multiple of 8 from 8
+// up. Strides are in elements; in 16 bits the base pointers are 16-byte
+// aligned and the strides multiples of 8 elements (TMA's rule). Returns the
+// CUDA error of the launch (0 = success), or a tensor-map error
+// (flash_fwd_error_string).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, long long sqb, long long sqh, long long sqs,
               long long skb, long long skh, long long sks, long long svb,
@@ -808,8 +919,8 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o,
               long long sos, int b, int h, int sq, int sk, int d, int dtype,
               int causal, long long q_offset, long long kv_offset,
               float scale, void* stream) {
-  if ((dtype != 0 && dtype != 1) || d < 8 || d > 256 || d % 8 != 0 ||
-      b <= 0 || h <= 0 || sq <= 0 || sk < 0)
+  if (dtype < 0 || dtype > 2 || d < 8 || d % 8 != 0 || b <= 0 || h <= 0 ||
+      sq <= 0 || sk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{q,   k,   v,   o,   static_cast<float*>(lse),
          sqb, sqh, sqs, skb, skh,

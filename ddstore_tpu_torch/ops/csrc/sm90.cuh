@@ -1,14 +1,15 @@
 // Raw-PTX building blocks for Hopper (sm_90a) kernels, shared by
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, 128-byte
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
-// kernels use (bf16 in, f32 accumulate), setmaxnreg, the mma.sync and
-// ldmatrix pieces of the kernels for head dims past 128, and on the host
-// the tensor-map encoder. No CuTe/CUTLASS: each source builds in seconds.
+// kernels use (bf16 or fp16 in, f32 accumulate), setmaxnreg, the mma.sync
+// and ldmatrix pieces of the kernels for head dims past 128, the element
+// types Bf16 and F16, and on the host the tensor-map encoder. No
+// CuTe/CUTLASS: each source builds in seconds.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
-// writes: rows of 64 bf16 (128 bytes), the 16-byte chunks of row r XORed
-// with r % 8, each box 1024-byte aligned. A tile wider than 64 columns
-// (D = 128) is two such boxes, one after the other. The tensor map's
+// writes: rows of 64 16-bit elements (128 bytes), the 16-byte chunks of
+// row r XORed with r % 8, each box 1024-byte aligned. A tile wider than 64
+// columns (D = 128) is two such boxes, one after the other. The tensor map's
 // feature dim is the operand's true head dim d (a multiple of 8, at most
 // the tile's width), so TMA fills the columns past d with zeros: zero
 // columns of Q and K leave every score as it is, and zero columns of V,
@@ -29,6 +30,7 @@
 
 #include <cuda.h>  // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -176,48 +178,94 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in bits 0-15
+// The 16-bit element types of the tensor-core kernels. Each names its
+// storage type and pair, the pack of two floats (round to nearest even,
+// by the conversion intrinsics only), the TMA data type, and kF16, which
+// picks the PTX type of the mma.sync and wgmma strings (".bf16.bf16" or
+// ".f16.f16", both with f32 accumulation at every shape used here; see
+// SM90_TYPED). fp16 and bf16 share every bit layout the kernels rest on:
+// 16-bit elements, the 128-byte swizzle, ldmatrix and the fragments. So a
+// kernel templated on one runs the other with the same tiles, barriers and
+// setmaxnreg budgets.
+struct Bf16 {
+  using T = __nv_bfloat16;
+  using T2 = __nv_bfloat162;
+  static constexpr bool kF16 = false;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ T2 pack2(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);  // .x (lo) in bits 0-15
+  }
+};
+
+struct F16 {
+  using T = __half;
+  using T2 = __half2;
+  static constexpr bool kF16 = true;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ T2 pack2(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);  // .x (lo) in bits 0-15
+  }
+};
+
+// Expands the asm statement macro M with E's PTX type name.
+#define SM90_TYPED(E, M)     \
+  do {                       \
+    if constexpr (E::kF16) { \
+      M("f16");              \
+    } else {                 \
+      M("bf16");             \
+    }                        \
+  } while (0)
+
+// Two floats rounded to E and packed into one register, lo in bits 0-15.
+template <class E>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  typename E::T2 v = E::pack2(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // mma.sync m16n8k16 (sm_80 and up), for the kernels of head dims past 128
 // (flash_fwd.cu and flash_bwd.cu, "wide"): d += a b for one 16 x 8 x 16
-// tile, a row-major 16 x 16 bf16 (4 packed pairs a thread: {row g, k 2t..},
-// {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}), b column-major 16 x 8
-// (b0 = {k 2t, 2t + 1; n g}, b1 = the same at k + 8); d is rows g, g + 8 x
-// columns 2t, 2t + 1, for g = lane / 4, t = lane % 4.
+// tile, a row-major 16 x 16 of E (4 packed pairs a thread: {row g, k
+// 2t..}, {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}), b column-major
+// 16 x 8 (b0 = {k 2t, 2t + 1; n g}, b1 = the same at k + 8); d is rows g,
+// g + 8 x columns 2t, 2t + 1, for g = lane / 4, t = lane % 4.
+template <class E>
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+#define SM90_ASM(TY) \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 " \
+               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n" \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]) \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), \
+                 "r"(b1))
+  SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+// Two adjacent 16-bit elements (bf16 or fp16) as one register.
+template <class T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // The A fragment of rows [r0, r0 + 16), k columns [16 kk, 16 kk + 16) of a
-// row-major bf16 tile in shared memory with row stride ST.
-template <int ST>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4],
-                                       const __nv_bfloat16* s, int r0, int kk,
-                                       int g, int t) {
+// row-major 16-bit tile in shared memory with row stride ST.
+template <int ST, class T>
+__device__ __forceinline__ void load_a(uint32_t (&f)[4], const T* s, int r0,
+                                       int kk, int g, int t) {
   f[0] = ld32(&s[(r0 + g) * ST + kk * 16 + 2 * t]);
   f[1] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 2 * t]);
   f[2] = ld32(&s[(r0 + g) * ST + kk * 16 + 8 + 2 * t]);
   f[3] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 8 + 2 * t]);
 }
 
-// Four 8x8 bf16 matrices from shared memory, transposed: lane i gives the
-// address of row i % 8 of matrix i / 8, and receives in register m the
+// Four 8x8 16-bit matrices from shared memory, transposed: lane i gives
+// the address of row i % 8 of matrix i / 8, and receives in register m the
 // elements (2 * (i % 4), i / 4) and (2 * (i % 4) + 1, i / 4) of matrix m,
 // i.e. the mma B fragment of a matrix stored with k along its rows.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
-                                          const __nv_bfloat16* p) {
+template <class T>
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const T* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -226,23 +274,22 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4],
 
 // The B fragments of k rows [16 kk, 16 kk + 16) and n columns [8 nt, 8 nt +
 // 16) (two n-tiles: b[0], b[1] for nt, b[2], b[3] for nt + 1) of a
-// row-major bf16 tile with k along its rows (V in P V, K in dS K, dO and Q
-// in P^T dO and dS^T Q), row stride ST.
-template <int ST>
-__device__ __forceinline__ void load_b_kmajor_x2(uint32_t (&b)[4],
-                                                 const __nv_bfloat16* s,
+// row-major 16-bit tile with k along its rows (V in P V, K in dS K, dO
+// and Q in P^T dO and dS^T Q), row stride ST.
+template <int ST, class T>
+__device__ __forceinline__ void load_b_kmajor_x2(uint32_t (&b)[4], const T* s,
                                                  int kk, int nt, int lane) {
   const int mat = lane / 8, r = lane % 8;
   ldsm_x4_t(b, &s[(kk * 16 + (mat & 1) * 8 + r) * ST + (nt + (mat >> 1)) * 8]);
 }
 
-// Copies rows [r0, r0 + R) of a (seq, d) bf16 operand (row stride
+// Copies rows [r0, r0 + R) of a (seq, d) 16-bit operand (row stride
 // `row_stride` elements, 16-byte aligned rows) into a shared tile of row
 // stride ST and D columns, with `threads` threads: rows past n and columns
-// past d (a multiple of 8) are zero.
-template <int R, int D, int ST, int threads>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
-                                           const __nv_bfloat16* src,
+// past d (a multiple of 8) are zero. A chunk of a wider operand is staged
+// with `src` at its first column and `d` its columns below the true d.
+template <int R, int D, int ST, int threads, class T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
                                            long long row_stride, int r0,
                                            int n, int d, int tid) {
   constexpr int CPR = D / 8;  // 16-byte chunks per row
@@ -256,129 +303,158 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
   }
 }
 
-// wgmma.mma_async m64nNk16, bf16 in, f32 accumulate, over one warpgroup.
-// d holds N / 2 floats a thread: d[4 j + e] is row 16 w + g + 8 (e / 2),
-// column 8 j + 2 t + (e % 2) of the 64 x N tile, for warp w of the
-// warpgroup, g = lane / 4, t = lane % 4 (the mma.sync m16n8 layout, N / 8
-// times). scale_d = 0 overwrites d, 1 accumulates.
+// Rows [r0, r0 + R) of columns [c0, c0 + D) of a (seq, d) f32 operand
+// (row stride `row_stride` elements) into a shared tile of row stride LD,
+// with `threads` threads: rows past n and columns past d are zero (a
+// chunk of the f32 kernels past d = 256).
+template <int R, int D, int LD, int threads>
+__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
+                                               long long row_stride, int r0,
+                                               int n, int c0, int d,
+                                               int tid) {
+  for (int e = tid; e < R * D; e += threads) {
+    const int rr = e / D, col = c0 + e % D;
+    dst[rr * LD + e % D] =
+        r0 + rr < n && col < d ? src[(r0 + rr) * row_stride + col] : 0.f;
+  }
+}
+
+// wgmma.mma_async m64nNk16, E (bf16 or fp16) in, f32 accumulate, over one
+// warpgroup. d holds N / 2 floats a thread: d[4 j + e] is row 16 w + g + 8
+// (e / 2), column 8 j + 2 t + (e % 2) of the 64 x N tile, for warp w of
+// the warpgroup, g = lane / 4, t = lane % 4 (the mma.sync m16n8 layout,
+// N / 8 times). scale_d = 0 overwrites d, 1 accumulates.
 // * ss: a and b from shared memory, both K-major (transpose flags 0);
 // * rs_mn: a from registers, the m16n8k16 A fragment of each warp's 16 rows
 //   ({row g, k 2t..2t+1}, {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}
-//   as packed bf16 pairs), b MN-major (transpose flag 1); only the widths
+//   as packed pairs of E), b MN-major (transpose flag 1); only the widths
 //   the kernels use (N = D: 64 and 128).
-template <int N>
+template <int N, class E>
 struct Wgmma;
 
-template <>
-struct Wgmma<32> {
+template <class E>
+struct Wgmma<32, E> {
   static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
-        " %16, %17, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15])
-        : "l"(da), "l"(db), "r"(scale_d));
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}," \
+      " %16, %17, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
   }
 };
 
-template <>
-struct Wgmma<64> {
+template <class E>
+struct Wgmma<64, E> {
   static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}," \
+      " %32, %33, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
   }
   static __device__ __forceinline__ void rs_mn(float (&d)[32],
                                                const uint32_t (&a)[4],
                                                uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
-        " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}," \
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
   }
 };
 
-template <>
-struct Wgmma<128> {
+template <class E>
+struct Wgmma<128, E> {
   static __device__ __forceinline__ void ss(float (&d)[64], uint64_t da,
                                             uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-        " %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}," \
+      " %64, %65, p, 1, 1, 0, 0;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
   }
   static __device__ __forceinline__ void rs_mn(float (&d)[64],
                                                const uint32_t (&a)[4],
                                                uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-        " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-          "r"(scale_d));
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}," \
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
   }
 };
 
@@ -416,14 +492,15 @@ inline EncodeTiledFn encode_fn() {
   return fn;
 }
 
-// A bf16 (B, H, S, d) operand with element strides (sb, sh, ss) and unit
-// feature stride, read in boxes of 64 features x `rows` rows with the
-// 128-byte swizzle; features past d (d < 64, or a second box past d) are
-// zero-filled. Dims innermost first: (d, S, H, B). Returns 0 or an error
-// code as above.
-inline int encode_rows_bf16(CUtensorMap* map, const void* base, int d, int s,
-                            int h, int b, long long ss, long long sh,
-                            long long sb, int rows) {
+// A (B, H, S, d) operand of element type E (bf16 or fp16) with element
+// strides (sb, sh, ss) and unit feature stride, read in boxes of 64
+// features x `rows` rows with the 128-byte swizzle; features past d (d <
+// 64, or a second box past d) are zero-filled. Dims innermost first: (d,
+// S, H, B). Returns 0 or an error code as above.
+template <class E>
+inline int encode_rows(CUtensorMap* map, const void* base, int d, int s,
+                       int h, int b, long long ss, long long sh, long long sb,
+                       int rows) {
   const EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
@@ -436,7 +513,7 @@ inline int encode_rows_bf16(CUtensorMap* map, const void* base, int d, int s,
   const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+      fn(map, E::kTma, 4, const_cast<void*>(base),
          dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

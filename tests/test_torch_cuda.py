@@ -13,10 +13,12 @@ need not have, hence ``--noconftest``)::
     python -m pytest --noconftest -p no:cacheprovider -m gpu \\
         tests/test_torch_cuda.py
 
-Tolerances as in ``chip_smoke.py``: bf16 out 2e-2 and lse 1e-2, f32
-1e-4; gradients 2e-2 of each row's L2 norm in bf16 (p and ds round to
-bf16 at 2**-8), 1e-4 in f32. The MPNN step as ``chip_smoke.py``'s
-(``GNN_F32_TOL`` and ``GNN_BF16_FACTOR``, which give the reasons): in
+Tolerances as in ``chip_smoke.py``: bf16 out 2e-2 and lse 1e-2, fp16
+4e-3 and 2e-3, f32 1e-4; gradients 2e-2 of each row's L2 norm in bf16 (p
+and ds round to bf16 at 2**-8), 4e-3 in fp16 (2**-11: a fifth of bf16's,
+which leaves room for the summation order), 1e-4 in f32. The MPNN step
+as ``chip_smoke.py``'s (``GNN_F32_TOL`` and ``GNN_BF16_FACTOR``, which
+give the reasons): in
 f32 each gradient leaf's L2 error over its L2 norm 1e-4, the parameters
 after one Adam step at lr 1e-3 1e-4; in bf16 the card's and the CPU's
 steps against the CPU's f32 step, the card's error at most 3x the
@@ -40,6 +42,9 @@ pytestmark = pytest.mark.gpu
 # head dims other than 64 and 128: below, inside and above the 64 and 128
 # tiles, not a multiple of 8 (20), and the 256 tile's edge
 HEAD_DIMS = (8, 16, 20, 32, 40, 96, 160, 256)
+# past 256: two to four chunks of 256 features, the last one partly
+# zero-filled (264, 320, 1000) and not a multiple of 8 (300, 1000)
+WIDE_DIMS = (264, 300, 320, 512, 1000, 1024)
 
 
 @pytest.fixture
@@ -51,7 +56,8 @@ def cuda():
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, (2e-2, 1e-2)),
-                                       (torch.float32, (1e-4, 1e-4))])
+                                       (torch.float32, (1e-4, 1e-4)),
+                                       (torch.float16, (4e-3, 2e-3))])
 @pytest.mark.parametrize("s,d,causal,q_off,kv_off",
                          [(256, 64, True, 0, 0), (200, 64, False, 0, 0),
                           (136, 128, True, 0, 0), (128, 64, True, 0, 64),
@@ -60,7 +66,11 @@ def cuda():
                          # dims padded to a multiple of 8 (20)
                          + [(200, d, True, 0, 0) for d in HEAD_DIMS]
                          + [(136, d, False, 0, 0) for d in HEAD_DIMS]
-                         + [(256, d, True, 192, 64) for d in HEAD_DIMS])
+                         + [(256, d, True, 192, 64) for d in HEAD_DIMS]
+                         # chunks of 256 features
+                         + [(200, d, True, 0, 0) for d in WIDE_DIMS]
+                         + [(136, d, False, 0, 0) for d in WIDE_DIMS]
+                         + [(256, d, True, 192, 64) for d in WIDE_DIMS])
 def test_kernel_matches_plain(cuda, dtype, tol, s, d, causal, q_off,
                               kv_off):
     g = torch.Generator(device=cuda).manual_seed(s + d)
@@ -98,7 +108,8 @@ def _rows_close(got, want, dead, rel):
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
+                                       (torch.float32, 1e-4),
+                                       (torch.float16, 4e-3)])
 @pytest.mark.parametrize("sq,sk,d,causal,q_off,kv_off",
                          [(256, 256, 64, True, 0, 0),
                           (200, 200, 64, False, 0, 0),
@@ -113,7 +124,10 @@ def _rows_close(got, want, dead, rel):
                           (72, 136, 128, False, 0, 0)]
                          + [(200, 200, d, True, 0, 0) for d in HEAD_DIMS]
                          + [(256, 256, d, True, 192, 64) for d in HEAD_DIMS]
-                         + [(72, 136, d, False, 0, 0) for d in (20, 160)])
+                         + [(72, 136, d, False, 0, 0) for d in (20, 160)]
+                         + [(200, 200, d, True, 0, 0) for d in WIDE_DIMS]
+                         + [(256, 256, d, True, 192, 64) for d in WIDE_DIMS]
+                         + [(72, 136, d, False, 0, 0) for d in (300, 512)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -149,7 +163,7 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("d", [64, 128, 32, 160, 256])
+@pytest.mark.parametrize("d", [64, 128, 32, 160, 256, 512])
 def test_dkv_kernel_is_deterministic(cuda, d, kernel):
     # Each dq row (dq kernel) and each dk/dv row (dk/dv kernel) is written
     # by one block, with no atomics: two launches on the same inputs give
@@ -172,12 +186,18 @@ def test_dkv_kernel_is_deterministic(cuda, d, kernel):
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
-    q = torch.zeros((1, 1, 16, 264), device=cuda)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
+    # What the kernels refuse: f64 (outside the reference's domain: the
+    # JAX package never turns on jax_enable_x64), mixed dtypes, and a
+    # head dim of 0. fp16 and head dims past 256 launch (the cases above).
+    q = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="bf16, fp16 or f32"):
         attention.flash_attention(q, q, q)
     q = torch.zeros((1, 1, 16, 64), device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError, match="bf16 or f32"):
-        attention.flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="bf16, fp16 or f32"):
+        attention.flash_attention(q, q.bfloat16(), q)
+    q = torch.zeros((1, 1, 16, 0), device=cuda)
+    with pytest.raises(ValueError, match="head dims from 1 up"):
+        attention.flash_attention(q, q, q, scale=1.0)
 
 
 def test_backward_refuses_what_it_does_not_take(cuda):
@@ -186,12 +206,16 @@ def test_backward_refuses_what_it_does_not_take(cuda):
     kw = dict(causal=True, q_offset=0, kv_offset=0, scale=0.125)
     with pytest.raises(ValueError, match="do .* does not match"):
         attention._flash_bwd_cuda(q, q, q, q.bfloat16(), lse, lse, **kw)
-    h = q.half()
-    with pytest.raises(TypeError, match="bf16 or f32"):
+    h = q.double()
+    with pytest.raises(TypeError, match="bf16, fp16 or f32"):
         attention._flash_bwd_cuda(h, h, h, h, lse, lse, **kw)
-    wide = torch.zeros((1, 1, 16, 264), device=cuda)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        attention._flash_bwd_cuda(wide, wide, wide, wide, lse, lse, **kw)
+    h = q.half()
+    with pytest.raises(TypeError, match="bf16, fp16 or f32"):
+        attention._flash_bwd_cuda(h, h.bfloat16(), h, h, lse, lse, **kw)
+    empty = torch.zeros((1, 1, 16, 0), device=cuda)
+    with pytest.raises(ValueError, match="head dims from 1 up"):
+        attention._flash_bwd_cuda(empty, empty, empty, empty, lse, lse,
+                                  **kw)
 
 
 def test_block_backward_launches_both_kernels(cuda):

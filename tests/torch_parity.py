@@ -14,7 +14,8 @@ from ddstore_tpu_torch.models import transformer as ttr
 
 SMALL = dict(vocab=256, dim=64, heads=4, layers=2)
 
-_TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
+_TORCH_DTYPE = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16,
+                jnp.float16: torch.float16}
 
 
 def lm_pair(dtype=jnp.float32, seed=0, **kw):
