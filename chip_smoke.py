@@ -13,7 +13,9 @@ Phases; any failure raises and ends the run with a non-zero exit:
    convolutions (the plain versions are then exact f32 references);
 2. build: every CUDA kernel of the port, from the sources in the
    checkout (one ``nvcc`` per source, all started together); the ptxas
-   report must show no register spills. Beside them, the store's native
+   report must show no register spills and no advisory of ptxas about
+   ``wgmma`` (a serialised product, or a wait it injected: C75xx).
+   Beside them, the store's native
    core (one ``g++`` per translation unit, all started together);
 3. kernels: each kernel (flash forward, dq, dk/dv) against its plain
    PyTorch version on the card, at the main path's shapes and at edge
@@ -228,8 +230,8 @@ Phases; any failure raises and ends the run with a non-zero exit:
    process's step (phase 12's rules), peak memory per rank.
 
 15. head dims (the reference's kernels take any head dim): each kernel
-   against its plain version at head dims 8, 16, 20, 32, 40, 96, 160 and
-   256 on a bf16 causal case with ragged tiles, a
+   against its plain version at head dims 8, 16, 20, 32, 40, 96, 136,
+   160, 200, 248 and 256 on a bf16 causal case with ragged tiles, a
    bf16 case with q_offset 192 and kv_offset 64, and an f32 non-causal
    one, with an lse cotangent (dq and dk/dv bit-identical over two
    launches, the launch counters moved by each case); each kernel at H D
@@ -254,16 +256,18 @@ Phases; any failure raises and ends the run with a non-zero exit:
    raise while the kernels run) in fp16 at phase 15's head dims, and in
    bf16, fp16 and f32 at 264, 300, 320, 512, 1000 and 1024 (chunks of 256
    features), the fp16 tolerances a fifth of bf16's; each kernel at (8,
-   2048) in the LM's qkv views in fp16 at hd 64, 128 and 256, and in
-   bf16, fp16 and f32 at hd 512 (2 heads), against its plain version and
-   SDPA (and which SDPA backend takes hd 512); the LM above in fp16 (16
+   2048) in the LM's qkv views in fp16 at hd 64, 128 and 256, in f32 at
+   hd 64, 128 and 256, and in bf16, fp16 and f32 at hd 512 (2 heads),
+   against its plain version and SDPA (and which SDPA backend takes hd
+   512); the LM above in fp16 (16
    heads) and in bf16 at 2 heads (hd 512), store-fed: eval loss, 3 Adam
    steps and ``generate`` of 8 tokens (launches zeroed just before and
    read just after), the first step's loss within 2e-2 of the same step
    under the plain attention.
 
 Then it prints the kernel table as one JSON line (each row names its
-design: ``wgmma+tma``, the bf16 path of all three kernels), the card's
+design: ``wgmma+tma``, the bf16 path of all three kernels up to head dim
+128, and of the forward and dk/dv up to 256), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 Without a card, or outside a checkout, it exits non-zero and prints no
@@ -523,7 +527,9 @@ FSP_RANKS, FSP_SEQ, FSP_WARMUP, FSP_STEPS = 4, 4096, 1, 3
 # loss held to the same step under the plain attention at MOE_LOSS_TOL;
 # the long-context example at its own defaults over dp 2 x sp 2 (four
 # ranks on the card, gloo), one epoch of HD_EX_WINDOWS windows a rank.
-HD_DIMS = (8, 16, 20, 32, 40, 96, 160, 256)
+# (136, 200 and 248: the 256 tile of the forward and dk/dv zero-filled
+# past d, with ragged 64-key and 64-query tiles)
+HD_DIMS = (8, 16, 20, 32, 40, 96, 136, 160, 200, 248, 256)
 HD_CASES = (("bf16_causal_ragged", (1, 4, 200, 200), torch.bfloat16, True,
              0, 0),
             ("bf16_offsets", (2, 4, 256, 256), torch.bfloat16, True, 192,
@@ -542,7 +548,8 @@ HD_EX_CHUNK = (2, 4, 1024, 32)
 # past 256 (chunks of 256; 300 and 1000 padded to a multiple of 8), the
 # fp16 tolerances beside TOL; each kernel at the LM's (8, 2048) in its
 # qkv views at FW_TIMED (dtype, head dim), H = DIM // d, against its
-# plain version and SDPA (and SDPA's route past 256); the LM above in
+# plain version and SDPA (and SDPA's route past 256; the f32 kernels at
+# 64, 128 and 256 too, their launches phase 15's f32 cases); the LM above in
 # fp16 at 16 heads and in bf16 at 2 heads (hd 512), store-fed: eval
 # loss, HD_STEPS Adam steps and generate of HD_NEW_TOKENS, the first
 # step's loss held to the same step under the plain attention at
@@ -550,6 +557,7 @@ HD_EX_CHUNK = (2, 4, 1024, 32)
 FW_DIMS = (264, 300, 320, 512, 1000, 1024)
 FW_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 FW_TIMED = ((torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
+            (torch.float32, 64), (torch.float32, 128), (torch.float32, 256),
             (torch.bfloat16, 512), (torch.float16, 512),
             (torch.float32, 512))
 # launches a timing round (the f32 kernels run on the CUDA cores)
@@ -5296,11 +5304,15 @@ def head_dim_example(seed, card):
 def phase_head_dims(dev, seed, card):
     """Phase 15."""
     g = torch.Generator(device=dev).manual_seed(5678)
-    errs = {}
+    errs, launched = {}, {}
     for d in HD_DIMS:
         for name, shape, dt, causal, qo, ko in HD_CASES:
             res = head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko)
-            res.pop("moved")
+            seen = launched.setdefault(
+                (str(dt).split(".")[-1], wide_class(d)),
+                dict.fromkeys(res["moved"], 0))
+            for kern, n in res.pop("moved").items():
+                seen[kern] += n
             for kern, (e_abs, e_rel) in res.items():
                 prev = errs.get(kern, (0.0, 0.0))
                 errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
@@ -5321,8 +5333,8 @@ def phase_head_dims(dev, seed, card):
            for heads in HD_LM_HEADS}
     store.close()
     ex = head_dim_example(seed, card)
-    return {"errs": errs, "timing": timing, "example_chunks": chunks,
-            "lm": lms, "example": ex}
+    return {"errs": errs, "launched": launched, "timing": timing,
+            "example_chunks": chunks, "lm": lms, "example": ex}
 
 
 # Phase 16: the kernels in fp16 and at head dims past 256 (the reference's
@@ -5418,16 +5430,33 @@ def phase_fp16_wide(dev, seed, card):
             "timing": timing, "lm": lms}
 
 
-def fp16_wide_rows(fw):
+def kernel_design(name, dname, d):
+    """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
+    TMA + wgmma for 16 bits up to 128 (the forward and dk/dv up to 256),
+    mma.sync past that (in chunks of 256 past 256), the CUDA cores in
+    f32."""
+    if dname == "float32":
+        design = "cuda cores"
+    elif d <= 128 or (d <= 256 and name != "flash_bwd_dq"):
+        design = "wgmma+tma"
+    else:
+        design = "mma.sync"
+    return design + (", chunks of 256" if wide_class(d) == "chunks" else "")
+
+
+def fp16_wide_rows(fw, hd):
     """The kernels' JSON rows of phase 16's variants: each kernel at each
     timed (dtype, head dim), its launches those of the LM that runs the
     variant (fp16 at hd 64, bf16 at hd 512), else those of phase 16's
-    cases of its dtype and tile (or chunks)."""
+    cases of its dtype and tile (or chunks), or of phase 15's (f32 up to
+    256)."""
     lm_of = {("float16", "64"): "fp16", ("bfloat16", "chunks"): "hd512"}
     rows = []
     for (dname, d), t in fw["timing"].items():
         cls = wide_class(d)
         lm = lm_of.get((dname, cls))
+        phase, cases = (16, fw["launched"]) if (dname, cls) in \
+            fw["launched"] else (15, hd["launched"])
         for name, line, fn, src in (
                 ("flash_fwd", 92, "_flash_kernel", "flash_fwd.cu"),
                 ("flash_bwd_dq", 213, "_bwd_dq_kernel", "flash_bwd.cu"),
@@ -5436,17 +5465,15 @@ def fp16_wide_rows(fw):
             rows.append({
                 "name": f"{name}[{dname} d{d}]",
                 "route": "cuda",
-                "design": ("cuda cores" if dname == "float32" else
-                           "wgmma+tma" if d <= 128 else "mma.sync")
-                + (", chunks of 256" if cls == "chunks" else ""),
+                "design": kernel_design(name, dname, d),
                 "source": f"ddstore_tpu_torch/ops/csrc/{src}",
                 "replaces": f"ddstore_tpu/ops/attention.py:{line}",
                 "replaces_function": fn,
                 "launches": (fw["lm"][lm]["launches"][name] if lm else
-                             fw["launched"][(dname, cls)][name]),
+                             cases[(dname, cls)][name]),
                 "launches_from": (
                     f"phase 16 LM {lm}" if lm else
-                    f"phase 16 cases, {dname} "
+                    f"phase {phase} cases, {dname} "
                     + ("chunks of 256" if cls == "chunks" else f"tile {cls}")),
                 "max_abs_err": r["max_abs_err"],
                 "max_row_rel_err": r["max_row_rel_err"],
@@ -5571,7 +5598,7 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
             "cases": fw["n_cases"],
             "worst_by_dtype": {dn: e[row["name"]]
                                for dn, e in fw["errs"].items()}}
-    rows += fp16_wide_rows(fw)
+    rows += fp16_wide_rows(fw, hd)
     return {"kernels": rows, "sdpa_backward_ms": bwd["ms"]["sdpa_backward"],
             "flash_bwd_dq_plus_dkv_ms": bwd["ms"]["dq"] + bwd["ms"]["dkv"],
             "head_dims_sdpa_backward_ms": {
@@ -5614,15 +5641,20 @@ def main() -> int:
           f"{native_path}", flush=True)
     for name in _build.SOURCES:
         _build.load(name)
-        # per kernel: its entry, registers, spills, and any wgmma that
-        # ptxas had to serialize
+        # per kernel: its entry, registers, spills, and any advisory of
+        # ptxas about wgmma (C75xx: a product it serialised, or a wait it
+        # injected before registers a product defines)
         regs = [ln.strip() for ln in _build.build_logs.get(name, "")
                 .splitlines() if any(w in ln for w in (
-                    "entry function", "registers", "spill", "wgmma"))]
+                    "entry function", "registers", "spill", "wgmma",
+                    "C75"))]
         print(f"build {name}: {regs}", flush=True)
         spills = [ln for ln in regs if "spill" in ln and
                   "0 bytes spill stores, 0 bytes spill loads" not in ln]
         check(not spills, f"build {name}: register spills {spills}")
+        advisories = [ln for ln in regs if "C75" in ln]
+        check(not advisories, f"build {name}: ptxas wgmma advisories "
+              f"{advisories}")
     print(f"build: {len(_build.SOURCES)} kernel(s) in {build_s:.2f} s",
           flush=True)
 

@@ -42,14 +42,16 @@ strands the others in the exchange.
 
 With ``mesh`` and a ``spec`` (the reference's ``PartitionSpec`` of a
 token batch, ``(batch axes, sequence axis)``) the sampler gives the rows
-of this rank's data slot (its position along the batch axes, ``dp`` and
-``fsdp``: ``data_axes``), and with a sequence axis, ``("dp", "sp")``, the
-loader stages only this rank's chunk of each row, ``[j * S/sp, (j + 1) *
-S/sp)`` for its position ``j`` along ``sp``: the rows are read whole,
-and the chunk alone is copied into the pinned buffer and on to the card.
-Ranks along the axes the spec does not name (``tp``, ``ep``, ``pp``)
-read the same rows, as the reference replicates a batch over them; nothing
-is broadcast (under pp the first stage reads the tokens and the last the
+of this rank's slot of each global batch: its position along the batch
+axes, any of the mesh's (``dp``, ``fsdp``, or a model axis such as
+``tp``: :func:`batch_slot`), as ``NamedSharding(mesh, spec)`` places a
+batch's rows on the reference's devices. With a sequence axis, ``("dp",
+"sp")``, the loader stages only this rank's chunk of each row, ``[j *
+S/sp, (j + 1) * S/sp)`` for its position ``j`` along ``sp``: the rows are
+read whole, and the chunk alone is copied into the pinned buffer and on
+to the card. Ranks along the axes the spec does not name read the same
+rows, as the reference replicates a batch over them; nothing is
+broadcast (under pp the first stage reads the tokens and the last the
 targets of the same rows).
 
 Over a store that has them, the loader wires the store's counters into
@@ -73,7 +75,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, Optional
+from typing import Callable, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,7 +86,7 @@ from ..utils.metrics import PipelineMetrics
 from ..utils.profile import annotate
 from .device_fetch import host_bytes_over_dcn
 
-__all__ = ["DeviceLoader"]
+__all__ = ["DeviceLoader", "batch_slot"]
 
 # Staged-ok flags the ranks agree on before an exchange (the minimum
 # wins): every rank staged; some rank failed transiently (every rank
@@ -125,6 +127,51 @@ class _PendingExchange:
 
     def __init__(self, finalize: Callable):
         self.finalize = finalize
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    """The mesh axes of one ``PartitionSpec`` entry (None, a name or a
+    tuple of names)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _check_spec(mesh, spec) -> tuple:
+    """``spec`` as a tuple of at most two entries (batch, sequence) that
+    name only ``mesh``'s axes, each at most once (what ``NamedSharding``
+    takes for a 2-D token batch); raises ``ValueError`` otherwise."""
+    spec = () if spec is None else tuple(spec)
+    if len(spec) > 2:
+        raise ValueError(f"spec {spec}: a token batch has two dims (batch, "
+                         f"sequence)")
+    named = [a for e in spec for a in _spec_axes(e)]
+    if len(set(named)) != len(named):
+        raise ValueError(f"spec {spec} names a mesh axis twice")
+    if mesh is not None:
+        missing = [a for a in named if a not in (mesh.mesh_dim_names or ())]
+        if missing:
+            raise ValueError(f"spec {spec}: the mesh has no {missing} "
+                             f"axis")
+    return spec
+
+
+def batch_slot(mesh, spec) -> Tuple[int, int]:
+    """(this rank's slot, the number of slots) of a batch placed by
+    ``spec`` over ``mesh``: the reference's ``NamedSharding(mesh, spec)``
+    splits a batch's rows over the axes of the spec's first entry, in the
+    order it names them (the first the slowest), and replicates them over
+    the others. A rank's sampler gives its slot's rows, ``batch //
+    slots`` of each global batch of ``batch`` rows; (0, 1) when the spec
+    splits no rows."""
+    from ..parallel.mesh import axis_index, axis_size
+
+    spec = _check_spec(mesh, spec)
+    slot, slots = 0, 1
+    for a in _spec_axes(spec[0] if spec else None):
+        n = axis_size(mesh, a)
+        slot, slots = slot * n + axis_index(mesh, a), slots * n
+    return slot, slots
 
 
 class DeviceLoader:
@@ -187,15 +234,17 @@ class DeviceLoader:
         (default: the world).
     mesh / spec: the SPMD placement of each batch, ``(batch, sequence)``
         with a :func:`~ddstore_tpu_torch.parallel.mesh.make_mesh` mesh:
-        the batch entry is ``None``, a data axis (``"dp"``, ``"fsdp"``)
-        or a tuple of them (the sampler gives the rows of this rank's
-        slot along them; ``batch_size`` is that slot's batch); a
-        sequence entry names the mesh axis the rows are split over
-        (``("dp", "sp")``): this rank's chunk of every row is staged, and
-        :meth:`seq_positions` gives the chunk's global positions. Without
-        one (``("dp",)``, ``(("dp", "fsdp"),)`` or no spec) whole rows
-        are staged, on every rank along the other axes alike. A spec that
-        puts the batch on a model axis raises ``NotImplementedError``.
+        the batch entry is ``None``, a mesh axis (``"dp"``, ``"fsdp"``,
+        ``"tp"``, ...) or a tuple of them (the sampler gives the rows of
+        this rank's slot along them, :func:`batch_slot`; ``batch_size``
+        is that slot's batch); a sequence entry names the mesh axis the
+        rows are split over (``("dp", "sp")``): this rank's chunk of every
+        row is staged, and :meth:`seq_positions` gives the chunk's global
+        positions. Without one (``("dp",)``, ``(("dp", "tp"),)`` or no
+        spec) whole rows are staged, on every rank along the other axes
+        alike. A spec of more than two entries, or that names an axis
+        the mesh lacks or one axis twice, raises ``ValueError``, as
+        ``NamedSharding`` refuses it.
     """
 
     def __init__(self, dataset, sampler: Iterable[int], batch_size: int,
@@ -305,16 +354,9 @@ class DeviceLoader:
 
     def _seq_range_of(self, mesh, spec):
         """This rank's ``[lo, hi)`` of each row when ``spec``'s second
-        entry splits the rows over a mesh axis, else None. Raises on a
-        spec the port cannot place."""
-        spec = () if spec is None else tuple(spec)
-        batch = spec[0] if spec else None
-        names = (batch,) if isinstance(batch, str) else tuple(batch or ())
-        bad = [a for a in names if a not in ("dp", "fsdp")]
-        if bad or len(spec) > 2:
-            raise NotImplementedError(
-                f"spec {spec}: the port places a batch's rows over the data "
-                f"axes ('dp', 'fsdp') and its sequence over one mesh axis")
+        entry splits the rows over a mesh axis, else None. Raises
+        ``ValueError`` on a spec that ``NamedSharding`` would refuse."""
+        spec = _check_spec(mesh, spec)
         axis = spec[1] if len(spec) == 2 else None
         if axis is None:
             return None
@@ -323,8 +365,6 @@ class DeviceLoader:
         if mesh is None or not hasattr(self.dataset, "specs"):
             raise ValueError(f"spec {spec} needs a mesh and a dataset with "
                              f"specs() (fixed-width rows)")
-        if axis not in (mesh.mesh_dim_names or ()):
-            raise ValueError(f"spec {spec}: the mesh has no {axis!r} axis")
         if self.device_collective:
             raise ValueError(f"spec {spec} stages sequence chunks; the "
                              f"device-collective fetch delivers whole rows")

@@ -127,11 +127,10 @@ def main(argv=None) -> dict:
 
     from ddstore_tpu_torch.data.dataset import (DistributedSampler,
                                                 ShardedDataset)
-    from ddstore_tpu_torch.data.loader import DeviceLoader
+    from ddstore_tpu_torch.data.loader import DeviceLoader, batch_slot
     from ddstore_tpu_torch.examples._launch import finish, launch
     from ddstore_tpu_torch.models import decode, transformer
     from ddstore_tpu_torch.parallel import make_mesh
-    from ddstore_tpu_torch.parallel.mesh import axis_index
     from ddstore_tpu_torch.store import DDStore
     from ddstore_tpu_torch.utils import profile
 
@@ -144,7 +143,6 @@ def main(argv=None) -> dict:
     axes = rank_axes(world, dp, pp, tp, args.experts)
     ep, sp = axes["ep"], axes["sp"]
     mesh = make_mesh(axes, dev.type) if world > 1 else None
-    dp_index = axis_index(mesh, "dp")
 
     store = DDStore(group)
     rng = np.random.default_rng(args.seed + store.rank)
@@ -188,12 +186,14 @@ def main(argv=None) -> dict:
                                            mesh=mesh,
                                            accum_steps=args.accum_steps)
         batch = 2  # a dp slot's rows (the reference's 2 * dp over all)
-    sampler = DistributedSampler(len(ds), dp, dp_index, seed=args.seed)
+    spec = ("dp", "sp") if sp > 1 else ("dp",)
+    slot, slots = batch_slot(mesh, spec)  # this rank's dp slot
+    sampler = DistributedSampler(len(ds), slots, slot, seed=args.seed)
     losses = []
     for epoch in range(args.epochs):
         sampler.set_epoch(epoch)
         loader = DeviceLoader(ds, sampler, batch, device=dev, mesh=mesh,
-                              spec=("dp", "sp") if sp > 1 else None)
+                              spec=spec)
         pos = loader.seq_positions(batch)
         tracing = profile.trace(args.profile) \
             if (args.profile and epoch == 0) else contextlib.nullcontext()

@@ -1041,14 +1041,16 @@ def _pp_finish(stage: PipelineStage, st, mesh, dp_axis, head_sum, side_sum,
                aux_weight, m):
     """The step's loss, replicated on every rank: the head's microbatch
     mean plus the side losses over the pp ring, averaged over the data
-    ranks (dp x sp); and each parameter's gradient averaged over them."""
+    ranks (dp x fsdp x sp; fsdp ranks are replicas that hold their dp
+    slot's rows); and each parameter's gradient averaged over them."""
     loss = torch.zeros((), dtype=torch.float32, device=side_sum.device)
     if st.d == st.s - 1:
         loss = loss + head_sum / m
     loss = loss + aux_weight * side_sum / m
     if st.ring is not None and st.ring.group is not None:
         dist.all_reduce(loss, group=st.ring.group)
-    data = axes_group(mesh, tuple(a for a in (dp_axis, stage.sp_axis)
+    data = axes_group(mesh, tuple(a for a in (dp_axis, "fsdp",
+                                              stage.sp_axis)
                                   if a is not None))
     if data is not None:
         n = dist.get_world_size(data)
@@ -1199,8 +1201,10 @@ def create_pp_train_state(model: TransformerLM, n_stages: int,
     heads) and the head is vocab-sharded; a larger ``ep_axis`` shards the
     experts. An MoE layer routes each microbatch's dp shard alone, as the
     reference's stages do (over sp, the shard's rows in the global order of
-    their chunks). A mesh with an ``fsdp`` axis raises: the
-    reference places tp and ep only over a pp mesh."""
+    their chunks). Over an ``fsdp`` axis the stages are replicas, as the
+    reference leaves them (it places tp and ep only over a pp mesh, and
+    its data ``P(dp, sp)``): an fsdp rank takes its dp slot's rows, and
+    :func:`make_pp_train_step` averages the gradients over dp x fsdp x sp."""
     s = axis_size(mesh, pp_axis)
     if mesh is None and n_stages != 1:
         raise ValueError(f"{n_stages} stages need a mesh with a "
@@ -1208,11 +1212,6 @@ def create_pp_train_state(model: TransformerLM, n_stages: int,
     if mesh is not None and s != n_stages:
         raise ValueError(f"n_stages={n_stages} but the mesh's {pp_axis!r} "
                          f"axis has size {s}")
-    if axis_size(mesh, "fsdp") > 1:
-        raise NotImplementedError(
-            "pipeline stages over an fsdp axis: the reference's "
-            "create_pp_train_state places tp and ep only (fsdp would be "
-            "replicated); use dp with pp")
     if mesh is not None:
         _check_replicas(model)
         if model.heads % axis_size(mesh, tp_axis):

@@ -317,6 +317,9 @@ Store::~Store() {
   // In-flight async reads hold the shared lock and use the transport;
   // both must still exist while they finish.
   DrainAsync();
+  // Peers must stop reaching the shards before they are unpublished and
+  // freed (Transport::StopServing).
+  transport_->StopServing();
   FreeAll();
 }
 

@@ -397,6 +397,14 @@ class Transport {
     return kOk;
   }
 
+  // Stop answering peers: the serving side of the transport goes, its
+  // reads of peers stay. The store calls it in teardown before it frees
+  // its variables, so that a peer's read in flight finds a closed
+  // connection (which its replica router fails over) and never a
+  // well-formed "variable not found" from a store half torn down. Default
+  // no-op (a transport that serves nothing).
+  virtual void StopServing() {}
+
   // Install the store's suspect oracle: transports with an internal
   // retry layer consult it between attempts so a ladder against a
   // detector-declared-dead peer aborts in O(heartbeat), not

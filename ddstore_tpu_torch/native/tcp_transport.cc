@@ -393,7 +393,18 @@ TcpTransport::TcpTransport(int rank, int world, int port)
 }
 
 TcpTransport::~TcpTransport() {
-  stopping_.store(true);
+  StopServing();
+  for (auto& p : peers_) {
+    if (!p) continue;
+    for (auto& c : p->conns)
+      if (c->fd >= 0) ::close(c->fd);
+  }
+  for (auto& pc : ping_conns_)
+    if (pc && pc->fd >= 0) ::close(pc->fd);
+}
+
+void TcpTransport::StopServing() {
+  if (stopping_.exchange(true)) return;  // the store's teardown came first
   if (listen_fd_ >= 0) {
     ::shutdown(listen_fd_, SHUT_RDWR);
     ::close(listen_fd_);
@@ -429,13 +440,6 @@ TcpTransport::~TcpTransport() {
     conn_threads_.clear();
     conn_fds_.clear();
   }
-  for (auto& p : peers_) {
-    if (!p) continue;
-    for (auto& c : p->conns)
-      if (c->fd >= 0) ::close(c->fd);
-  }
-  for (auto& pc : ping_conns_)
-    if (pc && pc->fd >= 0) ::close(pc->fd);
 }
 
 int TcpTransport::SetPeers(const std::vector<std::string>& hosts,

@@ -55,6 +55,9 @@ class TcpTransport : public Transport {
   // Starts the serving thread immediately; binds to `port` (0 = ephemeral).
   TcpTransport(int rank, int world, int port);
   ~TcpTransport() override;
+  // Closes the listeners and every served connection and joins their
+  // threads (once; the destructor calls it too).
+  void StopServing() override;
 
   // The port actually bound (for rendezvous). -1 if the server failed.
   int server_port() const { return server_port_; }

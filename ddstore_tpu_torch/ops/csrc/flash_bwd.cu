@@ -34,14 +34,15 @@
 // sm90::F16: the same tiles, barriers and register budgets; P and dS are
 // rounded to the input dtype before their products, as the reference
 // rounds them), in four instantiations each: tile widths 64 and 128 of the
-// TMA + wgmma kernels, whose tensor maps declare the true d so that TMA
-// zero-fills the tiles' columns past it (zero columns of Q, K, V and dO
-// leave S and dP as they are, and give zero columns of dQ, dK and dV,
-// which the stores skip), and for d > 128 simpler kernels on mma.sync
-// (below): one 256-feature tile up to d = 256, chunks of 256 past it. The
-// f32 kernels take the widths 64, 128, 256 and chunks of 256, with loads
-// and stores masked at d. Shared memory and registers are sized by the
-// tile or chunk, never by d.
+// TMA + wgmma kernels (and 256 of the dk/dv one), whose tensor maps declare
+// the true d so that TMA zero-fills the tiles' columns past it (zero
+// columns of Q, K, V and dO leave S and dP as they are, and give zero
+// columns of dQ, dK and dV, which the stores skip), and simpler kernels on
+// mma.sync (below) for the rest: dq at one 256-feature tile up to d = 256
+// and chunks of 256 past it, dk/dv in chunks past d = 256. The f32 kernels
+// take the widths 64, 128, 256 and chunks of 256, with loads and stores
+// masked at d. Shared memory and registers are sized by the tile or chunk,
+// never by d.
 //
 // Bound on the H100 SXM at the LM's shape, (B, H, S, D) = (8, 16, 2048,
 // 64) bf16 causal, 2.686e8 live score pairs: dq does 3 products of 2*D
@@ -93,17 +94,29 @@
 //   K and V held in registers as A fragments (the SS products re-read
 //   them from shared memory for every query tile), persistent blocks, a
 //   fused dq, and tiles narrower than 64 features.
-// * bf16 and fp16, d > 128: right rather than fast, on mma.sync m16n8k16
-//   with plain 16-byte loads into padded shared rows (columns past d
-//   zero) and ldmatrix.trans for the operands whose contracted dim runs
-//   down their rows. dq: one block of 4 warps per 64 queries (16 a warp);
-//   Q and dO stay in shared memory, 32-key K and V tiles stream through
-//   it; dQ's 128 accumulators a thread for 16 rows x 256 features fit
-//   beside S and dP of a 32-key tile. dk/dv: two D-wide accumulators would
-//   not fit, so each block owns 64 keys and one part (128 features) of
-//   dK and dV, and forms S^T and dP^T over all the features for its part:
-//   the parts' blocks repeat those two products (at d = 256, 1.5x the
-//   FLOPs). Past d = 256 the features come in nc = ceil(d / 256) chunks:
+// * bf16 and fp16 dk/dv, 128 < d <= 256: the same producer and ring, with
+//   the features split over the warpgroups (flash_bwd_dkv_split_kernel):
+//   one block per 64 keys, each warpgroup owning 128 features of dK and dV
+//   (64 + 64 registers a thread). S^T and dP^T of a 64-query tile are
+//   formed once, each warpgroup forming 32 queries' worth (wgmma m64n32);
+//   P^T and dS^T go through shared memory as E (rounded where the
+//   reference rounds them) and feed both warpgroups' dV and dK products as
+//   SS wgmma. Two ring stages of 64 KB (Q, dO) are what fits beside the
+//   resident K and V; so that the load of tile i + 2 overlaps the work of
+//   tile i + 1, dV and dK of tile i are issued before S^T and dP^T of tile
+//   i + 1 and hand the stage back as soon as they are done. Left out:
+//   overlap of the P^T, dS^T forming with the products (the two
+//   warpgroups meet at a named barrier every tile), persistent blocks.
+// * bf16 and fp16, dq at d > 128 and dk/dv at d > 256: right rather than
+//   fast, on mma.sync m16n8k16 with plain 16-byte loads into padded shared
+//   rows (columns past d zero) and ldmatrix.trans for the operands whose
+//   contracted dim runs down their rows. dq: one block of 4 warps per 64
+//   queries (16 a warp); Q and dO stay in shared memory, 32-key K and V
+//   tiles stream through it; dQ's 128 accumulators a thread for 16 rows x
+//   256 features fit beside S and dP of a 32-key tile. dk/dv: each block
+//   owns 64 keys and one part (128 features) of dK and dV, and forms S^T
+//   and dP^T over all the features for its part. Past d = 256 the
+//   features come in nc = ceil(d / 256) chunks:
 //   dq's blocks each own one chunk of dQ, dk/dv's one of ceil(d / 128)
 //   parts (a grid axis folded into the tile axis); for each streamed tile
 //   a block stages the chunks of both operands in turn into the same
@@ -767,8 +780,323 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
+// dk/dv at 128 < d <= 256: two D-wide accumulators (dK and dV, 256
+// registers a thread for 64 keys) do not fit one warpgroup, so the
+// warpgroups split the features. One block per (64 keys, head, batch);
+// warpgroup w owns features [128 w, 128 w + 128) of dK and dV for all 64
+// keys (64 + 64 registers a thread). K and V stay resident (32 KB each);
+// query tiles of 64 (Q, dO: 32 KB each, with their lse and c slices)
+// stream through a ring of two stages, which is what fits. S^T and dP^T
+// of a tile are formed once, split by queries: warpgroup w forms keys x
+// queries [32 w, 32 w + 32) of both (wgmma m64n32, SS), P^T and dS^T in
+// f32 on its accumulators, rounds them to E where the reference rounds
+// them, and writes them into shared tiles in the 128-byte swizzled
+// K-major layout; after a named barrier over the two warpgroups, each
+// multiplies the whole P^T and dS^T (A from shared memory) by its 128
+// features of dO and Q (B MN-major from the streamed tiles). P^T and dS^T
+// are double-buffered, so one barrier a tile keeps a warpgroup from
+// overwriting what the other still reads: the buffer of tile i was last
+// read by dV and dK of tile i - 2, which both warpgroups waited for before
+// they reached the barrier of tile i - 1.
+constexpr int kSplitBN = 64;  // keys per block
+constexpr int kSplitBQ = 64;  // queries per streamed tile
+constexpr int kSplitStages = 2;
+
+// Shared memory, from a 1024-byte aligned base: K, V, then per stage Q and
+// dO, then two buffers of P^T and dS^T, then per stage lse and c, then the
+// barriers. A tile of 64 rows x 256 features is four boxes of 64 rows x 128
+// bytes; P^T and dS^T (64 keys x 64 queries) one box each.
+struct DkvSplitSmem {
+  static constexpr int kBox = 64 * 128;
+  static constexpr int kTile = 4 * kBox;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kRing = 2 * kTile;  // stage s: Q at kRing + 2 s kTile
+  static constexpr int kPds = kRing + kSplitStages * 2 * kTile;
+  static constexpr int kLc = kPds + 2 * 2 * kBox;  // stage s: lse, then c
+  static constexpr int kBar = kLc + kSplitStages * 2 * kSplitBQ * 4;
+  static constexpr int kBytes = kBar + (1 + 2 * kSplitStages) * 8 + 1024;
+  static constexpr int kStageTx = 2 * kTile + 2 * kSplitBQ * 4;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
+};
+
+template <class E>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dkv_split_kernel(const __grid_constant__ DkvParams p) {
+  using L = DkvSplitSmem;
+  constexpr int BQ = kSplitBQ, S = kSplitStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int k0 = blockIdx.z * kSplitBN;  // low key tiles, the heaviest, first
+  const int tid = threadIdx.x;
+  // The query tiles [it0, it0 + n) that can see this block's keys: the
+  // last query q_offset + q0 + BQ - 1 of tile it0 reaches the block's
+  // first key. Both warpgroups run every tile from there. Each role works
+  // them out after its setmaxnreg, so that nothing stays live across it.
+  auto tiles = [&](int& it0, int& n) {
+    it0 = 0;
+    if (p.causal) {
+      const long long x = p.kv_offset + k0 - p.q_offset;
+      it0 = x <= 0 ? 0 : static_cast<int>(x / BQ);
+    }
+    const int nq = (p.sq + BQ - 1) / BQ;
+    n = nq > it0 ? nq - it0 : 0;
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers) {
+      int it0, n;
+      tiles(it0, n);
+      const int bh = bb * p.h + hh;
+      sm90::mbar_arrive_expect_tx(kv_full, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sm90::tma_load_4d(smem + L::kK + c * L::kBox, &p.k, kv_full, c * 64,
+                          k0, hh, bb);
+        sm90::tma_load_4d(smem + L::kV + c * L::kBox, &p.v, kv_full, c * 64,
+                          k0, hh, bb);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S, q0 = (it0 + i) * BQ;
+        sm90::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], L::kStageTx);
+        uint8_t* st = smem + L::kRing + s * 2 * L::kTile;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sm90::tma_load_4d(st + c * L::kBox, &p.q, &full[s], c * 64, q0, hh,
+                            bb);
+          sm90::tma_load_4d(st + L::kTile + c * L::kBox, &p.dout, &full[s],
+                            c * 64, q0, hh, bb);
+        }
+        uint8_t* lc = smem + L::kLc + s * 2 * BQ * 4;
+        sm90::tma_load_2d(lc, &p.lse, &full[s], q0, bh);
+        sm90::tma_load_2d(lc + BQ * 4, &p.c, &full[s], q0, bh);
+      }
+    }
+  } else {
+    // Consumer warpgroup w: features [128 w, 128 w + 128) of dK and dV for
+    // the block's 64 keys; queries [32 w, 32 w + 32) of each tile's S^T
+    // and dP^T.
+    sm90::reg_alloc<kConsumerRegs>();
+    int it0, n;
+    tiles(it0, n);
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = 16 * warp + lane / 4;  // key rows r0, r0 + 8 of the block
+    // queries qb + 8 j and qb + 8 j + 1 of a tile's S^T accumulators
+    const int qb = 32 * w + 2 * (lane % 4);
+    const uint8_t* ks = smem + L::kK;
+    const uint8_t* vs = smem + L::kV;
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    const float sl2 = p.scale * kLog2e;
+    float st[16], dpt[16];  // S^T, dP^T; then P^T, dS^T in f32
+
+    auto stage = [&](int i) {
+      return smem + L::kRing + (i % S) * 2 * L::kTile;
+    };
+    auto wait_full = [&](int i) {
+      sm90::mbar_wait(&full[i % S], (i / S) & 1);
+    };
+    // S^T = K Q^T and dP^T = V dO^T of tile i, 64 keys x this warpgroup's
+    // 32 queries (issued, not waited).
+    auto issue_sdp = [&](int i) {
+      const uint8_t* qs = stage(i) + w * 32 * 128;
+      const uint8_t* dos = qs + L::kTile;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const int off = (kk / 4) * L::kBox + (kk % 4) * 32;
+        sm90::Wgmma<32, E>::ss(st, sm90::desc_k(ks + off),
+                               sm90::desc_k(qs + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const int off = (kk / 4) * L::kBox + (kk % 4) * 32;
+        sm90::Wgmma<32, E>::ss(dpt, sm90::desc_k(vs + off),
+                               sm90::desc_k(dos + off), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T - c) of
+    // tile i, in place; the query is the column. lse -inf (a fully-masked
+    // row) is taken as 1e30; rows past Sq read TMA's zero fill and are
+    // masked, as are keys past Sk and (on the diagonal) future keys.
+    auto grads = [&](int i) {
+      const int q0 = (it0 + i) * BQ;
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + L::kLc + (i % S) * 2 * BQ * 4);
+      const float* c_s = lse_s + BQ;
+      bool live = true, diag = false;
+      if (p.causal)
+        causal_liveness<BQ, kSplitBN>(p.q_offset + q0, p.kv_offset + k0,
+                                      live, diag);
+      const bool masked = diag || q0 + BQ > p.sq || k0 + kSplitBN > p.sk;
+      // In a masked tile, relative to this thread's first key and query:
+      // keys at or past Sk, queries at or past Sq, and (causal) keys in
+      // the query's future, kv_offset + key > q_offset + row, i.e. key -
+      // row above `ahead` (the offsets' gap at the thread's first pair,
+      // clamped to an int: -31 <= key - row <= 8 here; without causal it
+      // is above every key - row).
+      int key_end = 0, row_end = 0, ahead = 0;
+      if (masked) {
+        key_end = p.sk - k0 - r0;
+        row_end = p.sq - q0 - qb;
+        const long long gap = p.causal ? p.q_offset - p.kv_offset + q0 +
+                                             qb - k0 - r0
+                                       : 1ll << 40;
+        ahead = static_cast<int>(gap > (1 << 30)    ? (1 << 30)
+                                 : gap < -(1 << 30) ? -(1 << 30)
+                                                    : gap);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = qb + 8 * j;  // query within the tile
+        const float2 l = *reinterpret_cast<const float2*>(lse_s + qc);
+        const float2 c = *reinterpret_cast<const float2*>(c_s + qc);
+        const float l2[2] = {(l.x == -INFINITY ? kSafeLse : l.x) * kLog2e,
+                             (l.y == -INFINITY ? kSafeLse : l.y) * kLog2e};
+        const float cc[2] = {c.x, c.y};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = fmaf(st[4 * j + e], sl2, -l2[e & 1]);
+          if (masked) {
+            const int key = 8 * (e >> 1);       // past this thread's first
+            const int row = 8 * j + (e & 1);    // key and query
+            if (key >= key_end || row >= row_end || key - row > ahead)
+              x = -INFINITY;
+          }
+          const float pr = sm90::exp2_approx(x);
+          st[4 * j + e] = pr;
+          dpt[4 * j + e] = pr * (dpt[4 * j + e] - cc[e & 1]);
+        }
+      }
+    };
+    // This warpgroup's queries of P^T and dS^T of tile i, rounded to E,
+    // into buffer i % 2; then the barrier after which both warpgroups'
+    // halves are there for the async proxy.
+    auto store_pds = [&](int i) {
+      uint8_t* ps = smem + L::kPds + (i & 1) * 2 * L::kBox;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // rows r0 and r0 + 8 (8 rows = 1024 bytes further, the same
+        // swizzle), of P^T and then of dS^T one box further
+        uint8_t* at = ps + sm90::sw128_offset(r0, qb + 8 * j);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          *reinterpret_cast<uint32_t*>(at + hr * 1024) =
+              sm90::pack<E>(st[4 * j + 2 * hr], st[4 * j + 2 * hr + 1]);
+          *reinterpret_cast<uint32_t*>(at + L::kBox + hr * 1024) =
+              sm90::pack<E>(dpt[4 * j + 2 * hr], dpt[4 * j + 2 * hr + 1]);
+        }
+      }
+      sm90::fence_proxy_async();
+      sm90::bar_sync(1, kConsumers);
+    };
+    // dV += P^T dO and dK += dS^T Q of tile i over this warpgroup's
+    // features: P^T and dS^T K-major from their shared tiles, dO and Q
+    // MN-major (their queries run down the rows) from the streamed tiles.
+    auto issue_dkv = [&](int i) {
+      const uint8_t* qs = stage(i) + 2 * w * L::kBox;
+      const uint8_t* dos = qs + L::kTile;
+      const uint8_t* ps = smem + L::kPds + (i & 1) * 2 * L::kBox;
+      const uint8_t* dss = ps + L::kBox;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        sm90::Wgmma<128, E>::ss_mn(
+            dv, sm90::desc_k(ps + kk * 32),
+            sm90::desc_mn(dos + kk * 16 * 128, L::kBox), 1);
+        sm90::Wgmma<128, E>::ss_mn(
+            dk, sm90::desc_k(dss + kk * 32),
+            sm90::desc_mn(qs + kk * 16 * 128, L::kBox), 1);
+      }
+      sm90::wgmma_commit();
+    };
+
+    // Per tile: dV and dK of tile i are issued, then S^T and dP^T of tile
+    // i + 1; once the former are done the stage goes back to the producer
+    // (the load of tile i + 2 then has the rest of the tile's time), and
+    // P^T, dS^T of tile i + 1 are formed when the latter are.
+    sm90::mbar_wait(kv_full, 0);
+    if (n > 0) {
+      wait_full(0);
+      issue_sdp(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(st);
+      sm90::fence_regs(dpt);
+      grads(0);
+      for (int i = 0; i + 1 < n; ++i) {
+        store_pds(i);
+        issue_dkv(i);
+        wait_full(i + 1);
+        issue_sdp(i + 1);
+        sm90::wgmma_wait<1>();  // dV, dK of tile i done
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        sm90::mbar_arrive(&empty[i % S]);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        grads(i + 1);
+      }
+      store_pds(n - 1);
+      issue_dkv(n - 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dv);
+      sm90::fence_regs(dk);
+      sm90::mbar_arrive(&empty[(n - 1) % S]);
+    }
+
+    // Every key row below Sk is written: 0 where no query sees it.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = k0 + r0 + 8 * hr;
+      if (row < p.sk) {
+        typename E::T* dkp = static_cast<typename E::T*>(p.dk) +
+                             static_cast<long long>(bb) * p.s1b +
+                             static_cast<long long>(hh) * p.s1h +
+                             static_cast<long long>(row) * p.s1s;
+        typename E::T* dvp = static_cast<typename E::T*>(p.dv) +
+                             static_cast<long long>(bb) * p.s2b +
+                             static_cast<long long>(hh) * p.s2h +
+                             static_cast<long long>(row) * p.s2s;
+        const int t = threadIdx.x % 4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * w + 8 * j;
+          if (col >= p.d) continue;
+          *reinterpret_cast<typename E::T2*>(dkp + col + 2 * t) =
+              E::pack2(dk[4 * j + 2 * hr] * p.scale,
+                       dk[4 * j + 2 * hr + 1] * p.scale);
+          *reinterpret_cast<typename E::T2*>(dvp + col + 2 * t) =
+              E::pack2(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
-// bf16 and fp16, d > 128: mma.sync
+// bf16 and fp16, d > 128 (dq) and d > 256 (dk/dv): mma.sync
 
 constexpr int kWideD = 256;  // the tiles' width; columns past d are zero
 constexpr int kWideThreads = 128;
@@ -960,29 +1288,26 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-// dk/dv: one block per (64 keys, a part of kWideHalf features, head,
-// batch), 4 warps x 16 key rows; query tiles of 32. The block's part of dK
-// and dV takes 128 accumulators a thread.
+// dk/dv, d > 256: one block per (64 keys, a part of kWidePart features,
+// head, batch), 4 warps x 16 key rows; query tiles of 32. The block's part
+// of dK and dV takes 128 accumulators a thread.
 constexpr int kWideDkvBK = 64;
 constexpr int kWideDkvBQ = 32;
-constexpr int kWideHalf = kWideD / 2;
+constexpr int kWidePart = kWideD / 2;
 constexpr int kWideDkvBytes =
     (2 * kWideDkvBK + 2 * kWideDkvBQ) * kWideST * 2 + 2 * kWideDkvBQ * 4;
 
-// The parts of kWideHalf features dK and dV are split into: two at d <=
-// kWideD, ceil(d / kWideHalf) past it.
-__host__ __device__ __forceinline__ int dkv_parts(int d, bool chunked) {
-  return chunked ? (d + kWideHalf - 1) / kWideHalf : 2;
+// The parts of kWidePart features dK and dV are split into.
+__host__ __device__ __forceinline__ int dkv_parts(int d) {
+  return (d + kWidePart - 1) / kWidePart;
 }
 
-// kChunked = false: 128 < d <= 256, one tile; K and V stay in shared
-// memory for the whole query loop, and the two halves' blocks repeat S^T
-// and dP^T. kChunked = true: d > 256, in nc = ceil(d / kWideD) chunks; the
-// block's blockIdx.x % parts is its part of dK and dV, S^T = K Q^T and dP^T
-// = V dO^T sum over the chunks (K, V, Q and dO staged in turn into the same
-// shared rows), and dV, dK take the part's columns of dO and Q (their chunk
-// staged again unless it was the last one).
-template <class E, bool kChunked>
+// In nc = ceil(d / kWideD) chunks; the block's blockIdx.x % parts is its
+// part of dK and dV, S^T = K Q^T and dP^T = V dO^T sum over the chunks (K,
+// V, Q and dO staged in turn into the same shared rows), and dV, dK take
+// the part's columns of dO and Q (their chunk staged again unless it was
+// the last one).
+template <class E>
 __global__ void __launch_bounds__(kWideThreads)
     flash_bwd_dkv_wide_kernel(Args a) {
   using T = typename E::T;
@@ -995,19 +1320,13 @@ __global__ void __launch_bounds__(kWideThreads)
   auto* lse_s = reinterpret_cast<float*>(do_s + BQ * ST);  // log2 units
   float* c_s = lse_s + BQ;
 
-  // This block's keys and features [f0, f0 + kWideHalf), which lie in
+  // This block's keys and features [f0, f0 + kWidePart), which lie in
   // chunk pc at column fc.
-  int nc = 1, pc = 0, k0, f0;
-  if constexpr (kChunked) {
-    const int parts = dkv_parts(a.d, true);
-    nc = (a.d + kWideD - 1) / kWideD;
-    k0 = (blockIdx.x / parts) * BK;
-    f0 = (blockIdx.x % parts) * kWideHalf;
-    pc = f0 / kWideD;
-  } else {
-    k0 = (blockIdx.x >> 1) * BK;
-    f0 = (blockIdx.x & 1) * kWideHalf;
-  }
+  const int parts = dkv_parts(a.d);
+  const int nc = (a.d + kWideD - 1) / kWideD;
+  const int k0 = (blockIdx.x / parts) * BK;
+  const int f0 = (blockIdx.x % parts) * kWidePart;
+  const int pc = f0 / kWideD;
   const int fc = f0 - pc * kWideD;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
@@ -1021,17 +1340,9 @@ __global__ void __launch_bounds__(kWideThreads)
   T* dkp = static_cast<T*>(a.o1) + bb * a.s1b + hh * a.s1h;
   T* dvp = static_cast<T*>(a.o2) + bb * a.s2b + hh * a.s2h;
 
-  // K and V stay in shared memory for the whole query loop, all features.
-  if constexpr (!kChunked) {
-    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0, a.sk,
-                                                   a.d, tid);
-    sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0, a.sk,
-                                                   a.d, tid);
-  }
-
-  float dk[kWideHalf / 8][4], dv[kWideHalf / 8][4];
+  float dk[kWidePart / 8][4], dv[kWidePart / 8][4];
 #pragma unroll
-  for (int dt = 0; dt < kWideHalf / 8; ++dt)
+  for (int dt = 0; dt < kWidePart / 8; ++dt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
 
@@ -1084,41 +1395,30 @@ __global__ void __launch_bounds__(kWideThreads)
         c_s[r] = row_c(a, bh, q0 + r);
       }
     };
-    if constexpr (kChunked) {
-      for (int c = 0; c < nc; ++c) {
-        // the previous chunk's (or tile's) shared reads are done
-        __syncthreads();
-        const int cols = chunk_cols(a.d, c);
-        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-            k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
-        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-            v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
-        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-            q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
-        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-            do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
-        if (c == 0) stage_lse_c();
-        __syncthreads();
-        sdp();
-      }
-      if (pc != nc - 1) {  // the part's chunk of Q and dO
-        __syncthreads();
-        const int cols = chunk_cols(a.d, pc);
-        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-            q_s, qp + pc * kWideD, a.sqs, q0, a.sq, cols, tid);
-        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-            do_s, dp_ + pc * kWideD, a.sds, q0, a.sq, cols, tid);
-        __syncthreads();
-      }
-    } else {
-      __syncthreads();  // the previous tile's q_s/do_s reads are done
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0,
-                                                     a.sq, a.d, tid);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0,
-                                                     a.sq, a.d, tid);
-      stage_lse_c();
+    for (int c = 0; c < nc; ++c) {
+      // the previous chunk's (or tile's) shared reads are done
+      __syncthreads();
+      const int cols = chunk_cols(a.d, c);
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+          k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+          v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+          q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+          do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
+      if (c == 0) stage_lse_c();
       __syncthreads();
       sdp();
+    }
+    if (pc != nc - 1) {  // the part's chunk of Q and dO
+      __syncthreads();
+      const int cols = chunk_cols(a.d, pc);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+          q_s, qp + pc * kWideD, a.sqs, q0, a.sq, cols, tid);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+          do_s, dp_ + pc * kWideD, a.sds, q0, a.sq, cols, tid);
+      __syncthreads();
     }
 
     // P^T and dS^T = P^T (dP^T - c); the query is the column here.
@@ -1151,7 +1451,7 @@ __global__ void __launch_bounds__(kWideThreads)
           sm90::pack<E>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
           sm90::pack<E>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
 #pragma unroll
-      for (int dt = 0; dt < kWideHalf / 8; dt += 2) {
+      for (int dt = 0; dt < kWidePart / 8; dt += 2) {
         uint32_t b[4];
         sm90::load_b_kmajor_x2<ST>(b, do_s + fc, kk, dt, lane);
         sm90::mma16816<E>(dv[dt], pa, b[0], b[1]);
@@ -1169,7 +1469,7 @@ __global__ void __launch_bounds__(kWideThreads)
     const int row = k0 + wr + g + 8 * hr;
     if (row < a.sk) {
 #pragma unroll
-      for (int dt = 0; dt < kWideHalf / 8; ++dt) {
+      for (int dt = 0; dt < kWidePart / 8; ++dt) {
         const int col = f0 + dt * 8 + 2 * t;
         if (f0 + 8 * dt >= a.d) continue;
         *reinterpret_cast<typename E::T2*>(dkp + row * a.s1s + col) =
@@ -1194,16 +1494,14 @@ int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class E, bool kChunked>
+template <class E>
 int launch_dkv_wide(const Args& a, int b, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel<E, kChunked>,
+      flash_bwd_dkv_wide_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDkvBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(dkv_parts(a.d, kChunked) * ((a.sk + kWideDkvBK - 1) / kWideDkvBK),
-            a.h, b);
-  flash_bwd_dkv_wide_kernel<E, kChunked>
-      <<<grid, kWideThreads, kWideDkvBytes, st>>>(a);
+  dim3 grid(dkv_parts(a.d) * ((a.sk + kWideDkvBK - 1) / kWideDkvBK), a.h, b);
+  flash_bwd_dkv_wide_kernel<E><<<grid, kWideThreads, kWideDkvBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1572,24 +1870,24 @@ int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, class E>
-int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
-  constexpr int BQ = dkv_bq<D>();
-  DkvParams p;
+// The dk/dv kernels' parameters: tensor maps of Q and dO in boxes of `bq`
+// rows, of K and V in boxes of `bk`, of lse and c in boxes of `bq`.
+template <class E>
+int dkv_params(DkvParams& p, const Args& a, int b, int bq, int bk) {
   int err = sm90::encode_rows<E>(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs, a.sqh,
-                                 a.sqb, BQ);
+                                 a.sqb, bq);
   if (!err)
     err = sm90::encode_rows<E>(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
-                               a.sdh, a.sdb, BQ);
+                               a.sdh, a.sdb, bq);
   if (!err)
     err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                               a.skb, kDkvBN);
+                               a.skb, bk);
   if (!err)
     err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                               a.svb, kDkvBN);
+                               a.svb, bk);
   const long long rows = static_cast<long long>(b) * a.h;
-  if (!err) err = sm90::encode_f32_rows(&p.lse, a.lse, a.sq, rows, BQ);
-  if (!err) err = sm90::encode_f32_rows(&p.c, a.c, a.sq, rows, BQ);
+  if (!err) err = sm90::encode_f32_rows(&p.lse, a.lse, a.sq, rows, bq);
+  if (!err) err = sm90::encode_f32_rows(&p.c, a.c, a.sq, rows, bq);
   if (err) return err;
   p.dk = a.o1;
   p.dv = a.o2;
@@ -1607,6 +1905,14 @@ int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
   p.q_offset = a.q_offset;
   p.kv_offset = a.kv_offset;
   p.scale = a.scale;
+  return 0;
+}
+
+template <int D, class E>
+int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
+  DkvParams p;
+  const int err = dkv_params<E>(p, a, b, dkv_bq<D>(), kDkvBN);
+  if (err) return err;
   constexpr int bytes = DkvSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_wgmma_kernel<D, E>,
@@ -1614,6 +1920,21 @@ int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.h, b, (a.sk + kDkvBN - 1) / kDkvBN);
   flash_bwd_dkv_wgmma_kernel<D, E><<<grid, kBlockThreads, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
+int launch_dkv_split(const Args& a, int b, cudaStream_t st) {
+  DkvParams p;
+  const int err = dkv_params<E>(p, a, b, kSplitBQ, kSplitBN);
+  if (err) return err;
+  constexpr int bytes = DkvSplitSmem::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_split_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.h, b, (a.sk + kSplitBN - 1) / kSplitBN);
+  flash_bwd_dkv_split_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1643,8 +1964,10 @@ int launch_dkv_f32(const Args& a, int b, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of head dim a.d in a 16-bit type E: tile widths 64 and
-// 128 (TMA + wgmma), 256 (mma.sync), and chunks of 256 past it.
+// The instantiation of head dim a.d in a 16-bit type E. dq: tile widths 64
+// and 128 (TMA + wgmma), 256 (mma.sync), and chunks of 256 past it. dk/dv:
+// 64 and 128 (TMA + wgmma), 256 (TMA + wgmma, the features split over the
+// warpgroups), and parts of 128 features past it (mma.sync).
 template <class E>
 int launch_dq16(const Args& a, int b, cudaStream_t st) {
   if (a.d <= 64) return launch_dq_wgmma<64, E>(a, b, st);
@@ -1657,8 +1980,8 @@ template <class E>
 int launch_dkv16(const Args& a, int b, cudaStream_t st) {
   if (a.d <= 64) return launch_dkv_wgmma<64, E>(a, b, st);
   if (a.d <= 128) return launch_dkv_wgmma<128, E>(a, b, st);
-  if (a.d <= kWideD) return launch_dkv_wide<E, false>(a, b, st);
-  return launch_dkv_wide<E, true>(a, b, st);
+  if (a.d <= 256) return launch_dkv_split<E>(a, b, st);
+  return launch_dkv_wide<E>(a, b, st);
 }
 
 int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {

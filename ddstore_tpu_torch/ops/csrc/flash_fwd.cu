@@ -25,63 +25,69 @@
 // slices the result back), in bf16, fp16 or f32. The 16-bit kernels are
 // templated on the element type (sm90::Bf16, sm90::F16: the same tiles,
 // barriers and register budgets, only the PTX type and the conversions
-// differ), in four instantiations each: the tile widths 64 (d <= 64) and
-// 128 (d <= 128) of the TMA + wgmma kernel, whose tensor maps declare the
-// true d so that TMA zero-fills the tile's columns past it (zero columns of
-// Q and K leave the scores as they are, zero columns of V give zero columns
-// of O, and the stores skip every column past d), and for d > 128 a
-// simpler kernel on mma.sync (below): one 256-feature tile up to d = 256,
-// chunks of 256 past it. The f32 kernel takes the widths 64, 128, 256 and
-// chunks of 256, with loads and stores masked at d. Shared memory and
-// registers are sized by the tile or chunk, never by d.
+// differ), in four instantiations each: the tile widths 64 (d <= 64), 128
+// (d <= 128) and 256 (d <= 256) of the TMA + wgmma kernel, whose tensor
+// maps declare the true d so that TMA zero-fills the tile's columns past it
+// (zero columns of Q and K leave the scores as they are, zero columns of V
+// give zero columns of O, and the stores skip every column past d), and
+// past d = 256 a simpler kernel on mma.sync (below) in chunks of 256. The
+// f32 kernel takes the widths 64, 128, 256 and chunks of 256, with loads
+// and stores masked at d. Shared memory and registers are sized by the
+// tile or chunk, never by d.
 //
 // Bound on the H100 SXM: the work is 4*B*H*Sq*Sk*D FLOPs (QK^T and PV,
 // about half of that for causal) against 989 TFLOP/s in bf16, and the
 // bytes are q, k, v read once and out, lse written once against 3.35 TB/s.
 // At the LM's shape, (B, H, S, D) = (8, 16, 2048, 64) causal, that is
-// 6.9e10 FLOP = 0.0695 ms against 1.35e8 B = 0.040 ms: operations bound it.
+// 6.9e10 FLOP = 0.0695 ms against 1.35e8 B = 0.040 ms: operations bound it
+// (and at (8, 4, 2048, 256) the same 0.0695 ms).
 //
 // Design:
-// * bf16, d <= 128: one block per (kWG x 64 query rows, head, batch), with
-//   kWG = 3 consumer warpgroups at D = 64 and 2 at D = 128, plus one producer
-//   warpgroup. The producer gives most of its registers to the consumers
-//   (setmaxnreg), and one of its threads loads the Q tile once and then
-//   streams 128-key K and V tiles by TMA into a ring of kStages = 3 shared
-//   stages, each completed on its "full" mbarrier and handed back on its
-//   "empty" one. Each consumer warpgroup owns 64 query rows: S = Q K^T is
-//   wgmma SS (both K-major), the online softmax runs on the S accumulators
-//   in registers (exp2 on the SFU, the scale folded into one FMA), and
-//   O += P V is wgmma RS with P packed to bf16 from the S accumulators and
-//   V read MN-major straight from its TMA tile (no transpose in shared
-//   memory). A software pipeline inside each warpgroup issues S of tile i
-//   together with P V of tile i - 1, so the tensor cores run that product
-//   while the softmax of tile i runs. Query tiles launch heaviest first
-//   (the grid's slowest axis runs backwards), and each warpgroup skips the
-//   products of key tiles its 64 rows cannot see. Tiles are 128-byte
-//   swizzled boxes of 64 columns; D = 128 is two boxes (sm90.cuh).
+// * bf16, d <= 256: one block per (kWG x 64 query rows, head, batch), with
+//   kWG = 3 consumer warpgroups at D = 64 and 2 at D = 128 and 256, plus
+//   one producer warpgroup. The producer gives most of its registers to the
+//   consumers (setmaxnreg), and one of its threads loads the Q tile once
+//   and then streams K and V tiles by TMA into a ring of shared stages: 128
+//   keys and 3 stages up to D = 128, 64 keys and 2 stages at D = 256 (a 64
+//   KB Q tile and 64 KB stages). K and V of a stage each have a "full"
+//   mbarrier, completed by TMA, and an "empty" one that hands them back: K
+//   once S of the tile is done, V once P V is, so the next K loads a whole
+//   softmax before the V beside it is free. Each consumer warpgroup owns 64
+//   query rows: S = Q K^T is wgmma SS (both K-major), the online softmax
+//   runs on the S accumulators in registers (exp2 on the SFU, the scale
+//   folded into one FMA), and O += P V is wgmma RS with P packed to bf16
+//   from the S accumulators and V read MN-major straight from its TMA tile
+//   (no transpose in shared memory; at D = 256 one m64n256k16 a k-step, O
+//   being 128 registers a thread). A software pipeline inside each
+//   warpgroup issues S of tile i together with P V of tile i - 1, so the
+//   tensor cores run that product while the softmax of tile i runs. Query
+//   tiles launch heaviest first (the grid's slowest axis runs backwards),
+//   and each warpgroup skips the products of key tiles its 64 rows cannot
+//   see. Tiles are 128-byte swizzled boxes of 64 columns; D = 128 is two
+//   boxes, D = 256 four (sm90.cuh). D = 256 takes FlashAttention-3's
+//   shape (128 query rows, two consumer warpgroups) with 64-key tiles: P
+//   of 64 keys is 16 registers beside O's 128 and S's 32.
 //   Left out: warp-specialised ping-pong between the consumer warpgroups
 //   (softmax of one overlapping the products of the other on purpose, not
 //   by chance), overlap of the next S product with this tile's softmax,
-//   persistent blocks, a TMA store of out, and tiles narrower than 64
-//   features: at d = 32 the tensor cores do the work of d = 64.
+//   persistent blocks, a TMA store of out, 80-key tiles at D = 256 (a
+//   third 64 KB stage does not fit), and tiles narrower than 64 features:
+//   at d = 32 the tensor cores do the work of d = 64.
 // * The same kernel in fp16: P is rounded to fp16 (2^-11) where bf16 rounds
 //   it to bf16 (2^-8), as the reference rounds it to the input dtype.
-// * bf16 and fp16, d > 128: at d = 256 one warpgroup's O accumulator alone
-//   would take 128 registers a thread for 64 rows, beside S; this range
-//   runs a kernel that is right rather than fast: one block of 4 warps
-//   takes 64 query rows (16 a warp), stages Q once and 64-key K and V
-//   tiles by plain 16-byte loads into padded shared rows (columns past d
-//   zero), forms S = Q K^T and O += P V with mma.sync m16n8k16 (P
-//   repacked from the S accumulators as A fragments, V's B fragments by
-//   ldmatrix.trans), and runs the same online softmax. Past d = 256 the
-//   features come in nc = ceil(d / 256) chunks: a grid axis of chunks
-//   (folded into the query-tile axis) gives each block one chunk of O;
-//   for each key tile the block stages the Q and K chunks in turn into
-//   the same shared rows and sums S over them, then multiplies P by its
-//   chunk of V. Every chunk's block forms the same S in the same order,
-//   so m, l and P agree bit for bit, and chunk 0 stores lse. The nc blocks
-//   repeat S (nc times the minimal Q K^T work). Left out: TMA, wgmma, a
-//   ring of tiles overlapping loads with the math.
+// * bf16 and fp16, d > 256: a block's registers cannot hold 64 rows of O,
+//   so this range runs a kernel that is right rather than fast: one block
+//   of 4 warps takes 64 query rows (16 a warp) and one chunk of 256 of O's
+//   nc = ceil(d / 256) feature chunks (a grid axis of chunks folded into
+//   the query-tile axis). For each 64-key tile the block stages the Q and
+//   K chunks in turn by plain 16-byte loads into the same padded shared
+//   rows (columns past d zero) and sums S = Q K^T over them with mma.sync
+//   m16n8k16, runs the same online softmax, and adds P V with its chunk of
+//   V (P repacked from the S accumulators as A fragments, V's B fragments
+//   by ldmatrix.trans). Every chunk's block forms the same S in the same
+//   order, so m, l and P agree bit for bit, and chunk 0 stores lse. The nc
+//   blocks repeat S (nc times the minimal Q K^T work). Left out: TMA,
+//   wgmma, a ring of tiles overlapping loads with the math.
 // * f32: the same algorithm on the CUDA cores (16 query rows x 32-key
 //   tiles per block, one dot product per score), exact in f32; wgmma has
 //   no f32 input type, and the LM runs in bf16. Past d = 256 the same
@@ -128,24 +134,27 @@ __device__ __forceinline__ void causal_liveness(long long q_lo,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: TMA tile ring + wgmma
-
-constexpr int kBN = 128;  // keys per tile
-constexpr int kStages = 3;
+// bf16 and fp16, d <= 256: TMA tile ring + wgmma
 
 // One block: kWG consumer warpgroups of 64 query rows each and one
 // producer warpgroup. Three consumers at D = 64 (more warps to hide the
-// softmax's latencies), two at D = 128 (its O accumulator takes the
-// registers of the third). setmaxnreg moves the producer's registers to
-// the consumers: 32 + 3 x 160 or 40 + 2 x 232 per 128 threads.
+// softmax's latencies), two at D = 128 and 256 (their O accumulators take
+// the registers of the third). setmaxnreg moves the producer's registers
+// to the consumers: 32 + 3 x 160 per 128 threads at D = 64, 40 + 2 x 232
+// at 128, 24 + 2 x 240 at 256 (O alone is 128 registers a thread there).
+// Key tiles of kBN keys run through a ring of kStages stages: 128 keys and
+// three stages up to D = 128; at D = 256, 64 keys and two stages, which is
+// what fits beside the 64 KB Q tile (a stage holds 64 KB of K and V).
 template <int D>
 struct FwdCfg {
   static constexpr int kWG = D == 64 ? 3 : 2;
   static constexpr int kBM = 64 * kWG;  // query rows per block
+  static constexpr int kBN = D == 256 ? 64 : 128;  // keys per tile
+  static constexpr int kStages = D == 256 ? 2 : 3;
   static constexpr int kConsumers = 128 * kWG;
   static constexpr int kThreads = kConsumers + 128;
-  static constexpr int kProducerRegs = kWG == 3 ? 32 : 40;
-  static constexpr int kConsumerRegs = kWG == 3 ? 160 : 232;
+  static constexpr int kProducerRegs = kWG == 3 ? 32 : D == 256 ? 24 : 40;
+  static constexpr int kConsumerRegs = kWG == 3 ? 160 : D == 256 ? 240 : 232;
   // Shared memory, from a 1024-byte aligned base: the Q tile, then per
   // stage a K tile and a V tile, then the barriers. A tile is D / 64
   // boxes of its rows x 128 bytes.
@@ -156,7 +165,9 @@ struct FwdCfg {
   static constexpr int kQ = 0;
   static constexpr int kKV = kQT;  // stage s: K at kKV + 2 s kKT, V after
   static constexpr int kBar = kKV + kStages * 2 * kKT;
-  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+  // q_full, then full and empty barriers of K and of V per stage
+  static constexpr int kBytes = kBar + (1 + 4 * kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
 };
 
 struct FwdParams {
@@ -172,37 +183,47 @@ struct FwdParams {
   float scale;  // nonzero (the C entry maps 0 to a tiny positive scale)
 };
 
-// Key tiles [0, n) that rows [q_lo, q_lo + rows) of the (global) query
-// sequence run over: all of them, or (causal) up to the last live one.
+// Key tiles [0, n) of BN keys that rows [q_lo, q_lo + rows) of the
+// (global) query sequence run over: all of them, or (causal) up to the
+// last live one.
+template <int BN>
 __device__ __forceinline__ int fwd_key_tiles(const FwdParams& p,
                                              long long q_lo, int rows) {
-  const int nk = (p.sk + kBN - 1) / kBN;
+  const int nk = (p.sk + BN - 1) / BN;
   if (!p.causal) return nk;
   const long long x = q_lo + rows - 1 - p.kv_offset;
   if (x < 0) return 0;
-  return static_cast<int>(x / kBN + 1 < nk ? x / kBN + 1 : nk);
+  return static_cast<int>(x / BN + 1 < nk ? x / BN + 1 : nk);
 }
 
 template <int D, class E>
 __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ FwdParams p) {
   using C = FwdCfg<D>;
+  constexpr int BN = C::kBN, S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align1024(smem_raw);
+  // K and V of a stage have barriers of their own: K is handed back once
+  // S = Q K^T is done, V only after P V, so that the producer can load the
+  // next K tile a whole softmax earlier.
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
-  uint64_t* full = q_full + 1;
-  uint64_t* empty = full + kStages;
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
 
   const int hh = blockIdx.x, bb = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * C::kBM;  // heaviest first
-  const int n = fwd_key_tiles(p, p.q_offset + q0, C::kBM);
+  const int n = fwd_key_tiles<BN>(p, p.q_offset + q0, C::kBM);
   const int tid = threadIdx.x;
 
   if (tid == 0) {
     sm90::mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      sm90::mbar_init(&full[s], 1);
-      sm90::mbar_init(&empty[s], C::kConsumers);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&k_empty[s], C::kConsumers);
+      sm90::mbar_init(&v_empty[s], C::kConsumers);
     }
     sm90::fence_barrier_init();
   }
@@ -218,17 +239,21 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
         sm90::tma_load_4d(smem + C::kQ + c * C::kQBox, &p.q, q_full, c * 64,
                           q0, hh, bb);
       for (int i = 0; i < n; ++i) {
-        const int s = i % kStages;
-        sm90::mbar_wait(&empty[s], ((i / kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&full[s], 2 * C::kKT);
+        const int s = i % S;
+        const uint32_t vacant = ((i / S) & 1) ^ 1;
         uint8_t* ks = smem + C::kKV + s * 2 * C::kKT;
+        sm90::mbar_wait(&k_empty[s], vacant);
+        sm90::mbar_arrive_expect_tx(&k_full[s], C::kKT);
 #pragma unroll
-        for (int c = 0; c < D / 64; ++c) {
-          sm90::tma_load_4d(ks + c * C::kKBox, &p.k, &full[s], c * 64,
-                            i * kBN, hh, bb);
-          sm90::tma_load_4d(ks + C::kKT + c * C::kKBox, &p.v, &full[s],
-                            c * 64, i * kBN, hh, bb);
-        }
+        for (int c = 0; c < D / 64; ++c)
+          sm90::tma_load_4d(ks + c * C::kKBox, &p.k, &k_full[s], c * 64,
+                            i * BN, hh, bb);
+        sm90::mbar_wait(&v_empty[s], vacant);
+        sm90::mbar_arrive_expect_tx(&v_full[s], C::kKT);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c)
+          sm90::tma_load_4d(ks + C::kKT + c * C::kKBox, &p.v, &v_full[s],
+                            c * 64, i * BN, hh, bb);
       }
     }
   } else {
@@ -244,28 +269,29 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     const long long q_lo = p.q_offset + q0 + 64 * w;
     // Tiles [0, nw) are live for these 64 rows; a causal tail of the
     // block's tiles may lie wholly in their future.
-    const int nw = fwd_key_tiles(p, q_lo, 64) < n ? fwd_key_tiles(p, q_lo, 64)
-                                                  : n;
+    const int nw = fwd_key_tiles<BN>(p, q_lo, 64) < n
+                       ? fwd_key_tiles<BN>(p, q_lo, 64)
+                       : n;
 
     float o[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m_r[2] = {-INFINITY, -INFINITY};  // running max of S sl2
     float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
-    float sc[kBN / 2];           // S of one tile, then its P in f32
-    uint32_t pa[kBN / 16][4];    // P in E: the A fragments of P V
+    float sc[BN / 2];            // S of one tile, then its P in f32
+    uint32_t pa[BN / 16][4];     // P in E: the A fragments of P V
     float corr[2];
 
     auto stage = [&](int i) {
-      return smem + C::kKV + (i % kStages) * 2 * C::kKT;
+      return smem + C::kKV + (i % S) * 2 * C::kKT;
     };
-    // S = Q K^T of tile i, 64 rows x 128 keys (issued, not waited).
+    // S = Q K^T of tile i, 64 rows x BN keys (issued, not waited).
     auto issue_s = [&](int i) {
       const uint8_t* ks = stage(i);
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        sm90::Wgmma<kBN, E>::ss(
+        sm90::Wgmma<BN, E>::ss(
             sc, sm90::desc_k(qs + (kk / 4) * C::kQBox + (kk % 4) * 32),
             sm90::desc_k(ks + (kk / 4) * C::kKBox + (kk % 4) * 32), kk > 0);
       sm90::wgmma_commit();
@@ -275,7 +301,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       const uint8_t* vs = stage(i) + C::kKT;
       sm90::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
         sm90::Wgmma<D, E>::rs_mn(o, pa[kk],
                               sm90::desc_mn(vs + kk * 16 * 128, C::kKBox),
                               1);
@@ -288,13 +314,13 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     // takes one FMA; the masked fill gives P = 0. Leaves P in sc, and in
     // corr the factor O must be rescaled by.
     auto softmax = [&](int i) {
-      const int k0 = i * kBN;
+      const int k0 = i * BN;
       bool live = true, diag = false;
       if (p.causal)
-        causal_liveness<64, kBN>(q_lo, p.kv_offset + k0, live, diag);
-      if (diag || k0 + kBN > p.sk) {
+        causal_liveness<64, BN>(q_lo, p.kv_offset + k0, live, diag);
+      if (diag || k0 + BN > p.sk) {
 #pragma unroll
-        for (int j = 0; j < kBN / 8; ++j)
+        for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = q0 + r0 + 8 * (e >> 1);
@@ -311,7 +337,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
           mt[hr][0] = fmaxf(sc[2 * hr], sc[2 * hr + 1]);
           mt[hr][1] = fmaxf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
 #pragma unroll
-          for (int j = 2; j < kBN / 8; ++j)
+          for (int j = 2; j < BN / 8; ++j)
             mt[hr][j & 1] = fmaxf(mt[hr][j & 1], fmaxf(sc[4 * j + 2 * hr],
                                                        sc[4 * j + 2 * hr + 1]));
         }
@@ -321,7 +347,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
           mt[hr][0] = fminf(sc[2 * hr], sc[2 * hr + 1]);
           mt[hr][1] = fminf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
 #pragma unroll
-          for (int j = 2; j < kBN / 8; ++j)
+          for (int j = 2; j < BN / 8; ++j)
             mt[hr][j & 1] = fminf(mt[hr][j & 1], fminf(sc[4 * j + 2 * hr],
                                                        sc[4 * j + 2 * hr + 1]));
         }
@@ -344,7 +370,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       }
       float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float pr =
@@ -360,14 +386,17 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     // fragment of k-step kk of P V.
     auto pack_p = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk)
+      for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           pa[kk][r] = sm90::pack<E>(sc[8 * kk + 2 * r],
                                     sc[8 * kk + 2 * r + 1]);
     };
-    auto wait_full = [&](int i) {
-      sm90::mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    auto wait_k = [&](int i) {
+      sm90::mbar_wait(&k_full[i % S], (i / S) & 1);
+    };
+    auto wait_v = [&](int i) {
+      sm90::mbar_wait(&v_full[i % S], (i / S) & 1);
     };
 
     // Software pipeline over the live tiles: while the softmax of tile i
@@ -375,22 +404,25 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     // (and the other warpgroups' products).
     sm90::mbar_wait(q_full, 0);
     if (nw > 0) {
-      wait_full(0);
+      wait_k(0);
       issue_s(0);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
+      sm90::mbar_arrive(&k_empty[0]);
       softmax(0);
       pack_p();
       for (int i = 1; i < nw; ++i) {
-        wait_full(i);
+        wait_k(i);
         issue_s(i);
+        wait_v(i - 1);
         issue_pv(i - 1);
         sm90::wgmma_wait<1>();  // S of tile i; P V of tile i - 1 in flight
         sm90::fence_regs(sc);
+        sm90::mbar_arrive(&k_empty[i % S]);  // K of tile i may be refilled
         softmax(i);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(o);
-        sm90::mbar_arrive(&empty[(i - 1) % kStages]);  // may be refilled
+        sm90::mbar_arrive(&v_empty[(i - 1) % S]);
 #pragma unroll
         for (int j = 0; j < D / 8; ++j) {
           o[4 * j] *= corr[0];
@@ -400,14 +432,17 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
         }
         pack_p();
       }
+      wait_v(nw - 1);
       issue_pv(nw - 1);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
-      sm90::mbar_arrive(&empty[(nw - 1) % kStages]);
+      sm90::mbar_arrive(&v_empty[(nw - 1) % S]);
     }
     for (int i = nw; i < n; ++i) {  // tiles only other warpgroups see
-      wait_full(i);
-      sm90::mbar_arrive(&empty[i % kStages]);
+      wait_k(i);
+      sm90::mbar_arrive(&k_empty[i % S]);
+      wait_v(i);
+      sm90::mbar_arrive(&v_empty[i % S]);
     }
 
 #pragma unroll
@@ -444,10 +479,10 @@ int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
                                  a.sqb, C::kBM);
   if (!err)
     err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                               a.skb, kBN);
+                               a.skb, C::kBN);
   if (!err)
     err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                               a.svb, kBN);
+                               a.svb, C::kBN);
   if (err) return err;
   p.o = a.o;
   p.lse = a.lse;
@@ -475,9 +510,9 @@ int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and fp16, d > 128: mma.sync
+// bf16 and fp16, d > 256: mma.sync, in chunks of 256 features
 
-constexpr int kWideD = 256;    // the tile's width; columns past d are zero
+constexpr int kWideD = 256;    // a chunk's width; columns past d are zero
 constexpr int kWideBQ = 64;    // query rows per block (4 warps x 16)
 constexpr int kWideBK = 64;    // keys per tile
 constexpr int kWideThreads = 128;
@@ -490,13 +525,12 @@ __device__ __forceinline__ int chunk_cols(int d, int c) {
   return left < kWideD ? left : kWideD;
 }
 
-// kChunked = false: 128 < d <= 256, one tile of kWideD features; Q stays
-// in shared memory for the whole key loop. kChunked = true: d > 256, in nc
-// = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is the chunk oc of
-// O it owns, S = Q K^T sums over the chunks (each staged in turn into the
-// same shared rows), and P V takes V's chunk oc. Every chunk's block forms
-// the same S in the same order, so the same m, l and P; chunk 0 stores lse.
-template <class E, bool kChunked>
+// d > 256, in nc = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is
+// the chunk oc of O it owns, S = Q K^T sums over the chunks (each staged in
+// turn into the same shared rows), and P V takes V's chunk oc. Every
+// chunk's block forms the same S in the same order, so the same m, l and
+// P; chunk 0 stores lse.
+template <class E>
 __global__ void __launch_bounds__(kWideThreads)
     flash_fwd_wide_kernel(Args a) {
   using T = typename E::T;
@@ -505,13 +539,9 @@ __global__ void __launch_bounds__(kWideThreads)
   T* k_s = q_s + kWideBQ * kWideST;
   T* v_s = k_s + kWideBK * kWideST;
 
-  int nc = 1, oc = 0, qt = blockIdx.x;
-  if constexpr (kChunked) {
-    nc = (a.d + kWideD - 1) / kWideD;
-    qt = blockIdx.x / nc;
-    oc = blockIdx.x % nc;
-  }
-  const int q0 = qt * kWideBQ;
+  const int nc = (a.d + kWideD - 1) / kWideD;
+  const int oc = blockIdx.x % nc;
+  const int q0 = blockIdx.x / nc * kWideBQ;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma group and thread-in-group
@@ -520,11 +550,6 @@ __global__ void __launch_bounds__(kWideThreads)
   const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
   const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
   T* op = static_cast<T*>(a.o) + bb * a.sob + hh * a.soh;
-
-  // Q stays in shared memory for the whole key loop (rows past Sq zero).
-  if constexpr (!kChunked)
-    sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
-        q_s, qp, a.sqs, q0, a.sq, a.d, tid);
 
   // Rows g and g + 8 of this warp's 16: running max (log2 units) and this
   // thread's share of the running denominator.
@@ -569,29 +594,19 @@ __global__ void __launch_bounds__(kWideThreads)
         }
       }
     };
-    if constexpr (kChunked) {
-      for (int c = 0; c < nc; ++c) {
-        // the previous chunk's (or tile's) q_s/k_s/v_s reads are done
-        __syncthreads();
-        const int cols = chunk_cols(a.d, c);
-        sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
-            q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
-        sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-            k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
-        if (c == 0)
-          sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-              v_s, vp + oc * kWideD, a.svs, k0, a.sk, chunk_cols(a.d, oc),
-              tid);
-        __syncthreads();
-        qk();
-      }
-    } else {
-      __syncthreads();  // the previous tile's k_s/v_s reads are done
+    for (int c = 0; c < nc; ++c) {
+      // the previous chunk's (or tile's) q_s/k_s/v_s reads are done
+      __syncthreads();
+      const int cols = chunk_cols(a.d, c);
+      sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
+          q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
       // Keys past Sk are zero: their p is 0, and 0 * garbage could be NaN.
       sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-          k_s, kp, a.sks, k0, a.sk, a.d, tid);
-      sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-          v_s, vp, a.svs, k0, a.sk, a.d, tid);
+          k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
+      if (c == 0)
+        sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
+            v_s, vp + oc * kWideD, a.svs, k0, a.sk, chunk_cols(a.d, oc),
+            tid);
       __syncthreads();
       qk();
     }
@@ -686,16 +701,15 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-template <class E, bool kChunked>
+template <class E>
 int launch_wide(const Args& a, int b, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<E, kChunked>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideBytes);
+      flash_fwd_wide_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kWideBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = kChunked ? (a.d + kWideD - 1) / kWideD : 1;
+  const int nc = (a.d + kWideD - 1) / kWideD;
   dim3 grid((a.sq + kWideBQ - 1) / kWideBQ * nc, a.h, b);
-  flash_fwd_wide_kernel<E, kChunked>
-      <<<grid, kWideThreads, kWideBytes, stream>>>(a);
+  flash_fwd_wide_kernel<E><<<grid, kWideThreads, kWideBytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -884,14 +898,14 @@ int launch_f32(const Args& a, int b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of head dim a.d in a 16-bit type E: tile widths 64 and
-// 128 (TMA + wgmma), 256 (mma.sync), and chunks of 256 past it.
+// The instantiation of head dim a.d in a 16-bit type E: tile widths 64,
+// 128 and 256 (TMA + wgmma), and chunks of 256 past it (mma.sync).
 template <class E>
 int launch16(const Args& a, int b, cudaStream_t stream) {
   if (a.d <= 64) return launch_wgmma<64, E>(a, b, stream);
   if (a.d <= 128) return launch_wgmma<128, E>(a, b, stream);
-  if (a.d <= kWideD) return launch_wide<E, false>(a, b, stream);
-  return launch_wide<E, true>(a, b, stream);
+  if (a.d <= 256) return launch_wgmma<256, E>(a, b, stream);
+  return launch_wide<E>(a, b, stream);
 }
 
 int launch(const Args& a, int b, int dtype, cudaStream_t stream) {

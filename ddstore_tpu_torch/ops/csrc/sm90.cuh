@@ -1,7 +1,8 @@
 // Raw-PTX building blocks for Hopper (sm_90a) kernels, shared by
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, 128-byte
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
-// kernels use (bf16 or fp16 in, f32 accumulate), setmaxnreg, the mma.sync
+// kernels use (bf16 or fp16 in, f32 accumulate), setmaxnreg, named
+// barriers and the proxy fence for operands written by threads, the mma.sync
 // and ldmatrix pieces of the kernels for head dims past 128, the element
 // types Bf16 and F16, and on the host the tensor-map encoder. No
 // CuTe/CUTLASS: each source builds in seconds.
@@ -9,7 +10,9 @@
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 16-bit elements (128 bytes), the 16-byte chunks of
 // row r XORed with r % 8, each box 1024-byte aligned. A tile wider than 64
-// columns (D = 128) is two such boxes, one after the other. The tensor map's
+// columns (D = 128, 256) is two or four such boxes, one after the other.
+// A tile that threads write for a wgmma to read (the dk/dv kernel's P^T and
+// dS^T at d > 128) takes the same layout (sw128_offset). The tensor map's
 // feature dim is the operand's true head dim d (a multiple of 8, at most
 // the tile's width), so TMA fills the columns past d with zeros: zero
 // columns of Q and K leave every score as it is, and zero columns of V,
@@ -18,7 +21,7 @@
 // * K-major (the contracted dimension along a row, as Q and K rows are in
 //   Q K^T): SBO = 1024 bytes (8 rows), LBO unused; the k16 step inside a
 //   box is +32 bytes on the start address, and steps 4..7 of D = 128 start
-//   in the second box.
+//   in the second box (steps 4 j..4 j + 3 in box j).
 // * MN-major (the contracted dimension down the rows, as V's keys are in
 //   P V): SBO = 1024 bytes (8 rows of k), LBO = the bytes from one 64-column
 //   box to the next along N; the k16 step is +16 rows = 2048 bytes.
@@ -159,6 +162,26 @@ template <int K>
 __device__ __forceinline__ void fence_regs(float (&r)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory visible to
+// the async proxy (a wgmma that reads them as an operand).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `threads` threads
+// of the block, a multiple of 32.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of the 16-bit element (r, c) in a tile of rows of 64
+// elements laid out as a TMA load with the 128-byte swizzle writes them
+// (the 16-byte chunks of row r XORed with r % 8); `c` even, so that two
+// adjacent elements lie in one 32-bit word.
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ (r & 7)) << 4) | ((c & 7) << 1));
 }
 
 template <uint32_t R>
@@ -328,7 +351,8 @@ __device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
 // * rs_mn: a from registers, the m16n8k16 A fragment of each warp's 16 rows
 //   ({row g, k 2t..2t+1}, {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}
 //   as packed pairs of E), b MN-major (transpose flag 1); only the widths
-//   the kernels use (N = D: 64 and 128).
+//   the kernels use (N = D: 64, 128 and 256);
+// * ss_mn: a from shared memory K-major, b MN-major (N = 128 only).
 template <int N, class E>
 struct Wgmma;
 
@@ -452,6 +476,87 @@ struct Wgmma<128, E> {
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
+  }
+  // a from shared memory K-major, b MN-major (transpose flags 0, 1): the
+  // dk/dv kernel's P^T dO and dS^T Q at d > 128, P^T and dS^T staged in
+  // shared memory.
+  static __device__ __forceinline__ void ss_mn(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}," \
+      " %64, %65, p, 1, 1, 0, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d))
+    SM90_TYPED(E, SM90_ASM);
+#undef SM90_ASM
+  }
+};
+
+template <class E>
+struct Wgmma<256, E> {
+  static __device__ __forceinline__ void rs_mn(float (&d)[128],
+                                               const uint32_t (&a)[4],
+                                               uint64_t db, int scale_d) {
+#define SM90_ASM(TY) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " " \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15," \
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31," \
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47," \
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63," \
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79," \
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95," \
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111," \
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}," \
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), \
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), \
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), \
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), \
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), \
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), \
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), \
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), \
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), \
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), \
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), \
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), \
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127]) \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d))
     SM90_TYPED(E, SM90_ASM);
 #undef SM90_ASM

@@ -40,8 +40,10 @@ from ddstore_tpu_torch.store import DDStore
 pytestmark = pytest.mark.gpu
 
 # head dims other than 64 and 128: below, inside and above the 64 and 128
-# tiles, not a multiple of 8 (20), and the 256 tile's edge
-HEAD_DIMS = (8, 16, 20, 32, 40, 96, 160, 256)
+# tiles, not a multiple of 8 (20), inside the 256 tile (136, 160, 200,
+# 248: the forward's and dk/dv's TMA + wgmma tile zero-filled past d) and
+# its edge
+HEAD_DIMS = (8, 16, 20, 32, 40, 96, 136, 160, 200, 248, 256)
 # past 256: two to four chunks of 256 features, the last one partly
 # zero-filled (264, 320, 1000) and not a multiple of 8 (300, 1000)
 WIDE_DIMS = (264, 300, 320, 512, 1000, 1024)
@@ -124,7 +126,8 @@ def _rows_close(got, want, dead, rel):
                           (72, 136, 128, False, 0, 0)]
                          + [(200, 200, d, True, 0, 0) for d in HEAD_DIMS]
                          + [(256, 256, d, True, 192, 64) for d in HEAD_DIMS]
-                         + [(72, 136, d, False, 0, 0) for d in (20, 160)]
+                         + [(72, 136, d, False, 0, 0)
+                            for d in (20, 136, 160, 200, 248)]
                          + [(200, 200, d, True, 0, 0) for d in WIDE_DIMS]
                          + [(256, 256, d, True, 192, 64) for d in WIDE_DIMS]
                          + [(72, 136, d, False, 0, 0) for d in (300, 512)])
@@ -163,7 +166,7 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("d", [64, 128, 32, 160, 256, 512])
+@pytest.mark.parametrize("d", [64, 128, 32, 136, 160, 200, 248, 256, 512])
 def test_dkv_kernel_is_deterministic(cuda, d, kernel):
     # Each dq row (dq kernel) and each dk/dv row (dk/dv kernel) is written
     # by one block, with no atomics: two launches on the same inputs give
@@ -183,6 +186,34 @@ def test_dkv_kernel_is_deterministic(cuda, d, kernel):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.bfloat16, 2e-2),
+                                       (torch.float16, 4e-3)])
+@pytest.mark.parametrize("d", [64, 200, 256])
+def test_kernels_read_the_qkv_views_in_place(cuda, dtype, rel, d):
+    # q, k, v as the (B, H, S, D) views of one (B, S, 3 H D) buffer, as the
+    # LM's projection hands them over (row stride 3 H D): TMA reads them
+    # where they lie, and the three kernels agree with their plain versions
+    g = torch.Generator(device=cuda).manual_seed(d)
+    b, h, s = 2, 3, 200
+    base = torch.randn((b, s, 3 * h * d), generator=g, device=cuda)
+    q, k, v = (t.reshape(b, s, h, d).transpose(1, 2)
+               for t in base.to(dtype).split(h * d, dim=-1))
+    assert not q.is_contiguous() and attention._aligned(q) is q
+    do = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+    kw = dict(causal=True, q_offset=0, kv_offset=0, scale=d ** -0.5)
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=True)
+        ref, ref_lse = attention.mha_reference(q, k, v, causal=True)
+    _rows_close(out, ref, torch.zeros_like(lse, dtype=torch.bool), rel)
+    c = attention.flash_bwd_prep(do, out)
+    got = attention._flash_bwd_cuda(q, k, v, do, lse, c, **kw)
+    torch.cuda.synchronize()
+    want = (attention.flash_bwd_dq_reference(q, k, v, do, lse, c, **kw),
+            *attention.flash_bwd_dkv_reference(q, k, v, do, lse, c, **kw))
+    for x, y in zip(got, want):
+        _rows_close(x, y, torch.zeros_like(lse, dtype=torch.bool), rel)
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

@@ -279,19 +279,23 @@ def test_loader_chunks_match_reference_placement(world, jmesh):
         store.close()
 
 
-@pytest.mark.parametrize("spec", [("sp",)])
+@pytest.mark.parametrize("spec", [("sp", "sp")])
 def test_loader_refuses_other_specs(world, spec):
-    # a batch on a model or sequence axis: only dp and fsdp hold rows
+    # a spec that names one mesh axis twice, which NamedSharding refuses
+    # too (a batch on a model or sequence axis is placed: below)
     _, _, ranks = world
     for r in ranks:
-        assert "data axes" in r["loader"][spec]
+        assert "twice" in r["loader"][spec]
 
 
-@pytest.mark.parametrize("spec", [("dp",), ("dp", "tp")])
+@pytest.mark.parametrize("spec", [("dp",), ("dp", "tp"), ("tp",),
+                                  (("dp", "tp"),)])
 def test_loader_places_over_a_tp_mesh(world, spec):
-    # the reference's P("dp") and P("dp", "tp") of the same global batches
-    # on a dp x tp mesh: ranks along tp read the same rows, whole or in
-    # their chunk along tp
+    # the reference's P("dp"), P("dp", "tp"), P("tp") and P(("dp", "tp"))
+    # of the same global batches on a dp x tp mesh: each rank reads the
+    # rows of its slot along the spec's batch axes (batch_slot: dp, tp, or
+    # dp x tp with dp the slowest), whole or in its chunk along tp, and
+    # the ranks along the other axis the same rows
     _, _, ranks = world
     windows, nexts, idx, bsz = _loader_case()
     from ddstore_tpu import DDStore as JStore
@@ -315,5 +319,9 @@ def test_loader_places_over_a_tp_mesh(world, spec):
         store.close()
     for r in ranks:
         got = r["loader"][spec]
-        assert got["seq_range"] == (None if spec == ("dp",) else
-                                    (16 * got["tp"], 16 * (got["tp"] + 1)))
+        i, j = got["dp"], got["tp"]
+        assert got["slot"] == {("dp",): (i, 2), ("dp", "tp"): (i, 2),
+                               ("tp",): (j, 2),
+                               (("dp", "tp"),): (2 * i + j, 4)}[spec]
+        assert got["seq_range"] == ((16 * j, 16 * (j + 1))
+                                    if spec == ("dp", "tp") else None)

@@ -165,29 +165,62 @@ def _code(text):
 
 
 # The port's departures from the reference core, by file: (the reference's
-# code lines, the port's), each found once. The one departure is the
-# Conn::fd race's fix (ROADMAP C): TcpTransport::ReadVOnRetry's retry hook
-# reads the lane's fd under its lock.
+# code lines, the port's), each found once, applied in order. Two
+# departures (ROADMAP C): the Conn::fd race's fix (TcpTransport::
+# ReadVOnRetry's retry hook reads the lane's fd under its lock), and the
+# store's teardown stopping the serving side of its transport before it
+# frees its variables (Transport::StopServing, called by Store::~Store
+# after DrainAsync): a peer's read in that window got a well-formed
+# "variable not found", which no replica router fails over, where it now
+# finds a closed connection.
+_PEER_CLOSES = ["  for (auto& p : peers_) {",
+                "    if (!p) continue;",
+                "    for (auto& c : p->conns)",
+                "      if (c->fd >= 0) ::close(c->fd);",
+                "  }",
+                "  for (auto& pc : ping_conns_)",
+                "    if (pc && pc->fd >= 0) ::close(pc->fd);"]
 DEPARTURES = {
-    "tcp_transport.cc": (
-        ["        if (used->fd < 0)"],
-        ["        bool closed;",
-         "        {",
-         "          std::lock_guard<std::mutex> lane(used->mu);",
-         "          closed = used->fd < 0;",
-         "        }",
-         "        if (closed)"]),
+    "tcp_transport.cc": [
+        (["        if (used->fd < 0)"],
+         ["        bool closed;",
+          "        {",
+          "          std::lock_guard<std::mutex> lane(used->mu);",
+          "          closed = used->fd < 0;",
+          "        }",
+          "        if (closed)"]),
+        (_PEER_CLOSES + ["}"], ["}"]),
+        (["TcpTransport::~TcpTransport() {",
+          "  stopping_.store(true);"],
+         ["TcpTransport::~TcpTransport() {",
+          "  StopServing();"] + _PEER_CLOSES +
+         ["}",
+          "void TcpTransport::StopServing() {",
+          "  if (stopping_.exchange(true)) return;"])],
+    "tcp_transport.h": [
+        (["  ~TcpTransport() override;"],
+         ["  ~TcpTransport() override;",
+          "  void StopServing() override;"])],
+    "store.h": [
+        (["  virtual void SetSuspectOracle(std::function<bool(int)> oracle) {"],
+         ["  virtual void StopServing() {}",
+          "  virtual void SetSuspectOracle(std::function<bool(int)> oracle) {"])],
+    "store.cc": [
+        (["  DrainAsync();",
+          "  FreeAll();"],
+         ["  DrainAsync();",
+          "  transport_->StopServing();",
+          "  FreeAll();"])],
 }
 
 
 def _depart(lines, f):
-    """The reference's code lines of ``f`` with the port's departure."""
-    if f not in DEPARTURES:
-        return lines
-    old, new = DEPARTURES[f]
-    at = [i for i in range(len(lines)) if lines[i:i + len(old)] == old]
-    assert len(at) == 1, (f, at)
-    return lines[:at[0]] + new + lines[at[0] + len(old):]
+    """The reference's code lines of ``f`` with the port's departures."""
+    for old, new in DEPARTURES.get(f, []):
+        at = [i for i in range(len(lines)) if lines[i:i + len(old)] == old]
+        assert len(at) == 1, (f, old, at)
+        lines = lines[:at[0]] + new + lines[at[0] + len(old):]
+    return lines
 
 
 def test_native_sources_are_the_reference_copy():

@@ -5,7 +5,8 @@ cases of ``tests/test_pp_lm.py`` and the pp cases of
 ``tests/test_compose.py``.
 
 The port runs in one spawned 4-rank gloo world (pp 4 over 7 layers, so
-the last stage pads; dp 2 x pp 2; pp 2 x tp 2; pp 2 x sp 2; pp 2 x ep 2)
+the last stage pads; dp 2 x pp 2; pp 2 x tp 2; pp 2 x sp 2; pp 2 x ep 2;
+pp 2 x fsdp 2, the stages replicated over fsdp as the reference's are)
 and one 8-rank world (dp 2 x pp 2 x tp 2, ``test_compose.py:138``), each
 rank passing its dp slot's rows in the reference's placement
 (``pp_batch_rows``) and its sequence chunk. Each run is one Adam step
@@ -68,6 +69,11 @@ CASES = {
                 {"gpipe": GPIPE, "1f1b": F1B, "interleaved": IL}),
     "pp2xep2_moe": ({"pp": 2, "ep": 2}, 4, True,
                     {"gpipe": GPIPE, "1f1b": F1B}),
+    # the stages replicated over fsdp, as the reference's
+    # create_pp_train_state leaves them (it places tp and ep only, and its
+    # step's data P(dp, sp)); each fsdp rank passes its dp slot's rows
+    "pp2xfsdp2": ({"pp": 2, "fsdp": 2}, 4, False,
+                  {"gpipe": GPIPE, "1f1b": F1B}),
     "dp2xpp2_moe": ({"dp": 2, "pp": 2}, 4, True,
                     {"gpipe": GPIPE, "1f1b": F1B,
                      "interleaved_1f1b": IL1F1B}),
@@ -342,17 +348,18 @@ def test_pp_step_validates_its_arguments():
         step(tok, tok, torch.from_numpy(positions(4, 16)))
 
 
-def test_pp_state_refuses_fsdp_and_moe_over_sp():
-    """pp x fsdp: the reference's ``create_pp_train_state`` places tp and
-    ep only, so it stays refused. MoE with sp inside a stage is no longer
-    refused: the state goes on to check the replicas, a collective
-    (``tests/test_torch_moe_sp.py`` runs it against the reference)."""
-    with pytest.raises(NotImplementedError, match="fsdp"):
-        ttr.create_pp_train_state(_model(), 2,
-                                  mesh=_fake_mesh(pp=2, fsdp=2))
+@pytest.mark.parametrize("axes,moe", [({"pp": 2, "fsdp": 2}, False),
+                                      ({"pp": 2, "sp": 2}, True)])
+def test_pp_state_refuses_fsdp_and_moe_over_sp(axes, moe):
+    """Neither layout is refused any more: pp x fsdp runs with the stages
+    replicated over fsdp, as the reference's (the ``pp2xfsdp2`` runs of
+    the world above), and MoE with sp inside a stage routes over sp
+    (``tests/test_torch_moe_sp.py`` runs it against the reference). The
+    state goes on to check the replicas, a collective, which a fake mesh
+    without a process group cannot run."""
     with pytest.raises(Exception) as e:
-        ttr.create_pp_train_state(_model(**MOE), 2,
-                                  mesh=_fake_mesh(pp=2, sp=2))
+        ttr.create_pp_train_state(_model(**(MOE if moe else {})), 2,
+                                  mesh=_fake_mesh(**axes))
     assert not isinstance(e.value, NotImplementedError), e.value
 
 

@@ -721,7 +721,7 @@ def longcontext_cases(rank, world, tmp, params, batches, lr, remat_params,
 
     from ddstore_tpu_torch import weights
     from ddstore_tpu_torch.data.dataset import ShardedDataset
-    from ddstore_tpu_torch.data.loader import DeviceLoader
+    from ddstore_tpu_torch.data.loader import DeviceLoader, batch_slot
     from ddstore_tpu_torch.models import decode
     from ddstore_tpu_torch.models import transformer as ttr
     from ddstore_tpu_torch.parallel import make_mesh
@@ -830,19 +830,27 @@ def longcontext_cases(rank, world, tmp, params, batches, lr, remat_params,
                 "seq_range": loader.seq_range}
             try:
                 DeviceLoader(ds, _IndexStream(mine), half, device="cpu",
-                             mesh=mesh, spec=("sp",))
-                out["loader"][("sp",)] = None
-            except NotImplementedError as e:
-                out["loader"][("sp",)] = str(e)
-            # over a dp x tp mesh: whole rows alike on both tp ranks, and
-            # the sequence split over tp when the spec names it
+                             mesh=mesh, spec=("sp", "sp"))
+                out["loader"][("sp", "sp")] = None
+            except ValueError as e:
+                out["loader"][("sp", "sp")] = str(e)
+            # over a dp x tp mesh: each rank's slot of the rows along the
+            # spec's batch axes (whole rows alike on the ranks along the
+            # others), and the sequence split over tp when the spec names it
             tmesh = make_mesh({"dp": 2, "tp": world // 2}, "cpu")
-            for spec in (("dp",), ("dp", "tp")):
-                loader = DeviceLoader(ds, _IndexStream(mine), half,
+            for spec in (("dp",), ("dp", "tp"), ("tp",), (("dp", "tp"),)):
+                slot, slots = batch_slot(tmesh, spec)
+                per = bsz // slots
+                rows = np.concatenate(
+                    [idx[b + slot * per:b + (slot + 1) * per]
+                     for b in range(0, len(idx), bsz)])
+                loader = DeviceLoader(ds, _IndexStream(rows), per,
                                       device="cpu", mesh=tmesh, spec=spec)
                 out["loader"][spec] = {
                     "batches": [(a.numpy(), b.numpy()) for a, b in loader],
                     "seq_range": loader.seq_range,
+                    "slot": (slot, slots),
+                    "dp": axis_index(tmesh, "dp"),
                     "tp": axis_index(tmesh, "tp")}
         finally:
             store.close()
