@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``ddstore_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ab PARENT   # kernel A/B against another tree
 
 Run from the root of a checkout, on a machine with one CUDA card and the
 CUDA toolkit (``nvcc`` under ``$CUDA_HOME``, default ``/usr/local/cuda``).
@@ -266,12 +267,22 @@ Phases; any failure raises and ends the run with a non-zero exit:
    under the plain attention.
 
 Then it prints the kernel table as one JSON line (each row names its
-design: ``wgmma+tma``, the bf16 path of all three kernels up to head dim
-128, and of the forward and dk/dv up to 256), the card's
+design: ``wgmma+tma``, the 16-bit path of all three kernels up to head
+dim 256 and of the forward past it), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 Without a card, or outside a checkout, it exits non-zero and prints no
 result.
+
+With ``--ab PARENT`` it runs none of the phases: it times the three
+kernels of the tree at PARENT (another checkout of this repository, say
+the parent commit's ``git archive``) and of this checkout at AB_TIMED's
+(dtype, head dim), each in a process of its own, in the order parent,
+change, change, parent (each process builds its tree's kernels and runs
+that tree's ``head_dim_timing``, which also holds every kernel to its
+plain version, then its ``head_dim_lm`` at AB_LM_HEADS heads over
+AB_LM_STEPS steps), and prints each kernel's times and the LM's median
+step from both trees on lines before the last.
 """
 
 from __future__ import annotations
@@ -527,8 +538,8 @@ FSP_RANKS, FSP_SEQ, FSP_WARMUP, FSP_STEPS = 4, 4096, 1, 3
 # loss held to the same step under the plain attention at MOE_LOSS_TOL;
 # the long-context example at its own defaults over dp 2 x sp 2 (four
 # ranks on the card, gloo), one epoch of HD_EX_WINDOWS windows a rank.
-# (136, 200 and 248: the 256 tile of the forward and dk/dv zero-filled
-# past d, with ragged 64-key and 64-query tiles)
+# (136, 200 and 248: the 256 tile of all three kernels zero-filled past
+# d, with ragged 64-key and 64-query tiles)
 HD_DIMS = (8, 16, 20, 32, 40, 96, 136, 160, 200, 248, 256)
 HD_CASES = (("bf16_causal_ragged", (1, 4, 200, 200), torch.bfloat16, True,
              0, 0),
@@ -563,6 +574,16 @@ FW_TIMED = ((torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
 # launches a timing round (the f32 kernels run on the CUDA cores)
 FW_ITERS = {"bfloat16": 20, "float16": 20, "float32": 4}
 FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2))
+# The kernel A/B (--ab): the (dtype, head dim) each tree's kernels are
+# timed at, H = DIM // d at (8, 2048) (d 256, where dq and dk/dv split
+# their features, and the chunked forward at two to four chunks).
+AB_TIMED = (("bfloat16", 256), ("float16", 256), ("bfloat16", 264),
+            ("float16", 264), ("bfloat16", 512), ("float16", 512),
+            ("bfloat16", 1024), ("float16", 1024))
+# and the LM above at these heads (head dims 256 and 512), store-fed, its
+# train step timed over AB_LM_STEPS steps (the first one not counted)
+AB_LM_HEADS, AB_LM_STEPS = (4, 2), 10
+AB_DEADLINE_S = 600
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
 # error), and the largest error of a live row of out relative to that
@@ -5432,12 +5453,12 @@ def phase_fp16_wide(dev, seed, card):
 
 def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
-    TMA + wgmma for 16 bits up to 128 (the forward and dk/dv up to 256),
-    mma.sync past that (in chunks of 256 past 256), the CUDA cores in
-    f32."""
+    TMA + wgmma for 16 bits up to 256 and for the forward past it,
+    mma.sync for dq and dk/dv past 256 (all in chunks of 256 past 256),
+    the CUDA cores in f32."""
     if dname == "float32":
         design = "cuda cores"
-    elif d <= 128 or (d <= 256 and name != "flash_bwd_dq"):
+    elif d <= 256 or name == "flash_fwd":
         design = "wgmma+tma"
     else:
         design = "mma.sync"
@@ -5606,9 +5627,101 @@ def kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo, lay, tpk, ppr,
                 for d, t in hd["timing"].items()}}
 
 
+# One tree's side of the kernel A/B, run as ``python -c AB_RUN root seed
+# timed heads steps`` from that tree's root: its kernels built, then its
+# own head_dim_timing at each (dtype, head dim) and head_dim_lm at each
+# number of heads.
+AB_RUN = """\
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from ddstore_tpu_torch.ops import _build
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+torch.backends.cuda.matmul.allow_tf32 = False
+_build.build_all()
+g = torch.Generator(device=dev).manual_seed(int(sys.argv[2]))
+out = {}
+for dname, d in json.loads(sys.argv[3]):
+    r = cs.head_dim_timing(g, dev, d, getattr(torch, dname))
+    out[f"{dname} {d}"] = {
+        **{k: {x: v[x] for x in ("ms", "plain_ms", "bound_ms",
+                                 "library_ms")}
+           for k, v in r.items() if isinstance(v, dict)},
+        "sdpa_backward_ms": r["sdpa_backward_ms"]}
+store, ds = cs.make_store(int(sys.argv[2]))
+cs.HD_STEPS = int(sys.argv[5])
+out["lm"] = {}
+for heads in json.loads(sys.argv[4]):
+    r = cs.head_dim_lm(dev, int(sys.argv[2]), ds, heads, cs.card_line())
+    out["lm"][str(cs.DIM // heads)] = {x: r[x] for x in ("median_ms",
+                                                         "step_ms")}
+store.close()
+print("ab result " + json.dumps(out), flush=True)
+"""
+
+
+def kernel_ab(parent, seed):
+    """The kernels of the tree at ``parent`` against this checkout's, in
+    turns (parent, change, change, parent), each side in a process of its
+    own; prints each kernel's times from both and returns them."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = []
+    for tag, root in (("parent", parent), ("change", here),
+                      ("change", here), ("parent", parent)):
+        root = os.path.abspath(root)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-c", AB_RUN, root, str(seed),
+             json.dumps(AB_TIMED), json.dumps(AB_LM_HEADS),
+             str(AB_LM_STEPS)], cwd=root, capture_output=True,
+            text=True, timeout=AB_DEADLINE_S)
+        got = [ln for ln in res.stdout.splitlines()
+               if ln.startswith("ab result ")]
+        check(res.returncode == 0 and got,
+              f"kernel A/B: the {tag} run at {root} failed (exit "
+              f"{res.returncode}): {res.stderr[-4000:]}")
+        runs.append((tag, json.loads(got[-1][len("ab result "):])))
+        print(f"kernel A/B: {tag} ({root}) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    table = {}
+    for hd in runs[0][1]["lm"]:
+        row = {tag: [x["lm"][hd]["median_ms"] for t, x in runs if t == tag]
+               for tag in ("parent", "change")}
+        table[f"lm hd {hd}"] = row
+        print(f"kernel A/B LM at hd {hd} ({DIM // int(hd)} heads, bf16, "
+              f"{BATCH} x {SEQ}): median train step ms (of "
+              f"{AB_LM_STEPS - 1}) parent {row['parent']} change "
+              f"{row['change']}; steps " + "; ".join(
+                  f"{t} {[round(v, 3) for v in x['lm'][hd]['step_ms']]}"
+                  for t, x in runs), flush=True)
+    for shape in (s for s in runs[0][1] if s != "lm"):
+        for kern, r in runs[0][1][shape].items():
+            if not isinstance(r, dict):
+                continue
+            row = {tag: [x[shape][kern]["ms"] for t, x in runs if t == tag]
+                   for tag in ("parent", "change")}
+            row.update(bound_ms=r["bound_ms"], library_ms=r["library_ms"],
+                       plain_ms=r["plain_ms"])
+            table[f"{kern} {shape}"] = row
+            print(f"kernel A/B {kern} at {shape} (8, 2048, H = {DIM} // d) "
+                  f"causal: parent ms {row['parent']} change ms "
+                  f"{row['change']} bound_ms={r['bound_ms']:.4f} "
+                  f"plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']}", flush=True)
+        print(f"kernel A/B sdpa backward at {shape}: " + ", ".join(
+            f"{t} {x[shape]['sdpa_backward_ms']:.4f}" for t, x in runs),
+              flush=True)
+    return table
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="PARENT", default=None,
+                    help="time the kernels of the tree at PARENT against "
+                         "this checkout's and run nothing else")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -5626,6 +5739,14 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda} | "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+    if args.ab is not None:
+        print(json.dumps({"kernel_ab": kernel_ab(args.ab, args.seed)}),
+              flush=True)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 2. build: the kernels, and the store's native core beside them
     def timed_native_build():

@@ -19,6 +19,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <random>
 
 #include "trace.h"
 #include "wire.h"
@@ -370,6 +371,7 @@ TcpTransport::TcpTransport(int rank, int world, int port)
   for (int i = 0; i < world_; ++i) {
     peers_[i] = std::make_unique<Peer>();
     ping_conns_[i] = std::make_unique<PingConn>();
+    ping_conns_[i]->target = i;
     for (long c = 0; c < nconn; ++c) {
       auto conn = std::make_unique<Conn>();
       conn->idx = static_cast<int>(c);
@@ -507,6 +509,7 @@ int TcpTransport::UpdatePeer(int target, const std::string& host_csv,
     }
     p.hosts = hosts;  // keep the local: the PingConn update below must
     p.port = port;    // not re-read p.* outside the conn mutexes
+    p.instance.store(0);  // the replacement is met afresh
   }
   {
     // The replacement is a different process: its CMA mapping table and
@@ -724,6 +727,11 @@ void TcpTransport::HandleConnection(int fd) {
         }
       }
       barrier_cv_.notify_all();
+      continue;
+    }
+    if (req.op == kOpHello) {
+      WireResp resp{kOk, 0, static_cast<int64_t>(instance_id_)};
+      if (FullSend(fd, &resp, sizeof(resp)) != 0) return;
       continue;
     }
     if (req.op == kOpPing) {
@@ -1071,6 +1079,10 @@ int TcpTransport::EnsureConnected(Peer& p, Conn& c) {
         utv.tv_sec = EnvLong("DDSTORE_READ_TIMEOUT_S", 300);
         utv.tv_usec = 0;
         ::setsockopt(ufd, SOL_SOCKET, SO_RCVTIMEO, &utv, sizeof(utv));
+        if (!Introduce(p, ufd)) {
+          ::close(ufd);
+          return kErrTransport;
+        }
         c.fd = ufd;
         dials_.fetch_add(1, std::memory_order_relaxed);
         uds_conns_.fetch_add(1, std::memory_order_relaxed);
@@ -1148,10 +1160,38 @@ int TcpTransport::EnsureConnected(Peer& p, Conn& c) {
   tv.tv_sec = EnvLong("DDSTORE_READ_TIMEOUT_S", 300);
   tv.tv_usec = 0;
   ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));
+  if (!Introduce(p, fd)) {
+    ::close(fd);
+    return kErrTransport;
+  }
   c.fd = fd;
   dials_.fetch_add(1, std::memory_order_relaxed);
   trace::Ev(trace::kLaneDial, rank_, c.idx, 0, 0);
   return kOk;
+}
+
+uint64_t TcpTransport::NewInstanceId() {
+  std::random_device rd;
+  uint64_t id = (static_cast<uint64_t>(rd()) << 32) ^ rd() ^
+                static_cast<uint64_t>(
+                    std::chrono::steady_clock::now().time_since_epoch()
+                        .count());
+  return id != 0 ? id : 1;
+}
+
+bool TcpTransport::Introduce(Peer& p, int fd) {
+  WireReq req{kMagic, kOpHello, rank_, 0, 0, 0, 0};
+  WireResp resp;
+  if (FullSend(fd, &req, sizeof(req)) != 0 ||
+      FullRecv(fd, &resp, sizeof(resp)) != 0 || resp.status != kOk)
+    return false;
+  const uint64_t got = static_cast<uint64_t>(resp.nbytes);
+  uint64_t met = 0;
+  if (p.instance.compare_exchange_strong(met, got)) return true;
+  if (met != got && DebugOn())
+    std::fprintf(stderr, "[dds r%d] a connection to a peer's port reached "
+                 "another store instance; refused\n", rank_);
+  return met == got;
 }
 
 int TcpTransport::Read(int target, const std::string& name, int64_t offset,
@@ -1216,6 +1256,15 @@ int TcpTransport::EnsureControlConn(PingConn& pc, long timeout_ms) {
     }
     if (fd >= 0) {
       SetNoDelay(fd);
+      timeval tv;
+      tv.tv_sec = timeout_ms / 1000;
+      tv.tv_usec = (timeout_ms % 1000) * 1000;
+      ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));
+      ::setsockopt(fd, SOL_SOCKET, SO_SNDTIMEO, &tv, sizeof(tv));
+      if (!Introduce(*peers_[pc.target], fd)) {
+        ::close(fd);
+        return -1;
+      }
       pc.fd = fd;
       return fd;
     }

@@ -318,6 +318,13 @@ class TcpTransport : public Transport {
         DDS_GUARDED_BY(Conn::mu);  // one entry per advertised NIC
     int port DDS_GUARDED_BY(Conn::mu) = -1;
     std::vector<std::unique_ptr<Conn>> conns;
+    // The instance id the peer answered its first kOpHello with (0 =
+    // not met yet; UpdatePeer resets it for a replacement). A later
+    // connection to the same host and port that answers another id
+    // reached a different store, which bound the port after the peer
+    // closed: Introduce refuses it, and the read fails over as for a
+    // dead peer.
+    std::atomic<uint64_t> instance{0};
     // CMA (same-host process_vm_readv) state: 0 = unprobed, 1 = usable,
     // -1 = TCP only, 2 = probe in flight. Probed lazily on first read
     // to the peer, OUTSIDE this mutex: the prober claims the probe by
@@ -350,6 +357,11 @@ class TcpTransport : public Transport {
       DDS_REQUIRES(Conn::mu);
 
   int EnsureConnected(Peer& p, Conn& c) DDS_REQUIRES(Conn::mu);
+  // kOpHello on a fresh connection `fd` to peer p: true when the peer
+  // answers with the instance id met first (learning it on the first
+  // call).
+  bool Introduce(Peer& p, int fd);
+  static uint64_t NewInstanceId();
   // The pipelined request/response loop over one connection. Virtual:
   // the io_uring backend substitutes a batched-SQE submission for the
   // sendmsg/recvmsg loop while keeping the byte stream (and therefore
@@ -383,6 +395,8 @@ class TcpTransport : public Transport {
   const int rank_;
   const int world_;
   std::atomic<bool> stopping_{false};
+  // This transport's id, the answer to every kOpHello.
+  const uint64_t instance_id_ = NewInstanceId();
   Store* store_ = nullptr;
 
   int listen_fd_ = -1;
@@ -422,6 +436,7 @@ class TcpTransport : public Transport {
   // not read as dead while its data lanes (round-robin over the same
   // list) still work.
   struct PingConn {
+    int target = -1;  // the peer's rank, set once at construction
     int fd DDS_GUARDED_BY(PingConn::mu) = -1;
     std::vector<std::string> hosts DDS_GUARDED_BY(PingConn::mu);
     size_t next_host DDS_GUARDED_BY(PingConn::mu) = 0;

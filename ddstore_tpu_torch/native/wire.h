@@ -44,7 +44,13 @@ enum Op : uint32_t { kOpRead = 1, kOpBarrier = 2, kOpReadVec = 3,
                      // pins a snapshot, offset = quota bytes; minted
                      // session token returned in resp.nbytes), detach
                      // and lease renew (tag = session token).
-                     kOpAttach = 11, kOpDetach = 12, kOpLease = 13 };
+                     kOpAttach = 11, kOpDetach = 12, kOpLease = 13,
+                     // Connection identity, sent first on every new
+                     // connection: resp.nbytes carries the serving
+                     // transport's instance id (random, fixed for its
+                     // life), so a client that reaches another store on
+                     // a port its peer held can tell.
+                     kOpHello = 14 };
 
 #pragma pack(push, 1)
 struct WireReq {

@@ -15,8 +15,8 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
   of ``csrc/flash_bwd.cu`` (in bf16 and fp16 all three kernels stream
   their tiles by TMA and multiply with wgmma, ``csrc/sm90.cuh``, up to
-  head dim 128, and the forward and dk/dv up to 256; dq runs on mma.sync
-  past 128, and all three in chunks of 256 features past 256); on a CPU
+  head dim 256, and the forward past it too, in chunks of 256 features;
+  dq and dk/dv run on mma.sync in chunks of 256 past 256); on a CPU
   tensor both run the plain versions, so the CPU tests
   exercise the backward arithmetic the card runs. On the card it launches
   the kernels or raises; it never falls back to the plain version there.
@@ -49,9 +49,9 @@ flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-#: the kernels' tile widths: TMA + wgmma at 64 and 128, and at 256 for
-#: the forward and dk/dv (mma.sync for dq), and the f32 kernels' widths;
-#: past 256 the head dim is taken in chunks of the widest
+#: the kernels' tile widths: TMA + wgmma at 64, 128 and 256, and the f32
+#: kernels' widths; past 256 the head dim is taken in chunks of the widest
+#: (TMA + wgmma for the forward, mma.sync for dq and dk/dv)
 _TILE_WIDTHS = (64, 128, 256)
 
 
@@ -221,12 +221,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     are checked the same way, with the same messages. The CUDA kernels
     tile by their own sizes whatever they say (in bf16 and fp16: forward
     192 query rows at tile width 64 and 128 at 128, by 128 keys, and 128
-    by 64 keys at 256; dq 128 query rows by 64 keys; dk/dv 128 keys by 64
-    queries at width 64, by 32 at 128, and 64 keys by 64 queries at 256;
-    dq 64 by 32 at 256; in each 256-feature chunk past it forward 64 by
-    64, dq 64 by 32, dk/dv 64 keys by 32 queries; in f32: forward 16 by
-    32, backward 16 by 32 or 16) and mask the ragged last tiles
-    themselves. On the card they take bf16, fp16 or f32 with any head dim
+    by 64 keys at 256 and in each 256-feature chunk past it; dq 128 query
+    rows by 64 keys at widths 64 and 128, and 64 by 64 at 256; dk/dv 128
+    keys by 64 queries at width 64, by 32 at 128, and 64 keys by 64
+    queries at 256; in each chunk past 256 dq 64 by 32, dk/dv 64 keys by
+    32 queries; in f32: forward 16 by 32, backward 16 by 32 or 16) and
+    mask the ragged last tiles themselves. On the card they take bf16, fp16 or f32 with any head dim
     from 1 up (:func:`_kernel_width`); ``scale`` defaults to ``1/sqrt(d)``
     of the true head dim.
     """

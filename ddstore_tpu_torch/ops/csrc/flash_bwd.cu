@@ -33,30 +33,29 @@
 // or f32. The 16-bit kernels are templated on the element type (sm90::Bf16,
 // sm90::F16: the same tiles, barriers and register budgets; P and dS are
 // rounded to the input dtype before their products, as the reference
-// rounds them), in four instantiations each: tile widths 64 and 128 of the
-// TMA + wgmma kernels (and 256 of the dk/dv one), whose tensor maps declare
-// the true d so that TMA zero-fills the tiles' columns past it (zero
-// columns of Q, K, V and dO leave S and dP as they are, and give zero
-// columns of dQ, dK and dV, which the stores skip), and simpler kernels on
-// mma.sync (below) for the rest: dq at one 256-feature tile up to d = 256
-// and chunks of 256 past it, dk/dv in chunks past d = 256. The f32 kernels
-// take the widths 64, 128, 256 and chunks of 256, with loads and stores
-// masked at d. Shared memory and registers are sized by the tile or chunk,
-// never by d.
+// rounds them), in four instantiations each: tile widths 64, 128 and 256
+// of the TMA + wgmma kernels, whose tensor maps declare the true d so that
+// TMA zero-fills the tiles' columns past it (zero columns of Q, K, V and
+// dO leave S and dP as they are, and give zero columns of dQ, dK and dV,
+// which the stores skip), and past d = 256 simpler kernels on mma.sync
+// (below) in chunks of 256. The f32 kernels take the widths 64, 128, 256
+// and chunks of 256, with loads and stores masked at d. Shared memory and
+// registers are sized by the tile or chunk, never by d.
 //
 // Bound on the H100 SXM at the LM's shape, (B, H, S, D) = (8, 16, 2048,
 // 64) bf16 causal, 2.686e8 live score pairs: dq does 3 products of 2*D
 // FLOP a pair (s, dp, dq), 1.03e11 FLOP = 0.104 ms at 989 TFLOP/s, against
 // about 170 MB of bytes (q, k, v, do, lse, c read, dq written) = 0.051 ms
 // at 3.35 TB/s; dk/dv does 4 (s, dp, dv, dk), 1.375e11 FLOP = 0.139 ms,
-// against about 203 MB = 0.061 ms. Both are bound by operations.
+// against about 203 MB = 0.061 ms. Both are bound by operations, and by
+// the same counts at (8, 4, 2048, 256).
 //
-// Design, and what it leaves on the table. Both 16-bit kernels at d <= 128
+// Design, and what it leaves on the table. The 16-bit kernels up to d = 256
 // (bf16 below; fp16 the same) are a TMA tile ring + wgmma (sm90.cuh) in
 // blocks of three warpgroups: warpgroup 2 gives up its registers
 // (setmaxnreg, 24 left against 240 for each consumer) and one of its
-// threads issues every TMA load; warpgroups 0 and 1 each own 64 rows of
-// the block's resident operand.
+// threads issues every TMA load; at d <= 128 warpgroups 0 and 1 each own
+// 64 rows of the block's resident operand, at 129-256 half its features.
 // * bf16 dq: one block per 128 queries. The producer loads Q and dO once,
 //   then streams the K and V tiles through a ring of three shared stages
 //   completed on mbarriers ("full" when TMA has landed, "empty" when both
@@ -107,23 +106,33 @@
 //   i + 1 and hand the stage back as soon as they are done. Left out:
 //   overlap of the P^T, dS^T forming with the products (the two
 //   warpgroups meet at a named barrier every tile), persistent blocks.
-// * bf16 and fp16, dq at d > 128 and dk/dv at d > 256: right rather than
-//   fast, on mma.sync m16n8k16 with plain 16-byte loads into padded shared
-//   rows (columns past d zero) and ldmatrix.trans for the operands whose
-//   contracted dim runs down their rows. dq: one block of 4 warps per 64
-//   queries (16 a warp); Q and dO stay in shared memory, 32-key K and V
-//   tiles stream through it; dQ's 128 accumulators a thread for 16 rows x
-//   256 features fit beside S and dP of a 32-key tile. dk/dv: each block
-//   owns 64 keys and one part (128 features) of dK and dV, and forms S^T
-//   and dP^T over all the features for its part. Past d = 256 the
-//   features come in nc = ceil(d / 256) chunks:
-//   dq's blocks each own one chunk of dQ, dk/dv's one of ceil(d / 128)
-//   parts (a grid axis folded into the tile axis); for each streamed tile
-//   a block stages the chunks of both operands in turn into the same
-//   shared rows and sums S and dP (S^T and dP^T) over them, then takes the
-//   chunk its output needs (staged again unless it was the last). Every
-//   block forms the same S in the same order, so P is the same in each;
-//   the outputs stay disjoint, so the gradients stay bit-deterministic.
+// * bf16 and fp16 dq, 128 < d <= 256 (flash_bwd_dq_split_kernel): the
+//   split dk/dv kernel with the roles of queries and keys swapped. One
+//   block per 64 queries, each warpgroup owning 128 features of dQ (64
+//   registers a thread); Q and dO stay resident, 64-key K and V tiles
+//   stream through two 64 KB stages. S and dP of a tile are formed once,
+//   each warpgroup forming 32 keys' worth (wgmma m64n32); dS goes through
+//   two shared buffers as E (rounded where the reference rounds it) and
+//   feeds both warpgroups' dQ products as SS wgmma, K read MN-major from
+//   the stage the S product read K-major. dQ of tile i is issued before S
+//   and dP of tile i + 1 and hands the stage back as soon as it is done.
+//   Left out: as in the split dk/dv kernel, overlap of the dS forming with
+//   the products (one named barrier a tile), persistent blocks.
+// * bf16 and fp16 dq and dk/dv at d > 256: right rather than fast, on
+//   mma.sync m16n8k16 with plain 16-byte loads into padded shared rows
+//   (columns past d zero) and ldmatrix.trans for the operands whose
+//   contracted dim runs down their rows, the features in nc = ceil(d /
+//   256) chunks. dq: one block of 4 warps per 64 queries (16 a warp) and
+//   chunk of dQ, 32-key K and V tiles; dQ's 128 accumulators a thread for
+//   16 rows x 256 features fit beside S and dP of a 32-key tile. dk/dv:
+//   each block owns 64 keys and one of ceil(d / 128) parts (128 features)
+//   of dK and dV (a grid axis folded into the tile axis). For each
+//   streamed tile a block stages the chunks of both operands in turn into
+//   the same shared rows and sums S and dP (S^T and dP^T) over them, then
+//   takes the chunk its output needs (staged again unless it was the
+//   last). Every block forms the same S in the same order, so P is the
+//   same in each; the outputs stay disjoint, so the gradients stay
+//   bit-deterministic.
 // * f32: the same algorithm on the CUDA cores, one dot product per score
 //   (the tensor cores take no f32 inputs); exact in f32, for checking the
 //   math without bf16 rounding. The LM runs in bf16. Past d = 256 the
@@ -217,7 +226,7 @@ constexpr int kDqBM = 128;
 constexpr int kDqBN = 64;
 
 struct DqParams {
-  CUtensorMap q, dout;  // boxes of 64 features x 128 rows
+  CUtensorMap q, dout;  // boxes of 64 features x the block's query rows
   CUtensorMap k, v;     // boxes of 64 features x 64 rows
   const float* lse;     // (B*H, Sq), contiguous
   const float* c;       // (B*H, Sq), contiguous
@@ -1095,10 +1104,288 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 and fp16, d > 128 (dq) and d > 256 (dk/dv): mma.sync
+// dq at 128 < d <= 256: dQ is 128 registers a thread for 64 query rows at
+// d 256 beside S and dP, too many for one warpgroup, so, as in the split
+// dk/dv kernel with the roles of queries and keys swapped, the warpgroups
+// split the features. One block per (64 queries, head, batch); warpgroup
+// w owns features [128 w, 128 w + 128) of dQ for all 64 queries (64
+// registers a thread). Q and dO stay resident (32 KB each); key tiles of
+// 64 (K, V: 32 KB each) stream through a ring of two stages. S and dP of
+// a tile are formed once, split by keys: warpgroup w forms queries x keys
+// [32 w, 32 w + 32) of both (wgmma m64n32, SS, both K-major), P and dS in
+// f32 on its accumulators, and writes dS, rounded to E where the reference
+// rounds it, into a shared tile in the 128-byte swizzled K-major layout
+// (queries as rows); after a named barrier over the two warpgroups, each
+// multiplies the whole dS (A from shared memory) by its 128 features of
+// the streamed K tile (B MN-major). dS is double-buffered, as the split
+// kernel's P^T and dS^T are: the buffer of tile i was last read by dQ of
+// tile i - 2, which both warpgroups waited for before they reached the
+// barrier of tile i - 1.
+constexpr int kDqSplitBM = 64;  // queries per block; key tiles of kDqBN
+constexpr int kDqSplitStages = 2;
 
-constexpr int kWideD = 256;  // the tiles' width; columns past d are zero
+// Shared memory, from a 1024-byte aligned base: Q, dO, then per stage K
+// and V, then the two dS buffers, then the barriers. A tile of 64 rows x
+// 256 features is four boxes of 64 rows x 128 bytes; dS (64 queries x 64
+// keys) one box.
+struct DqSplitSmem {
+  static constexpr int kBox = 64 * 128;
+  static constexpr int kTile = 4 * kBox;
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kTile;
+  static constexpr int kRing = 2 * kTile;  // stage s: K at kRing + 2 s kTile
+  static constexpr int kDs = kRing + kDqSplitStages * 2 * kTile;
+  static constexpr int kBar = kDs + 2 * kBox;
+  static constexpr int kBytes = kBar + (1 + 2 * kDqSplitStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
+  static_assert(kDqBN == 64 && kDqSplitBM == 64, "boxes of 64 rows");
+};
+
+template <class E>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dq_split_kernel(const __grid_constant__ DqParams p) {
+  using L = DqSplitSmem;
+  constexpr int BN = kDqBN, S = kDqSplitStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x;
+  // The block's first query (high query tiles, which see the most keys
+  // under the causal mask, launch first) and the key tiles [0, n) it runs
+  // over. Each role works them out after its setmaxnreg, so that nothing
+  // stays live across it.
+  auto tiles = [&](int& q0, int& n) {
+    q0 = (gridDim.z - 1 - blockIdx.z) * kDqSplitBM;
+    n = dq_key_tiles(p, p.q_offset + q0,
+                     p.sq - q0 < kDqSplitBM ? p.sq - q0 : kDqSplitBM);
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers) {
+      int q0, n;
+      tiles(q0, n);
+      sm90::mbar_arrive_expect_tx(q_full, 2 * L::kTile);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        sm90::tma_load_4d(smem + L::kQ + c * L::kBox, &p.q, q_full, c * 64,
+                          q0, hh, bb);
+        sm90::tma_load_4d(smem + L::kDo + c * L::kBox, &p.dout, q_full,
+                          c * 64, q0, hh, bb);
+      }
+      for (int i = 0; i < n; ++i) {
+        const int s = i % S;
+        sm90::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * L::kTile);
+        uint8_t* st = smem + L::kRing + s * 2 * L::kTile;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sm90::tma_load_4d(st + c * L::kBox, &p.k, &full[s], c * 64, i * BN,
+                            hh, bb);
+          sm90::tma_load_4d(st + L::kTile + c * L::kBox, &p.v, &full[s],
+                            c * 64, i * BN, hh, bb);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup w: features [128 w, 128 w + 128) of dQ for the
+    // block's 64 queries; keys [32 w, 32 w + 32) of each tile's S and dP.
+    sm90::reg_alloc<kConsumerRegs>();
+    int q0, n;
+    tiles(q0, n);
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = 16 * warp + lane / 4;  // query rows r0, r0 + 8 of the block
+    // keys kb + 8 j and kb + 8 j + 1 of a tile's S accumulators
+    const int kb = 32 * w + 2 * (lane % 4);
+    const uint8_t* qs = smem + L::kQ;
+    const uint8_t* dos = smem + L::kDo;
+    const long long bh = static_cast<long long>(bb) * p.h + hh;
+
+    float lse2[2], cr[2];  // per row: lse in log2 units, c
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      lse2[hr] = safe_lse(p, bh, q0 + r0 + 8 * hr) * kLog2e;
+      cr[hr] = row_c(p, bh, q0 + r0 + 8 * hr);
+    }
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    const float sl2 = p.scale * kLog2e;
+    float s[16], dp[16];  // S, dP; then dS in dp
+
+    auto stage = [&](int i) {
+      return smem + L::kRing + (i % S) * 2 * L::kTile;
+    };
+    auto wait_full = [&](int i) {
+      sm90::mbar_wait(&full[i % S], (i / S) & 1);
+    };
+    // S = Q K^T and dP = dO V^T of tile i, the block's 64 queries x this
+    // warpgroup's 32 keys (issued, not waited).
+    auto issue_sdp = [&](int i) {
+      const uint8_t* ks = stage(i) + w * 32 * 128;
+      const uint8_t* vs = ks + L::kTile;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const int off = (kk / 4) * L::kBox + (kk % 4) * 32;
+        sm90::Wgmma<32, E>::ss(s, sm90::desc_k(qs + off),
+                               sm90::desc_k(ks + off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk) {
+        const int off = (kk / 4) * L::kBox + (kk % 4) * 32;
+        sm90::Wgmma<32, E>::ss(dp, sm90::desc_k(dos + off),
+                               sm90::desc_k(vs + off), kk > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // P = exp2(S scale log2e - lse log2e) and dS = P (dP - c) of tile i,
+    // into dp. Only diagonal and ragged tiles are masked: TMA's zero fill
+    // past Sk scores 0, not -inf, so keys at or past Sk are masked here, as
+    // are (causal) keys in the query's future. Rows past Sq take lse = 1e30
+    // (p = 0) and are never written.
+    auto grads = [&](int i) {
+      const int k0 = i * BN;
+      bool live = true, diag = false;
+      if (p.causal)
+        causal_liveness<kDqSplitBM, BN>(p.q_offset + q0, p.kv_offset + k0,
+                                        live, diag);
+      const bool masked = diag || k0 + BN > p.sk;
+      // In a masked tile, relative to this thread's first query and key:
+      // keys at or past Sk, and (causal) keys in the query's future,
+      // kv_offset + key > q_offset + row, i.e. key - row above `ahead` (the
+      // offsets' gap at the thread's first pair, clamped to an int; without
+      // causal it is above every key - row).
+      int key_end = 0, ahead = 0;
+      if (masked) {
+        key_end = p.sk - k0 - kb;
+        const long long gap = p.causal ? p.q_offset - p.kv_offset + q0 +
+                                             r0 - k0 - kb
+                                       : 1ll << 40;
+        ahead = static_cast<int>(gap > (1 << 30)    ? (1 << 30)
+                                 : gap < -(1 << 30) ? -(1 << 30)
+                                                    : gap);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = fmaf(s[4 * j + e], sl2, -lse2[e >> 1]);
+          if (masked) {
+            const int key = 8 * j + (e & 1);  // past this thread's first
+            const int row = 8 * (e >> 1);     // key and query
+            if (key >= key_end || key - row > ahead) x = -INFINITY;
+          }
+          dp[4 * j + e] = sm90::exp2_approx(x) * (dp[4 * j + e] - cr[e >> 1]);
+        }
+    };
+    // This warpgroup's keys of dS of tile i, rounded to E, into buffer i %
+    // 2; then the barrier after which both warpgroups' halves are there for
+    // the async proxy.
+    auto store_ds = [&](int i) {
+      uint8_t* ds = smem + L::kDs + (i & 1) * L::kBox;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // rows r0 and r0 + 8 (8 rows = 1024 bytes further, the same
+        // swizzle)
+        uint8_t* at = ds + sm90::sw128_offset(r0, kb + 8 * j);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr)
+          *reinterpret_cast<uint32_t*>(at + hr * 1024) =
+              sm90::pack<E>(dp[4 * j + 2 * hr], dp[4 * j + 2 * hr + 1]);
+      }
+      sm90::fence_proxy_async();
+      sm90::bar_sync(1, kConsumers);
+    };
+    // dQ += dS K of tile i over this warpgroup's features: dS K-major from
+    // its shared tile, K MN-major (its keys run down the rows) from the
+    // streamed tile the S product read K-major.
+    auto issue_dq = [&](int i) {
+      const uint8_t* ks = stage(i) + 2 * w * L::kBox;
+      const uint8_t* ds = smem + L::kDs + (i & 1) * L::kBox;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::Wgmma<128, E>::ss_mn(
+            dq, sm90::desc_k(ds + kk * 32),
+            sm90::desc_mn(ks + kk * 16 * 128, L::kBox), 1);
+      sm90::wgmma_commit();
+    };
+
+    // Per tile: dQ of tile i is issued, then S and dP of tile i + 1; once
+    // the former is done the stage goes back to the producer (the load of
+    // tile i + 2 then has the rest of the tile's time), and dS of tile
+    // i + 1 is formed when the latter are.
+    sm90::mbar_wait(q_full, 0);
+    if (n > 0) {
+      wait_full(0);
+      issue_sdp(0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      grads(0);
+      for (int i = 0; i + 1 < n; ++i) {
+        store_ds(i);
+        issue_dq(i);
+        wait_full(i + 1);
+        issue_sdp(i + 1);
+        sm90::wgmma_wait<1>();  // dQ of tile i done
+        sm90::fence_regs(dq);
+        sm90::mbar_arrive(&empty[i % S]);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        grads(i + 1);
+      }
+      store_ds(n - 1);
+      issue_dq(n - 1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dq);
+      sm90::mbar_arrive(&empty[(n - 1) % S]);
+    }
+
+    // Every row below Sq is written: 0 where no live key reaches it.
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const int row = q0 + r0 + 8 * hr;
+      if (row < p.sq) {
+        typename E::T* dqp = static_cast<typename E::T*>(p.dq) +
+                             static_cast<long long>(bb) * p.s1b +
+                             static_cast<long long>(hh) * p.s1h +
+                             static_cast<long long>(row) * p.s1s;
+        const int t = threadIdx.x % 4;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int col = 128 * w + 8 * j;
+          if (col >= p.d) continue;
+          *reinterpret_cast<typename E::T2*>(dqp + col + 2 * t) =
+              E::pack2(dq[4 * j + 2 * hr] * p.scale,
+                       dq[4 * j + 2 * hr + 1] * p.scale);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 and fp16, d > 256: mma.sync, in chunks of 256 features
+
+constexpr int kWideD = 256;  // a chunk's width; columns past d are zero
 constexpr int kWideThreads = 128;
 constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
 
@@ -1108,19 +1395,17 @@ __device__ __forceinline__ int chunk_cols(int d, int c) {
   return left < kWideD ? left : kWideD;
 }
 
-// dq: one block per (64 queries, head, batch), 4 warps x 16 query rows;
-// K and V tiles of 32 keys.
+// dq: one block per (64 queries, chunk, head, batch), 4 warps x 16 query
+// rows; K and V tiles of 32 keys.
 constexpr int kWideDqBQ = 64;
 constexpr int kWideDqBK = 32;
 constexpr int kWideDqBytes = (2 * kWideDqBQ + 2 * kWideDqBK) * kWideST * 2;
 
-// kChunked = false: 128 < d <= 256, one tile of kWideD features; Q and dO
-// stay in shared memory for the whole key loop. kChunked = true: d > 256,
-// in nc = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is the
+// In nc = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is the
 // chunk oc of dQ it owns, S = Q K^T and dP = dO V^T sum over the chunks
 // (each staged in turn into the same shared rows), and dQ += dS K takes
 // K's chunk oc (staged again unless it was the last one).
-template <class E, bool kChunked>
+template <class E>
 __global__ void __launch_bounds__(kWideThreads)
     flash_bwd_dq_wide_kernel(Args a) {
   using T = typename E::T;
@@ -1131,13 +1416,8 @@ __global__ void __launch_bounds__(kWideThreads)
   T* k_s = do_s + BQ * ST;
   T* v_s = k_s + BK * ST;
 
-  int nc = 1, oc = 0, qt = blockIdx.x;
-  if constexpr (kChunked) {
-    nc = (a.d + kWideD - 1) / kWideD;
-    qt = blockIdx.x / nc;
-    oc = blockIdx.x % nc;
-  }
-  const int q0 = qt * BQ;
+  const int nc = (a.d + kWideD - 1) / kWideD;
+  const int q0 = blockIdx.x / nc * BQ, oc = blockIdx.x % nc;
   const int hh = blockIdx.y, bb = blockIdx.z;
   const long long bh = static_cast<long long>(bb) * a.h + hh;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -1148,14 +1428,6 @@ __global__ void __launch_bounds__(kWideThreads)
   const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
   const T* dp_ = static_cast<const T*>(a.dout) + bb * a.sdb + hh * a.sdh;
   T* dqp = static_cast<T*>(a.o1) + bb * a.s1b + hh * a.s1h;
-
-  // Q and dO stay in shared memory for the whole key loop.
-  if constexpr (!kChunked) {
-    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(q_s, qp, a.sqs, q0, a.sq,
-                                                   a.d, tid);
-    sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(do_s, dp_, a.sds, q0,
-                                                   a.sq, a.d, tid);
-  }
 
   // Rows g and g + 8 of this warp's 16.
   float lse2[2], cr[2];
@@ -1206,36 +1478,26 @@ __global__ void __launch_bounds__(kWideThreads)
         }
       }
     };
-    if constexpr (kChunked) {
-      for (int c = 0; c < nc; ++c) {
-        // the previous chunk's (or tile's) shared reads are done
-        __syncthreads();
-        const int cols = chunk_cols(a.d, c);
-        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-            q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
-        sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-            do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
-        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-            k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
-        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-            v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
-        __syncthreads();
-        sdp();
-      }
-      if (oc != nc - 1) {  // dQ's chunk of K
-        __syncthreads();
-        sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-            k_s, kp + oc * kWideD, a.sks, k0, a.sk, chunk_cols(a.d, oc), tid);
-        __syncthreads();
-      }
-    } else {
-      __syncthreads();  // the previous tile's k_s/v_s reads are done
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(k_s, kp, a.sks, k0,
-                                                     a.sk, a.d, tid);
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(v_s, vp, a.svs, k0,
-                                                     a.sk, a.d, tid);
+    for (int c = 0; c < nc; ++c) {
+      // the previous chunk's (or tile's) shared reads are done
+      __syncthreads();
+      const int cols = chunk_cols(a.d, c);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+          q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
+      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
+          do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+          k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+          v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
       __syncthreads();
       sdp();
+    }
+    if (oc != nc - 1) {  // dQ's chunk of K
+      __syncthreads();
+      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
+          k_s, kp + oc * kWideD, a.sks, k0, a.sk, chunk_cols(a.d, oc), tid);
+      __syncthreads();
     }
 
     // dS = P (dP - c), P = exp2(S scale log2e - lse log2e).
@@ -1481,16 +1743,15 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-template <class E, bool kChunked>
+template <class E>
 int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<E, kChunked>,
+      flash_bwd_dq_wide_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDqBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = kChunked ? (a.d + kWideD - 1) / kWideD : 1;
+  const int nc = (a.d + kWideD - 1) / kWideD;
   dim3 grid((a.sq + kWideDqBQ - 1) / kWideDqBQ * nc, a.h, b);
-  flash_bwd_dq_wide_kernel<E, kChunked>
-      <<<grid, kWideThreads, kWideDqBytes, st>>>(a);
+  flash_bwd_dq_wide_kernel<E><<<grid, kWideThreads, kWideDqBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1830,21 +2091,21 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
   }
 }
 
-template <int D, class E>
-int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
-  using L = DqSmem<D>;
-  DqParams p;
+// The dq kernels' parameters: tensor maps of Q and dO in boxes of `bm`
+// rows, of K and V in boxes of `bn`.
+template <class E>
+int dq_params(DqParams& p, const Args& a, int b, int bm, int bn) {
   int err = sm90::encode_rows<E>(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs, a.sqh,
-                                 a.sqb, kDqBM);
+                                 a.sqb, bm);
   if (!err)
     err = sm90::encode_rows<E>(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
-                               a.sdh, a.sdb, kDqBM);
+                               a.sdh, a.sdb, bm);
   if (!err)
     err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                               a.skb, kDqBN);
+                               a.skb, bn);
   if (!err)
     err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                               a.svb, kDqBN);
+                               a.svb, bn);
   if (err) return err;
   p.lse = a.lse;
   p.c = a.c;
@@ -1860,13 +2121,36 @@ int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
   p.q_offset = a.q_offset;
   p.kv_offset = a.kv_offset;
   p.scale = a.scale;
-  constexpr int bytes = L::kBytes;
+  return 0;
+}
+
+template <int D, class E>
+int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
+  DqParams p;
+  const int err = dq_params<E>(p, a, b, kDqBM, kDqBN);
+  if (err) return err;
+  constexpr int bytes = DqSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_wgmma_kernel<D, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(a.h, b, (a.sq + kDqBM - 1) / kDqBM);
   flash_bwd_dq_wgmma_kernel<D, E><<<grid, kBlockThreads, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
+int launch_dq_split(const Args& a, int b, cudaStream_t st) {
+  DqParams p;
+  const int err = dq_params<E>(p, a, b, kDqSplitBM, kDqBN);
+  if (err) return err;
+  constexpr int bytes = DqSplitSmem::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_split_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid(a.h, b, (a.sq + kDqSplitBM - 1) / kDqSplitBM);
+  flash_bwd_dq_split_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1965,15 +2249,15 @@ int launch_dkv_f32(const Args& a, int b, cudaStream_t st) {
 }
 
 // The instantiation of head dim a.d in a 16-bit type E. dq: tile widths 64
-// and 128 (TMA + wgmma), 256 (mma.sync), and chunks of 256 past it. dk/dv:
-// 64 and 128 (TMA + wgmma), 256 (TMA + wgmma, the features split over the
-// warpgroups), and parts of 128 features past it (mma.sync).
+// and 128 (TMA + wgmma), 256 (TMA + wgmma, the features split over the
+// warpgroups), and chunks of 256 past it (mma.sync). dk/dv: the same up to
+// 256, and parts of 128 features past it (mma.sync).
 template <class E>
 int launch_dq16(const Args& a, int b, cudaStream_t st) {
   if (a.d <= 64) return launch_dq_wgmma<64, E>(a, b, st);
   if (a.d <= 128) return launch_dq_wgmma<128, E>(a, b, st);
-  if (a.d <= kWideD) return launch_dq_wide<E, false>(a, b, st);
-  return launch_dq_wide<E, true>(a, b, st);
+  if (a.d <= 256) return launch_dq_split<E>(a, b, st);
+  return launch_dq_wide<E>(a, b, st);
 }
 
 template <class E>

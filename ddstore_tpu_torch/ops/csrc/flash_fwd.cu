@@ -25,22 +25,21 @@
 // slices the result back), in bf16, fp16 or f32. The 16-bit kernels are
 // templated on the element type (sm90::Bf16, sm90::F16: the same tiles,
 // barriers and register budgets, only the PTX type and the conversions
-// differ), in four instantiations each: the tile widths 64 (d <= 64), 128
-// (d <= 128) and 256 (d <= 256) of the TMA + wgmma kernel, whose tensor
-// maps declare the true d so that TMA zero-fills the tile's columns past it
-// (zero columns of Q and K leave the scores as they are, zero columns of V
-// give zero columns of O, and the stores skip every column past d), and
-// past d = 256 a simpler kernel on mma.sync (below) in chunks of 256. The
-// f32 kernel takes the widths 64, 128, 256 and chunks of 256, with loads
-// and stores masked at d. Shared memory and registers are sized by the
-// tile or chunk, never by d.
+// differ), in four instantiations each, all TMA + wgmma: the tile widths
+// 64 (d <= 64), 128 (d <= 128) and 256 (d <= 256), and past d = 256
+// chunks of 256 (below). Their tensor maps declare the true d, so that TMA
+// zero-fills the tile's columns past it (zero columns of Q and K leave the
+// scores as they are, zero columns of V give zero columns of O, and the
+// stores skip every column past d). The f32 kernel takes the widths 64,
+// 128, 256 and chunks of 256, with loads and stores masked at d. Shared
+// memory and registers are sized by the tile or chunk, never by d.
 //
 // Bound on the H100 SXM: the work is 4*B*H*Sq*Sk*D FLOPs (QK^T and PV,
 // about half of that for causal) against 989 TFLOP/s in bf16, and the
 // bytes are q, k, v read once and out, lse written once against 3.35 TB/s.
 // At the LM's shape, (B, H, S, D) = (8, 16, 2048, 64) causal, that is
 // 6.9e10 FLOP = 0.0695 ms against 1.35e8 B = 0.040 ms: operations bound it
-// (and at (8, 4, 2048, 256) the same 0.0695 ms).
+// (and at (8, 4, 2048, 256) and (8, 2, 2048, 512) the same 0.0695 ms).
 //
 // Design:
 // * bf16, d <= 256: one block per (kWG x 64 query rows, head, batch), with
@@ -75,19 +74,28 @@
 //   at d = 32 the tensor cores do the work of d = 64.
 // * The same kernel in fp16: P is rounded to fp16 (2^-11) where bf16 rounds
 //   it to bf16 (2^-8), as the reference rounds it to the input dtype.
-// * bf16 and fp16, d > 256: a block's registers cannot hold 64 rows of O,
-//   so this range runs a kernel that is right rather than fast: one block
-//   of 4 warps takes 64 query rows (16 a warp) and one chunk of 256 of O's
-//   nc = ceil(d / 256) feature chunks (a grid axis of chunks folded into
-//   the query-tile axis). For each 64-key tile the block stages the Q and
-//   K chunks in turn by plain 16-byte loads into the same padded shared
-//   rows (columns past d zero) and sums S = Q K^T over them with mma.sync
-//   m16n8k16, runs the same online softmax, and adds P V with its chunk of
-//   V (P repacked from the S accumulators as A fragments, V's B fragments
-//   by ldmatrix.trans). Every chunk's block forms the same S in the same
-//   order, so m, l and P agree bit for bit, and chunk 0 stores lse. The nc
-//   blocks repeat S (nc times the minimal Q K^T work). Left out: TMA,
-//   wgmma, a ring of tiles overlapping loads with the math.
+// * bf16 and fp16, d > 256 (flash_fwd_chunked_kernel): a warpgroup's
+//   registers hold 64 rows of O only up to 256 features, so O is taken in
+//   nc = ceil(d / 256) chunks, one block per (128 query rows, chunk oc,
+//   head, batch), the grid's chunk axis folded into the query-tile axis
+//   (a tile's chunks launch side by side, and share Q and K in L2). The
+//   block has the D = 256 shape: two consumer warpgroups of 64 rows, each
+//   holding its rows' chunk oc of O (128 registers a thread), and one
+//   producer warpgroup, setmaxnreg 24 / 240. For each 64-key tile, one
+//   producer thread streams the nc pairs (Q chunk c, 64 KB; K chunk c, 32
+//   KB) through two 96 KB slots, and a second thread V's chunk oc (32 KB)
+//   into a slot of its own, so that neither stream waits behind the other
+//   (224 KB in all, sized by the chunk, not by d). Each consumer sums S =
+//   Q_c K_c^T over the chunks in order (wgmma SS m64n64, each chunk's slot
+//   handed back once its product is done), then runs the online softmax
+//   and O += P V as at D = 256 (RS m64n256k16, issued after the next
+//   tile's last S chunk, so that it runs during that tile's softmax).
+//   Every chunk's block forms the same S in the same order, so m, l and P
+//   agree bit for bit, and chunk 0 stores lse. What it costs: S is formed
+//   nc times (at d 512, 1.5x the forward's minimal work), and Q is read
+//   again for every key tile (from L2). Left out: a cluster of the nc
+//   blocks sharing S through distributed shared memory, and overlap of a
+//   tile's S chunks with one another (each waits for the one before).
 // * f32: the same algorithm on the CUDA cores (16 query rows x 32-key
 //   tiles per block, one dot product per score), exact in f32; wgmma has
 //   no f32 input type, and the LM runs in bf16. Past d = 256 the same
@@ -196,6 +204,151 @@ __device__ __forceinline__ int fwd_key_tiles(const FwdParams& p,
   return static_cast<int>(x / BN + 1 < nk ? x / BN + 1 : nk);
 }
 
+// The online softmax of one tile of BN keys starting at key k0, on the raw
+// scores in sc (the m64nBN accumulators of rows row0: e = 0, 1 and row0 +
+// 8: e = 2, 3, of a warpgroup whose 64 rows start at global position q_lo;
+// keys k0 + 8 j + 2 t + e % 2). Only diagonal and ragged tiles are masked,
+// in a pass of their own, with the masked scores set to a fill whose
+// product with sl2 is -inf. The row max of S sl2 is the max of the raw
+// scores times sl2 (their min if sl2 < 0), and P = exp2(S sl2 - m) takes
+// one FMA. Leaves P in sc, updates the running max m_r (log2 units) and
+// this thread's share of the denominators l_r, and leaves in corr the
+// factor the O accumulators must be rescaled by.
+template <int BN>
+__device__ __forceinline__ void online_softmax(
+    const FwdParams& p, float (&sc)[BN / 2], float (&m_r)[2],
+    float (&l_r)[2], float (&corr)[2], float sl2, long long q_lo, int row0,
+    int k0, int t) {
+  const float fill = sl2 > 0.f ? -INFINITY : INFINITY;
+  bool live = true, diag = false;
+  if (p.causal) causal_liveness<64, BN>(q_lo, p.kv_offset + k0, live, diag);
+  if (diag || k0 + BN > p.sk) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1);
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        if (col >= p.sk ||
+            (p.causal && p.kv_offset + col > p.q_offset + row))
+          sc[4 * j + e] = fill;
+      }
+  }
+  float mt[2][2];  // two chains per row
+  if (sl2 > 0.f) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mt[hr][0] = fmaxf(sc[2 * hr], sc[2 * hr + 1]);
+      mt[hr][1] = fmaxf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
+#pragma unroll
+      for (int j = 2; j < BN / 8; ++j)
+        mt[hr][j & 1] = fmaxf(mt[hr][j & 1], fmaxf(sc[4 * j + 2 * hr],
+                                                   sc[4 * j + 2 * hr + 1]));
+    }
+  } else {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mt[hr][0] = fminf(sc[2 * hr], sc[2 * hr + 1]);
+      mt[hr][1] = fminf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
+#pragma unroll
+      for (int j = 2; j < BN / 8; ++j)
+        mt[hr][j & 1] = fminf(mt[hr][j & 1], fminf(sc[4 * j + 2 * hr],
+                                                   sc[4 * j + 2 * hr + 1]));
+    }
+  }
+  float safe[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float mx = sl2 > 0.f ? fmaxf(mt[hr][0], mt[hr][1])
+                         : fminf(mt[hr][0], mt[hr][1]);
+    mx *= sl2;
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[hr], mx);
+    // Rows masked so far keep m = -inf; subtracting 0 instead keeps
+    // exp2(-inf - 0) = 0 exact, with no inf - inf.
+    safe[hr] = m_new == -INFINITY ? 0.f : m_new;
+    corr[hr] = m_r[hr] == -INFINITY ? 0.f
+                                    : sm90::exp2_approx(m_r[hr] - safe[hr]);
+    m_r[hr] = m_new;
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pr =
+          sm90::exp2_approx(fmaf(sc[4 * j + e], sl2, -safe[e >> 1]));
+      sc[4 * j + e] = pr;
+      sum[e >> 1][e & 1] += pr;
+    }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr)
+    l_r[hr] = l_r[hr] * corr[hr] + (sum[hr][0] + sum[hr][1]);
+}
+
+// The S accumulators of key columns [16 kk, 16 kk + 16), rounded to E, are
+// the A fragment of k-step kk of P V.
+template <class E, int BN>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BN / 16][4],
+                                       const float (&sc)[BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = sm90::pack<E>(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+}
+
+// O's accumulators (64 rows x D columns of a warpgroup) times each row's
+// correction factor.
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2],
+                                        const float (&corr)[2]) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    o[4 * j] *= corr[0];
+    o[4 * j + 1] *= corr[0];
+    o[4 * j + 2] *= corr[1];
+    o[4 * j + 3] *= corr[1];
+  }
+}
+
+// The epilogue: rows row0 and row0 + 8 of O (the accumulators of columns
+// f0 + 8 j + 2 t, those below d) divided by their sums and stored in E,
+// and, where store_lse, their lse = m ln 2 + log l (-inf for a row masked
+// throughout). Rows past Sq are not stored.
+template <int D, class E>
+__device__ __forceinline__ void store_rows(const FwdParams& p,
+                                           const float (&o)[D / 2],
+                                           const float (&m_r)[2],
+                                           const float (&l_r)[2], int bb,
+                                           int hh, int row0, int t, int f0,
+                                           bool store_lse) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    float l = l_r[hr];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float lc = fmaxf(l, 1e-30f);
+    const float inv = 1.f / lc;
+    const int row = row0 + 8 * hr;
+    if (row < p.sq) {
+      typename E::T* op = static_cast<typename E::T*>(p.o) +
+                          static_cast<long long>(bb) * p.sob +
+                          static_cast<long long>(hh) * p.soh +
+                          static_cast<long long>(row) * p.sos + f0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        if (f0 + 8 * j < p.d)
+          *reinterpret_cast<typename E::T2*>(op + 8 * j + 2 * t) =
+              E::pack2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
+      if (store_lse && t == 0)
+        p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] =
+            m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
+    }
+  }
+}
+
 template <int D, class E>
 __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     flash_fwd_wgmma_kernel(const __grid_constant__ FwdParams p) {
@@ -264,8 +417,6 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
     const int r0 = 64 * w + 16 * warp + g;  // rows r0 and r0 + 8
     const uint8_t* qs = smem + C::kQ + w * 64 * 128;
     const float sl2 = p.scale * kLog2e;
-    // Masked scores are set to fill, so that fill * sl2 = -inf.
-    const float fill = sl2 > 0.f ? -INFINITY : INFINITY;
     const long long q_lo = p.q_offset + q0 + 64 * w;
     // Tiles [0, nw) are live for these 64 rows; a causal tail of the
     // block's tiles may lie wholly in their future.
@@ -307,90 +458,9 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
                               1);
       sm90::wgmma_commit();
     };
-    // The online softmax of tile i on the raw scores in sc (rows r0: e = 0,
-    // 1; r0 + 8: e = 2, 3). Only diagonal and ragged tiles are masked, in
-    // a pass of their own. The row max of S sl2 is the max of the raw
-    // scores times sl2 (their min if sl2 < 0), and P = exp2(S sl2 - m)
-    // takes one FMA; the masked fill gives P = 0. Leaves P in sc, and in
-    // corr the factor O must be rescaled by.
     auto softmax = [&](int i) {
-      const int k0 = i * BN;
-      bool live = true, diag = false;
-      if (p.causal)
-        causal_liveness<64, BN>(q_lo, p.kv_offset + k0, live, diag);
-      if (diag || k0 + BN > p.sk) {
-#pragma unroll
-        for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = q0 + r0 + 8 * (e >> 1);
-            const int col = k0 + 8 * j + 2 * t + (e & 1);
-            if (col >= p.sk ||
-                (p.causal && p.kv_offset + col > p.q_offset + row))
-              sc[4 * j + e] = fill;
-          }
-      }
-      float mt[2][2];  // two chains per row
-      if (sl2 > 0.f) {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          mt[hr][0] = fmaxf(sc[2 * hr], sc[2 * hr + 1]);
-          mt[hr][1] = fmaxf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
-#pragma unroll
-          for (int j = 2; j < BN / 8; ++j)
-            mt[hr][j & 1] = fmaxf(mt[hr][j & 1], fmaxf(sc[4 * j + 2 * hr],
-                                                       sc[4 * j + 2 * hr + 1]));
-        }
-      } else {
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          mt[hr][0] = fminf(sc[2 * hr], sc[2 * hr + 1]);
-          mt[hr][1] = fminf(sc[4 + 2 * hr], sc[4 + 2 * hr + 1]);
-#pragma unroll
-          for (int j = 2; j < BN / 8; ++j)
-            mt[hr][j & 1] = fminf(mt[hr][j & 1], fminf(sc[4 * j + 2 * hr],
-                                                       sc[4 * j + 2 * hr + 1]));
-        }
-      }
-      float safe[2];
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr) {
-        float mx = sl2 > 0.f ? fmaxf(mt[hr][0], mt[hr][1])
-                             : fminf(mt[hr][0], mt[hr][1]);
-        mx *= sl2;
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m_r[hr], mx);
-        // Rows masked so far keep m = -inf; subtracting 0 instead keeps
-        // exp2(-inf - 0) = 0 exact, with no inf - inf.
-        safe[hr] = m_new == -INFINITY ? 0.f : m_new;
-        corr[hr] = m_r[hr] == -INFINITY ? 0.f
-                                        : sm90::exp2_approx(m_r[hr] - safe[hr]);
-        m_r[hr] = m_new;
-      }
-      float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pr =
-              sm90::exp2_approx(fmaf(sc[4 * j + e], sl2, -safe[e >> 1]));
-          sc[4 * j + e] = pr;
-          sum[e >> 1][e & 1] += pr;
-        }
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        l_r[hr] = l_r[hr] * corr[hr] + (sum[hr][0] + sum[hr][1]);
-    };
-    // The S accumulators of key columns [16 kk, 16 kk + 16) are the A
-    // fragment of k-step kk of P V.
-    auto pack_p = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          pa[kk][r] = sm90::pack<E>(sc[8 * kk + 2 * r],
-                                    sc[8 * kk + 2 * r + 1]);
+      online_softmax<BN>(p, sc, m_r, l_r, corr, sl2, q_lo, q0 + r0, i * BN,
+                         t);
     };
     auto wait_k = [&](int i) {
       sm90::mbar_wait(&k_full[i % S], (i / S) & 1);
@@ -410,7 +480,7 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       sm90::fence_regs(sc);
       sm90::mbar_arrive(&k_empty[0]);
       softmax(0);
-      pack_p();
+      pack_p<E, BN>(pa, sc);
       for (int i = 1; i < nw; ++i) {
         wait_k(i);
         issue_s(i);
@@ -423,14 +493,8 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
         sm90::wgmma_wait<0>();
         sm90::fence_regs(o);
         sm90::mbar_arrive(&v_empty[(i - 1) % S]);
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          o[4 * j] *= corr[0];
-          o[4 * j + 1] *= corr[0];
-          o[4 * j + 2] *= corr[1];
-          o[4 * j + 3] *= corr[1];
-        }
-        pack_p();
+        rescale<D>(o, corr);
+        pack_p<E, BN>(pa, sc);
       }
       wait_v(nw - 1);
       issue_pv(nw - 1);
@@ -444,45 +508,23 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
       wait_v(i);
       sm90::mbar_arrive(&v_empty[i % S]);
     }
-
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float l = l_r[hr];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      const float lc = fmaxf(l, 1e-30f);
-      const float inv = 1.f / lc;
-      const int row = q0 + r0 + 8 * hr;
-      if (row < p.sq) {
-        typename E::T* op = static_cast<typename E::T*>(p.o) +
-                            static_cast<long long>(bb) * p.sob +
-                            static_cast<long long>(hh) * p.soh +
-                            static_cast<long long>(row) * p.sos;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          if (8 * j < p.d)
-            *reinterpret_cast<typename E::T2*>(op + 8 * j + 2 * t) =
-                E::pack2(o[4 * j + 2 * hr] * inv, o[4 * j + 2 * hr + 1] * inv);
-        if (t == 0)
-          p.lse[(static_cast<long long>(bb) * p.h + hh) * p.sq + row] =
-              m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
-      }
-    }
+    store_rows<D, E>(p, o, m_r, l_r, bb, hh, q0 + r0, t, 0, true);
   }
 }
 
-template <int D, class E>
-int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
-  using C = FwdCfg<D>;
-  FwdParams p;
+// The 16-bit kernels' parameters: tensor maps of Q in boxes of `bm` rows,
+// of K and V in boxes of `bn`, all spanning the true d (TMA zero-fills
+// the boxes past it).
+template <class E>
+int fwd_params(FwdParams& p, const Args& a, int b, int bm, int bn) {
   int err = sm90::encode_rows<E>(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs, a.sqh,
-                                 a.sqb, C::kBM);
+                                 a.sqb, bm);
   if (!err)
     err = sm90::encode_rows<E>(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
-                               a.skb, C::kBN);
+                               a.skb, bn);
   if (!err)
     err = sm90::encode_rows<E>(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
-                               a.svb, C::kBN);
+                               a.svb, bn);
   if (err) return err;
   p.o = a.o;
   p.lse = a.lse;
@@ -499,6 +541,15 @@ int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
   // A zero scale makes every score 0; 1e-30 gives exp2(S 1e-30 log2e - m)
   // = 1 exactly as well, and keeps masked scores at -inf (fill * scale).
   p.scale = a.scale == 0.f ? 1e-30f : a.scale;
+  return 0;
+}
+
+template <int D, class E>
+int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
+  using C = FwdCfg<D>;
+  FwdParams p;
+  const int err = fwd_params<E>(p, a, b, C::kBM, C::kBN);
+  if (err) return err;
   constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D, E>,
@@ -510,206 +561,244 @@ int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and fp16, d > 256: mma.sync, in chunks of 256 features
+// bf16 and fp16, d > 256: TMA + wgmma in chunks of 256 features
 
-constexpr int kWideD = 256;    // a chunk's width; columns past d are zero
-constexpr int kWideBQ = 64;    // query rows per block (4 warps x 16)
-constexpr int kWideBK = 64;    // keys per tile
-constexpr int kWideThreads = 128;
-constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
-constexpr int kWideBytes = (kWideBQ + 2 * kWideBK) * kWideST * 2;
+// One block per (128 query rows, chunk oc of O's nc = ceil(d / 256)
+// feature chunks, head, batch), in FwdCfg<256>'s shape: two consumer
+// warpgroups of 64 rows, each holding its rows' chunk oc of O as 128
+// registers a thread, and one producer warpgroup (setmaxnreg 24 / 240).
+// For each 64-key tile, warp 0 of the producer streams the nc pairs (Q
+// chunk c, 64 KB; K chunk c, 32 KB) through two 96 KB slots, and warp 1
+// streams V's chunk oc (32 KB) into a slot of its own, so that neither
+// stream waits behind the other. S = Q K^T sums the chunks in order (wgmma
+// SS m64n64), then the softmax and P V run as at D = 256. Shared memory is
+// sized by the chunk, never by d.
+struct FwdChunkCfg {
+  static constexpr int kBM = 128;  // query rows per block
+  static constexpr int kBN = 64;   // keys per tile
+  static constexpr int kSlots = 2;
+  static constexpr int kQBox = kBM * 128;
+  static constexpr int kKBox = kBN * 128;
+  static constexpr int kQT = 4 * kQBox;  // a 256-feature chunk of Q
+  static constexpr int kKT = 4 * kKBox;  // of K or V
+  static constexpr int kSlot = kQT + kKT;
+  static constexpr int kV = kSlots * kSlot;
+  static constexpr int kBar = kV + kKT;
+  // qk_full and qk_empty per slot, then v_full and v_empty
+  static constexpr int kBytes = kBar + (2 * kSlots + 2) * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
+};
 
-// The columns of feature chunk c (kWideD wide) below the true d.
-__device__ __forceinline__ int chunk_cols(int d, int c) {
-  const int left = d - c * kWideD;
-  return left < kWideD ? left : kWideD;
-}
-
-// d > 256, in nc = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is
-// the chunk oc of O it owns, S = Q K^T sums over the chunks (each staged in
-// turn into the same shared rows), and P V takes V's chunk oc. Every
-// chunk's block forms the same S in the same order, so the same m, l and
-// P; chunk 0 stores lse.
 template <class E>
-__global__ void __launch_bounds__(kWideThreads)
-    flash_fwd_wide_kernel(Args a) {
-  using T = typename E::T;
-  extern __shared__ __align__(16) uint8_t smem_wide[];
-  auto* q_s = reinterpret_cast<T*>(smem_wide);
-  T* k_s = q_s + kWideBQ * kWideST;
-  T* v_s = k_s + kWideBK * kWideST;
+__global__ void __launch_bounds__(FwdCfg<256>::kThreads, 1)
+    flash_fwd_chunked_kernel(const __grid_constant__ FwdParams p) {
+  using C = FwdChunkCfg;
+  using W = FwdCfg<256>;
+  constexpr int BN = C::kBN, S = C::kSlots;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* qk_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
+  uint64_t* qk_empty = qk_full + S;
+  uint64_t* v_full = qk_empty + S;
+  uint64_t* v_empty = v_full + 1;
 
-  const int nc = (a.d + kWideD - 1) / kWideD;
-  const int oc = blockIdx.x % nc;
-  const int q0 = blockIdx.x / nc * kWideBQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;  // mma group and thread-in-group
-  const int wr = warp * 16;              // this warp's first row in the tile
-  const T* qp = static_cast<const T*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
-  const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
-  T* op = static_cast<T*>(a.o) + bb * a.sob + hh * a.soh;
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x;
+  // The block's query tile and chunk of O; the grid's slowest axis runs
+  // backwards (heaviest tiles first), a tile's chunks side by side. Each
+  // role works these out after its setmaxnreg, so that nothing stays live
+  // across it.
+  auto place = [&](int& nc, int& q0, int& oc) {
+    nc = (p.d + 255) / 256;
+    const int z = gridDim.z - 1 - blockIdx.z;
+    q0 = z / nc * C::kBM;
+    oc = z % nc;
+  };
 
-  // Rows g and g + 8 of this warp's 16: running max (log2 units) and this
-  // thread's share of the running denominator.
-  float m_r[2] = {-INFINITY, -INFINITY};
-  float l_r[2] = {0.f, 0.f};
-  float acc[kWideD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kWideD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const float sl2 = a.scale * kLog2e;
-  const long long q_lo = a.q_offset + q0;
-  const int nk = (a.sk + kWideBK - 1) / kWideBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kWideBK;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<kWideBQ, kWideBK>(q_lo, a.kv_offset + k0, live, diag);
-      if (!live) break;  // every later tile lies further in the future
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&qk_full[s], 1);
+      sm90::mbar_init(&qk_empty[s], W::kConsumers);
     }
-    const bool masked = diag || (k0 + kWideBK > a.sk);
+    sm90::mbar_init(v_full, 1);
+    sm90::mbar_init(v_empty, W::kConsumers);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys; over the
-    // features of the tiles in shared memory.
-    float s[kWideBK / 8][4];
+  if (tid >= W::kConsumers) {
+    sm90::reg_dealloc<W::kProducerRegs>();
+    int nc, q0, oc;
+    place(nc, q0, oc);
+    const int n = fwd_key_tiles<BN>(p, p.q_offset + q0, C::kBM);
+    if (tid == W::kConsumers) {
+      // the Q and K chunk pairs of every tile, through the slots
+      int s = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n; ++i)
+        for (int c = 0; c < nc; ++c) {
+          sm90::mbar_wait(&qk_empty[s], phase ^ 1);
+          sm90::mbar_arrive_expect_tx(&qk_full[s], C::kSlot);
+          uint8_t* st = smem + s * C::kSlot;
 #pragma unroll
-    for (int nt = 0; nt < kWideBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-    auto qk = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < kWideD / 16; ++kk) {
-        uint32_t qf[4];
-        sm90::load_a<kWideST>(qf, q_s, wr, kk, g, t);
-#pragma unroll
-        for (int nt = 0; nt < kWideBK / 8; ++nt) {
-          const int off = (nt * 8 + g) * kWideST + kk * 16 + 2 * t;
-          sm90::mma16816<E>(s[nt], qf, sm90::ld32(&k_s[off]),
-                            sm90::ld32(&k_s[off + 8]));
+          for (int j = 0; j < 4; ++j) {
+            sm90::tma_load_4d(st + j * C::kQBox, &p.q, &qk_full[s],
+                              256 * c + 64 * j, q0, hh, bb);
+            sm90::tma_load_4d(st + C::kQT + j * C::kKBox, &p.k, &qk_full[s],
+                              256 * c + 64 * j, i * BN, hh, bb);
+          }
+          if (++s == S) {
+            s = 0;
+            phase ^= 1;
+          }
         }
+    } else if (tid == W::kConsumers + 32) {
+      // V's chunk oc of every tile
+      for (int i = 0; i < n; ++i) {
+        sm90::mbar_wait(v_empty, (i & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(v_full, C::kKT);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          sm90::tma_load_4d(smem + C::kV + j * C::kKBox, &p.v, v_full,
+                            256 * oc + 64 * j, i * BN, hh, bb);
+      }
+    }
+  } else {
+    // Consumer warpgroup w: query rows [64 w, 64 w + 64) of the block.
+    sm90::reg_alloc<W::kConsumerRegs>();
+    int nc, q0, oc;
+    place(nc, q0, oc);
+    const int n = fwd_key_tiles<BN>(p, p.q_offset + q0, C::kBM);
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int r0 = 64 * w + 16 * warp + lane / 4;  // rows r0 and r0 + 8
+    const float sl2 = p.scale * kLog2e;
+    const long long q_lo = p.q_offset + q0 + 64 * w;
+    // Tiles [0, nw) are live for these 64 rows.
+    const int nw = fwd_key_tiles<BN>(p, q_lo, 64) < n
+                       ? fwd_key_tiles<BN>(p, q_lo, 64)
+                       : n;
+
+    float o[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};
+    float l_r[2] = {0.f, 0.f};
+    float sc[BN / 2];
+    uint32_t pa[BN / 16][4];
+    float corr[2];
+    // the slot of the next Q and K chunk pair, and its pass round the ring
+    int s = 0;
+    uint32_t phase = 0;
+    auto next_slot = [&]() {
+      if (++s == S) {
+        s = 0;
+        phase ^= 1;
       }
     };
-    for (int c = 0; c < nc; ++c) {
-      // the previous chunk's (or tile's) q_s/k_s/v_s reads are done
-      __syncthreads();
-      const int cols = chunk_cols(a.d, c);
-      sm90::stage_rows<kWideBQ, kWideD, kWideST, kWideThreads>(
-          q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
-      // Keys past Sk are zero: their p is 0, and 0 * garbage could be NaN.
-      sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-          k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
-      if (c == 0)
-        sm90::stage_rows<kWideBK, kWideD, kWideST, kWideThreads>(
-            v_s, vp + oc * kWideD, a.svs, k0, a.sk, chunk_cols(a.d, oc),
-            tid);
-      __syncthreads();
-      qk();
-    }
-
-    // Scale into log2 units; mask only diagonal and ragged tiles.
+    // S += Q_c K_c^T from the current slot (issued, not waited); the
+    // first chunk's first k-step overwrites S.
+    auto issue_s = [&](int c) {
+      const uint8_t* qs = smem + s * C::kSlot + w * 64 * 128;
+      const uint8_t* ks = smem + s * C::kSlot + C::kQT;
+      sm90::mbar_wait(&qk_full[s], phase);
+      sm90::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kWideBK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] *= sl2;
-        if (masked) {
-          const int row = q0 + wr + g + (e >> 1) * 8;
-          const int col = k0 + nt * 8 + 2 * t + (e & 1);
-          if (col >= a.sk ||
-              (a.causal && a.kv_offset + col > a.q_offset + row))
-            s[nt][e] = -INFINITY;
-        }
+      for (int kk = 0; kk < 16; ++kk)
+        sm90::Wgmma<BN, E>::ss(
+            sc, sm90::desc_k(qs + (kk / 4) * C::kQBox + (kk % 4) * 32),
+            sm90::desc_k(ks + (kk / 4) * C::kKBox + (kk % 4) * 32),
+            (c | kk) != 0);
+      sm90::wgmma_commit();
+    };
+    // Every chunk of S but the last, each waited for and its slot handed
+    // back; the last one's product stays in flight.
+    auto issue_s_tile = [&]() {
+      for (int c = 0; c + 1 < nc; ++c) {
+        issue_s(c);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(sc);
+        sm90::mbar_arrive(&qk_empty[s]);
+        next_slot();
       }
+      issue_s(nc - 1);
+    };
+    auto issue_pv = [&]() {
+      const uint8_t* vs = smem + C::kV;
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        sm90::Wgmma<256, E>::rs_mn(
+            o, pa[kk], sm90::desc_mn(vs + kk * 16 * 128, C::kKBox), 1);
+      sm90::wgmma_commit();
+    };
+    auto softmax = [&](int i) {
+      online_softmax<BN>(p, sc, m_r, l_r, corr, sl2, q_lo, q0 + r0, i * BN,
+                         t);
+    };
 
-    // Online softmax for rows g (e = 0, 1) and g + 8 (e = 2, 3).
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < kWideBK / 8; ++nt)
-        mx = fmaxf(mx, fmaxf(s[nt][2 * hr], s[nt][2 * hr + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[hr], mx);
-      // Rows masked so far keep m = -inf; subtracting 0 instead keeps
-      // exp2(-inf - 0) = 0 exact, with no inf - inf.
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = m_r[hr] == -INFINITY ? 0.f : exp2f(m_r[hr] - safe);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < kWideBK / 8; ++nt)
-#pragma unroll
-        for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
-          const float pr = exp2f(s[nt][e] - safe);
-          s[nt][e] = pr;
-          sum += pr;
-        }
-      l_r[hr] = l_r[hr] * corr + sum;
-      m_r[hr] = m_new;
-#pragma unroll
-      for (int dt = 0; dt < kWideD / 8; ++dt) {
-        acc[dt][2 * hr] *= corr;
-        acc[dt][2 * hr + 1] *= corr;
+    // The forward's pipeline: while the softmax of tile i runs, the tensor
+    // cores run O += P V of tile i - 1.
+    if (nw > 0) {
+      issue_s_tile();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+      sm90::mbar_arrive(&qk_empty[s]);
+      next_slot();
+      softmax(0);
+      pack_p<E, BN>(pa, sc);
+      for (int i = 1; i < nw; ++i) {
+        issue_s_tile();
+        sm90::mbar_wait(v_full, (i - 1) & 1);
+        issue_pv();
+        sm90::wgmma_wait<1>();  // S of tile i; P V of tile i - 1 in flight
+        sm90::fence_regs(sc);
+        sm90::mbar_arrive(&qk_empty[s]);
+        next_slot();
+        softmax(i);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(o);
+        sm90::mbar_arrive(v_empty);
+        rescale<256>(o, corr);
+        pack_p<E, BN>(pa, sc);
       }
+      sm90::mbar_wait(v_full, (nw - 1) & 1);
+      issue_pv();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o);
+      sm90::mbar_arrive(v_empty);
     }
-
-    // acc += P V: the S accumulators of n-tiles 2kk, 2kk+1 are exactly the
-    // A fragment of keys [16kk, 16kk + 16); V's keys run down its rows.
-#pragma unroll
-    for (int kk = 0; kk < kWideBK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          sm90::pack<E>(s[2 * kk][0], s[2 * kk][1]),
-          sm90::pack<E>(s[2 * kk][2], s[2 * kk][3]),
-          sm90::pack<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          sm90::pack<E>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kWideD / 8; dt += 2) {
-        uint32_t b[4];
-        sm90::load_b_kmajor_x2<kWideST>(b, v_s, kk, dt, lane);
-        sm90::mma16816<E>(acc[dt], pa, b[0], b[1]);
-        sm90::mma16816<E>(acc[dt + 1], pa, b[2], b[3]);
+    for (int i = nw; i < n; ++i) {  // tiles only the other warpgroup sees
+      for (int c = 0; c < nc; ++c) {
+        sm90::mbar_wait(&qk_full[s], phase);
+        sm90::mbar_arrive(&qk_empty[s]);
+        next_slot();
       }
+      sm90::mbar_wait(v_full, i & 1);
+      sm90::mbar_arrive(v_empty);
     }
-  }
-
-  // This block's columns of O: [oc kWideD, oc kWideD + kWideD) below d.
-  const int f0 = oc * kWideD;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    float l = l_r[hr];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float lc = fmaxf(l, 1e-30f);
-    const float inv = 1.f / lc;
-    const int row = q0 + wr + g + 8 * hr;
-    if (row < a.sq) {
-#pragma unroll
-      for (int dt = 0; dt < kWideD / 8; ++dt)
-        if (f0 + 8 * dt < a.d)
-          *reinterpret_cast<typename E::T2*>(op + row * a.sos + f0 +
-                                             dt * 8 + 2 * t) =
-              E::pack2(acc[dt][2 * hr] * inv, acc[dt][2 * hr + 1] * inv);
-      if (t == 0 && oc == 0)
-        a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
-            m_r[hr] == -INFINITY ? -INFINITY : m_r[hr] * kLn2 + logf(lc);
-    }
+    // Every chunk's block formed the same S in the same order, so the same
+    // m, l and P: chunk 0 stores lse.
+    store_rows<256, E>(p, o, m_r, l_r, bb, hh, q0 + r0, t, 256 * oc,
+                       oc == 0);
   }
 }
 
 template <class E>
-int launch_wide(const Args& a, int b, cudaStream_t stream) {
+int launch_chunked(const Args& a, int b, cudaStream_t stream) {
+  using C = FwdChunkCfg;
+  FwdParams p;
+  const int err = fwd_params<E>(p, a, b, C::kBM, C::kBN);
+  if (err) return err;
+  constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wide_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kWideBytes);
+      flash_fwd_chunked_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = (a.d + kWideD - 1) / kWideD;
-  dim3 grid((a.sq + kWideBQ - 1) / kWideBQ * nc, a.h, b);
-  flash_fwd_wide_kernel<E><<<grid, kWideThreads, kWideBytes, stream>>>(a);
+  const int nc = (a.d + 255) / 256;
+  dim3 grid(a.h, b, (a.sq + C::kBM - 1) / C::kBM * nc);
+  flash_fwd_chunked_kernel<E>
+      <<<grid, FwdCfg<256>::kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -899,13 +988,13 @@ int launch_f32(const Args& a, int b, cudaStream_t stream) {
 }
 
 // The instantiation of head dim a.d in a 16-bit type E: tile widths 64,
-// 128 and 256 (TMA + wgmma), and chunks of 256 past it (mma.sync).
+// 128 and 256, and chunks of 256 past it (all TMA + wgmma).
 template <class E>
 int launch16(const Args& a, int b, cudaStream_t stream) {
   if (a.d <= 64) return launch_wgmma<64, E>(a, b, stream);
   if (a.d <= 128) return launch_wgmma<128, E>(a, b, stream);
   if (a.d <= 256) return launch_wgmma<256, E>(a, b, stream);
-  return launch_wide<E>(a, b, stream);
+  return launch_chunked<E>(a, b, stream);
 }
 
 int launch(const Args& a, int b, int dtype, cudaStream_t stream) {

@@ -3,7 +3,7 @@
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
 // kernels use (bf16 or fp16 in, f32 accumulate), setmaxnreg, named
 // barriers and the proxy fence for operands written by threads, the mma.sync
-// and ldmatrix pieces of the kernels for head dims past 128, the element
+// and ldmatrix pieces of the backward kernels past head dim 256, the element
 // types Bf16 and F16, and on the host the tensor-map encoder. No
 // CuTe/CUTLASS: each source builds in seconds.
 //
@@ -12,12 +12,13 @@
 // row r XORed with r % 8, each box 1024-byte aligned. A tile wider than 64
 // columns (D = 128, 256) is two or four such boxes, one after the other.
 // A tile that threads write for a wgmma to read (the dk/dv kernel's P^T and
-// dS^T at d > 128) takes the same layout (sw128_offset). The tensor map's
-// feature dim is the operand's true head dim d (a multiple of 8, at most
-// the tile's width), so TMA fills the columns past d with zeros: zero
-// columns of Q and K leave every score as it is, and zero columns of V,
-// dO and Q give zero columns of O, dQ, dK and dV, which the kernels'
-// stores skip. Descriptors:
+// dS^T, the dq kernel's dS, at d > 128) takes the same layout
+// (sw128_offset). The tensor map's feature dim is the operand's true head
+// dim d (a multiple of 8, at most the tile's width; past 256, the whole
+// width, read a chunk at a time), so TMA fills the columns past d with
+// zeros: zero columns of Q and K leave every score as it is, and zero
+// columns of V, dO and Q give zero columns of O, dQ, dK and dV, which the
+// kernels' stores skip. Descriptors:
 // * K-major (the contracted dimension along a row, as Q and K rows are in
 //   Q K^T): SBO = 1024 bytes (8 rows), LBO unused; the k16 step inside a
 //   box is +32 bytes on the start address, and steps 4..7 of D = 128 start
@@ -247,8 +248,8 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// mma.sync m16n8k16 (sm_80 and up), for the kernels of head dims past 128
-// (flash_fwd.cu and flash_bwd.cu, "wide"): d += a b for one 16 x 8 x 16
+// mma.sync m16n8k16 (sm_80 and up), for the backward kernels of head dims
+// past 256 (flash_bwd.cu, "wide"): d += a b for one 16 x 8 x 16
 // tile, a row-major 16 x 16 of E (4 packed pairs a thread: {row g, k
 // 2t..}, {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}), b column-major
 // 16 x 8 (b0 = {k 2t, 2t + 1; n g}, b1 = the same at k + 8); d is rows g,
@@ -481,8 +482,8 @@ struct Wgmma<128, E> {
 #undef SM90_ASM
   }
   // a from shared memory K-major, b MN-major (transpose flags 0, 1): the
-  // dk/dv kernel's P^T dO and dS^T Q at d > 128, P^T and dS^T staged in
-  // shared memory.
+  // dk/dv kernel's P^T dO and dS^T Q and the dq kernel's dS K at d > 128,
+  // P^T, dS^T and dS staged in shared memory.
   static __device__ __forceinline__ void ss_mn(float (&d)[64], uint64_t da,
                                                uint64_t db, int scale_d) {
 #define SM90_ASM(TY) \

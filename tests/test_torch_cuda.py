@@ -41,8 +41,8 @@ pytestmark = pytest.mark.gpu
 
 # head dims other than 64 and 128: below, inside and above the 64 and 128
 # tiles, not a multiple of 8 (20), inside the 256 tile (136, 160, 200,
-# 248: the forward's and dk/dv's TMA + wgmma tile zero-filled past d) and
-# its edge
+# 248: the three kernels' TMA + wgmma tile zero-filled past d) and its
+# edge
 HEAD_DIMS = (8, 16, 20, 32, 40, 96, 136, 160, 200, 248, 256)
 # past 256: two to four chunks of 256 features, the last one partly
 # zero-filled (264, 320, 1000) and not a multiple of 8 (300, 1000)
@@ -183,6 +183,24 @@ def test_dkv_kernel_is_deterministic(cuda, d, kernel):
         "dkv": lambda: attention._flash_bwd_dkv_cuda(
             q, k, v, do, lse, c, **kw)}[kernel]
     first, second = launch(), launch()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [256, 264, 512])
+def test_forward_kernel_is_deterministic(cuda, d, dtype):
+    # Each block writes its own rows of out, and past 256 its own chunk of
+    # them, every chunk's block forming the same S in the same order (the
+    # one of chunk 0 writes lse), with no atomics: two launches on the
+    # same inputs give the same bits, out and lse alike.
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v = (torch.randn((2, 3, 328, d), generator=g, device=cuda)
+               .to(dtype) for _ in range(3))
+    with torch.no_grad():
+        first = attention.flash_attention(q, k, v, causal=True)
+        second = attention.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

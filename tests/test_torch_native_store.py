@@ -10,6 +10,7 @@ Exact equality throughout."""
 import os
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 import pytest
@@ -114,6 +115,64 @@ def test_rank_stamps_with_replica_groups(backend):
                                             (0, 1, 2), (1, 1, 3)]
 
 
+@pytest.mark.parametrize("after_close", ["nothing", "port_reused"])
+def test_read_after_owner_close_fails_over(after_close, monkeypatch):
+    # ROADMAP C: rank 1 of a replicated pair closes, and rank 0
+    # reads rank 1's rows before any heartbeat (none runs). Its lanes to
+    # rank 1 are dead, and the redial finds either no one at rank 1's
+    # port, or (port_reused) another store that bound the port since,
+    # holding a variable of the same name and shape filled with 7s. Both
+    # times the rows come from rank 0's mirror of rank 1's shard, counted
+    # as one failover read: the redial's kOpHello answer names another
+    # instance than the one rank 0 met, and the transport refuses it.
+    # (Without that check the redial took the other store's 7s with no
+    # failover: the stress scenario's failover section under a concurrent
+    # load, where another process's store took the freed port.) The
+    # failed redial marks rank 1 suspected, so its ops are replanned as
+    # a suspect skip; the second read skips it at once.
+    for k, v in {"DDSTORE_REPLICATION": "2", "DDSTORE_HEARTBEAT_MS": "0",
+                 "DDSTORE_RETRY_MAX": "2", "DDSTORE_OP_DEADLINE_S": "3",
+                 "DDSTORE_CONNECT_TIMEOUT_S": "1",
+                 "DDSTORE_READ_TIMEOUT_S": "2"}.items():
+        monkeypatch.setenv(k, v)
+    stores, closed = {}, threading.Barrier(2)
+
+    def body(r):
+        g = rdv.ThreadGroup(f"close-{after_close}", r, 2)
+        s = stores[r] = tstore.DDStore(g, backend="tcp")
+        s.add("v", np.full((NUM, 64), r + 1, np.float64))
+        s.get_batch("v", np.arange(2 * NUM))  # rank 0 meets rank 1
+        closed.wait()
+        if r == 1:
+            return None
+        port = stores[1]._native.server_port
+        stores[1]._native.close()
+        other = None
+        if after_close == "port_reused":
+            os.environ["DDSTORE_REPLICATION"] = "1"
+            other = tstore.DDStore(rdv.ThreadGroup(f"other-{after_close}",
+                                                   0, 1), backend="tcp",
+                                   port=port)
+            other.add("v", np.full((NUM, 64), 7, np.float64))
+            assert other._native.server_port == port
+        seen = []
+        for _ in range(2):
+            rows = s.get_batch("v", np.arange(NUM, 2 * NUM))
+            fo = s.failover_stats()
+            seen.append((sorted(set(rows.ravel().tolist())),
+                         fo["failover_reads"], fo["suspect_skips"]))
+        if other is not None:
+            other.close()
+        return seen
+
+    try:
+        seen = run_threads(2, body)[0]
+    finally:
+        for s in stores.values():
+            s._native.close()
+    assert seen == [([2.0], 1, 1), ([2.0], 2, 2)]
+
+
 @pytest.mark.parametrize("wire", ["tcp", "uring"])
 def test_two_processes_over_tcp_match_reference(tmp_path, wire):
     ranks = spawn(2, tcp_parity, str(tmp_path), wire)
@@ -165,14 +224,19 @@ def _code(text):
 
 
 # The port's departures from the reference core, by file: (the reference's
-# code lines, the port's), each found once, applied in order. Two
+# code lines, the port's), each found once, applied in order. Three
 # departures (ROADMAP C): the Conn::fd race's fix (TcpTransport::
-# ReadVOnRetry's retry hook reads the lane's fd under its lock), and the
+# ReadVOnRetry's retry hook reads the lane's fd under its lock); the
 # store's teardown stopping the serving side of its transport before it
 # frees its variables (Transport::StopServing, called by Store::~Store
 # after DrainAsync): a peer's read in that window got a well-formed
 # "variable not found", which no replica router fails over, where it now
-# finds a closed connection.
+# finds a closed connection; and the connection identity check (kOpHello,
+# TcpTransport::Introduce: every new data or control connection asks the
+# peer for its instance id and refuses one other than the id met first,
+# which UpdatePeer forgets), so that a redial to a closed peer's port
+# that reaches another store fails over instead of reading that store's
+# rows.
 _PEER_CLOSES = ["  for (auto& p : peers_) {",
                 "    if (!p) continue;",
                 "    for (auto& c : p->conns)",
@@ -196,11 +260,97 @@ DEPARTURES = {
           "  StopServing();"] + _PEER_CLOSES +
          ["}",
           "void TcpTransport::StopServing() {",
-          "  if (stopping_.exchange(true)) return;"])],
+          "  if (stopping_.exchange(true)) return;"]),
+        (["#include <cstring>"],
+         ["#include <cstring>",
+          "#include <random>"]),
+        (["    ping_conns_[i] = std::make_unique<PingConn>();"],
+         ["    ping_conns_[i] = std::make_unique<PingConn>();",
+          "    ping_conns_[i]->target = i;"]),
+        (["    p.hosts = hosts;",
+          "    p.port = port;"],
+         ["    p.hosts = hosts;",
+          "    p.port = port;",
+          "    p.instance.store(0);"]),
+        (["      barrier_cv_.notify_all();",
+          "      continue;",
+          "    }"],
+         ["      barrier_cv_.notify_all();",
+          "      continue;",
+          "    }",
+          "    if (req.op == kOpHello) {",
+          "      WireResp resp{kOk, 0, static_cast<int64_t>(instance_id_)};",
+          "      if (FullSend(fd, &resp, sizeof(resp)) != 0) return;",
+          "      continue;",
+          "    }"]),
+        (["        ::setsockopt(ufd, SOL_SOCKET, SO_RCVTIMEO, &utv, sizeof(utv));"],
+         ["        ::setsockopt(ufd, SOL_SOCKET, SO_RCVTIMEO, &utv, sizeof(utv));",
+          "        if (!Introduce(p, ufd)) {",
+          "          ::close(ufd);",
+          "          return kErrTransport;",
+          "        }"]),
+        (["  ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));"],
+         ["  ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));",
+          "  if (!Introduce(p, fd)) {",
+          "    ::close(fd);",
+          "    return kErrTransport;",
+          "  }"]),
+        (["  trace::Ev(trace::kLaneDial, rank_, c.idx, 0, 0);",
+          "  return kOk;",
+          "}"],
+         ["  trace::Ev(trace::kLaneDial, rank_, c.idx, 0, 0);",
+          "  return kOk;",
+          "}",
+          "uint64_t TcpTransport::NewInstanceId() {",
+          "  std::random_device rd;",
+          "  uint64_t id = (static_cast<uint64_t>(rd()) << 32) ^ rd() ^",
+          "                static_cast<uint64_t>(",
+          "                    std::chrono::steady_clock::now().time_since_epoch()",
+          "                        .count());",
+          "  return id != 0 ? id : 1;",
+          "}",
+          "bool TcpTransport::Introduce(Peer& p, int fd) {",
+          "  WireReq req{kMagic, kOpHello, rank_, 0, 0, 0, 0};",
+          "  WireResp resp;",
+          "  if (FullSend(fd, &req, sizeof(req)) != 0 ||",
+          "      FullRecv(fd, &resp, sizeof(resp)) != 0 || resp.status != kOk)",
+          "    return false;",
+          "  const uint64_t got = static_cast<uint64_t>(resp.nbytes);",
+          "  uint64_t met = 0;",
+          "  if (p.instance.compare_exchange_strong(met, got)) return true;",
+          "  if (met != got && DebugOn())",
+          "    std::fprintf(stderr, \"[dds r%d] a connection to a peer's port reached \"",
+          "                 \"another store instance; refused\\n\", rank_);",
+          "  return met == got;",
+          "}"]),
+        (["      SetNoDelay(fd);"],
+         ["      SetNoDelay(fd);",
+          "      timeval tv;",
+          "      tv.tv_sec = timeout_ms / 1000;",
+          "      tv.tv_usec = (timeout_ms % 1000) * 1000;",
+          "      ::setsockopt(fd, SOL_SOCKET, SO_RCVTIMEO, &tv, sizeof(tv));",
+          "      ::setsockopt(fd, SOL_SOCKET, SO_SNDTIMEO, &tv, sizeof(tv));",
+          "      if (!Introduce(*peers_[pc.target], fd)) {",
+          "        ::close(fd);",
+          "        return -1;",
+          "      }"])],
     "tcp_transport.h": [
         (["  ~TcpTransport() override;"],
          ["  ~TcpTransport() override;",
-          "  void StopServing() override;"])],
+          "  void StopServing() override;"]),
+        (["    std::vector<std::unique_ptr<Conn>> conns;"],
+         ["    std::vector<std::unique_ptr<Conn>> conns;",
+          "    std::atomic<uint64_t> instance{0};"]),
+        (["  int EnsureConnected(Peer& p, Conn& c) DDS_REQUIRES(Conn::mu);"],
+         ["  int EnsureConnected(Peer& p, Conn& c) DDS_REQUIRES(Conn::mu);",
+          "  bool Introduce(Peer& p, int fd);",
+          "  static uint64_t NewInstanceId();"]),
+        (["  std::atomic<bool> stopping_{false};"],
+         ["  std::atomic<bool> stopping_{false};",
+          "  const uint64_t instance_id_ = NewInstanceId();"]),
+        (["  struct PingConn {"],
+         ["  struct PingConn {",
+          "    int target = -1;"])],
     "store.h": [
         (["  virtual void SetSuspectOracle(std::function<bool(int)> oracle) {"],
          ["  virtual void StopServing() {}",
@@ -211,6 +361,10 @@ DEPARTURES = {
          ["  DrainAsync();",
           "  transport_->StopServing();",
           "  FreeAll();"])],
+    "wire.h": [
+        (["                     kOpAttach = 11, kOpDetach = 12, kOpLease = 13 };"],
+         ["                     kOpAttach = 11, kOpDetach = 12, kOpLease = 13,",
+          "                     kOpHello = 14 };"])]
 }
 
 
