@@ -261,10 +261,10 @@ Phases; any failure raises and ends the run with a non-zero exit:
    hd 64, 128 and 256, and in bf16, fp16 and f32 at hd 512 (2 heads),
    against its plain version and SDPA (and which SDPA backend takes hd
    512); the LM above in fp16 (16
-   heads) and in bf16 at 2 heads (hd 512), store-fed: eval loss, 3 Adam
-   steps and ``generate`` of 8 tokens (launches zeroed just before and
-   read just after), the first step's loss within 2e-2 of the same step
-   under the plain attention.
+   heads), in bf16 at 2 heads (hd 512) and in f32 (16 heads), store-fed:
+   eval loss, 3 Adam steps and ``generate`` of 8 tokens (launches zeroed
+   just before and read just after), the first step's loss within 2e-2 of
+   the same step under the plain attention.
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the 16-bit path of all three kernels up to head
@@ -280,9 +280,9 @@ the parent commit's ``git archive``) and of this checkout at AB_TIMED's
 (dtype, head dim), each in a process of its own, in the order parent,
 change, change, parent (each process builds its tree's kernels and runs
 that tree's ``head_dim_timing``, which also holds every kernel to its
-plain version, then its ``head_dim_lm`` at AB_LM_HEADS heads over
-AB_LM_STEPS steps), and prints each kernel's times and the LM's median
-step from both trees on lines before the last.
+plain version, then its ``head_dim_lm`` at each of AB_LMS' (dtype,
+heads) over AB_LM_STEPS steps), and prints each kernel's times and the
+LM's median step from both trees on lines before the last.
 """
 
 from __future__ import annotations
@@ -354,9 +354,11 @@ from ddstore_tpu_torch.weights import to_flax
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # fp16 runs on the tensor cores at the bf16 rate; f32 on the CUDA cores
-# (the f32 kernels; the guide's table: 67 TFLOP/s outside the tensor cores)
+# (the f32 forward; the guide's table: 67 TFLOP/s outside the tensor
+# cores), or on the tensor cores as TF32 (the f32 dq and dk/dv: three TF32
+# products an f32 product, tf32_bound)
 PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
-              "float32": 67e12}
+              "float32": 67e12, "tf32": 495e12}
 
 # The repo's LM config (bench.py:3169) and the slices' traffic.
 VOCAB, DIM, HEADS, LAYERS = 32768, 1024, 16, 8
@@ -560,29 +562,35 @@ HD_EX_CHUNK = (2, 4, 1024, 32)
 # fp16 tolerances beside TOL; each kernel at the LM's (8, 2048) in its
 # qkv views at FW_TIMED (dtype, head dim), H = DIM // d, against its
 # plain version and SDPA (and SDPA's route past 256; the f32 kernels at
-# 64, 128 and 256 too, their launches phase 15's f32 cases); the LM above in
-# fp16 at 16 heads and in bf16 at 2 heads (hd 512), store-fed: eval
-# loss, HD_STEPS Adam steps and generate of HD_NEW_TOKENS, the first
-# step's loss held to the same step under the plain attention at
-# MOE_LOSS_TOL.
+# 64, 128 and 256 too, their launches the f32 LM's at 64, else phase 15's
+# f32 cases); the LM above in fp16 at 16 heads, in bf16 at 2 heads (hd
+# 512) and in f32 at 16 heads, store-fed: eval loss, HD_STEPS Adam steps
+# and generate of HD_NEW_TOKENS, the first step's loss held to the same
+# step under the plain attention at MOE_LOSS_TOL.
 FW_DIMS = (264, 300, 320, 512, 1000, 1024)
 FW_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 FW_TIMED = ((torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
             (torch.float32, 64), (torch.float32, 128), (torch.float32, 256),
             (torch.bfloat16, 512), (torch.float16, 512),
             (torch.float32, 512))
-# launches a timing round (the f32 kernels run on the CUDA cores)
-FW_ITERS = {"bfloat16": 20, "float16": 20, "float32": 4}
-FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2))
+# launches a timing round (the f32 forward runs on the CUDA cores)
+FW_ITERS = {"bfloat16": 20, "float16": 20, "float32": 10}
+FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2),
+          ("f32", torch.float32, HEADS))
 # The kernel A/B (--ab): the (dtype, head dim) each tree's kernels are
 # timed at, H = DIM // d at (8, 2048) (d 256, where dq and dk/dv split
-# their features, and the chunked forward at two to four chunks).
+# their features, and the chunked forward at two to four chunks; f32 at
+# the LM's 64, at 256, one block of dQ's (dK's, dV's) columns, and at 512,
+# two).
 AB_TIMED = (("bfloat16", 256), ("float16", 256), ("bfloat16", 264),
             ("float16", 264), ("bfloat16", 512), ("float16", 512),
-            ("bfloat16", 1024), ("float16", 1024))
-# and the LM above at these heads (head dims 256 and 512), store-fed, its
-# train step timed over AB_LM_STEPS steps (the first one not counted)
-AB_LM_HEADS, AB_LM_STEPS = (4, 2), 10
+            ("bfloat16", 1024), ("float16", 1024), ("float32", 64),
+            ("float32", 256), ("float32", 512))
+# and the LM above at these (dtype, heads) (bf16 at head dims 256 and 512,
+# f32 at 64), store-fed, its train step timed over AB_LM_STEPS steps (the
+# first one not counted)
+AB_LMS, AB_LM_STEPS = (("bfloat16", 4), ("bfloat16", 2),
+                       ("float32", HEADS)), 10
 AB_DEADLINE_S = 600
 
 # Kernel against plain version: bf16 out / lse, f32 out and lse (max abs
@@ -690,6 +698,12 @@ def bound_of(flops, nbytes, dname="bfloat16"):
     t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, \
         "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tf32_bound(flops, nbytes):
+    """The f32 dq and dk/dv kernels' bound: each f32 product three TF32
+    products on the tensor cores (bound_of at 495 TFLOP/s)."""
+    return bound_of(3 * flops, nbytes, "tf32")
 
 
 def qkv_views(g, dev, b, h, s, d, dt):
@@ -5127,11 +5141,16 @@ def head_dim_timing(g, dev, d, dt=torch.bfloat16, iters=20):
         flops, nbytes = attention_work(b, h, s, s, d, q.element_size(),
                                        True, 0, 0, kind)
         bound, bound_by = bound_of(flops, nbytes, dname)
+        extra = {}
+        if dname == "float32" and kind != "fwd":
+            # on the tensor cores; the CUDA cores' bound beside it
+            extra["cuda_core_bound_ms"] = bound
+            bound, bound_by = tf32_bound(flops, nbytes)
         checked = [errs[w] for w in {"fwd": ("out",), "dq": ("dq",),
                                      "dkv": ("dk", "dv")}[kind]]
         res[kern] = {"shape": [b, h, s, d], "ms": ms[kind],
                      "plain_ms": ms[kind + "_plain"], "bound_ms": bound,
-                     "bound_by": bound_by,
+                     "bound_by": bound_by, **extra,
                      "library_ms": ms[lib] if lib else None,
                      "max_abs_err": max(max(a for a, _ in checked),
                                         e_lse if kind == "fwd" else 0.0),
@@ -5139,7 +5158,9 @@ def head_dim_timing(g, dev, d, dt=torch.bfloat16, iters=20):
         print(f"head dims timing {kern} at (B,H,S,D)=({b},{h},{s},{d}) "
               f"{dname} causal: kernel_ms={ms[kind]:.4f} plain_ms="
               f"{ms[kind + '_plain']:.4f} bound_ms={bound:.4f} ({bound_by}:"
-              f" {flops:.4e} FLOP, {nbytes:.4e} B) library_ms="
+              f" {flops:.4e} FLOP, {nbytes:.4e} B) "
+              + "".join(f"{k}={v:.4f} " for k, v in extra.items())
+              + f"library_ms="
               f"{ms[lib] if lib else None} achieved_TFLOPs="
               f"{flops / ms[kind] / 1e9:.1f}", flush=True)
     res["sdpa_backward_ms"] = ms["sdpa_backward"]
@@ -5454,10 +5475,13 @@ def phase_fp16_wide(dev, seed, card):
 def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
     TMA + wgmma for 16 bits up to 256 and for the forward past it,
-    mma.sync for dq and dk/dv past 256 (all in chunks of 256 past 256),
-    the CUDA cores in f32."""
+    mma.sync for dq and dk/dv past 256 (all in chunks of 256 past 256);
+    in f32 TMA + wgmma in three TF32 products for dq (its dP on the CUDA
+    cores) and dk/dv, the CUDA cores for the forward."""
     if dname == "float32":
-        design = "cuda cores"
+        design = {"flash_fwd": "cuda cores",
+                  "flash_bwd_dq": "wgmma+tma, 3xtf32, dP on the cuda cores",
+                  "flash_bwd_dkv": "wgmma+tma, 3xtf32"}[name]
     elif d <= 256 or name == "flash_fwd":
         design = "wgmma+tma"
     else:
@@ -5468,10 +5492,11 @@ def kernel_design(name, dname, d):
 def fp16_wide_rows(fw, hd):
     """The kernels' JSON rows of phase 16's variants: each kernel at each
     timed (dtype, head dim), its launches those of the LM that runs the
-    variant (fp16 at hd 64, bf16 at hd 512), else those of phase 16's
-    cases of its dtype and tile (or chunks), or of phase 15's (f32 up to
-    256)."""
-    lm_of = {("float16", "64"): "fp16", ("bfloat16", "chunks"): "hd512"}
+    variant (fp16 and f32 at hd 64, bf16 at hd 512), else those of phase
+    16's cases of its dtype and tile (or chunks), or of phase 15's (f32 up
+    to 256)."""
+    lm_of = {("float16", "64"): "fp16", ("bfloat16", "chunks"): "hd512",
+             ("float32", "64"): "f32"}
     rows = []
     for (dname, d), t in fw["timing"].items():
         cls = wide_class(d)
@@ -5501,6 +5526,8 @@ def fp16_wide_rows(fw, hd):
                 "shape": r["shape"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
+                **({"cuda_core_bound_ms": r["cuda_core_bound_ms"]}
+                   if "cuda_core_bound_ms" in r else {}),
                 # the backward of one SDPA call gives dq, dk and dv:
                 # sdpa_backward_ms
                 "library_ms": r["library_ms"],
@@ -5653,10 +5680,11 @@ for dname, d in json.loads(sys.argv[3]):
 store, ds = cs.make_store(int(sys.argv[2]))
 cs.HD_STEPS = int(sys.argv[5])
 out["lm"] = {}
-for heads in json.loads(sys.argv[4]):
-    r = cs.head_dim_lm(dev, int(sys.argv[2]), ds, heads, cs.card_line())
-    out["lm"][str(cs.DIM // heads)] = {x: r[x] for x in ("median_ms",
-                                                         "step_ms")}
+for dname, heads in json.loads(sys.argv[4]):
+    r = cs.head_dim_lm(dev, int(sys.argv[2]), ds, heads, cs.card_line(),
+                       getattr(torch, dname))
+    out["lm"][f"{dname} {cs.DIM // heads}"] = {
+        x: r[x] for x in ("median_ms", "step_ms", "peak_gib")}
 store.close()
 print("ab result " + json.dumps(out), flush=True)
 """
@@ -5674,7 +5702,7 @@ def kernel_ab(parent, seed):
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, "-c", AB_RUN, root, str(seed),
-             json.dumps(AB_TIMED), json.dumps(AB_LM_HEADS),
+             json.dumps(AB_TIMED), json.dumps(AB_LMS),
              str(AB_LM_STEPS)], cwd=root, capture_output=True,
             text=True, timeout=AB_DEADLINE_S)
         got = [ln for ln in res.stdout.splitlines()
@@ -5686,18 +5714,21 @@ def kernel_ab(parent, seed):
         print(f"kernel A/B: {tag} ({root}) in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     table = {}
-    for hd in runs[0][1]["lm"]:
-        row = {tag: [x["lm"][hd]["median_ms"] for t, x in runs if t == tag]
-               for tag in ("parent", "change")}
-        table[f"lm hd {hd}"] = row
-        print(f"kernel A/B LM at hd {hd} ({DIM // int(hd)} heads, bf16, "
+    for key in runs[0][1]["lm"]:
+        dname, hd = key.split()
+        row = {tag: [x["lm"][key]["median_ms"] for t, x in runs
+                     if t == tag] for tag in ("parent", "change")}
+        row["peak_gib"] = [x["lm"][key]["peak_gib"] for _, x in runs]
+        table[f"lm {key}"] = row
+        print(f"kernel A/B LM at hd {hd} ({DIM // int(hd)} heads, {dname}, "
               f"{BATCH} x {SEQ}): median train step ms (of "
               f"{AB_LM_STEPS - 1}) parent {row['parent']} change "
-              f"{row['change']}; steps " + "; ".join(
-                  f"{t} {[round(v, 3) for v in x['lm'][hd]['step_ms']]}"
+              f"{row['change']}; peak GiB {row['peak_gib']}; steps "
+              + "; ".join(
+                  f"{t} {[round(v, 3) for v in x['lm'][key]['step_ms']]}"
                   for t, x in runs), flush=True)
-    for shape in (s for s in runs[0][1] if s != "lm"):
-        for kern, r in runs[0][1][shape].items():
+    for shape in (s for s in runs[1][1] if s != "lm"):
+        for kern, r in runs[1][1][shape].items():
             if not isinstance(r, dict):
                 continue
             row = {tag: [x[shape][kern]["ms"] for t, x in runs if t == tag]

@@ -38,9 +38,10 @@
 // TMA zero-fills the tiles' columns past it (zero columns of Q, K, V and
 // dO leave S and dP as they are, and give zero columns of dQ, dK and dV,
 // which the stores skip), and past d = 256 simpler kernels on mma.sync
-// (below) in chunks of 256. The f32 kernels take the widths 64, 128, 256
-// and chunks of 256, with loads and stores masked at d. Shared memory and
-// registers are sized by the tile or chunk, never by d.
+// (below) in chunks of 256. The f32 kernels (3xTF32, below) take the
+// features in chunks of 32 and own dQ, dK and dV in blocks of 64, 128 or
+// 256 columns (256 past it). Shared memory and registers are sized by the
+// tile or chunk, never by d.
 //
 // Bound on the H100 SXM at the LM's shape, (B, H, S, D) = (8, 16, 2048,
 // 64) bf16 causal, 2.686e8 live score pairs: dq does 3 products of 2*D
@@ -48,7 +49,11 @@
 // about 170 MB of bytes (q, k, v, do, lse, c read, dq written) = 0.051 ms
 // at 3.35 TB/s; dk/dv does 4 (s, dp, dv, dk), 1.375e11 FLOP = 0.139 ms,
 // against about 203 MB = 0.061 ms. Both are bound by operations, and by
-// the same counts at (8, 4, 2048, 256).
+// the same counts at (8, 4, 2048, 256). In f32 the same products run as
+// three TF32 products each (below) at 495 TFLOP/s: dq 3 x 1.031e11 FLOP =
+// 0.625 ms, dk/dv 3 x 1.375e11 = 0.833 ms (on the CUDA cores at 67
+// TFLOP/s they would be 1.539 and 2.052 ms), at every d with H = 1024 / d;
+// f32 bytes (twice bf16's) take 0.10 and 0.12 ms.
 //
 // Design, and what it leaves on the table. The 16-bit kernels up to d = 256
 // (bf16 below; fp16 the same) are a TMA tile ring + wgmma (sm90.cuh) in
@@ -133,10 +138,25 @@
 //   last). Every block forms the same S in the same order, so P is the
 //   same in each; the outputs stay disjoint, so the gradients stay
 //   bit-deterministic.
-// * f32: the same algorithm on the CUDA cores, one dot product per score
-//   (the tensor cores take no f32 inputs); exact in f32, for checking the
-//   math without bf16 rounding. The LM runs in bf16. Past d = 256 the
-//   same chunk loop, in chunks of 256 for dQ, dK and dV alike.
+// * f32 (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel, below): the
+//   tensor cores take f32 products as TF32 (10 mantissa bits, about 5e-4 a
+//   product, which misses f32's 1e-4 a row), so each f32 product a b runs
+//   as three TF32 products a_hi b_hi + a_hi b_lo + a_lo b_hi (hi =
+//   rna_tf32(x), lo = rna_tf32(x - hi): about 2^-21 a product), and each
+//   chunk of 4 k-steps is summed afresh on the tensor cores and added in
+//   f32 on the CUDA cores. TF32 wgmma reads both operands K-major only, so
+//   the operand whose contracted dim runs down its rows (K in dS K, Q and
+//   dO in dS^T Q and P^T dO) is written transposed by the producer
+//   warpgroup as it splits the landed tile; the transposed tiles store
+//   each group of 8 columns in the order the accumulators' A fragments
+//   hold them (tf32_kpos), so dS, P^T and dS^T feed the products from
+//   registers as they are. dq forms dP on the CUDA cores, one fmaf a
+//   feature in order (the first query's dQ row is p (dP - c) k with dP
+//   equal to c up to rounding: it is held to the f32 dot product the plain
+//   version forms, which no tensor-core sum reproduces). Bound by the
+//   split: a landed f32 tile is split (and transposed) by 96 producer
+//   threads, which at d 256 cost dk/dv more than its products, and the
+//   streamed side is split again for every tile of the other side.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1767,327 +1787,685 @@ int launch_dkv_wide(const Args& a, int b, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores. 128 threads = 16 rows x 8 lanes; a row's 8 threads are
-// adjacent lanes of one warp, and lane c8 of a row takes the columns
-// c8 + 8 i of the streamed tile and the features c8 + 8 j. Loads zero the
-// features past d (they add nothing to a dot product), and stores skip
-// them. D is the tiles' width: the head dim's (d <= 256), or one chunk of
-// it (d > 256: kChunked, below).
+// f32: 3xTF32 wgmma + TMA, the features in chunks of 32 (dq and dk/dv)
+//
+// Every f32 product x y runs as three TF32 products on the tensor cores,
+// x_hi y_hi + x_hi y_lo + x_lo y_hi, with x_hi = rna_tf32(x) and x_lo =
+// rna_tf32(x - x_hi) (CUTLASS's "3xTF32"): about 2^-21 relative a product,
+// summed in f32 (but dq's dP, on the CUDA cores: dq_dp_chunk). A block is
+// three warpgroups, as the 16-bit kernels': two
+// consumers and a producer whose warp 0 issues every TMA load (one thread)
+// and whose warps 1-3 split each landed tile: hi over the raw tile in place,
+// lo into a tile of the same layout, and, for the operand whose contracted
+// dim runs down its rows, both parts transposed (tf32 wgmma reads both
+// operands K-major only). Nothing is resident: each streamed tile comes as
+// a run of items through a ring of stages of six or eight 64-row x 32
+// float tiles (8 KB each, one 128-byte swizzle box): first one item per 32
+// feature chunk of all d (S and dP, or S^T and dP^T, summed over them),
+// then one item per 32 feature chunk of the block's output columns (the
+// transposed operand of dQ, or of dK and dV). So shared memory does not
+// grow with d; the output accumulators do (D / 2 floats a thread), and past
+// d = 256 a block owns a chunk of 256 output columns and forms S again.
 
-constexpr int kThreads = 128;
-constexpr int kSRows = 16;   // rows per block (queries for dq, keys for dk/dv)
-constexpr int kSDkvBQ = 16;  // queries per tile of the dk/dv kernel
+constexpr int kTfConverters = 96;  // warps 1-3 of the producer warpgroup
+// setmaxnreg within the launch's 3 x 168: the converters need more than
+// the TMA thread's 24.
+constexpr int kTfProducerRegs = 56;
+constexpr int kTfConsumerRegs = 224;
+constexpr int kTfTile = 8192;  // 64 rows x 32 floats
+constexpr int kTfBox = 4096;   // a transposed tile's box: 32 rows x 32 floats
 
-// Keys per tile of the dq kernel: 32 at D = 64, 16 at the wider tiles.
-template <int D>
-__host__ __device__ constexpr int dq_f32_bk() {
-  return D == 64 ? 32 : 16;
-}
-
-// Dynamic shared memory of the dq kernel, in floats: Q and dO [kSRows][D +
-// 1], K and V [BK][D + 1], dS [kSRows][BK + 1] (67 KB at D = 256).
-template <int D>
-struct F32DqSmem {
-  static constexpr int kBK = dq_f32_bk<D>();
-  static constexpr int kDo = kSRows * (D + 1);
-  static constexpr int kK = 2 * kSRows * (D + 1);
-  static constexpr int kV = kK + kBK * (D + 1);
-  static constexpr int kDs = kV + kBK * (D + 1);
-  static constexpr int kBytes = (kDs + kSRows * (kBK + 1)) * 4;
+struct Tf32Params {
+  CUtensorMap q, dout, k, v;  // boxes of 32 features x 64 (or BQ) rows
+  const float* lse;           // (B*H, Sq), contiguous
+  const float* c;             // (B*H, Sq), contiguous
+  void* o1;                   // dq (dq kernel) or dk (dk/dv kernel)
+  void* o2;                   // dv (dk/dv kernel)
+  long long s1b, s1h, s1s;
+  long long s2b, s2h, s2s;
+  int h, sq, sk;
+  int d;  // true head dim: columns past it are zero-filled and not stored
+  int causal;
+  long long q_offset, kv_offset;
+  float scale;
 };
 
-// The dk/dv kernel's, in floats: K and V [kSRows][D + 1], Q and dO
-// [kSDkvBQ][D + 1], P and dS [kSRows][kSDkvBQ + 1], lse and c [kSDkvBQ].
-template <int D>
-struct F32DkvSmem {
-  static constexpr int kV = kSRows * (D + 1);
-  static constexpr int kQ = 2 * kSRows * (D + 1);
-  static constexpr int kDo = kQ + kSDkvBQ * (D + 1);
-  static constexpr int kP = kDo + kSDkvBQ * (D + 1);
-  static constexpr int kDs = kP + kSRows * (kSDkvBQ + 1);
-  static constexpr int kLse = kDs + kSRows * (kSDkvBQ + 1);
-  static constexpr int kC = kLse + kSDkvBQ;
-  static constexpr int kBytes = (kC + kSDkvBQ) * 4;
-};
-
-__device__ __forceinline__ float dot_row(const float* x, const float* y,
-                                         int d, float acc = 0.f) {
-#pragma unroll 16
-  for (int i = 0; i < d; ++i) acc = fmaf(x[i], y[i], acc);
-  return acc;
+// The position of column k of a transposed tile along its contracted dim.
+// A TF32 A fragment holds k t and t + 4 of each group of 8 where the f32
+// accumulator it is formed from holds columns 2 t and 2 t + 1 (columns are
+// keys in dS K, queries in P^T dO and dS^T Q), so the transposed B tiles
+// store each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 and the
+// accumulators feed the products as they are.
+__device__ __forceinline__ int tf32_kpos(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
 }
 
-// A chunk of rows of an f32 operand into a shared tile of row stride D + 1
-// (sm90::stage_rows_f32).
-template <int R, int D>
-__device__ __forceinline__ void stage_f32(float (*dst)[D + 1],
-                                          const float* src,
-                                          long long row_stride, int r0, int n,
-                                          int c0, int d, int tid) {
-  sm90::stage_rows_f32<R, D, D + 1, kThreads>(&dst[0][0], src, row_stride,
-                                              r0, n, c0, d, tid);
+// The A fragments of an accumulator of m64n32 or m64n64 (d[4 j + e]: row
+// g + 8 (e / 2), column 8 j + 2 t + e % 2), hi and lo: k-step kk is
+// columns 8 kk..8 kk + 7, its fragment {d[4 kk], d[4 kk + 2], d[4 kk + 1],
+// d[4 kk + 3]} (tf32_kpos). Formed before the products' fence, so that no
+// instruction defines a register a product reads while it runs.
+template <int KS>
+__device__ __forceinline__ void tf32_frags(uint32_t (&fh)[KS][4],
+                                           uint32_t (&fl)[KS][4],
+                                           const float (&d)[4 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = d[4 * kk + ((r & 1) << 1) + (r >> 1)];
+      const float h = sm90::tf32_rna(x);
+      fh[kk][r] = __float_as_uint(h);
+      fl[kk][r] = __float_as_uint(sm90::tf32_rna(x - h));
+    }
 }
 
-// kChunked = false: d <= D, one tile; Q and dO stay in shared memory.
-// kChunked = true: d > D, in nc = ceil(d / D) chunks of D = 256; the
-// block's blockIdx.x % nc is the chunk oc of dQ it owns, S and dP sum over
-// the chunks staged in turn, and dQ += dS K takes K's chunk oc (staged
-// again unless it was the last one).
-template <int D, bool kChunked>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32_kernel(Args a) {
-  using L = F32DqSmem<D>;
-  constexpr int BK = L::kBK;
-  extern __shared__ __align__(16) uint8_t smem_dq_f32[];
-  float* base = reinterpret_cast<float*>(smem_dq_f32);
-  auto q_s = reinterpret_cast<float(*)[D + 1]>(base);
-  auto do_s = reinterpret_cast<float(*)[D + 1]>(base + L::kDo);
-  auto k_s = reinterpret_cast<float(*)[D + 1]>(base + L::kK);
-  auto v_s = reinterpret_cast<float(*)[D + 1]>(base + L::kV);
-  auto ds_s = reinterpret_cast<float(*)[BK + 1]>(base + L::kDs);
-
-  int nc = 1, oc = 0, qt = blockIdx.x;
-  if constexpr (kChunked) {
-    nc = (a.d + D - 1) / D;
-    qt = blockIdx.x / nc;
-    oc = blockIdx.x % nc;
+// Splits a landed tile of `rows` rows in place: hi over it, lo into `lo`
+// at the same offsets (so in the same swizzled layout).
+__device__ __forceinline__ void tf32_split(uint8_t* t, uint8_t* lo, int rows,
+                                           int ct) {
+  for (int ch = ct; ch < rows * 8; ch += kTfConverters) {
+    const float4 x = *reinterpret_cast<const float4*>(t + 16 * ch);
+    float4 h, l;
+    h.x = sm90::tf32_rna(x.x);
+    h.y = sm90::tf32_rna(x.y);
+    h.z = sm90::tf32_rna(x.z);
+    h.w = sm90::tf32_rna(x.w);
+    l.x = sm90::tf32_rna(x.x - h.x);
+    l.y = sm90::tf32_rna(x.y - h.y);
+    l.z = sm90::tf32_rna(x.z - h.z);
+    l.w = sm90::tf32_rna(x.w - h.w);
+    *reinterpret_cast<float4*>(t + 16 * ch) = h;
+    *reinterpret_cast<float4*>(lo + 16 * ch) = l;
   }
-  const int q0 = qt * kSRows;
+}
+
+__device__ __forceinline__ float lane_of(const float4& x, int c) {
+  return c == 0 ? x.x : c == 1 ? x.y : c == 2 ? x.z : x.w;
+}
+
+// Splits a landed tile of `rows` rows x 32 features into hi and lo tiles of
+// 32 feature rows x `rows` columns (boxes of 32 columns, kTfBox apart),
+// each group of 8 columns in tf32_kpos order. A unit of work is rows 8 a +
+// 2 i + e (i = 0..3) of four features: tf32_kpos puts those rows in four
+// adjacent columns, so each feature's four values are one 16-byte store.
+__device__ __forceinline__ void tf32_split_t(const uint8_t* t, uint8_t* hi,
+                                             uint8_t* lo, int rows, int ct) {
+  for (int u = ct; u < rows * 2; u += kTfConverters) {
+    const int fq = u & 7, e = (u >> 3) & 1, r0 = 8 * (u >> 4) + e;
+    const int pos = tf32_kpos(r0);  // rows r0 + 2 i land at pos + i
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + 2 * i;
+      x[i] = *reinterpret_cast<const float4*>(t + r * 128 +
+                                              ((fq ^ (r & 7)) << 4));
+    }
+    const int box = (pos >> 5) * kTfBox;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int f = 4 * fq + c;
+      const float v[4] = {lane_of(x[0], c), lane_of(x[1], c),
+                          lane_of(x[2], c), lane_of(x[3], c)};
+      float4 h, l;
+      h.x = sm90::tf32_rna(v[0]);
+      h.y = sm90::tf32_rna(v[1]);
+      h.z = sm90::tf32_rna(v[2]);
+      h.w = sm90::tf32_rna(v[3]);
+      l.x = sm90::tf32_rna(v[0] - h.x);
+      l.y = sm90::tf32_rna(v[1] - h.y);
+      l.z = sm90::tf32_rna(v[2] - h.z);
+      l.w = sm90::tf32_rna(v[3] - h.w);
+      const uint32_t off = box + sm90::sw128_f32_offset(f, pos & 31);
+      *reinterpret_cast<float4*>(hi + off) = h;
+      *reinterpret_cast<float4*>(lo + off) = l;
+    }
+  }
+}
+
+// The tensor cores round each k-step's sum into the accumulator toward
+// zero, about an ulp of the running sum and always the same way: with S
+// and dP summed in one accumulator over the 64 k-steps of d = 512, dQ's
+// rows missed the f32 tolerance of 1e-4. So each chunk of 4 k-steps
+// (32 features of S and dP^T, 32 keys or queries of dQ, dK and dV) is
+// summed afresh on the tensor cores, the small products (hi lo, lo hi)
+// first, then hi hi, and added into the running f32 sum on the CUDA cores
+// (tf32_add).
+
+// acc = A B^T over one 32-feature chunk: A and B K-major tiles with hi and
+// lo parts, rows of 32 floats (a k-step is +32 bytes).
+template <int N>
+__device__ __forceinline__ void tf32_ss_chunk(float (&acc)[N / 2],
+                                              const uint8_t* ah,
+                                              const uint8_t* al,
+                                              const uint8_t* bh,
+                                              const uint8_t* bl) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int o = 32 * kk;
+    sm90::Tf32<N>::ss(acc, sm90::desc_k(ah + o), sm90::desc_k(bl + o),
+                      kk > 0);
+    sm90::Tf32<N>::ss(acc, sm90::desc_k(al + o), sm90::desc_k(bh + o), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::Tf32<N>::ss(acc, sm90::desc_k(ah + 32 * kk),
+                      sm90::desc_k(bh + 32 * kk), 1);
+}
+
+// acc = A B over K = 8 KS: A the fragments of tf32_frags, B a transposed
+// tile (hi, lo) of 32 rows, its k-steps 32 bytes apart within a box,
+// boxes kTfBox apart.
+template <int KS>
+__device__ __forceinline__ void tf32_rs(float (&acc)[16],
+                                        const uint32_t (&fh)[KS][4],
+                                        const uint32_t (&fl)[KS][4],
+                                        const uint8_t* bh, const uint8_t* bl) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int o = (kk / 4) * kTfBox + 32 * (kk % 4);
+    sm90::Tf32<32>::rs(acc, fl[kk], sm90::desc_k(bh + o), kk > 0);
+    sm90::Tf32<32>::rs(acc, fh[kk], sm90::desc_k(bl + o), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    sm90::Tf32<32>::rs(acc, fh[kk],
+                       sm90::desc_k(bh + (kk / 4) * kTfBox + 32 * (kk % 4)),
+                       1);
+}
+
+// dP += dO V^T over one 32-feature chunk on the CUDA cores, for the dq
+// kernel: one fmaf a feature, in order, from a chunk's raw (swizzled)
+// tiles, into the m64n32 accumulator layout of a warpgroup's 32 keys
+// (kb, the first of them in the tile) and this thread's rows ra, ra + 8.
+// A row of dQ with one live key is p (dP - c) k with dP equal to c up to
+// rounding (the first query's, with no lse cotangent): its dP must be the
+// f32 dot product as the plain version forms it, which the tensor cores'
+// sums (each rounding once, toward zero) are not.
+__device__ __forceinline__ void dq_dp_chunk(float (&dp)[16],
+                                            const uint8_t* dos,
+                                            const uint8_t* vs, int ra, int kb,
+                                            int t) {
+#pragma unroll 1
+  for (int f4 = 0; f4 < 8; ++f4) {
+    const uint32_t sw = (f4 ^ (ra & 7)) << 4;  // rows ra and ra + 8 alike
+    const float4 a0 = *reinterpret_cast<const float4*>(dos + ra * 128 + sw);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(dos + (ra + 8) * 128 + sw);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kb + 8 * j + 2 * t + e;
+        const float4 b = *reinterpret_cast<const float4*>(
+            vs + key * 128 + ((f4 ^ (key & 7)) << 4));
+        float& x0 = dp[4 * j + e];
+        float& x1 = dp[4 * j + 2 + e];
+        x0 = fmaf(a0.x, b.x, x0);
+        x0 = fmaf(a0.y, b.y, x0);
+        x0 = fmaf(a0.z, b.z, x0);
+        x0 = fmaf(a0.w, b.w, x0);
+        x1 = fmaf(a1.x, b.x, x1);
+        x1 = fmaf(a1.y, b.y, x1);
+        x1 = fmaf(a1.z, b.z, x1);
+        x1 = fmaf(a1.w, b.w, x1);
+      }
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void tf32_add(float (&sum)[K],
+                                         const float (&x)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) sum[i] += x[i];
+}
+
+// The shared memory of both kernels: a ring of STAGES stages of TILES
+// tiles, then (dk/dv) two exchange buffers of XBYTES, then the barriers.
+template <int STAGES, int TILES, int XBYTES>
+struct TfSmem {
+  static constexpr int kStages = STAGES;
+  static constexpr int kStageBytes = TILES * kTfTile;
+  static constexpr int kX = STAGES * kStageBytes;
+  static constexpr int kBar = kX + 2 * XBYTES;
+  static constexpr int kBytes = kBar + (3 * STAGES + 4) * 8 + 1024;
+  static_assert(kBytes <= 232448, "over the H100's shared memory a block");
+};
+
+// dq: 6 tiles a stage (dO and V stay raw), so 4 stages; dk/dv: 8 tiles a
+// stage and the exchange buffers of P^T, so 3.
+using TfDqSmem = TfSmem<4, 6, 0>;
+template <int BQ>
+using TfDkvSmem = TfSmem<3, 8, 64 * BQ * 4>;
+
+// The producer warpgroup of both kernels: warp 0's first thread issues the
+// loads of every item (load(j, stage, full barrier)) as their stages free
+// up, warps 1-3 split each landed item (convert(j, stage)) and mark it
+// ready. (All four warps splitting, with the loads issued between splits,
+// ran slower: the ring then waits on the splits to be refilled.)
+template <class L, class Load, class Convert>
+__device__ __forceinline__ void tf32_producer(int items, uint64_t* full,
+                                              uint64_t* ready,
+                                              uint64_t* empty, uint8_t* smem,
+                                              Load load, Convert convert) {
+  sm90::reg_dealloc<kTfProducerRegs>();
+  const int pt = threadIdx.x - kConsumers;
+  if (pt == 0) {
+    for (int j = 0; j < items; ++j) {
+      const int s = j % L::kStages;
+      sm90::mbar_wait(&empty[s], ((j / L::kStages) & 1) ^ 1);
+      load(j, smem + s * L::kStageBytes, &full[s]);
+    }
+  } else if (pt >= 32) {
+    for (int j = 0; j < items; ++j) {
+      const int s = j % L::kStages;
+      sm90::mbar_wait(&full[s], (j / L::kStages) & 1);
+      convert(j, smem + s * L::kStageBytes, pt - 32);
+      sm90::fence_proxy_async();
+      sm90::mbar_arrive(&ready[s]);
+    }
+  }
+}
+
+template <int STAGES>
+__device__ __forceinline__ void tf32_init_barriers(uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&bar[s], 1);                         // full
+      sm90::mbar_init(&bar[STAGES + s], kTfConverters);    // ready
+      sm90::mbar_init(&bar[2 * STAGES + s], kConsumers);   // empty
+    }
+    for (int i = 0; i < 4; ++i)  // the dk/dv kernel's exchange
+      sm90::mbar_init(&bar[3 * STAGES + i], 128);
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// dq: one block per (64 queries, chunk of D columns of dQ, head, batch).
+// Both consumer warpgroups own the block's 64 query rows and split each
+// 64-key tile: warpgroup w takes keys [32 w, 32 w + 32), forms its S
+// (m64n32 on the tensor cores, summed over the feature chunks) and, while
+// that runs, its dP on the CUDA cores (dq_dp_chunk), then P and dS on the
+// accumulators, and adds dS K into its own dQ (the transposed K chunk,
+// m64n32 a chunk of dQ's columns). At the end warpgroup 1 hands its dQ to
+// warpgroup 0 through shared memory, which adds it and stores (a fixed
+// order: bit-identical from launch to launch). Item order per key tile:
+// nc items {Q, dO, K, V} of feature chunk c (tiles 0, 1: Q hi, lo; 2: dO
+// raw; 3, 4: K hi, lo; 5: V raw), then no items {K} of output chunk o
+// (tile 0 raw, tiles 1, 2 K^T hi, lo, 64 keys in two boxes).
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dq_tf32_kernel(const __grid_constant__ Tf32Params p) {
+  using L = TfDqSmem;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* ready = full + L::kStages;
+  uint64_t* empty = ready + L::kStages;
+
+  const int nco = (p.d + D - 1) / D;
+  const int tiles = gridDim.x / nco;
+  const int q0 = (tiles - 1 - static_cast<int>(blockIdx.x) / nco) * 64;
+  const int f0 = (blockIdx.x % nco) * D;  // this block's columns of dQ
   const int hh = blockIdx.y, bb = blockIdx.z;
-  const long long bh = static_cast<long long>(bb) * a.h + hh;
-  const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
-  const float* qp = static_cast<const float*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const float* kp = static_cast<const float*>(a.k) + bb * a.skb + hh * a.skh;
-  const float* vp = static_cast<const float*>(a.v) + bb * a.svb + hh * a.svh;
-  const float* dp_ =
-      static_cast<const float*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  float* dqp = static_cast<float*>(a.o1) + bb * a.s1b + hh * a.s1h;
-
-  if constexpr (!kChunked) {
-    for (int e = tid; e < kSRows * D; e += kThreads) {
-      const int rr = e / D, d = e % D;
-      const bool in = q0 + rr < a.sq && d < a.d;
-      q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
-      do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
-    }
+  const int nc = (p.d + 31) / 32;
+  const int no = ((p.d - f0 < D ? p.d - f0 : D) + 31) / 32;
+  // key tiles [0, n): all, or (causal) up to the last one a row sees
+  int n = (p.sk + 63) / 64;
+  if (p.causal) {
+    const int rows = p.sq - q0 < 64 ? p.sq - q0 : 64;
+    const long long x = p.q_offset + q0 + rows - 1 - p.kv_offset;
+    n = x < 0 ? 0 : static_cast<int>(x / 64 + 1 < n ? x / 64 + 1 : n);
   }
-  const int row = q0 + r;
-  const float lse = safe_lse(a, bh, row);
-  const float cr = row_c(a, bh, row);
-  float acc[D / 8];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j] = 0.f;
+  const int per = nc + no;
+  tf32_init_barriers<L::kStages>(full);
 
-  const long long q_lo = a.q_offset + q0;
-  const int nk = (a.sk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<kSRows, BK>(q_lo, a.kv_offset + k0, live, diag);
-      if (!live) break;
-    }
-    const bool masked = diag || k0 + BK > a.sk || q0 + kSRows > a.sq;
-    float qk[BK / 8], dov[BK / 8];  // S and dP over the chunks so far
-    if constexpr (kChunked) {
+  if (threadIdx.x >= kConsumers) {
+    auto load = [&](int j, uint8_t* st, uint64_t* bar) {
+      const int i = j / per, c = j % per;
+      if (c < nc) {
+        sm90::mbar_arrive_expect_tx(bar, 4 * kTfTile);
+        sm90::tma_load_4d(st, &p.q, bar, 32 * c, q0, hh, bb);
+        sm90::tma_load_4d(st + 2 * kTfTile, &p.dout, bar, 32 * c, q0, hh,
+                          bb);
+        sm90::tma_load_4d(st + 3 * kTfTile, &p.k, bar, 32 * c, 64 * i, hh,
+                          bb);
+        sm90::tma_load_4d(st + 5 * kTfTile, &p.v, bar, 32 * c, 64 * i, hh,
+                          bb);
+      } else {
+        sm90::mbar_arrive_expect_tx(bar, kTfTile);
+        sm90::tma_load_4d(st, &p.k, bar, f0 + 32 * (c - nc), 64 * i, hh, bb);
+      }
+    };
+    auto convert = [&](int j, uint8_t* st, int ct) {
+      if (j % per < nc) {
+        tf32_split(st, st + kTfTile, 64, ct);
+        tf32_split(st + 3 * kTfTile, st + 4 * kTfTile, 64, ct);
+      } else {
+        tf32_split_t(st, st + kTfTile, st + 2 * kTfTile, 64, ct);
+      }
+    };
+    tf32_producer<L>(n * per, full, ready, empty, smem, load, convert);
+  } else {
+    sm90::reg_alloc<kTfConsumerRegs>();
+    const int w = threadIdx.x / 128, lt = threadIdx.x % 128;
+    const int warp = lt / 32, g = (lt % 32) / 4, t = lt % 4;
+    const int r0 = q0 + 16 * warp + g;  // query rows r0 and r0 + 8
+    const long long bh = static_cast<long long>(bb) * p.h + hh;
+    const float sl2 = p.scale * kLog2e;
+    float dq[D / 32][16];
 #pragma unroll
-      for (int i = 0; i < BK / 8; ++i) qk[i] = dov[i] = 0.f;
-      for (int c = 0; c < nc; ++c) {
-        // the previous chunk's (or tile's) shared reads are done
-        __syncthreads();
-        stage_f32<kSRows, D>(q_s, qp, a.sqs, q0, a.sq, c * D, a.d, tid);
-        stage_f32<kSRows, D>(do_s, dp_, a.sds, q0, a.sq, c * D, a.d, tid);
-        stage_f32<BK, D>(k_s, kp, a.sks, k0, a.sk, c * D, a.d, tid);
-        stage_f32<BK, D>(v_s, vp, a.svs, k0, a.sk, c * D, a.d, tid);
-        __syncthreads();
+    for (int o = 0; o < D / 32; ++o)
 #pragma unroll
-        for (int i = 0; i < BK / 8; ++i) {
-          const int col = c8 + 8 * i;
-          qk[i] = dot_row(q_s[r], k_s[col], D, qk[i]);
-          dov[i] = dot_row(do_s[r], v_s[col], D, dov[i]);
+      for (int i = 0; i < 16; ++i) dq[o][i] = 0.f;
+    float s[16], dp[16];  // S and dP of a key tile, then dS in s
+    float cs[16];         // a chunk's S; a chunk of dS K
+
+    int j = 0;
+    auto wait_ready = [&](int jj) {
+      sm90::mbar_wait(&ready[jj % L::kStages], (jj / L::kStages) & 1);
+      return smem + (jj % L::kStages) * L::kStageBytes;
+    };
+    for (int i = 0; i < n; ++i) {
+#pragma unroll
+      for (int x = 0; x < 16; ++x) s[x] = dp[x] = 0.f;
+      for (int c = 0; c < nc; ++c, ++j) {
+        const uint8_t* st = wait_ready(j);
+        const int kb = w * 32 * 128;  // this warpgroup's 32 keys
+        // S on the tensor cores while dP runs on the CUDA cores
+        sm90::wgmma_fence();
+        tf32_ss_chunk<32>(cs, st, st + kTfTile, st + 3 * kTfTile + kb,
+                          st + 4 * kTfTile + kb);
+        sm90::wgmma_commit();
+        dq_dp_chunk(dp, st + 2 * kTfTile, st + 5 * kTfTile, 16 * warp + g,
+                    32 * w, t);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(cs);
+        sm90::mbar_arrive(&empty[j % L::kStages]);
+        tf32_add(s, cs);
+      }
+      // P = exp2(S scale log2e - lse log2e), dS = P (dP - c); masked only
+      // on tiles that straddle the diagonal or run past Sk. (lse and c are
+      // read again each tile: no registers held across the loop.)
+      float lse2[2], cr[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        lse2[hr] = safe_lse(p, bh, r0 + 8 * hr) * kLog2e;
+        cr[hr] = row_c(p, bh, r0 + 8 * hr);
+      }
+      const int k0 = 64 * i + 32 * w;
+      const bool masked =
+          k0 + 32 > p.sk ||
+          (p.causal && p.kv_offset + k0 + 31 > p.q_offset + q0);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = fmaf(s[4 * jj + e], sl2, -lse2[e >> 1]);
+          if (masked) {
+            const int key = k0 + 8 * jj + 2 * t + (e & 1);
+            const int row = r0 + 8 * (e >> 1);
+            if (key >= p.sk ||
+                (p.causal && p.kv_offset + key > p.q_offset + row))
+              x = -INFINITY;
+          }
+          s[4 * jj + e] = sm90::exp2_approx(x) * (dp[4 * jj + e] -
+                                                  cr[e >> 1]);
+        }
+      uint32_t fh[4][4], fl[4][4];
+      tf32_frags(fh, fl, s);
+#pragma unroll
+      for (int o = 0; o < D / 32; ++o) {
+        if (o < no) {
+          const uint8_t* st = wait_ready(j);
+          sm90::wgmma_fence();
+          tf32_rs<4>(cs, fh, fl, st + kTfTile + w * kTfBox,
+                     st + 2 * kTfTile + w * kTfBox);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(cs);
+          sm90::mbar_arrive(&empty[j % L::kStages]);
+          tf32_add(dq[o], cs);
+          ++j;
         }
       }
-      if (oc != nc - 1) {  // dQ's chunk of K
-        __syncthreads();
-        stage_f32<BK, D>(k_s, kp, a.sks, k0, a.sk, oc * D, a.d, tid);
-        __syncthreads();
-      }
-    } else {
-      __syncthreads();  // the previous tile's k_s/v_s reads are done
-      for (int e = tid; e < BK * D; e += kThreads) {
-        const int rr = e / D, d = e % D;
-        const bool in = k0 + rr < a.sk && d < a.d;
-        k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
-        v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
-      }
-      __syncthreads();
     }
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      const int col = c8 + 8 * i;
-      float s = (kChunked ? qk[i] : dot_row(q_s[r], k_s[col], D)) * a.scale;
-      if (masked && pair_masked(a, row, k0 + col)) s = -INFINITY;
-      const float p = expf(s - lse);
-      ds_s[r][col] =
-          p * ((kChunked ? dov[i] : dot_row(do_s[r], v_s[col], D)) - cr);
-    }
-    __syncwarp();  // a row's ds_s is written and read by its own 8 lanes
-    for (int col = 0; col < BK; ++col) {
-      const float ds = ds_s[r][col];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        acc[j] = fmaf(ds, k_s[col][c8 + 8 * j], acc[j]);
-    }
-  }
-  const int f0 = oc * D;  // this block's columns of dQ
-  if (row < a.sq) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (f0 + 8 * j < a.d)
-        dqp[row * a.s1s + f0 + c8 + 8 * j] = acc[j] * a.scale;
-  }
-}
 
-// kChunked = false: d <= D, one tile; K and V stay in shared memory.
-// kChunked = true: d > D, in nc = ceil(d / D) chunks of D = 256; the
-// block's blockIdx.x % nc is the chunk oc of dK and dV it owns, S^T and
-// dP^T sum over the chunks (K, V, Q and dO staged in turn), and dV, dK
-// take dO's and Q's chunk oc (staged again unless it was the last one).
-template <int D, bool kChunked>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32_kernel(Args a) {
-  using L = F32DkvSmem<D>;
-  extern __shared__ __align__(16) uint8_t smem_dkv_f32[];
-  float* base = reinterpret_cast<float*>(smem_dkv_f32);
-  auto k_s = reinterpret_cast<float(*)[D + 1]>(base);
-  auto v_s = reinterpret_cast<float(*)[D + 1]>(base + L::kV);
-  auto q_s = reinterpret_cast<float(*)[D + 1]>(base + L::kQ);
-  auto do_s = reinterpret_cast<float(*)[D + 1]>(base + L::kDo);
-  auto p_s = reinterpret_cast<float(*)[kSDkvBQ + 1]>(base + L::kP);
-  auto ds_s = reinterpret_cast<float(*)[kSDkvBQ + 1]>(base + L::kDs);
-  float* lse_s = base + L::kLse;
-  float* c_s = base + L::kC;
-
-  int nc = 1, oc = 0, kt = blockIdx.x;
-  if constexpr (kChunked) {
-    nc = (a.d + D - 1) / D;
-    kt = blockIdx.x / nc;
-    oc = blockIdx.x % nc;
-  }
-  const int k0 = kt * kSRows;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const long long bh = static_cast<long long>(bb) * a.h + hh;
-  const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
-  const float* qp = static_cast<const float*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const float* kp = static_cast<const float*>(a.k) + bb * a.skb + hh * a.skh;
-  const float* vp = static_cast<const float*>(a.v) + bb * a.svb + hh * a.svh;
-  const float* dp_ =
-      static_cast<const float*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  float* dkp = static_cast<float*>(a.o1) + bb * a.s1b + hh * a.s1h;
-  float* dvp = static_cast<float*>(a.o2) + bb * a.s2b + hh * a.s2h;
-
-  if constexpr (!kChunked) {
-    for (int e = tid; e < kSRows * D; e += kThreads) {
-      const int rr = e / D, d = e % D;
-      const bool in = k0 + rr < a.sk && d < a.d;
-      k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
-      v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
-    }
-  }
-  const int key = k0 + r;
-  float dk[D / 8], dv[D / 8];
+    // Warpgroup 1's dQ into the (now idle) ring, warpgroup 0 adds it in
+    // and stores every row below Sq (0 where no live key reaches it).
+    float* red = reinterpret_cast<float*>(smem);
+    sm90::bar_sync(1, kConsumers);
+    if (w == 1) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) dk[j] = dv[j] = 0.f;
-
-  const long long k_lo = a.kv_offset + k0;
-  int it0 = 0;
-  if (a.causal) {
-    const long long x = k_lo - a.q_offset;
-    it0 = x <= 0 ? 0 : static_cast<int>(x / kSDkvBQ);
-  }
-  const int nq = (a.sq + kSDkvBQ - 1) / kSDkvBQ;
-  for (int it = it0; it < nq; ++it) {
-    const int q0 = it * kSDkvBQ;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<kSDkvBQ, kSRows>(a.q_offset + q0, k_lo, live, diag);
-      if (!live) continue;
-    }
-    const bool masked = diag || q0 + kSDkvBQ > a.sq || k0 + kSRows > a.sk;
-    float kq[kSDkvBQ / 8], vdo[kSDkvBQ / 8];  // S^T, dP^T over the chunks
-    if constexpr (kChunked) {
+      for (int o = 0; o < D / 32; ++o)
 #pragma unroll
-      for (int i = 0; i < kSDkvBQ / 8; ++i) kq[i] = vdo[i] = 0.f;
-      for (int c = 0; c < nc; ++c) {
-        // the previous chunk's (or tile's) shared reads are done
-        __syncthreads();
-        stage_f32<kSRows, D>(k_s, kp, a.sks, k0, a.sk, c * D, a.d, tid);
-        stage_f32<kSRows, D>(v_s, vp, a.svs, k0, a.sk, c * D, a.d, tid);
-        stage_f32<kSDkvBQ, D>(q_s, qp, a.sqs, q0, a.sq, c * D, a.d, tid);
-        stage_f32<kSDkvBQ, D>(do_s, dp_, a.sds, q0, a.sq, c * D, a.d, tid);
-        if (c == 0) {
-          for (int rr = tid; rr < kSDkvBQ; rr += kThreads) {
-            lse_s[rr] = safe_lse(a, bh, q0 + rr);
-            c_s[rr] = row_c(a, bh, q0 + rr);
+        for (int i = 0; i < 16; ++i) red[(16 * o + i) * 128 + lt] = dq[o][i];
+    }
+    sm90::bar_sync(1, kConsumers);
+    if (w == 0) {
+      float* dqp = static_cast<float*>(p.o1) +
+                   static_cast<long long>(bb) * p.s1b +
+                   static_cast<long long>(hh) * p.s1h;
+#pragma unroll
+      for (int o = 0; o < D / 32; ++o)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int col = f0 + 32 * o + 8 * jj;
+          if (col >= p.d) continue;
+#pragma unroll
+          for (int hr = 0; hr < 2; ++hr) {
+            const int row = r0 + 8 * hr;
+            const int i = 4 * jj + 2 * hr;
+            if (row < p.sq)
+              *reinterpret_cast<float2*>(
+                  dqp + static_cast<long long>(row) * p.s1s + col + 2 * t) =
+                  make_float2(
+                      (dq[o][i] + red[(16 * o + i) * 128 + lt]) * p.scale,
+                      (dq[o][i + 1] + red[(16 * o + i + 1) * 128 + lt]) *
+                          p.scale);
           }
         }
-        __syncthreads();
+    }
+  }
+}
+
+// dk/dv: one block per (64 keys, chunk of D columns of dK and dV, head,
+// batch); query tiles of BQ rows stream. The two consumer warpgroups own
+// the block's 64 key rows and split the work by output: warpgroup 0 forms
+// S^T = K Q^T and P^T (exp2 against each query's lse), hands P^T to
+// warpgroup 1 through one of two exchange buffers, and adds P^T dO into
+// dV; warpgroup 1 forms dP^T = V dO^T, dS^T = P^T (dP^T - c) and adds
+// dS^T Q into dK. Item order per query tile: nc items {K, V, Q, dO} of
+// feature chunk c (tiles 0-7: K hi, lo, V hi, lo, Q hi, lo, dO hi, lo),
+// then no items {Q, dO} of output chunk o (tiles 0, 1 raw, tiles 2-5 Q^T
+// hi, lo and dO^T hi, lo, BQ queries in boxes of 32).
+template <int D, int BQ>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dkv_tf32_kernel(const __grid_constant__ Tf32Params p) {
+  using L = TfDkvSmem<BQ>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* ready = full + L::kStages;
+  uint64_t* empty = ready + L::kStages;
+  uint64_t* xfull = empty + L::kStages;  // two each
+  uint64_t* xempty = xfull + 2;
+
+  const int nco = (p.d + D - 1) / D;
+  const int k0 = static_cast<int>(blockIdx.x) / nco * 64;  // low keys first
+  const int f0 = (blockIdx.x % nco) * D;  // this block's columns of dK, dV
+  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int nc = (p.d + 31) / 32;
+  const int no = ((p.d - f0 < D ? p.d - f0 : D) + 31) / 32;
+  // query tiles [it0, nq): (causal) from the first one that sees a key
+  const int nq = (p.sq + BQ - 1) / BQ;
+  int it0 = 0;
+  if (p.causal) {
+    const long long x = p.kv_offset + k0 - p.q_offset;
+    it0 = x <= 0 ? 0 : static_cast<int>(x / BQ < nq ? x / BQ : nq);
+  }
+  const int per = nc + no;
+  const int items = (nq - it0) * per;
+  tf32_init_barriers<L::kStages>(full);
+
+  if (threadIdx.x >= kConsumers) {
+    auto load = [&](int j, uint8_t* st, uint64_t* bar) {
+      const int q0 = (it0 + j / per) * BQ, c = j % per;
+      if (c < nc) {
+        sm90::mbar_arrive_expect_tx(bar, 2 * kTfTile + 2 * BQ * 128);
+        sm90::tma_load_4d(st, &p.k, bar, 32 * c, k0, hh, bb);
+        sm90::tma_load_4d(st + 2 * kTfTile, &p.v, bar, 32 * c, k0, hh, bb);
+        sm90::tma_load_4d(st + 4 * kTfTile, &p.q, bar, 32 * c, q0, hh, bb);
+        sm90::tma_load_4d(st + 6 * kTfTile, &p.dout, bar, 32 * c, q0, hh,
+                          bb);
+      } else {
+        const int f = f0 + 32 * (c - nc);
+        sm90::mbar_arrive_expect_tx(bar, 2 * BQ * 128);
+        sm90::tma_load_4d(st, &p.q, bar, f, q0, hh, bb);
+        sm90::tma_load_4d(st + kTfTile, &p.dout, bar, f, q0, hh, bb);
+      }
+    };
+    auto convert = [&](int j, uint8_t* st, int ct) {
+      if (j % per < nc) {
+#pragma unroll 1
+        for (int t = 0; t < 8; t += 2)
+          tf32_split(st + t * kTfTile, st + (t + 1) * kTfTile,
+                     t < 4 ? 64 : BQ, ct);
+      } else {
+        tf32_split_t(st, st + 2 * kTfTile, st + 3 * kTfTile, BQ, ct);
+        tf32_split_t(st + kTfTile, st + 4 * kTfTile, st + 5 * kTfTile, BQ,
+                     ct);
+      }
+    };
+    tf32_producer<L>(items, full, ready, empty, smem, load, convert);
+  } else {
+    sm90::reg_alloc<kTfConsumerRegs>();
+    const int w = threadIdx.x / 128, lt = threadIdx.x % 128;
+    const int warp = lt / 32, g = (lt % 32) / 4, t = lt % 4;
+    const int key0 = k0 + 16 * warp + g;  // key rows key0 and key0 + 8
+    const long long bh = static_cast<long long>(bb) * p.h + hh;
+    const float sl2 = p.scale * kLog2e;
+    float acc[D / 32][16];  // dV (warpgroup 0) or dK (warpgroup 1)
 #pragma unroll
-        for (int i = 0; i < kSDkvBQ / 8; ++i) {
-          const int qc = c8 + 8 * i;
-          kq[i] = dot_row(k_s[r], q_s[qc], D, kq[i]);
-          vdo[i] = dot_row(v_s[r], do_s[qc], D, vdo[i]);
+    for (int o = 0; o < D / 32; ++o)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[o][i] = 0.f;
+    float a[BQ / 2], ca[BQ / 2];  // S^T (dP^T), then P^T (dS^T); a chunk's
+    float cacc[16];               // a chunk of P^T dO (dS^T Q)
+    float* xb = reinterpret_cast<float*>(smem + L::kX);
+
+    int j = 0;
+    auto wait_ready = [&](int jj) {
+      sm90::mbar_wait(&ready[jj % L::kStages], (jj / L::kStages) & 1);
+      return smem + (jj % L::kStages) * L::kStageBytes;
+    };
+    for (int it = it0; it < nq; ++it) {
+      const int q0 = it * BQ;
+      // lse (log2 units, warpgroup 0) or c (warpgroup 1) of this thread's
+      // query columns 8 jj + 2 t + e, read while the products run
+      float col[BQ / 4];
+#pragma unroll
+      for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int q = q0 + 8 * jj + 2 * t + e;
+          col[2 * jj + e] =
+              w == 0 ? safe_lse(p, bh, q) * kLog2e : row_c(p, bh, q);
+        }
+#pragma unroll
+      for (int x = 0; x < BQ / 2; ++x) a[x] = 0.f;
+      for (int c = 0; c < nc; ++c, ++j) {
+        const uint8_t* st = wait_ready(j);
+        const int x = 2 * w * kTfTile;  // K (warpgroup 0) or V, and Q or dO
+        sm90::wgmma_fence();
+        tf32_ss_chunk<BQ>(ca, st + x, st + x + kTfTile, st + 4 * kTfTile + x,
+                          st + 5 * kTfTile + x);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(ca);
+        sm90::mbar_arrive(&empty[j % L::kStages]);
+        tf32_add(a, ca);
+      }
+      const int ti = it - it0, xi = ti & 1;
+      float* xbuf = xb + xi * 64 * BQ;
+      if (w == 0) {
+        // P^T, masked only on tiles that straddle the diagonal or run past
+        // Sq (keys past Sk are never stored)
+        const bool masked =
+            q0 + BQ > p.sq ||
+            (p.causal && p.kv_offset + k0 + 63 > p.q_offset + q0);
+#pragma unroll
+        for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(a[4 * jj + e], sl2, -col[2 * jj + (e & 1)]);
+            if (masked) {
+              const int q = q0 + 8 * jj + 2 * t + (e & 1);
+              const int key = key0 + 8 * (e >> 1);
+              if (q >= p.sq ||
+                  (p.causal && p.kv_offset + key > p.q_offset + q))
+                x = -INFINITY;
+            }
+            a[4 * jj + e] = sm90::exp2_approx(x);
+          }
+        sm90::mbar_wait(&xempty[xi], ((ti >> 1) & 1) ^ 1);
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) xbuf[i * 128 + lt] = a[i];
+        sm90::mbar_arrive(&xfull[xi]);
+      } else {
+        sm90::mbar_wait(&xfull[xi], (ti >> 1) & 1);
+#pragma unroll
+        for (int jj = 0; jj < BQ / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * jj + e;
+            a[i] = xbuf[i * 128 + lt] * (a[i] - col[2 * jj + (e & 1)]);
+          }
+        sm90::mbar_arrive(&xempty[xi]);
+      }
+      uint32_t fh[BQ / 8][4], fl[BQ / 8][4];
+      tf32_frags(fh, fl, a);
+      // dV += P^T dO (warpgroup 0: dO^T, tiles 4, 5), dK += dS^T Q (1: Q^T,
+      // tiles 2, 3)
+      const int tb = (w == 0 ? 4 : 2) * kTfTile;
+#pragma unroll
+      for (int o = 0; o < D / 32; ++o) {
+        if (o < no) {
+          const uint8_t* st = wait_ready(j);
+          sm90::wgmma_fence();
+          tf32_rs<BQ / 8>(cacc, fh, fl, st + tb, st + tb + kTfTile);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(cacc);
+          sm90::mbar_arrive(&empty[j % L::kStages]);
+          tf32_add(acc[o], cacc);
+          ++j;
         }
       }
-      if (oc != nc - 1) {  // the chunk oc of Q and dO
-        __syncthreads();
-        stage_f32<kSDkvBQ, D>(q_s, qp, a.sqs, q0, a.sq, oc * D, a.d, tid);
-        stage_f32<kSDkvBQ, D>(do_s, dp_, a.sds, q0, a.sq, oc * D, a.d, tid);
-        __syncthreads();
-      }
-    } else {
-      __syncthreads();  // the previous tile's q_s/do_s reads are done
-      for (int e = tid; e < kSDkvBQ * D; e += kThreads) {
-        const int rr = e / D, d = e % D;
-        const bool in = q0 + rr < a.sq && d < a.d;
-        q_s[rr][d] = in ? qp[(q0 + rr) * a.sqs + d] : 0.f;
-        do_s[rr][d] = in ? dp_[(q0 + rr) * a.sds + d] : 0.f;
-      }
-      for (int rr = tid; rr < kSDkvBQ; rr += kThreads) {
-        lse_s[rr] = safe_lse(a, bh, q0 + rr);
-        c_s[rr] = row_c(a, bh, q0 + rr);
-      }
-      __syncthreads();
     }
+
+    // every key row below Sk, 0 where no live query reaches it
+    float* out = static_cast<float*>(w == 0 ? p.o2 : p.o1) +
+                 static_cast<long long>(bb) * (w == 0 ? p.s2b : p.s1b) +
+                 static_cast<long long>(hh) * (w == 0 ? p.s2h : p.s1h);
+    const long long rs = w == 0 ? p.s2s : p.s1s;
+    const float sc = w == 0 ? 1.f : p.scale;
 #pragma unroll
-    for (int i = 0; i < kSDkvBQ / 8; ++i) {
-      const int qc = c8 + 8 * i;
-      float s = (kChunked ? kq[i] : dot_row(k_s[r], q_s[qc], D)) * a.scale;
-      if (masked && pair_masked(a, q0 + qc, key)) s = -INFINITY;
-      const float p = expf(s - lse_s[qc]);
-      p_s[r][qc] = p;
-      ds_s[r][qc] =
-          p * ((kChunked ? vdo[i] : dot_row(v_s[r], do_s[qc], D)) - c_s[qc]);
-    }
-    __syncwarp();
-    for (int qc = 0; qc < kSDkvBQ; ++qc) {
-      const float p = p_s[r][qc], ds = ds_s[r][qc];
+    for (int o = 0; o < D / 32; ++o)
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        dv[j] = fmaf(p, do_s[qc][c8 + 8 * j], dv[j]);
-        dk[j] = fmaf(ds, q_s[qc][c8 + 8 * j], dk[j]);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int col = f0 + 32 * o + 8 * jj;
+        if (col >= p.d) continue;
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = key0 + 8 * hr;
+          const int i = 4 * jj + 2 * hr;
+          if (key < p.sk)
+            *reinterpret_cast<float2*>(out + key * rs + col + 2 * t) =
+                make_float2(acc[o][i] * sc, acc[o][i + 1] * sc);
+        }
       }
-    }
-    __syncwarp();  // p_s/ds_s are rewritten by the next tile
-  }
-  const int f0 = oc * D;  // this block's columns of dK and dV
-  if (key < a.sk) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      if (f0 + 8 * j >= a.d) continue;
-      dkp[key * a.s1s + f0 + c8 + 8 * j] = dk[j] * a.scale;
-      dvp[key * a.s2s + f0 + c8 + 8 * j] = dv[j];
-    }
   }
 }
 
@@ -2222,29 +2600,71 @@ int launch_dkv_split(const Args& a, int b, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kChunked>
-int launch_dq_f32(const Args& a, int b, cudaStream_t st) {
-  constexpr int bytes = F32DqSmem<D>::kBytes;
+// The f32 kernels' parameters: tensor maps of Q and dO in boxes of `bq`
+// rows, of K and V in boxes of 64, 32 features a box.
+int tf32_params(Tf32Params& p, const Args& a, int b, int bq) {
+  int err = sm90::encode_f32_tile(&p.q, a.q, a.d, a.sq, a.h, b, a.sqs,
+                                  a.sqh, a.sqb, bq);
+  if (!err)
+    err = sm90::encode_f32_tile(&p.dout, a.dout, a.d, a.sq, a.h, b, a.sds,
+                                a.sdh, a.sdb, bq);
+  if (!err)
+    err = sm90::encode_f32_tile(&p.k, a.k, a.d, a.sk, a.h, b, a.sks, a.skh,
+                                a.skb, 64);
+  if (!err)
+    err = sm90::encode_f32_tile(&p.v, a.v, a.d, a.sk, a.h, b, a.svs, a.svh,
+                                a.svb, 64);
+  if (err) return err;
+  p.lse = a.lse;
+  p.c = a.c;
+  p.o1 = a.o1;
+  p.o2 = a.o2;
+  p.s1b = a.s1b;
+  p.s1h = a.s1h;
+  p.s1s = a.s1s;
+  p.s2b = a.s2b;
+  p.s2h = a.s2h;
+  p.s2s = a.s2s;
+  p.h = a.h;
+  p.sq = a.sq;
+  p.sk = a.sk;
+  p.d = a.d;
+  p.causal = a.causal;
+  p.q_offset = a.q_offset;
+  p.kv_offset = a.kv_offset;
+  p.scale = a.scale;
+  return 0;
+}
+
+template <int D>
+int launch_dq_tf32(const Args& a, int b, cudaStream_t st) {
+  Tf32Params p;
+  const int err = tf32_params(p, a, b, 64);
+  if (err) return err;
+  constexpr int bytes = TfDqSmem::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_f32_kernel<D, kChunked>,
+      flash_bwd_dq_tf32_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = kChunked ? (a.d + D - 1) / D : 1;
-  dim3 grid((a.sq + kSRows - 1) / kSRows * nc, a.h, b);
-  flash_bwd_dq_f32_kernel<D, kChunked><<<grid, kThreads, bytes, st>>>(a);
+  const int nco = (a.d + D - 1) / D;
+  dim3 grid((a.sq + 63) / 64 * nco, a.h, b);
+  flash_bwd_dq_tf32_kernel<D><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kChunked>
-int launch_dkv_f32(const Args& a, int b, cudaStream_t st) {
-  constexpr int bytes = F32DkvSmem<D>::kBytes;
+template <int D, int BQ>
+int launch_dkv_tf32(const Args& a, int b, cudaStream_t st) {
+  Tf32Params p;
+  const int err = tf32_params(p, a, b, BQ);
+  if (err) return err;
+  constexpr int bytes = TfDkvSmem<BQ>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_f32_kernel<D, kChunked>,
+      flash_bwd_dkv_tf32_kernel<D, BQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = kChunked ? (a.d + D - 1) / D : 1;
-  dim3 grid((a.sk + kSRows - 1) / kSRows * nc, a.h, b);
-  flash_bwd_dkv_f32_kernel<D, kChunked><<<grid, kThreads, bytes, st>>>(a);
+  const int nco = (a.d + D - 1) / D;
+  dim3 grid((a.sk + 63) / 64 * nco, a.h, b);
+  flash_bwd_dkv_tf32_kernel<D, BQ><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2271,19 +2691,17 @@ int launch_dkv16(const Args& a, int b, cudaStream_t st) {
 int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {
   if (dtype == 1) return launch_dq16<sm90::Bf16>(a, b, st);
   if (dtype == 2) return launch_dq16<sm90::F16>(a, b, st);
-  if (a.d <= 64) return launch_dq_f32<64, false>(a, b, st);
-  if (a.d <= 128) return launch_dq_f32<128, false>(a, b, st);
-  if (a.d <= 256) return launch_dq_f32<256, false>(a, b, st);
-  return launch_dq_f32<256, true>(a, b, st);
+  if (a.d <= 64) return launch_dq_tf32<64>(a, b, st);
+  if (a.d <= 128) return launch_dq_tf32<128>(a, b, st);
+  return launch_dq_tf32<256>(a, b, st);  // chunks of 256 past it
 }
 
 int launch_dkv(const Args& a, int b, int dtype, cudaStream_t st) {
   if (dtype == 1) return launch_dkv16<sm90::Bf16>(a, b, st);
   if (dtype == 2) return launch_dkv16<sm90::F16>(a, b, st);
-  if (a.d <= 64) return launch_dkv_f32<64, false>(a, b, st);
-  if (a.d <= 128) return launch_dkv_f32<128, false>(a, b, st);
-  if (a.d <= 256) return launch_dkv_f32<256, false>(a, b, st);
-  return launch_dkv_f32<256, true>(a, b, st);
+  if (a.d <= 64) return launch_dkv_tf32<64, 64>(a, b, st);
+  if (a.d <= 128) return launch_dkv_tf32<128, 64>(a, b, st);
+  return launch_dkv_tf32<256, 32>(a, b, st);  // chunks of 256 past it
 }
 
 int make_args(Args& a, const void* q, const void* k, const void* v,

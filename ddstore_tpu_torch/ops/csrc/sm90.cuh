@@ -1,11 +1,13 @@
 // Raw-PTX building blocks for Hopper (sm_90a) kernels, shared by
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, 128-byte
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
-// kernels use (bf16 or fp16 in, f32 accumulate), setmaxnreg, named
-// barriers and the proxy fence for operands written by threads, the mma.sync
-// and ldmatrix pieces of the backward kernels past head dim 256, the element
-// types Bf16 and F16, and on the host the tensor-map encoder. No
-// CuTe/CUTLASS: each source builds in seconds.
+// kernels use (bf16 or fp16 in, f32 accumulate; and tf32 in for the f32
+// backward kernels, with the rounding to tf32), setmaxnreg, named barriers
+// and the proxy fence for operands written by threads, the mma.sync and
+// ldmatrix pieces of the backward kernels past head dim 256, the element
+// types Bf16 and F16, and on the host the tensor-map encoders (16-bit rows,
+// f32 tiles, thin f32 rows). No CuTe/CUTLASS: each source builds in
+// seconds.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 16-bit elements (128 bytes), the 16-byte chunks of
@@ -565,6 +567,90 @@ struct Wgmma<256, E> {
 };
 
 // ---------------------------------------------------------------------------
+// TF32 (the f32 backward kernels' three-product split)
+
+// x rounded to TF32 (10 explicit mantissa bits, round to nearest, ties away
+// from zero), as an f32 whose 13 low mantissa bits are zero: what the
+// tensor core reads of it, exactly.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// Byte offset of the f32 element (r, c) in a tile of rows of 32 floats
+// laid out as a TMA load with the 128-byte swizzle writes them (the
+// 16-byte chunks of row r XORed with r % 8), from a 1024-byte aligned base.
+__device__ __forceinline__ uint32_t sw128_f32_offset(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+}
+
+// wgmma.mma_async m64nNk8, tf32 in, f32 accumulate, over one warpgroup. tf32
+// has no transpose flags: both operands are K-major, in rows of 32 floats
+// (128 bytes, the 128-byte swizzle), so a k8 step is +32 bytes on the start
+// address as a k16 step of a 16-bit tile is (desc_k). d as in Wgmma.
+// * ss: a and b from shared memory (N = 32 and 64);
+// * rs: a from registers, each warp's 16 rows as the m16n8k8 .tf32 A
+//   fragment: {row g, k t}, {g + 8, t}, {g, t + 4}, {g + 8, t + 4}, for
+//   g = lane / 4, t = lane % 4 (N = 32).
+template <int N>
+struct Tf32;
+
+template <>
+struct Tf32<32> {
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d));
+  }
+};
+
+template <>
+struct Tf32<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+// ---------------------------------------------------------------------------
 // host
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -641,6 +727,32 @@ inline int encode_f32_rows(CUtensorMap* map, const void* base, int n,
       fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base),
          dims, strides, boxd, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
          CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
+}
+
+// A (B, H, S, d) f32 operand with element strides (sb, sh, ss) and unit
+// feature stride, read in boxes of 32 features (128 bytes) x `rows` rows
+// with the 128-byte swizzle (the 3xTF32 backward kernels); features past d
+// and rows past S are zero-filled. Returns 0 or an error code as above.
+inline int encode_f32_tile(CUtensorMap* map, const void* base, int d, int s,
+                           int h, int b, long long ss, long long sh,
+                           long long sb, int rows) {
+  const EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(s > 0 ? s : 1),
+                              static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 4,
+                                 static_cast<cuuint64_t>(sh) * 4,
+                                 static_cast<cuuint64_t>(sb) * 4};
+  const cuuint32_t box[4] = {32, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode + static_cast<int>(r);
 }

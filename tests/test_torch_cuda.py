@@ -130,7 +130,27 @@ def _rows_close(got, want, dead, rel):
                             for d in (20, 136, 160, 200, 248)]
                          + [(200, 200, d, True, 0, 0) for d in WIDE_DIMS]
                          + [(256, 256, d, True, 192, 64) for d in WIDE_DIMS]
-                         + [(72, 136, d, False, 0, 0) for d in (300, 512)])
+                         + [(72, 136, d, False, 0, 0) for d in (300, 512)]
+                         # the f32 kernels' TF32 tiles (64 queries a dq
+                         # block whose warpgroups split each 64-key tile,
+                         # 64 keys a dk/dv block, query tiles of 64 (32
+                         # past 128), features in chunks of 32, dQ, dK and
+                         # dV in blocks of 256 columns): a ragged last key
+                         # tile whose second warpgroup's 32 keys all lie
+                         # past Sk, and ragged query tiles of 8 rows
+                         + [(200, 72, d, True, 0, 0) for d in (8, 72)]
+                         # a dq block whose second warpgroup's keys are all
+                         # past Sk in every tile (Sk 24), non-causal
+                         + [(136, 24, d, False, 0, 0) for d in (72, 136)]
+                         # offsets: the causal frontier inside a 64-key
+                         # tile of both kernels
+                         + [(256, 256, d, True, 192, 64) for d in (72, 264)]
+                         # fully-masked rows (kv_offset ahead by 40: the
+                         # first 40 queries see no key) and keys no query
+                         # sees, over a partial last feature chunk (72)
+                         # and a second block of dQ's columns (264)
+                         + [(128, 128, d, True, 0, 40)
+                            for d in (8, 72, 136, 264)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -166,14 +186,19 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
 
 
 @pytest.mark.parametrize("kernel", ["dq", "dkv"])
-@pytest.mark.parametrize("d", [64, 128, 32, 136, 160, 200, 248, 256, 512])
-def test_dkv_kernel_is_deterministic(cuda, d, kernel):
+@pytest.mark.parametrize("d,dtype", [
+    (d, torch.bfloat16) for d in (64, 128, 32, 136, 160, 200, 248, 256,
+                                  512)] + [
+    # f32: the dq block's two warpgroups each sum their keys' share of dQ,
+    # warpgroup 0 adding warpgroup 1's in a fixed order
+    (d, torch.float32) for d in (64, 128, 256, 512)])
+def test_dkv_kernel_is_deterministic(cuda, d, dtype, kernel):
     # Each dq row (dq kernel) and each dk/dv row (dk/dv kernel) is written
     # by one block, with no atomics: two launches on the same inputs give
     # the same bits.
     g = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do = (torch.randn((2, 3, 328, d), generator=g, device=cuda)
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     kw = dict(causal=True, q_offset=0, kv_offset=0, scale=d ** -0.5)
     with torch.no_grad():
         out, lse = attention.flash_attention(q, k, v, causal=True)
