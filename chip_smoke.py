@@ -353,10 +353,10 @@ from ddstore_tpu_torch.weights import to_flax
 # a kernel is max(bytes / memory rate, operations / peak rate).
 PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
-# fp16 runs on the tensor cores at the bf16 rate; f32 on the CUDA cores
-# (the f32 forward; the guide's table: 67 TFLOP/s outside the tensor
-# cores), or on the tensor cores as TF32 (the f32 dq and dk/dv: three TF32
-# products an f32 product, tf32_bound)
+# fp16 runs on the tensor cores at the bf16 rate; f32 on the tensor cores
+# as TF32 (all three f32 kernels: three TF32 products an f32 product,
+# tf32_bound), with the CUDA cores' bound beside it (the guide's table: 67
+# TFLOP/s outside the tensor cores)
 PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
               "float32": 67e12, "tf32": 495e12}
 
@@ -573,7 +573,7 @@ FW_TIMED = ((torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
             (torch.float32, 64), (torch.float32, 128), (torch.float32, 256),
             (torch.bfloat16, 512), (torch.float16, 512),
             (torch.float32, 512))
-# launches a timing round (the f32 forward runs on the CUDA cores)
+# launches a timing round (the f32 kernels take several ms a launch)
 FW_ITERS = {"bfloat16": 20, "float16": 20, "float32": 10}
 FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2),
           ("f32", torch.float32, HEADS))
@@ -701,7 +701,7 @@ def bound_of(flops, nbytes, dname="bfloat16"):
 
 
 def tf32_bound(flops, nbytes):
-    """The f32 dq and dk/dv kernels' bound: each f32 product three TF32
+    """The f32 kernels' bound: each f32 product three TF32
     products on the tensor cores (bound_of at 495 TFLOP/s)."""
     return bound_of(3 * flops, nbytes, "tf32")
 
@@ -5126,6 +5126,8 @@ def head_dim_timing(g, dev, d, dt=torch.bfloat16, iters=20):
         "sdpa_backward": (lambda: torch.autograd.grad(
             sd_out, (ql, kl, vl), do, retain_graph=True), iters),
     }
+    if dname == "float32":  # the forward's split pass alone
+        fns["split"] = (lambda: attention._tf32_planes(q, k, v), iters)
     t = {n: [] for n in fns}
     for order in (list(fns), list(fns)[::-1]):
         for n in order:
@@ -5142,10 +5144,12 @@ def head_dim_timing(g, dev, d, dt=torch.bfloat16, iters=20):
                                        True, 0, 0, kind)
         bound, bound_by = bound_of(flops, nbytes, dname)
         extra = {}
-        if dname == "float32" and kind != "fwd":
+        if dname == "float32":
             # on the tensor cores; the CUDA cores' bound beside it
             extra["cuda_core_bound_ms"] = bound
             bound, bound_by = tf32_bound(flops, nbytes)
+            if kind == "fwd":
+                extra["split_ms"] = ms["split"]
         checked = [errs[w] for w in {"fwd": ("out",), "dq": ("dq",),
                                      "dkv": ("dk", "dv")}[kind]]
         res[kern] = {"shape": [b, h, s, d], "ms": ms[kind],
@@ -5474,15 +5478,16 @@ def phase_fp16_wide(dev, seed, card):
 
 def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
-    TMA + wgmma for 16 bits up to 256 and for the forward past it,
-    mma.sync for dq and dk/dv past 256 (all in chunks of 256 past 256);
-    in f32 TMA + wgmma in three TF32 products for dq (its dP on the CUDA
-    cores) and dk/dv, the CUDA cores for the forward."""
+    TMA + wgmma for 16 bits up to 256 and for the forward and dk/dv past
+    it, mma.sync for dq past 256 (all in chunks of 256 past 256); in f32
+    TMA + wgmma in three TF32 products for all three, dq's dP on the CUDA
+    cores, the forward's operands split once a call by a pass of their
+    own."""
     if dname == "float32":
-        design = {"flash_fwd": "cuda cores",
+        design = {"flash_fwd": "wgmma+tma, 3xtf32, split pass",
                   "flash_bwd_dq": "wgmma+tma, 3xtf32, dP on the cuda cores",
                   "flash_bwd_dkv": "wgmma+tma, 3xtf32"}[name]
-    elif d <= 256 or name == "flash_fwd":
+    elif d <= 256 or name != "flash_bwd_dq":
         design = "wgmma+tma"
     else:
         design = "mma.sync"
@@ -5526,8 +5531,8 @@ def fp16_wide_rows(fw, hd):
                 "shape": r["shape"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"],
-                **({"cuda_core_bound_ms": r["cuda_core_bound_ms"]}
-                   if "cuda_core_bound_ms" in r else {}),
+                **{x: r[x] for x in ("cuda_core_bound_ms", "split_ms")
+                   if x in r},
                 # the backward of one SDPA call gives dq, dk and dv:
                 # sdpa_backward_ms
                 "library_ms": r["library_ms"],
@@ -5674,7 +5679,7 @@ for dname, d in json.loads(sys.argv[3]):
     r = cs.head_dim_timing(g, dev, d, getattr(torch, dname))
     out[f"{dname} {d}"] = {
         **{k: {x: v[x] for x in ("ms", "plain_ms", "bound_ms",
-                                 "library_ms")}
+                                 "library_ms", "split_ms") if x in v}
            for k, v in r.items() if isinstance(v, dict)},
         "sdpa_backward_ms": r["sdpa_backward_ms"]}
 store, ds = cs.make_store(int(sys.argv[2]))
@@ -5735,12 +5740,17 @@ def kernel_ab(parent, seed):
                    for tag in ("parent", "change")}
             row.update(bound_ms=r["bound_ms"], library_ms=r["library_ms"],
                        plain_ms=r["plain_ms"])
+            if "split_ms" in r:  # the change's split pass alone
+                row["split_ms"] = [x[shape][kern]["split_ms"]
+                                   for t, x in runs if t == "change"]
             table[f"{kern} {shape}"] = row
             print(f"kernel A/B {kern} at {shape} (8, 2048, H = {DIM} // d) "
                   f"causal: parent ms {row['parent']} change ms "
                   f"{row['change']} bound_ms={r['bound_ms']:.4f} "
                   f"plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']}", flush=True)
+                  f"library_ms={r['library_ms']}"
+                  + (f" split_ms {row['split_ms']}" if "split_ms" in row
+                     else ""), flush=True)
         print(f"kernel A/B sdpa backward at {shape}: " + ", ".join(
             f"{t} {x[shape]['sdpa_backward_ms']:.4f}" for t, x in runs),
               flush=True)

@@ -13,11 +13,12 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   dtype where the kernels do.
 * :func:`flash_attention` is differentiable. On a CUDA tensor its forward
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
-  of ``csrc/flash_bwd.cu`` (in bf16 and fp16 all three kernels stream
-  their tiles by TMA and multiply with wgmma, ``csrc/sm90.cuh``, up to
-  head dim 256, and the forward past it too, in chunks of 256 features;
-  dq and dk/dv run on mma.sync in chunks of 256 past 256); on a CPU
-  tensor both run the plain versions, so the CPU tests
+  of ``csrc/flash_bwd.cu`` (all three kernels stream their tiles by TMA
+  and multiply with wgmma, ``csrc/sm90.cuh``, in chunks of 256 features
+  past head dim 256, but for the 16-bit dq there, which runs on mma.sync;
+  in f32 each product runs as three TF32 products, and the forward's
+  operands are split into them once a call by a pass of their own); on a
+  CPU tensor both run the plain versions, so the CPU tests
   exercise the backward arithmetic the card runs. On the card it launches
   the kernels or raises; it never falls back to the plain version there.
   The kernels take every head dim from 1 up (:func:`_kernel_width`), in
@@ -51,7 +52,7 @@ flash_bwd_dkv_launches = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the kernels' tile widths: TMA + wgmma at 64, 128 and 256, and the f32
 #: kernels' widths; past 256 the head dim is taken in chunks of the widest
-#: (TMA + wgmma for the forward, mma.sync for dq and dk/dv)
+#: (TMA + wgmma for the forward and dk/dv, mma.sync for the 16-bit dq)
 _TILE_WIDTHS = (64, 128, 256)
 
 
@@ -225,7 +226,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     rows by 64 keys at widths 64 and 128, and 64 by 64 at 256; dk/dv 128
     keys by 64 queries at width 64, by 32 at 128, and 64 keys by 64
     queries at 256; in each chunk past 256 dq 64 by 32, dk/dv 64 keys by
-    32 queries; in f32: forward 16 by 32, backward 16 by 32 or 16) and
+    64 queries; in f32: forward 128 query rows by 64 keys, 32 past head
+    dim 128, dq 64 by 64, dk/dv 64 keys by 64 queries, 32 past 128) and
     mask the ragged last tiles themselves. On the card they take bf16, fp16 or f32 with any head dim
     from 1 up (:func:`_kernel_width`); ``scale`` defaults to ``1/sqrt(d)``
     of the true head dim.
@@ -291,9 +293,13 @@ def _load_fwd() -> ctypes.CDLL:
     lib = _build.load("flash_fwd")
     if lib.flash_fwd.argtypes is None:
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.flash_fwd.argtypes = ([p] * 5 + [i64] * 12 + [i32] * 7
-                                  + [i64, i64, ctypes.c_float, p])
-        lib.flash_fwd.restype = i32
+        args = ([p] * 6 + [ctypes.POINTER(i64)] + [i32] * 7
+                + [i64, i64, ctypes.c_float, p])
+        for fn in (lib.flash_fwd, lib.flash_fwd_split):
+            fn.argtypes = args
+            fn.restype = i32
+        lib.flash_fwd_scratch_floats.argtypes = [i32] * 5
+        lib.flash_fwd_scratch_floats.restype = i64
         lib.flash_fwd_error_string.argtypes = [i32]
         lib.flash_fwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -306,29 +312,55 @@ def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if d == width else torch.nn.functional.pad(t, (0, width - d))
 
 
+def _fwd_launch(name, q, k, v, scratch, out=None, lse=None, causal=False,
+                q_offset=0, kv_offset=0, scale=1.0):
+    """One launch of ``name`` on the current stream: ``flash_fwd`` writes
+    ``out`` and ``lse``; ``flash_fwd_split`` reads q, k, v alone (and
+    writes ``scratch``). Raises on a CUDA error."""
+    b, h, sq, d = q.shape
+    lib = _load_fwd()
+    strides = [s for t in (q, k, v, out)
+               for s in (t.stride()[:3] if t is not None else (0, 0, 0))]
+    ptrs = [None if t is None else t.data_ptr()
+            for t in (q, k, v, out, lse, scratch)]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, name)(
+            *ptrs, (ctypes.c_longlong * len(strides))(*strides), b, h, sq,
+            k.shape[2], d, _DTYPE_CODES[q.dtype], int(bool(causal)),
+            int(q_offset), int(kv_offset), float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
+                           f"({lib.flash_fwd_error_string(err).decode()})")
+
+
+def _tf32_planes(q, k, v):
+    """The f32 forward's split pass (``flash_fwd_split``, on the current
+    stream) over q, k, v as :func:`_flash_fwd_cuda` hands them to the
+    kernel: returns the scratch it wrote, hi and lo planes of Q, K and V
+    transposed (``csrc/flash_fwd.cu``), which the forward then reads."""
+    b, h, sq, d = q.shape
+    floats = _load_fwd().flash_fwd_scratch_floats(b, h, sq, k.shape[2], d)
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+    _fwd_launch("flash_fwd_split", q, k, v, scratch)
+    return scratch
+
+
 def _flash_fwd_cuda(q, k, v, causal, q_offset, kv_offset, scale):
+    """(out, lse) by the forward kernel (one launch; in f32 after the split
+    pass, both counted as one launch of the forward)."""
     global flash_fwd_launches
     width = _check_cuda_inputs("flash_attention", q, k, v)
     b, h, sq, d = q.shape
-    sk = k.shape[2]
     q, k, v = (_aligned(_padded(t, width)) for t in (q, k, v))
     # out is laid out (B, S, H, D) and returned as its (B, H, S, D) view,
     # so that merging the heads back is free.
     out = torch.empty((b, sq, h, width), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    lib = _load_fwd()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], b, h, sq, sk, width,
-            _DTYPE_CODES[q.dtype], int(bool(causal)), int(q_offset),
-            int(kv_offset), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err} "
-                           f"({lib.flash_fwd_error_string(err).decode()})")
+    scratch = _tf32_planes(q, k, v) if q.dtype == torch.float32 else None
+    _fwd_launch("flash_fwd", q, k, v, scratch, out, lse, causal, q_offset,
+                kv_offset, scale)
     flash_fwd_launches += 1
     return out[..., :d], lse
 

@@ -37,8 +37,8 @@
 // of the TMA + wgmma kernels, whose tensor maps declare the true d so that
 // TMA zero-fills the tiles' columns past it (zero columns of Q, K, V and
 // dO leave S and dP as they are, and give zero columns of dQ, dK and dV,
-// which the stores skip), and past d = 256 simpler kernels on mma.sync
-// (below) in chunks of 256. The f32 kernels (3xTF32, below) take the
+// which the stores skip), and past d = 256 chunks of 256: dk/dv on TMA +
+// wgmma, dq on mma.sync (below). The f32 kernels (3xTF32, below) take the
 // features in chunks of 32 and own dQ, dK and dV in blocks of 64, 128 or
 // 256 columns (256 past it). Shared memory and registers are sized by the
 // tile or chunk, never by d.
@@ -123,21 +123,31 @@
 //   and dP of tile i + 1 and hands the stage back as soon as it is done.
 //   Left out: as in the split dk/dv kernel, overlap of the dS forming with
 //   the products (one named barrier a tile), persistent blocks.
-// * bf16 and fp16 dq and dk/dv at d > 256: right rather than fast, on
-//   mma.sync m16n8k16 with plain 16-byte loads into padded shared rows
-//   (columns past d zero) and ldmatrix.trans for the operands whose
-//   contracted dim runs down their rows, the features in nc = ceil(d /
-//   256) chunks. dq: one block of 4 warps per 64 queries (16 a warp) and
-//   chunk of dQ, 32-key K and V tiles; dQ's 128 accumulators a thread for
-//   16 rows x 256 features fit beside S and dP of a 32-key tile. dk/dv:
-//   each block owns 64 keys and one of ceil(d / 128) parts (128 features)
-//   of dK and dV (a grid axis folded into the tile axis). For each
-//   streamed tile a block stages the chunks of both operands in turn into
-//   the same shared rows and sums S and dP (S^T and dP^T) over them, then
-//   takes the chunk its output needs (staged again unless it was the
-//   last). Every block forms the same S in the same order, so P is the
-//   same in each; the outputs stay disjoint, so the gradients stay
-//   bit-deterministic.
+// * bf16 and fp16 dk/dv at d > 256 (flash_bwd_dkv_chunked_kernel): the
+//   split dk/dv kernel in nc = ceil(d / 256) chunks. One block per (64
+//   keys, chunk oc of dK's and dV's columns); nothing is resident: for
+//   each 64-query tile one producer thread streams the (K_c, Q_c) and
+//   (V_c, dO_c) pairs of every chunk through three 64 KB slots, chunk oc
+//   last, whose two slots stay held for dV += P^T dO_oc and dK += dS^T
+//   Q_oc. S^T and dP^T are summed over the chunks (each warpgroup 32
+//   queries), P^T and dS^T formed once and exchanged as in the split
+//   kernel. A block forms S^T and dP^T over all d and dV, dK over its 256
+//   columns: at d 512, 3072 feature-products a (key, query) pair against
+//   the minimal 2048. Left out: a cluster of the chunks' blocks sharing
+//   P^T and dS^T, overlap of a pair's products with the next pair's wait,
+//   persistent blocks.
+// * bf16 and fp16 dq at d > 256: right rather than fast, on mma.sync
+//   m16n8k16 with plain 16-byte loads into padded shared rows (columns
+//   past d zero) and ldmatrix.trans for K, whose contracted dim runs down
+//   its rows, the features in nc = ceil(d / 256) chunks: one block of 4
+//   warps per 64 queries (16 a warp) and chunk of dQ, 32-key K and V
+//   tiles; dQ's 128 accumulators a thread for 16 rows x 256 features fit
+//   beside S and dP of a 32-key tile. For each key tile a block stages the
+//   chunks of both operands in turn into the same shared rows and sums S
+//   and dP over them, then takes K's chunk its output needs (staged again
+//   unless it was the last). Every block forms the same S in the same
+//   order, so P is the same in each; the outputs stay disjoint, so the
+//   gradients stay bit-deterministic.
 // * f32 (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel, below): the
 //   tensor cores take f32 products as TF32 (10 mantissa bits, about 5e-4 a
 //   product, which misses f32's 1e-4 a row), so each f32 product a b runs
@@ -826,17 +836,173 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 // are double-buffered, so one barrier a tile keeps a warpgroup from
 // overwriting what the other still reads: the buffer of tile i was last
 // read by dV and dK of tile i - 2, which both warpgroups waited for before
-// they reached the barrier of tile i - 1.
+// they reached the barrier of tile i - 1. Past d = 256 the same block, in
+// chunks of 256 features (flash_bwd_dkv_chunked_kernel, below), shares
+// the pieces that follow.
 constexpr int kSplitBN = 64;  // keys per block
 constexpr int kSplitBQ = 64;  // queries per streamed tile
 constexpr int kSplitStages = 2;
+constexpr int kSplitBox = 64 * 128;  // 64 rows x 64 16-bit features
+
+// P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T - c) of the
+// query tile from q0, in place; the query is the column. lse -inf (a
+// fully-masked row) is taken as 1e30; rows past Sq read TMA's zero fill and
+// are masked, as are keys past Sk and (on the diagonal) future keys. r0 is
+// this thread's first key row within the block of keys from k0, qb its
+// first query within the tile (queries qb + 8 j and qb + 8 j + 1 of the
+// accumulators); lse_s and c_s the tile's slices.
+__device__ __forceinline__ void split_grads(const DkvParams& p,
+                                            float (&st)[16],
+                                            float (&dpt)[16],
+                                            const float* lse_s,
+                                            const float* c_s, int q0,
+                                            int k0, int r0, int qb,
+                                            float sl2) {
+  bool live = true, diag = false;
+  if (p.causal)
+    causal_liveness<kSplitBQ, kSplitBN>(p.q_offset + q0, p.kv_offset + k0,
+                                        live, diag);
+  const bool masked = diag || q0 + kSplitBQ > p.sq || k0 + kSplitBN > p.sk;
+  // In a masked tile, relative to this thread's first key and query: keys
+  // at or past Sk, queries at or past Sq, and (causal) keys in the query's
+  // future, kv_offset + key > q_offset + row, i.e. key - row above `ahead`
+  // (the offsets' gap at the thread's first pair, clamped to an int: -31
+  // <= key - row <= 8 here; without causal it is above every key - row).
+  int key_end = 0, row_end = 0, ahead = 0;
+  if (masked) {
+    key_end = p.sk - k0 - r0;
+    row_end = p.sq - q0 - qb;
+    const long long gap = p.causal ? p.q_offset - p.kv_offset + q0 + qb -
+                                         k0 - r0
+                                   : 1ll << 40;
+    ahead = static_cast<int>(gap > (1 << 30)    ? (1 << 30)
+                             : gap < -(1 << 30) ? -(1 << 30)
+                                                : gap);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int qc = qb + 8 * j;  // query within the tile
+    const float2 l = *reinterpret_cast<const float2*>(lse_s + qc);
+    const float2 c = *reinterpret_cast<const float2*>(c_s + qc);
+    const float l2[2] = {(l.x == -INFINITY ? kSafeLse : l.x) * kLog2e,
+                         (l.y == -INFINITY ? kSafeLse : l.y) * kLog2e};
+    const float cc[2] = {c.x, c.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(st[4 * j + e], sl2, -l2[e & 1]);
+      if (masked) {
+        const int key = 8 * (e >> 1);     // past this thread's first
+        const int row = 8 * j + (e & 1);  // key and query
+        if (key >= key_end || row >= row_end || key - row > ahead)
+          x = -INFINITY;
+      }
+      const float pr = sm90::exp2_approx(x);
+      st[4 * j + e] = pr;
+      dpt[4 * j + e] = pr * (dpt[4 * j + e] - cc[e & 1]);
+    }
+  }
+}
+
+// This warpgroup's queries of P^T and dS^T, rounded to E, into the buffer
+// at ps (P^T, then dS^T one box further); then the barrier after which
+// both warpgroups' halves are there for the async proxy.
+template <class E>
+__device__ __forceinline__ void split_store_pds(uint8_t* ps,
+                                                const float (&st)[16],
+                                                const float (&dpt)[16],
+                                                int r0, int qb) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // rows r0 and r0 + 8 (8 rows = 1024 bytes further, the same swizzle)
+    uint8_t* at = ps + sm90::sw128_offset(r0, qb + 8 * j);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      *reinterpret_cast<uint32_t*>(at + hr * 1024) =
+          sm90::pack<E>(st[4 * j + 2 * hr], st[4 * j + 2 * hr + 1]);
+      *reinterpret_cast<uint32_t*>(at + kSplitBox + hr * 1024) =
+          sm90::pack<E>(dpt[4 * j + 2 * hr], dpt[4 * j + 2 * hr + 1]);
+    }
+  }
+  sm90::fence_proxy_async();
+  sm90::bar_sync(1, kConsumers);
+}
+
+// dV += P^T dO and dK += dS^T Q over this warpgroup's 128 features: P^T
+// and dS^T K-major from the buffer at ps, dO and Q MN-major (their queries
+// run down the rows) from the streamed tiles, qs and dos at the
+// warpgroup's first feature box (issued and committed, not waited).
+template <class E>
+__device__ __forceinline__ void split_issue_dkv(float (&dv)[64],
+                                                float (&dk)[64],
+                                                const uint8_t* ps,
+                                                const uint8_t* qs,
+                                                const uint8_t* dos) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kSplitBQ / 16; ++kk) {
+    sm90::Wgmma<128, E>::ss_mn(dv, sm90::desc_k(ps + kk * 32),
+                               sm90::desc_mn(dos + kk * 16 * 128, kSplitBox),
+                               1);
+    sm90::Wgmma<128, E>::ss_mn(dk, sm90::desc_k(ps + kSplitBox + kk * 32),
+                               sm90::desc_mn(qs + kk * 16 * 128, kSplitBox),
+                               1);
+  }
+  sm90::wgmma_commit();
+}
+
+// Rows `row` and row + 8 of dK and dV (every key row below Sk: 0 where no
+// query sees it), this thread's columns of the warpgroup's 128 from f0.
+template <class E>
+__device__ __forceinline__ void split_store_rows(const DkvParams& p,
+                                                 const float (&dk)[64],
+                                                 const float (&dv)[64],
+                                                 int bb, int hh, int row,
+                                                 int f0) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr, row += 8) {
+    if (row >= p.sk) continue;
+    typename E::T* dkp = static_cast<typename E::T*>(p.dk) +
+                         static_cast<long long>(bb) * p.s1b +
+                         static_cast<long long>(hh) * p.s1h +
+                         static_cast<long long>(row) * p.s1s;
+    typename E::T* dvp = static_cast<typename E::T*>(p.dv) +
+                         static_cast<long long>(bb) * p.s2b +
+                         static_cast<long long>(hh) * p.s2h +
+                         static_cast<long long>(row) * p.s2s;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = f0 + 8 * j;
+      if (col >= p.d) continue;
+      *reinterpret_cast<typename E::T2*>(dkp + col + 2 * t) =
+          E::pack2(dk[4 * j + 2 * hr] * p.scale,
+                   dk[4 * j + 2 * hr + 1] * p.scale);
+      *reinterpret_cast<typename E::T2*>(dvp + col + 2 * t) =
+          E::pack2(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+    }
+  }
+}
+
+// The query tiles [it0, it0 + n) of kSplitBQ that can see the block's keys
+// from k0: the last query q_offset + q0 + BQ - 1 of tile it0 reaches the
+// block's first key. Both warpgroups run every tile from there.
+__device__ __forceinline__ void split_query_tiles(const DkvParams& p, int k0,
+                                                  int& it0, int& n) {
+  it0 = 0;
+  if (p.causal) {
+    const long long x = p.kv_offset + k0 - p.q_offset;
+    it0 = x <= 0 ? 0 : static_cast<int>(x / kSplitBQ);
+  }
+  const int nq = (p.sq + kSplitBQ - 1) / kSplitBQ;
+  n = nq > it0 ? nq - it0 : 0;
+}
 
 // Shared memory, from a 1024-byte aligned base: K, V, then per stage Q and
 // dO, then two buffers of P^T and dS^T, then per stage lse and c, then the
 // barriers. A tile of 64 rows x 256 features is four boxes of 64 rows x 128
 // bytes; P^T and dS^T (64 keys x 64 queries) one box each.
 struct DkvSplitSmem {
-  static constexpr int kBox = 64 * 128;
+  static constexpr int kBox = kSplitBox;
   static constexpr int kTile = 4 * kBox;
   static constexpr int kK = 0;
   static constexpr int kV = kTile;
@@ -863,19 +1029,6 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   const int hh = blockIdx.x, bb = blockIdx.y;
   const int k0 = blockIdx.z * kSplitBN;  // low key tiles, the heaviest, first
   const int tid = threadIdx.x;
-  // The query tiles [it0, it0 + n) that can see this block's keys: the
-  // last query q_offset + q0 + BQ - 1 of tile it0 reaches the block's
-  // first key. Both warpgroups run every tile from there. Each role works
-  // them out after its setmaxnreg, so that nothing stays live across it.
-  auto tiles = [&](int& it0, int& n) {
-    it0 = 0;
-    if (p.causal) {
-      const long long x = p.kv_offset + k0 - p.q_offset;
-      it0 = x <= 0 ? 0 : static_cast<int>(x / BQ);
-    }
-    const int nq = (p.sq + BQ - 1) / BQ;
-    n = nq > it0 ? nq - it0 : 0;
-  };
 
   if (tid == 0) {
     sm90::mbar_init(kv_full, 1);
@@ -891,8 +1044,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     // Producer warpgroup: one thread issues every load.
     sm90::reg_dealloc<kProducerRegs>();
     if (tid == kConsumers) {
+      // (worked out after setmaxnreg, so that nothing stays live across it)
       int it0, n;
-      tiles(it0, n);
+      split_query_tiles(p, k0, it0, n);
       const int bh = bb * p.h + hh;
       sm90::mbar_arrive_expect_tx(kv_full, 2 * L::kTile);
 #pragma unroll
@@ -925,7 +1079,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     // and dP^T.
     sm90::reg_alloc<kConsumerRegs>();
     int it0, n;
-    tiles(it0, n);
+    split_query_tiles(p, k0, it0, n);
     const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
     const int r0 = 16 * warp + lane / 4;  // key rows r0, r0 + 8 of the block
     // queries qb + 8 j and qb + 8 j + 1 of a tile's S^T accumulators
@@ -965,100 +1119,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       }
       sm90::wgmma_commit();
     };
-    // P^T = exp2(S^T scale log2e - lse log2e) and dS^T = P^T (dP^T - c) of
-    // tile i, in place; the query is the column. lse -inf (a fully-masked
-    // row) is taken as 1e30; rows past Sq read TMA's zero fill and are
-    // masked, as are keys past Sk and (on the diagonal) future keys.
     auto grads = [&](int i) {
-      const int q0 = (it0 + i) * BQ;
       const float* lse_s = reinterpret_cast<const float*>(
           smem + L::kLc + (i % S) * 2 * BQ * 4);
-      const float* c_s = lse_s + BQ;
-      bool live = true, diag = false;
-      if (p.causal)
-        causal_liveness<BQ, kSplitBN>(p.q_offset + q0, p.kv_offset + k0,
-                                      live, diag);
-      const bool masked = diag || q0 + BQ > p.sq || k0 + kSplitBN > p.sk;
-      // In a masked tile, relative to this thread's first key and query:
-      // keys at or past Sk, queries at or past Sq, and (causal) keys in
-      // the query's future, kv_offset + key > q_offset + row, i.e. key -
-      // row above `ahead` (the offsets' gap at the thread's first pair,
-      // clamped to an int: -31 <= key - row <= 8 here; without causal it
-      // is above every key - row).
-      int key_end = 0, row_end = 0, ahead = 0;
-      if (masked) {
-        key_end = p.sk - k0 - r0;
-        row_end = p.sq - q0 - qb;
-        const long long gap = p.causal ? p.q_offset - p.kv_offset + q0 +
-                                             qb - k0 - r0
-                                       : 1ll << 40;
-        ahead = static_cast<int>(gap > (1 << 30)    ? (1 << 30)
-                                 : gap < -(1 << 30) ? -(1 << 30)
-                                                    : gap);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = qb + 8 * j;  // query within the tile
-        const float2 l = *reinterpret_cast<const float2*>(lse_s + qc);
-        const float2 c = *reinterpret_cast<const float2*>(c_s + qc);
-        const float l2[2] = {(l.x == -INFINITY ? kSafeLse : l.x) * kLog2e,
-                             (l.y == -INFINITY ? kSafeLse : l.y) * kLog2e};
-        const float cc[2] = {c.x, c.y};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = fmaf(st[4 * j + e], sl2, -l2[e & 1]);
-          if (masked) {
-            const int key = 8 * (e >> 1);       // past this thread's first
-            const int row = 8 * j + (e & 1);    // key and query
-            if (key >= key_end || row >= row_end || key - row > ahead)
-              x = -INFINITY;
-          }
-          const float pr = sm90::exp2_approx(x);
-          st[4 * j + e] = pr;
-          dpt[4 * j + e] = pr * (dpt[4 * j + e] - cc[e & 1]);
-        }
-      }
+      split_grads(p, st, dpt, lse_s, lse_s + BQ, (it0 + i) * BQ, k0, r0, qb,
+                  sl2);
     };
-    // This warpgroup's queries of P^T and dS^T of tile i, rounded to E,
-    // into buffer i % 2; then the barrier after which both warpgroups'
-    // halves are there for the async proxy.
-    auto store_pds = [&](int i) {
-      uint8_t* ps = smem + L::kPds + (i & 1) * 2 * L::kBox;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // rows r0 and r0 + 8 (8 rows = 1024 bytes further, the same
-        // swizzle), of P^T and then of dS^T one box further
-        uint8_t* at = ps + sm90::sw128_offset(r0, qb + 8 * j);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr) {
-          *reinterpret_cast<uint32_t*>(at + hr * 1024) =
-              sm90::pack<E>(st[4 * j + 2 * hr], st[4 * j + 2 * hr + 1]);
-          *reinterpret_cast<uint32_t*>(at + L::kBox + hr * 1024) =
-              sm90::pack<E>(dpt[4 * j + 2 * hr], dpt[4 * j + 2 * hr + 1]);
-        }
-      }
-      sm90::fence_proxy_async();
-      sm90::bar_sync(1, kConsumers);
-    };
-    // dV += P^T dO and dK += dS^T Q of tile i over this warpgroup's
-    // features: P^T and dS^T K-major from their shared tiles, dO and Q
-    // MN-major (their queries run down the rows) from the streamed tiles.
+    auto pds = [&](int i) { return smem + L::kPds + (i & 1) * 2 * L::kBox; };
     auto issue_dkv = [&](int i) {
       const uint8_t* qs = stage(i) + 2 * w * L::kBox;
-      const uint8_t* dos = qs + L::kTile;
-      const uint8_t* ps = smem + L::kPds + (i & 1) * 2 * L::kBox;
-      const uint8_t* dss = ps + L::kBox;
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        sm90::Wgmma<128, E>::ss_mn(
-            dv, sm90::desc_k(ps + kk * 32),
-            sm90::desc_mn(dos + kk * 16 * 128, L::kBox), 1);
-        sm90::Wgmma<128, E>::ss_mn(
-            dk, sm90::desc_k(dss + kk * 32),
-            sm90::desc_mn(qs + kk * 16 * 128, L::kBox), 1);
-      }
-      sm90::wgmma_commit();
+      split_issue_dkv<E>(dv, dk, pds(i), qs, qs + L::kTile);
     };
 
     // Per tile: dV and dK of tile i are issued, then S^T and dP^T of tile
@@ -1074,7 +1144,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       sm90::fence_regs(dpt);
       grads(0);
       for (int i = 0; i + 1 < n; ++i) {
-        store_pds(i);
+        split_store_pds<E>(pds(i), st, dpt, r0, qb);
         issue_dkv(i);
         wait_full(i + 1);
         issue_sdp(i + 1);
@@ -1087,40 +1157,194 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         sm90::fence_regs(dpt);
         grads(i + 1);
       }
-      store_pds(n - 1);
+      split_store_pds<E>(pds(n - 1), st, dpt, r0, qb);
       issue_dkv(n - 1);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dv);
       sm90::fence_regs(dk);
       sm90::mbar_arrive(&empty[(n - 1) % S]);
     }
+    split_store_rows<E>(p, dk, dv, bb, hh, k0 + r0, 128 * w);
+  }
+}
 
-    // Every key row below Sk is written: 0 where no query sees it.
+// dk/dv at d > 256: the split kernel's block in nc = ceil(d / 256) chunks
+// of 256 features. One block per (64 keys, chunk oc of dK's and dV's
+// columns, head, batch), the grid's chunk axis folded into the key-tile
+// axis; warpgroup w owns features 256 oc + [128 w, 128 w + 128) of dK and
+// dV (64 + 64 registers a thread), as in the split kernel. Nothing is
+// resident: for each 64-query tile the producer streams, through a ring
+// of three 64 KB slots, the pairs (K_c, Q_c) and (V_c, dO_c) of every
+// chunk c (each 64 rows x 256 features), in the order oc + 1, ..., nc - 1,
+// 0, ..., oc. Each consumer sums S^T = K Q^T over the (K_c, Q_c) pairs and
+// dP^T = V dO^T over the (V_c, dO_c) pairs for its 32 queries (wgmma m64n32
+// SS, each pair's slot handed back once its product is done), forms P^T
+// and dS^T once as the split kernel does, and multiplies them into dV and
+// dK by dO_oc and Q_oc, which the last two slots of the tile still hold
+// (handed back once dV and dK are done, while the next tile's first pair
+// already loads into the third slot). The tile's lse and c slices come
+// with its last pair. A block forms S^T and dP^T over all d and dV, dK
+// over its 256 columns: at d 512, 2 (2 x 512) + 2 (2 x 256) = 3072
+// feature-products a (key, query) pair, against the minimal 2048.
+constexpr int kChunkSlots = 3;
+
+// Shared memory, from a 1024-byte aligned base: the slots (a pair of 64-row
+// chunk tiles, four boxes each), two buffers of P^T and dS^T, per slot lse
+// and c, then the barriers.
+struct DkvChunkSmem {
+  static constexpr int kTile = 4 * kSplitBox;
+  static constexpr int kSlot = 2 * kTile;
+  static constexpr int kPds = kChunkSlots * kSlot;
+  static constexpr int kLc = kPds + 2 * 2 * kSplitBox;  // slot s: lse, then c
+  static constexpr int kBar = kLc + kChunkSlots * 2 * kSplitBQ * 4;
+  static constexpr int kBytes = kBar + 2 * kChunkSlots * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
+};
+
+template <class E>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dkv_chunked_kernel(const __grid_constant__ DkvParams p) {
+  using L = DkvChunkSmem;
+  constexpr int BQ = kSplitBQ, S = kChunkSlots;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + S;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x;
+  // The block's keys and chunk of dK and dV, low key tiles (the heaviest)
+  // first, a tile's chunks side by side. Each role works these out after
+  // its setmaxnreg, so that nothing stays live across it.
+  auto place = [&](int& nc, int& k0, int& oc) {
+    nc = (p.d + 255) / 256;
+    k0 = static_cast<int>(blockIdx.z) / nc * kSplitBN;
+    oc = static_cast<int>(blockIdx.z) % nc;
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers) {
+      int nc, k0, oc, it0, n;
+      place(nc, k0, oc);
+      split_query_tiles(p, k0, it0, n);
+      const int bh = bb * p.h + hh, per = 2 * nc;
+      for (int j = 0; j < n * per; ++j) {
+        const int s = j % S, x = j % per, q0 = (it0 + j / per) * BQ;
+        const int c = (oc + 1 + x / 2) % nc;
+        const bool last = x == per - 1;
+        sm90::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s],
+                                    L::kSlot + (last ? 2 * BQ * 4 : 0));
+        uint8_t* st = smem + s * L::kSlot;
+        const CUtensorMap* keys = x & 1 ? &p.v : &p.k;
+        const CUtensorMap* queries = x & 1 ? &p.dout : &p.q;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = k0 + r0 + 8 * hr;
-      if (row < p.sk) {
-        typename E::T* dkp = static_cast<typename E::T*>(p.dk) +
-                             static_cast<long long>(bb) * p.s1b +
-                             static_cast<long long>(hh) * p.s1h +
-                             static_cast<long long>(row) * p.s1s;
-        typename E::T* dvp = static_cast<typename E::T*>(p.dv) +
-                             static_cast<long long>(bb) * p.s2b +
-                             static_cast<long long>(hh) * p.s2h +
-                             static_cast<long long>(row) * p.s2s;
-        const int t = threadIdx.x % 4;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 128 * w + 8 * j;
-          if (col >= p.d) continue;
-          *reinterpret_cast<typename E::T2*>(dkp + col + 2 * t) =
-              E::pack2(dk[4 * j + 2 * hr] * p.scale,
-                       dk[4 * j + 2 * hr + 1] * p.scale);
-          *reinterpret_cast<typename E::T2*>(dvp + col + 2 * t) =
-              E::pack2(dv[4 * j + 2 * hr], dv[4 * j + 2 * hr + 1]);
+        for (int b4 = 0; b4 < 4; ++b4) {
+          sm90::tma_load_4d(st + b4 * kSplitBox, keys, &full[s],
+                            256 * c + 64 * b4, k0, hh, bb);
+          sm90::tma_load_4d(st + L::kTile + b4 * kSplitBox, queries,
+                            &full[s], 256 * c + 64 * b4, q0, hh, bb);
+        }
+        if (last) {
+          uint8_t* lc = smem + L::kLc + s * 2 * BQ * 4;
+          sm90::tma_load_2d(lc, &p.lse, &full[s], q0, bh);
+          sm90::tma_load_2d(lc + BQ * 4, &p.c, &full[s], q0, bh);
         }
       }
     }
+  } else {
+    // Consumer warpgroup w: features 256 oc + [128 w, 128 w + 128) of dK
+    // and dV for the block's 64 keys; queries [32 w, 32 w + 32) of each
+    // tile's S^T and dP^T.
+    sm90::reg_alloc<kConsumerRegs>();
+    int nc, k0, oc, it0, n;
+    place(nc, k0, oc);
+    split_query_tiles(p, k0, it0, n);
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = 16 * warp + lane / 4;  // key rows r0, r0 + 8 of the block
+    const int qb = 32 * w + 2 * (lane % 4);
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+    const float sl2 = p.scale * kLog2e;
+    float st[16], dpt[16];  // S^T, dP^T; then P^T, dS^T in f32
+    int j = 0;              // the next item of the ring
+    auto slot = [&](int jj) { return smem + (jj % S) * L::kSlot; };
+
+    for (int i = 0; i < n; ++i) {
+      for (int ci = 0; ci < nc; ++ci, j += 2) {
+        // S^T += K_c Q_c^T, then dP^T += V_c dO_c^T, 64 keys x this
+        // warpgroup's 32 queries; the tile's first pair overwrites
+        const uint8_t* ks = slot(j);
+        const uint8_t* vs = slot(j + 1);
+        const int qo = L::kTile + w * 32 * 128;
+        sm90::mbar_wait(&full[j % S], (j / S) & 1);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const int off = (kk / 4) * kSplitBox + (kk % 4) * 32;
+          sm90::Wgmma<32, E>::ss(st, sm90::desc_k(ks + off),
+                                 sm90::desc_k(ks + qo + off), (ci | kk) > 0);
+        }
+        sm90::wgmma_commit();
+        // dV and dK of the tile before are done (at its first pair; else
+        // nothing older is in flight): its Q_oc and dO_oc go back, which
+        // frees the slot the (V_c, dO_c) pair loads into
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(dv);
+        sm90::fence_regs(dk);
+        if (ci == 0 && i > 0) {
+          sm90::mbar_arrive(&empty[(j - 2) % S]);
+          sm90::mbar_arrive(&empty[(j - 1) % S]);
+        }
+        sm90::mbar_wait(&full[(j + 1) % S], ((j + 1) / S) & 1);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const int off = (kk / 4) * kSplitBox + (kk % 4) * 32;
+          sm90::Wgmma<32, E>::ss(dpt, sm90::desc_k(vs + off),
+                                 sm90::desc_k(vs + qo + off), (ci | kk) > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(st);
+        sm90::fence_regs(dpt);
+        if (ci + 1 < nc) {
+          sm90::mbar_arrive(&empty[j % S]);
+          sm90::mbar_arrive(&empty[(j + 1) % S]);
+        }
+      }
+      const float* lse_s = reinterpret_cast<const float*>(
+          smem + L::kLc + ((j - 1) % S) * 2 * BQ * 4);
+      split_grads(p, st, dpt, lse_s, lse_s + BQ, (it0 + i) * BQ, k0, r0, qb,
+                  sl2);
+      uint8_t* ps = smem + L::kPds + (i & 1) * 2 * kSplitBox;
+      split_store_pds<E>(ps, st, dpt, r0, qb);
+      // dV += P^T dO_oc, dK += dS^T Q_oc (issued, not waited)
+      split_issue_dkv<E>(dv, dk, ps,
+                         slot(j - 2) + L::kTile + 2 * w * kSplitBox,
+                         slot(j - 1) + L::kTile + 2 * w * kSplitBox);
+    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dv);
+    sm90::fence_regs(dk);
+    if (n > 0) {
+      sm90::mbar_arrive(&empty[(j - 2) % S]);
+      sm90::mbar_arrive(&empty[(j - 1) % S]);
+    }
+    split_store_rows<E>(p, dk, dv, bb, hh, k0 + r0, 256 * oc + 128 * w);
   }
 }
 
@@ -1403,7 +1627,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and fp16, d > 256: mma.sync, in chunks of 256 features
+// bf16 and fp16 dq, d > 256: mma.sync, in chunks of 256 features
 
 constexpr int kWideD = 256;  // a chunk's width; columns past d are zero
 constexpr int kWideThreads = 128;
@@ -1415,7 +1639,7 @@ __device__ __forceinline__ int chunk_cols(int d, int c) {
   return left < kWideD ? left : kWideD;
 }
 
-// dq: one block per (64 queries, chunk, head, batch), 4 warps x 16 query
+// One block per (64 queries, chunk, head, batch), 4 warps x 16 query
 // rows; K and V tiles of 32 keys.
 constexpr int kWideDqBQ = 64;
 constexpr int kWideDqBK = 32;
@@ -1570,199 +1794,6 @@ __global__ void __launch_bounds__(kWideThreads)
   }
 }
 
-// dk/dv, d > 256: one block per (64 keys, a part of kWidePart features,
-// head, batch), 4 warps x 16 key rows; query tiles of 32. The block's part
-// of dK and dV takes 128 accumulators a thread.
-constexpr int kWideDkvBK = 64;
-constexpr int kWideDkvBQ = 32;
-constexpr int kWidePart = kWideD / 2;
-constexpr int kWideDkvBytes =
-    (2 * kWideDkvBK + 2 * kWideDkvBQ) * kWideST * 2 + 2 * kWideDkvBQ * 4;
-
-// The parts of kWidePart features dK and dV are split into.
-__host__ __device__ __forceinline__ int dkv_parts(int d) {
-  return (d + kWidePart - 1) / kWidePart;
-}
-
-// In nc = ceil(d / kWideD) chunks; the block's blockIdx.x % parts is its
-// part of dK and dV, S^T = K Q^T and dP^T = V dO^T sum over the chunks (K,
-// V, Q and dO staged in turn into the same shared rows), and dV, dK take
-// the part's columns of dO and Q (their chunk staged again unless it was
-// the last one).
-template <class E>
-__global__ void __launch_bounds__(kWideThreads)
-    flash_bwd_dkv_wide_kernel(Args a) {
-  using T = typename E::T;
-  constexpr int ST = kWideST, BK = kWideDkvBK, BQ = kWideDkvBQ;
-  extern __shared__ __align__(16) uint8_t smem_dkv_wide[];
-  auto* k_s = reinterpret_cast<T*>(smem_dkv_wide);
-  T* v_s = k_s + BK * ST;
-  T* q_s = v_s + BK * ST;
-  T* do_s = q_s + BQ * ST;
-  auto* lse_s = reinterpret_cast<float*>(do_s + BQ * ST);  // log2 units
-  float* c_s = lse_s + BQ;
-
-  // This block's keys and features [f0, f0 + kWidePart), which lie in
-  // chunk pc at column fc.
-  const int parts = dkv_parts(a.d);
-  const int nc = (a.d + kWideD - 1) / kWideD;
-  const int k0 = (blockIdx.x / parts) * BK;
-  const int f0 = (blockIdx.x % parts) * kWidePart;
-  const int pc = f0 / kWideD;
-  const int fc = f0 - pc * kWideD;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const long long bh = static_cast<long long>(bb) * a.h + hh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;
-  const T* qp = static_cast<const T*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
-  const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
-  const T* dp_ = static_cast<const T*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  T* dkp = static_cast<T*>(a.o1) + bb * a.s1b + hh * a.s1h;
-  T* dvp = static_cast<T*>(a.o2) + bb * a.s2b + hh * a.s2h;
-
-  float dk[kWidePart / 8][4], dv[kWidePart / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kWidePart / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-
-  // The first query tile that can see this key tile: its last query
-  // q_offset + q0 + BQ - 1 must reach the tile's first key.
-  const long long k_lo = a.kv_offset + k0;
-  int it0 = 0;
-  if (a.causal) {
-    const long long x = k_lo - a.q_offset;
-    it0 = x <= 0 ? 0 : static_cast<int>(x / BQ);
-  }
-  const float sl2 = a.scale * kLog2e;
-  const int nq = (a.sq + BQ - 1) / BQ;
-  for (int it = it0; it < nq; ++it) {
-    const int q0 = it * BQ;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<BQ, BK>(a.q_offset + q0, k_lo, live, diag);
-      if (!live) continue;
-    }
-    const bool masked = diag || q0 + BQ > a.sq || k0 + BK > a.sk;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries per warp, over
-    // the features of the tiles in shared memory.
-    float st[BQ / 8][4], dpt[BQ / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-    auto sdp = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < kWideD / 16; ++kk) {
-        uint32_t kf[4], vf[4];
-        sm90::load_a<ST>(kf, k_s, wr, kk, g, t);
-        sm90::load_a<ST>(vf, v_s, wr, kk, g, t);
-#pragma unroll
-        for (int nt = 0; nt < BQ / 8; ++nt) {
-          const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
-          sm90::mma16816<E>(st[nt], kf, sm90::ld32(&q_s[off]),
-                            sm90::ld32(&q_s[off + 8]));
-          sm90::mma16816<E>(dpt[nt], vf, sm90::ld32(&do_s[off]),
-                            sm90::ld32(&do_s[off + 8]));
-        }
-      }
-    };
-    auto stage_lse_c = [&]() {
-      for (int r = tid; r < BQ; r += kWideThreads) {
-        lse_s[r] = safe_lse(a, bh, q0 + r) * kLog2e;
-        c_s[r] = row_c(a, bh, q0 + r);
-      }
-    };
-    for (int c = 0; c < nc; ++c) {
-      // the previous chunk's (or tile's) shared reads are done
-      __syncthreads();
-      const int cols = chunk_cols(a.d, c);
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-          k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-          v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-          q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-          do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
-      if (c == 0) stage_lse_c();
-      __syncthreads();
-      sdp();
-    }
-    if (pc != nc - 1) {  // the part's chunk of Q and dO
-      __syncthreads();
-      const int cols = chunk_cols(a.d, pc);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-          q_s, qp + pc * kWideD, a.sqs, q0, a.sq, cols, tid);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-          do_s, dp_ + pc * kWideD, a.sds, q0, a.sq, cols, tid);
-      __syncthreads();
-    }
-
-    // P^T and dS^T = P^T (dP^T - c); the query is the column here.
-#pragma unroll
-    for (int nt = 0; nt < BQ / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = nt * 8 + 2 * t + (e & 1);  // query within the tile
-        float x = st[nt][e] * sl2;
-        if (masked && pair_masked(a, q0 + qc, k0 + wr + g + 8 * (e >> 1)))
-          x = -INFINITY;
-        const float pr = exp2f(x - lse_s[qc]);
-        st[nt][e] = pr;
-        dpt[nt][e] = pr * (dpt[nt][e] - c_s[qc]);
-      }
-
-    // dV += P^T dO and dK += dS^T Q over this block's features: the
-    // accumulators re-packed as A fragments over the queries; dO and Q
-    // read with their queries down the rows (ldmatrix.trans).
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      const uint32_t pa[4] = {
-          sm90::pack<E>(st[2 * kk][0], st[2 * kk][1]),
-          sm90::pack<E>(st[2 * kk][2], st[2 * kk][3]),
-          sm90::pack<E>(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-          sm90::pack<E>(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t da[4] = {
-          sm90::pack<E>(dpt[2 * kk][0], dpt[2 * kk][1]),
-          sm90::pack<E>(dpt[2 * kk][2], dpt[2 * kk][3]),
-          sm90::pack<E>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-          sm90::pack<E>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kWidePart / 8; dt += 2) {
-        uint32_t b[4];
-        sm90::load_b_kmajor_x2<ST>(b, do_s + fc, kk, dt, lane);
-        sm90::mma16816<E>(dv[dt], pa, b[0], b[1]);
-        sm90::mma16816<E>(dv[dt + 1], pa, b[2], b[3]);
-        sm90::load_b_kmajor_x2<ST>(b, q_s + fc, kk, dt, lane);
-        sm90::mma16816<E>(dk[dt], da, b[0], b[1]);
-        sm90::mma16816<E>(dk[dt + 1], da, b[2], b[3]);
-      }
-    }
-  }
-
-  // Every key row below Sk is written: 0 where no query sees it.
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = k0 + wr + g + 8 * hr;
-    if (row < a.sk) {
-#pragma unroll
-      for (int dt = 0; dt < kWidePart / 8; ++dt) {
-        const int col = f0 + dt * 8 + 2 * t;
-        if (f0 + 8 * dt >= a.d) continue;
-        *reinterpret_cast<typename E::T2*>(dkp + row * a.s1s + col) =
-            E::pack2(dk[dt][2 * hr] * a.scale, dk[dt][2 * hr + 1] * a.scale);
-        *reinterpret_cast<typename E::T2*>(dvp + row * a.s2s + col) =
-            E::pack2(dv[dt][2 * hr], dv[dt][2 * hr + 1]);
-      }
-    }
-  }
-}
-
 template <class E>
 int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -1772,17 +1803,6 @@ int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
   const int nc = (a.d + kWideD - 1) / kWideD;
   dim3 grid((a.sq + kWideDqBQ - 1) / kWideDqBQ * nc, a.h, b);
   flash_bwd_dq_wide_kernel<E><<<grid, kWideThreads, kWideDqBytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <class E>
-int launch_dkv_wide(const Args& a, int b, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkv_wide_kernel<E>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDkvBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(dkv_parts(a.d) * ((a.sk + kWideDkvBK - 1) / kWideDkvBK), a.h, b);
-  flash_bwd_dkv_wide_kernel<E><<<grid, kWideThreads, kWideDkvBytes, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1813,7 +1833,6 @@ constexpr int kTfConverters = 96;  // warps 1-3 of the producer warpgroup
 constexpr int kTfProducerRegs = 56;
 constexpr int kTfConsumerRegs = 224;
 constexpr int kTfTile = 8192;  // 64 rows x 32 floats
-constexpr int kTfBox = 4096;   // a transposed tile's box: 32 rows x 32 floats
 
 struct Tf32Params {
   CUtensorMap q, dout, k, v;  // boxes of 32 features x 64 (or BQ) rows
@@ -1829,36 +1848,6 @@ struct Tf32Params {
   long long q_offset, kv_offset;
   float scale;
 };
-
-// The position of column k of a transposed tile along its contracted dim.
-// A TF32 A fragment holds k t and t + 4 of each group of 8 where the f32
-// accumulator it is formed from holds columns 2 t and 2 t + 1 (columns are
-// keys in dS K, queries in P^T dO and dS^T Q), so the transposed B tiles
-// store each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 and the
-// accumulators feed the products as they are.
-__device__ __forceinline__ int tf32_kpos(int k) {
-  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
-}
-
-// The A fragments of an accumulator of m64n32 or m64n64 (d[4 j + e]: row
-// g + 8 (e / 2), column 8 j + 2 t + e % 2), hi and lo: k-step kk is
-// columns 8 kk..8 kk + 7, its fragment {d[4 kk], d[4 kk + 2], d[4 kk + 1],
-// d[4 kk + 3]} (tf32_kpos). Formed before the products' fence, so that no
-// instruction defines a register a product reads while it runs.
-template <int KS>
-__device__ __forceinline__ void tf32_frags(uint32_t (&fh)[KS][4],
-                                           uint32_t (&fl)[KS][4],
-                                           const float (&d)[4 * KS]) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const float x = d[4 * kk + ((r & 1) << 1) + (r >> 1)];
-      const float h = sm90::tf32_rna(x);
-      fh[kk][r] = __float_as_uint(h);
-      fl[kk][r] = __float_as_uint(sm90::tf32_rna(x - h));
-    }
-}
 
 // Splits a landed tile of `rows` rows in place: hi over it, lo into `lo`
 // at the same offsets (so in the same swizzled layout).
@@ -1893,7 +1882,7 @@ __device__ __forceinline__ void tf32_split_t(const uint8_t* t, uint8_t* hi,
                                              uint8_t* lo, int rows, int ct) {
   for (int u = ct; u < rows * 2; u += kTfConverters) {
     const int fq = u & 7, e = (u >> 3) & 1, r0 = 8 * (u >> 4) + e;
-    const int pos = tf32_kpos(r0);  // rows r0 + 2 i land at pos + i
+    const int pos = sm90::tf32_kpos(r0);  // rows r0 + 2 i land at pos + i
     float4 x[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1901,7 +1890,7 @@ __device__ __forceinline__ void tf32_split_t(const uint8_t* t, uint8_t* hi,
       x[i] = *reinterpret_cast<const float4*>(t + r * 128 +
                                               ((fq ^ (r & 7)) << 4));
     }
-    const int box = (pos >> 5) * kTfBox;
+    const int box = (pos >> 5) * sm90::kTfBox;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int f = 4 * fq + c;
@@ -1921,57 +1910,6 @@ __device__ __forceinline__ void tf32_split_t(const uint8_t* t, uint8_t* hi,
       *reinterpret_cast<float4*>(lo + off) = l;
     }
   }
-}
-
-// The tensor cores round each k-step's sum into the accumulator toward
-// zero, about an ulp of the running sum and always the same way: with S
-// and dP summed in one accumulator over the 64 k-steps of d = 512, dQ's
-// rows missed the f32 tolerance of 1e-4. So each chunk of 4 k-steps
-// (32 features of S and dP^T, 32 keys or queries of dQ, dK and dV) is
-// summed afresh on the tensor cores, the small products (hi lo, lo hi)
-// first, then hi hi, and added into the running f32 sum on the CUDA cores
-// (tf32_add).
-
-// acc = A B^T over one 32-feature chunk: A and B K-major tiles with hi and
-// lo parts, rows of 32 floats (a k-step is +32 bytes).
-template <int N>
-__device__ __forceinline__ void tf32_ss_chunk(float (&acc)[N / 2],
-                                              const uint8_t* ah,
-                                              const uint8_t* al,
-                                              const uint8_t* bh,
-                                              const uint8_t* bl) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int o = 32 * kk;
-    sm90::Tf32<N>::ss(acc, sm90::desc_k(ah + o), sm90::desc_k(bl + o),
-                      kk > 0);
-    sm90::Tf32<N>::ss(acc, sm90::desc_k(al + o), sm90::desc_k(bh + o), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    sm90::Tf32<N>::ss(acc, sm90::desc_k(ah + 32 * kk),
-                      sm90::desc_k(bh + 32 * kk), 1);
-}
-
-// acc = A B over K = 8 KS: A the fragments of tf32_frags, B a transposed
-// tile (hi, lo) of 32 rows, its k-steps 32 bytes apart within a box,
-// boxes kTfBox apart.
-template <int KS>
-__device__ __forceinline__ void tf32_rs(float (&acc)[16],
-                                        const uint32_t (&fh)[KS][4],
-                                        const uint32_t (&fl)[KS][4],
-                                        const uint8_t* bh, const uint8_t* bl) {
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int o = (kk / 4) * kTfBox + 32 * (kk % 4);
-    sm90::Tf32<32>::rs(acc, fl[kk], sm90::desc_k(bh + o), kk > 0);
-    sm90::Tf32<32>::rs(acc, fh[kk], sm90::desc_k(bl + o), 1);
-  }
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-    sm90::Tf32<32>::rs(acc, fh[kk],
-                       sm90::desc_k(bh + (kk / 4) * kTfBox + 32 * (kk % 4)),
-                       1);
 }
 
 // dP += dO V^T over one 32-feature chunk on the CUDA cores, for the dq
@@ -2011,13 +1949,6 @@ __device__ __forceinline__ void dq_dp_chunk(float (&dp)[16],
         x1 = fmaf(a1.w, b.w, x1);
       }
   }
-}
-
-template <int K>
-__device__ __forceinline__ void tf32_add(float (&sum)[K],
-                                         const float (&x)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) sum[i] += x[i];
 }
 
 // The shared memory of both kernels: a ring of STAGES stages of TILES
@@ -2175,15 +2106,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         const int kb = w * 32 * 128;  // this warpgroup's 32 keys
         // S on the tensor cores while dP runs on the CUDA cores
         sm90::wgmma_fence();
-        tf32_ss_chunk<32>(cs, st, st + kTfTile, st + 3 * kTfTile + kb,
-                          st + 4 * kTfTile + kb);
+        sm90::tf32_ss_chunk<32>(cs, st, st + kTfTile,
+                                st + 3 * kTfTile + kb,
+                                st + 4 * kTfTile + kb);
         sm90::wgmma_commit();
         dq_dp_chunk(dp, st + 2 * kTfTile, st + 5 * kTfTile, 16 * warp + g,
                     32 * w, t);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(cs);
         sm90::mbar_arrive(&empty[j % L::kStages]);
-        tf32_add(s, cs);
+        sm90::tf32_add(s, cs);
       }
       // P = exp2(S scale log2e - lse log2e), dS = P (dP - c); masked only
       // on tiles that straddle the diagonal or run past Sk. (lse and c are
@@ -2214,19 +2146,19 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                                                   cr[e >> 1]);
         }
       uint32_t fh[4][4], fl[4][4];
-      tf32_frags(fh, fl, s);
+      sm90::tf32_frags(fh, fl, s);
 #pragma unroll
       for (int o = 0; o < D / 32; ++o) {
         if (o < no) {
           const uint8_t* st = wait_ready(j);
           sm90::wgmma_fence();
-          tf32_rs<4>(cs, fh, fl, st + kTfTile + w * kTfBox,
-                     st + 2 * kTfTile + w * kTfBox);
+          sm90::tf32_rs<4>(cs, fh, fl, st + kTfTile + w * sm90::kTfBox,
+                           st + 2 * kTfTile + w * sm90::kTfBox);
           sm90::wgmma_commit();
           sm90::wgmma_wait<0>();
           sm90::fence_regs(cs);
           sm90::mbar_arrive(&empty[j % L::kStages]);
-          tf32_add(dq[o], cs);
+          sm90::tf32_add(dq[o], cs);
           ++j;
         }
       }
@@ -2379,13 +2311,14 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         const uint8_t* st = wait_ready(j);
         const int x = 2 * w * kTfTile;  // K (warpgroup 0) or V, and Q or dO
         sm90::wgmma_fence();
-        tf32_ss_chunk<BQ>(ca, st + x, st + x + kTfTile, st + 4 * kTfTile + x,
-                          st + 5 * kTfTile + x);
+        sm90::tf32_ss_chunk<BQ>(ca, st + x, st + x + kTfTile,
+                                st + 4 * kTfTile + x,
+                                st + 5 * kTfTile + x);
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_regs(ca);
         sm90::mbar_arrive(&empty[j % L::kStages]);
-        tf32_add(a, ca);
+        sm90::tf32_add(a, ca);
       }
       const int ti = it - it0, xi = ti & 1;
       float* xbuf = xb + xi * 64 * BQ;
@@ -2425,7 +2358,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         sm90::mbar_arrive(&xempty[xi]);
       }
       uint32_t fh[BQ / 8][4], fl[BQ / 8][4];
-      tf32_frags(fh, fl, a);
+      sm90::tf32_frags(fh, fl, a);
       // dV += P^T dO (warpgroup 0: dO^T, tiles 4, 5), dK += dS^T Q (1: Q^T,
       // tiles 2, 3)
       const int tb = (w == 0 ? 4 : 2) * kTfTile;
@@ -2434,12 +2367,13 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
         if (o < no) {
           const uint8_t* st = wait_ready(j);
           sm90::wgmma_fence();
-          tf32_rs<BQ / 8>(cacc, fh, fl, st + tb, st + tb + kTfTile);
+          sm90::tf32_rs<BQ / 8>(cacc, fh, fl, st + tb,
+                                st + tb + kTfTile);
           sm90::wgmma_commit();
           sm90::wgmma_wait<0>();
           sm90::fence_regs(cacc);
           sm90::mbar_arrive(&empty[j % L::kStages]);
-          tf32_add(acc[o], cacc);
+          sm90::tf32_add(acc[o], cacc);
           ++j;
         }
       }
@@ -2586,6 +2520,22 @@ int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
 }
 
 template <class E>
+int launch_dkv_chunked(const Args& a, int b, cudaStream_t st) {
+  DkvParams p;
+  const int err = dkv_params<E>(p, a, b, kSplitBQ, kSplitBN);
+  if (err) return err;
+  constexpr int bytes = DkvChunkSmem::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkv_chunked_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nc = (a.d + 255) / 256;
+  dim3 grid(a.h, b, (a.sk + kSplitBN - 1) / kSplitBN * nc);
+  flash_bwd_dkv_chunked_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
 int launch_dkv_split(const Args& a, int b, cudaStream_t st) {
   DkvParams p;
   const int err = dkv_params<E>(p, a, b, kSplitBQ, kSplitBN);
@@ -2685,7 +2635,7 @@ int launch_dkv16(const Args& a, int b, cudaStream_t st) {
   if (a.d <= 64) return launch_dkv_wgmma<64, E>(a, b, st);
   if (a.d <= 128) return launch_dkv_wgmma<128, E>(a, b, st);
   if (a.d <= 256) return launch_dkv_split<E>(a, b, st);
-  return launch_dkv_wide<E>(a, b, st);
+  return launch_dkv_chunked<E>(a, b, st);
 }
 
 int launch_dq(const Args& a, int b, int dtype, cudaStream_t st) {

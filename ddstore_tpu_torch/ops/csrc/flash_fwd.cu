@@ -30,16 +30,20 @@
 // chunks of 256 (below). Their tensor maps declare the true d, so that TMA
 // zero-fills the tile's columns past it (zero columns of Q and K leave the
 // scores as they are, zero columns of V give zero columns of O, and the
-// stores skip every column past d). The f32 kernel takes the widths 64,
-// 128, 256 and chunks of 256, with loads and stores masked at d. Shared
-// memory and registers are sized by the tile or chunk, never by d.
+// stores skip every column past d). The f32 kernel (TMA + 3xTF32 wgmma,
+// after a split pass) owns O in blocks of 64, 128 or 256 columns (every d
+// past 128), its features streamed in chunks of 32. Shared memory and
+// registers are sized by the tile or chunk, never by d.
 //
 // Bound on the H100 SXM: the work is 4*B*H*Sq*Sk*D FLOPs (QK^T and PV,
 // about half of that for causal) against 989 TFLOP/s in bf16, and the
 // bytes are q, k, v read once and out, lse written once against 3.35 TB/s.
 // At the LM's shape, (B, H, S, D) = (8, 16, 2048, 64) causal, that is
 // 6.9e10 FLOP = 0.0695 ms against 1.35e8 B = 0.040 ms: operations bound it
-// (and at (8, 4, 2048, 256) and (8, 2, 2048, 512) the same 0.0695 ms).
+// (and at (8, 4, 2048, 256) and (8, 2, 2048, 512) the same 0.0695 ms). In
+// f32 the same products run as three TF32 products each at 495 TFLOP/s,
+// 3 x 6.876e10 FLOP = 0.4167 ms (on the CUDA cores at 67 TFLOP/s, 1.026
+// ms); its bytes, twice bf16's, take 0.08 ms.
 //
 // Design:
 // * bf16, d <= 256: one block per (kWG x 64 query rows, head, batch), with
@@ -96,10 +100,26 @@
 //   again for every key tile (from L2). Left out: a cluster of the nc
 //   blocks sharing S through distributed shared memory, and overlap of a
 //   tile's S chunks with one another (each waits for the one before).
-// * f32: the same algorithm on the CUDA cores (16 query rows x 32-key
-//   tiles per block, one dot product per score), exact in f32; wgmma has
-//   no f32 input type, and the LM runs in bf16. Past d = 256 the same
-//   chunk loop as above, in chunks of 256.
+// * f32 (flash_fwd_tf32_kernel, below): the tensor cores take f32 only as
+//   TF32 (10 mantissa bits, about 5e-4 a product, which misses f32's 1e-4
+//   a row), so each product runs as three TF32 products (hi hi + hi lo +
+//   lo hi, about 2^-21 a product). A split pass writes hi and lo of Q, K
+//   and V^T once a call into scratch planes (V transposed, since TF32
+//   wgmma reads both operands K-major, each group of 8 keys in the order
+//   P's accumulators hold them as A fragments); splitting a landed tile
+//   in the kernel, as the f32 backward does, would split each K/V tile
+//   once for every query block that reads it. The block has the 16-bit
+//   kernels' shape (two consumer warpgroups of 64 rows, a producer thread
+//   streaming TMA loads through a ring of stages): S summed a 32-feature
+//   chunk at a time, each chunk afresh on the tensor cores and added in
+//   f32 (a long tensor-core sum loses bits toward zero), the online
+//   softmax on the accumulators, P split in registers, and each tile's P
+//   V summed afresh and added into O in f32. Past d = 128 a block owns
+//   256 columns of O (a chunk of them past 256) and forms S over all of
+//   d; the features stream in chunks of 32, so shared memory does not
+//   grow with d. Bound by the split pass's bytes (three f32 planes in, six
+//   out) and by the chunk-at-a-time waits inside a warpgroup (S and P V of
+//   a warpgroup never overlap; the other warpgroup fills the gaps).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -803,187 +823,371 @@ int launch_chunked(const Args& a, int b, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: the split pass, then TMA + 3xTF32 wgmma
 
-constexpr int kSBQ = 16;  // query rows per block
-constexpr int kSBK = 32;  // keys per tile
-constexpr int kF32Threads = 128;
-// 128 threads: thread = (row r = tid / 8, lane-in-row c8 = tid % 8); a row's
-// 8 threads are adjacent lanes of one warp.
+// Every f32 product x y runs as three TF32 products on the tensor cores,
+// x_hi y_hi + x_hi y_lo + x_lo y_hi, with x_hi = rna_tf32(x) and x_lo =
+// rna_tf32(x - x_hi) (sm90.cuh: about 2^-21 relative a product). The split
+// pass (tf32_split_kernel, launched by the wrapper before the forward on
+// the same stream) writes hi and lo of Q, K and V once a call into planes
+// in scratch: Q as (2, B*H, Sq, d) rows, K as (2, B*H, Sk, d), V transposed
+// as (2, B*H, d, Sk8), Sk8 = Sk rounded up to a multiple of 8 (at least 8),
+// each group of 8 keys in tf32_kpos order and keys past Sk zero. A key
+// tile of K and V is read by up to Sq / 128 query blocks; split there, it
+// would be split once for each.
 
-// Dynamic shared memory, in floats: Q [kSBQ][D + 1], K [kSBK][D + 1], V
-// [kSBK][D], P [kSBQ][kSBK + 1] (84 KB at D = 256). D is the tile's width:
-// the head dim's (d <= 256), or one chunk of it (d > 256).
-template <int D>
-struct F32Smem {
-  static constexpr int kK = kSBQ * (D + 1);
-  static constexpr int kV = kK + kSBK * (D + 1);
-  static constexpr int kP = kV + kSBK * D;
-  static constexpr int kBytes = (kP + kSBQ * (kSBK + 1)) * 4;
+constexpr int kSplitThreads = 256;
+
+struct SplitParams {
+  const float* x[3];  // q, k, v
+  long long sb[3], sh[3], ss[3];  // their element strides; feature stride 1
+  float* planes[3];               // hi planes of Q, K, V^T; lo right after
+  int rows[3];                    // sq, sk, sk
+  int h, bh, d, sk8;
 };
 
-// kChunked = false: d <= D, one tile. kChunked = true: d > D, in nc =
-// ceil(d / D) chunks of D = 256; the block's blockIdx.x % nc is the chunk
-// oc of O it owns, S = Q K^T sums over the chunks staged in turn, and P V
-// takes V's chunk oc. Every chunk's block forms the same S in the same
-// order; chunk 0 stores lse.
-template <int D, bool kChunked>
-__global__ void __launch_bounds__(kF32Threads)
-    flash_fwd_f32_kernel(Args a) {
-  using L = F32Smem<D>;
-  extern __shared__ __align__(16) uint8_t smem_f32[];
-  float* base = reinterpret_cast<float*>(smem_f32);
-  auto q_s = reinterpret_cast<float(*)[D + 1]>(base);
-  auto k_s = reinterpret_cast<float(*)[D + 1]>(base + L::kK);
-  auto v_s = reinterpret_cast<float(*)[D]>(base + L::kV);
-  auto p_s = reinterpret_cast<float(*)[kSBK + 1]>(base + L::kP);
+// Floats of one plane of Q, K or V^T.
+__host__ __device__ inline long long plane_floats(int bh, int d, int s) {
+  return static_cast<long long>(bh) * d * s;
+}
 
-  int nc = 1, oc = 0, qt = blockIdx.x;
-  if constexpr (kChunked) {
-    nc = (a.d + D - 1) / D;
-    qt = blockIdx.x / nc;
-    oc = blockIdx.x % nc;
-  }
-  const int q0 = qt * kSBQ;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const int tid = threadIdx.x, r = tid / 8, c8 = tid % 8;
-  const float* qp = static_cast<const float*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const float* kp = static_cast<const float*>(a.k) + bb * a.skb + hh * a.skh;
-  const float* vp = static_cast<const float*>(a.v) + bb * a.svb + hh * a.svh;
-  float* op = static_cast<float*>(a.o) + bb * a.sob + hh * a.soh;
-
-  // Columns past d are zero: they add nothing to the scores, and give
-  // zero columns of out, which are not stored.
-  if constexpr (!kChunked) {
-    for (int e = tid; e < kSBQ * D; e += kF32Threads) {
-      const int rr = e / D, d = e % D;
-      q_s[rr][d] =
-          q0 + rr < a.sq && d < a.d ? qp[(q0 + rr) * a.sqs + d] : 0.f;
+// One block per (32 rows or keys, 32 features, head, batch, operand z):
+// the tile is read along its rows into shared memory, split, and written
+// along the rows of the plane (Q, K) or along the keys of V^T's rows.
+__global__ void __launch_bounds__(kSplitThreads)
+    tf32_split_kernel(const __grid_constant__ SplitParams p) {
+  __shared__ float tile[32][33];
+  const int z = blockIdx.z;
+  const int rows = p.rows[z];
+  const int extent = z == 2 ? p.sk8 : rows;  // rows (keys) of the plane
+  const int ft = (p.d + 31) / 32;
+  const int r0 = static_cast<int>(blockIdx.x) / ft * 32;
+  const int f0 = static_cast<int>(blockIdx.x) % ft * 32;
+  if (r0 >= extent) return;
+  const long long lo = plane_floats(p.bh, p.d, extent);
+  for (int bh = blockIdx.y; bh < p.bh; bh += gridDim.y) {
+    const float* x = p.x[z] + static_cast<long long>(bh / p.h) * p.sb[z] +
+                     static_cast<long long>(bh % p.h) * p.sh[z];
+    __syncthreads();  // the previous head's tile is read
+    for (int e = threadIdx.x; e < 32 * 32; e += kSplitThreads) {
+      const int r = e / 32, f = e % 32;
+      tile[r][f] = r0 + r < rows && f0 + f < p.d
+                       ? x[(r0 + r) * p.ss[z] + f0 + f]
+                       : 0.f;
     }
-  }
-
-  float m = -INFINITY, l = 0.f;  // l: this thread's share of the row's sum
-  float acc[D / 8];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) acc[j] = 0.f;
-
-  const long long q_lo = a.q_offset + q0;
-  const int nk = (a.sk + kSBK - 1) / kSBK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kSBK;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<kSBQ, kSBK>(q_lo, a.kv_offset + k0, live, diag);
-      if (!live) break;
+    __syncthreads();
+    float* out = p.planes[z] + plane_floats(bh, p.d, extent);
+    for (int e = threadIdx.x; e < 32 * 32; e += kSplitThreads) {
+      // Q, K: row r, feature f; V^T: feature f (row), key r (column)
+      const int r = z == 2 ? e % 32 : e / 32, f = z == 2 ? e / 32 : e % 32;
+      if (r0 + r >= extent || f0 + f >= p.d) continue;
+      const long long at =
+          z == 2 ? static_cast<long long>(f0 + f) * extent +
+                       sm90::tf32_kpos(r0 + r)
+                 : static_cast<long long>(r0 + r) * p.d + f0 + f;
+      const float v = tile[r][f], h = sm90::tf32_rna(v);
+      out[at] = h;
+      out[at + lo] = sm90::tf32_rna(v - h);
     }
-    const bool masked = diag || (k0 + kSBK > a.sk);
-    float s[kSBK / 8];
-    if constexpr (kChunked) {
-#pragma unroll
-      for (int i = 0; i < kSBK / 8; ++i) s[i] = 0.f;
-      for (int c = 0; c < nc; ++c) {
-        // the previous chunk's (or tile's) q_s/k_s/v_s reads are done
-        __syncthreads();
-        sm90::stage_rows_f32<kSBQ, D, D + 1, kF32Threads>(
-            &q_s[0][0], qp, a.sqs, q0, a.sq, c * D, a.d, tid);
-        sm90::stage_rows_f32<kSBK, D, D + 1, kF32Threads>(
-            &k_s[0][0], kp, a.sks, k0, a.sk, c * D, a.d, tid);
-        if (c == 0)
-          sm90::stage_rows_f32<kSBK, D, D, kF32Threads>(
-              &v_s[0][0], vp, a.svs, k0, a.sk, oc * D, a.d, tid);
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < kSBK / 8; ++i) {
-          const int col = c8 + 8 * i;
-          float dot = s[i];
-#pragma unroll 16
-          for (int d = 0; d < D; ++d) dot = fmaf(q_s[r][d], k_s[col][d], dot);
-          s[i] = dot;
-        }
-      }
-    } else {
-      __syncthreads();  // the previous tile's k_s/v_s reads are done
-      for (int e = tid; e < kSBK * D; e += kF32Threads) {
-        const int rr = e / D, d = e % D;
-        const bool in = k0 + rr < a.sk && d < a.d;
-        k_s[rr][d] = in ? kp[(k0 + rr) * a.sks + d] : 0.f;
-        v_s[rr][d] = in ? vp[(k0 + rr) * a.svs + d] : 0.f;
-      }
-      __syncthreads();
-    }
-
-    float mx = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < kSBK / 8; ++i) {
-      const int col = c8 + 8 * i;
-      float dot = 0.f;
-      if constexpr (kChunked) {
-        dot = s[i];
-      } else {
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) dot = fmaf(q_s[r][d], k_s[col][d], dot);
-      }
-      dot *= a.scale;
-      if (masked && (k0 + col >= a.sk ||
-                     (a.causal && a.kv_offset + k0 + col >
-                                      a.q_offset + q0 + r)))
-        dot = -INFINITY;
-      s[i] = dot;
-      mx = fmaxf(mx, dot);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
-    const float m_new = fmaxf(m, mx);
-    const float safe = m_new == -INFINITY ? 0.f : m_new;
-    const float corr = m == -INFINITY ? 0.f : expf(m - safe);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < kSBK / 8; ++i) {
-      const float p = expf(s[i] - safe);
-      p_s[r][c8 + 8 * i] = p;
-      sum += p;
-    }
-    l = l * corr + sum;
-    m = m_new;
-    __syncwarp();  // a row's p_s is written and read by its own 8 lanes
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) acc[j] *= corr;
-    for (int c = 0; c < kSBK; ++c) {
-      const float p = p_s[r][c];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) acc[j] = fmaf(p, v_s[c][c8 + 8 * j], acc[j]);
-    }
-    __syncwarp();  // p_s is rewritten by the next tile
-  }
-
-  l += __shfl_xor_sync(0xffffffffu, l, 1);
-  l += __shfl_xor_sync(0xffffffffu, l, 2);
-  l += __shfl_xor_sync(0xffffffffu, l, 4);
-  const float lc = fmaxf(l, 1e-30f);
-  const int row = q0 + r;
-  const int f0 = oc * D;  // this block's columns of O
-  if (row < a.sq) {
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (f0 + 8 * j < a.d) op[row * a.sos + f0 + c8 + 8 * j] = acc[j] / lc;
-    if (c8 == 0 && oc == 0)
-      a.lse[(static_cast<long long>(bb) * a.h + hh) * a.sq + row] =
-          m == -INFINITY ? -INFINITY : m + logf(lc);
   }
 }
 
-template <int D, bool kChunked>
-int launch_f32(const Args& a, int b, cudaStream_t stream) {
-  constexpr int bytes = F32Smem<D>::kBytes;
+// One block per (128 query rows, chunk oc of O's columns, head, batch),
+// in FwdCfg<256>'s shape: two consumer warpgroups of 64 rows and a
+// producer warpgroup whose one thread issues every TMA load, setmaxnreg
+// 24 / 240. O's columns come in blocks of DO = 64 or 128 (d <= DO) or 256
+// (any d past 128: nco = ceil(d / 256) blocks a query tile, every chunk's
+// block forming the same S in the same order, chunk 0 storing lse).
+// Shared memory does not grow with d: for each tile of BN keys (64 at DO
+// <= 128; 32 at 256, where O takes 128 registers a thread and P's hi and
+// lo fragments of 64 keys with them spilled) a ring of slots streams nc =
+// ceil(d / 32) S items, then no = ceil(DO' / 32) P V items (DO' the
+// block's columns below d):
+// * S item c: K's BN rows x features [32 c, 32 c + 32), hi and lo (BN x
+//   128 bytes each); at DO = 256 also Q's 128 rows of the same features
+//   (16 KB each). At DO <= 128 Q's planes stay resident (64 or 128 KB).
+// * P V item o: V^T's rows f0 + [32 o, 32 o + 32) x the tile's keys, hi
+//   and lo, each in 32-key boxes (4 KB).
+// Each consumer forms S = Q K^T a chunk at a time, each chunk summed
+// afresh by 12 products m64nBNk8 (sm90::tf32_ss_chunk) and added in f32;
+// the online softmax on the accumulators, as the 16-bit kernels run it;
+// P split into A fragments (tf32_frags), and each chunk of 32 columns of
+// P V summed afresh (tf32_rs, m64n32k8) and added into O in f32. Each item
+// is waited out before the next (the other warpgroup's products fill the
+// gap). Left out: overlap of S with P V inside a warpgroup, a resident Q
+// past 128 (its 256 KB do not fit), persistent blocks.
+template <int DO>
+struct F32Cfg {
+  static constexpr int kBN = DO == 256 ? 32 : 64;  // keys per tile
+  static constexpr bool kResident = DO <= 128;
+  static constexpr int kQPlane = 128 * 128;  // 128 rows x 32 floats
+  static constexpr int kKPlane = kBN * 128;  // BN rows x 32 floats
+  static constexpr int kVBoxes = kBN / 32;   // of V^T, a plane
+  static constexpr int kVItem = 2 * kVBoxes * sm90::kTfBox;
+  static constexpr int kSItem = (kResident ? 0 : 2 * kQPlane) + 2 * kKPlane;
+  static constexpr int kSlot = kSItem > kVItem ? kSItem : kVItem;
+  static constexpr int kQ = 0;  // resident Q: chunk c's hi at 2 c kQPlane
+  static constexpr int kRing = kResident ? (DO / 32) * 2 * kQPlane : 0;
+  static constexpr int kStages = DO == 64 ? 8 : DO == 128 ? 6 : 5;
+  static constexpr int kBar = kRing + kStages * kSlot;
+  // q_full, then full and empty per stage
+  static constexpr int kBytes = kBar + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
+};
+
+// The f32 output of store_rows.
+struct F32Out {
+  using T = float;
+  using T2 = float2;
+  static __device__ __forceinline__ T2 pack2(float lo, float hi) {
+    return make_float2(lo, hi);
+  }
+};
+
+template <int DO>
+__global__ void __launch_bounds__(FwdCfg<256>::kThreads, 1)
+    flash_fwd_tf32_kernel(const __grid_constant__ FwdParams p) {
+  using C = F32Cfg<DO>;
+  using W = FwdCfg<256>;
+  constexpr int BN = C::kBN, S = C::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::kBar);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + S;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x;
+  // The block's query tile and columns of O (heaviest tiles first, a
+  // tile's chunks side by side), its S and P V items a key tile, and its
+  // key tiles. Each role works these out after its setmaxnreg, so that
+  // nothing stays live across it.
+  auto place = [&](int& q0, int& f0, int& nc, int& no, int& n) {
+    const int nco = (p.d + DO - 1) / DO;
+    const int z = gridDim.z - 1 - blockIdx.z;
+    q0 = z / nco * 128;
+    f0 = z % nco * DO;
+    nc = (p.d + 31) / 32;
+    const int left = p.d - f0;
+    no = ((left < DO ? left : DO) + 31) / 32;
+    n = fwd_key_tiles<BN>(p, p.q_offset + q0, 128);
+  };
+
+  if (tid == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], W::kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= W::kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<W::kProducerRegs>();
+    if (tid == W::kConsumers) {
+      int q0, f0, nc, no, n;
+      place(q0, f0, nc, no, n);
+      const int bh = bb * p.h + hh, per = nc + no;
+      if constexpr (C::kResident) {
+        sm90::mbar_arrive_expect_tx(q_full, nc * 2 * C::kQPlane);
+        for (int c = 0; c < nc; ++c)
+          for (int pl = 0; pl < 2; ++pl)
+            sm90::tma_load_4d(smem + C::kQ + (2 * c + pl) * C::kQPlane, &p.q,
+                              q_full, 32 * c, q0, bh, pl);
+      }
+      for (int j = 0; j < n * per; ++j) {
+        const int s = j % S, k0 = j / per * BN, c = j % per;
+        sm90::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        uint8_t* st = smem + C::kRing + s * C::kSlot;
+        if (c < nc) {
+          sm90::mbar_arrive_expect_tx(&full[s], C::kSItem);
+          if constexpr (!C::kResident) {
+            for (int pl = 0; pl < 2; ++pl)
+              sm90::tma_load_4d(st + pl * C::kQPlane, &p.q, &full[s], 32 * c,
+                                q0, bh, pl);
+            st += 2 * C::kQPlane;
+          }
+          for (int pl = 0; pl < 2; ++pl)
+            sm90::tma_load_4d(st + pl * C::kKPlane, &p.k, &full[s], 32 * c,
+                              k0, bh, pl);
+        } else {
+          sm90::mbar_arrive_expect_tx(&full[s], C::kVItem);
+          for (int pl = 0; pl < 2; ++pl)
+            for (int x = 0; x < C::kVBoxes; ++x)
+              sm90::tma_load_4d(st + (C::kVBoxes * pl + x) * sm90::kTfBox,
+                                &p.v, &full[s], k0 + 32 * x,
+                                f0 + 32 * (c - nc), bh, pl);
+        }
+      }
+    }
+  } else {
+    // Consumer warpgroup w: query rows [64 w, 64 w + 64) of the block.
+    sm90::reg_alloc<W::kConsumerRegs>();
+    int q0, f0, nc, no, n;
+    place(q0, f0, nc, no, n);
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int t = lane % 4;
+    const int r0 = 64 * w + 16 * warp + lane / 4;  // rows r0 and r0 + 8
+    const float sl2 = p.scale * kLog2e;
+    const long long q_lo = p.q_offset + q0 + 64 * w;
+    // Tiles [0, nw) are live for these 64 rows.
+    const int nw = fwd_key_tiles<BN>(p, q_lo, 64) < n
+                       ? fwd_key_tiles<BN>(p, q_lo, 64)
+                       : n;
+
+    float o[DO / 2];
+#pragma unroll
+    for (int i = 0; i < DO / 2; ++i) o[i] = 0.f;
+    float m_r[2] = {-INFINITY, -INFINITY};  // running max of S sl2
+    float l_r[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float sc[BN / 2];  // S of one tile, then its P in f32
+    float cs[BN / 2];  // a chunk of S
+    float pv[16];      // a chunk of P V
+    float corr[2];
+    int j = 0;  // the next item
+    auto wait_item = [&]() {
+      sm90::mbar_wait(&full[j % S], (j / S) & 1);
+      return smem + C::kRing + (j % S) * C::kSlot;
+    };
+    auto release = [&]() {
+      sm90::mbar_arrive(&empty[j % S]);
+      ++j;
+    };
+
+    if constexpr (C::kResident) sm90::mbar_wait(q_full, 0);
+    for (int i = 0; i < nw; ++i) {
+      for (int c = 0; c < nc; ++c) {
+        const uint8_t* st = wait_item();
+        const uint8_t* qh = C::kResident ? smem + C::kQ + 2 * c * C::kQPlane
+                                         : st;
+        const uint8_t* kh = C::kResident ? st : st + 2 * C::kQPlane;
+        qh += w * 64 * 128;  // this warpgroup's rows
+        sm90::wgmma_fence();
+        sm90::tf32_ss_chunk<BN>(cs, qh, qh + C::kQPlane, kh,
+                                kh + C::kKPlane);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(cs);
+        release();
+        if (c == 0) {
+#pragma unroll
+          for (int x = 0; x < BN / 2; ++x) sc[x] = cs[x];
+        } else {
+          sm90::tf32_add(sc, cs);
+        }
+      }
+      online_softmax<BN>(p, sc, m_r, l_r, corr, sl2, q_lo, q0 + r0, i * BN,
+                         t);
+      rescale<DO>(o, corr);
+      uint32_t fh[BN / 8][4], fl[BN / 8][4];
+      sm90::tf32_frags(fh, fl, sc);
+#pragma unroll
+      for (int ob = 0; ob < DO / 32; ++ob) {
+        if (ob < no) {
+          const uint8_t* st = wait_item();
+          sm90::wgmma_fence();
+          sm90::tf32_rs<BN / 8>(pv, fh, fl, st,
+                                st + C::kVBoxes * sm90::kTfBox);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait<0>();
+          sm90::fence_regs(pv);
+          release();
+#pragma unroll
+          for (int x = 0; x < 16; ++x) o[16 * ob + x] += pv[x];
+        }
+      }
+    }
+    for (int i = nw; i < n; ++i)  // tiles only the other warpgroup sees
+      for (int x = 0; x < nc + no; ++x) {
+        wait_item();
+        release();
+      }
+    store_rows<DO, F32Out>(p, o, m_r, l_r, bb, hh, q0 + r0, t, f0, f0 == 0);
+  }
+}
+
+// The f32 kernel's parameters: tensor maps of the split pass's planes in
+// `scratch` (Q in boxes of 32 features x 128 rows, K of 32 x bn, V^T of
+// 32 keys x 32 feature rows), the two planes of each its outermost dim.
+int tf32_fwd_params(FwdParams& p, const Args& a, int b, float* scratch,
+                    int bn) {
+  const int bh = b * a.h, sk8 = a.sk < 8 ? 8 : (a.sk + 7) / 8 * 8;
+  float* qp = scratch;
+  float* kp = qp + 2 * plane_floats(bh, a.d, a.sq);
+  float* vp = kp + 2 * plane_floats(bh, a.d, a.sk);
+  int err = sm90::encode_f32_tile(&p.q, qp, a.d, a.sq, bh, 2, a.d,
+                                  static_cast<long long>(a.sq) * a.d,
+                                  plane_floats(bh, a.d, a.sq), 128);
+  if (!err)
+    err = sm90::encode_f32_tile(&p.k, kp, a.d, a.sk, bh, 2, a.d,
+                                static_cast<long long>(a.sk) * a.d,
+                                plane_floats(bh, a.d, a.sk), bn);
+  if (!err)
+    err = sm90::encode_f32_tile(&p.v, vp, sk8, a.d, bh, 2, sk8,
+                                static_cast<long long>(a.d) * sk8,
+                                plane_floats(bh, a.d, sk8), 32);
+  if (err) return err;
+  p.o = a.o;
+  p.lse = a.lse;
+  p.sob = a.sob;
+  p.soh = a.soh;
+  p.sos = a.sos;
+  p.h = a.h;
+  p.sq = a.sq;
+  p.sk = a.sk;
+  p.d = a.d;
+  p.causal = a.causal;
+  p.q_offset = a.q_offset;
+  p.kv_offset = a.kv_offset;
+  p.scale = a.scale == 0.f ? 1e-30f : a.scale;  // as fwd_params
+  return 0;
+}
+
+template <int DO>
+int launch_tf32(const Args& a, int b, float* scratch, cudaStream_t stream) {
+  using C = F32Cfg<DO>;
+  FwdParams p;
+  const int err = tf32_fwd_params(p, a, b, scratch, C::kBN);
+  if (err) return err;
+  constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<D, kChunked>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_tf32_kernel<DO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = kChunked ? (a.d + D - 1) / D : 1;
-  dim3 grid((a.sq + kSBQ - 1) / kSBQ * nc, a.h, b);
-  flash_fwd_f32_kernel<D, kChunked><<<grid, kF32Threads, bytes, stream>>>(a);
+  const int nco = (a.d + DO - 1) / DO;
+  dim3 grid(a.h, b, (a.sq + 127) / 128 * nco);
+  flash_fwd_tf32_kernel<DO>
+      <<<grid, FwdCfg<256>::kThreads, bytes, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_split(const Args& a, int b, float* scratch, cudaStream_t stream) {
+  SplitParams p;
+  const int bh = b * a.h, sk8 = a.sk < 8 ? 8 : (a.sk + 7) / 8 * 8;
+  const void* x[3] = {a.q, a.k, a.v};
+  const long long sb[3] = {a.sqb, a.skb, a.svb}, sh[3] = {a.sqh, a.skh, a.svh},
+                  ss[3] = {a.sqs, a.sks, a.svs};
+  const int rows[3] = {a.sq, a.sk, a.sk};
+  float* at = scratch;
+  for (int z = 0; z < 3; ++z) {
+    p.x[z] = static_cast<const float*>(x[z]);
+    p.sb[z] = sb[z];
+    p.sh[z] = sh[z];
+    p.ss[z] = ss[z];
+    p.planes[z] = at;
+    p.rows[z] = rows[z];
+    at += 2 * plane_floats(bh, a.d, z == 2 ? sk8 : rows[z]);
+  }
+  p.h = a.h;
+  p.bh = bh;
+  p.d = a.d;
+  p.sk8 = sk8;
+  const int extent = a.sq > sk8 ? a.sq : sk8;
+  dim3 grid((extent + 31) / 32 * ((a.d + 31) / 32), bh < 65535 ? bh : 65535,
+            3);
+  tf32_split_kernel<<<grid, kSplitThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -997,40 +1201,80 @@ int launch16(const Args& a, int b, cudaStream_t stream) {
   return launch_chunked<E>(a, b, stream);
 }
 
-int launch(const Args& a, int b, int dtype, cudaStream_t stream) {
+// f32: O's columns in blocks of 64, 128, or 256 past 128.
+int launch(const Args& a, int b, int dtype, float* scratch,
+           cudaStream_t stream) {
   if (dtype == 1) return launch16<sm90::Bf16>(a, b, stream);
   if (dtype == 2) return launch16<sm90::F16>(a, b, stream);
-  if (a.d <= 64) return launch_f32<64, false>(a, b, stream);
-  if (a.d <= 128) return launch_f32<128, false>(a, b, stream);
-  if (a.d <= 256) return launch_f32<256, false>(a, b, stream);
-  return launch_f32<256, true>(a, b, stream);
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (a.d <= 64) return launch_tf32<64>(a, b, scratch, stream);
+  if (a.d <= 128) return launch_tf32<128>(a, b, scratch, stream);
+  return launch_tf32<256>(a, b, scratch, stream);
+}
+
+int make_args(Args& a, const void* q, const void* k, const void* v, void* o,
+              void* lse, const long long* st, int b, int h, int sq, int sk,
+              int d, int dtype, int causal, long long q_offset,
+              long long kv_offset, float scale) {
+  if (dtype < 0 || dtype > 2 || d < 8 || d % 8 != 0 || b <= 0 || h <= 0 ||
+      sq <= 0 || sk < 0 || st == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  a = Args{q,      k,      v,      o,      static_cast<float*>(lse),
+           st[0],  st[1],  st[2],  st[3],  st[4],  st[5],
+           st[6],  st[7],  st[8],  st[9],  st[10], st[11],
+           h,      sq,     sk,     d,      causal, q_offset, kv_offset,
+           scale};
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16; d a multiple of 8 from 8
-// up. Strides are in elements; in 16 bits the base pointers are 16-byte
-// aligned and the strides multiples of 8 elements (TMA's rule). Returns the
-// CUDA error of the launch (0 = success), or a tensor-map error
-// (flash_fwd_error_string).
+// Both entries take the same arguments. Pointers: q, k, v, out (the input
+// dtype), lse (f32, (B*H, Sq) contiguous) and scratch; strides: 12 element
+// strides, (batch, head, sequence) of q, k, v and out. dtype: 0 = float32,
+// 1 = bfloat16, 2 = float16; d a multiple of 8 from 8 up. In 16 bits the
+// base pointers are 16-byte aligned and the strides multiples of 8
+// elements (TMA's rule), and scratch is unused. In f32, scratch holds
+// flash_fwd_scratch_floats(...) floats: flash_fwd_split writes Q's, K's
+// and V's planes there, and flash_fwd, launched after it on the same
+// stream, reads them. Returns the CUDA error of the launch (0 = success),
+// or a tensor-map error (flash_fwd_error_string).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
-              void* lse, long long sqb, long long sqh, long long sqs,
-              long long skb, long long skh, long long sks, long long svb,
-              long long svh, long long svs, long long sob, long long soh,
-              long long sos, int b, int h, int sq, int sk, int d, int dtype,
-              int causal, long long q_offset, long long kv_offset,
-              float scale, void* stream) {
-  if (dtype < 0 || dtype > 2 || d < 8 || d % 8 != 0 || b <= 0 || h <= 0 ||
-      sq <= 0 || sk < 0)
+              void* lse, void* scratch, const long long* strides, int b,
+              int h, int sq, int sk, int d, int dtype, int causal,
+              long long q_offset, long long kv_offset, float scale,
+              void* stream) {
+  Args a;
+  const int bad = make_args(a, q, k, v, o, lse, strides, b, h, sq, sk, d,
+                            dtype, causal, q_offset, kv_offset, scale);
+  if (bad) return bad;
+  return launch(a, b, dtype, static_cast<float*>(scratch),
+                static_cast<cudaStream_t>(stream));
+}
+
+int flash_fwd_split(const void* q, const void* k, const void* v, void* o,
+                    void* lse, void* scratch, const long long* strides,
+                    int b, int h, int sq, int sk, int d, int dtype,
+                    int causal, long long q_offset, long long kv_offset,
+                    float scale, void* stream) {
+  Args a;
+  const int bad = make_args(a, q, k, v, o, lse, strides, b, h, sq, sk, d,
+                            dtype, causal, q_offset, kv_offset, scale);
+  if (bad) return bad;
+  if (dtype != 0 || scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{q,   k,   v,   o,   static_cast<float*>(lse),
-         sqb, sqh, sqs, skb, skh,
-         sks, svb, svh, svs, sob,
-         soh, sos, h,   sq,  sk,
-         d,   causal, q_offset, kv_offset, scale};
-  return launch(a, b, dtype, static_cast<cudaStream_t>(stream));
+  return launch_split(a, b, static_cast<float*>(scratch),
+                      static_cast<cudaStream_t>(stream));
+}
+
+// The floats of the f32 forward's scratch: hi and lo planes of Q (B*H x Sq
+// x d), K (B*H x Sk x d) and V^T (B*H x d x Sk8).
+long long flash_fwd_scratch_floats(int b, int h, int sq, int sk, int d) {
+  const int sk8 = sk < 8 ? 8 : (sk + 7) / 8 * 8;
+  return 2 * (plane_floats(b * h, d, sq) + plane_floats(b * h, d, sk) +
+              plane_floats(b * h, d, sk8));
 }
 
 const char* flash_fwd_error_string(int code) {

@@ -2,12 +2,12 @@
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, 128-byte
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
 // kernels use (bf16 or fp16 in, f32 accumulate; and tf32 in for the f32
-// backward kernels, with the rounding to tf32), setmaxnreg, named barriers
-// and the proxy fence for operands written by threads, the mma.sync and
-// ldmatrix pieces of the backward kernels past head dim 256, the element
-// types Bf16 and F16, and on the host the tensor-map encoders (16-bit rows,
-// f32 tiles, thin f32 rows). No CuTe/CUTLASS: each source builds in
-// seconds.
+// kernels, with the rounding to tf32 and the three-product split),
+// setmaxnreg, named barriers and the proxy fence for operands written by
+// threads, the mma.sync and ldmatrix pieces of the dq kernel past head dim
+// 256, the element types Bf16 and F16, and on the host the tensor-map
+// encoders (16-bit rows, f32 tiles, thin f32 rows). No CuTe/CUTLASS: each
+// source builds in seconds.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
 // writes: rows of 64 16-bit elements (128 bytes), the 16-byte chunks of
@@ -329,22 +329,6 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src,
   }
 }
 
-// Rows [r0, r0 + R) of columns [c0, c0 + D) of a (seq, d) f32 operand
-// (row stride `row_stride` elements) into a shared tile of row stride LD,
-// with `threads` threads: rows past n and columns past d are zero (a
-// chunk of the f32 kernels past d = 256).
-template <int R, int D, int LD, int threads>
-__device__ __forceinline__ void stage_rows_f32(float* dst, const float* src,
-                                               long long row_stride, int r0,
-                                               int n, int c0, int d,
-                                               int tid) {
-  for (int e = tid; e < R * D; e += threads) {
-    const int rr = e / D, col = c0 + e % D;
-    dst[rr * LD + e % D] =
-        r0 + rr < n && col < d ? src[(r0 + rr) * row_stride + col] : 0.f;
-  }
-}
-
 // wgmma.mma_async m64nNk16, E (bf16 or fp16) in, f32 accumulate, over one
 // warpgroup. d holds N / 2 floats a thread: d[4 j + e] is row 16 w + g + 8
 // (e / 2), column 8 j + 2 t + (e % 2) of the 64 x N tile, for warp w of
@@ -567,7 +551,7 @@ struct Wgmma<256, E> {
 };
 
 // ---------------------------------------------------------------------------
-// TF32 (the f32 backward kernels' three-product split)
+// TF32 (the f32 kernels' three-product split)
 
 // x rounded to TF32 (10 explicit mantissa bits, round to nearest, ties away
 // from zero), as an f32 whose 13 low mantissa bits are zero: what the
@@ -649,6 +633,94 @@ struct Tf32<64> {
         : "l"(da), "l"(db), "r"(scale_d));
   }
 };
+
+// The 3xTF32 products of the f32 kernels (flash_fwd.cu, flash_bwd.cu).
+//
+// The tensor cores round each k-step's sum into the accumulator toward
+// zero, about an ulp of the running sum and always the same way: summed in
+// one accumulator over the 64 k-steps of d = 512, dQ's rows missed the f32
+// tolerance of 1e-4. So each chunk of at most 8 k-steps (32 features of a
+// score, 32 or 64 keys or queries of an output) is summed afresh on the
+// tensor cores, the small products (hi lo, lo hi) first, then hi hi, and
+// added into the running f32 sum on the CUDA cores (tf32_add).
+
+constexpr int kTfBox = 4096;  // a transposed tile's box: 32 rows x 32 floats
+
+// The position of column k of a transposed tile along its contracted dim.
+// A TF32 A fragment holds k t and t + 4 of each group of 8 where the f32
+// accumulator it is formed from holds columns 2 t and 2 t + 1 (columns are
+// keys in P V and dS K, queries in P^T dO and dS^T Q), so the transposed B
+// tiles store each group of 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 and the
+// accumulators feed the products as they are.
+__host__ __device__ __forceinline__ int tf32_kpos(int k) {
+  return (k & ~7) | ((k & 1) << 2) | ((k & 7) >> 1);
+}
+
+// The A fragments of an accumulator of m64n32 or m64n64 (d[4 j + e]: row
+// g + 8 (e / 2), column 8 j + 2 t + e % 2), hi and lo: k-step kk is
+// columns 8 kk..8 kk + 7, its fragment {d[4 kk], d[4 kk + 2], d[4 kk + 1],
+// d[4 kk + 3]} (tf32_kpos). Formed before the products' fence, so that no
+// instruction defines a register a product reads while it runs.
+template <int KS>
+__device__ __forceinline__ void tf32_frags(uint32_t (&fh)[KS][4],
+                                           uint32_t (&fl)[KS][4],
+                                           const float (&d)[4 * KS]) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = d[4 * kk + ((r & 1) << 1) + (r >> 1)];
+      const float h = tf32_rna(x);
+      fh[kk][r] = __float_as_uint(h);
+      fl[kk][r] = __float_as_uint(tf32_rna(x - h));
+    }
+}
+
+// acc = A B^T over one 32-feature chunk: A and B K-major tiles with hi and
+// lo parts, rows of 32 floats (a k-step is +32 bytes).
+template <int N>
+__device__ __forceinline__ void tf32_ss_chunk(float (&acc)[N / 2],
+                                              const uint8_t* ah,
+                                              const uint8_t* al,
+                                              const uint8_t* bh,
+                                              const uint8_t* bl) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int o = 32 * kk;
+    Tf32<N>::ss(acc, desc_k(ah + o), desc_k(bl + o), kk > 0);
+    Tf32<N>::ss(acc, desc_k(al + o), desc_k(bh + o), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    Tf32<N>::ss(acc, desc_k(ah + 32 * kk), desc_k(bh + 32 * kk), 1);
+}
+
+// acc = A B over K = 8 KS: A the fragments of tf32_frags, B a transposed
+// tile (hi, lo) of 32 rows, its k-steps 32 bytes apart within a box,
+// boxes kTfBox apart.
+template <int KS>
+__device__ __forceinline__ void tf32_rs(float (&acc)[16],
+                                        const uint32_t (&fh)[KS][4],
+                                        const uint32_t (&fl)[KS][4],
+                                        const uint8_t* bh, const uint8_t* bl) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int o = (kk / 4) * kTfBox + 32 * (kk % 4);
+    Tf32<32>::rs(acc, fl[kk], desc_k(bh + o), kk > 0);
+    Tf32<32>::rs(acc, fh[kk], desc_k(bl + o), 1);
+  }
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    Tf32<32>::rs(acc, fh[kk], desc_k(bh + (kk / 4) * kTfBox + 32 * (kk % 4)),
+                 1);
+}
+
+template <int K>
+__device__ __forceinline__ void tf32_add(float (&sum)[K],
+                                         const float (&x)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) sum[i] += x[i];
+}
 
 // ---------------------------------------------------------------------------
 // host

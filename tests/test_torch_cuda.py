@@ -72,7 +72,16 @@ def cuda():
                          # chunks of 256 features
                          + [(200, d, True, 0, 0) for d in WIDE_DIMS]
                          + [(136, d, False, 0, 0) for d in WIDE_DIMS]
-                         + [(256, d, True, 192, 64) for d in WIDE_DIMS])
+                         + [(256, d, True, 192, 64) for d in WIDE_DIMS]
+                         # the f32 forward's tiles (128 query rows a block,
+                         # 64 keys a tile, 32 past 128, features in chunks
+                         # of 32, O in blocks of 256 columns past 128): a
+                         # ragged last key tile (200), queries fewer than
+                         # one 64-row warpgroup (40), a partial last
+                         # feature chunk (72), a second block of columns
+                         # (264)
+                         + [(200, 72, True, 0, 0), (40, 72, True, 0, 0),
+                            (256, 72, True, 192, 64), (40, 264, True, 0, 0)])
 def test_kernel_matches_plain(cuda, dtype, tol, s, d, causal, q_off,
                               kv_off):
     g = torch.Generator(device=cuda).manual_seed(s + d)
@@ -150,7 +159,14 @@ def _rows_close(got, want, dead, rel):
                          # sees, over a partial last feature chunk (72)
                          # and a second block of dQ's columns (264)
                          + [(128, 128, d, True, 0, 40)
-                            for d in (8, 72, 136, 264)])
+                            for d in (8, 72, 136, 264)]
+                         # the 16-bit dk/dv past 256 (64 keys and a chunk
+                         # of 256 columns a block, query tiles of 64 and
+                         # their chunk pairs streamed): the causal frontier
+                         # inside a block with a ragged last key tile, and
+                         # fully-masked rows beside keys no query sees
+                         + [(136, 200, d, True, 64, 0) for d in (264, 300)]
+                         + [(200, 136, d, True, 0, 40) for d in (264, 300)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -213,13 +229,16 @@ def test_dkv_kernel_is_deterministic(cuda, d, dtype, kernel):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-@pytest.mark.parametrize("d", [256, 264, 512])
+@pytest.mark.parametrize("d,dtype", [
+    (d, t) for t in (torch.bfloat16, torch.float16) for d in (256, 264, 512)]
+    # f32: the split pass, then O in blocks of 64 columns, of 256 and of two
+    # chunks of 256
+    + [(d, torch.float32) for d in (64, 256, 512)])
 def test_forward_kernel_is_deterministic(cuda, d, dtype):
-    # Each block writes its own rows of out, and past 256 its own chunk of
-    # them, every chunk's block forming the same S in the same order (the
-    # one of chunk 0 writes lse), with no atomics: two launches on the
-    # same inputs give the same bits, out and lse alike.
+    # Each block writes its own rows of out, and past 256 (f32: past 128)
+    # its own chunk of them, every chunk's block forming the same S in the
+    # same order (the one of chunk 0 writes lse), with no atomics: two
+    # launches on the same inputs give the same bits, out and lse alike.
     g = torch.Generator(device=cuda).manual_seed(d)
     q, k, v = (torch.randn((2, 3, 328, d), generator=g, device=cuda)
                .to(dtype) for _ in range(3))
