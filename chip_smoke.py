@@ -267,8 +267,8 @@ Phases; any failure raises and ends the run with a non-zero exit:
    the same step under the plain attention.
 
 Then it prints the kernel table as one JSON line (each row names its
-design: ``wgmma+tma``, the 16-bit path of all three kernels up to head
-dim 256 and of the forward past it), the card's
+design: ``wgmma+tma``, the 16-bit path of all three kernels at every head
+dim, ``, chunks of 256`` past 256), the card's
 name and power limit, and as the last line ``{"ok": true, "device":
 {...}}``.
 Without a card, or outside a checkout, it exits non-zero and prints no
@@ -5478,19 +5478,16 @@ def phase_fp16_wide(dev, seed, card):
 
 def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
-    TMA + wgmma for 16 bits up to 256 and for the forward and dk/dv past
-    it, mma.sync for dq past 256 (all in chunks of 256 past 256); in f32
-    TMA + wgmma in three TF32 products for all three, dq's dP on the CUDA
-    cores, the forward's operands split once a call by a pass of their
-    own."""
+    TMA + wgmma for all three in 16 bits at every head dim (in chunks of
+    256 past 256); in f32 TMA + wgmma in three TF32 products for all three,
+    dq's dP on the CUDA cores, the forward's operands split once a call by
+    a pass of their own."""
     if dname == "float32":
         design = {"flash_fwd": "wgmma+tma, 3xtf32, split pass",
                   "flash_bwd_dq": "wgmma+tma, 3xtf32, dP on the cuda cores",
                   "flash_bwd_dkv": "wgmma+tma, 3xtf32"}[name]
-    elif d <= 256 or name != "flash_bwd_dq":
-        design = "wgmma+tma"
     else:
-        design = "mma.sync"
+        design = "wgmma+tma"
     return design + (", chunks of 256" if wide_class(d) == "chunks" else "")
 
 

@@ -15,10 +15,9 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   launches ``csrc/flash_fwd.cu`` and its backward the dq and dk/dv kernels
   of ``csrc/flash_bwd.cu`` (all three kernels stream their tiles by TMA
   and multiply with wgmma, ``csrc/sm90.cuh``, in chunks of 256 features
-  past head dim 256, but for the 16-bit dq there, which runs on mma.sync;
-  in f32 each product runs as three TF32 products, and the forward's
-  operands are split into them once a call by a pass of their own); on a
-  CPU tensor both run the plain versions, so the CPU tests
+  past head dim 256; in f32 each product runs as three TF32 products, and
+  the forward's operands are split into them once a call by a pass of
+  their own); on a CPU tensor both run the plain versions, so the CPU tests
   exercise the backward arithmetic the card runs. On the card it launches
   the kernels or raises; it never falls back to the plain version there.
   The kernels take every head dim from 1 up (:func:`_kernel_width`), in
@@ -52,7 +51,7 @@ flash_bwd_dkv_launches = 0
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: the kernels' tile widths: TMA + wgmma at 64, 128 and 256, and the f32
 #: kernels' widths; past 256 the head dim is taken in chunks of the widest
-#: (TMA + wgmma for the forward and dk/dv, mma.sync for the 16-bit dq)
+#: (TMA + wgmma for all three)
 _TILE_WIDTHS = (64, 128, 256)
 
 
@@ -225,8 +224,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     by 64 keys at 256 and in each 256-feature chunk past it; dq 128 query
     rows by 64 keys at widths 64 and 128, and 64 by 64 at 256; dk/dv 128
     keys by 64 queries at width 64, by 32 at 128, and 64 keys by 64
-    queries at 256; in each chunk past 256 dq 64 by 32, dk/dv 64 keys by
-    64 queries; in f32: forward 128 query rows by 64 keys, 32 past head
+    queries at 256; in each chunk past 256 dq 64 by 64 keys, dk/dv 64 keys
+    by 64 queries; in f32: forward 128 query rows by 64 keys, 32 past head
     dim 128, dq 64 by 64, dk/dv 64 keys by 64 queries, 32 past 128) and
     mask the ragged last tiles themselves. On the card they take bf16, fp16 or f32 with any head dim
     from 1 up (:func:`_kernel_width`); ``scale`` defaults to ``1/sqrt(d)``

@@ -37,8 +37,8 @@
 // of the TMA + wgmma kernels, whose tensor maps declare the true d so that
 // TMA zero-fills the tiles' columns past it (zero columns of Q, K, V and
 // dO leave S and dP as they are, and give zero columns of dQ, dK and dV,
-// which the stores skip), and past d = 256 chunks of 256: dk/dv on TMA +
-// wgmma, dq on mma.sync (below). The f32 kernels (3xTF32, below) take the
+// which the stores skip), and past d = 256 chunks of 256 (the split
+// kernels' blocks, below). The f32 kernels (3xTF32, below) take the
 // features in chunks of 32 and own dQ, dK and dV in blocks of 64, 128 or
 // 256 columns (256 past it). Shared memory and registers are sized by the
 // tile or chunk, never by d.
@@ -55,12 +55,13 @@
 // TFLOP/s they would be 1.539 and 2.052 ms), at every d with H = 1024 / d;
 // f32 bytes (twice bf16's) take 0.10 and 0.12 ms.
 //
-// Design, and what it leaves on the table. The 16-bit kernels up to d = 256
+// Design, and what it leaves on the table. The 16-bit kernels at every d
 // (bf16 below; fp16 the same) are a TMA tile ring + wgmma (sm90.cuh) in
 // blocks of three warpgroups: warpgroup 2 gives up its registers
 // (setmaxnreg, 24 left against 240 for each consumer) and one of its
 // threads issues every TMA load; at d <= 128 warpgroups 0 and 1 each own
-// 64 rows of the block's resident operand, at 129-256 half its features.
+// 64 rows of the block's resident operand, past 128 half its features (of
+// a 256-feature chunk past 256).
 // * bf16 dq: one block per 128 queries. The producer loads Q and dO once,
 //   then streams the K and V tiles through a ring of three shared stages
 //   completed on mbarriers ("full" when TMA has landed, "empty" when both
@@ -136,18 +137,21 @@
 //   the minimal 2048. Left out: a cluster of the chunks' blocks sharing
 //   P^T and dS^T, overlap of a pair's products with the next pair's wait,
 //   persistent blocks.
-// * bf16 and fp16 dq at d > 256: right rather than fast, on mma.sync
-//   m16n8k16 with plain 16-byte loads into padded shared rows (columns
-//   past d zero) and ldmatrix.trans for K, whose contracted dim runs down
-//   its rows, the features in nc = ceil(d / 256) chunks: one block of 4
-//   warps per 64 queries (16 a warp) and chunk of dQ, 32-key K and V
-//   tiles; dQ's 128 accumulators a thread for 16 rows x 256 features fit
-//   beside S and dP of a 32-key tile. For each key tile a block stages the
-//   chunks of both operands in turn into the same shared rows and sums S
-//   and dP over them, then takes K's chunk its output needs (staged again
-//   unless it was the last). Every block forms the same S in the same
-//   order, so P is the same in each; the outputs stay disjoint, so the
-//   gradients stay bit-deterministic.
+// * bf16 and fp16 dq at d > 256 (flash_bwd_dq_chunked_kernel): the split
+//   dq kernel in nc = ceil(d / 256) chunks, as the chunked dk/dv kernel
+//   carries the split one. One block per (64 queries, chunk oc of dQ's
+//   columns); nothing is resident: for each live 64-key tile one producer
+//   thread streams the (Q_c, K_c) and (dO_c, V_c) pairs of every chunk
+//   through three 64 KB slots, chunk oc last, whose (Q, K) slot stays held
+//   for dQ += dS K_oc. S and dP are summed over the chunks (each warpgroup
+//   32 keys), dS formed once and exchanged as in the split kernel; lse and
+//   c are the block's own rows, in registers. A block forms S and dP over
+//   all d and dQ over its 256 columns: at d 512, 2560 feature-products a
+//   (query, key) pair against the minimal 1536. Q_c and dO_c are streamed
+//   again for every key tile (64 rows x d of each is 128 KB at d 512, too
+//   much to keep beside a ring). Left out: a cluster of the chunks' blocks
+//   sharing dS, overlap of a pair's products with the next pair's wait,
+//   persistent blocks.
 // * f32 (flash_bwd_dq_tf32_kernel, flash_bwd_dkv_tf32_kernel, below): the
 //   tensor cores take f32 products as TF32 (10 mantissa bits, about 5e-4 a
 //   product, which misses f32's 1e-4 a row), so each f32 product a b runs
@@ -211,13 +215,6 @@ __device__ __forceinline__ void causal_liveness(long long q_lo,
                                                 bool& diag) {
   live = k_lo <= q_lo + BQ - 1;
   diag = live && (k_lo + BK - 1 > q_lo);
-}
-
-// True where the (query row, key col) pair is masked: a key past Sk, a
-// query past Sq, or (causal) a key in the query's future.
-__device__ __forceinline__ bool pair_masked(const Args& a, int row, int col) {
-  return col >= a.sk || row >= a.sq ||
-         (a.causal && a.kv_offset + col > a.q_offset + row);
 }
 
 // lse of a row, with fully-masked rows (lse = -inf) and rows past Sq
@@ -1364,7 +1361,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 // the streamed K tile (B MN-major). dS is double-buffered, as the split
 // kernel's P^T and dS^T are: the buffer of tile i was last read by dQ of
 // tile i - 2, which both warpgroups waited for before they reached the
-// barrier of tile i - 1.
+// barrier of tile i - 1. Past d = 256 the same block, in chunks of 256
+// features (flash_bwd_dq_chunked_kernel, below), shares the pieces that
+// follow.
 constexpr int kDqSplitBM = 64;  // queries per block; key tiles of kDqBN
 constexpr int kDqSplitStages = 2;
 
@@ -1384,6 +1383,132 @@ struct DqSplitSmem {
   static_assert(kBytes <= 232448, "shared memory of one H100 block");
   static_assert(kDqBN == 64 && kDqSplitBM == 64, "boxes of 64 rows");
 };
+
+// The pieces the split dq kernel and the chunked one (below) share. A
+// consumer thread holds query rows r0 and r0 + 8 of the block's 64, and
+// keys kb + 8 j and kb + 8 j + 1 (j < 4) of its warpgroup's 32 of a key
+// tile (kb = 32 w + 2 (lane % 4)).
+
+// lse (in log2 units) and c of the thread's rows of the block from q0.
+__device__ __forceinline__ void dq_row_stats(const DqParams& p, long long bh,
+                                             int q0, int r0,
+                                             float (&lse2)[2],
+                                             float (&cr)[2]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    lse2[hr] = safe_lse(p, bh, q0 + r0 + 8 * hr) * kLog2e;
+    cr[hr] = row_c(p, bh, q0 + r0 + 8 * hr);
+  }
+}
+
+// P = exp2(S scale log2e - lse log2e) and dS = P (dP - c) of the key tile
+// from k0 for the block's queries from q0, into dp. Only diagonal and
+// ragged tiles are masked: TMA's zero fill past Sk scores 0, not -inf, so
+// keys at or past Sk are masked here, as are (causal) keys in the query's
+// future. Rows past Sq take lse = 1e30 (p = 0) and are never written.
+__device__ __forceinline__ void dq_split_grads(const DqParams& p,
+                                               const float (&s)[16],
+                                               float (&dp)[16],
+                                               const float (&lse2)[2],
+                                               const float (&cr)[2], int q0,
+                                               int k0, int r0, int kb,
+                                               float sl2) {
+  bool live = true, diag = false;
+  if (p.causal)
+    causal_liveness<kDqSplitBM, kDqBN>(p.q_offset + q0, p.kv_offset + k0,
+                                       live, diag);
+  const bool masked = diag || k0 + kDqBN > p.sk;
+  // In a masked tile, relative to this thread's first query and key: keys
+  // at or past Sk, and (causal) keys in the query's future, kv_offset + key
+  // > q_offset + row, i.e. key - row above `ahead` (the offsets' gap at the
+  // thread's first pair, clamped to an int; without causal it is above
+  // every key - row).
+  int key_end = 0, ahead = 0;
+  if (masked) {
+    key_end = p.sk - k0 - kb;
+    const long long gap = p.causal ? p.q_offset - p.kv_offset + q0 + r0 -
+                                         k0 - kb
+                                   : 1ll << 40;
+    ahead = static_cast<int>(gap > (1 << 30)    ? (1 << 30)
+                             : gap < -(1 << 30) ? -(1 << 30)
+                                                : gap);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = fmaf(s[4 * j + e], sl2, -lse2[e >> 1]);
+      if (masked) {
+        const int key = 8 * j + (e & 1);  // past this thread's first
+        const int row = 8 * (e >> 1);     // key and query
+        if (key >= key_end || key - row > ahead) x = -INFINITY;
+      }
+      dp[4 * j + e] = sm90::exp2_approx(x) * (dp[4 * j + e] - cr[e >> 1]);
+    }
+}
+
+// This warpgroup's keys of dS, rounded to E, into the shared tile at ds
+// (queries as rows, the 128-byte swizzled K-major layout); then the
+// barrier after which both warpgroups' halves are there for the async
+// proxy.
+template <class E>
+__device__ __forceinline__ void dq_store_ds(uint8_t* ds, const float (&dp)[16],
+                                            int r0, int kb) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    // rows r0 and r0 + 8 (8 rows = 1024 bytes further, the same swizzle)
+    uint8_t* at = ds + sm90::sw128_offset(r0, kb + 8 * j);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr)
+      *reinterpret_cast<uint32_t*>(at + hr * 1024) =
+          sm90::pack<E>(dp[4 * j + 2 * hr], dp[4 * j + 2 * hr + 1]);
+  }
+  sm90::fence_proxy_async();
+  sm90::bar_sync(1, kConsumers);
+}
+
+// dQ += dS K over this warpgroup's 128 features: dS K-major from its
+// shared tile, K MN-major (its keys run down the rows) from a streamed
+// tile the S product read K-major, ks at the warpgroup's first feature
+// box (issued and committed, not waited).
+template <class E>
+__device__ __forceinline__ void dq_issue_dq(float (&dq)[64],
+                                            const uint8_t* ds,
+                                            const uint8_t* ks) {
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kDqBN / 16; ++kk)
+    sm90::Wgmma<128, E>::ss_mn(dq, sm90::desc_k(ds + kk * 32),
+                               sm90::desc_mn(ks + kk * 16 * 128, 64 * 128),
+                               1);
+  sm90::wgmma_commit();
+}
+
+// Rows `row` and row + 8 of dQ (every row below Sq: 0 where no live key
+// reaches it), this thread's columns of the warpgroup's 128 from f0 below
+// d.
+template <class E>
+__device__ __forceinline__ void dq_store_rows(const DqParams& p,
+                                              const float (&dq)[64], int bb,
+                                              int hh, int row, int f0) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr, row += 8) {
+    if (row >= p.sq) continue;
+    typename E::T* dqp = static_cast<typename E::T*>(p.dq) +
+                         static_cast<long long>(bb) * p.s1b +
+                         static_cast<long long>(hh) * p.s1h +
+                         static_cast<long long>(row) * p.s1s;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = f0 + 8 * j;
+      if (col >= p.d) continue;
+      *reinterpret_cast<typename E::T2*>(dqp + col + 2 * t) =
+          E::pack2(dq[4 * j + 2 * hr] * p.scale,
+                   dq[4 * j + 2 * hr + 1] * p.scale);
+    }
+  }
+}
 
 template <class E>
 __global__ void __launch_bounds__(kBlockThreads, 1)
@@ -1461,11 +1586,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const long long bh = static_cast<long long>(bb) * p.h + hh;
 
     float lse2[2], cr[2];  // per row: lse in log2 units, c
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      lse2[hr] = safe_lse(p, bh, q0 + r0 + 8 * hr) * kLog2e;
-      cr[hr] = row_c(p, bh, q0 + r0 + 8 * hr);
-    }
+    dq_row_stats(p, bh, q0, r0, lse2, cr);
     float dq[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) dq[i] = 0.f;
@@ -1498,77 +1619,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       }
       sm90::wgmma_commit();
     };
-    // P = exp2(S scale log2e - lse log2e) and dS = P (dP - c) of tile i,
-    // into dp. Only diagonal and ragged tiles are masked: TMA's zero fill
-    // past Sk scores 0, not -inf, so keys at or past Sk are masked here, as
-    // are (causal) keys in the query's future. Rows past Sq take lse = 1e30
-    // (p = 0) and are never written.
     auto grads = [&](int i) {
-      const int k0 = i * BN;
-      bool live = true, diag = false;
-      if (p.causal)
-        causal_liveness<kDqSplitBM, BN>(p.q_offset + q0, p.kv_offset + k0,
-                                        live, diag);
-      const bool masked = diag || k0 + BN > p.sk;
-      // In a masked tile, relative to this thread's first query and key:
-      // keys at or past Sk, and (causal) keys in the query's future,
-      // kv_offset + key > q_offset + row, i.e. key - row above `ahead` (the
-      // offsets' gap at the thread's first pair, clamped to an int; without
-      // causal it is above every key - row).
-      int key_end = 0, ahead = 0;
-      if (masked) {
-        key_end = p.sk - k0 - kb;
-        const long long gap = p.causal ? p.q_offset - p.kv_offset + q0 +
-                                             r0 - k0 - kb
-                                       : 1ll << 40;
-        ahead = static_cast<int>(gap > (1 << 30)    ? (1 << 30)
-                                 : gap < -(1 << 30) ? -(1 << 30)
-                                                    : gap);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = fmaf(s[4 * j + e], sl2, -lse2[e >> 1]);
-          if (masked) {
-            const int key = 8 * j + (e & 1);  // past this thread's first
-            const int row = 8 * (e >> 1);     // key and query
-            if (key >= key_end || key - row > ahead) x = -INFINITY;
-          }
-          dp[4 * j + e] = sm90::exp2_approx(x) * (dp[4 * j + e] - cr[e >> 1]);
-        }
+      dq_split_grads(p, s, dp, lse2, cr, q0, i * BN, r0, kb, sl2);
     };
-    // This warpgroup's keys of dS of tile i, rounded to E, into buffer i %
-    // 2; then the barrier after which both warpgroups' halves are there for
-    // the async proxy.
     auto store_ds = [&](int i) {
-      uint8_t* ds = smem + L::kDs + (i & 1) * L::kBox;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // rows r0 and r0 + 8 (8 rows = 1024 bytes further, the same
-        // swizzle)
-        uint8_t* at = ds + sm90::sw128_offset(r0, kb + 8 * j);
-#pragma unroll
-        for (int hr = 0; hr < 2; ++hr)
-          *reinterpret_cast<uint32_t*>(at + hr * 1024) =
-              sm90::pack<E>(dp[4 * j + 2 * hr], dp[4 * j + 2 * hr + 1]);
-      }
-      sm90::fence_proxy_async();
-      sm90::bar_sync(1, kConsumers);
+      dq_store_ds<E>(smem + L::kDs + (i & 1) * L::kBox, dp, r0, kb);
     };
-    // dQ += dS K of tile i over this warpgroup's features: dS K-major from
-    // its shared tile, K MN-major (its keys run down the rows) from the
-    // streamed tile the S product read K-major.
     auto issue_dq = [&](int i) {
-      const uint8_t* ks = stage(i) + 2 * w * L::kBox;
-      const uint8_t* ds = smem + L::kDs + (i & 1) * L::kBox;
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        sm90::Wgmma<128, E>::ss_mn(
-            dq, sm90::desc_k(ds + kk * 32),
-            sm90::desc_mn(ks + kk * 16 * 128, L::kBox), 1);
-      sm90::wgmma_commit();
+      dq_issue_dq<E>(dq, smem + L::kDs + (i & 1) * L::kBox,
+                     stage(i) + 2 * w * L::kBox);
     };
 
     // Per tile: dQ of tile i is issued, then S and dP of tile i + 1; once
@@ -1603,207 +1662,174 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
       sm90::mbar_arrive(&empty[(n - 1) % S]);
     }
 
-    // Every row below Sq is written: 0 where no live key reaches it.
+    dq_store_rows<E>(p, dq, bb, hh, q0 + r0, 128 * w);
+  }
+}
+
+// dq at d > 256: the split dq kernel's block in nc = ceil(d / 256) chunks
+// of 256 features, as flash_bwd_dkv_chunked_kernel carries the split dk/dv
+// kernel. One block per (64 queries, chunk oc of dQ's columns, head,
+// batch), the grid's chunk axis folded into the query-tile axis; warpgroup
+// w owns features 256 oc + [128 w, 128 w + 128) of dQ (64 registers a
+// thread), as in the split kernel. Nothing is resident: for each live
+// 64-key tile the producer streams, through the dk/dv kernel's ring of
+// three 64 KB slots, the pairs (Q_c, K_c) and (dO_c, V_c) of every chunk c
+// (each 64 rows x 256 features), in the order oc + 1, ..., nc - 1, 0, ...,
+// oc. Each consumer sums S = Q K^T over the (Q_c, K_c) pairs and dP = dO
+// V^T over the (dO_c, V_c) pairs for its 32 keys (wgmma m64n32 SS), forms
+// P and dS once as the split kernel does, and multiplies dS into dQ by
+// K_oc, which the tile's last (Q, K) slot still holds (handed back once dQ
+// is done, after the next tile's first S product is issued, while that
+// tile's first pair has already landed in a free slot). Every other slot
+// goes back as soon as its product is done. lse and c are the block's own
+// rows, read once into registers. A block forms S and dP over all d and
+// dQ over its 256 columns: at d 512, 2 (2 x 512) + 2 x 256 = 2560
+// feature-products a (query, key) pair over the two blocks, against the
+// minimal 1536. Each chunk's block sums S in its own chunk order, so P
+// differs between them by f32 rounding; each dQ column is written by one
+// block, so the result is the same bits from launch to launch.
+//
+// Shared memory, from a 1024-byte aligned base: the slots (a pair of 64-row
+// chunk tiles, four boxes each), two dS buffers, then the barriers.
+struct DqChunkSmem {
+  static constexpr int kBox = 64 * 128;
+  static constexpr int kTile = 4 * kBox;
+  static constexpr int kSlot = 2 * kTile;
+  static constexpr int kDs = kChunkSlots * kSlot;
+  static constexpr int kBar = kDs + 2 * kBox;
+  static constexpr int kBytes = kBar + 2 * kChunkSlots * 8 + 1024;
+  static_assert(kBytes <= 232448, "shared memory of one H100 block");
+};
+
+template <class E>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dq_chunked_kernel(const __grid_constant__ DqParams p) {
+  using L = DqChunkSmem;
+  constexpr int BN = kDqBN, S = kChunkSlots;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = sm90::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + S;
+
+  const int hh = blockIdx.x, bb = blockIdx.y;
+  const int tid = threadIdx.x;
+  // The block's queries and chunk of dQ (high query tiles, which see the
+  // most keys under the causal mask, first; a tile's chunks side by side)
+  // and the key tiles [0, n) it runs over. Each role works these out after
+  // its setmaxnreg, so that nothing stays live across it.
+  auto place = [&](int& nc, int& q0, int& oc, int& n) {
+    nc = (p.d + 255) / 256;
+    const int z = static_cast<int>(blockIdx.z);
+    q0 = (static_cast<int>(gridDim.z) / nc - 1 - z / nc) * kDqSplitBM;
+    oc = z % nc;
+    n = dq_key_tiles(p, p.q_offset + q0,
+                     p.sq - q0 < kDqSplitBM ? p.sq - q0 : kDqSplitBM);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    // Producer warpgroup: one thread issues every load.
+    sm90::reg_dealloc<kProducerRegs>();
+    if (tid == kConsumers) {
+      int nc, q0, oc, n;
+      place(nc, q0, oc, n);
+      const int per = 2 * nc;
+      for (int j = 0; j < n * per; ++j) {
+        const int s = j % S, x = j % per, k0 = j / per * BN;
+        const int c = (oc + 1 + x / 2) % nc;
+        sm90::mbar_wait(&empty[s], ((j / S) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&full[s], L::kSlot);
+        uint8_t* st = smem + s * L::kSlot;
+        const CUtensorMap* queries = x & 1 ? &p.dout : &p.q;
+        const CUtensorMap* keys = x & 1 ? &p.v : &p.k;
 #pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int row = q0 + r0 + 8 * hr;
-      if (row < p.sq) {
-        typename E::T* dqp = static_cast<typename E::T*>(p.dq) +
-                             static_cast<long long>(bb) * p.s1b +
-                             static_cast<long long>(hh) * p.s1h +
-                             static_cast<long long>(row) * p.s1s;
-        const int t = threadIdx.x % 4;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int col = 128 * w + 8 * j;
-          if (col >= p.d) continue;
-          *reinterpret_cast<typename E::T2*>(dqp + col + 2 * t) =
-              E::pack2(dq[4 * j + 2 * hr] * p.scale,
-                       dq[4 * j + 2 * hr + 1] * p.scale);
+        for (int b4 = 0; b4 < 4; ++b4) {
+          sm90::tma_load_4d(st + b4 * L::kBox, queries, &full[s],
+                            256 * c + 64 * b4, q0, hh, bb);
+          sm90::tma_load_4d(st + L::kTile + b4 * L::kBox, keys, &full[s],
+                            256 * c + 64 * b4, k0, hh, bb);
         }
       }
     }
-  }
-}
+  } else {
+    // Consumer warpgroup w: features 256 oc + [128 w, 128 w + 128) of dQ
+    // for the block's 64 queries; keys [32 w, 32 w + 32) of each tile's S
+    // and dP.
+    sm90::reg_alloc<kConsumerRegs>();
+    int nc, q0, oc, n;
+    place(nc, q0, oc, n);
+    const int w = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = 16 * warp + lane / 4;  // query rows r0, r0 + 8 of the block
+    // keys kb + 8 j and kb + 8 j + 1 of a tile's S accumulators
+    const int kb = 32 * w + 2 * (lane % 4);
+    const long long bh = static_cast<long long>(bb) * p.h + hh;
 
-// ---------------------------------------------------------------------------
-// bf16 and fp16 dq, d > 256: mma.sync, in chunks of 256 features
-
-constexpr int kWideD = 256;  // a chunk's width; columns past d are zero
-constexpr int kWideThreads = 128;
-constexpr int kWideST = kWideD + 8;  // row stride: conflict-free fragments
-
-// The columns of feature chunk c (kWideD wide) below the true d.
-__device__ __forceinline__ int chunk_cols(int d, int c) {
-  const int left = d - c * kWideD;
-  return left < kWideD ? left : kWideD;
-}
-
-// One block per (64 queries, chunk, head, batch), 4 warps x 16 query
-// rows; K and V tiles of 32 keys.
-constexpr int kWideDqBQ = 64;
-constexpr int kWideDqBK = 32;
-constexpr int kWideDqBytes = (2 * kWideDqBQ + 2 * kWideDqBK) * kWideST * 2;
-
-// In nc = ceil(d / kWideD) chunks; the block's blockIdx.x % nc is the
-// chunk oc of dQ it owns, S = Q K^T and dP = dO V^T sum over the chunks
-// (each staged in turn into the same shared rows), and dQ += dS K takes
-// K's chunk oc (staged again unless it was the last one).
-template <class E>
-__global__ void __launch_bounds__(kWideThreads)
-    flash_bwd_dq_wide_kernel(Args a) {
-  using T = typename E::T;
-  constexpr int ST = kWideST, BQ = kWideDqBQ, BK = kWideDqBK;
-  extern __shared__ __align__(16) uint8_t smem_dq_wide[];
-  auto* q_s = reinterpret_cast<T*>(smem_dq_wide);
-  T* do_s = q_s + BQ * ST;
-  T* k_s = do_s + BQ * ST;
-  T* v_s = k_s + BK * ST;
-
-  const int nc = (a.d + kWideD - 1) / kWideD;
-  const int q0 = blockIdx.x / nc * BQ, oc = blockIdx.x % nc;
-  const int hh = blockIdx.y, bb = blockIdx.z;
-  const long long bh = static_cast<long long>(bb) * a.h + hh;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wr = warp * 16;
-  const T* qp = static_cast<const T*>(a.q) + bb * a.sqb + hh * a.sqh;
-  const T* kp = static_cast<const T*>(a.k) + bb * a.skb + hh * a.skh;
-  const T* vp = static_cast<const T*>(a.v) + bb * a.svb + hh * a.svh;
-  const T* dp_ = static_cast<const T*>(a.dout) + bb * a.sdb + hh * a.sdh;
-  T* dqp = static_cast<T*>(a.o1) + bb * a.s1b + hh * a.s1h;
-
-  // Rows g and g + 8 of this warp's 16.
-  float lse2[2], cr[2];
+    float lse2[2], cr[2];  // per row: lse in log2 units, c
+    dq_row_stats(p, bh, q0, r0, lse2, cr);
+    float dq[64];
 #pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    lse2[hr] = safe_lse(a, bh, q0 + wr + g + 8 * hr) * kLog2e;
-    cr[hr] = row_c(a, bh, q0 + wr + g + 8 * hr);
-  }
-  float acc[kWideD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kWideD / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    const float sl2 = p.scale * kLog2e;
+    float s[16], dp[16];  // S, dP; then dS in dp
+    int j = 0;            // the next item of the ring
+    auto slot = [&](int jj) { return smem + (jj % S) * L::kSlot; };
 
-  const float sl2 = a.scale * kLog2e;
-  const long long q_lo = a.q_offset + q0;
-  const int nk = (a.sk + BK - 1) / BK;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
-    bool diag = false;
-    if (a.causal) {
-      bool live;
-      causal_liveness<BQ, BK>(q_lo, a.kv_offset + k0, live, diag);
-      if (!live) break;  // every later tile lies further in the future
-    }
-    const bool masked = diag || k0 + BK > a.sk || q0 + BQ > a.sq;
-
-    // S = Q K^T and dP = dO V^T: 16 rows x 32 keys per warp, over the
-    // features of the tiles in shared memory.
-    float s[BK / 8][4], dp[BK / 8][4];
+    for (int i = 0; i < n; ++i) {
+      for (int ci = 0; ci < nc; ++ci, j += 2) {
+        // S += Q_c K_c^T, then dP += dO_c V_c^T, the block's 64 queries x
+        // this warpgroup's 32 keys; the tile's first pair overwrites
+        const uint8_t* qk = slot(j);
+        const uint8_t* dov = slot(j + 1);
+        const int ko = L::kTile + w * 32 * 128;
+        sm90::mbar_wait(&full[j % S], (j / S) & 1);
+        sm90::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    auto sdp = [&]() {
-#pragma unroll
-      for (int kk = 0; kk < kWideD / 16; ++kk) {
-        uint32_t qf[4], dof[4];
-        sm90::load_a<ST>(qf, q_s, wr, kk, g, t);
-        sm90::load_a<ST>(dof, do_s, wr, kk, g, t);
-#pragma unroll
-        for (int nt = 0; nt < BK / 8; ++nt) {
-          const int off = (nt * 8 + g) * ST + kk * 16 + 2 * t;
-          sm90::mma16816<E>(s[nt], qf, sm90::ld32(&k_s[off]),
-                            sm90::ld32(&k_s[off + 8]));
-          sm90::mma16816<E>(dp[nt], dof, sm90::ld32(&v_s[off]),
-                            sm90::ld32(&v_s[off + 8]));
+        for (int kk = 0; kk < 16; ++kk) {
+          const int off = (kk / 4) * L::kBox + (kk % 4) * 32;
+          sm90::Wgmma<32, E>::ss(s, sm90::desc_k(qk + off),
+                                 sm90::desc_k(qk + ko + off), (ci | kk) > 0);
         }
+        sm90::wgmma_commit();
+        // dQ of the tile before is done (at its first pair; else nothing
+        // older is in flight): its K_oc goes back, which frees the slot
+        // the (dO_c, V_c) pair loads into
+        sm90::wgmma_wait<1>();
+        sm90::fence_regs(dq);
+        if (ci == 0 && i > 0) sm90::mbar_arrive(&empty[(j - 2) % S]);
+        sm90::mbar_wait(&full[(j + 1) % S], ((j + 1) / S) & 1);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 16; ++kk) {
+          const int off = (kk / 4) * L::kBox + (kk % 4) * 32;
+          sm90::Wgmma<32, E>::ss(dp, sm90::desc_k(dov + off),
+                                 sm90::desc_k(dov + ko + off), (ci | kk) > 0);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(s);
+        sm90::fence_regs(dp);
+        sm90::mbar_arrive(&empty[(j + 1) % S]);
+        if (ci + 1 < nc) sm90::mbar_arrive(&empty[j % S]);
       }
-    };
-    for (int c = 0; c < nc; ++c) {
-      // the previous chunk's (or tile's) shared reads are done
-      __syncthreads();
-      const int cols = chunk_cols(a.d, c);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-          q_s, qp + c * kWideD, a.sqs, q0, a.sq, cols, tid);
-      sm90::stage_rows<BQ, kWideD, ST, kWideThreads>(
-          do_s, dp_ + c * kWideD, a.sds, q0, a.sq, cols, tid);
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-          k_s, kp + c * kWideD, a.sks, k0, a.sk, cols, tid);
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-          v_s, vp + c * kWideD, a.svs, k0, a.sk, cols, tid);
-      __syncthreads();
-      sdp();
+      dq_split_grads(p, s, dp, lse2, cr, q0, i * BN, r0, kb, sl2);
+      uint8_t* ds = smem + L::kDs + (i & 1) * L::kBox;
+      dq_store_ds<E>(ds, dp, r0, kb);
+      // dQ += dS K_oc (issued, not waited)
+      dq_issue_dq<E>(dq, ds, slot(j - 2) + L::kTile + 2 * w * L::kBox);
     }
-    if (oc != nc - 1) {  // dQ's chunk of K
-      __syncthreads();
-      sm90::stage_rows<BK, kWideD, ST, kWideThreads>(
-          k_s, kp + oc * kWideD, a.sks, k0, a.sk, chunk_cols(a.d, oc), tid);
-      __syncthreads();
-    }
-
-    // dS = P (dP - c), P = exp2(S scale log2e - lse log2e).
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hr = e >> 1;
-        float x = s[nt][e] * sl2;
-        if (masked &&
-            pair_masked(a, q0 + wr + g + 8 * hr, k0 + nt * 8 + 2 * t + (e & 1)))
-          x = -INFINITY;
-        s[nt][e] = exp2f(x - lse2[hr]) * (dp[nt][e] - cr[hr]);
-      }
-
-    // dQ += dS K: dS re-packed as A fragments over the keys; K's keys run
-    // down its rows (ldmatrix.trans).
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t da[4] = {
-          sm90::pack<E>(s[2 * kk][0], s[2 * kk][1]),
-          sm90::pack<E>(s[2 * kk][2], s[2 * kk][3]),
-          sm90::pack<E>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          sm90::pack<E>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dt = 0; dt < kWideD / 8; dt += 2) {
-        uint32_t b[4];
-        sm90::load_b_kmajor_x2<ST>(b, k_s, kk, dt, lane);
-        sm90::mma16816<E>(acc[dt], da, b[0], b[1]);
-        sm90::mma16816<E>(acc[dt + 1], da, b[2], b[3]);
-      }
-    }
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dq);
+    if (n > 0) sm90::mbar_arrive(&empty[(j - 2) % S]);
+    dq_store_rows<E>(p, dq, bb, hh, q0 + r0, 256 * oc + 128 * w);
   }
-
-  // Every row below Sq is written: 0 where no live key reaches it. This
-  // block's columns: [oc kWideD, oc kWideD + kWideD) below d.
-  const int f0 = oc * kWideD;
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = q0 + wr + g + 8 * hr;
-    if (row < a.sq) {
-#pragma unroll
-      for (int dt = 0; dt < kWideD / 8; ++dt)
-        if (f0 + 8 * dt < a.d)
-          *reinterpret_cast<typename E::T2*>(dqp + row * a.s1s + f0 + dt * 8 +
-                                             2 * t) =
-              E::pack2(acc[dt][2 * hr] * a.scale,
-                       acc[dt][2 * hr + 1] * a.scale);
-    }
-  }
-}
-
-template <class E>
-int launch_dq_wide(const Args& a, int b, cudaStream_t st) {
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_wide_kernel<E>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kWideDqBytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = (a.d + kWideD - 1) / kWideD;
-  dim3 grid((a.sq + kWideDqBQ - 1) / kWideDqBQ * nc, a.h, b);
-  flash_bwd_dq_wide_kernel<E><<<grid, kWideThreads, kWideDqBytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -2452,6 +2478,22 @@ int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
 }
 
 template <class E>
+int launch_dq_chunked(const Args& a, int b, cudaStream_t st) {
+  DqParams p;
+  const int err = dq_params<E>(p, a, b, kDqSplitBM, kDqBN);
+  if (err) return err;
+  constexpr int bytes = DqChunkSmem::kBytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_chunked_kernel<E>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nc = (a.d + 255) / 256;
+  dim3 grid(a.h, b, (a.sq + kDqSplitBM - 1) / kDqSplitBM * nc);
+  flash_bwd_dq_chunked_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class E>
 int launch_dq_split(const Args& a, int b, cudaStream_t st) {
   DqParams p;
   const int err = dq_params<E>(p, a, b, kDqSplitBM, kDqBN);
@@ -2618,16 +2660,16 @@ int launch_dkv_tf32(const Args& a, int b, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation of head dim a.d in a 16-bit type E. dq: tile widths 64
-// and 128 (TMA + wgmma), 256 (TMA + wgmma, the features split over the
-// warpgroups), and chunks of 256 past it (mma.sync). dk/dv: the same up to
-// 256, and parts of 128 features past it (mma.sync).
+// The instantiation of head dim a.d in a 16-bit type E, every one on TMA +
+// wgmma. dq and dk/dv alike: tile widths 64 and 128, 256 (the features
+// split over the warpgroups), and chunks of 256 past it (the split
+// kernel's block, its chunk pairs streamed through three slots).
 template <class E>
 int launch_dq16(const Args& a, int b, cudaStream_t st) {
   if (a.d <= 64) return launch_dq_wgmma<64, E>(a, b, st);
   if (a.d <= 128) return launch_dq_wgmma<128, E>(a, b, st);
   if (a.d <= 256) return launch_dq_split<E>(a, b, st);
-  return launch_dq_wide<E>(a, b, st);
+  return launch_dq_chunked<E>(a, b, st);
 }
 
 template <class E>

@@ -4,8 +4,7 @@
 // kernels use (bf16 or fp16 in, f32 accumulate; and tf32 in for the f32
 // kernels, with the rounding to tf32 and the three-product split),
 // setmaxnreg, named barriers and the proxy fence for operands written by
-// threads, the mma.sync and ldmatrix pieces of the dq kernel past head dim
-// 256, the element types Bf16 and F16, and on the host the tensor-map
+// threads, the element types Bf16 and F16, and on the host the tensor-map
 // encoders (16-bit rows, f32 tiles, thin f32 rows). No CuTe/CUTLASS: each
 // source builds in seconds.
 //
@@ -207,10 +206,10 @@ __device__ __forceinline__ float exp2_approx(float x) {
 // The 16-bit element types of the tensor-core kernels. Each names its
 // storage type and pair, the pack of two floats (round to nearest even,
 // by the conversion intrinsics only), the TMA data type, and kF16, which
-// picks the PTX type of the mma.sync and wgmma strings (".bf16.bf16" or
+// picks the PTX type of the wgmma strings (".bf16.bf16" or
 // ".f16.f16", both with f32 accumulation at every shape used here; see
 // SM90_TYPED). fp16 and bf16 share every bit layout the kernels rest on:
-// 16-bit elements, the 128-byte swizzle, ldmatrix and the fragments. So a
+// 16-bit elements, the 128-byte swizzle and the fragments. So a
 // kernel templated on one runs the other with the same tiles, barriers and
 // setmaxnreg budgets.
 struct Bf16 {
@@ -250,89 +249,10 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// mma.sync m16n8k16 (sm_80 and up), for the backward kernels of head dims
-// past 256 (flash_bwd.cu, "wide"): d += a b for one 16 x 8 x 16
-// tile, a row-major 16 x 16 of E (4 packed pairs a thread: {row g, k
-// 2t..}, {g + 8, 2t..}, {g, 2t + 8..}, {g + 8, 2t + 8..}), b column-major
-// 16 x 8 (b0 = {k 2t, 2t + 1; n g}, b1 = the same at k + 8); d is rows g,
-// g + 8 x columns 2t, 2t + 1, for g = lane / 4, t = lane % 4.
-template <class E>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-#define SM90_ASM(TY) \
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY ".f32 " \
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n" \
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]) \
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), \
-                 "r"(b1))
-  SM90_TYPED(E, SM90_ASM);
-#undef SM90_ASM
-}
-
-// Two adjacent 16-bit elements (bf16 or fp16) as one register.
-template <class T>
-__device__ __forceinline__ uint32_t ld32(const T* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment of rows [r0, r0 + 16), k columns [16 kk, 16 kk + 16) of a
-// row-major 16-bit tile in shared memory with row stride ST.
-template <int ST, class T>
-__device__ __forceinline__ void load_a(uint32_t (&f)[4], const T* s, int r0,
-                                       int kk, int g, int t) {
-  f[0] = ld32(&s[(r0 + g) * ST + kk * 16 + 2 * t]);
-  f[1] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 2 * t]);
-  f[2] = ld32(&s[(r0 + g) * ST + kk * 16 + 8 + 2 * t]);
-  f[3] = ld32(&s[(r0 + g + 8) * ST + kk * 16 + 8 + 2 * t]);
-}
-
-// Four 8x8 16-bit matrices from shared memory, transposed: lane i gives
-// the address of row i % 8 of matrix i / 8, and receives in register m the
-// elements (2 * (i % 4), i / 4) and (2 * (i % 4) + 1, i / 4) of matrix m,
-// i.e. the mma B fragment of a matrix stored with k along its rows.
-template <class T>
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const T* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// The B fragments of k rows [16 kk, 16 kk + 16) and n columns [8 nt, 8 nt +
-// 16) (two n-tiles: b[0], b[1] for nt, b[2], b[3] for nt + 1) of a
-// row-major 16-bit tile with k along its rows (V in P V, K in dS K, dO
-// and Q in P^T dO and dS^T Q), row stride ST.
-template <int ST, class T>
-__device__ __forceinline__ void load_b_kmajor_x2(uint32_t (&b)[4], const T* s,
-                                                 int kk, int nt, int lane) {
-  const int mat = lane / 8, r = lane % 8;
-  ldsm_x4_t(b, &s[(kk * 16 + (mat & 1) * 8 + r) * ST + (nt + (mat >> 1)) * 8]);
-}
-
-// Copies rows [r0, r0 + R) of a (seq, d) 16-bit operand (row stride
-// `row_stride` elements, 16-byte aligned rows) into a shared tile of row
-// stride ST and D columns, with `threads` threads: rows past n and columns
-// past d (a multiple of 8) are zero. A chunk of a wider operand is staged
-// with `src` at its first column and `d` its columns below the true d.
-template <int R, int D, int ST, int threads, class T>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src,
-                                           long long row_stride, int r0,
-                                           int n, int d, int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int ch = tid; ch < R * CPR; ch += threads) {
-    const int r = ch / CPR, cc = ch % CPR;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < n && cc * 8 < d)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride +
-                                            cc * 8);
-    *reinterpret_cast<uint4*>(&dst[r * ST + cc * 8]) = val;
-  }
-}
-
 // wgmma.mma_async m64nNk16, E (bf16 or fp16) in, f32 accumulate, over one
 // warpgroup. d holds N / 2 floats a thread: d[4 j + e] is row 16 w + g + 8
 // (e / 2), column 8 j + 2 t + (e % 2) of the 64 x N tile, for warp w of
-// the warpgroup, g = lane / 4, t = lane % 4 (the mma.sync m16n8 layout,
+// the warpgroup, g = lane / 4, t = lane % 4 (a 16 x 8 fragment layout,
 // N / 8 times). scale_d = 0 overwrites d, 1 accumulates.
 // * ss: a and b from shared memory, both K-major (transpose flags 0);
 // * rs_mn: a from registers, the m16n8k16 A fragment of each warp's 16 rows

@@ -166,7 +166,19 @@ def _rows_close(got, want, dead, rel):
                          # inside a block with a ragged last key tile, and
                          # fully-masked rows beside keys no query sees
                          + [(136, 200, d, True, 64, 0) for d in (264, 300)]
-                         + [(200, 136, d, True, 0, 40) for d in (264, 300)])
+                         + [(200, 136, d, True, 0, 40) for d in (264, 300)]
+                         # the 16-bit dq past 256 (64 queries and a chunk of
+                         # 256 columns a block, 64-key tiles and their chunk
+                         # pairs streamed): three chunks, the last partial
+                         # (520); the causal frontier inside a 64-query
+                         # block (1024); Sk not a multiple of 64; fully-
+                         # masked rows beside keys no query sees
+                         + [(200, 200, 520, True, 0, 0),
+                            (136, 136, 520, False, 0, 0),
+                            (128, 128, 1024, True, 32, 0),
+                            (128, 200, 512, False, 0, 0),
+                            (72, 136, 1024, True, 64, 0),
+                            (128, 128, 520, True, 0, 40)])
 def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
                                       q_off, kv_off):
     g = torch.Generator(device=cuda).manual_seed(sq + sk + d)
@@ -205,6 +217,9 @@ def test_backward_kernels_match_plain(cuda, dtype, rel, sq, sk, d, causal,
 @pytest.mark.parametrize("d,dtype", [
     (d, torch.bfloat16) for d in (64, 128, 32, 136, 160, 200, 248, 256,
                                   512)] + [
+    # past 256 in chunks of 256, each chunk's block summing S in its own
+    # chunk order and writing its own columns
+    (d, t) for t in (torch.bfloat16, torch.float16) for d in (264, 1024)] + [
     # f32: the dq block's two warpgroups each sum their keys' share of dQ,
     # warpgroup 0 adding warpgroup 1's in a fixed order
     (d, torch.float32) for d in (64, 128, 256, 512)])
