@@ -266,6 +266,16 @@ Phases; any failure raises and ends the run with a non-zero exit:
    just before and read just after), the first step's loss within 2e-2 of
    the same step under the plain attention.
 
+17. launch grids past 65,535 blocks on an axis CUDA caps at that (the
+   reference's grid folds B*H into one axis; every kernel here puts
+   batch, heads and tile blocks on grid x): the three kernels against
+   their plain versions as in phase 15 at a batch of 65,536 (H 1, S 8,
+   d 64) in bf16 and fp16 (causal) and f32 (not causal), at d 520
+   (chunks of 256, bf16, causal), and at 65,536 heads in f32 (not
+   causal); and each chunked kernel's tile blocks past
+   65,535 at d 1024: the forward and dq over 2**21 queries, dk/dv over
+   2**21 keys, the plain versions taken 2**17 queries or keys at a time.
+
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the 16-bit path of all three kernels at every head
 dim, ``, chunks of 256`` past 256), the card's
@@ -577,15 +587,51 @@ FW_TIMED = ((torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
 FW_ITERS = {"bfloat16": 20, "float16": 20, "float32": 10}
 FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2),
           ("f32", torch.float32, HEADS))
+# Phase 17, launch grids past 65,535 blocks on an axis CUDA caps at that
+# (y and z; every kernel folds batch, heads and tile blocks onto x, as the
+# reference's grid folds B*H into one axis): GRID_CASES as phase 15's
+# cases (an lse cotangent, dq and dk/dv bit-identical over two
+# launches, the launch counters; out held by row at ROW_REL_TOL and lse
+# at TOL, but not by out's largest error: a row of S 8 can reach |out|
+# 4, where one bf16 unit is 0.031, past TOL's 2e-2), the batch past
+# 65,535 in each dtype (at a tile width, and at d 520 in chunks of 256)
+# and the heads past 65,535 in f32 (the f32 backward had them on y);
+# GRID_LONG, each chunked kernel's tile blocks past 65,535 at d
+# GRID_LONG_D (4 chunks), causal, held to the plain versions
+# GRID_PLAIN_CHUNK queries (forward, dq) or keys (dk/dv) at a time, so
+# that their f32 copies stay near 0.5 GiB.
+# (name, (b, h, sq, sk), d, dtype, causal). The f32 cases run non-causal:
+# causal, each of the 65,536 heads' first query is a single-key row whose
+# dq cancels to about 4e-6, where the f32 dq kernel's dP (one fmaf chain)
+# lands 1e-5 from the exact value against the check's 1.7e-6, on the
+# parent too (ROADMAP C 1; tests/test_torch_cuda.py keeps those cases).
+GRID_CASES = (("batch_bf16", (65536, 1, 8, 8), 64, torch.bfloat16, True),
+              ("batch_fp16", (65536, 1, 8, 8), 64, torch.float16, True),
+              ("batch_f32", (65536, 1, 8, 8), 64, torch.float32, False),
+              ("heads_f32", (1, 65536, 8, 8), 64, torch.float32, False),
+              ("batch_chunked", (65536, 1, 8, 8), 520, torch.bfloat16,
+               True))
+# (name, sq, sk, q_offset, kernels held): 2**21 queries (the chunked
+# forward's 65,536 tile blocks, dq's 131,072) over 64 keys, and 64
+# queries over 2**21 keys (dk/dv's 131,072), the queries last so that
+# every key is seen
+GRID_LONG = (("long_queries", 1 << 21, 64, 0,
+              ("flash_fwd", "flash_bwd_dq")),
+             ("long_keys", 64, 1 << 21, (1 << 21) - 64, ("flash_bwd_dkv",)))
+GRID_LONG_D = 1024
+GRID_PLAIN_CHUNK = 1 << 17
 # The kernel A/B (--ab): the (dtype, head dim) each tree's kernels are
-# timed at, H = DIM // d at (8, 2048) (d 256, where dq and dk/dv split
-# their features, and the chunked forward at two to four chunks; f32 at
-# the LM's 64, at 256, one block of dQ's (dK's, dV's) columns, and at 512,
-# two).
-AB_TIMED = (("bfloat16", 256), ("float16", 256), ("bfloat16", 264),
-            ("float16", 264), ("bfloat16", 512), ("float16", 512),
-            ("bfloat16", 1024), ("float16", 1024), ("float32", 64),
-            ("float32", 256), ("float32", 512))
+# timed at, H = DIM // d at (8, 2048) (bf16 at 64, the main path's shape;
+# d 256, where dq and dk/dv split their features, and the chunked forward
+# at two to four chunks; f32 at the LM's 64, at 256, one block of dQ's
+# (dK's, dV's) columns, and at 512, two).
+AB_TIMED = (("bfloat16", 64), ("bfloat16", 256), ("float16", 256),
+            ("bfloat16", 264), ("float16", 264), ("bfloat16", 512),
+            ("float16", 512), ("bfloat16", 1024), ("float16", 1024),
+            ("float32", 64), ("float32", 256), ("float32", 512))
+# launches a timing round of the A/B, by dtype (at the LM's hd 64 a
+# forward takes about 0.23 ms)
+AB_ITERS = {"bfloat16": 100, "float16": 100, "float32": 20}
 # and the LM above at these (dtype, heads) (bf16 at head dims 256 and 512,
 # f32 at 64), store-fed, its train step timed over AB_LM_STEPS steps (the
 # first one not counted)
@@ -4966,11 +5012,13 @@ def phase_moe_sp(seed, card):
 # long-context example at the reference's defaults (hd = 128 // 4 = 32).
 
 
-def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
+def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko,
+                  label="head dims", out_abs=True):
     """The three kernels against their plain versions on one case at head
     dim d, with an lse cotangent and do as autograd hands it over (a (B,
     H, S, D) view of a (B, S, H, D) buffer); returns {kernel: (max abs
-    error, max row relative error)}."""
+    error, max row relative error)}. out is held by row and, where
+    ``out_abs``, by its largest error at TOL too."""
     b, h, sq, sk = shape
     q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dt)
     k, v = (torch.randn((b, h, sk, d), generator=g, device=dev).to(dt)
@@ -5001,7 +5049,7 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
                                                        **kw)}
         want["dk"], want["dv"] = attention.flash_bwd_dkv_reference(
             q, k, v, do, lse, c, **kw)
-    tag = f"head dims d={d} {name}"
+    tag = f"{label} d={d} {name}"
     check(moved == {"flash_fwd": 1, "flash_bwd_dq": 2, "flash_bwd_dkv": 2},
           f"{tag}: launch counters moved {moved}")
     dname = str(dt).split(".")[-1]
@@ -5021,7 +5069,8 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko):
     res = {"flash_fwd": (max(e_out, e_lse), e_rel), "moved": moved}
     line = [f"out max_abs_err={e_out:.3e} lse={e_lse:.3e} "
             f"max_row_rel_err={e_rel:.3e}"]
-    check(e_out <= t_out and e_lse <= t_lse and e_rel <= tol,
+    check((e_out <= t_out or not out_abs) and e_lse <= t_lse and
+          e_rel <= tol,
           f"{tag}: forward disagrees with the plain version ({line[0]})")
     dead = {"dq": ~live, "dk": dead_keys(b, h, sq, sk, causal, qo, ko, dev)}
     dead["dv"] = dead["dk"]
@@ -5476,6 +5525,121 @@ def phase_fp16_wide(dev, seed, card):
             "timing": timing, "lm": lms}
 
 
+# Phase 17: launch grids past 65,535 blocks on an axis CUDA caps at that.
+
+
+def grid_long_case(g, dev, name, sq, sk, qo, held, d=GRID_LONG_D,
+                   dt=torch.bfloat16):
+    """The forward and the backward kernels ``held`` at b = h = 1, head
+    dim d, causal, on a long axis whose chunked tile blocks pass 65,535,
+    against their plain versions taken GRID_PLAIN_CHUNK queries (forward,
+    dq) or keys (dk/dv) at a time; returns {kernel: (max abs error, max
+    row relative error)}."""
+    q = torch.randn((1, 1, sq, d), generator=g, device=dev, dtype=dt)
+    k, v = (torch.randn((1, 1, sk, d), generator=g, device=dev, dtype=dt)
+            for _ in range(2))
+    do = torch.randn((1, sq, 1, d), generator=g, device=dev,
+                     dtype=dt).transpose(1, 2)
+    kw = dict(causal=True, q_offset=qo, kv_offset=0, scale=d ** -0.5)
+    tag = f"launch grid d={d} {name}"
+    dname = str(dt).split(".")[-1]
+    tol = ROW_REL_TOL[dname]
+    res = {}
+
+    def hold(kern, what, got, want, dead):
+        e_abs, e_rel, bad = row_errors(got, want, dead)
+        check(bad == 0 and e_rel <= tol,
+              f"{tag}: {what} disagrees with the plain version ({e_rel:.3e}"
+              f" per row > {tol}, or {bad} dead rows not 0)")
+        prev = res.get(kern, (0.0, 0.0))
+        res[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
+
+    before = launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        with no_plain_path():
+            out, lse = attention.flash_attention(q, k, v, causal=True,
+                                                 q_offset=qo)
+            c = attention.flash_bwd_prep(do, out)
+            got = {}
+            if "flash_bwd_dq" in held:
+                got["dq"] = attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
+                                                         **kw)
+            if "flash_bwd_dkv" in held:
+                got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
+                    q, k, v, do, lse, c, **kw)
+            torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        moved = {n: v2 - before[n] for n, v2 in launch_counts().items()}
+        check(moved == {n: int(n in held or n == "flash_fwd")
+                        for n in moved},
+              f"{tag}: launch counters moved {moved}")
+        check(not any(torch.isnan(t).any() for t in (out, lse, *got.values())),
+              f"{tag}: NaN in the kernels' output")
+        for i in range(0, sq, GRID_PLAIN_CHUNK) if held != (
+                "flash_bwd_dkv",) else ():
+            rows = slice(i, i + GRID_PLAIN_CHUNK)
+            dead = ~torch.isfinite(lse[:, :, rows])
+            if "flash_fwd" in held:
+                ref, ref_lse = attention.mha_reference(
+                    q[:, :, rows], k, v, causal=True, q_offset=qo + i)
+                check(bool((torch.isfinite(ref_lse) == ~dead).all()),
+                      f"{tag}: fully-masked rows differ")
+                e_lse = float((lse[:, :, rows][~dead] - ref_lse[~dead])
+                              .abs().max())
+                check(e_lse <= TOL[dname][1], f"{tag}: lse disagrees with "
+                      f"the plain version ({e_lse:.3e})")
+                hold("flash_fwd", "out", out[:, :, rows], ref, dead)
+                prev = res["flash_fwd"]
+                res["flash_fwd"] = (max(prev[0], e_lse), prev[1])
+            if "dq" in got:
+                want = attention.flash_bwd_dq_reference(
+                    q[:, :, rows], k, v, do[:, :, rows], lse[:, :, rows],
+                    c[:, :, rows], **dict(kw, q_offset=qo + i))
+                hold("flash_bwd_dq", "dq", got["dq"][:, :, rows], want, dead)
+        for j in range(0, sk, GRID_PLAIN_CHUNK) if "dk" in got else ():
+            keys = slice(j, j + GRID_PLAIN_CHUNK)
+            want = dict(zip(("dk", "dv"), attention.flash_bwd_dkv_reference(
+                q, k[:, :, keys], v[:, :, keys], do, lse, c,
+                **dict(kw, kv_offset=j))))
+            dead = dead_keys(1, 1, sq, want["dk"].shape[2], True, qo, j, dev)
+            for which in ("dk", "dv"):
+                hold("flash_bwd_dkv", which, got[which][:, :, keys],
+                     want[which], dead)
+    print(f"{tag}: b,h,sq,sk=1,1,{sq},{sk} {dname} causal q_offset={qo}; "
+          f"the kernels in {kernel_s:.2f} s (launches moved {moved}); "
+          f"against the plain versions in chunks of {GRID_PLAIN_CHUNK} "
+          + "; ".join(f"{k2} max_abs_err={a:.3e} max_row_rel_err={r:.3e}"
+                      for k2, (a, r) in res.items())
+          + f" (tol per row {tol})", flush=True)
+    del q, k, v, do, out, lse, c, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_launch_grid(dev):
+    """Phase 17."""
+    g = torch.Generator(device=dev).manual_seed(1717)
+    errs = {}
+    for name, shape, d, dt, causal in GRID_CASES:
+        res = head_dim_case(g, dev, d, name, shape, dt, causal, 0, 0,
+                            label="launch grid", out_abs=False)
+        res.pop("moved")
+        for kern, (e_abs, e_rel) in res.items():
+            prev = errs.get(kern, (0.0, 0.0))
+            errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
+        torch.cuda.empty_cache()
+    for name, sq, sk, qo, held in GRID_LONG:
+        for kern, (e_abs, e_rel) in grid_long_case(g, dev, name, sq, sk, qo,
+                                                   held).items():
+            prev = errs.get(kern, (0.0, 0.0))
+            errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
+    print(f"launch grid: {len(GRID_CASES) + len(GRID_LONG)} cases past "
+          f"65,535 blocks on a capped axis held to the plain versions; "
+          f"worst (max abs, max row rel) per kernel {errs}", flush=True)
+    return {"errs": errs}
+
+
 def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
     TMA + wgmma for all three in 16 bits at every head dim (in chunks of
@@ -5673,7 +5837,8 @@ _build.build_all()
 g = torch.Generator(device=dev).manual_seed(int(sys.argv[2]))
 out = {}
 for dname, d in json.loads(sys.argv[3]):
-    r = cs.head_dim_timing(g, dev, d, getattr(torch, dname))
+    r = cs.head_dim_timing(g, dev, d, getattr(torch, dname),
+                           iters=json.loads(sys.argv[6])[dname])
     out[f"{dname} {d}"] = {
         **{k: {x: v[x] for x in ("ms", "plain_ms", "bound_ms",
                                  "library_ms", "split_ms") if x in v}
@@ -5705,8 +5870,8 @@ def kernel_ab(parent, seed):
         res = subprocess.run(
             [sys.executable, "-c", AB_RUN, root, str(seed),
              json.dumps(AB_TIMED), json.dumps(AB_LMS),
-             str(AB_LM_STEPS)], cwd=root, capture_output=True,
-            text=True, timeout=AB_DEADLINE_S)
+             str(AB_LM_STEPS), json.dumps(AB_ITERS)], cwd=root,
+            capture_output=True, text=True, timeout=AB_DEADLINE_S)
         got = [ln for ln in res.stdout.splitlines()
                if ln.startswith("ab result ")]
         check(res.returncode == 0 and got,
@@ -5868,6 +6033,11 @@ def main() -> int:
     t16 = time.perf_counter()
     fw = phase_fp16_wide(dev, args.seed, card)
     print(f"phase 16 wall {time.perf_counter() - t16:.1f} s", flush=True)
+
+    # 17. launch grids past 65,535 blocks on grid y's or z's axis
+    t17 = time.perf_counter()
+    phase_launch_grid(dev)
+    print(f"phase 17 wall {time.perf_counter() - t17:.1f} s", flush=True)
 
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
                                   lay, tpk, ppr, msp, fsk, hd, fw)),

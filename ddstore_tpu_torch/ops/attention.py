@@ -21,8 +21,10 @@ is the per-query log-sum-exp of the scores in f32, (B, H, S).
   exercise the backward arithmetic the card runs. On the card it launches
   the kernels or raises; it never falls back to the plain version there.
   The kernels take every head dim from 1 up (:func:`_kernel_width`), in
-  bf16, fp16 or f32: what the reference's kernels take (f64 never reaches
-  them, since the JAX package does not turn on ``jax_enable_x64``).
+  bf16, fp16 or f32, and any batch x heads and any sequence length that
+  fits in memory (every launch grid lies on grid x, which holds 2^31 - 1
+  blocks): what the reference's kernels take (f64 never reaches them,
+  since the JAX package does not turn on ``jax_enable_x64``).
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: what the C entries return where B * H, or the launch grid (B * H times
+#: a head's tile blocks, all on grid x), passes 2^31 - 1 (``sm90::kErrGrid``
+#: in ``csrc/sm90.cuh``)
+_ERR_GRID = 9998
 #: the kernels' tile widths: TMA + wgmma at 64, 128 and 256, and the f32
 #: kernels' widths; past 256 the head dim is taken in chunks of the widest
 #: (TMA + wgmma for all three)
@@ -311,11 +317,24 @@ def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
     return t if d == width else torch.nn.functional.pad(t, (0, width - d))
 
 
+def _check_launch(name, err, error_string):
+    """Raises on a C entry's nonzero return ``err``: ``ValueError`` where
+    the inputs are too large for one launch grid (:data:`_ERR_GRID`),
+    ``RuntimeError`` on a CUDA or tensor-map error."""
+    if err == 0:
+        return
+    what = error_string(err).decode()
+    if err == _ERR_GRID:
+        raise ValueError(f"{name}: the inputs are too large for one launch "
+                         f"({what})")
+    raise RuntimeError(f"{name} launch failed: CUDA error {err} ({what})")
+
+
 def _fwd_launch(name, q, k, v, scratch, out=None, lse=None, causal=False,
                 q_offset=0, kv_offset=0, scale=1.0):
     """One launch of ``name`` on the current stream: ``flash_fwd`` writes
     ``out`` and ``lse``; ``flash_fwd_split`` reads q, k, v alone (and
-    writes ``scratch``). Raises on a CUDA error."""
+    writes ``scratch``). Raises as :func:`_check_launch`."""
     b, h, sq, d = q.shape
     lib = _load_fwd()
     strides = [s for t in (q, k, v, out)
@@ -328,9 +347,7 @@ def _fwd_launch(name, q, k, v, scratch, out=None, lse=None, causal=False,
             *ptrs, (ctypes.c_longlong * len(strides))(*strides), b, h, sq,
             k.shape[2], d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             int(q_offset), int(kv_offset), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.flash_fwd_error_string(err).decode()})")
+    _check_launch(name, err, lib.flash_fwd_error_string)
 
 
 def _tf32_planes(q, k, v):
@@ -390,7 +407,7 @@ def _bwd_launch(name, q, k, v, do, lse, c, outs, causal, q_offset,
                 kv_offset, scale):
     """One launch of ``name`` (flash_bwd_dq or flash_bwd_dkv) on the
     current stream, writing ``outs``, on operands :func:`_bwd_operands`
-    made; raises on a CUDA error."""
+    made; raises as :func:`_check_launch`."""
     b, h, sq, d = q.shape
     lib = _load_bwd()
     strides = [s for t in (q, k, v, do) + outs
@@ -404,9 +421,7 @@ def _bwd_launch(name, q, k, v, do, lse, c, outs, causal, q_offset,
             (ctypes.c_longlong * len(strides))(*strides), b, h, sq,
             k.shape[2], d, _DTYPE_CODES[q.dtype], int(bool(causal)),
             int(q_offset), int(kv_offset), float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} "
-                           f"({lib.flash_bwd_error_string(err).decode()})")
+    _check_launch(name, err, lib.flash_bwd_error_string)
 
 
 def _bwd_operands(q, k, v, do, lse, c):

@@ -21,9 +21,13 @@
 // blocks. The dq kernel takes one block per (query tile, head, batch) and
 // loops over the key tiles up to the last live one; the dk/dv kernel takes
 // one block per (128-key tile, head, batch) and loops over the query tiles
-// from the first one that can see it. The two kernels write disjoint
-// outputs, so there are no atomics and the gradients are deterministic
-// (bit-identical from launch to launch). Every output row is written, as
+// from the first one that can see it. As the TPU's grids fold B*H into one
+// axis (ddstore_tpu/ops/attention.py:366, :384), every kernel's blocks lie
+// on grid x alone, (tile block, batch, head) folded by sm90::GridPos: CUDA
+// caps grid y and z at 65,535, which B, H and a long sequence's tile
+// blocks each pass. The two kernels write disjoint outputs, so there are
+// no atomics and the gradients are deterministic (bit-identical from
+// launch to launch). Every output row is written, as
 // zero where no live pair reaches it (keys no query sees, fully-masked
 // query rows), and ragged last tiles of any length that is a multiple of 8
 // are masked in the kernel.
@@ -264,6 +268,7 @@ struct DqParams {
   int causal;
   long long q_offset, kv_offset;
   float scale;
+  sm90::Fold fold;  // the grid's blocks on x (sm90::GridPos)
 };
 
 // Shared memory, from a 1024-byte aligned base: Q, dO, then per stage a K
@@ -306,8 +311,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kDqBM;  // heaviest first
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
+  const int q0 = (p.fold.tiles.d - 1 - pos.t) * kDqBM;  // heaviest first
   const int n = dq_key_tiles(p, p.q_offset + q0,
                                  p.sq - q0 < kDqBM ? p.sq - q0 : kDqBM);
   const int tid = threadIdx.x;
@@ -540,6 +546,7 @@ struct DkvParams {
   int causal;
   long long q_offset, kv_offset;
   float scale;
+  sm90::Fold fold;  // the grid's blocks on x (sm90::GridPos)
 };
 
 // Shared memory, from a 1024-byte aligned base: K, V, then per stage Q,
@@ -572,8 +579,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
-  const int k0 = blockIdx.z * kDkvBN;  // low key tiles, the heaviest, first
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
+  const int k0 = pos.t * kDkvBN;  // low key tiles, the heaviest, first
   const int tid = threadIdx.x;
 
   // The first query tile that can see this block's keys: its last query
@@ -1023,8 +1031,9 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + S;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
-  const int k0 = blockIdx.z * kSplitBN;  // low key tiles, the heaviest, first
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
+  const int k0 = pos.t * kSplitBN;  // low key tiles, the heaviest, first
   const int tid = threadIdx.x;
 
   if (tid == 0) {
@@ -1167,8 +1176,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 
 // dk/dv at d > 256: the split kernel's block in nc = ceil(d / 256) chunks
 // of 256 features. One block per (64 keys, chunk oc of dK's and dV's
-// columns, head, batch), the grid's chunk axis folded into the key-tile
-// axis; warpgroup w owns features 256 oc + [128 w, 128 w + 128) of dK and
+// columns, head, batch), the chunk index folded into the key-tile
+// index; warpgroup w owns features 256 oc + [128 w, 128 w + 128) of dK and
 // dV (64 + 64 registers a thread), as in the split kernel. Nothing is
 // resident: for each 64-query tile the producer streams, through a ring
 // of three 64 KB slots, the pairs (K_c, Q_c) and (V_c, dO_c) of every
@@ -1208,15 +1217,16 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* empty = full + S;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
   const int tid = threadIdx.x;
   // The block's keys and chunk of dK and dV, low key tiles (the heaviest)
   // first, a tile's chunks side by side. Each role works these out after
   // its setmaxnreg, so that nothing stays live across it.
   auto place = [&](int& nc, int& k0, int& oc) {
     nc = (p.d + 255) / 256;
-    k0 = static_cast<int>(blockIdx.z) / nc * kSplitBN;
-    oc = static_cast<int>(blockIdx.z) % nc;
+    k0 = pos.t / nc * kSplitBN;
+    oc = pos.t % nc;
   };
 
   if (tid == 0) {
@@ -1521,14 +1531,15 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + S;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
   const int tid = threadIdx.x;
   // The block's first query (high query tiles, which see the most keys
   // under the causal mask, launch first) and the key tiles [0, n) it runs
   // over. Each role works them out after its setmaxnreg, so that nothing
   // stays live across it.
   auto tiles = [&](int& q0, int& n) {
-    q0 = (gridDim.z - 1 - blockIdx.z) * kDqSplitBM;
+    q0 = (p.fold.tiles.d - 1 - pos.t) * kDqSplitBM;
     n = dq_key_tiles(p, p.q_offset + q0,
                      p.sq - q0 < kDqSplitBM ? p.sq - q0 : kDqSplitBM);
   };
@@ -1669,7 +1680,7 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 // dq at d > 256: the split dq kernel's block in nc = ceil(d / 256) chunks
 // of 256 features, as flash_bwd_dkv_chunked_kernel carries the split dk/dv
 // kernel. One block per (64 queries, chunk oc of dQ's columns, head,
-// batch), the grid's chunk axis folded into the query-tile axis; warpgroup
+// batch), the chunk index folded into the query-tile index; warpgroup
 // w owns features 256 oc + [128 w, 128 w + 128) of dQ (64 registers a
 // thread), as in the split kernel. Nothing is resident: for each live
 // 64-key tile the producer streams, through the dk/dv kernel's ring of
@@ -1711,7 +1722,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
   uint64_t* empty = full + S;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
   const int tid = threadIdx.x;
   // The block's queries and chunk of dQ (high query tiles, which see the
   // most keys under the causal mask, first; a tile's chunks side by side)
@@ -1719,8 +1731,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   // its setmaxnreg, so that nothing stays live across it.
   auto place = [&](int& nc, int& q0, int& oc, int& n) {
     nc = (p.d + 255) / 256;
-    const int z = static_cast<int>(blockIdx.z);
-    q0 = (static_cast<int>(gridDim.z) / nc - 1 - z / nc) * kDqSplitBM;
+    const int z = pos.t;
+    q0 = (p.fold.tiles.d / nc - 1 - z / nc) * kDqSplitBM;
     oc = z % nc;
     n = dq_key_tiles(p, p.q_offset + q0,
                      p.sq - q0 < kDqSplitBM ? p.sq - q0 : kDqSplitBM);
@@ -1873,6 +1885,7 @@ struct Tf32Params {
   int causal;
   long long q_offset, kv_offset;
   float scale;
+  sm90::Fold fold;  // the grid's blocks on x (sm90::GridPos)
 };
 
 // Splits a landed tile of `rows` rows in place: hi over it, lo into `lo`
@@ -2061,11 +2074,12 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* ready = full + L::kStages;
   uint64_t* empty = ready + L::kStages;
 
+  const sm90::GridPos pos = sm90::head_major(p.fold);
   const int nco = (p.d + D - 1) / D;
-  const int tiles = gridDim.x / nco;
-  const int q0 = (tiles - 1 - static_cast<int>(blockIdx.x) / nco) * 64;
-  const int f0 = (blockIdx.x % nco) * D;  // this block's columns of dQ
-  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int tiles = p.fold.tiles.d / nco;
+  const int q0 = (tiles - 1 - pos.t / nco) * 64;
+  const int f0 = pos.t % nco * D;  // this block's columns of dQ
+  const int hh = pos.h, bb = pos.b;
   const int nc = (p.d + 31) / 32;
   const int no = ((p.d - f0 < D ? p.d - f0 : D) + 31) / 32;
   // key tiles [0, n): all, or (causal) up to the last one a row sees
@@ -2250,10 +2264,11 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   uint64_t* xfull = empty + L::kStages;  // two each
   uint64_t* xempty = xfull + 2;
 
+  const sm90::GridPos pos = sm90::head_major(p.fold);
   const int nco = (p.d + D - 1) / D;
-  const int k0 = static_cast<int>(blockIdx.x) / nco * 64;  // low keys first
-  const int f0 = (blockIdx.x % nco) * D;  // this block's columns of dK, dV
-  const int hh = blockIdx.y, bb = blockIdx.z;
+  const int k0 = pos.t / nco * 64;  // low keys first
+  const int f0 = pos.t % nco * D;   // this block's columns of dK, dV
+  const int hh = pos.h, bb = pos.b;
   const int nc = (p.d + 31) / 32;
   const int no = ((p.d - f0 < D ? p.d - f0 : D) + 31) / 32;
   // query tiles [it0, nq): (causal) from the first one that sees a key
@@ -2464,46 +2479,59 @@ int dq_params(DqParams& p, const Args& a, int b, int bm, int bn) {
 
 template <int D, class E>
 int launch_dq_wgmma(const Args& a, int b, cudaStream_t st) {
+  const int nt = (a.sq + kDqBM - 1) / kDqBM;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   DqParams p;
   const int err = dq_params<E>(p, a, b, kDqBM, kDqBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = DqSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_wgmma_kernel<D, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(a.h, b, (a.sq + kDqBM - 1) / kDqBM);
+  dim3 grid(blocks);
   flash_bwd_dq_wgmma_kernel<D, E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class E>
 int launch_dq_chunked(const Args& a, int b, cudaStream_t st) {
+  const int nc = (a.d + 255) / 256;
+  const long long nt =
+      static_cast<long long>((a.sq + kDqSplitBM - 1) / kDqSplitBM) * nc;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   DqParams p;
   const int err = dq_params<E>(p, a, b, kDqSplitBM, kDqBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = DqChunkSmem::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_chunked_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = (a.d + 255) / 256;
-  dim3 grid(a.h, b, (a.sq + kDqSplitBM - 1) / kDqSplitBM * nc);
+  dim3 grid(blocks);
   flash_bwd_dq_chunked_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class E>
 int launch_dq_split(const Args& a, int b, cudaStream_t st) {
+  const int nt = (a.sq + kDqSplitBM - 1) / kDqSplitBM;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   DqParams p;
   const int err = dq_params<E>(p, a, b, kDqSplitBM, kDqBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = DqSplitSmem::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_split_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(a.h, b, (a.sq + kDqSplitBM - 1) / kDqSplitBM);
+  dim3 grid(blocks);
   flash_bwd_dq_split_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2548,46 +2576,59 @@ int dkv_params(DkvParams& p, const Args& a, int b, int bq, int bk) {
 
 template <int D, class E>
 int launch_dkv_wgmma(const Args& a, int b, cudaStream_t st) {
+  const int nt = (a.sk + kDkvBN - 1) / kDkvBN;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   DkvParams p;
   const int err = dkv_params<E>(p, a, b, dkv_bq<D>(), kDkvBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = DkvSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_wgmma_kernel<D, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(a.h, b, (a.sk + kDkvBN - 1) / kDkvBN);
+  dim3 grid(blocks);
   flash_bwd_dkv_wgmma_kernel<D, E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class E>
 int launch_dkv_chunked(const Args& a, int b, cudaStream_t st) {
+  const int nc = (a.d + 255) / 256;
+  const long long nt =
+      static_cast<long long>((a.sk + kSplitBN - 1) / kSplitBN) * nc;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   DkvParams p;
   const int err = dkv_params<E>(p, a, b, kSplitBQ, kSplitBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = DkvChunkSmem::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_chunked_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = (a.d + 255) / 256;
-  dim3 grid(a.h, b, (a.sk + kSplitBN - 1) / kSplitBN * nc);
+  dim3 grid(blocks);
   flash_bwd_dkv_chunked_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class E>
 int launch_dkv_split(const Args& a, int b, cudaStream_t st) {
+  const int nt = (a.sk + kSplitBN - 1) / kSplitBN;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   DkvParams p;
   const int err = dkv_params<E>(p, a, b, kSplitBQ, kSplitBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = DkvSplitSmem::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_split_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(a.h, b, (a.sk + kSplitBN - 1) / kSplitBN);
+  dim3 grid(blocks);
   flash_bwd_dkv_split_kernel<E><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2630,32 +2671,40 @@ int tf32_params(Tf32Params& p, const Args& a, int b, int bq) {
 
 template <int D>
 int launch_dq_tf32(const Args& a, int b, cudaStream_t st) {
+  const int nco = (a.d + D - 1) / D;
+  const long long nt = static_cast<long long>((a.sq + 63) / 64) * nco;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   Tf32Params p;
   const int err = tf32_params(p, a, b, 64);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = TfDqSmem::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_tf32_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nco = (a.d + D - 1) / D;
-  dim3 grid((a.sq + 63) / 64 * nco, a.h, b);
+  dim3 grid(blocks);
   flash_bwd_dq_tf32_kernel<D><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int BQ>
 int launch_dkv_tf32(const Args& a, int b, cudaStream_t st) {
+  const int nco = (a.d + D - 1) / D;
+  const long long nt = static_cast<long long>((a.sk + 63) / 64) * nco;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   Tf32Params p;
   const int err = tf32_params(p, a, b, BQ);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = TfDkvSmem<BQ>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dkv_tf32_kernel<D, BQ>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nco = (a.d + D - 1) / D;
-  dim3 grid((a.sk + 63) / 64 * nco, a.h, b);
+  dim3 grid(blocks);
   flash_bwd_dkv_tf32_kernel<D, BQ><<<grid, kBlockThreads, bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -2704,6 +2753,7 @@ int make_args(Args& a, const void* q, const void* k, const void* v,
   if (dtype < 0 || dtype > 2 || d < 8 || d % 8 != 0 || b <= 0 || h <= 0 ||
       sq <= 0 || sk < 0 || st == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(b) * h > 0x7fffffffLL) return sm90::kErrGrid;
   a = Args{q,      k,      v,      dout,   static_cast<const float*>(lse),
            static_cast<const float*>(c),   o1,     o2,
            st[0],  st[1],  st[2],  st[3],  st[4],  st[5],
@@ -2724,7 +2774,8 @@ extern "C" {
 // strides, (batch, head, sequence) of q, k, v, do, out1, out2 (out2's are
 // ignored by flash_bwd_dq). dtype: 0 = float32, 1 = bfloat16, 2 =
 // float16; d a multiple of 8 from 8 up. Returns the CUDA error of the
-// launch (0 = success).
+// launch (0 = success), sm90::kErrGrid where B * H or the launch grid
+// passes 2^31 - 1, or a tensor-map error (flash_bwd_error_string).
 int flash_bwd_dq(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* c, void* dq,
                  void* unused, const long long* strides, int b, int h, int sq,

@@ -17,7 +17,12 @@
 // tiles becomes a loop inside the block, since nothing carries over
 // between CUDA blocks; and the kernel masks the ragged last key tile and
 // guards the ragged last query tile itself, so any length that is a
-// multiple of 8 works without the TPU's block-divisibility rule.
+// multiple of 8 works without the TPU's block-divisibility rule. As the
+// TPU's grid folds B*H into one axis (:177), every kernel's blocks lie on
+// grid x alone, (tile block, batch, head) folded by sm90::tile_major:
+// CUDA caps grid y and z at 65,535, which B, H and a long sequence's tile
+// blocks each pass. The C entries return sm90::kErrGrid where x's
+// 2^31 - 1 would not hold the grid.
 //
 // Head dims and dtypes: the TPU kernel takes any D (its block's last dim is
 // the array's) and any float dtype. Here d is any multiple of 8 from 8 up
@@ -64,12 +69,13 @@
 //   being 128 registers a thread). A software pipeline inside each
 //   warpgroup issues S of tile i together with P V of tile i - 1, so the
 //   tensor cores run that product while the softmax of tile i runs. Query
-//   tiles launch heaviest first (the grid's slowest axis runs backwards),
-//   and each warpgroup skips the products of key tiles its 64 rows cannot
-//   see. Tiles are 128-byte swizzled boxes of 64 columns; D = 128 is two
-//   boxes, D = 256 four (sm90.cuh). D = 256 takes FlashAttention-3's
-//   shape (128 query rows, two consumer warpgroups) with 64-key tiles: P
-//   of 64 keys is 16 registers beside O's 128 and S's 32.
+//   tiles launch heaviest first (the tile index, grid x's slowest part,
+//   runs backwards), and each warpgroup skips the products of key tiles
+//   its 64 rows cannot see. Tiles are 128-byte swizzled boxes of 64
+//   columns; D = 128 is two boxes, D = 256 four (sm90.cuh). D = 256 takes
+//   FlashAttention-3's shape (128 query rows, two consumer warpgroups)
+//   with 64-key tiles: P of 64 keys is 16 registers beside O's 128 and
+//   S's 32.
 //   Left out: warp-specialised ping-pong between the consumer warpgroups
 //   (softmax of one overlapping the products of the other on purpose, not
 //   by chance), overlap of the next S product with this tile's softmax,
@@ -81,7 +87,7 @@
 // * bf16 and fp16, d > 256 (flash_fwd_chunked_kernel): a warpgroup's
 //   registers hold 64 rows of O only up to 256 features, so O is taken in
 //   nc = ceil(d / 256) chunks, one block per (128 query rows, chunk oc,
-//   head, batch), the grid's chunk axis folded into the query-tile axis
+//   head, batch), the chunk index folded into the query-tile index
 //   (a tile's chunks launch side by side, and share Q and K in L2). The
 //   block has the D = 256 shape: two consumer warpgroups of 64 rows, each
 //   holding its rows' chunk oc of O (128 registers a thread), and one
@@ -209,6 +215,7 @@ struct FwdParams {
   int causal;
   long long q_offset, kv_offset;
   float scale;  // nonzero (the C entry maps 0 to a tiny positive scale)
+  sm90::Fold fold;  // the grid's blocks on x (sm90::GridPos)
 };
 
 // Key tiles [0, n) of BN keys that rows [q_lo, q_lo + rows) of the
@@ -385,8 +392,9 @@ __global__ void __launch_bounds__(FwdCfg<D>::kThreads, 1)
   uint64_t* k_empty = v_full + S;
   uint64_t* v_empty = k_empty + S;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::kBM;  // heaviest first
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
+  const int q0 = (p.fold.tiles.d - 1 - pos.t) * C::kBM;  // heaviest first
   const int n = fwd_key_tiles<BN>(p, p.q_offset + q0, C::kBM);
   const int tid = threadIdx.x;
 
@@ -567,15 +575,19 @@ int fwd_params(FwdParams& p, const Args& a, int b, int bm, int bn) {
 template <int D, class E>
 int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
   using C = FwdCfg<D>;
+  const int nt = (a.sq + C::kBM - 1) / C::kBM;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   FwdParams p;
   const int err = fwd_params<E>(p, a, b, C::kBM, C::kBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_wgmma_kernel<D, E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid(a.h, b, (a.sq + C::kBM - 1) / C::kBM);
+  dim3 grid(blocks);
   flash_fwd_wgmma_kernel<D, E><<<grid, C::kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -622,15 +634,15 @@ __global__ void __launch_bounds__(FwdCfg<256>::kThreads, 1)
   uint64_t* v_full = qk_empty + S;
   uint64_t* v_empty = v_full + 1;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
   const int tid = threadIdx.x;
-  // The block's query tile and chunk of O; the grid's slowest axis runs
-  // backwards (heaviest tiles first), a tile's chunks side by side. Each
-  // role works these out after its setmaxnreg, so that nothing stays live
-  // across it.
+  // The block's query tile and chunk of O; the tile blocks run backwards
+  // (heaviest tiles first), a tile's chunks side by side. Each role works
+  // these out after its setmaxnreg, so that nothing stays live across it.
   auto place = [&](int& nc, int& q0, int& oc) {
     nc = (p.d + 255) / 256;
-    const int z = gridDim.z - 1 - blockIdx.z;
+    const int z = p.fold.tiles.d - 1 - pos.t;
     q0 = z / nc * C::kBM;
     oc = z % nc;
   };
@@ -807,16 +819,21 @@ __global__ void __launch_bounds__(FwdCfg<256>::kThreads, 1)
 template <class E>
 int launch_chunked(const Args& a, int b, cudaStream_t stream) {
   using C = FwdChunkCfg;
+  const int nc = (a.d + 255) / 256;
+  const long long nt =
+      static_cast<long long>((a.sq + C::kBM - 1) / C::kBM) * nc;
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   FwdParams p;
   const int err = fwd_params<E>(p, a, b, C::kBM, C::kBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_chunked_kernel<E>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nc = (a.d + 255) / 256;
-  dim3 grid(a.h, b, (a.sq + C::kBM - 1) / C::kBM * nc);
+  dim3 grid(blocks);
   flash_fwd_chunked_kernel<E>
       <<<grid, FwdCfg<256>::kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -847,8 +864,9 @@ struct SplitParams {
 };
 
 // Floats of one plane of Q, K or V^T.
-__host__ __device__ inline long long plane_floats(int bh, int d, int s) {
-  return static_cast<long long>(bh) * d * s;
+__host__ __device__ inline long long plane_floats(long long bh, int d,
+                                                  int s) {
+  return bh * d * s;
 }
 
 // One block per (32 rows or keys, 32 features, head, batch, operand z):
@@ -956,7 +974,8 @@ __global__ void __launch_bounds__(FwdCfg<256>::kThreads, 1)
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + S;
 
-  const int hh = blockIdx.x, bb = blockIdx.y;
+  const sm90::GridPos pos = sm90::tile_major(p.fold);
+  const int hh = pos.h, bb = pos.b;
   const int tid = threadIdx.x;
   // The block's query tile and columns of O (heaviest tiles first, a
   // tile's chunks side by side), its S and P V items a key tile, and its
@@ -964,7 +983,7 @@ __global__ void __launch_bounds__(FwdCfg<256>::kThreads, 1)
   // nothing stays live across it.
   auto place = [&](int& q0, int& f0, int& nc, int& no, int& n) {
     const int nco = (p.d + DO - 1) / DO;
-    const int z = gridDim.z - 1 - blockIdx.z;
+    const int z = p.fold.tiles.d - 1 - pos.t;
     q0 = z / nco * 128;
     f0 = z % nco * DO;
     nc = (p.d + 31) / 32;
@@ -1148,16 +1167,20 @@ int tf32_fwd_params(FwdParams& p, const Args& a, int b, float* scratch,
 template <int DO>
 int launch_tf32(const Args& a, int b, float* scratch, cudaStream_t stream) {
   using C = F32Cfg<DO>;
+  const int nco = (a.d + DO - 1) / DO;
+  const long long nt = (a.sq + 127) / 128 * static_cast<long long>(nco);
+  const unsigned blocks = sm90::folded_blocks(nt, b, a.h);
+  if (blocks == 0) return sm90::kErrGrid;
   FwdParams p;
   const int err = tf32_fwd_params(p, a, b, scratch, C::kBN);
   if (err) return err;
+  p.fold = sm90::fold(nt, b, a.h);
   constexpr int bytes = C::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_fwd_tf32_kernel<DO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nco = (a.d + DO - 1) / DO;
-  dim3 grid(a.h, b, (a.sq + 127) / 128 * nco);
+  dim3 grid(blocks);
   flash_fwd_tf32_kernel<DO>
       <<<grid, FwdCfg<256>::kThreads, bytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -1219,6 +1242,7 @@ int make_args(Args& a, const void* q, const void* k, const void* v, void* o,
   if (dtype < 0 || dtype > 2 || d < 8 || d % 8 != 0 || b <= 0 || h <= 0 ||
       sq <= 0 || sk < 0 || st == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(b) * h > 0x7fffffffLL) return sm90::kErrGrid;
   a = Args{q,      k,      v,      o,      static_cast<float*>(lse),
            st[0],  st[1],  st[2],  st[3],  st[4],  st[5],
            st[6],  st[7],  st[8],  st[9],  st[10], st[11],
@@ -1240,7 +1264,8 @@ extern "C" {
 // flash_fwd_scratch_floats(...) floats: flash_fwd_split writes Q's, K's
 // and V's planes there, and flash_fwd, launched after it on the same
 // stream, reads them. Returns the CUDA error of the launch (0 = success),
-// or a tensor-map error (flash_fwd_error_string).
+// sm90::kErrGrid where B * H or the launch grid passes 2^31 - 1, or a
+// tensor-map error (flash_fwd_error_string).
 int flash_fwd(const void* q, const void* k, const void* v, void* o,
               void* lse, void* scratch, const long long* strides, int b,
               int h, int sq, int sk, int d, int dtype, int causal,
@@ -1273,8 +1298,9 @@ int flash_fwd_split(const void* q, const void* k, const void* v, void* o,
 // x d), K (B*H x Sk x d) and V^T (B*H x d x Sk8).
 long long flash_fwd_scratch_floats(int b, int h, int sq, int sk, int d) {
   const int sk8 = sk < 8 ? 8 : (sk + 7) / 8 * 8;
-  return 2 * (plane_floats(b * h, d, sq) + plane_floats(b * h, d, sk) +
-              plane_floats(b * h, d, sk8));
+  const long long bh = static_cast<long long>(b) * h;
+  return 2 * (plane_floats(bh, d, sq) + plane_floats(bh, d, sk) +
+              plane_floats(bh, d, sk8));
 }
 
 const char* flash_fwd_error_string(int code) {

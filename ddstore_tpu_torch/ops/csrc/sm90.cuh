@@ -4,8 +4,9 @@
 // kernels use (bf16 or fp16 in, f32 accumulate; and tf32 in for the f32
 // kernels, with the rounding to tf32 and the three-product split),
 // setmaxnreg, named barriers and the proxy fence for operands written by
-// threads, the element types Bf16 and F16, and on the host the tensor-map
-// encoders (16-bit rows, f32 tiles, thin f32 rows). No CuTe/CUTLASS: each
+// threads, the element types Bf16 and F16, the launch grid folded onto x
+// (GridPos, Fold, folded_blocks), and on the host the tensor-map encoders
+// (16-bit rows, f32 tiles, thin f32 rows). No CuTe/CUTLASS: each
 // source builds in seconds.
 //
 // Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
@@ -46,6 +47,53 @@ namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Division by a divisor d >= 1 fixed for a launch, of dividends in [0,
+// 2^31), as one multiply-high and a shift: q = umulhi(x, m) >> s with m =
+// ceil(2^(31 + l) / d), s = l - 1, l = ceil(log2 d) (Granlund and
+// Montgomery's round-up method); m = 0 marks d = 1 (q = x). fast_div
+// computes m and s on the host.
+struct FastDiv {
+  int d;
+  unsigned m, s;
+};
+
+__device__ __forceinline__ int div_by(int x, const FastDiv& f) {
+  return f.m == 0u ? x
+                   : static_cast<int>(
+                         __umulhi(static_cast<unsigned>(x), f.m) >> f.s);
+}
+
+// The counts a block decodes its place on a grid folded onto x from: the
+// tile blocks of a head (a query or key tile, times the chunks of the
+// output past 256), B * H, and H.
+struct Fold {
+  FastDiv tiles, nbh, heads;
+};
+
+// A block's place on a launch grid folded onto x: tile block t of head h
+// of batch b.
+struct GridPos {
+  int t, b, h;
+};
+
+// x = t * nbh + b * heads + h: every (batch, head) of tile block 0, then
+// of block 1, ... -- the order in which blocks of a grid (heads, B,
+// tiles) on (x, y, z) are dispatched.
+__device__ __forceinline__ GridPos tile_major(const Fold& f) {
+  const int x = static_cast<int>(blockIdx.x);
+  const int t = div_by(x, f.nbh), bh = x - t * f.nbh.d;
+  const int b = div_by(bh, f.heads);
+  return {t, b, bh - b * f.heads.d};
+}
+
+// x = (b * heads + h) * tiles + t: a head's tile blocks side by side, the
+// order of a grid (tiles, heads, B) on (x, y, z).
+__device__ __forceinline__ GridPos head_major(const Fold& f) {
+  const int x = static_cast<int>(blockIdx.x);
+  const int bh = div_by(x, f.tiles), b = div_by(bh, f.heads);
+  return {x - bh * f.tiles.d, b, bh - b * f.heads.d};
 }
 
 // The dynamic shared memory rounded up to 1024 bytes (the swizzle atom);
@@ -652,11 +700,38 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
                                   CUtensorMapFloatOOBfill);
 
-// Error codes the C entries return beside CUDA's own: kErrNoEncoder when
-// the driver does not export cuTensorMapEncodeTiled, kErrEncode + r when it
-// refuses a map with CUresult r.
+// Error codes the C entries return beside CUDA's own: kErrGrid when a
+// launch grid would pass grid x's 2^31 - 1 blocks (folded_blocks) or B * H
+// passes 2^31 - 1, kErrNoEncoder when the driver does not export
+// cuTensorMapEncodeTiled, kErrEncode + r when it refuses a map with
+// CUresult r.
+constexpr int kErrGrid = 9998;
 constexpr int kErrNoEncoder = 9999;
 constexpr int kErrEncode = 10000;
+
+// The blocks of a launch grid folded onto x (tile_major, head_major): nt
+// blocks for each of b * h (batch, head) pairs, or 0 when they pass
+// grid x's 2^31 - 1 (the caller then returns kErrGrid). Grid y and z stay
+// 1: CUDA caps them at 65,535, which B, H and a long axis's tile count
+// each pass.
+inline unsigned folded_blocks(long long nt, int b, int h) {
+  const long long n = nt * b * h;
+  return n <= 0x7fffffffLL ? static_cast<unsigned>(n) : 0u;
+}
+
+inline FastDiv fast_div(int d) {
+  int l = 0;
+  while ((1LL << l) < d) ++l;
+  if (l == 0) return {1, 0u, 0u};
+  return {d, static_cast<unsigned>(((1ULL << (31 + l)) + d - 1) / d),
+          static_cast<unsigned>(l - 1)};
+}
+
+// The Fold of a grid of nt tile blocks for each of b * h heads (within
+// folded_blocks' limit).
+inline Fold fold(long long nt, int b, int h) {
+  return {fast_div(static_cast<int>(nt)), fast_div(b * h), fast_div(h)};
+}
 
 inline EncodeTiledFn encode_fn() {
   static EncodeTiledFn fn = nullptr;
@@ -750,6 +825,9 @@ inline int encode_f32_tile(CUtensorMap* map, const void* base, int d, int s,
 }
 
 inline const char* error_string(int code) {
+  if (code == kErrGrid)
+    return "the launch grid passes 2^31 - 1 blocks (B * H x the tile "
+           "blocks of a head), grid x's limit";
   if (code == kErrNoEncoder)
     return "the driver does not export cuTensorMapEncodeTiled";
   if (code >= kErrEncode)

@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA card: the flash-attention kernels
-(forward, dq, dk/dv) against their plain versions, the transformer
-block's use of them, the loader's staging onto the card (with and
+(forward, dq, dk/dv) against their plain versions, at every head dim and
+at a batch, heads or tile count past 65,535 (grid y's and z's cap), the
+transformer block's use of them, the loader's staging onto the card (with and
 without readahead, and of a ``GraphBatch``), a VAE step and an MPNN step
 on the card against the CPU step, a restored train state placed as the
 saved one, a two-process store-fed DDP VAE on one card, and the device-collective fetch and loader epoch in a one-process
@@ -324,6 +325,121 @@ def test_backward_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="head dims from 1 up"):
         attention._flash_bwd_cuda(empty, empty, empty, empty, lse, lse,
                                   **kw)
+
+
+ROW_REL_TOL = {torch.bfloat16: 2e-2, torch.float16: 4e-3,
+               torch.float32: 1e-4}
+LSE_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-4}
+# queries (forward, dq) or keys (dk/dv) the plain versions take at a time
+# on the long axis: each chunk's f32 copies stay near 0.5 GiB
+PLAIN_CHUNK = 1 << 17
+
+
+def _spans(n, step=PLAIN_CHUNK):
+    return [(i, min(i + step, n)) for i in range(0, n, step)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,sq,sk,d,dtype,held", [
+    # the batch past 65,535 (it lay on grid y, and on z in the f32
+    # backward), in every dtype, at a tile width and in chunks of 256.
+    # f32 causal (here and at H = 65,536) misses 1e-4 on dq's single-key
+    # first rows, as the parent's kernels do at B = 1,024 (ROADMAP C 1)
+    (65536, 1, 8, 8, 64, torch.bfloat16, "fwd dq dkv"),
+    (65536, 1, 8, 8, 64, torch.float16, "fwd dq dkv"),
+    (65536, 1, 8, 8, 64, torch.float32, "fwd dq dkv"),
+    (65536, 1, 8, 8, 520, torch.bfloat16, "fwd dq dkv"),
+    # the heads past 65,535 (on grid y in the f32 backward; bf16 had them
+    # on x, and guards the fold)
+    (1, 65536, 8, 8, 64, torch.float32, "fwd dq dkv"),
+    (1, 65536, 8, 8, 64, torch.bfloat16, "fwd dq dkv"),
+    # the chunked kernels' tile blocks past 65,535 at d 1024 (4 chunks): a
+    # query axis of 2**21 (forward 65,536 blocks, dq 131,072) and a key
+    # axis of 2**21 (dk/dv 131,072)
+    (1, 1, 1 << 21, 64, 1024, torch.bfloat16, "fwd dq"),
+    (1, 1, 64, 1 << 21, 1024, torch.bfloat16, "dkv")])
+def test_kernels_take_grids_past_65535(cuda, b, h, sq, sk, d, dtype, held,
+                                       causal):
+    # What the reference's grid (B*H, Sq / bq, Sk / bk) takes, the port's
+    # launches take: the three kernels agree with their plain versions
+    # (taken a chunk of the long axis at a time) at each row's tolerance.
+    # The long key axis puts its queries last (q_offset Sk - Sq), so that
+    # causal, every key is seen.
+    g = torch.Generator(device=cuda).manual_seed(b + h + sq + sk + d)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+
+    q, k, v = randn(b, h, sq, d), randn(b, h, sk, d), randn(b, h, sk, d)
+    do = randn(b, sq, h, d).transpose(1, 2)
+    q_off = sk - sq if causal and sk > sq else 0
+    kw = dict(causal=causal, q_offset=q_off, kv_offset=0, scale=d ** -0.5)
+    rel = ROW_REL_TOL[dtype]
+    before = (attention.flash_fwd_launches, attention.flash_bwd_dq_launches,
+              attention.flash_bwd_dkv_launches)
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=causal,
+                                             q_offset=q_off)
+        c = attention.flash_bwd_prep(do, out)
+        dq = attention._flash_bwd_dq_cuda(q, k, v, do, lse, c, **kw) \
+            if "dq" in held else None
+        dk, dv = attention._flash_bwd_dkv_cuda(q, k, v, do, lse, c, **kw) \
+            if "dkv" in held else (None, None)
+        torch.cuda.synchronize()
+        assert (attention.flash_fwd_launches, attention.flash_bwd_dq_launches,
+                attention.flash_bwd_dkv_launches) == (
+            before[0] + 1, before[1] + ("dq" in held),
+            before[2] + ("dkv" in held))
+        assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+        for i, j in _spans(sq) if held != "dkv" else ():
+            rows = slice(i, j)
+            if "fwd" in held:
+                ref, ref_lse = attention.mha_reference(
+                    q[:, :, rows], k, v, causal=causal, q_offset=q_off + i)
+                live = torch.isfinite(ref_lse)
+                assert torch.equal(torch.isfinite(lse[:, :, rows]), live)
+                _rows_close(out[:, :, rows], ref, ~live, rel)
+                assert (lse[:, :, rows][live] - ref_lse[live]).abs().max() \
+                    <= LSE_TOL[dtype]
+            if dq is not None:
+                want = attention.flash_bwd_dq_reference(
+                    q[:, :, rows], k, v, do[:, :, rows], lse[:, :, rows],
+                    c[:, :, rows], **dict(kw, q_offset=q_off + i))
+                assert not torch.isnan(dq[:, :, rows]).any()
+                _rows_close(dq[:, :, rows], want,
+                            ~torch.isfinite(lse[:, :, rows]), rel)
+        for i, j in _spans(sk) if dk is not None else ():
+            keys = slice(i, j)
+            want_dk, want_dv = attention.flash_bwd_dkv_reference(
+                q, k[:, :, keys], v[:, :, keys], do, lse, c,
+                **dict(kw, kv_offset=i))
+            kpos = torch.arange(i, j, device=cuda)
+            dead = (kpos > q_off + sq - 1 if causal
+                    else torch.zeros_like(kpos, dtype=torch.bool)
+                    ).expand(b, h, j - i)
+            for got, want in ((dk[:, :, keys], want_dk),
+                              (dv[:, :, keys], want_dv)):
+                assert not torch.isnan(got).any()
+                _rows_close(got, want, dead, rel)
+
+
+def test_grid_past_grid_x_raises_value_error(cuda):
+    # A launch grid past grid x's 2^31 - 1 blocks, or B * H past 2^31 - 1,
+    # is refused by the C entry before any launch and raised as
+    # ValueError (never a failed launch). The operands are views with zero
+    # strides: the entries check the grid before they read a pointer.
+    one = torch.zeros(64, device=cuda, dtype=torch.bfloat16)
+    lse = torch.zeros(1, device=cuda)
+    for b, h, s in ((1 << 15, 1 << 15, 256),   # 2^30 heads x 2 tiles
+                    (1 << 16, 1 << 15, 8)):    # B * H = 2^31
+        x = one.expand(b, h, s, 64)
+        with pytest.raises(ValueError, match="too large for one launch"):
+            attention._fwd_launch("flash_fwd", x, x, x, None, x, lse)
+        for name, outs in (("flash_bwd_dq", (x, None)),
+                           ("flash_bwd_dkv", (x, x))):
+            with pytest.raises(ValueError, match="too large for one launch"):
+                attention._bwd_launch(name, x, x, x, x, lse, lse, outs,
+                                      False, 0, 0, 0.125)
 
 
 def test_block_backward_launches_both_kernels(cuda):
