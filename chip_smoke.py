@@ -270,9 +270,12 @@ Phases; any failure raises and ends the run with a non-zero exit:
    reference's grid folds B*H into one axis; every kernel here puts
    batch, heads and tile blocks on grid x): the three kernels against
    their plain versions as in phase 15 at a batch of 65,536 (H 1, S 8,
-   d 64) in bf16 and fp16 (causal) and f32 (not causal), at d 520
-   (chunks of 256, bf16, causal), and at 65,536 heads in f32 (not
-   causal); and each chunked kernel's tile blocks past
+   d 64) in bf16, fp16 and f32, at d 520 (chunks of 256, bf16), and at
+   65,536 heads in f32, all causal, and at a batch of 1,024 in f32 (the
+   f32 cases without an lse cotangent, so that each head's first query,
+   which sees one key, has a dq row that cancels to a few millionths,
+   held at 1e-4 a row; each case's worst f32 dq row printed beside the
+   card); and each chunked kernel's tile blocks past
    65,535 at d 1024: the forward and dq over 2**21 queries, dk/dv over
    2**21 keys, the plain versions taken 2**17 queries or keys at a time.
 
@@ -365,10 +368,11 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # fp16 runs on the tensor cores at the bf16 rate; f32 on the tensor cores
 # as TF32 (all three f32 kernels: three TF32 products an f32 product,
-# tf32_bound), with the CUDA cores' bound beside it (the guide's table: 67
-# TFLOP/s outside the tensor cores)
+# tf32_bound; but dq's dP on the FP64 tensor cores, 67 TFLOP/s on the data
+# sheet), with the CUDA cores' bound beside it (67 TFLOP/s outside the
+# tensor cores on the data sheet)
 PEAK_FLOPS = {"bfloat16": PEAK_BF16_FLOPS, "float16": PEAK_BF16_FLOPS,
-              "float32": 67e12, "tf32": 495e12}
+              "float32": 67e12, "tf32": 495e12, "float64": 67e12}
 
 # The repo's LM config (bench.py:3169) and the slices' traffic.
 VOCAB, DIM, HEADS, LAYERS = 32768, 1024, 16, 8
@@ -600,15 +604,18 @@ FW_LMS = (("fp16", torch.float16, HEADS), ("hd512", torch.bfloat16, 2),
 # GRID_LONG_D (4 chunks), causal, held to the plain versions
 # GRID_PLAIN_CHUNK queries (forward, dq) or keys (dk/dv) at a time, so
 # that their f32 copies stay near 0.5 GiB.
-# (name, (b, h, sq, sk), d, dtype, causal). The f32 cases run non-causal:
-# causal, each of the 65,536 heads' first query is a single-key row whose
-# dq cancels to about 4e-6, where the f32 dq kernel's dP (one fmaf chain)
-# lands 1e-5 from the exact value against the check's 1.7e-6, on the
-# parent too (ROADMAP C 1; tests/test_torch_cuda.py keeps those cases).
+# (name, (b, h, sq, sk), d, dtype, causal). The f32 cases run without an
+# lse cotangent: each head's first query then sees one key and its dq row
+# is p (dP - c) k with dP equal to c up to rounding, a few millionths of
+# the largest row, which the check holds at 1e-4 of a thousandth of it.
+# The f32 dq kernel forms dP exactly on the FP64 tensor cores and rounds
+# dP - c once, as the plain version does (one f32 fma chain missed by
+# 6.4e-4 at rows_f32's shape).
 GRID_CASES = (("batch_bf16", (65536, 1, 8, 8), 64, torch.bfloat16, True),
               ("batch_fp16", (65536, 1, 8, 8), 64, torch.float16, True),
-              ("batch_f32", (65536, 1, 8, 8), 64, torch.float32, False),
-              ("heads_f32", (1, 65536, 8, 8), 64, torch.float32, False),
+              ("batch_f32", (65536, 1, 8, 8), 64, torch.float32, True),
+              ("heads_f32", (1, 65536, 8, 8), 64, torch.float32, True),
+              ("rows_f32", (1024, 1, 8, 8), 64, torch.float32, True),
               ("batch_chunked", (65536, 1, 8, 8), 520, torch.bfloat16,
                True))
 # (name, sq, sk, q_offset, kernels held): 2**21 queries (the chunked
@@ -746,10 +753,17 @@ def bound_of(flops, nbytes, dname="bfloat16"):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def tf32_bound(flops, nbytes):
-    """The f32 kernels' bound: each f32 product three TF32
-    products on the tensor cores (bound_of at 495 TFLOP/s)."""
-    return bound_of(3 * flops, nbytes, "tf32")
+def tf32_bound(flops, nbytes, kind="fwd"):
+    """The f32 kernels' bound: each f32 product three TF32 products on the
+    tensor cores at 495 TFLOP/s, but dq's dP (a third of dq's FLOP) in f64
+    on the FP64 tensor cores at 67; the two times add, as both run on the
+    tensor cores."""
+    f64 = flops / 3 if kind == "dq" else 0.0
+    t_ops = (3 * (flops - f64) / PEAK_FLOPS["tf32"]
+             + f64 / PEAK_FLOPS["float64"])
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
 
 
 def qkv_views(g, dev, b, h, s, d, dt):
@@ -5013,12 +5027,12 @@ def phase_moe_sp(seed, card):
 
 
 def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko,
-                  label="head dims", out_abs=True):
+                  label="head dims", out_abs=True, with_dlse=True):
     """The three kernels against their plain versions on one case at head
-    dim d, with an lse cotangent and do as autograd hands it over (a (B,
-    H, S, D) view of a (B, S, H, D) buffer); returns {kernel: (max abs
-    error, max row relative error)}. out is held by row and, where
-    ``out_abs``, by its largest error at TOL too."""
+    dim d, with an lse cotangent (unless ``with_dlse`` is False) and do as
+    autograd hands it over (a (B, H, S, D) view of a (B, S, H, D) buffer);
+    returns {kernel: (max abs error, max row relative error)}. out is held
+    by row and, where ``out_abs``, by its largest error at TOL too."""
     b, h, sq, sk = shape
     q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dt)
     k, v = (torch.randn((b, h, sk, d), generator=g, device=dev).to(dt)
@@ -5032,7 +5046,8 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko,
         with no_plain_path():
             out, lse = attention.flash_attention(q, k, v, causal=causal,
                                                  q_offset=qo, kv_offset=ko)
-            c = attention.flash_bwd_prep(do, out, dlse)
+            c = attention.flash_bwd_prep(do, out,
+                                         dlse if with_dlse else None)
             got = {"dq": attention._flash_bwd_dq_cuda(q, k, v, do, lse, c,
                                                       **kw)}
             got["dk"], got["dv"] = attention._flash_bwd_dkv_cuda(
@@ -5090,7 +5105,8 @@ def head_dim_case(g, dev, d, name, shape, dt, causal, qo, ko,
     same = all(torch.equal(again[x], got[x]) for x in got)
     check(same, f"{tag}: dq or dk/dv differs between two launches")
     print(f"{tag}: b,h,sq,sk={b},{h},{sq},{sk} {dname} causal={causal} "
-          f"q_offset={qo} kv_offset={ko} dlse=yes; {'; '.join(line)}; "
+          f"q_offset={qo} kv_offset={ko} "
+          f"dlse={'yes' if with_dlse else 'no'}; {'; '.join(line)}; "
           f"bit-identical over two launches {same}; launches moved {moved} "
           f"(tol per row {tol})", flush=True)
     return res
@@ -5196,7 +5212,7 @@ def head_dim_timing(g, dev, d, dt=torch.bfloat16, iters=20):
         if dname == "float32":
             # on the tensor cores; the CUDA cores' bound beside it
             extra["cuda_core_bound_ms"] = bound
-            bound, bound_by = tf32_bound(flops, nbytes)
+            bound, bound_by = tf32_bound(flops, nbytes, kind)
             if kind == "fwd":
                 extra["split_ms"] = ms["split"]
         checked = [errs[w] for w in {"fwd": ("out",), "dq": ("dq",),
@@ -5617,14 +5633,20 @@ def grid_long_case(g, dev, name, sq, sk, qo, held, d=GRID_LONG_D,
     return res
 
 
-def phase_launch_grid(dev):
+def phase_launch_grid(dev, card):
     """Phase 17."""
     g = torch.Generator(device=dev).manual_seed(1717)
     errs = {}
     for name, shape, d, dt, causal in GRID_CASES:
+        f32 = dt == torch.float32
         res = head_dim_case(g, dev, d, name, shape, dt, causal, 0, 0,
-                            label="launch grid", out_abs=False)
+                            label="launch grid", out_abs=False,
+                            with_dlse=not f32)
         res.pop("moved")
+        if f32:
+            print(f"launch grid {name}: f32 dq worst row "
+                  f"{res['flash_bwd_dq'][1]:.3e} of the plain version's "
+                  f"(tol {ROW_REL_TOL['float32']}) | {card}", flush=True)
         for kern, (e_abs, e_rel) in res.items():
             prev = errs.get(kern, (0.0, 0.0))
             errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
@@ -5634,9 +5656,10 @@ def phase_launch_grid(dev):
                                                    held).items():
             prev = errs.get(kern, (0.0, 0.0))
             errs[kern] = (max(prev[0], e_abs), max(prev[1], e_rel))
-    print(f"launch grid: {len(GRID_CASES) + len(GRID_LONG)} cases past "
-          f"65,535 blocks on a capped axis held to the plain versions; "
-          f"worst (max abs, max row rel) per kernel {errs}", flush=True)
+    print(f"launch grid: {len(GRID_CASES) + len(GRID_LONG)} cases (past "
+          f"65,535 blocks on a capped axis, and f32 single-key rows) held "
+          f"to the plain versions; worst (max abs, max row rel) per kernel "
+          f"{errs}", flush=True)
     return {"errs": errs}
 
 
@@ -5644,11 +5667,12 @@ def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
     TMA + wgmma for all three in 16 bits at every head dim (in chunks of
     256 past 256); in f32 TMA + wgmma in three TF32 products for all three,
-    dq's dP on the CUDA cores, the forward's operands split once a call by
+    dq's dP on the FP64 tensor cores, the forward's operands split once a
+    call by
     a pass of their own."""
     if dname == "float32":
         design = {"flash_fwd": "wgmma+tma, 3xtf32, split pass",
-                  "flash_bwd_dq": "wgmma+tma, 3xtf32, dP on the cuda cores",
+                  "flash_bwd_dq": "wgmma+tma, 3xtf32, dP on fp64 mma.sync",
                   "flash_bwd_dkv": "wgmma+tma, 3xtf32"}[name]
     else:
         design = "wgmma+tma"
@@ -6036,7 +6060,7 @@ def main() -> int:
 
     # 17. launch grids past 65,535 blocks on grid y's or z's axis
     t17 = time.perf_counter()
-    phase_launch_grid(dev)
+    phase_launch_grid(dev, card)
     print(f"phase 17 wall {time.perf_counter() - t17:.1f} s", flush=True)
 
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,

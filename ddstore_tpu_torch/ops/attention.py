@@ -135,17 +135,32 @@ def _probs(q, k, lse, causal, q_offset, kv_offset, scale):
     return torch.exp(s - safe_lse[..., None])
 
 
+def _dp_minus_c(do, v, c):
+    """``do v^T - c`` in f32, (B, H, Sq, Sk). For f32 operands ``do v^T``
+    is formed in f64 (each product of two floats is exact there) and ``dp -
+    c`` rounded to f32 once, as the f32 dq kernel forms it on the FP64
+    tensor cores: a query that sees one key has ``dp`` equal to ``c`` up to
+    rounding, so from an f32 ``dp`` its dq row would be that rounding
+    alone. bf16 and fp16 operands take the f32 product, as their kernels
+    do."""
+    if do.dtype == torch.float32:
+        dp = torch.matmul(do.double(), v.double().transpose(-1, -2))
+        return dp.sub_(c[..., None].double()).float()
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return dp - c[..., None].float()
+
+
 def flash_bwd_dq_reference(q, k, v, do, lse, c, *, causal=False,
                            q_offset=0, kv_offset=0, scale=None
                            ) -> torch.Tensor:
     """dq of the flash backward (``_bwd_dq_kernel``, ``attention.py:
     213-260``): ``dq = (p * (do v^T - c)) k * scale``, with the ds operand
-    rounded to k's dtype before the product, as the kernel rounds it."""
+    rounded to k's dtype before the product, as the kernel rounds it, and
+    ``do v^T - c`` as :func:`_dp_minus_c` forms it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lse, causal, q_offset, kv_offset, scale)
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    t = p * (dp - c[..., None].float())
+    t = p * _dp_minus_c(do, v, c)
     dq = torch.matmul(t.to(k.dtype).float(), k.float()) * scale
     return dq.to(q.dtype)
 
@@ -155,13 +170,13 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, c, *, causal=False,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) of the flash backward (``_bwd_dkv_kernel``, ``attention.py:
     263-313``): ``dv = p^T do`` with p rounded to do's dtype, and
-    ``dk = (p * (do v^T - c))^T q * scale`` with ds rounded to q's dtype."""
+    ``dk = (p * (do v^T - c))^T q * scale`` with ds rounded to q's dtype
+    and ``do v^T - c`` as :func:`_dp_minus_c` forms it."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     p = _probs(q, k, lse, causal, q_offset, kv_offset, scale)
     dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
-    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
-    t = p * (dp - c[..., None].float())
+    t = p * _dp_minus_c(do, v, c)
     dk = torch.matmul(t.to(q.dtype).float().transpose(-1, -2),
                       q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)

@@ -168,13 +168,14 @@
 //   warpgroup as it splits the landed tile; the transposed tiles store
 //   each group of 8 columns in the order the accumulators' A fragments
 //   hold them (tf32_kpos), so dS, P^T and dS^T feed the products from
-//   registers as they are. dq forms dP on the CUDA cores, one fmaf a
-//   feature in order (the first query's dQ row is p (dP - c) k with dP
-//   equal to c up to rounding: it is held to the f32 dot product the plain
-//   version forms, which no tensor-core sum reproduces). Bound by the
-//   split: a landed f32 tile is split (and transposed) by 96 producer
-//   threads, which at d 256 cost dk/dv more than its products, and the
-//   streamed side is split again for every tile of the other side.
+//   registers as they are. dq forms dP on the FP64 tensor cores
+//   (mma.sync m16n8k4 in f64: exact products, sums at 2^-53) and rounds
+//   dP - c to f32 once: the first query's dQ row is p (dP - c) k with dP
+//   equal to c up to rounding, so any f32 sum of dP would leave only its
+//   own rounding there; the plain version forms the same arithmetic.
+//   Bound by the split: a landed f32 tile is split (and transposed) by 96
+//   producer threads, which at d 256 cost dk/dv more than its products,
+//   and the streamed side is split again for every tile of the other side.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1850,20 +1851,22 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 // Every f32 product x y runs as three TF32 products on the tensor cores,
 // x_hi y_hi + x_hi y_lo + x_lo y_hi, with x_hi = rna_tf32(x) and x_lo =
 // rna_tf32(x - x_hi) (CUTLASS's "3xTF32"): about 2^-21 relative a product,
-// summed in f32 (but dq's dP, on the CUDA cores: dq_dp_chunk). A block is
-// three warpgroups, as the 16-bit kernels': two
-// consumers and a producer whose warp 0 issues every TMA load (one thread)
-// and whose warps 1-3 split each landed tile: hi over the raw tile in place,
-// lo into a tile of the same layout, and, for the operand whose contracted
-// dim runs down its rows, both parts transposed (tf32 wgmma reads both
-// operands K-major only). Nothing is resident: each streamed tile comes as
-// a run of items through a ring of stages of six or eight 64-row x 32
-// float tiles (8 KB each, one 128-byte swizzle box): first one item per 32
-// feature chunk of all d (S and dP, or S^T and dP^T, summed over them),
-// then one item per 32 feature chunk of the block's output columns (the
-// transposed operand of dQ, or of dK and dV). So shared memory does not
-// grow with d; the output accumulators do (D / 2 floats a thread), and past
-// d = 256 a block owns a chunk of 256 output columns and forms S again.
+// summed in f32 (but dq's dP, exact products summed in f64 on the FP64
+// tensor cores: dq_dp_chunk). A block is three warpgroups, as the 16-bit
+// kernels': two consumers and a producer whose warp 0 starts every TMA
+// load (one thread) and whose warps 1-3 split each landed tile: hi over
+// the raw tile in place, lo into a tile of the same layout, and, for the
+// operand whose contracted dim runs down its rows, both parts transposed
+// (tf32 wgmma reads both operands K-major only). Nothing is resident: each
+// streamed tile comes as a run of items through a ring of stages of six
+// or eight 64-row x 32 float tiles (8 KB each, one 128-byte swizzle box):
+// first one item per 32 feature chunk of all d (S and dP, or S^T and
+// dP^T, summed over them), then one item per 32 feature chunk of the
+// block's output columns (the transposed operand of dQ, or of dK and dV).
+// So shared memory does not grow with d; the output accumulators do (D / 2
+// floats a thread; at D = 256 dq keeps three of its eight chunks in shared
+// memory), and past d = 256 a block owns a chunk of 256 output columns and
+// forms S again.
 
 constexpr int kTfConverters = 96;  // warps 1-3 of the producer warpgroup
 // setmaxnreg within the launch's 3 x 168: the converters need more than
@@ -1951,42 +1954,42 @@ __device__ __forceinline__ void tf32_split_t(const uint8_t* t, uint8_t* hi,
   }
 }
 
-// dP += dO V^T over one 32-feature chunk on the CUDA cores, for the dq
-// kernel: one fmaf a feature, in order, from a chunk's raw (swizzled)
-// tiles, into the m64n32 accumulator layout of a warpgroup's 32 keys
-// (kb, the first of them in the tile) and this thread's rows ra, ra + 8.
-// A row of dQ with one live key is p (dP - c) k with dP equal to c up to
-// rounding (the first query's, with no lse cotangent): its dP must be the
-// f32 dot product as the plain version forms it, which the tensor cores'
-// sums (each rounding once, toward zero) are not.
-__device__ __forceinline__ void dq_dp_chunk(float (&dp)[16],
+// dP += dO V^T over one 32-feature chunk on the FP64 tensor cores, for the
+// dq kernel, into the m64n32 accumulator layout of a warpgroup's 32 keys
+// (kb, the first of them in the tile; dp[j] the n-tile of keys kb + 8 j..)
+// and this thread's rows ra, ra + 8 (ra % 8 = g). Each f32 value of the
+// chunk's raw (swizzled) tiles is converted to f64 as it is loaded
+// (exactly), and k-step (h, kk) gives slot t of the k4 step feature 8 t +
+// 4 h + kk: thread t reads the 16-byte chunk 2 t + h of its dO rows and V
+// keys, so the eight lanes of a quarter warp (g = 2 i, 2 i + 1, t = 0..3)
+// hit eight distinct chunks under the 128-byte swizzle (no bank
+// conflict). A row of dQ with one live key is p (dP - c) k with dP equal
+// to c up to rounding (the first query's, with no lse cotangent): from an
+// f32 dP that row would be the dot product's rounding alone, so dP is
+// formed exactly here and dP - c rounded once, as the plain version forms
+// it.
+__device__ __forceinline__ void dq_dp_chunk(double (&dp)[4][4],
                                             const uint8_t* dos,
                                             const uint8_t* vs, int ra, int kb,
-                                            int t) {
-#pragma unroll 1
-  for (int f4 = 0; f4 < 8; ++f4) {
-    const uint32_t sw = (f4 ^ (ra & 7)) << 4;  // rows ra and ra + 8 alike
+                                            int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t sw = ((2 * t + h) ^ g) << 4;  // rows ra, ra + 8, keys
     const float4 a0 = *reinterpret_cast<const float4*>(dos + ra * 128 + sw);
     const float4 a1 =
         *reinterpret_cast<const float4*>(dos + (ra + 8) * 128 + sw);
+    float4 b[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(vs + (kb + 8 * j + g) * 128 +
+                                              sw);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int key = kb + 8 * j + 2 * t + e;
-        const float4 b = *reinterpret_cast<const float4*>(
-            vs + key * 128 + ((f4 ^ (key & 7)) << 4));
-        float& x0 = dp[4 * j + e];
-        float& x1 = dp[4 * j + 2 + e];
-        x0 = fmaf(a0.x, b.x, x0);
-        x0 = fmaf(a0.y, b.y, x0);
-        x0 = fmaf(a0.z, b.z, x0);
-        x0 = fmaf(a0.w, b.w, x0);
-        x1 = fmaf(a1.x, b.x, x1);
-        x1 = fmaf(a1.y, b.y, x1);
-        x1 = fmaf(a1.z, b.z, x1);
-        x1 = fmaf(a1.w, b.w, x1);
-      }
+    for (int kk = 0; kk < 4; ++kk) {
+      const double x0 = lane_of(a0, kk), x1 = lane_of(a1, kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        sm90::dmma_m16n8k4(dp[j], x0, x1, lane_of(b[j], kk));
+    }
   }
 }
 
@@ -2002,9 +2005,22 @@ struct TfSmem {
   static_assert(kBytes <= 232448, "over the H100's shared memory a block");
 };
 
-// dq: 6 tiles a stage (dO and V stay raw), so 4 stages; dk/dv: 8 tiles a
-// stage and the exchange buffers of P^T, so 3.
-using TfDqSmem = TfSmem<4, 6, 0>;
+// How many of the dq kernel's last chunks of 32 dQ columns each consumer
+// thread sums in shared memory rather than in registers (16 floats a
+// chunk, kConsumers apart; once per key tile and chunk), and its ring's
+// stages. At D = 256 dQ's 128 registers beside dP's 32 in f64 spilled,
+// and so did they with one or two chunks in shared memory; three need a
+// stage of the ring (48 KB) for their 48 KB.
+template <int D>
+constexpr int kDqSmemChunks = D == 256 ? 3 : 0;
+template <int D>
+constexpr int kDqStages = D == 256 ? 3 : 4;
+
+// dq: 6 tiles a stage (dO and V stay raw), kDqStages stages, then dQ's
+// chunks of kDqSmemChunks (16 KB each); dk/dv: 8 tiles a stage and the
+// exchange buffers of P^T, so 3.
+template <int D>
+using TfDqSmem = TfSmem<kDqStages<D>, 6, kDqSmemChunks<D> * 8192>;
 template <int BQ>
 using TfDkvSmem = TfSmem<3, 8, 64 * BQ * 4>;
 
@@ -2055,19 +2071,20 @@ __device__ __forceinline__ void tf32_init_barriers(uint64_t* bar) {
 // dq: one block per (64 queries, chunk of D columns of dQ, head, batch).
 // Both consumer warpgroups own the block's 64 query rows and split each
 // 64-key tile: warpgroup w takes keys [32 w, 32 w + 32), forms its S
-// (m64n32 on the tensor cores, summed over the feature chunks) and, while
-// that runs, its dP on the CUDA cores (dq_dp_chunk), then P and dS on the
-// accumulators, and adds dS K into its own dQ (the transposed K chunk,
-// m64n32 a chunk of dQ's columns). At the end warpgroup 1 hands its dQ to
-// warpgroup 0 through shared memory, which adds it and stores (a fixed
-// order: bit-identical from launch to launch). Item order per key tile:
+// (m64n32 on the tensor cores, summed over the feature chunks) and, after
+// each chunk's S, its dP on the FP64 tensor cores (dq_dp_chunk), then P
+// and dS on the accumulators, and adds dS K into its own dQ (the
+// transposed K chunk, m64n32 a chunk of dQ's columns). At the end
+// warpgroup 1 hands its dQ to warpgroup 0 through shared memory, which
+// adds it and stores (a fixed order: bit-identical from launch to
+// launch). Item order per key tile:
 // nc items {Q, dO, K, V} of feature chunk c (tiles 0, 1: Q hi, lo; 2: dO
 // raw; 3, 4: K hi, lo; 5: V raw), then no items {K} of output chunk o
 // (tile 0 raw, tiles 1, 2 K^T hi, lo, 64 keys in two boxes).
 template <int D>
 __global__ void __launch_bounds__(kBlockThreads, 1)
     flash_bwd_dq_tf32_kernel(const __grid_constant__ Tf32Params p) {
-  using L = TfDqSmem;
+  using L = TfDqSmem<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = sm90::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
@@ -2125,13 +2142,23 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     const int r0 = q0 + 16 * warp + g;  // query rows r0 and r0 + 8
     const long long bh = static_cast<long long>(bb) * p.h + hh;
     const float sl2 = p.scale * kLog2e;
+    // dQ's chunks o < kR in registers, the rest in shared memory: element
+    // i of chunk kR + m at dqx[(16 m + i) * kConsumers]
+    constexpr int kR = D / 32 - kDqSmemChunks<D>;
     float dq[D / 32][16];
+    float* dqx = reinterpret_cast<float*>(smem + L::kX) + threadIdx.x;
 #pragma unroll
     for (int o = 0; o < D / 32; ++o)
 #pragma unroll
-      for (int i = 0; i < 16; ++i) dq[o][i] = 0.f;
-    float s[16], dp[16];  // S and dP of a key tile, then dS in s
-    float cs[16];         // a chunk's S; a chunk of dS K
+      for (int i = 0; i < 16; ++i) {
+        if (o < kR)
+          dq[o][i] = 0.f;
+        else
+          dqx[(16 * (o - kR) + i) * kConsumers] = 0.f;
+      }
+    float s[16];      // S of a key tile, then dS
+    double dp[4][4];  // dP of a key tile, exact products summed in f64
+    float cs[16];     // a chunk's S; a chunk of dS K
 
     int j = 0;
     auto wait_ready = [&](int jj) {
@@ -2140,26 +2167,32 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
     };
     for (int i = 0; i < n; ++i) {
 #pragma unroll
-      for (int x = 0; x < 16; ++x) s[x] = dp[x] = 0.f;
+      for (int x = 0; x < 16; ++x) {
+        s[x] = 0.f;
+        dp[x / 4][x % 4] = 0.0;
+      }
       for (int c = 0; c < nc; ++c, ++j) {
         const uint8_t* st = wait_ready(j);
         const int kb = w * 32 * 128;  // this warpgroup's 32 keys
-        // S on the tensor cores while dP runs on the CUDA cores
         sm90::wgmma_fence();
         sm90::tf32_ss_chunk<32>(cs, st, st + kTfTile,
                                 st + 3 * kTfTile + kb,
                                 st + 4 * kTfTile + kb);
         sm90::wgmma_commit();
-        dq_dp_chunk(dp, st + 2 * kTfTile, st + 5 * kTfTile, 16 * warp + g,
-                    32 * w, t);
         sm90::wgmma_wait<0>();
         sm90::fence_regs(cs);
-        sm90::mbar_arrive(&empty[j % L::kStages]);
         sm90::tf32_add(s, cs);
+        // dP once S is in (cs then free): the f64 mma.sync shares the
+        // tensor cores with the S wgmma, and formed while that ran it made
+        // the kernel slower
+        dq_dp_chunk(dp, st + 2 * kTfTile, st + 5 * kTfTile, 16 * warp + g,
+                    32 * w, g, t);
+        sm90::mbar_arrive(&empty[j % L::kStages]);
       }
-      // P = exp2(S scale log2e - lse log2e), dS = P (dP - c); masked only
-      // on tiles that straddle the diagonal or run past Sk. (lse and c are
-      // read again each tile: no registers held across the loop.)
+      // P = exp2(S scale log2e - lse log2e), dS = P (dP - c), dP - c
+      // rounded to f32 once; masked only on tiles that straddle the
+      // diagonal or run past Sk. (lse and c are read again each tile: no
+      // registers held across the loop.)
       float lse2[2], cr[2];
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
@@ -2182,8 +2215,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
                 (p.causal && p.kv_offset + key > p.q_offset + row))
               x = -INFINITY;
           }
-          s[4 * jj + e] = sm90::exp2_approx(x) * (dp[4 * jj + e] -
-                                                  cr[e >> 1]);
+          s[4 * jj + e] = sm90::exp2_approx(x) *
+                          static_cast<float>(dp[jj][e] - cr[e >> 1]);
         }
       uint32_t fh[4][4], fl[4][4];
       sm90::tf32_frags(fh, fl, s);
@@ -2198,19 +2231,26 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
           sm90::wgmma_wait<0>();
           sm90::fence_regs(cs);
           sm90::mbar_arrive(&empty[j % L::kStages]);
-          sm90::tf32_add(dq[o], cs);
+          if (o < kR) {
+            sm90::tf32_add(dq[o], cs);
+          } else {
+#pragma unroll
+            for (int x = 0; x < 16; ++x)
+              dqx[(16 * (o - kR) + x) * kConsumers] += cs[x];
+          }
           ++j;
         }
       }
     }
 
     // Warpgroup 1's dQ into the (now idle) ring, warpgroup 0 adds it in
-    // and stores every row below Sq (0 where no live key reaches it).
+    // (and, of the chunks in shared memory, warpgroup 1's slots beside its
+    // own) and stores every row below Sq (0 where no live key reaches it).
     float* red = reinterpret_cast<float*>(smem);
     sm90::bar_sync(1, kConsumers);
     if (w == 1) {
 #pragma unroll
-      for (int o = 0; o < D / 32; ++o)
+      for (int o = 0; o < kR; ++o)
 #pragma unroll
         for (int i = 0; i < 16; ++i) red[(16 * o + i) * 128 + lt] = dq[o][i];
     }
@@ -2229,13 +2269,17 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
           for (int hr = 0; hr < 2; ++hr) {
             const int row = r0 + 8 * hr;
             const int i = 4 * jj + 2 * hr;
+            float x[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              x[e] = o < kR ? dq[o][i + e] + red[(16 * o + i + e) * 128 + lt]
+                            : dqx[(16 * (o - kR) + i + e) * kConsumers] +
+                                  dqx[(16 * (o - kR) + i + e) * kConsumers +
+                                      128];
             if (row < p.sq)
               *reinterpret_cast<float2*>(
                   dqp + static_cast<long long>(row) * p.s1s + col + 2 * t) =
-                  make_float2(
-                      (dq[o][i] + red[(16 * o + i) * 128 + lt]) * p.scale,
-                      (dq[o][i + 1] + red[(16 * o + i + 1) * 128 + lt]) *
-                          p.scale);
+                  make_float2(x[0] * p.scale, x[1] * p.scale);
           }
         }
     }
@@ -2679,7 +2723,7 @@ int launch_dq_tf32(const Args& a, int b, cudaStream_t st) {
   const int err = tf32_params(p, a, b, 64);
   if (err) return err;
   p.fold = sm90::fold(nt, b, a.h);
-  constexpr int bytes = TfDqSmem::kBytes;
+  constexpr int bytes = TfDqSmem<D>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(
       flash_bwd_dq_tf32_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -2,7 +2,8 @@
 // flash_fwd.cu and flash_bwd.cu: mbarriers, TMA tile loads, 128-byte
 // swizzled wgmma shared-memory descriptors, the wgmma.mma_async shapes the
 // kernels use (bf16 or fp16 in, f32 accumulate; and tf32 in for the f32
-// kernels, with the rounding to tf32 and the three-product split),
+// kernels, with the rounding to tf32 and the three-product split), the
+// f64 mma.sync of the FP64 tensor cores (the f32 dq kernel's dP),
 // setmaxnreg, named barriers and the proxy fence for operands written by
 // threads, the element types Bf16 and F16, the launch grid folded onto x
 // (GridPos, Fold, folded_blocks), and on the host the tensor-map encoders
@@ -688,6 +689,23 @@ __device__ __forceinline__ void tf32_add(float (&sum)[K],
                                          const float (&x)[K]) {
 #pragma unroll
   for (int i = 0; i < K; ++i) sum[i] += x[i];
+}
+
+// ---------------------------------------------------------------------------
+// FP64 tensor cores (the f32 dq kernel's dP)
+
+// d += a b over one warp: mma.sync m16n8k4 in f64 (DMMA, at the FP64 CUDA
+// cores' 67 TFLOP/s), for g = lane / 4, t = lane % 4: a0 = A[g][t], a1 =
+// A[g + 8][t], b = B[t][g], d = {D[g][2 t], D[g][2 t + 1], D[g + 8][2 t],
+// D[g + 8][2 t + 1]}, the m16n8 accumulator layout of wgmma's (Wgmma's d,
+// 8 columns at a time). A product of two doubles converted from floats is
+// exact (24 + 24 significant bits < 53), so only the sums round, at 2^-53.
+__device__ __forceinline__ void dmma_m16n8k4(double (&d)[4], double a0,
+                                             double a1, double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
 }
 
 // ---------------------------------------------------------------------------

@@ -10,10 +10,11 @@ f32 causal attention at S = 8, d = 64 over (N, 1), (1, N), (1024, 1) and
 over the plain version's row (or a thousandth of its largest row where
 the row is smaller: the check of ``tests/test_torch_cuda.py``), where it
 lies, how many rows pass 1e-4, and that row's distance from the same
-arithmetic in f64 for the kernel and for the plain version; and out's
-largest error beside the two values. N defaults to 65,536 (65,535 for a
-tree whose grids cap batch and heads there). Needs one CUDA card; exits
-2 without one.
+arithmetic in f64 for the kernel and for the plain version (which in f32
+forms dP - c in f64 and rounds it once, as the f32 dq kernel does); and
+out's largest error beside the two values. N defaults to 65,536 (65,535
+for a tree whose grids cap batch and heads there). Needs one CUDA card;
+exits 2 without one.
 """
 
 import argparse

@@ -342,9 +342,7 @@ def _spans(n, step=PLAIN_CHUNK):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,h,sq,sk,d,dtype,held", [
     # the batch past 65,535 (it lay on grid y, and on z in the f32
-    # backward), in every dtype, at a tile width and in chunks of 256.
-    # f32 causal (here and at H = 65,536) misses 1e-4 on dq's single-key
-    # first rows, as the parent's kernels do at B = 1,024 (ROADMAP C 1)
+    # backward), in every dtype, at a tile width and in chunks of 256
     (65536, 1, 8, 8, 64, torch.bfloat16, "fwd dq dkv"),
     (65536, 1, 8, 8, 64, torch.float16, "fwd dq dkv"),
     (65536, 1, 8, 8, 64, torch.float32, "fwd dq dkv"),
@@ -421,6 +419,40 @@ def test_kernels_take_grids_past_65535(cuda, b, h, sq, sk, d, dtype, held,
                               (dv[:, :, keys], want_dv)):
                 assert not torch.isnan(got).any()
                 _rows_close(got, want, dead, rel)
+
+
+def test_f32_dq_single_key_rows(cuda):
+    # The first query of each causal head sees one key: its dq row is p
+    # (dP - c) k scale with dP equal to c up to rounding, a few millionths
+    # of the largest row, under the check's floor. The f32 dq kernel forms
+    # dP exactly (FP64 tensor cores) and rounds dP - c to f32 once, as the
+    # plain version does; each row is held to the plain version and to the
+    # same arithmetic in f64 at the f32 row tolerance. (One f32 dot product
+    # for dP missed it here by 6.4e-4.)
+    b, h, s, d = 1024, 1, 8, 64
+    g = torch.Generator(device=cuda).manual_seed(b + h + s + d)
+    q, k, v = (torch.randn((b, h, s, d), generator=g, device=cuda)
+               for _ in range(3))
+    do = torch.randn((b, s, h, d), generator=g, device=cuda).transpose(1, 2)
+    kw = dict(causal=True, q_offset=0, kv_offset=0, scale=d ** -0.5)
+    before = attention.flash_bwd_dq_launches
+    with torch.no_grad():
+        out, lse = attention.flash_attention(q, k, v, causal=True)
+        c = attention.flash_bwd_prep(do, out)
+        dq = attention._flash_bwd_dq_cuda(q, k, v, do, lse, c, **kw)
+        want = attention.flash_bwd_dq_reference(q, k, v, do, lse, c, **kw)
+        q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+        sc = (q64 @ k64.transpose(-1, -2) * kw["scale"]).masked_fill(
+            attention._causal_mask(s, s, 0, 0, cuda), float("-inf"))
+        ds = torch.exp(sc - lse.double()[..., None]) * (
+            do64 @ v64.transpose(-1, -2) - c.double()[..., None])
+        exact = ds @ k64 * kw["scale"]
+    torch.cuda.synchronize()
+    assert attention.flash_bwd_dq_launches == before + 1
+    dead = ~torch.isfinite(lse)
+    assert not dead.any() and not torch.isnan(dq).any()
+    _rows_close(dq, want, dead, ROW_REL_TOL[torch.float32])
+    _rows_close(dq, exact, dead, ROW_REL_TOL[torch.float32])
 
 
 def test_grid_past_grid_x_raises_value_error(cuda):

@@ -11,11 +11,12 @@ bit-identical over two launches), then at (8, H, 2048, d) causal, H = 1024
 // d, on the LM's qkv views, and times them there against SDPA's f32
 backward. ``--quick`` runs three cases and d 64 only. ``--variants`` then
 builds timing-only variants of ``flash_bwd.cu`` into ``build/`` (which git
-ignores) and times them in turns with the built one at d 64 and 256:
+ignores) and times them in turns with the built one at d 64, 256 and 512:
 ``nosplit`` skips the producer's split of the landed tiles (wrong results:
 what the split costs), ``dkv256bq64`` gives the dk/dv kernel 64-query tiles
-at d 256 (its report says whether that spills). Needs one CUDA card; exits
-2 without one.
+at d 256 (its report says whether that spills). Each variant's dq is
+compared bit for bit with the built one's. Needs one CUDA card; exits 2
+without one.
 """
 
 import ctypes
@@ -53,8 +54,15 @@ ROW_REL = 1e-4
 
 
 def spill_lines(log):
-    return [ln for ln in log.splitlines() if "spill" in ln and
-            "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    """ptxas's nonzero spill lines, each after the kernel it is about."""
+    out, entry = [], "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln and \
+                "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            out.append(f"{entry}: {ln.strip()}")
+    return out
 
 
 def rows_err(got, want, dead):
@@ -189,7 +197,7 @@ def variants(dev):
         print(f"variant {name}: spills {spill_lines(log)}", flush=True)
         libs[name] = ctypes.CDLL(so)
     try:
-        for d in (64, 256):
+        for d in (64, 256, 512):
             _, ops, kw = lm_shape(dev, d)
             res = {n: {"dq": [], "dkv": []} for n in libs}
             for order in (list(libs), list(libs)[::-1]):
@@ -202,9 +210,15 @@ def variants(dev):
                         res[n]["dkv"].append(time_ms(
                             lambda: attention._flash_bwd_dkv_cuda(*ops,
                                                                   **kw), 10))
+            dq = {}
+            for n in libs:  # each variant's dq beside the built one's
+                _build._libs["flash_bwd"] = libs[n]
+                with torch.no_grad():
+                    dq[n] = attention._flash_bwd_dq_cuda(*ops, **kw)
             for n, r in res.items():
                 print(f"variant {n} d={d}: dq ms {r['dq']} dkv ms "
-                      f"{r['dkv']}", flush=True)
+                      f"{r['dkv']} dq bit-identical to the built "
+                      f"{torch.equal(dq[n], dq['built'])}", flush=True)
     finally:
         _build._libs["flash_bwd"] = libs["built"]
 
