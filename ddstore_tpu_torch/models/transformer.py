@@ -64,6 +64,7 @@ from ..parallel.collectives import (all_reduce, copy_to_group,
                                     reduce_from_group)
 from ..parallel.mesh import axes_group, axis_index, axis_size
 from ..parallel.ring_attention import ring_attention
+from ..utils.profile import annotate
 from .moe import MoeMlp, _axis_of, _local, init_expert_
 
 __all__ = ["Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
@@ -748,6 +749,10 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
     splits the sequence (``sp`` > 1) but is not the model's raises
     ``ValueError``, since the model would then attend within each rank's
     chunk alone.
+
+    Under a profiler the step opens the ``ddstore:`` ranges that
+    ``utils/profile.py`` lists (zero_grad, forward, backward, allreduce,
+    optimizer); with none active it opens nothing.
     """
     if mesh is None:
         mesh = model.mesh if state is None or state.mesh is None \
@@ -779,15 +784,19 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
     sharded = [p for p in params if _fsdp_managed(p)]
     sp_group = axes_group(mesh, (model.sp_axis,)) if sharded else None
 
-    def lossf(tok, tgt, pos):
-        return lm_loss(model, tok, tgt, pos, fused_xent=fused_xent)
+    def forward_backward(tok, tgt, pos) -> torch.Tensor:
+        with annotate("ddstore:forward"):
+            loss = lm_loss(model, tok, tgt, pos, fused_xent=fused_xent)
+        with annotate("ddstore:backward"):
+            loss.backward()
+        return loss.detach()
 
     def step(tokens: torch.Tensor, targets: torch.Tensor,
              positions: torch.Tensor) -> torch.Tensor:
-        opt.zero_grad(set_to_none=True)
+        with annotate("ddstore:zero_grad"):
+            opt.zero_grad(set_to_none=True)
         if accum_steps == 1:
-            loss = lossf(tokens, targets, positions)
-            loss.backward()
+            loss = forward_backward(tokens, targets, positions)
         else:
             if tokens.shape[0] % accum_steps:
                 raise ValueError(f"batch {tokens.shape[0]} not divisible "
@@ -797,24 +806,23 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
                                device=tokens.device)
             for chunk in zip(*(t.chunk(accum_steps) for t in
                                (tokens, targets, positions))):
-                part = lossf(*chunk)
-                part.backward()
-                loss = loss + part.detach()
+                loss = loss + forward_backward(*chunk)
             for p in params:
                 if p.grad is not None:
                     p.grad.div_(accum_steps)
             loss = loss / accum_steps
-        loss = loss.detach()
         if mesh is not None:
-            if data is not None:
-                all_reduce_gradients(reduced, n_data, data)
-            if sp_group is not None:
-                all_reduce_gradients(sharded, dist.get_world_size(sp_group),
-                                     sp_group)
-            loss = loss.float().clone()
-            dist.all_reduce(loss)
-            loss = loss / world
-        opt.step()
+            with annotate("ddstore:allreduce"):
+                if data is not None:
+                    all_reduce_gradients(reduced, n_data, data)
+                if sp_group is not None:
+                    all_reduce_gradients(
+                        sharded, dist.get_world_size(sp_group), sp_group)
+                loss = loss.float().clone()
+                dist.all_reduce(loss)
+                loss = loss / world
+        with annotate("ddstore:optimizer"):
+            opt.step()
         if state is not None:
             state.step += 1
         return loss

@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from ..utils.profile import annotate
+
 __all__ = ["fused_linear_xent"]
 
 
@@ -36,6 +38,7 @@ class _FusedLinearXent(torch.autograd.Function):
     each block's logits and never builds the ``(tokens, vocab)`` ones."""
 
     @staticmethod
+    @annotate("ddstore:head_fwd")
     def forward(ctx, x, w, targets, block, compute_dtype):
         dt = compute_dtype or x.dtype
         n = x.shape[0]
@@ -63,6 +66,7 @@ class _FusedLinearXent(torch.autograd.Function):
         return lse - tl
 
     @staticmethod
+    @annotate("ddstore:head_bwd")
     def backward(ctx, g):
         x, w, targets, lse = ctx.saved_tensors
         block, dt = ctx.cfg

@@ -15,8 +15,30 @@ and an external CUDA profiler (Nsight Systems, Nsight Compute) has
 attached its NVTX tool, which it does through ``NVTX_INJECTION64_PATH``
 in the environment it starts the process with. With no trace active
 and no such tool it opens nothing (two flag tests and the profiler's
-own per-thread test), so the data layer annotates unconditionally.
-``step_annotate(step)`` is a step-scoped range.
+own per-thread test), so the data layer and the train step annotate
+unconditionally. ``step_annotate(step)`` is a step-scoped range.
+
+A range records under any active ``torch.profiler``, this module's
+``trace()`` or another's (a benchmark's), on the thread that started
+the profiler and on the autograd engine's threads, which inherit its
+state for the backward. The loader's worker threads record only under
+``trace()``, which profiles every thread. The spans of
+``models/transformer.py``'s ``make_train_step`` (the non-pipelined
+step), a step's in this order:
+
+* ``ddstore:zero_grad``: ``opt.zero_grad``;
+* ``ddstore:forward``: the loss, once a chunk under accumulation,
+  holding ``ddstore:head_fwd``, ``ops/xent.py``'s fused head forward;
+* ``ddstore:backward``: ``loss.backward()``, once a chunk, holding
+  ``ddstore:head_bwd``, the fused head's backward, which runs on the
+  autograd engine's thread;
+* ``ddstore:allreduce``: the gradients' and the loss's all-reduces
+  (with a mesh only);
+* ``ddstore:optimizer``: ``opt.step()``.
+
+The loader's (``data/loader.py``) are ``ddstore:fetch`` and
+``ddstore:stage``, and on its collective path ``ddstore:device_fetch``
+and ``ddstore:device_exchange``.
 """
 
 from __future__ import annotations
