@@ -281,6 +281,22 @@ Phases; any failure raises and ends the run with a non-zero exit:
    card); and each chunked kernel's tile blocks past
    65,535 at d 1024: the forward and dq over 2**21 queries, dk/dv over
    2**21 keys, the plain versions taken 2**17 queries or keys at a time.
+18. Moonlight (DeepSeek-V3's block at the Moonlight cell's widths, one
+   rank of 8-way expert parallelism) at the cell's step of 2 x 8,192:
+   latent attention's (192, 128) route of ``flash_attention`` (v
+   zero-padded to 192 for the kernels, out and dv cut back) against the
+   plain f32 attention, and the held-expert layer (the row kernels of
+   ``ops/csrc/held_rows.cu`` and ``torch._grouped_mm``) over 16,384 tokens
+   against the plain f32 expert layer written here, each output and
+   gradient within 2e-2 of its L2 norm, its forward and backward again
+   under ``torch.cuda.set_sync_debug_mode("error")`` (nothing may wait on
+   the host); each row kernel against its plain version; the grouped
+   products with an expert of no token (its gradient exactly 0) and NaN
+   rows past the last group; then the model at 3 layers (1 dense, 2
+   expert) over 3 Adam steps of (1, 1024) on the card in bf16 against
+   its own plain paths on the CPU in f32, on the same weights: losses
+   within 1e-3, the assignment counts within 5 %, and a step's operations
+   that wait on the host listed.
 
 Then it prints the kernel table as one JSON line (each row names its
 design: ``wgmma+tma``, the 16-bit path of all three kernels at every head
@@ -5761,6 +5777,375 @@ def phase_launch_grid(dev, card):
     return {"errs": errs}
 
 
+# DeepSeek-V3's block as the Moonlight cell runs it: the published widths,
+# one rank of 8-way expert parallelism (experts 0-7 of 64 held, an eighth
+# of the vocabulary), and the cell's step of 2 rows of the published 8,192
+MOON = dict(vocab=20480, dim=2048, heads=16, kv_rank=512, qk_nope=128,
+            qk_rope=64, v_dim=128, dense_hidden=11264, experts=64,
+            held=(0, 8), top_k=6, expert_hidden=1408, shared=2,
+            scale=2.446, bias_rate=1e-3, balance=1e-4, norm_eps=1e-5,
+            rope_theta=50000.0)
+MOON_ROWS, MOON_SEQ = 2, 8192
+MOON_CUT_LAYERS = 3    # the cut model: the dense layer and two expert ones
+MOON_CUT_SEQ = 1024
+MOON_TOL = 2e-2        # bf16 products against f32: each output's L2 error
+
+
+def _moon_routed(m):
+    from ddstore_tpu_torch.models.moe import RoutedSpec
+
+    return RoutedSpec(m["experts"], m["top_k"], m["expert_hidden"],
+                      held=tuple(m["held"]), shared=m["shared"],
+                      scale=m["scale"], bias_rate=m["bias_rate"],
+                      balance=m["balance"])
+
+
+def _moon_spec(m):
+    return ttr.DeepSeekSpec(
+        mla=ttr.MlaSpec(m["kv_rank"], m["qk_nope"], m["qk_rope"],
+                        m["v_dim"]),
+        routed=_moon_routed(m), dense_hidden=m["dense_hidden"],
+        dense_layers=1, norm_eps=m["norm_eps"], rope_theta=m["rope_theta"])
+
+
+def moon_attention_check(dev, m):
+    """Latent attention's shapes at the cell's step, (2, 16, 8192) with q
+    and k 192 wide and v 128, through ``flash_attention`` against the
+    plain f32 attention (by blocks of 1,024 queries), out and every
+    gradient (each tensor's L2 error over its L2 norm)."""
+    g = torch.Generator(device=dev).manual_seed(1818)
+    dqk, dv = m["qk_nope"] + m["qk_rope"], m["v_dim"]
+    shape = (MOON_ROWS, m["heads"], MOON_SEQ)
+    q, k = (torch.randn(*shape, dqk, generator=g, device=dev)
+            .bfloat16().requires_grad_() for _ in range(2))
+    v = torch.randn(*shape, dv, generator=g, device=dev).bfloat16() \
+        .requires_grad_()
+    do = torch.randn(*shape, dv, generator=g, device=dev).bfloat16()
+    n0 = (attention.flash_fwd_launches, attention.flash_bwd_dq_launches,
+          attention.flash_bwd_dkv_launches)
+    out, _ = attention.flash_attention(q, k, v, causal=True)
+    out.backward(do)
+    n1 = (attention.flash_fwd_launches, attention.flash_bwd_dq_launches,
+          attention.flash_bwd_dkv_launches)
+    check(out.shape[-1] == dv and all(b - a == 1 for a, b in zip(n0, n1)),
+          f"moonlight attention: out {tuple(out.shape)}, launches "
+          f"{n0} -> {n1}")
+    got = [out.detach().float(), q.grad.float(), k.grad.float(),
+           v.grad.float()]
+    qf, kf, vf = (t.detach().float().requires_grad_() for t in (q, k, v))
+    outs = []
+    for lo in range(0, MOON_SEQ, 1024):
+        sc = (qf[:, :, lo:lo + 1024] @ kf[:, :, :lo + 1024].transpose(-1, -2)
+              ) / math.sqrt(dqk)
+        mask = torch.ones(1024, lo + 1024, dtype=torch.bool,
+                          device=dev).triu(lo + 1)
+        outs.append(torch.softmax(sc.masked_fill(mask, float("-inf")), -1)
+                    @ vf[:, :, :lo + 1024])
+    ref = torch.cat(outs, dim=2)
+    ref.backward(do.float())
+    want = [ref.detach(), qf.grad, kf.grad, vf.grad]
+    errs = {n: float((a - b).norm() / b.norm())
+            for n, a, b in zip(("out", "dq", "dk", "dv"), got, want)}
+    print(f"moonlight attention {shape + (dqk,)}/{dv} bf16, kernels vs "
+          f"plain f32: {errs}", flush=True)
+    check(all(e <= MOON_TOL for e in errs.values()),
+          f"moonlight attention: {errs} past {MOON_TOL}")
+    return errs
+
+
+def moon_plain_experts(x, P, m, bias, rows):
+    """DeepSeek-V3's expert layer of the held experts, plainly in f32, from
+    the parameters ``P`` (a :class:`RoutedExperts`'s names): sigmoid scores
+    of f32 logits, the top k of score plus ``bias``, gates scale * s / the
+    chosen's sum, each held expert's SwiGLU on its tokens, the shared
+    experts on every token; (output, balance loss, counts a layer)."""
+    first, count = m["held"]
+    k, e = m["top_k"], m["experts"]
+    s = torch.sigmoid(x @ P["router.weight"].t())
+    idx = torch.topk(s.detach() + bias, k, dim=-1).indices
+    chosen = s.gather(1, idx)
+    gates = m["scale"] * chosen / chosen.sum(-1, keepdim=True)
+    y = torch.zeros_like(x)
+    for i in range(count):
+        tok, j = (idx == first + i).nonzero(as_tuple=True)
+        gu = x[tok] @ P["w_in"][i]
+        g, u = gu.chunk(2, dim=-1)
+        out = (torch.nn.functional.silu(g) * u) @ P["w_out"][i]
+        y = y.index_add(0, tok, out * gates[tok, j][:, None])
+    g, u = (x @ P["shared_gate_up.weight"].t()).chunk(2, dim=-1)
+    y = y + (torch.nn.functional.silu(g) * u) @ P["shared_down.weight"].t()
+    t = x.shape[0] // rows
+    hits = torch.stack([torch.bincount(r.reshape(-1), minlength=e)
+                        for r in idx.view(rows, t, k)]).float()
+    p = (s / s.sum(-1, keepdim=True)).view(rows, t, e).mean(1)
+    balance = m["balance"] * (hits * (e / (k * t)) * p).sum(-1).mean()
+    return y, balance, torch.bincount(idx.reshape(-1), minlength=e)
+
+
+def _sync_free(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: None, or
+    the message of the first operation that waited on the host."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+        return None
+    except RuntimeError as exc:
+        return str(exc).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def moon_expert_check(dev, m, seed):
+    """The held experts' layer at the cell's 16,384 tokens (the row
+    kernels and grouped products on the card, bf16) against
+    :func:`moon_plain_experts` in f32 on the same weights: output, balance
+    loss, and the gradients of the input and every weight; its forward and
+    backward again with no operation that waits on the host."""
+    from ddstore_tpu_torch.models.moe import RoutedExperts
+    from ddstore_tpu_torch.ops import held
+
+    layer = RoutedExperts(m["dim"], _moon_routed(m), torch.bfloat16,
+                          device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed + 18)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * 0.02)
+    x = torch.randn(MOON_ROWS * MOON_SEQ, m["dim"], generator=g, device=dev)
+    xb = x.bfloat16().requires_grad_()
+    n0 = held.held_launches
+    y, bal = layer(xb, rows=MOON_ROWS)
+    dy = torch.randn_like(y)
+    ((y * dy).sum() + bal * 1e3).backward()
+    launches = held.held_launches - n0
+    got = {"y": y.detach(), "balance": bal.detach(), "x": xb.grad.float()}
+    got.update({n: p.grad for n, p in layer.named_parameters()})
+    P = {n: p.detach().clone().requires_grad_()
+         for n, p in layer.named_parameters()}
+    xf = xb.detach().float().requires_grad_()
+    yr, balr, counts = moon_plain_experts(xf, P, m, layer.score_bias,
+                                          MOON_ROWS)
+    ((yr * dy).sum() + balr * 1e3).backward()
+    want = {"y": yr.detach(), "balance": balr.detach(), "x": xf.grad}
+    want.update({n: P[n].grad for n in P})
+    errs = {n: float((got[n].float() - want[n]).norm() / want[n].norm())
+            for n in want}
+    sizes = layer.stats["held"].tolist()
+
+    def again():
+        yy, bb = layer(xb, rows=MOON_ROWS)
+        ((yy * dy).sum() + bb).backward()
+
+    waited = _sync_free(again)
+    print(f"moonlight experts ({MOON_ROWS * MOON_SEQ} tokens, "
+          f"{len(sizes)} of {m['experts']} held, {sum(sizes)} assignments "
+          f"{sizes}, {launches} row-kernel launches) bf16 vs plain f32: "
+          f"{errs}; counts equal "
+          f"{bool((counts == layer.stats['counts']).all())}; waits on the "
+          f"host: {waited}", flush=True)
+    check(all(e <= MOON_TOL for e in errs.values()) and launches == 8,
+          f"moonlight experts: {errs} past {MOON_TOL}, or {launches} "
+          f"launches of the row kernels (8 a forward and backward)")
+    errs["rows"] = moon_row_kernels_check(dev, m, g)
+    errs["empty_group"] = moon_empty_group_check(dev, g)
+    errs["waited"] = waited
+    return errs
+
+
+def moon_row_kernels_check(dev, m, g):
+    """Each row kernel of ``ops/held.py`` at the cell's shapes against its
+    plain version on the CPU, over the n rows the assignments fill of a
+    buffer of tokens x top_k rows (the rest are never written)."""
+    from ddstore_tpu_torch.ops import held
+
+    t, k, d = MOON_ROWS * MOON_SEQ, m["top_k"], m["dim"]
+    h = m["expert_hidden"]
+    rows = t * k
+    mine = torch.rand(t, k, generator=g, device=dev) < 0.25
+    n = int(mine.sum())
+    pos = torch.full((t, k), -1, dtype=torch.int64, device=dev)
+    pos[mine] = torch.randperm(n, generator=g, device=dev)
+    offs = torch.tensor([n // 3, n // 3, n], dtype=torch.int32, device=dev)
+    gates = torch.rand(t, k, generator=g, device=dev)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).bfloat16()
+
+    x, ys, dy = rnd(t, d), rnd(rows, d), rnd(t, d).float()
+    gu, da = rnd(rows, 2 * h), rnd(rows, h)
+    cpu = [a.cpu() for a in (x, pos, gates, ys, dy, gu, da, offs)]
+    xc, pc, gc, ysc, dyc, guc, dac, oc = cpu
+    sel = pc[pc >= 0]
+    pairs = {
+        "scatter": (held.scatter_rows(x, pos, rows)[:n],
+                    held.scatter_rows(xc, pc, rows)[:n]),
+        "combine": (held.combine(ys, pos, gates, torch.float32),
+                    held.combine(ysc, pc, gc, torch.float32)),
+        "combine_ones_bf16": (held.combine(ys, pos, None, torch.bfloat16),
+                              held.combine(ysc, pc, None, torch.bfloat16)),
+        "swiglu": (held.swiglu_rows(gu, offs)[:n],
+                   held.swiglu_rows(guc, oc)[:n]),
+        "swiglu_bwd": (held.swiglu_bwd(gu, da, offs)[:n],
+                       held.swiglu_bwd(guc, dac, oc)[:n]),
+    }
+    dys, dg = held.combine_bwd(dy, ys, pos, gates)
+    dysc, dgc = held.combine_bwd(dyc, ysc, pc, gc)
+    pairs["combine_bwd_rows"] = (dys[pos[pos >= 0]], dysc[sel])
+    pairs["combine_bwd_gates"] = (dg, dgc)
+    errs = {name: float((a.cpu().float() - b.float()).norm()
+                        / b.float().norm())
+            for name, (a, b) in pairs.items()}
+    # each kernel's time (CUDA events, mean of 20 after 3) beside its
+    # bound: the bytes it must move at 3.35 TB/s
+    runs = {"scatter": (lambda: held.scatter_rows(x, pos, rows),
+                        2 * t * d + 2 * n * d),
+            "combine": (lambda: held.combine(ys, pos, gates, torch.float32),
+                        2 * n * d + 4 * t * d),
+            "combine_bwd": (lambda: held.combine_bwd(dy, ys, pos, gates),
+                            4 * t * d + 4 * n * d),
+            "swiglu": (lambda: held.swiglu_rows(gu, offs), 6 * n * h),
+            "swiglu_bwd": (lambda: held.swiglu_bwd(gu, da, offs),
+                           10 * n * h)}
+    times = {}
+    for name, (fn, nbytes) in runs.items():
+        for _ in range(3):
+            fn()
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        for _ in range(20):
+            fn()
+        e1.record()
+        e1.synchronize()
+        times[name] = {"ms": e0.elapsed_time(e1) / 20,
+                       "bound_ms": nbytes / 3.35e9}
+    print(f"moonlight row kernels ({t} tokens x {k}, {n} held rows of "
+          f"{rows}) vs their plain versions: {errs}; ms and bound ms "
+          f"{times}", flush=True)
+    check(all(e <= 1e-3 for e in errs.values()),
+          f"moonlight row kernels: {errs} past 1e-3")
+    return {"errs": errs, "times": times}
+
+
+def moon_empty_group_check(dev, g):
+    """The grouped products with a held expert that got no token and rows
+    past the last group holding NaN, against one product a group: the
+    groups' rows and the weights' gradients (the empty expert's exactly
+    0); the NaN rows reach neither."""
+    from ddstore_tpu_torch.models import moe
+
+    sizes = [96, 0, 160, 32]
+    n = sum(sizes)
+    offs = torch.tensor(sizes, device=dev).cumsum(0).to(torch.int32)
+    tail = torch.full((64, 256), float("nan"), device=dev).bfloat16()
+    a = torch.randn(n, 256, generator=g, device=dev).bfloat16()
+    w = torch.randn(len(sizes), 256, 128, generator=g,
+                    device=dev).bfloat16()
+    dy = torch.randn(n, 128, generator=g, device=dev).bfloat16()
+    y = moe._grouped(torch.cat([a, tail]), w, offs)[:n]
+    dw = moe._grouped_wgrad(torch.cat([a, tail]),
+                            torch.cat([dy, tail[:, :128]]), offs)
+    y_want = torch.cat([p.float() @ w[i].float()
+                        for i, p in enumerate(a.split(sizes))])
+    dw_want = torch.stack([p.float().t() @ q.float() for p, q in
+                           zip(a.split(sizes), dy.split(sizes))])
+    err = max(float((y.float() - y_want).norm() / y_want.norm()),
+              float((dw.float() - dw_want).norm() / dw_want.norm()))
+    print(f"moonlight grouped products, sizes {sizes} and 64 NaN rows "
+          f"past them: error {err:.3g}, empty expert's gradient "
+          f"{float(dw[1].abs().max())}", flush=True)
+    check(err <= MOON_TOL and float(dw[1].abs().max()) == 0.0,
+          f"moonlight grouped products with an empty expert: {err}")
+    return err
+
+
+def moon_cut_model_check(dev, seed):
+    """The model at a cut depth through ``create_train_state`` and
+    ``make_train_step``, 3 Adam steps of (1, MOON_CUT_SEQ) on the card in
+    bf16 against the same model's plain paths on the CPU in f32, on the
+    same weights: losses within 1e-3, step 1's counts within 5 %. The
+    card's steps again under the sync debug mode, which names each
+    operation of the step that waits on the host."""
+    m = dict(MOON)
+    spec = _moon_spec(m)
+
+    def build(device, dtype):
+        return ttr.TransformerLM(
+            vocab=m["vocab"], dim=m["dim"], heads=m["heads"],
+            layers=MOON_CUT_LAYERS, compute_dtype=dtype, device=device,
+            deepseek=spec)
+
+    plain = build("cpu", torch.float32)
+    g = torch.Generator().manual_seed(seed + 1818)
+    with torch.no_grad():
+        for n, p in plain.named_parameters():
+            if n.endswith(("ln1.weight", "ln2.weight", "kv_norm.weight",
+                           "lnf.weight")):
+                p.fill_(1.0)
+            else:
+                p.copy_(torch.randn(p.shape, generator=g) * 0.02)
+    batches = [tuple(torch.randint(0, m["vocab"], (1, MOON_CUT_SEQ),
+                                   generator=g) for _ in range(2))
+               for _ in range(3)]
+    pos = torch.arange(MOON_CUT_SEQ)[None]
+    res = {}
+    for side, device, dtype in (("card", dev, torch.bfloat16),
+                                ("plain", "cpu", torch.float32)):
+        model = build(device, dtype)
+        model.load_state_dict(plain.state_dict())
+        state, opt = ttr.create_train_state(model, lr=TRAIN_LR)
+        step = ttr.make_train_step(model, opt, state=state)
+        losses, counts = [], None
+        for i, (tok, tgt) in enumerate(batches):
+            losses.append(step(tok.to(device), tgt.to(device),
+                               pos.to(device)))
+            if i == 0:
+                counts = [blk.moe.stats["counts"].tolist()
+                          for blk in model.blocks if blk.routed is not None]
+        waits = []
+        if side == "card":
+            tok, tgt = (t.to(dev) for t in batches[0])
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    step(tok, tgt, pos.to(dev))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            waits = sorted({str(w.message).splitlines()[0]
+                            for w in caught if "synchroniz" in
+                            str(w.message)})
+        res[side] = ([float(x) for x in losses], counts, waits)
+        del model, opt, state, step
+    torch.cuda.empty_cache()
+    (losses, counts, waits), (ref_losses, ref_counts, _) = \
+        res["card"], res["plain"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    rgap = sum(abs(a - b) for x, y in zip(counts, ref_counts)
+               for a, b in zip(x, y)) / sum(map(sum, ref_counts))
+    print(f"moonlight cut to {MOON_CUT_LAYERS} layers, 3 steps of (1, "
+          f"{MOON_CUT_SEQ}): losses {losses} vs plain f32 {ref_losses}, "
+          f"loss gap {gap:.3g}, routing gap {rgap:.3g}; a step's waits on "
+          f"the host: {len(waits)} {waits}", flush=True)
+    check(gap <= 1e-3 and rgap <= 0.05,
+          f"moonlight cut model: loss gap {gap}, routing gap {rgap}")
+    return gap, rgap, waits
+
+
+def phase_moonlight(dev, seed, card):
+    """Phase 18."""
+    m = dict(MOON)
+    att = moon_attention_check(dev, m)
+    torch.cuda.empty_cache()
+    exp = moon_expert_check(dev, m, seed)
+    torch.cuda.empty_cache()
+    cut = moon_cut_model_check(dev, seed)
+    check(exp["waited"] is None,
+          f"moonlight experts waited on the host: {exp['waited']}")
+    print(f"phase 18 on {card}", flush=True)
+    return {"attention": att, "experts": exp, "cut_model": cut}
+
+
 def kernel_design(name, dname, d):
     """The design of kernel ``name`` at dtype ``dname`` and head dim ``d``:
     TMA + wgmma for all three in 16 bits at every head dim (in chunks of
@@ -6160,6 +6545,11 @@ def main() -> int:
     t17 = time.perf_counter()
     phase_launch_grid(dev, card)
     print(f"phase 17 wall {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # 18. DeepSeek-V3's block: latent attention and held experts
+    t18 = time.perf_counter()
+    phase_moonlight(dev, args.seed, card)
+    print(f"phase 18 wall {time.perf_counter() - t18:.1f} s", flush=True)
 
     print(json.dumps(kernel_table(kern, bwd, sl, tr, va, gn, co, el, lc, mo,
                                   lay, tpk, ppr, msp, fsk, hd, fw)),

@@ -51,9 +51,17 @@ Cache = Dict[str, torch.Tensor]
 NEG_INF = float("-inf")
 
 
+def _refuse_extended(model: TransformerLM) -> None:
+    if getattr(model, "extended", False):
+        raise ValueError("decode caches the GPT block's k and v: "
+                         "DeepSeek-V3's block (latent attention and held "
+                         "experts) is trained, not decoded, in the port")
+
+
 def init_cache(model: TransformerLM, batch: int, max_len: int) -> Cache:
     """Zeroed K/V cache: ``{"k", "v"}`` of shape (layers, B, H, L, hd) in
     the model's compute dtype, on the model's device."""
+    _refuse_extended(model)
     hd = model.dim // model.heads
     shape = (model.layers, batch, model.heads, max_len, hd)
     return {n: torch.zeros(shape, dtype=model.compute_dtype,
@@ -132,6 +140,7 @@ def moe_decode(moe, h: torch.Tensor) -> torch.Tensor:
 
 
 def _refuse_placed(model: TransformerLM) -> None:
+    _refuse_extended(model)
     if any(hasattr(p, "placements") for p in model.parameters()):
         raise ValueError("decode runs on whole parameters; pass "
                          "transformer.unshard(model) for a placed model")

@@ -43,6 +43,26 @@ times its share (``D`` the group's size), whose mean over the group is the
 global aux and whose gradient, averaged over the group as the train step
 averages gradients, is the global aux's.
 
+**Held experts (DeepSeek-V3's layer).** :class:`RoutedExperts` is the
+layer of one rank of expert parallelism told which experts it holds
+(``RoutedSpec.held``), with no mesh: it routes every token over all the
+layer's experts and computes only its own experts' part of the result,
+dropless. The router's logits are f32; each expert's score is their
+sigmoid; the top k of score plus a bias (``score_bias``, a buffer moved by
+DeepSeek-V3's loss-free balancing rule in :meth:`RoutedExperts.
+update_bias`, not by gradients) are chosen, and each chosen expert's gate
+is ``scale * s_i / sum of the chosen s``, from the scores without the
+bias. The held assignments are sorted by expert and run as one grouped
+product a projection (``torch._grouped_mm`` on the card, one product a
+held expert elsewhere) inside :class:`_HeldExperts`, whose backward is
+the port's own and runs the products again rather than keep the
+assignments' features; gates are applied and summed in f32 by one
+``index_add`` over the held assignments. Shared experts, which every
+token goes through, are one SwiGLU ``shared * hidden`` wide. The layer's
+aux is DeepSeek-V3's sequence-wise balance loss (eqs. 17-20), weighted by
+``RoutedSpec.balance``. What the experts this rank does not hold would
+add is left out.
+
 **Expert parallelism.** When ``w1`` is a DTensor sharded over an ``ep``
 axis (``parallel.tp.expert_rules``), this rank holds ``E/ep`` experts; the
 ranks along ``ep`` hold the same tokens, route them alike, each runs its
@@ -55,8 +75,9 @@ expert dim). Under ``ep x tp`` the experts' hidden dim is split over
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -65,8 +86,11 @@ from torch import nn
 
 from ..parallel.collectives import (all_gather_counts, copy_to_group,
                                     group_size, reduce_from_group)
+from ..ops import held
+from ..utils.profile import annotate
 
-__all__ = ["default_capacity", "Routing", "route", "MoeMlp", "routing_over"]
+__all__ = ["default_capacity", "Routing", "route", "MoeMlp", "routing_over",
+           "RoutedSpec", "RoutedExperts", "held_counters"]
 
 
 def default_capacity(tokens: int, n_experts: int, top_k: int,
@@ -289,3 +313,265 @@ def init_expert_(p: torch.Tensor, generator: torch.Generator) -> None:
     the expert dim counts as receptive field, so fan-in is ``E * in``."""
     r = torch.randn(p.shape, generator=generator, device=generator.device)
     p.copy_(r / math.sqrt(p.shape[0] * p.shape[1]))
+
+
+@dataclasses.dataclass(frozen=True)
+class RoutedSpec:
+    """A DeepSeek-V3 expert layer (:class:`RoutedExperts`): ``experts``
+    routed experts of ``hidden`` features each (SwiGLU), ``top_k`` chosen
+    a token, this rank holding ``held = (first, count)`` of them (None:
+    all); ``shared`` shared experts; gates scaled by ``scale`` (the
+    source's ``routed_scaling_factor``); the selection bias moved by
+    ``bias_rate`` (gamma) a step; the balance loss weighted by
+    ``balance`` (alpha)."""
+
+    experts: int
+    top_k: int
+    hidden: int
+    held: Optional[Tuple[int, int]] = None
+    shared: int = 0
+    scale: float = 1.0
+    bias_rate: float = 0.0
+    balance: float = 0.0
+
+    @property
+    def first(self) -> int:
+        return 0 if self.held is None else self.held[0]
+
+    @property
+    def count(self) -> int:
+        return self.experts if self.held is None else self.held[1]
+
+
+#: what the held-expert layers ran in this process, as :func:`held_counters`
+#: reads it: forwards (a plain count), and by device a tensor of the held
+#: assignments and of the most tokens one held expert took in one forward
+#: since the last reset, summed there so that no forward waits on the host
+_HELD = {"forwards": 0}
+_HELD_ON: Dict[torch.device, torch.Tensor] = {}
+
+
+def _count_held(sizes: torch.Tensor) -> None:
+    """Adds a forward's held tokens an expert (``sizes``, on the device)."""
+    _HELD["forwards"] += 1
+    acc = _HELD_ON.get(sizes.device)
+    if acc is None:
+        acc = _HELD_ON[sizes.device] = torch.zeros(
+            2, dtype=torch.int64, device=sizes.device)
+    acc[0] += sizes.sum()
+    torch.maximum(acc[1], sizes.max(), out=acc[1])
+
+
+def held_counters(reset: bool = False) -> dict:
+    """The held-expert counters (``forwards``, ``assignments``,
+    ``max_per_expert``) as plain integers; reading them waits for the
+    device. ``reset`` zeroes ``max_per_expert`` after the copy."""
+    accs = [a.tolist() for a in _HELD_ON.values()]
+    out = {"forwards": _HELD["forwards"],
+           "assignments": sum(a[0] for a in accs),
+           "max_per_expert": max((a[1] for a in accs), default=0)}
+    if reset:
+        for a in _HELD_ON.values():
+            a[1] = 0
+    return out
+
+
+def _grouped(a: torch.Tensor, w: torch.Tensor, offs: torch.Tensor
+             ) -> torch.Tensor:
+    """``a`` (N, K) in groups ending at ``offs``, each times its own
+    ``w[g]`` (G, K, M): (N, M) in a's dtype, f32 sums; rows past
+    ``offs[-1]`` unwritten. One ``torch._grouped_mm`` on the card (bf16),
+    one product a group on the CPU."""
+    if a.is_cuda:
+        return torch._grouped_mm(a, w, offs=offs)
+    out = a.new_empty(a.shape[0], w.shape[2])
+    lo = 0
+    for g, hi in enumerate(offs.tolist()):
+        out[lo:hi] = a[lo:hi] @ w[g]
+        lo = hi
+    return out
+
+
+def _grouped_wgrad(a: torch.Tensor, dy: torch.Tensor, offs: torch.Tensor
+                   ) -> torch.Tensor:
+    """Each group's ``a_g^T dy_g``: (G, K, M) from ``a`` (N, K) and ``dy``
+    (N, M) in groups ending at ``offs``; 0 for a group of none."""
+    if a.is_cuda:
+        out = torch._grouped_mm(a.t(), dy, offs=offs)
+        empty = torch.diff(offs, prepend=offs.new_zeros(1)) == 0
+        return out.masked_fill_(empty[:, None, None], 0)
+    lo, out = 0, []
+    for hi in offs.tolist():
+        out.append(a[lo:hi].t() @ dy[lo:hi])
+        lo = hi
+    return torch.stack(out)
+
+
+class _HeldExperts(torch.autograd.Function):
+    """The held experts' part of the layer, from the layer's input ``x``
+    (T, d) in the compute dtype to its f32 output (T, d), through buffers
+    of ``rows`` rows (``ops/held.py``): each token's held choices
+    (``pos`` (T, k), their rows in expert order, -1 for experts held
+    elsewhere; ``offs`` each held expert's end) are scattered
+    (``ddstore:dispatch``), run through their experts' SwiGLU as grouped
+    products (``ddstore:experts``; ``w_in`` (E, d, 2h) holds each expert's
+    gate and up columns, ``w_out`` (E, h, d), both f32 and rounded to x's
+    dtype for the products), and summed into their tokens times their f32
+    ``gates`` (T, k) (``ddstore:combine``). Nothing is read on the host.
+
+    It saves x, the choices and the gates alone, nothing as large as the
+    assignments' features, so that a step's memory does not grow with how
+    many tokens the routing sends here; the backward
+    (``ddstore:experts_bwd``) scatters and runs the products again, and
+    sums each token's gradient from its held experts in f32."""
+
+    @staticmethod
+    def forward(ctx, x, pos, gates, w_in, w_out, offs, rows):
+        with annotate("ddstore:dispatch"):
+            xs = held.scatter_rows(x, pos, rows)
+        with annotate("ddstore:experts"):
+            _, ys = _held_swiglu(xs, w_in, w_out, offs)
+        with annotate("ddstore:combine"):
+            y = held.combine(ys, pos, gates, torch.float32)
+        ctx.save_for_backward(x, pos, gates, w_in, w_out, offs)
+        ctx.rows = rows
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        with annotate("ddstore:experts_bwd"):
+            x, pos, gates, w_in, w_out, offs = ctx.saved_tensors
+            xs = held.scatter_rows(x, pos, ctx.rows)
+            (gu, act, wi, wo), ys = _held_swiglu(xs, w_in, w_out, offs)
+            dys, dgates = held.combine_bwd(dy, ys, pos, gates)
+            del ys
+            dw_out = _grouped_wgrad(act, dys, offs)
+            da = _grouped(dys, wo.transpose(1, 2), offs)
+            del act, dys
+            dgu = held.swiglu_bwd(gu, da, offs)
+            del gu, da
+            dxs = _grouped(dgu, wi.transpose(1, 2), offs)
+            dw_in = _grouped_wgrad(xs, dgu, offs)
+            del xs, dgu
+            dx = held.combine(dxs, pos, None, x.dtype)
+        return (dx, None, dgates, dw_in.float(), dw_out.float(), None,
+                None)
+
+
+def _held_swiglu(xs, w_in, w_out, offs):
+    """((gate|up, silu(gate) * up, the weights in xs's dtype), the
+    output) of the held experts' SwiGLU on ``xs`` sorted by expert."""
+    dt = xs.dtype
+    wi, wo = w_in.to(dt), w_out.to(dt)
+    gu = _grouped(xs, wi, offs)
+    act = held.swiglu_rows(gu, offs)
+    return (gu, act, wi, wo), _grouped(act, wo, offs)
+
+
+class RoutedExperts(nn.Module):
+    """DeepSeek-V3's expert layer, this rank's share of it: ``forward((T,
+    d), rows) -> ((T, d) f32, aux)`` (the module docstring's "Held
+    experts"). Parameters: ``router`` (d -> experts, no bias), ``w_in``
+    (held, d, 2 * hidden: gate then up), ``w_out`` (held, hidden, d), and
+    with shared experts ``shared_gate_up`` (d -> 2 * shared * hidden) and
+    ``shared_down``; the buffer ``score_bias`` (experts,). After each
+    forward ``stats`` holds ``counts``, the assignments per expert over
+    all the layer's experts (detached)."""
+
+    def __init__(self, dim: int, spec: RoutedSpec,
+                 compute_dtype: torch.dtype = torch.bfloat16, device=None):
+        super().__init__()
+        first, count = spec.first, spec.count
+        if not 1 <= spec.top_k <= spec.experts or first < 0 or count < 1 \
+                or first + count > spec.experts:
+            raise ValueError(f"{spec}: top_k must lie in [1, experts] and "
+                             f"the held experts among them")
+        self.spec, self.compute_dtype = spec, compute_dtype
+        h = spec.hidden
+        self.router = nn.Linear(dim, spec.experts, bias=False, device=device)
+        self.w_in = nn.Parameter(torch.empty(count, dim, 2 * h,
+                                             device=device))
+        self.w_out = nn.Parameter(torch.empty(count, h, dim, device=device))
+        if spec.shared:
+            self.shared_gate_up = nn.Linear(dim, 2 * spec.shared * h,
+                                            bias=False, device=device)
+            self.shared_down = nn.Linear(spec.shared * h, dim, bias=False,
+                                         device=device)
+        self.register_buffer("score_bias", torch.zeros(spec.experts,
+                                                       device=device))
+        self.register_buffer("load", torch.zeros(
+            spec.experts, dtype=torch.int64, device=device),
+            persistent=False)
+        self.stats: dict = {}
+
+    def route(self, x: torch.Tensor, rows: int):
+        """(chosen experts (T, k), gates (T, k) f32, the balance loss) of
+        ``x`` (T, d), ``rows`` rows of ``T / rows`` tokens."""
+        sp = self.spec
+        logits = F.linear(x.float(), self.router.weight.float())
+        s = torch.sigmoid(logits)
+        idx = torch.topk(s.detach() + self.score_bias, sp.top_k,
+                         dim=-1).indices
+        chosen = s.gather(1, idx)
+        gates = sp.scale * chosen / chosen.sum(-1, keepdim=True)
+        t, e = s.shape
+        # DeepSeek-V3 eqs. 17-20 a row: f_i = E / (k T) * (times i was
+        # chosen), P_i = the mean of s_i / sum_j s_j, alpha * sum_i f_i P_i
+        # counted by a scatter, which does not wait on the host
+        ones = torch.ones(idx.shape, device=x.device).view(rows, -1)
+        hits = torch.zeros(rows, e, device=x.device).scatter_add_(
+            1, idx.view(rows, -1), ones)
+        f = hits * (e / (sp.top_k * (t // rows)))
+        p = (s / s.sum(-1, keepdim=True)).view(rows, t // rows, e).mean(1)
+        balance = sp.balance * (f * p).sum(-1).mean()
+        return idx, gates, balance
+
+    def forward(self, x: torch.Tensor, rows: int = 1
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        sp, dt = self.spec, self.compute_dtype
+        t, d = x.shape
+        first, count, k = sp.first, sp.count, sp.top_k
+        with annotate("ddstore:router"):
+            idx, gates, balance = self.route(x, rows)
+            flat = idx.reshape(-1)
+            counts = torch.zeros(sp.experts, dtype=torch.int64,
+                                 device=x.device).scatter_add_(
+                0, flat, torch.ones_like(flat))
+            self.load += counts
+        with annotate("ddstore:dispatch"):
+            # the held choices' rows, in expert order, before the rest
+            local = idx - first
+            mine = (local >= 0) & (local < count)
+            order = torch.argsort(
+                torch.where(mine, local, count).reshape(-1), stable=True)
+            row = torch.empty_like(order).scatter_(
+                0, order, torch.arange(order.numel(), device=x.device))
+            pos = torch.where(mine, row.view(t, k), -1)
+            sizes = counts[first:first + count]
+            offs = sizes.cumsum(0).to(torch.int32)
+        xd = x.to(dt)
+        if sp.shared:
+            with annotate("ddstore:shared_experts"):
+                g, u = F.linear(xd, self.shared_gate_up.weight.to(dt)) \
+                    .chunk(2, dim=-1)
+                shared = F.linear(F.silu(g) * u,
+                                  self.shared_down.weight.to(dt)).float()
+        # a token sends at most min(k, count) of its choices here
+        y = _HeldExperts.apply(xd, pos, gates, self.w_in, self.w_out, offs,
+                               t * min(k, count))
+        if sp.shared:
+            y = y + shared
+        _count_held(sizes)
+        self.stats = {"counts": counts.detach(), "held": sizes.detach()}
+        return y, balance
+
+    @torch.no_grad()
+    def update_bias(self) -> None:
+        """DeepSeek-V3's loss-free balancing: ``b_i += gamma * sign(mean
+        load - load_i)`` over the assignments this rank routed since the
+        last update (every forward of the step), then the count starts
+        again."""
+        load = self.load.float()
+        self.score_bias.add_(torch.sign(load.mean() - load),
+                             alpha=self.spec.bias_rate)
+        self.load.zero_()

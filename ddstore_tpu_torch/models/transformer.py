@@ -23,6 +23,24 @@ step with optional gradient accumulation, and over a mesh the dp x sp
 step: one all-reduce of the gradients over the data ranks after the
 backward.
 
+**Latent attention and held experts** (DeepSeek-V3's block, off by
+default, so the parity tests against the JAX package see the block
+above): ``deepseek`` (:class:`DeepSeekSpec`) makes every norm an f32
+RMSNorm of eps ``norm_eps`` and the embedding a plain lookup; attention
+multi-head latent attention (:class:`MlaSpec`): q = W_q h as ``heads x
+(nope + rope)``, ``[c, k_r] = W_kva h`` with c ``kv_rank`` wide and
+RMSNormed, ``[k_nope, v] = W_kvb c``, the one k_r shared by every head,
+the pairs (2i, 2i+1) of the rotary features of q and k_r rotated by ``pos
+* rope_theta^(-2i/D)``, and causal softmax over ``(nope + rope)``-wide
+scores through ``flash_attention``, whose values are ``v_dim`` wide; the
+MLP of the first ``dense_layers`` layers ``down(silu(gate h) * up h)``,
+``dense_hidden`` wide, and of the rest a :class:`~ddstore_tpu_torch.
+models.moe.RoutedExperts` (this rank's held experts and the shared ones,
+``routed``), whose balance losses :func:`lm_loss` adds and whose
+selection biases :func:`make_train_step` moves after each update. Only
+training on one rank takes it: decode, any mesh, and pipeline stages
+raise ``ValueError``.
+
 ``n_experts > 0`` swaps each block's MLP for a top-k
 :class:`~ddstore_tpu_torch.models.moe.MoeMlp`, and :func:`lm_loss` adds
 ``MOE_AUX_WEIGHT`` times the layers' mean aux. :func:`create_train_state`
@@ -65,9 +83,10 @@ from ..parallel.collectives import (all_reduce, copy_to_group,
 from ..parallel.mesh import axes_group, axis_index, axis_size
 from ..parallel.ring_attention import ring_attention
 from ..utils.profile import annotate
-from .moe import MoeMlp, _axis_of, _local, init_expert_
+from .moe import (MoeMlp, RoutedExperts, RoutedSpec, _axis_of, _local,
+                  init_expert_)
 
-__all__ = ["Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
+__all__ = ["MlaSpec", "DeepSeekSpec", "Block", "EmbedPE", "LMHead", "TransformerLM", "loss_fn",
            "lm_loss", "MOE_AUX_WEIGHT", "moe_aux_sum", "TrainState",
            "create_train_state", "make_train_step", "REMAT_POLICIES",
            "param_digest", "broadcast_parameters", "all_reduce_gradients",
@@ -82,9 +101,72 @@ LN_EPS = 1e-6  # flax LayerNorm's epsilon (torch's default is 1e-5)
 KV = Tuple[torch.Tensor, torch.Tensor]
 
 
-def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class MlaSpec:
+    """Multi-head latent attention (DeepSeek-V2 section 2.1) without query
+    compression: keys and values from a ``kv_rank``-wide latent; each
+    head's query and key ``qk_nope`` features without position and
+    ``qk_rope`` rotary ones (the rotary key one vector shared by the
+    heads); values ``v_dim`` wide."""
+
+    kv_rank: int
+    qk_nope: int
+    qk_rope: int
+    v_dim: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DeepSeekSpec:
+    """DeepSeek-V3's block (the module docstring): latent attention
+    ``mla`` with rope of ``rope_theta``, RMSNorms of eps ``norm_eps``, a
+    SwiGLU MLP ``dense_hidden`` wide in the first ``dense_layers`` layers
+    and the held-expert layer ``routed`` in the rest."""
+
+    mla: MlaSpec
+    routed: RoutedSpec
+    dense_hidden: int
+    dense_layers: int
+    norm_eps: float
+    rope_theta: float
+
+
+def _norm_module(dim: int, device, rms_eps: Optional[float] = None
+                 ) -> nn.Module:
+    """flax's LayerNorm (the GPT block), or an RMSNorm of eps ``rms_eps``
+    (DeepSeek-V3's)."""
+    if rms_eps is None:
+        return nn.LayerNorm(dim, eps=LN_EPS, device=device)
+    return nn.RMSNorm(dim, eps=rms_eps, device=device)
+
+
+def _layer_norm(ln: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The norm ``ln`` (LayerNorm or RMSNorm) of ``x``, in f32."""
+    if isinstance(ln, nn.RMSNorm):
+        return F.rms_norm(x.float(), ln.normalized_shape, ln.weight, ln.eps)
     return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
                         ln.eps)
+
+
+def rope_table(positions: torch.Tensor, d: int, theta: float
+               ) -> torch.Tensor:
+    """The rotations of a D-wide rotary embedding at ``positions`` (B,
+    S): complex64 (B, S, D/2), entry i ``exp(1j * pos * theta^(-2i/D))``.
+    Made once a forward and shared by the layers."""
+    inv = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                  device=positions.device) / d)
+    ang = positions.float()[..., None] * inv
+    return torch.polar(torch.ones_like(ang), ang)
+
+
+def rope(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding of ``x`` (B, S, ..., D) by ``table``
+    (:func:`rope_table`, (B, S', D/2) with S' >= S): each pair (2i, 2i+1)
+    of features, taken as one complex number, times its rotation, in f32,
+    returned in x's dtype."""
+    b, s = x.shape[0], x.shape[1]
+    t = table[:, :s].reshape(b, s, *([1] * (x.dim() - 3)), -1)
+    xc = torch.view_as_complex(x.float().unflatten(-1, (-1, 2)))
+    return torch.view_as_real(xc * t).flatten(-2).to(x.dtype)
 
 
 def _dense(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype
@@ -124,35 +206,90 @@ class Block(nn.Module):
     def __init__(self, dim: int, heads: int, mlp_ratio: int,
                  compute_dtype: torch.dtype, device=None,
                  n_experts: int = 0, moe_top_k: int = 1,
-                 moe_capacity: Optional[int] = None):
+                 moe_capacity: Optional[int] = None, *,
+                 deepseek: Optional[DeepSeekSpec] = None,
+                 held_experts: bool = False):
         super().__init__()
         self.dim, self.heads = dim, heads
         self.compute_dtype = compute_dtype
         self.n_experts = n_experts
-        self.ln1 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False, device=device)
-        self.proj = nn.Linear(dim, dim, bias=False, device=device)
-        self.ln2 = nn.LayerNorm(dim, eps=LN_EPS, device=device)
-        if n_experts > 0:
+        # DeepSeek-V3's block: latent attention, and held experts in
+        # place of its dense SwiGLU where ``held_experts``
+        self.mla = None if deepseek is None else deepseek.mla
+        self.routed = deepseek.routed if held_experts else None
+        self.swiglu = deepseek is not None and not held_experts
+        eps = None if deepseek is None else deepseek.norm_eps
+        self.ln1 = _norm_module(dim, device, eps)
+        mla = self.mla
+        if mla is None:
+            self.qkv = nn.Linear(dim, 3 * dim, bias=False, device=device)
+            self.proj = nn.Linear(dim, dim, bias=False, device=device)
+        else:
+            qk = mla.qk_nope + mla.qk_rope
+            self.q = nn.Linear(dim, heads * qk, bias=False, device=device)
+            self.kv_a = nn.Linear(dim, mla.kv_rank + mla.qk_rope,
+                                  bias=False, device=device)
+            self.kv_norm = _norm_module(mla.kv_rank, device, eps)
+            self.kv_b = nn.Linear(mla.kv_rank,
+                                  heads * (mla.qk_nope + mla.v_dim),
+                                  bias=False, device=device)
+            self.proj = nn.Linear(heads * mla.v_dim, dim, bias=False,
+                                  device=device)
+        self.ln2 = _norm_module(dim, device, eps)
+        if self.routed is not None:
+            self.moe = RoutedExperts(dim, self.routed, compute_dtype,
+                                     device=device)
+        elif n_experts > 0:
             self.moe = MoeMlp(dim, n_experts, mlp_ratio * dim,
                               top_k=moe_top_k, capacity=moe_capacity,
                               compute_dtype=compute_dtype, device=device)
+        elif self.swiglu:
+            hidden = deepseek.dense_hidden
+            self.gate_up = nn.Linear(dim, 2 * hidden, bias=False,
+                                     device=device)
+            self.down = nn.Linear(hidden, dim, bias=False, device=device)
         else:
             self.up = nn.Linear(dim, mlp_ratio * dim, device=device)
             self.down = nn.Linear(mlp_ratio * dim, dim, device=device)
 
-    def qkv_heads(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    def qkv_heads(self, x: torch.Tensor,
+                  rotary: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, ...]:
         """(B, S, dim) -> q, k, v as (B, H, S, hd) views of one
         projection (the kernel reads them in place by stride); ``H`` is
-        this rank's heads under tensor parallelism."""
+        this rank's heads under tensor parallelism. Under ``mla`` they are
+        the latent attention's (B, H, S, nope + rope), rotated by
+        ``rotary`` (:func:`rope_table` of the positions), and v (B, H, S,
+        v_dim)."""
         b, s, _ = x.shape
         dt = self.compute_dtype
         h = _layer_norm(self.ln1, x).to(dt)
+        if self.mla is not None:
+            return self._mla_heads(h, rotary)
         qkv = _dense(self.qkv, h, dt)
         hd = self.dim // self.heads
         width = qkv.shape[-1] // 3
         return tuple(t.reshape(b, s, width // hd, hd).transpose(1, 2)
                      for t in qkv.split(width, dim=-1))
+
+    def _mla_heads(self, h: torch.Tensor, rotary: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+        """Latent attention's q, k (the shared rotary key broadcast to
+        every head) and v from the normed input ``h``."""
+        b, s, _ = h.shape
+        dt, m, nh = self.compute_dtype, self.mla, self.heads
+        q = _dense(self.q, h, dt).view(b, s, nh, m.qk_nope + m.qk_rope)
+        c, k_r = _dense(self.kv_a, h, dt).split([m.kv_rank, m.qk_rope], -1)
+        kv = _dense(self.kv_b, _layer_norm(self.kv_norm, c).to(dt), dt)
+        k_nope, v = kv.view(b, s, nh, m.qk_nope + m.v_dim).split(
+            [m.qk_nope, m.v_dim], -1)
+        q_nope, q_r = q.split([m.qk_nope, m.qk_rope], -1)
+        # one rotation of q's rotary heads and the shared key together
+        q_r, k_r = rope(torch.cat([q_r, k_r[:, :, None, :]], dim=2),
+                        rotary).split([nh, 1], dim=2)
+        q = torch.cat([q_nope, q_r], dim=-1)
+        k = torch.cat([k_nope, k_r.expand(b, s, nh, m.qk_rope)], dim=-1)
+        return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
     def attend_out(self, x: torch.Tensor, attn: torch.Tensor
                    ) -> torch.Tensor:
@@ -171,16 +308,23 @@ class Block(nn.Module):
         b, s, _ = x.shape
         dt = self.compute_dtype
         h = _layer_norm(self.ln2, x).to(dt)
+        if self.routed is not None:
+            y, aux = self.moe(h.reshape(b * s, self.dim), rows=b)
+            return x + y.reshape(b, s, self.dim).to(dt), aux
         if self.n_experts > 0:
             y, aux = self.moe(h.reshape(b * s, self.dim), valid,
                               moe_capacity, rows=b)
             return x + y.reshape(b, s, self.dim).to(dt), aux
+        if self.swiglu:
+            g, u = _dense(self.gate_up, h, dt).chunk(2, dim=-1)
+            return x + _row_dense(self.down, F.silu(g) * u, dt), None
         h = F.gelu(_dense(self.up, h, dt), approximate="tanh")
         return x + _row_dense(self.down, h, dt), None
 
     def forward(self, x: torch.Tensor, mesh=None, sp_axis: str = "sp",
                 valid: Optional[torch.Tensor] = None,
-                moe_capacity: Optional[int] = None
+                moe_capacity: Optional[int] = None,
+                rotary: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, KV, Optional[torch.Tensor]]:
         """Returns the block output, this layer's (k, v) heads and the
         MoE's aux (None for a dense block).
@@ -195,7 +339,8 @@ class Block(nn.Module):
         With ``mesh`` (``sp_axis`` larger than 1), ``x`` is this rank's
         sequence chunk and attention is ``ring_attention`` over the axis,
         unpadded: its chunks must be multiples of 8, as the reference's
-        kernel needs."""
+        kernel needs. ``rotary`` is the rotary embedding's
+        :func:`rope_table`, at least as long as the padded sequence."""
         if axis_size(mesh, sp_axis) > 1:
             if x.shape[1] % 8:
                 raise ValueError(f"ring attention needs sequence chunks "
@@ -208,8 +353,9 @@ class Block(nn.Module):
             s = x.shape[1]
             pad = -s % 8
             q, k, v = self.qkv_heads(F.pad(x, (0, 0, 0, pad)) if pad
-                                     else x)
-            out, _ = flash_attention(q, k, v, causal=True)
+                                     else x, rotary)
+            with annotate("ddstore:attention"):
+                out, _ = flash_attention(q, k, v, causal=True)
             if pad:
                 out, k, v = out[:, :, :s], k[:, :, :s], v[:, :, :s]
         x, aux = self.mlp(self.attend_out(x, out), valid, moe_capacity)
@@ -221,16 +367,19 @@ class EmbedPE(nn.Module):
     any context length works)."""
 
     def __init__(self, vocab: int, dim: int, compute_dtype: torch.dtype,
-                 device=None):
+                 device=None, sinusoids: bool = True):
         super().__init__()
         self.dim = dim
         self.compute_dtype = compute_dtype
+        self.sinusoids = sinusoids
         self.tok = nn.Embedding(vocab, dim, device=device)
 
     def forward(self, tokens: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
         dt = self.compute_dtype
         x = F.embedding(tokens.long(), self.tok.weight).to(dt)
+        if not self.sinusoids:
+            return x
         half = self.dim // 2
         ar = torch.arange(half, dtype=torch.float32, device=tokens.device)
         freqs = torch.exp(-math.log(10000.0) * ar / half)
@@ -244,9 +393,10 @@ class LMHead(nn.Module):
     stops after the LayerNorm (the fused cross-entropy and the decode
     prefill apply ``head`` themselves)."""
 
-    def __init__(self, vocab: int, dim: int, device=None):
+    def __init__(self, vocab: int, dim: int, device=None,
+                 rms_eps: Optional[float] = None):
         super().__init__()
-        self.lnf = nn.LayerNorm(dim, eps=LN_EPS, device=device)
+        self.lnf = _norm_module(dim, device, rms_eps)
         self.head = nn.Linear(dim, vocab, bias=False, device=device)
 
     def forward(self, x: torch.Tensor, features_only: bool = False
@@ -296,8 +446,9 @@ def _remat_context_fn(policy: Optional[str]):
                              policy_fn)
 
 
-def _block_out(blk: "Block", x, mesh, sp_axis, valid, moe_capacity):
-    x, _, aux = blk(x, mesh, sp_axis, valid, moe_capacity)
+def _block_out(blk: "Block", x, mesh, sp_axis, valid, moe_capacity,
+               rotary=None):
+    x, _, aux = blk(x, mesh, sp_axis, valid, moe_capacity, rotary)
     return x if aux is None else (x, aux)
 
 
@@ -321,6 +472,9 @@ class TransformerLM(nn.Module):
     after each forward ``moe_aux`` holds the layers' aux losses. Over a
     mesh, :func:`create_train_state` makes the layers route over the data
     ranks (dp, fsdp and sp) in the global token order.
+
+    ``deepseek`` builds DeepSeek-V3's block (the module docstring); it
+    excludes ``n_experts``.
     """
 
     def __init__(self, vocab: int = 1024, dim: int = 256, heads: int = 8,
@@ -329,8 +483,12 @@ class TransformerLM(nn.Module):
                  device=None, mesh=None, sp_axis: str = "sp",
                  n_experts: int = 0, moe_top_k: int = 1,
                  moe_capacity: Optional[int] = None, remat: bool = False,
-                 remat_policy: Optional[str] = None):
+                 remat_policy: Optional[str] = None, *,
+                 deepseek: Optional[DeepSeekSpec] = None):
         super().__init__()
+        if deepseek is not None and n_experts:
+            raise ValueError("deepseek (held experts) and n_experts (the "
+                             "capacity MoE) exclude each other")
         if remat and remat_policy and remat_policy not in REMAT_POLICIES:
             raise ValueError(
                 f"remat_policy {remat_policy!r} has no counterpart in the "
@@ -346,13 +504,22 @@ class TransformerLM(nn.Module):
         self.moe_aux: List[torch.Tensor] = []
         self.remat = bool(remat) and remat_policy != "everything_saveable"
         self.remat_policy = remat_policy
-        self.embed = EmbedPE(vocab, dim, compute_dtype, device=device)
+        self.deepseek = deepseek
+        self.extended = deepseek is not None
+        self.routed = None if deepseek is None else deepseek.routed
+        refuse_extended(self, mesh, "TransformerLM")
+        self.embed = EmbedPE(vocab, dim, compute_dtype, device=device,
+                             sinusoids=deepseek is None)
         self.blocks = nn.ModuleList(
             Block(dim, heads, mlp_ratio, compute_dtype, device=device,
                   n_experts=n_experts, moe_top_k=moe_top_k,
-                  moe_capacity=moe_capacity)
-            for _ in range(layers))
-        self.lmhead = LMHead(vocab, dim, device=device)
+                  moe_capacity=moe_capacity, deepseek=deepseek,
+                  held_experts=deepseek is not None
+                  and i >= deepseek.dense_layers)
+            for i in range(layers))
+        self.lmhead = LMHead(vocab, dim, device=device,
+                             rms_eps=None if deepseek is None
+                             else deepseek.norm_eps)
 
     @property
     def device(self) -> torch.device:
@@ -402,10 +569,22 @@ class TransformerLM(nn.Module):
         block runs under ``torch.utils.checkpoint`` (non-reentrant): its
         activations are recomputed in the backward, ring shifts
         included, save what ``remat_policy`` keeps."""
+        if return_kv and self.extended:
+            raise ValueError("return_kv seeds the decode cache, which "
+                             "DeepSeek-V3's block (latent attention and "
+                             "held experts) does not reach: only training "
+                             "takes it")
         remat = self.remat and torch.is_grad_enabled() and not return_kv
         ctx_fn = _remat_context_fn(self.remat_policy) if remat else None
         valid = None if token_mask is None else token_mask.reshape(-1)
         x = self.embed(tokens, positions)
+        rotary = None
+        if self.deepseek is not None:
+            # padded as the blocks pad the sequence for the kernels
+            pad = -positions.shape[1] % 8
+            rotary = rope_table(F.pad(positions, (0, pad)),
+                                self.deepseek.mla.qk_rope,
+                                self.deepseek.rope_theta)
         kvs: List[KV] = []
         aux: List[torch.Tensor] = []
         for blk in self.blocks:
@@ -413,11 +592,11 @@ class TransformerLM(nn.Module):
                 kw = {} if ctx_fn is None else {"context_fn": ctx_fn}
                 out = checkpoint(_block_out, blk, x, self.mesh,
                                  self.sp_axis, valid, moe_capacity,
-                                 use_reentrant=False, **kw)
+                                 rotary, use_reentrant=False, **kw)
                 x, a = out if isinstance(out, tuple) else (out, None)
             else:
                 x, kv, a = blk(x, self.mesh, self.sp_axis, valid,
-                               moe_capacity)
+                               moe_capacity, rotary)
                 if return_kv:
                     kvs.append(kv)
             if a is not None:
@@ -526,7 +705,29 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     loss = nll.mean()
     if model.n_experts > 0:
         loss = loss + MOE_AUX_WEIGHT * moe_aux_sum(model) / model.layers
+    elif model.routed is not None:
+        # each held-expert layer's balance loss, already weighted by alpha
+        loss = loss + moe_aux_sum(model)
     return loss
+
+
+def refuse_extended(model: nn.Module, mesh, what: str) -> None:
+    """``ValueError`` where a model of DeepSeek-V3's block (the module
+    docstring) meets a mesh: it trains on one rank only (the held experts'
+    selection bias and load are this rank's alone)."""
+    if getattr(model, "extended", False) and mesh is not None:
+        raise ValueError(
+            f"{what}: DeepSeek-V3's block (latent attention and held "
+            f"experts) trains on one rank only, without a mesh")
+
+
+@torch.no_grad()
+def update_routing_bias(model: nn.Module) -> None:
+    """Every held-expert layer's loss-free balancing update
+    (:meth:`~ddstore_tpu_torch.models.moe.RoutedExperts.update_bias`)."""
+    for m in model.modules():
+        if isinstance(m, RoutedExperts):
+            m.update_bias()
 
 
 @dataclasses.dataclass
@@ -632,6 +833,7 @@ def create_train_state(model: nn.Module, lr: float = 3e-4, mesh=None
     and sp) in the global token order (:func:`~ddstore_tpu_torch.models.
     moe.route`). The optimizer is made on the placed parameters, so its
     moments are sharded alike."""
+    refuse_extended(model, mesh, "create_train_state")
     if mesh is not None:
         _check_replicas(model)
         if isinstance(model, TransformerLM):
@@ -762,6 +964,7 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
             f"make_train_step's mesh splits the sequence over "
             f"{model.sp_axis!r}, but the model's ring runs over "
             f"model.mesh ({model.mesh!r}); build the model with this mesh")
+    refuse_extended(model, mesh, "make_train_step")
     if axis_size(mesh, "pp") > 1:
         raise ValueError("mesh has a pp axis: the pipelined step is "
                          "make_pp_train_step, over the stages "
@@ -773,6 +976,7 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
                              "create_train_state placed over this mesh, "
                              "so the step keeps its parameters sharded")
     world = dist.get_world_size() if mesh is not None else 1
+    routed = getattr(model, "routed", None) is not None
     params = list(model.parameters())
     reduced = [p for p in params if not _fsdp_managed(p)]
     data = axes_group(mesh, DATA_AXES)
@@ -823,6 +1027,8 @@ def make_train_step(model: TransformerLM, opt: torch.optim.Optimizer,
                 loss = loss / world
         with annotate("ddstore:optimizer"):
             opt.step()
+            if routed:
+                update_routing_bias(model)
         if state is not None:
             state.step += 1
         return loss
@@ -837,6 +1043,9 @@ def unshard(model: TransformerLM, device=None) -> TransformerLM:
     the model's ranks (sharded parameters are gathered)."""
     from ..weights import from_flax, to_flax
 
+    if model.extended:
+        raise ValueError("unshard goes through the JAX package's layout, "
+                         "which has no latent attention or held experts")
     tree = to_flax(model)
     mesh = model.mesh if axis_size(model.mesh, model.sp_axis) > 1 else None
     plain = TransformerLM(
@@ -925,6 +1134,9 @@ def lm_to_stages(model: TransformerLM, n_stages: int, n_virtual: int = 1,
     trailing chunks; a chunk of pads alone raises ``ValueError``."""
     from ..parallel.pipeline import interleave_order
 
+    if getattr(model, "extended", False):
+        raise ValueError("pipeline stages take the GPT block only: "
+                         "DeepSeek-V3's block trains on one rank")
     n_chunks = n_stages * n_virtual
     g = _stage_group_size(model.layers, n_chunks)
     order = interleave_order(n_stages, n_virtual)

@@ -29,6 +29,7 @@ _HERE = Path(__file__).resolve().parent
 SOURCES: Dict[str, Path] = {
     "flash_fwd": _HERE / "csrc" / "flash_fwd.cu",
     "flash_bwd": _HERE / "csrc" / "flash_bwd.cu",
+    "held_rows": _HERE / "csrc" / "held_rows.cu",
 }
 BUILD_DIR = _HERE.parent / "_kbuild"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

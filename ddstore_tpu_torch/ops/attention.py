@@ -204,8 +204,9 @@ class _FlashAttention(torch.autograd.Function):
                                      q_offset=q_offset, kv_offset=kv_offset,
                                      scale=scale)
         else:
-            out, lse = _flash_fwd_cuda(q, k, v, causal, q_offset, kv_offset,
-                                       scale)
+            out, lse = _flash_fwd_cuda(q, k, _value_padded(v, q), causal,
+                                       q_offset, kv_offset, scale)
+            out = out[..., :v.shape[-1]]
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.cfg = dict(causal=causal, q_offset=q_offset, kv_offset=kv_offset,
                        scale=scale)
@@ -222,8 +223,22 @@ class _FlashAttention(torch.autograd.Function):
             dq = flash_bwd_dq_reference(q, k, v, do, lse, c, **ctx.cfg)
             dk, dv = flash_bwd_dkv_reference(q, k, v, do, lse, c, **ctx.cfg)
         else:
-            dq, dk, dv = _flash_bwd_cuda(q, k, v, do, lse, c, **ctx.cfg)
+            dq, dk, dv = _flash_bwd_cuda(q, k, _value_padded(v, q),
+                                         _value_padded(do, q), lse, c,
+                                         **ctx.cfg)
+            dv = dv[..., :v.shape[-1]]
         return dq, dk, dv, None, None, None, None
+
+
+def _value_padded(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """``t`` (v, or its output's gradient) zero-padded along the head dim
+    to q's, as the kernels take one head dim for q, k and v: a value
+    narrower than the keys (latent attention's 128 beside 192) runs at
+    the keys' width, and the padded columns of out and dv are cut off."""
+    d = q.shape[-1]
+    if t.shape[-1] == d:
+        return t
+    return torch.nn.functional.pad(t, (0, d - t.shape[-1]))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -235,6 +250,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention over (B, H, S, D); returns (out, lse).
 
+    ``v`` may have a head dim of its own, at most q's (latent attention's
+    values are narrower than its queries and keys); ``out`` then has
+    v's. The plain versions compute at that width; the kernels run v
+    zero-padded to q's width, and ``out`` and ``dv`` are cut back.
     Differentiable in q, k and v, through out and lse. Sequence lengths
     must be multiples of 8, as in the reference (callers pad).
     ``block_q``/``block_k`` and ``bwd_blocks`` = (block_q_dq, block_k_dq,
@@ -254,6 +273,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    if v.shape[:-1] != k.shape[:-1] or v.shape[-1] > d:
+        raise ValueError(f"flash_attention: v {tuple(v.shape)} must match "
+                         f"k {tuple(k.shape)} but in its head dim, which "
+                         f"is at most q's ({d})")
     if block_q is None:
         block_q = 1024 if sq >= 8192 else 512
     if block_k is None:

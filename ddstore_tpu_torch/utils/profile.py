@@ -28,13 +28,21 @@ step), a step's in this order:
 
 * ``ddstore:zero_grad``: ``opt.zero_grad``;
 * ``ddstore:forward``: the loss, once a chunk under accumulation,
-  holding ``ddstore:head_fwd``, ``ops/xent.py``'s fused head forward;
+  holding each layer's ``ddstore:attention`` (the ``flash_attention``
+  call) and ``ddstore:head_fwd``, ``ops/xent.py``'s fused head forward;
+  in a held-expert layer (``models/moe.py`` ``RoutedExperts``) also
+  ``ddstore:router`` (logits, scores, top-k, the balance loss),
+  ``ddstore:dispatch`` (the held assignments sorted by expert and
+  gathered), ``ddstore:experts`` (their grouped products),
+  ``ddstore:combine`` (the gated sum) and ``ddstore:shared_experts``;
 * ``ddstore:backward``: ``loss.backward()``, once a chunk, holding
-  ``ddstore:head_bwd``, the fused head's backward, which runs on the
+  ``ddstore:head_bwd``, the fused head's backward, and
+  ``ddstore:experts_bwd``, the held experts' backward, which run on the
   autograd engine's thread;
 * ``ddstore:allreduce``: the gradients' and the loss's all-reduces
   (with a mesh only);
-* ``ddstore:optimizer``: ``opt.step()``.
+* ``ddstore:optimizer``: ``opt.step()``, and the held-expert layers'
+  selection-bias update.
 
 The loader's (``data/loader.py``) are ``ddstore:fetch`` and
 ``ddstore:stage``, and on its collective path ``ddstore:device_fetch``

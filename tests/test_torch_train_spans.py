@@ -1,6 +1,7 @@
 """The train step's profiler ranges (``utils/profile.annotate``): under a
 ``torch.profiler`` every step records ``ddstore:zero_grad``,
-``ddstore:forward`` (holding the fused head's ``ddstore:head_fwd``),
+``ddstore:forward`` (holding each layer's ``ddstore:attention`` and the
+fused head's ``ddstore:head_fwd``),
 ``ddstore:backward`` (holding ``ddstore:head_bwd``) and
 ``ddstore:optimizer``, forward and backward once a chunk under
 accumulation; with no profiler the step enters no range; and a step
@@ -16,14 +17,16 @@ from ddstore_tpu_torch.models import transformer as ttr
 
 pytestmark = pytest.mark.tier1_required
 
-STEP_SPANS = ("ddstore:zero_grad", "ddstore:forward", "ddstore:head_fwd",
-              "ddstore:backward", "ddstore:head_bwd", "ddstore:optimizer")
-VOCAB, B, S = 64, 4, 16
+STEP_SPANS = ("ddstore:zero_grad", "ddstore:forward", "ddstore:attention",
+              "ddstore:head_fwd", "ddstore:backward", "ddstore:head_bwd",
+              "ddstore:optimizer")
+VOCAB, B, S, LAYERS = 64, 4, 16, 2
+INNER = ("ddstore:attention", "ddstore:head_fwd", "ddstore:head_bwd")
 
 
 def _setup(seed=3, accum_steps=1):
     torch.manual_seed(seed)
-    model = ttr.TransformerLM(vocab=VOCAB, dim=32, heads=4, layers=2,
+    model = ttr.TransformerLM(vocab=VOCAB, dim=32, heads=4, layers=LAYERS,
                               device="cpu")
     state, opt = ttr.create_train_state(model, lr=1e-3)
     step = ttr.make_train_step(model, opt, fused_xent=True,
@@ -53,10 +56,11 @@ def test_each_step_records_its_spans(accum_steps):
         step(*batch)
     spans = _spans(prof)
     counts = collections.Counter(e.name for e in spans)
-    per_chunk = {"ddstore:forward", "ddstore:head_fwd", "ddstore:backward",
-                 "ddstore:head_bwd"}
+    per_chunk = {"ddstore:forward", "ddstore:attention", "ddstore:head_fwd",
+                 "ddstore:backward", "ddstore:head_bwd"}
+    per_layer = {"ddstore:attention": LAYERS}
     assert counts == {n: 2 * (accum_steps if n in per_chunk else 1)
-                      for n in STEP_SPANS}
+                      * per_layer.get(n, 1) for n in STEP_SPANS}
     by = collections.defaultdict(list)
     for e in sorted(spans, key=lambda e: e.time_range.start):
         by[e.name].append(e)
@@ -64,9 +68,12 @@ def test_each_step_records_its_spans(accum_steps):
                         ("ddstore:head_bwd", "ddstore:backward")):
         for inner, outer in zip(by[head], by[trunk]):
             assert _inside(inner, outer), (head, trunk)
+    for inner in by["ddstore:attention"]:
+        assert any(_inside(inner, outer)
+                   for outer in by["ddstore:forward"])
     # one step's top-level spans in order, none overlapping the next
     top = [e for e in sorted(spans, key=lambda e: e.time_range.start)
-           if e.name not in ("ddstore:head_fwd", "ddstore:head_bwd")]
+           if e.name not in INNER]
     want = (["ddstore:zero_grad"]
             + ["ddstore:forward", "ddstore:backward"] * accum_steps
             + ["ddstore:optimizer"]) * 2
